@@ -6,12 +6,14 @@ quantize-then-serve path on an NVIDIA H100, with hand-written CUDA kernels
 ``torch``, ``numpy`` and the standard library only — never JAX and never
 the JAX package.
 
-This slice: RTN quantization (``iters=0``) of Llama-family models and the
-W4A16 serving engine with an int8 KV cache::
+Ported so far: SignRound (``iters > 0``) and RTN (``iters=0``) quantization
+of Llama-family models, the W4A16 serving engine with an int8 KV cache,
+and the ``fake`` / ``autoround`` export formats::
 
-    ar = AutoRound((params, cfg), scheme="W4A16", iters=0,
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=200,
                    quant_lm_head=True)
     res = ar.quantize(calib_ids)
+    ar.save_quantized("out/", format="autoround")
     eng = QuantizedLlama.from_quantize_result(res, cfg, max_seq=1024,
                                               kv_quant="int8")
     tokens = eng.generate(prompts, max_new_tokens=32)

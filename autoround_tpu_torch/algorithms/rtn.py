@@ -1,6 +1,7 @@
 """Zero-shot RTN layer quantization (counterpart of
-``autoround_tpu/algorithms/rtn.py``).  The imatrix-weighted ``opt_rtn``
-variant comes with a later slice."""
+``autoround_tpu/algorithms/rtn.py``): plain round-to-nearest, or the
+imatrix-weighted scale search (``opt_rtn``) when an imatrix is given and
+the data type has one registered."""
 
 from __future__ import annotations
 
@@ -20,9 +21,14 @@ def rtn_quantize_layer(
     scheme: QuantizationScheme,
     imatrix: Optional[torch.Tensor] = None,
 ) -> QdqResult:
-    """Quantize one weight zero-shot, round to nearest."""
+    """Quantize one weight zero-shot."""
     if imatrix is not None:
-        raise NotImplementedError(
-            "imatrix-weighted opt-RTN is not ported yet (ROADMAP A2)")
+        try:
+            fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym,
+                                mode="opt_rtn")
+            return fn(w, bits=scheme.bits, group_size=scheme.group_size,
+                      imatrix=imatrix)
+        except KeyError:
+            pass
     fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym, mode="rtn")
     return fn(w, bits=scheme.bits, group_size=scheme.group_size)

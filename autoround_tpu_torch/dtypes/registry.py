@@ -1,7 +1,7 @@
 """Fake-quant function registry (counterpart of
 ``autoround_tpu/dtypes/registry.py``), limited to the int entries in the
-``tuned`` and ``rtn`` modes.  The other data types and ``opt_rtn`` come
-with later slices of the port.
+``tuned``, ``rtn`` and ``opt_rtn`` modes.  The other data types come with
+later slices of the port.
 
 Every registered function has the uniform signature::
 
@@ -32,6 +32,8 @@ QUANT_FUNCS: Dict[str, Callable] = {
         w, bits, group_size),
     "rtn_int_asym": lambda w, bits, group_size, **kw: intq.rtn_int_asym(
         w, bits, group_size),
+    "opt_rtn_int_sym": lambda w, bits, group_size, **kw: intq.opt_rtn_int_sym(
+        w, bits, group_size, imatrix=kw.get("imatrix")),
 }
 
 

@@ -1,38 +1,104 @@
-"""Block-chain quantization driver, ``iters == 0`` (RTN) path
-(counterpart of ``autoround_tpu/quantize/orchestrator.py``).
+"""Block-chain quantization loop (counterpart of
+``autoround_tpu/quantize/orchestrator.py``), Llama family, ``nblocks=1``.
 
-Cache the block-0 inputs, then walk the blocks: per block run the FP
-reference forward on the FP input cache (the calibration chain), RTN each
-of the block's linears and write the qdq weights back into the block, and
-advance the chain.  The lm_head is RTN-quantized at the end when the plan
-holds it.  SignRound tuning (``iters > 0``) comes with a later slice.
+Cache the block-0 inputs, then walk the blocks.  Per block: run the FP
+reference forward on the FP input cache; tune the block's linears with
+SignRound (``iters > 0``) on the quantized-input cache against that
+reference, or RTN them (``iters == 0``); write the qdq weights back into
+the block; and advance both caches, the FP one through the original block
+and the quantized one through the qdq block (the dual chains).  The lm_head,
+when the plan holds it, is tuned against the final hidden states or RTN'd.
+
+Everything but the tuning step runs without autograd; ``tune_block``
+switches gradients on for its own loss.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import logging
+import time
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..algorithms.rtn import rtn_quantize_layer
+from ..algorithms.signround import TuneConfig, tune_block
+from ..dtypes.registry import get_quant_func
 from ..models import llama
 from ..schemes import QuantizationScheme
 
 __all__ = ["QuantizeConfig", "QuantizedLayer", "QuantizeResult",
            "quantize_model"]
 
+logger = logging.getLogger("autoround_tpu_torch")
+
 
 @dataclass(frozen=True)
 class QuantizeConfig:
-    """Run-level knobs (the fields of the JAX config this slice reads)."""
+    """Run-level knobs (the JAX config's fields; the options this slice
+    leaves out raise ``NotImplementedError`` in :func:`quantize_model`)."""
 
     iters: int = 200
+    lr: Optional[float] = None
+    minmax_lr: Optional[float] = None
+    batch_size: int = 8
+    seed: int = 42
+    enable_quanted_input: bool = True
+    enable_minmax_tuning: bool = True
+    enable_round_tuning: bool = True
+    use_best_params: bool = True
+    dynamic_max_gap: int = -1
+    gradient_accumulate_steps: int = 1
     cache_batch: int = 8  # batch size for cache-advance forwards
+    enable_alg_ext: bool = False
+    use_imatrix: bool = False
+    enable_awq: bool = False
+    optimizer: str = "signsgd"
+    quant_attention: bool = False
+    enable_norm_bias_tuning: bool = False
+    nblocks: int = 1
+    enable_lfq: bool = False
+    resume_dir: Optional[str] = None
+    immediate_save_dir: Optional[str] = None
     # free each original block as soon as its qdq replacement exists.
     # MUTATES the caller's params["blocks"] entries to None — opt in only
     # when the FP params are not needed afterwards.
     donate_params: bool = False
+    offload_params: bool = False
+    # recompute the tuning forward in the backward pass instead of holding
+    # its activations
+    use_remat: bool = False
+
+    def tune_config(self) -> TuneConfig:
+        return TuneConfig(
+            iters=self.iters, lr=self.lr, minmax_lr=self.minmax_lr,
+            batch_size=self.batch_size, seed=self.seed,
+            enable_minmax_tuning=self.enable_minmax_tuning,
+            enable_round_tuning=self.enable_round_tuning,
+            use_best_params=self.use_best_params,
+            dynamic_max_gap=self.dynamic_max_gap,
+            gradient_accumulate_steps=self.gradient_accumulate_steps,
+            enable_alg_ext=self.enable_alg_ext,
+            optimizer=self.optimizer,
+            enable_norm_bias_tuning=self.enable_norm_bias_tuning,
+            use_remat=self.use_remat,
+        )
+
+
+# QuantizeConfig options of the JAX package this slice leaves out:
+# (field, its "off" value, what it is, ROADMAP item)
+_UNPORTED = (
+    ("nblocks", 1, "joint tuning of several blocks", "A5"),
+    ("enable_awq", False, "AWQ smoothing", "A12"),
+    ("use_imatrix", False, "imatrix collection", "A9"),
+    ("quant_attention", False, "static attention quantization", "A9"),
+    ("enable_lfq", False, "last-block LM loss", "A5"),
+    ("resume_dir", None, "crash resume", "A12"),
+    ("immediate_save_dir", None, "immediate streaming pack", "A5"),
+    ("offload_params", False, "host offload of the params", "A5"),
+)
 
 
 @dataclass
@@ -50,6 +116,8 @@ class QuantizedLayer:
 class QuantizeResult:
     params: Dict[str, Any]               # model params with qdq weights baked
     layers: Dict[str, QuantizedLayer]    # per-layer export payloads
+    # per-block loss trace of the tuning run (numpy, one loss per iteration)
+    loss_traces: Dict[int, np.ndarray] = field(default_factory=dict)
 
 
 def _batched_block_apply(block_weights, x, cos, sin, cfg, batch: int):
@@ -59,22 +127,49 @@ def _batched_block_apply(block_weights, x, cos, sin, cfg, batch: int):
     return torch.cat(outs, dim=0)
 
 
+def _finalize_layer(name: str, w: torch.Tensor, scheme: QuantizationScheme,
+                    tune_params, tcfg: TuneConfig,
+                    inner_name: Optional[str] = None) -> QuantizedLayer:
+    """Re-run the qdq once with the best params to harvest scale/zp."""
+    fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym)
+    key = inner_name if inner_name is not None else name.split(".")[-1]
+    p = tune_params.get(key, {}) if tune_params else {}
+    r = fn(w, bits=scheme.bits, group_size=scheme.group_size,
+           v=p.get("v"), min_scale=p.get("min_scale"),
+           max_scale=p.get("max_scale"),
+           clip_lo=tcfg.clip_lo, clip_hi=tcfg.clip_hi)
+    return QuantizedLayer(name=name, scheme=scheme, qdq=r.qdq, scale=r.scale,
+                          zp=r.zp)
+
+
+def _head_fwd(ws, xb):
+    return torch.einsum("bsi,oi->bso", xb, ws["head"])
+
+
 def quantize_model(
     params: Dict[str, Any],
     model_cfg: llama.LlamaConfig,
     layer_schemes: Dict[str, QuantizationScheme],
     input_ids: torch.Tensor,
     cfg: QuantizeConfig = QuantizeConfig(),
+    mask: Optional[torch.Tensor] = None,
 ) -> QuantizeResult:
     """Quantize a Llama-family model block by block.
 
     input_ids: (nsamples, seqlen) calibration tokens on the params' device.
-    ``iters == 0`` is the RTN zero-shot path, the only one ported so far.
+    mask: optional (nsamples, seqlen) valid-token mask (pad → 0).
+    ``iters == 0`` is the RTN zero-shot path; ``iters > 0`` tunes with
+    SignRound.  Call it under ``torch.no_grad()`` or not, alike.
     """
-    if cfg.iters > 0:
+    for name, off, what, item in _UNPORTED:
+        if getattr(cfg, name) != off:
+            raise NotImplementedError(
+                f"QuantizeConfig.{name}={getattr(cfg, name)!r} ({what}) is "
+                f"not ported yet (ROADMAP {item})")
+    if any(s.effective_act().is_act_quantized
+           for s in layer_schemes.values()):
         raise NotImplementedError(
-            "SignRound tuning (iters > 0) is not ported yet: ROADMAP "
-            "'A3. SignRound' (next slice); use iters=0 for RTN")
+            "activation quantization is not ported yet (ROADMAP A9)")
     per_block: Dict[int, Dict[str, QuantizationScheme]] = {}
     for flat, scheme in layer_schemes.items():
         parts = flat.split(".", 2)
@@ -84,29 +179,63 @@ def quantize_model(
             raise NotImplementedError(
                 f"quantizing {flat!r} is not ported yet (only blocks.* "
                 f"linears and lm_head)")
+    tcfg = cfg.tune_config()
+    with torch.no_grad():
+        return _quantize_blocks(params, model_cfg, layer_schemes, per_block,
+                                input_ids, cfg, tcfg, mask)
 
+
+def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
+                     cfg, tcfg, mask) -> QuantizeResult:
     seqlen = input_ids.shape[1]
     x_fp = llama.embed_fwd(params, input_ids, model_cfg)
+    x_q = x_fp if (cfg.enable_quanted_input and cfg.iters > 0) else None
     cos, sin = llama.rope_tables(model_cfg, seqlen, device=x_fp.device)
+
+    def block_fn(w, xb):
+        return llama.block_fwd(w, xb, cos, sin, model_cfg)
 
     new_blocks = []
     layers: Dict[str, QuantizedLayer] = {}
+    traces: Dict[int, np.ndarray] = {}
     for bi, block in enumerate(params["blocks"]):
+        t_block = time.time()
         schemes = per_block.get(bi, {})
         ref_out = _batched_block_apply(block, x_fp, cos, sin, model_cfg,
                                        cfg.cache_batch)
         qdq_block = dict(block)
-        for lname, scheme in schemes.items():
-            w_orig = block[lname]
-            r = rtn_quantize_layer(w_orig, scheme)
-            qdq_block[lname] = r.qdq.to(w_orig.dtype)
-            layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
-                name=f"blocks.{bi}.{lname}", scheme=scheme,
-                qdq=qdq_block[lname], scale=r.scale, zp=r.zp)
+        if schemes and cfg.iters > 0:
+            tune_in = x_q if x_q is not None else x_fp
+            best, info = tune_block(block_fn, block, tune_in, ref_out,
+                                    schemes, tcfg, mask=mask)
+            traces[bi] = info["loss_trace"]
+            logger.info("block %d: loss iter0 %.6f -> best %.6f (%.1fs)", bi,
+                        info["first_loss"], info["best_loss"],
+                        time.time() - t_block)
+            for lname, scheme in schemes.items():
+                ql = _finalize_layer(f"blocks.{bi}.{lname}", block[lname],
+                                     scheme, best, tcfg, inner_name=lname)
+                qdq_block[lname] = ql.qdq.to(block[lname].dtype)
+                layers[ql.name] = ql
+            del best
+        else:
+            for lname, scheme in schemes.items():
+                w_orig = block[lname]
+                r = rtn_quantize_layer(w_orig, scheme)
+                qdq_block[lname] = r.qdq.to(w_orig.dtype)
+                layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
+                    name=f"blocks.{bi}.{lname}", scheme=scheme,
+                    qdq=qdq_block[lname], scale=r.scale, zp=r.zp)
         new_blocks.append(qdq_block)
         if cfg.donate_params:
             params["blocks"][bi] = None   # free the FP block
+        block = None
+        # advance the chains: FP through the original block (done above),
+        # the quantized one through the qdq block
         x_fp = ref_out
+        if x_q is not None:
+            x_q = _batched_block_apply(qdq_block, x_q, cos, sin, model_cfg,
+                                       cfg.cache_batch)
 
     new_params = dict(params)
     new_params["blocks"] = new_blocks
@@ -114,9 +243,31 @@ def quantize_model(
         head_name = "lm_head" if params.get("lm_head") is not None \
             else "embed_tokens"
         w = params[head_name]
-        r = rtn_quantize_layer(w, layer_schemes["lm_head"])
-        new_params[head_name] = r.qdq.to(w.dtype)
-        layers["lm_head"] = QuantizedLayer(
-            name="lm_head", scheme=layer_schemes["lm_head"],
-            qdq=new_params[head_name], scale=r.scale, zp=r.zp)
-    return QuantizeResult(params=new_params, layers=layers)
+        scheme = layer_schemes["lm_head"]
+        if cfg.iters > 0:
+            # tuned against the final hidden states; the fp32 reference
+            # logits are computed cache_batch samples at a time
+            h_src = x_q if x_q is not None else x_fp
+            normed = llama.rms_norm(h_src, params["norm"], model_cfg.rms_eps)
+            wf = w.float()
+            ref = torch.cat([
+                torch.einsum("bsi,oi->bso", normed[s:s + cfg.cache_batch]
+                             .float(), wf).to(normed.dtype)
+                for s in range(0, normed.shape[0], cfg.cache_batch)])
+            del wf
+            best, info = tune_block(_head_fwd, {"head": w}, normed, ref,
+                                    {"head": scheme}, tcfg, mask=mask)
+            del ref
+            logger.info("lm_head: loss iter0 %.6f -> best %.6f",
+                        info["first_loss"], info["best_loss"])
+            ql = _finalize_layer("lm_head", w, scheme, best, tcfg,
+                                 inner_name="head")
+        else:
+            r = rtn_quantize_layer(w, scheme)
+            ql = QuantizedLayer(name="lm_head", scheme=scheme, qdq=r.qdq,
+                                scale=r.scale, zp=r.zp)
+        ql.qdq = ql.qdq.to(w.dtype)
+        new_params[head_name] = ql.qdq
+        layers["lm_head"] = ql
+    return QuantizeResult(params=new_params, layers=layers,
+                          loss_traces=traces)

@@ -5,6 +5,9 @@ converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
 ``config_from_jax`` the JAX ``LlamaConfig``'s fields as a dict
 (``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
 JAX package: both sides then compute on the same weights.
+``tune_params_from_jax`` carries a tuned state the same way, and
+``quantize_result_to_numpy`` goes the other way: a port result as the numpy
+tree the JAX package's results can be compared with.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from .._device import resolve_device
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 
-__all__ = ["params_from_jax", "config_from_jax"]
+__all__ = ["params_from_jax", "config_from_jax", "tune_params_from_jax",
+           "quantize_result_to_numpy"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -73,3 +77,36 @@ def config_from_jax(fields: Mapping[str, Any]) -> LlamaConfig:
     if "dtype" in fields:
         kw["dtype"] = _torch_dtype(fields["dtype"])
     return LlamaConfig(**kw)
+
+
+def tune_params_from_jax(tree: Mapping[str, Mapping[str, Any]],
+                         device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Numpy tuning state ``{layer: {v, min_scale, max_scale}}`` → the
+    same tree of fp32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {name: {k: _leaf(a, dev).float() for k, a in layer.items()}
+            for name, layer in tree.items()}
+
+
+def quantize_result_to_numpy(result) -> Dict[str, Any]:
+    """A port ``QuantizeResult`` as numpy: ``{"params": tree, "layers":
+    {name: {qdq, scale, zp}}, "loss_traces": {...}}``, floats widened to
+    fp32 (exact from bf16)."""
+    def arr(t):
+        if t is None:
+            return None
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy()
+
+    def rec(node):
+        if isinstance(node, Mapping):
+            return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [rec(v) for v in node]
+        return arr(node)
+
+    return {"params": rec(result.params),
+            "layers": {n: {"qdq": arr(q.qdq), "scale": arr(q.scale),
+                           "zp": arr(q.zp)}
+                       for n, q in result.layers.items()},
+            "loss_traces": dict(result.loss_traces)}

@@ -7,16 +7,19 @@ Run from the repository root on a machine with one CUDA card (an H100 is
 the target).  It needs no arguments and no network, and imports neither
 JAX nor the JAX package.  Phases, each of which fails the run on error:
 
-1. build   — compile the three CUDA kernels from ``autoround_tpu_torch/
-             csrc`` (one nvcc per source, in parallel); print the seconds
-             and the compiler's register / spill report.
-2. kernels — run each kernel at the main path's shapes against its plain
-             PyTorch version on the card (bf16), check the stated
-             tolerance, and time kernel, plain version and one library
-             call (a yardstick the port never calls) with CUDA events,
-             the L2 cache flushed before every timed launch (median of
-             several runs), beside the least time the card could take.
-3. main    — the port's main path at the full width of ``llama3-8b``
+1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
+             nvcc per source, in parallel); print the seconds and the
+             compiler's register / spill report.
+2. kernels — run each of the five kernels (flash forward, flash backward
+             dQ and dK/dV, W4A16 matmul, int8-KV decode attention) at the
+             main paths' shapes against its plain PyTorch version on the
+             card (bf16), check the stated tolerance (and, for the
+             backward pair, that two launches give the same bits), and
+             time kernel, plain version and one library call (a yardstick
+             the port never calls) with CUDA events, the L2 cache flushed
+             before every timed launch (median of several runs), beside
+             the least time the card could take.
+3. rtn     — the RTN → serve path at the full width of ``llama3-8b``
              (random weights from a seeded generator, all 32 layers):
              ``AutoRound(scheme="W4A16", iters=0, quant_lm_head=True)`` on
              8 x 512 calibration ids → ``QuantizedLlama.from_quantize_
@@ -27,9 +30,25 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              the same engine runs once on the card (kernels) and once on
              the CPU (plain versions): step-1 logits must agree within the
              stated tolerance and greedy tokens must match.
-4. report  — the card's name and power limit (nvidia-smi), a JSON line of
+4. grads   — one full-width block, one batch of 8 x 512: the gradients of
+             the tuning loss w.r.t. ``v``, ``min_scale``, ``max_scale``
+             through the flash kernels (forward and backward) against the
+             same through the plain attention under autograd, on the card;
+             then the time of a tuning step, its bound and its profile.
+5. tune    — the SignRound → serve path at the full width of
+             ``llama3-8b``: ``AutoRound(scheme="W4A16", iters=20,
+             batch_size=8, quant_lm_head=True)`` on 16 x 512 calibration
+             ids, every block and the lm_head tuned → the same engine →
+             ``generate``.  All five kernels' counts are zeroed just
+             before and read just after; each must equal what the loop
+             implies.  Every loss must be finite and no block's best loss
+             above its first.
+6. report  — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
+
+``--rtn-layers N`` and ``--tune-layers N`` cut the depth of the two paths
+for a quicker run; with no arguments both run all 32 layers.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -37,7 +56,10 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -60,7 +82,14 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100": (3.35e12, 989e12)}
 # the same as SDPA's against the plain version; W4A16 0.037; decode
 # attention 0.0072; PERF.md).
 ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
-           "decode_attention": 0.025}
+           "decode_attention": 0.025,
+           # backward pair vs flash_attention_bwd_plain: measured worst rows
+           # dQ 0.027, dK / dV 0.023 (S = T = 512 and S = 256, T = 512)
+           "flash_attention_bwd_dq": 0.07, "flash_attention_bwd_dkv": 0.07}
+# A gradient row may be zero in exact arithmetic (row 0 of dQ when S = T: one
+# visible key, P = 1, dS = 0), so rows smaller than this share of the whole
+# tensor's RMS are held to that scale instead of their own.
+BWD_ROW_FLOOR = 0.01
 LSE_ATOL = 1e-5          # lse is fp32 on both sides (~1e-6 measured)
 # the library yardstick must compute the same function: a wrong causal
 # anchor (top-left instead of bottom-right) gives row errors of order 10
@@ -105,10 +134,15 @@ class Timer:
         return statistics.median(times)
 
 
-def row_err(out, ref):
-    """(max |out - ref|, worst row's max |out - ref| over its ref RMS)."""
+def row_err(out, ref, floor: float = 0.0):
+    """(max |out - ref|, worst row's max |out - ref| over its ref RMS).
+    With ``floor``, a row's RMS counts as at least that share of the whole
+    tensor's RMS."""
     d = (out.float() - ref.float()).abs()
-    rms = ref.float().pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    ref2 = ref.float().pow(2)
+    rms = ref2.mean(-1).sqrt().clamp_min(1e-30)
+    if floor:
+        rms = rms.clamp_min(floor * ref2.mean().sqrt().item())
     return d.max().item(), (d.amax(-1) / rms).max().item()
 
 
@@ -124,7 +158,8 @@ def kernel_phase(timer, bw, flops_peak):
     from autoround_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_plain)
     from autoround_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_bwd_plain, flash_attention_plain)
     from autoround_tpu_torch.ops.qmatmul import (pack_w4, unpack_w4,
                                                  w4a16_matmul,
                                                  w4a16_matmul_plain)
@@ -137,7 +172,8 @@ def kernel_phase(timer, bw, flops_peak):
         t_b, t_f = nbytes / bw * 1e3, nflops / flops_peak * 1e3
         return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
-    # K1 flash attention forward: calibration / prefill shapes
+    # K1 flash attention, forward then backward: calibration / tuning /
+    # prefill shapes
     for (B, H, Hkv, S, T, rep_row) in [(8, 32, 8, 512, 512, True),
                                        (8, 32, 8, 256, 512, False)]:
         q = torch.randn(B, H, S, 128, generator=g, device=dev).bfloat16()
@@ -152,12 +188,17 @@ def kernel_phase(timer, bw, flops_peak):
         check(rel <= tol and lerr <= LSE_ATOL,
               f"flash S={S} T={T}: row err {rel} lse err {lerr}")
 
-        def lib():   # SDPA's is_causal is top-left: bottom-right needs a bias
+        # SDPA's is_causal is top-left: bottom-right needs a bias
+        def lib_fwd(q_, k_, v_):
             if S == T:
                 return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q_, k_, v_, is_causal=True, enable_gqa=True)
             return F.scaled_dot_product_attention(
-                q, k, v, attn_mask=causal_lower_right(S, T), enable_gqa=True)
+                q_, k_, v_, attn_mask=causal_lower_right(S, T),
+                enable_gqa=True)
+
+        def lib():
+            return lib_fwd(q, k, v)
         _, lib_rel = row_err(lib(), pout)
         check(lib_rel <= LIB_ROW_TOL,
               f"flash S={S} T={T}: library call computes another function "
@@ -182,7 +223,76 @@ def kernel_phase(timer, bw, flops_peak):
                 replaces="autoround_tpu/ops/flash_attention.py:328",
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-        del q, k, v, out, lse, pout, plse
+        del pout, plse
+
+        # the backward pair on the same tensors: dQ and dK/dV against the
+        # plain version, bit-equal run to run; library = SDPA's backward
+        do = torch.randn(B, H, S, 128, generator=g, device=dev).bfloat16()
+        delta = (out.float() * do.float()).sum(-1)
+        got = {"flash_attention_bwd_dq":
+               (flash_attention_bwd_dq(q, k, v, do, lse, delta, True),),
+               "flash_attention_bwd_dkv":
+               flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)}
+        again = (flash_attention_bwd_dq(q, k, v, do, lse, delta, True),
+                 *flash_attention_bwd_dkv(q, k, v, do, lse, delta, True))
+        torch.cuda.synchronize()
+        first = got["flash_attention_bwd_dq"] + got["flash_attention_bwd_dkv"]
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"flash backward S={S} T={T}: two launches differ")
+        pdq, pdk, pdv = flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+        plain = {"flash_attention_bwd_dq": (pdq,),
+                 "flash_attention_bwd_dkv": (pdk, pdv)}
+        ql = q.clone().requires_grad_(True)
+        kl = k.clone().requires_grad_(True)
+        vl = v.clone().requires_grad_(True)
+        lib_out = lib_fwd(ql, kl, vl)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                       retain_graph=True)
+        lib_rel = max(row_err(a, b, BWD_ROW_FLOOR)[1]
+                      for a, b in zip(lib_bwd(), (pdq, pdk, pdv)))
+        check(lib_rel <= LIB_ROW_TOL,
+              f"flash backward S={S} T={T}: library call computes another "
+              f"function (row err {lib_rel})")
+        lib_ms = timer(lib_bwd)
+        plain_ms = timer(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, do, True))
+        runs = {"flash_attention_bwd_dq": lambda: flash_attention_bwd_dq(
+                    q, k, v, do, lse, delta, True),
+                "flash_attention_bwd_dkv": lambda: flash_attention_bwd_dkv(
+                    q, k, v, do, lse, delta, True)}
+        in_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) \
+            + 4 * (lse.numel() + delta.numel())
+        work = {"flash_attention_bwd_dq": (in_bytes + 2 * q.numel(), 3),
+                "flash_attention_bwd_dkv":
+                (in_bytes + 2 * (k.numel() + v.numel()), 4)}
+        for name, line in (("flash_attention_bwd_dq", 262),
+                           ("flash_attention_bwd_dkv", 286)):
+            errs = [row_err(a, b, BWD_ROW_FLOOR)
+                    for a, b in zip(got[name], plain[name])]
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            tol = ROW_TOL[name]
+            check(rel <= tol, f"{name} S={S} T={T}: row err {rel}")
+            ms = timer(runs[name])
+            nbytes, n_prod = work[name]
+            b_ms, b_by = bound(nbytes, 2 * n_prod * B * H * valid * 128)
+            log(f"kernel {name} [{shape}] max_abs_err={err:.3g} "
+                f"row_err={rel:.3g} (tol {tol}, row floor {BWD_ROW_FLOOR}) "
+                f"run_to_run=equal library_row_err={lib_rel:.3g} "
+                f"kernel_ms={ms:.4f} plain_ms(dq+dk+dv)={plain_ms:.4f} "
+                f"library_ms(dq+dk+dv)={lib_ms:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by})")
+            if rep_row:
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="autoround_tpu_torch/csrc/flash_attention_bwd.cu",
+                    replaces=f"autoround_tpu/ops/flash_attention.py:{line}",
+                    shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, k, v, out, lse, do, delta, got, again, first, plain, pdq, pdk
+        del pdv, ql, kl, vl, lib_out
+        torch.cuda.empty_cache()
 
     # K2 W4A16: fused qkv, down_proj, lm_head at decode and prefill M
     for (M, O, K, name) in [(8, 6144, 4096, "qkv"),
@@ -387,17 +497,27 @@ def serve_bounds(eng, B, S, bw, flops_peak):
             max(step_bytes / bw, step_flops / flops_peak) * 1e3)
 
 
-def main_path(bw, flops_peak):
-    from autoround_tpu_torch import AutoRound, QuantizedLlama
-    from autoround_tpu_torch.models import llama
+def _kernel_fns():
     from autoround_tpu_torch.ops.decode_attention import decode_attention
-    from autoround_tpu_torch.ops.flash_attention import flash_attention
+    from autoround_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
     from autoround_tpu_torch.ops.qmatmul import w4a16_matmul
 
-    kernels = {"flash_attention": flash_attention,
-               "w4a16_matmul": w4a16_matmul,
-               "decode_attention": decode_attention}
-    cfg = llama.CONFIG_PRESETS["llama3-8b"]
+    return {"flash_attention": flash_attention,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "w4a16_matmul": w4a16_matmul,
+            "decode_attention": decode_attention}
+
+
+def rtn_path(bw, flops_peak, n_layers):
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    on_path = ("flash_attention", "w4a16_matmul", "decode_attention")
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
     B, S, NEW, MAX_SEQ = 8, 512, 32, 1024
     ids_gen = torch.Generator().manual_seed(1)
     calib = torch.randint(0, cfg.vocab_size, (8, S), generator=ids_gen)
@@ -431,12 +551,13 @@ def main_path(bw, flops_peak):
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"main path llama3-8b (32 layers, random weights): init_s={t_init:.2f}"
+    log(f"rtn path llama3-8b ({n_layers} layers, random weights): "
+        f"init_s={t_init:.2f}"
         f" quantize_s={t_quant:.2f} pack_s={t_pack:.2f} "
         f"generate_s={t_gen:.2f} peak_mem_gb={peak_gb:.2f}")
-    log(f"kernels {json.dumps(launches)}")
-    for n, c in launches.items():
-        check(c > 0, f"kernel {n} was not launched on the main path")
+    log(f"rtn path kernels {json.dumps(launches)}")
+    for n in on_path:
+        check(launches[n] > 0, f"kernel {n} was not launched on the rtn path")
     check(toks.shape == (B, NEW), f"tokens shape {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "tokens out of range")
@@ -512,7 +633,252 @@ def main_path(bw, flops_peak):
                           decode_step_ms=step_ms, peak_mem_gb=peak_gb)
 
 
+# Gradients of the tuning loss of one full-width block w.r.t. the tuned
+# leaves, flash kernels (forward + backward) against the plain attention
+# under autograd, both on the card in bf16.  The two attentions differ by
+# bf16 rounding; the loss gradient carries that through the block, and a
+# scale's gradient is a sum of rounding residues of random sign, so its rows
+# are noisier than those of v.  Over the seven linears, measured on an H100:
+# least share of equal signs 0.9937 (v), 0.9951 (scales); worst row error
+# 0.17 (v), 0.20 (min_scale), 0.28 (max_scale).  Limits: about 3x the
+# measured share of unequal signs, about 3x the row error.
+GRAD_ROW_FLOOR = 0.01
+GRAD_LIMITS = {          # kind: (least share of equal signs, row err limit)
+    "v": (0.98, 0.5),
+    "min_scale": (0.985, 0.6),
+    "max_scale": (0.985, 0.85),
+}
+
+
+def tuning_step_phase(bw, flops_peak):
+    """Gradient check and the time of one tuning step on one full-width
+    llama3-8b block with a batch of 8 x 512."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from autoround_tpu_torch.algorithms.signround import (
+        TuneConfig, init_tune_params, make_qdq_weights, mse_loss, tune_block)
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.ops.flash_attention import flash_attention_plain
+    from autoround_tpu_torch.schemes import parse_scheme
+
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"], num_layers=1)
+    B, S, NS = 8, 512, 16
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    block = params["blocks"][0]
+    ids = torch.randint(0, cfg.vocab_size, (NS, S),
+                        generator=torch.Generator().manual_seed(2)).cuda()
+    cos, sin = llama.rope_tables(cfg, S, device="cuda")
+
+    def block_fn(w, xb):
+        return llama.block_fwd(w, xb, cos, sin, cfg)
+
+    with torch.no_grad():
+        x = llama.embed_fwd(params, ids, cfg)
+        ref = torch.cat([block_fn(block, x[i:i + B])
+                         for i in range(0, NS, B)])
+    del params
+    schemes = {n: parse_scheme("W4A16") for n in llama.LINEAR_KEYS}
+    tcfg = TuneConfig(iters=20, batch_size=B)
+
+    def grads():
+        tp = init_tune_params(block, schemes, tcfg)
+        leaves = [t.requires_grad_(True) for lp in tp.values()
+                  for t in lp.values()]
+        with torch.enable_grad():
+            out = block_fn(make_qdq_weights(block, tp, schemes, tcfg), x[:B])
+            loss = mse_loss(out, ref[:B]) * tcfg.loss_scale
+            g = torch.autograd.grad(loss, leaves)
+        it = iter(g)
+        return loss.item(), {n: {k: next(it) for k in lp}
+                             for n, lp in tp.items()}
+
+    loss_k, g_kernel = grads()
+    routed = llama.flash_attention
+    llama.flash_attention = lambda q, k, v, causal=True: \
+        flash_attention_plain(q, k, v, causal)
+    try:
+        loss_p, g_plain = grads()
+    finally:
+        llama.flash_attention = routed
+    torch.cuda.synchronize()
+    check(abs(loss_k - loss_p) <= 0.02 * abs(loss_p),
+          f"gradient check: loss {loss_k} (kernels) vs {loss_p} (plain)")
+    for kind, (min_sign, max_row) in GRAD_LIMITS.items():
+        agree, rel = [], []
+        for n in g_plain:
+            a, b = g_kernel[n][kind], g_plain[n][kind]
+            nz = b != 0
+            agree.append((torch.sign(a)[nz] == torch.sign(b)[nz])
+                         .float().mean().item())
+            rel.append(row_err(a, b, GRAD_ROW_FLOOR)[1])
+        log(f"gradient check {kind}: loss kernels={loss_k:.6f} "
+            f"plain={loss_p:.6f}; equal signs, least layer "
+            f"{min(agree):.4f} (limit {min_sign}) per layer "
+            f"{json.dumps([round(a, 4) for a in agree])}; row_err worst "
+            f"layer {max(rel):.4g} (limit {max_row}, row floor "
+            f"{GRAD_ROW_FLOOR}) per layer "
+            f"{json.dumps([round(r, 4) for r in rel])}")
+        check(min(agree) >= min_sign and max(rel) <= max_row,
+              f"gradient check {kind}: signs {min(agree)} row err {max(rel)}")
+    del g_kernel, g_plain
+
+    # one tuning step: long run minus short run over the extra steps
+    def run(iters):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tune_block(block_fn, block, x, ref, schemes,
+                   dataclasses.replace(tcfg, iters=iters))
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3
+    run(2)                                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    steps = sorted((run(8) - run(2)) / 6 for _ in range(3))
+    step_ms = steps[1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_w = sum(block[n].numel() for n in schemes)
+    valid = S * (S + 1) // 2
+    attn = (4 + 14) * B * cfg.num_heads * valid * cfg.hd
+    t_f = (3 * 2 * n_w * B * S + attn) / flops_peak * 1e3
+    t_b = n_w * (2 + 4 + 4) / bw * 1e3
+    log(f"tuning step (1 block, B={B} S={S}, W4A16 g128): tune_step_ms="
+        f"{step_ms:.2f} (3 runs {steps[0]:.2f}..{steps[2]:.2f}) "
+        f"tune_step_bound_ms={max(t_f, t_b):.3f} (operations {t_f:.3f}, "
+        f"bytes of one qdq pass over W, v, grad {t_b:.3f}) "
+        f"peak_mem_gb={peak_gb:.2f}")
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tune_block(block_fn, block, x, ref, schemes,
+                   dataclasses.replace(tcfg, iters=n))
+        torch.cuda.synchronize()
+    times = _kernel_times(prof)
+    total = sum(ms for ms, _ in times.values()) / n
+    family = {"flash kernels": 0.0, "pytorch elementwise and reductions": 0.0,
+              "matrix products and the rest": 0.0}
+    for kname, (ms, _) in times.items():
+        key = ("flash kernels" if "flash_" in kname else
+               "pytorch elementwise and reductions" if "at::native" in kname
+               else "matrix products and the rest")
+        family[key] += ms / n
+    log(f"profile tuning step: kernel_ms={total:.2f} of tune_step_ms="
+        f"{step_ms:.2f} busy_share={total / step_ms:.3f}; ms per step by "
+        f"family {json.dumps({k: round(v, 3) for k, v in family.items()})}; "
+        f"top per step: " + _top(times, n))
+    return step_ms
+
+
+class _HeadLosses(logging.Handler):
+    """Collects (first, best) of the orchestrator's lm_head log record."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.losses = None
+
+    def emit(self, record):
+        if str(record.msg).startswith("lm_head: loss"):
+            self.losses = tuple(float(a) for a in record.args)
+
+
+def tune_path(n_layers):
+    """SignRound → pack → serve at llama3-8b width; returns the launches."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ, NS, ITERS, CB = 8, 512, 32, 1024, 16, 20, 8
+    ids_gen = torch.Generator().manual_seed(3)
+    calib = torch.randint(0, cfg.vocab_size, (NS, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    head = _HeadLosses()
+    pkg_log = logging.getLogger("autoround_tpu_torch")
+    pkg_log.addHandler(head)
+    pkg_log.setLevel(logging.INFO)
+    t0 = time.time()
+    try:
+        ar = AutoRound((params, cfg), scheme="W4A16", iters=ITERS,
+                       batch_size=B, quant_lm_head=True, donate_params=True,
+                       cache_batch=CB)
+        del params
+        result = ar.quantize(calib)
+        torch.cuda.synchronize()
+    finally:
+        pkg_log.removeHandler(head)
+    t_tune = time.time() - t0
+    traces = result.loss_traces
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    del ar, result
+    torch.cuda.synchronize()
+    t_pack = time.time() - t0
+    t0 = time.time()
+    toks = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    first = [float(traces[b][0]) for b in range(n_layers)]
+    best = [float(traces[b].min()) for b in range(n_layers)]
+    n_better = sum(b < f for b, f in zip(best, first))
+    log(f"tune path llama3-8b ({n_layers} layers + lm_head, random weights, "
+        f"{NS} x {S} ids, iters={ITERS}, batch {B}): tune_s={t_tune:.2f} "
+        f"pack_s={t_pack:.2f} generate_s={t_gen:.2f} "
+        f"peak_mem_gb={peak_gb:.2f}")
+    log("tune path losses (first -> best per block): "
+        + " ".join(f"{f:.4g}->{b:.4g}" for f, b in zip(first, best))
+        + f"; lm_head {head.losses}; best < first in {n_better} of "
+        f"{n_layers} blocks")
+    log(f"tune path kernels {json.dumps(launches)}")
+    check(len(traces) == n_layers and all(
+        len(traces[b]) == ITERS and bool((traces[b] == traces[b]).all())
+        and bool(abs(traces[b]).max() < float("inf"))
+        for b in range(n_layers)), "tune path: a loss is missing or not finite")
+    check(all(b <= f for b, f in zip(best, first)),
+          "tune path: a block's best loss is above its first")
+    check(4 * n_better >= 3 * n_layers,
+          f"tune path: best < first in only {n_better} of {n_layers} blocks")
+    check(head.losses is not None and head.losses[1] <= head.losses[0]
+          and head.losses[0] < float("inf"),
+          f"tune path: lm_head losses {head.losses}")
+    # per block: the FP chain and the quantized chain each run NS / CB
+    # forwards, every tuning step one forward and one backward; generate's
+    # prefill adds one forward per layer
+    fwd = n_layers * (2 * (NS // CB) + ITERS) + n_layers
+    bwd = n_layers * ITERS
+    want = {"flash_attention": fwd, "flash_attention_bwd_dq": bwd,
+            "flash_attention_bwd_dkv": bwd}
+    for n, c in want.items():
+        check(launches[n] == c,
+              f"tune path: {n} launched {launches[n]} times, the loop "
+              f"implies {c}")
+    for n in ("w4a16_matmul", "decode_attention"):
+        check(launches[n] > 0, f"kernel {n} was not launched on the tune path")
+    check(toks.shape == (B, NEW), f"tokens shape {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "tokens out of range")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rtn-layers", type=int, default=32,
+                    help="depth of the RTN -> serve path (default 32)")
+    ap.add_argument("--tune-layers", type=int, default=32,
+                    help="depth of the SignRound -> serve path (default 32)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -544,9 +910,17 @@ def main() -> int:
 
     bw, fl = peaks(name)
     rows = kernel_phase(Timer(), bw, fl)
-    launches, _ = main_path(bw, fl)
+    rtn_launches, _ = rtn_path(bw, fl, args.rtn_layers)
+    torch.cuda.empty_cache()
+    tuning_step_phase(bw, fl)
+    torch.cuda.empty_cache()
+    launches = tune_path(args.tune_layers)
     for n, row in rows.items():
+        # counts of this slice's path, which runs all five kernels; the RTN
+        # path's counts of the three it runs ride along
         row["launches"] = launches[n]
+        if rtn_launches[n]:
+            row["launches_rtn_path"] = rtn_launches[n]
     log(smi)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ These need a CUDA device and skip without one.  On a machine with a card:
 (``--noconftest``: the suite's conftest configures JAX, which these tests
 neither use nor need.)  They cover the edges ``chip_smoke.py`` does not
 reach: every GEMV template of the W4A16 kernel, ragged O, small groups,
-D = 256 and S < T flash attention, every GQA ratio and mask of the decode
-kernel, and the wrappers' refusals.
+D = 256 and S < T flash attention (forward and the backward pair, every
+GQA ratio, run-to-run bit equality, autograd through the op), every GQA
+ratio and mask of the decode kernel, and the wrappers' refusals.
 
 Tolerance: both sides give bf16.  In each output row (last axis), max
 |kernel - plain| over the RMS of the plain row must stay within the
@@ -17,7 +18,11 @@ kernel's limit (rows are held to their own scale: attention rows differ
 row error measured on an H100 at the main path's shapes (flash 0.034, the
 same as SDPA's against the plain version; W4A16 0.037; decode attention
 0.0072): bf16 output rounding plus the plain version's rounding of each
-weight (W4A16) or probability (flash) to bf16.
+weight (W4A16) or probability (flash) to bf16.  The backward pair against
+``flash_attention_bwd_plain``: measured worst rows dQ 0.027, dK 0.023, dV
+0.020 at the main path's shapes, limit 0.07; a gradient row may be zero in
+exact arithmetic (row 0 of dQ when S = T), so a row's RMS counts as at
+least 1% of the tensor's.
 """
 
 import pytest
@@ -25,13 +30,15 @@ import torch
 
 from autoround_tpu_torch.ops.decode_attention import (decode_attention,
                                                       decode_attention_plain)
-from autoround_tpu_torch.ops.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+from autoround_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
+    flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_plain)
 from autoround_tpu_torch.ops.qmatmul import (pack_w4, w4a16_matmul,
                                              w4a16_matmul_plain)
 
 pytestmark = pytest.mark.cuda
-ROW_TOL = {"flash": 0.1, "w4a16": 0.1, "decode": 0.025}
+ROW_TOL = {"flash": 0.1, "w4a16": 0.1, "decode": 0.025, "flash_bwd": 0.07}
+BWD_ROW_FLOOR = 0.01
 LSE_ATOL = 1e-5      # lse is fp32 on both sides (~1e-6 measured)
 
 
@@ -42,11 +49,13 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _check(out, ref, kernel):
+def _check(out, ref, kernel, floor=0.0):
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == ref.dtype
     d = (out.float() - ref.float()).abs().amax(-1)
-    rms = ref.float().pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    ref2 = ref.float().pow(2)
+    rms = ref2.mean(-1).sqrt().clamp_min(
+        max(1e-30, floor * ref2.mean().sqrt().item()))
     row_err = (d / rms).max().item()
     assert row_err <= ROW_TOL[kernel], row_err
 
@@ -77,6 +86,39 @@ def test_flash_shapes(gen, D, S, T, rep, causal):
     pout, plse = flash_attention_plain(q, k, v, causal)
     _check(out, pout, "flash")
     assert (lse - plse).abs().max().item() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("S,T", [(64, 64), (128, 320), (256, 256)])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_pair(gen, D, S, T, G, causal):
+    Hkv = 2
+    q = torch.randn(2, Hkv * G, S, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(2, Hkv, T, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(2, Hkv, T, D, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(2, Hkv * G, S, D, generator=gen, device="cuda").bfloat16()
+    out, lse = flash_attention(q, k, v, causal)
+    counts = (flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches, flash_attention_bwd.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches,
+            flash_attention_bwd.launches) == tuple(c + 1 for c in counts)
+    again = flash_attention_bwd(q, k, v, out, lse, do, causal)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)                 # same bits run to run
+        _check(a, r, "flash_bwd", BWD_ROW_FLOOR)
+    # autograd through the op launches the same kernels; the incoming dO
+    # may be a transposed view
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o2, lse2 = flash_attention(ql, kl, vl, causal)
+    assert not lse2.requires_grad
+    do_view = do.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not do_view.is_contiguous()
+    grads = torch.autograd.grad(o2, (ql, kl, vl), do_view)
+    for a, b in zip(grads, got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
@@ -115,6 +157,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = torch.zeros((1, 2, 96, 128), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):            # S not a multiple of 64
         flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 128, 128), dtype=torch.bfloat16, device="cuda")
+    kv = torch.zeros((1, 2, 64, 128), dtype=torch.bfloat16, device="cuda")
+    st = torch.zeros((1, 2, 128), device="cuda")
+    with pytest.raises(ValueError):            # causal with T < S
+        flash_attention_bwd_dq(q, kv, kv, q, st, st, True)
+    with pytest.raises(ValueError):            # fp32 dO
+        flash_attention_bwd_dkv(q, q, q, q.float(), st, st, True)
+    with pytest.raises(ValueError):            # lse of the wrong shape
+        flash_attention_bwd_dq(q, q, q, q, st[:, :1], st, True)
+    with pytest.raises(ValueError):            # head_dim 64
+        flash_attention_bwd_dkv(q[..., :64].contiguous(),
+                                q[..., :64].contiguous(),
+                                q[..., :64].contiguous(),
+                                q[..., :64].contiguous(), st, st, True)
     qd = torch.zeros((1, 6, 64), dtype=torch.bfloat16, device="cuda")
     c = torch.zeros((1, 16, 2, 64), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):            # head_dim 64, G = 3

@@ -213,10 +213,19 @@ def test_unpackable_layers_serve_dense_and_other_kinds_raise():
 
 
 def test_iters_positive_not_ported():
+    """iters > 0 (SignRound) is ported; each of its options that is not
+    raises when quantize runs, naming its ROADMAP item."""
     cfg = tl.CONFIG_PRESETS["tiny"]
     p = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        AutoRound((p, cfg), iters=10, device="cpu")
+    ids = np.zeros((2, 8), np.int64)
+    assert AutoRound((p, cfg), iters=1, device="cpu").quantize(
+        ids).loss_traces[0].shape == (1,)
+    for kw, item in ((dict(optimizer="adam"), "A3"),
+                     (dict(enable_alg_ext=True), "A3"),
+                     (dict(nblocks=2), "A5"),
+                     (dict(enable_awq=True), "A12")):
+        with pytest.raises(NotImplementedError, match=item):
+            AutoRound((p, cfg), iters=2, device="cpu", **kw).quantize(ids)
 
 
 def test_device_default_raises_without_cuda():

@@ -106,8 +106,19 @@ def test_registry_resolution():
         get_quant_func("int", 4, True)
     with pytest.raises(KeyError):
         get_quant_func("mx_fp", 4, True)
-    with pytest.raises(NotImplementedError):
-        t_rtn(torch.zeros(4, 32), t_parse("W4A16"), imatrix=torch.ones(32))
+    # an imatrix routes sym int to the opt_rtn entry, asym (none
+    # registered) to plain RTN, as in the JAX package
+    assert get_quant_func("int", 4, True, mode="opt_rtn") is not \
+        get_quant_func("int", 4, True)
+    assert get_quant_func("int", 4, False, mode="opt_rtn") is \
+        get_quant_func("int", 4, False)
+    w = _weights(4, 64, seed=1)
+    im = np.linspace(0.1, 2.0, 64).astype(np.float32)
+    for scheme in ("GGUF:Q4_0", "GGUF:Q4_1"):      # int g32, sym and asym
+        a = j_rtn(jnp.asarray(w), j_parse(scheme), imatrix=jnp.asarray(im))
+        b = t_rtn(torch.from_numpy(w), t_parse(scheme),
+                  imatrix=torch.from_numpy(im))
+        _same(a.qdq, b.qdq)
 
 
 def test_round_ste_half_even_and_identity_grad():
