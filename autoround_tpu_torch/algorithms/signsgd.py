@@ -37,6 +37,23 @@ def linear_decay_schedule(lr: float, total_steps: int) -> Callable:
     return schedule
 
 
+def _signed_steps(node: Dict[str, Any], cur_lr, lr_scale_fn,
+                  in_place: bool) -> Dict[str, Any]:
+    """``-lr * scale(name) * sign(g)`` for every leaf, over the gradients
+    themselves when ``in_place``.  (Module level: a nested function that
+    calls itself would be a reference cycle.)"""
+    out = {}
+    for name, g in node.items():
+        if isinstance(g, dict):
+            out[name] = _signed_steps(g, cur_lr, lr_scale_fn, in_place)
+            continue
+        scale = lr_scale_fn(name) if lr_scale_fn is not None else 1.0
+        step = float(np.float32(-cur_lr) * np.float32(scale))
+        out[name] = g.sign_().mul_(step) if in_place \
+            else torch.sign(g) * step
+    return out
+
+
 def sign_sgd(
     lr: float,
     total_steps: int,
@@ -67,21 +84,8 @@ def sign_sgd(
             new_mom = None
             eff_grads = grads
 
-        def rec(node: Dict[str, Any]):
-            out = {}
-            for name, g in node.items():
-                if isinstance(g, dict):
-                    out[name] = rec(g)
-                    continue
-                scale = lr_scale_fn(name) if lr_scale_fn is not None else 1.0
-                step = float(np.float32(-cur_lr) * np.float32(scale))
-                if new_mom is None:
-                    out[name] = g.sign_().mul_(step)
-                else:
-                    out[name] = torch.sign(g) * step
-            return out
-
-        return rec(eff_grads), SignSGDState(step=state.step + 1,
-                                            momentum=new_mom)
+        return (_signed_steps(eff_grads, cur_lr, lr_scale_fn,
+                              in_place=new_mom is None),
+                SignSGDState(step=state.step + 1, momentum=new_mom))
 
     return init, update

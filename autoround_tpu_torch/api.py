@@ -13,7 +13,7 @@ import os
 import torch
 
 from ._device import resolve_device
-from .models import llama
+from .models.registry import ALL_PRESETS, get_model_fns
 from .quantize.layer_config import resolve_layer_schemes
 from .quantize.orchestrator import QuantizeConfig, QuantizeResult, quantize_model
 from .schemes import QuantizationScheme, parse_scheme
@@ -34,7 +34,8 @@ def _to_device(tree, device):
 
 
 class AutoRound:
-    """AutoRound quantizer for Llama-family models.
+    """AutoRound quantizer for the families of ``models.registry``
+    (Llama, Mixtral-style MoE).
 
     Example::
 
@@ -43,7 +44,7 @@ class AutoRound:
         ar.save_quantized("out/", format="fake")
 
     ``model`` is ``(params, cfg)`` or a preset name of
-    ``models.llama.CONFIG_PRESETS`` (random weights from ``seed``).
+    ``models.registry.ALL_PRESETS`` (random weights from ``seed``).
     ``device=None`` means the CUDA card and raises without one; params
     not already there are moved.  ``iters=0`` is zero-shot RTN.  Extra
     keyword arguments naming ``QuantizeConfig`` fields pass through (e.g.
@@ -73,9 +74,9 @@ class AutoRound:
     ):
         self.device = resolve_device(device)
         if isinstance(model, str):
-            cfg = llama.CONFIG_PRESETS[model]
+            cfg = ALL_PRESETS[model]
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = llama.init_params(cfg, gen, self.device)
+            params = get_model_fns(cfg).init_params(cfg, gen, self.device)
         else:
             params, cfg = model
             params = _to_device(params, self.device)
@@ -83,7 +84,8 @@ class AutoRound:
         self.model_cfg = cfg
         self.scheme = parse_scheme(scheme)
         self.layer_schemes = resolve_layer_schemes(
-            cfg.num_layers, llama.block_linear_names(cfg), self.scheme,
+            cfg.num_layers, get_model_fns(cfg).block_linear_names(cfg),
+            self.scheme,
             layer_config=layer_config, ignore_layers=ignore_layers,
             quant_lm_head=quant_lm_head)
         cfg_fields = QuantizeConfig.__dataclass_fields__

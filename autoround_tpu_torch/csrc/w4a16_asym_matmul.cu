@@ -1,0 +1,27 @@
+// Asymmetric W4A16 dequant-matmul: y = x . ((code - zp) * scale)^T with a
+// per-group fp32 zero point (integral or fractional), bf16 in/out.
+//
+// Replaces: autoround_tpu/ops/qmatmul_ext.py, `w4a16_asym_matmul` ->
+// `_asym_kernel` (the Pallas TPU kernel over the nibble-plane layout).
+//
+// The TPU kernel keeps the codes unsigned through its matrix unit and
+// applies the zero point as a rank-1 correction rowsum(x_g) (x) (s * z) per
+// group.  Here the dequant already runs per code in registers (GEMV) or per
+// weight tile (GEMM), so the zero point is subtracted there: (code - zp) *
+// scale in fp32, one more subtraction per weight and no second reduction
+// over x.  The GEMM body rounds that product to bf16 exactly as the plain
+// version does; the GEMV body keeps it in fp32 (as the sym GEMV does).
+//
+// Bounds and tile bodies as in w4a16_tiles.cuh; the zero points add 4 bytes
+// per group of g weights to the stream.
+
+#include "w4a16_tiles.cuh"
+
+// x (M, K) bf16, qweight (O, K/8) int32, scales and zps (O, K/g) fp32, y
+// (M, O) bf16, all contiguous.  M >= 1, K % 32 == 0, g % 32 == 0,
+// K % g == 0.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int w4a16_asym_matmul(const void* x, const void* qw,
+                                 const void* sc, const void* zp, void* y,
+                                 int M, int K, int O, int g, void* stream) {
+  return w4a16::launch<true>(x, qw, sc, zp, y, 1, 0, M, K, O, g, stream);
+}

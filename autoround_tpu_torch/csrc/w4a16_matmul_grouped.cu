@@ -1,0 +1,33 @@
+// Grouped (MoE) W4A16 dequant-matmul: y[e] = x[e] . ((code[e] - 8) *
+// scale[e])^T for all E experts in one launch, bf16 in/out.
+//
+// Replaces: autoround_tpu/ops/qmatmul.py, `w4a16_matmul_grouped` ->
+// `_grouped_kernel` (the Pallas TPU kernel whose leading grid axis selects
+// the expert).
+//
+// As there, the expert is a grid axis and the tile body is the ungrouped
+// one (w4a16_tiles.cuh).  Unlike there, the token count C needs no padding
+// to 16 (the ragged edge is masked), and the activation's expert stride may
+// be 0: dense-then-mask routing gives every expert the same C rows, which
+// are then read through L2 instead of being copied E times.
+//
+// What bounds it on an H100: at decode (C = batch) every expert's packed
+// weights stream once per launch whatever the routing, ~0.53 byte per
+// weight, so memory bounds it (GEMV bodies, E x O/R blocks); at prefill
+// (C in the thousands) 2*C operations per weight bound it (WMMA GEMM
+// bodies with per-tile dequant, E x C/128 x O/128 blocks).
+
+#include "w4a16_tiles.cuh"
+
+// x (E, C, K) bf16, each (C, K) slab contiguous, at an expert stride of
+// `x_stride_e` elements (a multiple of 8; C*K when contiguous, 0 for one
+// slab shared by all experts), qweight (E, O, K/8) int32, scales
+// (E, O, K/g) fp32, y (E, C, O) bf16, contiguous.  E, C >= 1, K % 32 == 0,
+// g % 32 == 0, K % g == 0.  Returns the cudaError_t of the launch.
+extern "C" int w4a16_matmul_grouped(const void* x, const void* qw,
+                                    const void* sc, void* y, int E,
+                                    long long x_stride_e, int C, int K, int O,
+                                    int g, void* stream) {
+  return w4a16::launch<false>(x, qw, sc, nullptr, y, E, x_stride_e, C, K, O,
+                              g, stream);
+}

@@ -46,6 +46,9 @@ _MODEL_CONFIG_KEYS = (
     "rope_scaling_factor", "rope_llama3", "attn_scale", "online_r4",
     "r4_block", "partial_rotary_factor")
 _MODEL_CONFIG_OFF = dict(UNSUPPORTED_FIELDS, r4_block=128)
+# the fields a JAX MixtralConfig adds after them, in its order
+_MOE_CONFIG_KEYS = ("num_experts", "top_k", "shared_expert_intermediate",
+                    "shared_expert_gate", "norm_topk_prob")
 
 
 def _flatten_params(params: Dict[str, Any],
@@ -131,7 +134,9 @@ def save_quantized(result, model_cfg, output_dir: str,
         },
         "model_config": {
             k: getattr(model_cfg, k) if hasattr(model_cfg, k)
-            else _MODEL_CONFIG_OFF[k] for k in _MODEL_CONFIG_KEYS},
+            else _MODEL_CONFIG_OFF[k]
+            for k in _MODEL_CONFIG_KEYS + tuple(
+                m for m in _MOE_CONFIG_KEYS if hasattr(model_cfg, m))},
     }
 
     tensors = _flatten_params(result.params)

@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "w4a16_matmul",
-           "decode_attention")
+           "w4a16_matmul_grouped", "w4a16_asym_matmul", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")

@@ -12,7 +12,10 @@ and scales going in and the numbers coming out are those of the JAX
 package.
 
 ``w4a16_matmul`` launches ``csrc/w4a16_matmul.cu`` on a CUDA tensor (or
-raises) and runs :func:`w4a16_matmul_plain` on a CPU tensor.
+raises) and runs :func:`w4a16_matmul_plain` on a CPU tensor;
+``w4a16_matmul_grouped`` (one launch for all experts of a MoE block) does
+the same with ``csrc/w4a16_matmul_grouped.cu`` and
+:func:`w4a16_matmul_grouped_plain`.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import torch
 from . import _build
 
 __all__ = ["PLANES", "pack_w4", "unpack_w4", "w4a16_matmul",
-           "w4a16_matmul_plain"]
+           "w4a16_matmul_plain", "w4a16_matmul_grouped",
+           "w4a16_matmul_grouped_plain", "check_w4_operands"]
 
 PLANES = 8  # int4 codes per int32 word
 
@@ -66,6 +70,30 @@ def w4a16_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
     return y.to(x.dtype).reshape(*x.shape[:-1], O)
 
 
+def check_w4_operands(what: str, x: torch.Tensor, K: int, g: int,
+                      operands) -> None:
+    """Raise ``ValueError`` unless the kernels of the W4A16 family can take
+    these tensors: x bf16 on a CUDA device, K % g == 0, g % 32 == 0, and
+    every ``(name, tensor, shape, dtype)`` of ``operands`` contiguous on
+    x's device with exactly that shape and dtype."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: needs x bf16, got {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError(f"{what}: empty input")
+    if g <= 0 or g % 32 or K <= 0 or K % g:
+        raise ValueError(f"{what}: K={K} group_size={g} (needs K % g == 0 "
+                         f"and g % 32 == 0)")
+    for name, t, shape, dtype in operands:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be {tuple(shape)} "
+                             f"{dtype}, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{what}: {name} must be contiguous on "
+                             f"{x.device}")
+
+
 def _entry():
     fn = _build.load("w4a16_matmul").w4a16_matmul
     if fn.argtypes is None:
@@ -84,28 +112,17 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     (the ragged edge is masked in the kernel).  Anything else raises."""
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, qweight, scales, group_size)
-    if x.device.type != "cuda":
-        raise ValueError(f"w4a16_matmul: unsupported device {x.device}")
     K = x.shape[-1]
-    O, Kw = qweight.shape
+    O = qweight.shape[0]
     g = group_size
-    if Kw * PLANES != K or g <= 0 or g % 32 or K % g \
-            or tuple(scales.shape) != (O, K // g):
-        raise ValueError(f"w4a16_matmul: x {tuple(x.shape)} qweight "
-                         f"{tuple(qweight.shape)} scales {tuple(scales.shape)}"
-                         f" group_size {g}")
-    if (x.dtype != torch.bfloat16 or qweight.dtype != torch.int32
-            or scales.dtype != torch.float32):
-        raise ValueError("w4a16_matmul: needs x bf16, qweight int32, "
-                         "scales fp32")
-    for name, t in (("x", x), ("qweight", qweight), ("scales", scales)):
-        if not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"w4a16_matmul: {name} must be contiguous on "
-                             f"{x.device}")
+    check_w4_operands("w4a16_matmul", x, K, g,
+                      (("qweight", qweight, (O, K // PLANES), torch.int32),
+                       ("scales", scales, (O, K // max(g, 1)),
+                        torch.float32)))
+    if not x.is_contiguous():
+        raise ValueError("w4a16_matmul: x must be contiguous")
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
-    if M == 0:
-        raise ValueError("w4a16_matmul: empty input")
     y = torch.empty((M, O), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _entry()(x2.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
@@ -116,3 +133,66 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
 
 
 w4a16_matmul.launches = 0
+
+
+def w4a16_matmul_grouped_plain(x: torch.Tensor, qweight: torch.Tensor,
+                               scales: torch.Tensor,
+                               group_size: int = 128) -> torch.Tensor:
+    """Plain version mirroring ``w4a16_matmul_grouped_ref``: the ungrouped
+    plain product per expert, stacked."""
+    return torch.stack([w4a16_matmul_plain(x[e], qweight[e], scales[e],
+                                           group_size)
+                        for e in range(qweight.shape[0])])
+
+
+def _grouped_entry():
+    fn = _build.load("w4a16_matmul_grouped").w4a16_matmul_grouped
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def w4a16_matmul_grouped(x: torch.Tensor, qweight: torch.Tensor,
+                         scales: torch.Tensor,
+                         group_size: int = 128) -> torch.Tensor:
+    """Grouped (MoE) product, one launch for all experts: y[e] = x[e] @
+    dequant(qweight[e]).T for x (E, C, K), qweight (E, O, K//8) int32,
+    scales (E, O, K//g) fp32 → (E, C, O) in x.dtype.
+
+    CUDA: x bf16; qweight and scales contiguous; every x[e] a contiguous
+    (C, K) slab at any expert stride that keeps 16-byte alignment: the
+    contiguous one, 0 (``h.expand(E, C, K)``: every expert reads the same
+    rows, nothing is copied) or a slice of a taller buffer; any C >= 1 and
+    any O (ragged edges are masked in the kernel); K % g == 0, g % 32 == 0.
+    Anything else raises."""
+    if x.device.type == "cpu":
+        return w4a16_matmul_grouped_plain(x, qweight, scales, group_size)
+    if x.ndim != 3 or qweight.ndim != 3:
+        raise ValueError(f"w4a16_matmul_grouped: x {tuple(x.shape)} qweight "
+                         f"{tuple(qweight.shape)} must be 3-D")
+    E, C, K = x.shape
+    O = qweight.shape[1]
+    g = group_size
+    check_w4_operands(
+        "w4a16_matmul_grouped", x, K, g,
+        (("qweight", qweight, (E, O, K // PLANES), torch.int32),
+         ("scales", scales, (E, O, K // max(g, 1)), torch.float32)))
+    if (x.stride(2) != 1 or (C > 1 and x.stride(1) != K) or x.stride(0) < 0
+            or x.stride(0) % 8 or x.data_ptr() % 16):
+        raise ValueError(f"w4a16_matmul_grouped: x strides {x.stride()} "
+                         f"(needs contiguous (C, K) slabs, 16-byte aligned, "
+                         f"at an expert stride that is a multiple of 8)")
+    y = torch.empty((E, C, O), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _grouped_entry()(x.data_ptr(), qweight.data_ptr(),
+                           scales.data_ptr(), y.data_ptr(), E, x.stride(0),
+                           C, K, O, g, stream)
+    _build.check(err, "w4a16_matmul_grouped")
+    w4a16_matmul_grouped.launches += 1
+    return y
+
+
+w4a16_matmul_grouped.launches = 0

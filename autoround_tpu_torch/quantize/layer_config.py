@@ -1,7 +1,8 @@
 """Per-layer quantization plan resolution (counterpart of
 ``autoround_tpu/quantize/layer_config.py``, ``resolve_layer_schemes``).
 
-Layer names are ``blocks.<i>.<linear>`` plus ``lm_head``.  The special
+Layer names are ``blocks.<i>.<linear>`` plus ``lm_head``; ``<linear>`` may
+itself be a dotted path (``experts.3.w1`` in a MoE block).  The special
 mixed recipes (``GGUF:Q2_K_MIXED``, ``W4A16_MIXED``) and the GGUF cascade
 come with later slices of the port.
 """
@@ -33,7 +34,8 @@ def resolve_layer_schemes(
     """Build {flat_layer_name: scheme} for every quantizable linear.
 
     ``layer_config`` keys may be exact flat names (``blocks.3.q_proj``),
-    bare linear names applying to all blocks (``down_proj``), or regexes.
+    name suffixes applying wherever they end a name (``down_proj``,
+    ``experts.0.w1``, or ``w1`` for every expert), or regexes.
     Values may be partial dicts — unset fields inherit the base scheme.
     """
     base = parse_scheme(scheme)

@@ -1,11 +1,13 @@
 """Block-chain quantization loop (counterpart of
-``autoround_tpu/quantize/orchestrator.py``), Llama family, ``nblocks=1``.
+``autoround_tpu/quantize/orchestrator.py``), ``nblocks=1``, for every
+family of ``models.registry``.
 
 Cache the block-0 inputs, then walk the blocks.  Per block: run the FP
 reference forward on the FP input cache; tune the block's linears with
 SignRound (``iters > 0``) on the quantized-input cache against that
 reference, or RTN them (``iters == 0``); write the qdq weights back into
-the block; and advance both caches, the FP one through the original block
+the block (layer names may be dotted paths into nested leaves, e.g.
+``experts.3.w1`` of a MoE block); and advance both caches, the FP one through the original block
 and the quantized one through the qdq block (the dual chains).  The lm_head,
 when the plan holds it, is tuned against the final hidden states or RTN'd.
 
@@ -26,8 +28,10 @@ import torch
 from ..algorithms.rtn import rtn_quantize_layer
 from ..algorithms.signround import TuneConfig, tune_block
 from ..dtypes.registry import get_quant_func
-from ..models import llama
+from ..models.llama import LlamaConfig, rms_norm
+from ..models.registry import get_model_fns
 from ..schemes import QuantizationScheme
+from ..utils.pytree import get_by_path, set_by_path
 
 __all__ = ["QuantizeConfig", "QuantizedLayer", "QuantizeResult",
            "quantize_model"]
@@ -120,9 +124,9 @@ class QuantizeResult:
     loss_traces: Dict[int, np.ndarray] = field(default_factory=dict)
 
 
-def _batched_block_apply(block_weights, x, cos, sin, cfg, batch: int):
+def _batched_block_apply(block_fn, block_weights, x, batch: int):
     """Advance a cache through one block, ``batch`` samples at a time."""
-    outs = [llama.block_fwd(block_weights, x[s:s + batch], cos, sin, cfg)
+    outs = [block_fn(block_weights, x[s:s + batch])
             for s in range(0, x.shape[0], batch)]
     return torch.cat(outs, dim=0)
 
@@ -148,13 +152,13 @@ def _head_fwd(ws, xb):
 
 def quantize_model(
     params: Dict[str, Any],
-    model_cfg: llama.LlamaConfig,
+    model_cfg: LlamaConfig,
     layer_schemes: Dict[str, QuantizationScheme],
     input_ids: torch.Tensor,
     cfg: QuantizeConfig = QuantizeConfig(),
     mask: Optional[torch.Tensor] = None,
 ) -> QuantizeResult:
-    """Quantize a Llama-family model block by block.
+    """Quantize a model of a registered family block by block.
 
     input_ids: (nsamples, seqlen) calibration tokens on the params' device.
     mask: optional (nsamples, seqlen) valid-token mask (pad → 0).
@@ -187,13 +191,14 @@ def quantize_model(
 
 def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
                      cfg, tcfg, mask) -> QuantizeResult:
+    mfns = get_model_fns(model_cfg)
     seqlen = input_ids.shape[1]
-    x_fp = llama.embed_fwd(params, input_ids, model_cfg)
+    x_fp = mfns.embed_fwd(params, input_ids, model_cfg)
     x_q = x_fp if (cfg.enable_quanted_input and cfg.iters > 0) else None
-    cos, sin = llama.rope_tables(model_cfg, seqlen, device=x_fp.device)
+    cos, sin = mfns.rope_tables(model_cfg, seqlen, device=x_fp.device)
 
     def block_fn(w, xb):
-        return llama.block_fwd(w, xb, cos, sin, model_cfg)
+        return mfns.block_fwd(w, xb, cos, sin, model_cfg)
 
     new_blocks = []
     layers: Dict[str, QuantizedLayer] = {}
@@ -201,9 +206,9 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     for bi, block in enumerate(params["blocks"]):
         t_block = time.time()
         schemes = per_block.get(bi, {})
-        ref_out = _batched_block_apply(block, x_fp, cos, sin, model_cfg,
+        ref_out = _batched_block_apply(block_fn, block, x_fp,
                                        cfg.cache_batch)
-        qdq_block = dict(block)
+        qdq_block = block         # set_by_path copies the branches it edits
         if schemes and cfg.iters > 0:
             tune_in = x_q if x_q is not None else x_fp
             best, info = tune_block(block_fn, block, tune_in, ref_out,
@@ -213,19 +218,22 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
                         info["first_loss"], info["best_loss"],
                         time.time() - t_block)
             for lname, scheme in schemes.items():
-                ql = _finalize_layer(f"blocks.{bi}.{lname}", block[lname],
-                                     scheme, best, tcfg, inner_name=lname)
-                qdq_block[lname] = ql.qdq.to(block[lname].dtype)
+                w_orig = get_by_path(block, lname)
+                ql = _finalize_layer(f"blocks.{bi}.{lname}", w_orig, scheme,
+                                     best, tcfg, inner_name=lname)
+                qdq_block = set_by_path(qdq_block, lname,
+                                        ql.qdq.to(w_orig.dtype))
                 layers[ql.name] = ql
             del best
         else:
             for lname, scheme in schemes.items():
-                w_orig = block[lname]
+                w_orig = get_by_path(block, lname)
                 r = rtn_quantize_layer(w_orig, scheme)
-                qdq_block[lname] = r.qdq.to(w_orig.dtype)
+                qdq = r.qdq.to(w_orig.dtype)
+                qdq_block = set_by_path(qdq_block, lname, qdq)
                 layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
-                    name=f"blocks.{bi}.{lname}", scheme=scheme,
-                    qdq=qdq_block[lname], scale=r.scale, zp=r.zp)
+                    name=f"blocks.{bi}.{lname}", scheme=scheme, qdq=qdq,
+                    scale=r.scale, zp=r.zp)
         new_blocks.append(qdq_block)
         if cfg.donate_params:
             params["blocks"][bi] = None   # free the FP block
@@ -234,7 +242,7 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
         # the quantized one through the qdq block
         x_fp = ref_out
         if x_q is not None:
-            x_q = _batched_block_apply(qdq_block, x_q, cos, sin, model_cfg,
+            x_q = _batched_block_apply(block_fn, qdq_block, x_q,
                                        cfg.cache_batch)
 
     new_params = dict(params)
@@ -248,7 +256,7 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
             # tuned against the final hidden states; the fp32 reference
             # logits are computed cache_batch samples at a time
             h_src = x_q if x_q is not None else x_fp
-            normed = llama.rms_norm(h_src, params["norm"], model_cfg.rms_eps)
+            normed = rms_norm(h_src, params["norm"], model_cfg.rms_eps)
             wf = w.float()
             ref = torch.cat([
                 torch.einsum("bsi,oi->bso", normed[s:s + cfg.cache_batch]

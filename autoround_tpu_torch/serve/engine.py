@@ -1,10 +1,16 @@
 """Quantized serving engine: packed W4A16 weights + KV cache + decode loop
-(counterpart of ``autoround_tpu/serve/engine.py``, Llama family, the
-``w4a16`` kind, ``kv_quant`` None or ``"int8"``).
+(counterpart of ``autoround_tpu/serve/engine.py``; the Llama and Mixtral
+families, the ``w4a16`` and ``w4a16_asym`` kinds, ``kv_quant`` None or
+``"int8"``).
 
 Packed int4 weights stay resident on the card and every packed projection
-runs the W4A16 kernel (``ops/qmatmul``); q/k/v and gate/up are fused along
-O so one launch serves each group.  Prefill attention takes the flash
+runs its kind's kernel (``ops/qmatmul``, ``ops/qmatmul_ext``); q/k/v and
+gate/up are fused along O so one launch serves each group.  The experts of
+a MoE block are stacked per projection and run the grouped kernel, one
+launch for all experts (``_stack_experts``); a block whose experts cannot
+all stack serves them one by one through the ungrouped kernel.  Expert
+routing is dense-then-mask unless ``moe_capacity_factor > 0`` asks for
+capacity dispatch.  Prefill attention takes the flash
 kernel where the routing gate passes; every decode step with the int8
 cache attends through the int8-KV decode kernel (``ops/decode_attention``).
 
@@ -23,10 +29,13 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
-from ..models import llama
+from ..models import llama, mixtral
 from ..ops.decode_attention import decode_attention
-from ..ops.qmatmul import PLANES, pack_w4, w4a16_matmul
+from ..ops.qmatmul import (PLANES, pack_w4, w4a16_matmul,
+                           w4a16_matmul_grouped)
+from ..ops.qmatmul_ext import w4a16_asym_matmul
 from ..quantize.orchestrator import QuantizeResult
+from ..utils.pytree import set_by_path, tree_map
 from .sampling import SamplingParams, sample_token
 
 __all__ = ["KVCache", "QuantizedLlama"]
@@ -69,13 +78,17 @@ _FUSE_GROUPS = (("qkv", ("q_proj", "k_proj", "v_proj")),
                 ("gate_up", ("gate_proj", "up_proj")))
 
 
-def _fuse_packed(packed: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
-                 cfg: llama.LlamaConfig):
+def _fuse_packed(packed: Dict[str, Tuple[torch.Tensor, ...]],
+                 cfg: llama.LlamaConfig, kinds: Dict[str, str]):
     """Concatenate q/k/v and gate/up packed weights along O so one kernel
     launch replaces three / two (the shared activation is read once).
-    Members of a fused group are dropped (the weights are held once).
-    Returns (packed', splits) with ``splits`` the static table of member
+    Every payload component (qweight, scales[, zps]) concatenates: all
+    kinds lay their first axis out as output channels.  Only groups whose
+    members share one kernel kind and one group count fuse.  Members of a
+    fused group are dropped (the weights are held once).  Returns
+    (packed', splits, kinds') with ``splits`` the static table of member
     widths per fused entry."""
+    kinds = dict(kinds)
     out = dict(packed)
     splits: Dict[str, Tuple[int, ...]] = {}
     for bi in range(cfg.num_layers):
@@ -84,26 +97,113 @@ def _fuse_packed(packed: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
             if not all(k in packed for k in keys):
                 continue
             entries = [packed[k] for k in keys]
-            if len({e[1].shape[1] for e in entries}) != 1:
-                continue   # different group counts: cannot share a call
+            if (len({kinds[k] for k in keys}) != 1
+                    or len({len(e) for e in entries}) != 1
+                    or len({e[1].shape[1] for e in entries}) != 1):
+                continue   # another kernel or group count: no shared call
             key = f"blocks.{bi}.{fused_name}"
             out[key] = tuple(torch.cat([e[c] for e in entries], dim=0)
-                             for c in range(2))
+                             for c in range(len(entries[0])))
             splits[key] = tuple(int(e[0].shape[0]) for e in entries)
+            kinds[key] = kinds[keys[0]]
             for k in keys:
                 del out[k]
-    return out, splits
+                del kinds[k]
+    return out, splits, kinds
 
 
-def _is_w4a16(s) -> bool:
-    """Whether the JAX engine serves scheme ``s`` with its w4a16 kernel
-    (its ``_serving_kind``): sym int codes of at most 4 bits (3- and 2-bit
-    codes fit the int4 layout), groups of 16 or more, bf16 activations."""
-    g = s.group_size if isinstance(s.group_size, int) else 0
+_EXPERT_TRIPLE = ("w1", "w2", "w3")
+
+
+def _stack_experts(packed, kinds, cfg):
+    """Stack per-expert packed ``w4a16`` entries into one grouped payload
+    per (block, projection): ``blocks.i.experts_stack.<w>`` → (qweight
+    (E, O, K/8), scales (E, O, K/g)), kind ``w4a16_grouped``.  The MoE path
+    then runs one grouped kernel launch per projection instead of E
+    launches.  Per-expert entries of a stacked projection are removed (the
+    weights are held once).
+
+    Stacking is atomic per block: either all of w1 / w2 / w3 stack or none
+    does, because ``_moe_mlp`` takes the grouped route only with the full
+    triple and the per-expert route needs every per-expert entry.  A
+    projection stacks when every one of the E experts packed as ``w4a16``
+    with identical shapes."""
+    E = getattr(cfg, "num_experts", 0)
+    if not E:
+        return packed, kinds
+    out, kinds = dict(packed), dict(kinds)
+    n_stacked = 0
+    for bi in range(cfg.num_layers):
+        def stackable(wname):
+            keys = [f"blocks.{bi}.experts.{e}.{wname}" for e in range(E)]
+            if not all(kinds.get(k) == "w4a16" for k in keys):
+                return None
+            shapes = {tuple(t.shape for t in packed[k]) for k in keys}
+            return keys if len(shapes) == 1 else None
+
+        plan = {w: stackable(w) for w in _EXPERT_TRIPLE}
+        if any(v is None for v in plan.values()):
+            if any(v is not None for v in plan.values()):
+                logger.warning(
+                    "serving engine: block %d expert MLP only partially "
+                    "stackable (%s): serving all its experts one by one",
+                    bi, {w: ("ok" if v else "no") for w, v in plan.items()})
+            continue
+        for wname, keys in plan.items():
+            skey = f"blocks.{bi}.experts_stack.{wname}"
+            out[skey] = tuple(torch.stack([packed[k][c] for k in keys])
+                              for c in range(2))
+            kinds[skey] = "w4a16_grouped"
+            for k in keys:
+                del out[k]
+                del kinds[k]
+            n_stacked += 1
+    if n_stacked:
+        logger.info("serving engine: %d expert groups stacked for the "
+                    "grouped MoE kernel", n_stacked)
+    return out, kinds
+
+
+# kinds of the JAX engine's ``_serving_kind`` that the port has a kernel for
+_PORTED_KINDS = ("w4a16", "w4a16_asym")
+
+
+def _serving_kind(s) -> Optional[str]:
+    """Map a quantization scheme to a packed serving-kernel kind, as the
+    JAX engine's ``_serving_kind`` does: ``w4a16`` (sym int codes of at
+    most 4 bits: 3- and small-group 2-bit codes fit the int4 layout),
+    ``w4a16_asym`` (the same with a per-group zero point), or None when the
+    scheme has no packed path and serves its dense qdq weights.  A scheme
+    whose kind the port has no kernel for yet raises
+    ``NotImplementedError`` naming ROADMAP A10."""
     act_int8 = s.act_bits == 8 and s.act_data_type == "int" and s.act_sym
-    return (s.data_type == "int" and s.sym and g >= 16
-            and (s.bits == 3 or (s.bits == 4 and not (act_int8 and g >= 128))
-                 or (s.bits == 2 and g < 128)))
+    g = s.group_size if isinstance(s.group_size, int) else 0
+    kind = None
+    if s.data_type == "int" and s.bits == 4 and g >= 16:
+        kind = ("w4a16_asym" if not s.sym
+                else "w4a8" if act_int8 and g >= 128 else "w4a16")
+    elif (s.super_bits and s.bits <= 4 and g >= 16
+          and s.data_type == "int_dq"):
+        kind = "w4a16" if s.sym else "w4a16_asym"
+    elif s.data_type == "int" and s.bits == 3 and g >= 16:
+        kind = "w4a16" if s.sym else "w4a16_asym"
+    elif s.data_type == "int" and s.bits == 2 and g >= 16:
+        kind = ("w4a16_asym" if not s.sym
+                else "w2a16" if g >= 128 else "w4a16")
+    elif s.data_type == "int" and s.bits == 8 and s.sym:
+        kind = "w8a8" if g <= 0 and act_int8 else "w8a16"
+    elif s.data_type == "fp8" and g <= 0 and not isinstance(s.group_size,
+                                                            tuple):
+        kind = "fp8"
+    elif s.data_type in ("mx_fp", "nv_fp") and s.bits == 4 and g in (16, 32):
+        kind = f"mxfp4_g{g}"
+    if kind is not None and kind not in _PORTED_KINDS:
+        raise NotImplementedError(
+            f"scheme w{s.bits}a{s.act_bits} ({s.data_type}, sym={s.sym}, "
+            f"group_size={s.group_size}) is served by the {kind} kernel, "
+            f"which is not ported yet (ROADMAP A10); the port serves "
+            f"{' and '.join(_PORTED_KINDS)}")
+    return kind
 
 
 def w4_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
@@ -117,44 +217,79 @@ def w4_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
         torch.int32)
 
 
-def _packed_matmul(x: torch.Tensor, entry) -> torch.Tensor:
-    """One packed w4a16 projection; the group size follows from shapes."""
-    qw, scales = entry
+def w4_asym_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
+                           zp: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Int4 codes of an asym qdq: clip(rint(qdq / scale + zp), 0, 15) in
+    fp32 with |scale| < 1e-12 replaced by 1e-12, the JAX engine's recovery
+    (``engine.py:406-414``).  ``zp`` may be fractional."""
+    K = qdq.shape[1]
+    srep = scale.float().repeat_interleave(group_size, dim=1)[:, :K]
+    zrep = zp.float().repeat_interleave(group_size, dim=1)[:, :K]
+    srep = torch.where(srep.abs() < 1e-12, torch.full_like(srep, 1e-12),
+                       srep)
+    return torch.clamp(torch.round(qdq.float() / srep + zrep), 0, 15).to(
+        torch.int32)
+
+
+def _packed_matmul(x: torch.Tensor, entry, kind: str) -> torch.Tensor:
+    """One packed projection through its kind's kernel; the group size
+    follows from shapes."""
+    qw, scales = entry[0], entry[1]
     group_size = (qw.shape[1] * PLANES) // scales.shape[1]
+    if kind == "w4a16_asym":
+        return w4a16_asym_matmul(x.contiguous(), qw, scales, entry[2],
+                                 group_size)
     return w4a16_matmul(x.contiguous(), qw, scales, group_size)
 
 
-def _make_linear_fn(packed, block_idx: int):
+def _make_linear_fn(packed, kinds, block_idx: int):
+    """The block's linear interceptor: packed layers go to their kernel,
+    the rest to a dense product.  ``lf.grouped(wname, x_slabs)`` runs the
+    block's stacked experts on (E, C, K) slabs; ``lf.grouped_names`` says
+    which projections are stacked."""
     def lf(name, x, w):
-        entry = packed.get(f"blocks.{block_idx}.{name}")
-        return (_packed_matmul(x, entry) if entry is not None
+        key = f"blocks.{block_idx}.{name}"
+        entry = packed.get(key)
+        return (_packed_matmul(x, entry, kinds[key]) if entry is not None
                 else torch.einsum("...i,oi->...o", x, w))
+
+    prefix = f"blocks.{block_idx}.experts_stack."
+
+    def grouped(wname, x_slabs):
+        qw, sc = packed[prefix + wname]
+        g = (qw.shape[2] * PLANES) // sc.shape[2]
+        return w4a16_matmul_grouped(x_slabs, qw, sc, g)
+
+    lf.grouped = grouped
+    lf.grouped_names = frozenset(k[len(prefix):] for k in packed
+                                 if k.startswith(prefix))
     return lf
 
 
-def _fused_call(packed, splits, block_idx: int, fused_name: str, x):
+def _fused_call(packed, kinds, splits, block_idx: int, fused_name: str, x):
     """Member outputs of a fused projection group, or None."""
     key = f"blocks.{block_idx}.{fused_name}"
     entry = packed.get(key)
     if entry is None:
         return None
-    y = _packed_matmul(x, entry)
+    y = _packed_matmul(x, entry, kinds[key])
     return list(torch.split(y, splits[key], dim=-1))
 
 
-def _final_fwd_packed(params, packed, x, cfg):
+def _final_fwd_packed(params, packed, kinds, x, cfg):
     """Final norm + lm_head, through the packed kernel when the head was
     quantized (at 128K vocab the head is the largest weight of a step)."""
     entry = packed.get("lm_head")
     if entry is None:
         return llama.final_fwd(params, x, cfg)
     h = llama.rms_norm(x, params["norm"], cfg.rms_eps)
-    return _packed_matmul(h, entry)
+    return _packed_matmul(h, entry, kinds["lm_head"])
 
 
-def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed,
-                      block_idx, splits):
-    """Decoder block returning (out, k_new, v_new).
+def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
+                      block_idx, splits, moe_capacity_factor: float = 0.0):
+    """Decoder block returning (out, k_new, v_new).  A block that holds
+    ``experts`` runs the Mixtral routed MLP through ``lf``.
 
     ``kv`` None: prompt pass (causal attention over the prompt).
     ``kv = ("int8_cache", k_all, v_all, k_scale, v_scale, pos_v)``: decode
@@ -165,7 +300,7 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed,
     B, S, H = x.shape
     hd = cfg.hd
     h = llama.rms_norm(x, weights["input_layernorm"], cfg.rms_eps)
-    fused = _fused_call(packed, splits, block_idx, "qkv", h)
+    fused = _fused_call(packed, kinds, splits, block_idx, "qkv", h)
     if fused is not None:
         q, k, v = fused
     else:
@@ -175,6 +310,9 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed,
     q = q.reshape(B, S, cfg.num_heads, hd)
     k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    if getattr(cfg, "qk_norm", False):
+        q = llama.rms_norm(q, weights["q_norm"], cfg.rms_eps)
+        k = llama.rms_norm(k, weights["k_norm"], cfg.rms_eps)
     q = llama.apply_rope(q, cos, sin)
     k = llama.apply_rope(k, cos, sin)
 
@@ -196,7 +334,10 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed,
         attn = llama.attention(q, k_all, v_all, bias, cfg)
     x = x + lf("o_proj", attn.reshape(B, S, -1), weights["o_proj"])
     h = llama.rms_norm(x, weights["post_attention_layernorm"], cfg.rms_eps)
-    fused_gu = _fused_call(packed, splits, block_idx, "gate_up", h)
+    if "experts" in weights:
+        return x + mixtral._moe_mlp(
+            weights, h, cfg, lf, capacity_factor=moe_capacity_factor), k, v
+    fused_gu = _fused_call(packed, kinds, splits, block_idx, "gate_up", h)
     if fused_gu is not None:
         gate, up = fused_gu
     else:
@@ -205,8 +346,8 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed,
     return x + lf("down_proj", F.silu(gate) * up, weights["down_proj"]), k, v
 
 
-def _prefill_core(params, packed, splits, input_ids, *, cfg, max_seq,
-                  kv_quant):
+def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
+                  kv_quant, moe_capacity_factor):
     """Prompt pass: fill the cache (int8: per-(layer, head) scales
     calibrated on the prompt as max(amax over (B, S, hd), 1e-6) / 127) and
     return the last position's logits."""
@@ -221,7 +362,8 @@ def _prefill_core(params, packed, splits, input_ids, *, cfg, max_seq,
     for i in range(cfg.num_layers):
         x, k_new, v_new = _block_with_cache(
             params["blocks"][i], x, cos, sin, cfg, None, None,
-            _make_linear_fn(packed, i), packed, i, splits)
+            _make_linear_fn(packed, kinds, i), packed, kinds, i, splits,
+            moe_capacity_factor)
         if kv_quant is not None:
             qmax = _KV_QMAX[kv_quant]
             ks = torch.clamp(k_new.float().abs().amax(dim=(0, 1, 3),
@@ -240,11 +382,12 @@ def _prefill_core(params, packed, splits, input_ids, *, cfg, max_seq,
     if kv_quant is not None:
         cache = cache._replace(k_scale=torch.stack(k_scales),
                                v_scale=torch.stack(v_scales))
-    logits = _final_fwd_packed(params, packed, x[:, -1:], cfg)
+    logits = _final_fwd_packed(params, packed, kinds, x[:, -1:], cfg)
     return logits[:, 0], cache
 
 
-def _decode_core(params, packed, splits, token, cache, *, cfg, kv_quant):
+def _decode_core(params, packed, kinds, splits, token, cache, *, cfg,
+                 kv_quant, moe_capacity_factor):
     """One decode step for the whole batch at position ``cache.length``."""
     pos = cache.length
     if pos >= cache.k.shape[2]:
@@ -261,8 +404,9 @@ def _decode_core(params, packed, splits, token, cache, *, cfg, kv_quant):
                   cache.v_scale[i], pos_v)
         x, _, _ = _block_with_cache(
             params["blocks"][i], x, cos, sin, cfg, kv, pos,
-            _make_linear_fn(packed, i), packed, i, splits)
-    logits = _final_fwd_packed(params, packed, x, cfg)
+            _make_linear_fn(packed, kinds, i), packed, kinds, i, splits,
+            moe_capacity_factor)
+    logits = _final_fwd_packed(params, packed, kinds, x, cfg)
     return logits[:, 0], cache._replace(length=pos + 1)
 
 
@@ -275,82 +419,105 @@ class QuantizedLlama:
 
     cfg: llama.LlamaConfig
     params: Dict[str, Any]                 # non-packed leaves
-    packed: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    # name -> (qweight, scales) or, for w4a16_asym, (qweight, scales, zps)
+    packed: Dict[str, Tuple[torch.Tensor, ...]]
     max_seq: int = 2048
     kv_quant: Optional[str] = None         # None | "int8"
     fused_splits: Optional[Dict[str, Tuple[int, ...]]] = None
     device: Optional[torch.device] = None
+    # kernel kind per packed entry: "w4a16" | "w4a16_asym" | "w4a16_grouped"
+    # (None: every entry is w4a16)
+    packed_kinds: Optional[Dict[str, str]] = None
+    # MoE routing: 0 = dense-then-mask (exact; every expert runs every
+    # token); > 0 = capacity dispatch, each expert runs C = ceil(N * top_k
+    # / E * factor) tokens and slots beyond C drop
+    moe_capacity_factor: float = 0.0
+
+    def __post_init__(self):
+        if self.packed_kinds is None:
+            self.packed_kinds = {k: "w4a16" for k in self.packed}
 
     @classmethod
     def from_quantize_result(cls, result: QuantizeResult,
                              cfg: llama.LlamaConfig, max_seq: int = 2048,
                              kv_quant: Optional[str] = None,
-                             device=None) -> "QuantizedLlama":
-        """Derive int4 codes from each layer's qdq and scale (exactly the
-        JAX engine's codes), pack them in the port's layout and fuse
-        q/k/v and gate/up.  Layers whose shapes the kernel cannot take
-        serve their dense qdq weights (as in the JAX engine)."""
+                             device=None, moe_capacity_factor: float = 0.0
+                             ) -> "QuantizedLlama":
+        """Derive int4 codes from each layer's qdq, scale and zero point
+        (exactly the JAX engine's codes), pack them in the port's layout,
+        stack the experts of MoE blocks and fuse q/k/v and gate/up.
+        Layers whose scheme has no packed path or whose shapes the kernel
+        cannot take serve their dense qdq weights (as in the JAX engine);
+        a scheme served by a kernel not ported yet raises."""
         if kv_quant not in (None, "int8"):
             raise NotImplementedError(
                 f"kv_quant={kv_quant!r} is not ported yet (None or 'int8')")
         dev = resolve_device(device)
-        params = {k: v for k, v in result.params.items() if k != "blocks"}
-        params["blocks"] = [dict(b) for b in result.params["blocks"]]
-        packed: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        params = dict(result.params)
+        params["blocks"] = list(result.params["blocks"])
+        packed: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        kinds: Dict[str, str] = {}
         dense = 0
         for name, ql in result.layers.items():
             s = ql.scheme
-            if not _is_w4a16(s):
-                raise NotImplementedError(
-                    f"{name}: scheme w{s.bits}a{s.act_bits} (sym={s.sym}, "
-                    f"group_size={s.group_size}) needs a packed kernel not "
-                    f"ported yet (ROADMAP A10); this slice serves w4a16")
+            try:
+                kind = _serving_kind(s)
+            except NotImplementedError as e:
+                raise NotImplementedError(f"{name}: {e}") from None
             O, K = ql.qdq.shape
-            g = s.group_size
-            if g % 32 or K % g:
+            g = s.group_size if isinstance(s.group_size, int) else 0
+            if (kind is None or g <= 0 or g % 32 or K % g
+                    or (kind == "w4a16_asym" and ql.zp is None)):
                 dense += 1
                 continue
-            codes = w4_codes_from_qdq(ql.qdq.to(dev), ql.scale.to(dev), g)
-            packed[name] = (pack_w4(codes),
-                            ql.scale.to(device=dev, dtype=torch.float32)
-                            .contiguous())
+            scale = ql.scale.to(device=dev, dtype=torch.float32).contiguous()
+            if kind == "w4a16_asym":
+                zp = ql.zp.to(device=dev, dtype=torch.float32).contiguous()
+                codes = w4_asym_codes_from_qdq(ql.qdq.to(dev), scale, zp, g)
+                packed[name] = (pack_w4(codes), scale, zp)
+            else:
+                codes = w4_codes_from_qdq(ql.qdq.to(dev), scale, g)
+                packed[name] = (pack_w4(codes), scale)
             del codes
+            kinds[name] = kind
+            # drop the dense copy (dotted paths reach MoE expert leaves)
             parts = name.split(".", 2)
             if parts[0] == "blocks":
-                params["blocks"][int(parts[1])][parts[2]] = None
+                bi = int(parts[1])
+                params["blocks"][bi] = set_by_path(params["blocks"][bi],
+                                                   parts[2], None)
             elif name == "lm_head" and params.get("lm_head") is not None:
                 params["lm_head"] = None
         if dense:
             logger.warning("serving engine: %d quantized layer(s) serve as "
                            "dense qdq weights (no packed kernel)", dense)
-
-        def to_dev(t):
-            return None if t is None else t.to(dev)
-
-        params = {k: (to_dev(v) if k != "blocks"
-                      else [{n: to_dev(w) for n, w in b.items()} for b in v])
-                  for k, v in params.items()}
-        fused, splits = _fuse_packed(packed, cfg)
+        params = tree_map(lambda t: t.to(dev), params)
+        packed, kinds = _stack_experts(packed, kinds, cfg)
+        fused, splits, kinds = _fuse_packed(packed, cfg, kinds)
         return cls(cfg=cfg, params=params, packed=fused, max_seq=max_seq,
-                   kv_quant=kv_quant, fused_splits=splits, device=dev)
+                   kv_quant=kv_quant, fused_splits=splits, device=dev,
+                   packed_kinds=kinds,
+                   moe_capacity_factor=moe_capacity_factor)
 
     @torch.no_grad()
     def prefill(self, input_ids) -> Tuple[torch.Tensor, KVCache]:
         """Run the prompt (B, S), return (logits of the last position
         (B, V), cache)."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
-        return _prefill_core(self.params, self.packed, self.fused_splits,
-                             ids, cfg=self.cfg, max_seq=self.max_seq,
-                             kv_quant=self.kv_quant)
+        return _prefill_core(self.params, self.packed, self.packed_kinds,
+                             self.fused_splits, ids, cfg=self.cfg,
+                             max_seq=self.max_seq, kv_quant=self.kv_quant,
+                             moe_capacity_factor=self.moe_capacity_factor)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, cache: KVCache
                     ) -> Tuple[torch.Tensor, KVCache]:
         """One token for the whole batch: token (B,) → (logits (B, V),
         cache).  The cache buffers are updated in place."""
-        return _decode_core(self.params, self.packed, self.fused_splits,
-                            token.to(self.device), cache, cfg=self.cfg,
-                            kv_quant=self.kv_quant)
+        return _decode_core(self.params, self.packed, self.packed_kinds,
+                            self.fused_splits, token.to(self.device), cache,
+                            cfg=self.cfg, kv_quant=self.kv_quant,
+                            moe_capacity_factor=self.moe_capacity_factor)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  sampling: Optional[SamplingParams] = None) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
-``config_from_jax`` the JAX ``LlamaConfig``'s fields as a dict
+``config_from_jax`` the JAX ``LlamaConfig``'s or ``MixtralConfig``'s fields
+as a dict
 (``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
 JAX package: both sides then compute on the same weights.
 ``tune_params_from_jax`` carries a tuned state the same way, and
@@ -19,6 +20,7 @@ import torch
 
 from .._device import resolve_device
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
+from ..models.mixtral import MixtralConfig
 
 __all__ = ["params_from_jax", "config_from_jax", "tune_params_from_jax",
            "quantize_result_to_numpy"]
@@ -62,21 +64,24 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
 
 
 def config_from_jax(fields: Mapping[str, Any]) -> LlamaConfig:
-    """JAX ``LlamaConfig`` fields → the port's ``LlamaConfig``.  Raises
-    ``NotImplementedError`` for a config that sets a flag this slice does
-    not port (sliding windows, local rope, chunked attention, online R4)."""
+    """JAX config fields → the port's config: a ``MixtralConfig`` when the
+    fields hold ``num_experts``, else a ``LlamaConfig``.  Raises
+    ``NotImplementedError`` for a config that sets a flag the port does not
+    implement (sliding windows, local rope, chunked attention, online R4;
+    ``qk_norm`` outside the Mixtral family)."""
+    cls = MixtralConfig if "num_experts" in fields else LlamaConfig
+    known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():
-        if name in fields and fields[name] != off:
+        if name in fields and name not in known and fields[name] != off:
             raise NotImplementedError(
-                f"LlamaConfig.{name}={fields[name]!r} is not ported yet")
-    known = LlamaConfig.__dataclass_fields__
+                f"{cls.__name__}.{name}={fields[name]!r} is not ported yet")
     kw: Dict[str, Any] = {k: v for k, v in fields.items()
                           if k in known and k != "dtype"}
     if kw.get("rope_llama3") is not None:
         kw["rope_llama3"] = tuple(kw["rope_llama3"])
     if "dtype" in fields:
         kw["dtype"] = _torch_dtype(fields["dtype"])
-    return LlamaConfig(**kw)
+    return cls(**kw)
 
 
 def tune_params_from_jax(tree: Mapping[str, Mapping[str, Any]],

@@ -21,25 +21,28 @@ def get_by_path(tree: Any, path: str) -> Any:
     return node
 
 
+def _set(node: Any, parts, i: int, value: Any) -> Any:
+    if i == len(parts):
+        return value
+    p = parts[i]
+    if isinstance(node, (list, tuple)):
+        new = list(node)
+        new[int(p)] = _set(node[int(p)], parts, i + 1, value)
+        return new if isinstance(node, list) else tuple(new)
+    new = dict(node)
+    # a missing FINAL key is created; missing intermediates stay errors
+    new[p] = _set(node.get(p) if i == len(parts) - 1 else node[p], parts,
+                  i + 1, value)
+    return new
+
+
 def set_by_path(tree: Any, path: str, value: Any) -> Any:
     """Functional set: returns a copy of ``tree`` with ``path`` replaced
-    (shares unmodified branches)."""
-    parts = path.split(".")
-
-    def rec(node, i):
-        if i == len(parts):
-            return value
-        p = parts[i]
-        if isinstance(node, (list, tuple)):
-            new = list(node)
-            new[int(p)] = rec(node[int(p)], i + 1)
-            return new if isinstance(node, list) else tuple(new)
-        new = dict(node)
-        # a missing FINAL key is created; missing intermediates stay errors
-        new[p] = rec(node.get(p) if i == len(parts) - 1 else node[p], i + 1)
-        return new
-
-    return rec(tree, 0)
+    (shares unmodified branches).  The recursion is a module-level function,
+    not a closure over ``value``: a closure that calls itself is a
+    reference cycle, which would keep ``value`` (a weight-sized tensor and,
+    under autograd, its graph) alive until the cyclic collector runs."""
+    return _set(tree, path.split("."), 0, value)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -10,8 +10,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
              nvcc per source, in parallel); print the seconds and the
              compiler's register / spill report.
-2. kernels — run each of the five kernels (flash forward, flash backward
-             dQ and dK/dV, W4A16 matmul, int8-KV decode attention) at the
+2. kernels — run each of the seven kernels (flash forward, flash backward
+             dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym W4A16
+             matmul, int8-KV decode attention) at the
              main paths' shapes against its plain PyTorch version on the
              card (bf16), check the stated tolerance (and, for the
              backward pair, that two launches give the same bits), and
@@ -43,12 +44,33 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              before and read just after; each must equal what the loop
              implies.  Every loss must be finite and no block's best loss
              above its first.
-6. report  — the card's name and power limit (nvidia-smi), a JSON line of
+6. moe     — the MoE path at the full width of ``mixtral-8x7b`` (8 experts
+             of 4096 x 14336, top-2; random weights from a seeded
+             generator; ``--moe-layers`` of the 32 blocks, because 32
+             blocks in bf16 are more than the card holds): RTN W4A16 g128
+             → ``from_quantize_result`` (experts stacked) → ``generate``
+             for 8 prompts of 512 tokens, 32 new tokens, int8 KV,
+             dense-then-mask routing; launch counts must equal what the
+             loops imply (grouped kernel: 3 per block per forward).  Then
+             the same engine with ``moe_capacity_factor = E / top_k``
+             (nothing can drop): its prefill logits must agree with the
+             default route's.  Then timings, a profile, and a 2-layer copy
+             run once through the kernels and once through their plain
+             versions, both on the card.
+7. moe tune — one tuning step of one full-width Mixtral block timed and
+             profiled, then SignRound (``iters=20``) on ``--moe-tune-layers``
+             full-width blocks (dense-then-mask: every expert sees every
+             token) → the same engine → ``generate``; every tuned block's
+             best loss must be below its first.
+8. asym    — ``llama3-8b`` width, ``--asym-layers`` layers, int4 asym g128
+             RTN → the ``w4a16_asym`` engine → ``generate``; launch counts
+             checked; 2-layer copy against the plain versions.
+9. report  — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
-``--rtn-layers N`` and ``--tune-layers N`` cut the depth of the two paths
-for a quicker run; with no arguments both run all 32 layers.
+``--rtn-layers``, ``--tune-layers``, ``--moe-layers``, ``--moe-tune-layers``
+and ``--asym-layers`` cut the depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -57,7 +79,9 @@ checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import logging
 import statistics
@@ -83,6 +107,9 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100": (3.35e12, 989e12)}
 # attention 0.0072; PERF.md).
 ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
            "decode_attention": 0.025,
+           # the tile bodies of w4a16_matmul with an expert grid axis / a
+           # zero point: the same limit
+           "w4a16_matmul_grouped": 0.1, "w4a16_asym_matmul": 0.1,
            # backward pair vs flash_attention_bwd_plain: measured worst rows
            # dQ 0.027, dK / dV 0.023 (S = T = 512 and S = 256, T = 512)
            "flash_attention_bwd_dq": 0.07, "flash_attention_bwd_dkv": 0.07}
@@ -95,9 +122,16 @@ LSE_ATOL = 1e-5          # lse is fp32 on both sides (~1e-6 measured)
 # anchor (top-left instead of bottom-right) gives row errors of order 10
 LIB_ROW_TOL = 0.1
 # step-1 logits of the 2-layer engine copy, kernels on the card vs plain
-# versions on the CPU (bf16 activations through 2 blocks and the lm_head);
-# same row measure, about 3x the measured error (0.049)
+# versions (on the CPU, or on the card for the MoE and asym paths; bf16
+# activations through 2 blocks and the lm_head); same row measure, about
+# 3x the measured error (0.049, llama3-8b W4A16)
 COPY_ROW_TOL = 0.15
+# the same for a MoE engine: besides the rounding above, a top-2 near-tie of
+# the router (random weights: near-uniform probabilities) may fall the other
+# way under the kernels' and the plain versions' different bf16 roundings,
+# and such a token's row moves as a whole; measured 0.085 and 0.107 with two
+# sets of weights on an H100, limit about 3x
+MOE_COPY_ROW_TOL = 0.3
 
 
 def log(*a):
@@ -160,9 +194,11 @@ def kernel_phase(timer, bw, flops_peak):
     from autoround_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_plain, flash_attention_plain)
-    from autoround_tpu_torch.ops.qmatmul import (pack_w4, unpack_w4,
-                                                 w4a16_matmul,
-                                                 w4a16_matmul_plain)
+    from autoround_tpu_torch.ops.qmatmul import (
+        pack_w4, unpack_w4, w4a16_matmul, w4a16_matmul_grouped,
+        w4a16_matmul_grouped_plain, w4a16_matmul_plain)
+    from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul,
+                                                     w4a16_asym_matmul_plain)
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
@@ -336,6 +372,105 @@ def kernel_phase(timer, bw, flops_peak):
         del qw, sc, x, y
         torch.cuda.empty_cache()
 
+    # K4 grouped W4A16 (mixtral-8x7b experts, E = 8): decode C = 8 and
+    # prefill C = 4096 for w1/w3 (K, O) = (4096, 14336), where dense-then-
+    # mask routing hands all experts one shared slab (expert stride 0), and
+    # for w2 (14336, 4096) on contiguous slabs; one ragged case (C = 5, O
+    # not a multiple of any tile, the first C rows of a taller buffer, as
+    # capacity dispatch hands it over)
+    E = 8
+    for (C, K, O, name, layout) in [
+            (8, 4096, 14336, "w1", "shared"),
+            (8, 14336, 4096, "w2", "contiguous"),
+            (4096, 4096, 14336, "w1", "shared"),
+            (4096, 14336, 4096, "w2", "contiguous"),
+            (5, 4096, 1000, "ragged", "slice")]:
+        qw = torch.stack([pack_w4(torch.randint(
+            0, 16, (O, K), generator=g, device=dev)) for _ in range(E)])
+        sc = (torch.rand(E, O, K // 128, generator=g, device=dev) - 0.5) * 0.02
+        if layout == "shared":
+            x = torch.randn(C, K, generator=g, device=dev).bfloat16() \
+                .expand(E, C, K)
+        elif layout == "slice":
+            x = torch.randn(E, C + 1, K, generator=g,
+                            device=dev).bfloat16()[:, :C]
+        else:
+            x = torch.randn(E, C, K, generator=g, device=dev).bfloat16()
+        y = w4a16_matmul_grouped(x, qw, sc, 128)
+        yp = w4a16_matmul_grouped_plain(x, qw, sc, 128)
+        torch.cuda.synchronize()
+        err, rel = row_err(y, yp)
+        del yp
+        tol = ROW_TOL["w4a16_matmul_grouped"]
+        check(rel <= tol, f"grouped C={C} O={O} K={K}: row err {rel}")
+        ms = timer(lambda: w4a16_matmul_grouped(x, qw, sc, 128))
+        plain_ms = timer(lambda: w4a16_matmul_grouped_plain(x, qw, sc, 128))
+        w_bf16 = torch.stack([
+            ((unpack_w4(qw[e]) - 8).float()
+             * sc[e].repeat_interleave(128, dim=1)).bfloat16()
+            for e in range(E)])
+        lib_ms = timer(lambda: torch.bmm(x, w_bf16.transpose(1, 2)))
+        del w_bf16
+        x_slabs = 1 if layout == "shared" else E
+        nbytes = (2 * x_slabs * C * K + E * O * K // 2 + 4 * sc.numel()
+                  + 2 * E * C * O)
+        b_ms, b_by = bound(nbytes, 2 * E * C * O * K)
+        shape = f"{name} E={E} C={C} O={O} K={K} g=128 x {layout}"
+        log(f"kernel w4a16_matmul_grouped [{shape}] max_abs_err={err:.3g} "
+            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        if C == 8 and name == "w1":
+            rows["w4a16_matmul_grouped"] = dict(
+                name="w4a16_matmul_grouped", route="cuda",
+                source="autoround_tpu_torch/csrc/w4a16_matmul_grouped.cu",
+                replaces="autoround_tpu/ops/qmatmul.py:280",
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del qw, sc, x, y
+        torch.cuda.empty_cache()
+
+    # K5 asym W4A16: the llama3-8b projections of K2, fractional zero points
+    for (M, O, K, name) in [(8, 6144, 4096, "qkv"),
+                            (8, 4096, 14336, "down_proj"),
+                            (8, 128256, 4096, "lm_head"),
+                            (4096, 6144, 4096, "qkv"),
+                            (4096, 4096, 14336, "down_proj"),
+                            (4096, 128256, 4096, "lm_head")]:
+        qw = pack_w4(torch.randint(0, 16, (O, K), generator=g, device=dev))
+        sc = torch.rand(O, K // 128, generator=g, device=dev) * 0.01 + 0.002
+        zp = torch.rand(O, K // 128, generator=g, device=dev) * 15
+        x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+        y = w4a16_asym_matmul(x, qw, sc, zp, 128)
+        yp = w4a16_asym_matmul_plain(x, qw, sc, zp, 128)
+        torch.cuda.synchronize()
+        err, rel = row_err(y, yp)
+        del yp
+        tol = ROW_TOL["w4a16_asym_matmul"]
+        check(rel <= tol, f"asym M={M} O={O} K={K}: row err {rel}")
+        ms = timer(lambda: w4a16_asym_matmul(x, qw, sc, zp, 128))
+        plain_ms = timer(lambda: w4a16_asym_matmul_plain(x, qw, sc, zp, 128))
+        w_bf16 = ((unpack_w4(qw).float() - zp.repeat_interleave(128, dim=1))
+                  * sc.repeat_interleave(128, dim=1)).bfloat16()
+        lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+        del w_bf16
+        nbytes = 2 * M * K + O * K // 2 + 8 * sc.numel() + 2 * M * O
+        b_ms, b_by = bound(nbytes, 2 * M * O * K)
+        shape = f"{name} M={M} O={O} K={K} g=128 fractional zp"
+        log(f"kernel w4a16_asym_matmul [{shape}] max_abs_err={err:.3g} "
+            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        if M == 8 and name == "qkv":
+            rows["w4a16_asym_matmul"] = dict(
+                name="w4a16_asym_matmul", route="cuda",
+                source="autoround_tpu_torch/csrc/w4a16_asym_matmul.cu",
+                replaces="autoround_tpu/ops/qmatmul_ext.py:162",
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del qw, sc, zp, x, y
+        torch.cuda.empty_cache()
+
     # K3 int8-KV decode attention: B=8, T=1024, G=4 (llama3-8b heads)
     B, T, nkv, G = 8, 1024, 8, 4
     nh = nkv * G
@@ -401,22 +536,26 @@ def copy_engine(eng, n_layers, device):
     import dataclasses
 
     from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.utils.pytree import tree_map
 
     cfg = dataclasses.replace(eng.cfg, num_layers=n_layers)
 
     def mv(t):
-        return None if t is None else t.to(device)
+        return t.to(device)
 
-    params = {k: mv(v) for k, v in eng.params.items() if k != "blocks"}
-    params["blocks"] = [{k: mv(v) for k, v in b.items()}
-                        for b in eng.params["blocks"][:n_layers]]
+    params = tree_map(mv, {k: v for k, v in eng.params.items()
+                           if k != "blocks"})
+    params["blocks"] = tree_map(mv, eng.params["blocks"][:n_layers])
     keep = {f"blocks.{i}." for i in range(n_layers)}
     packed = {k: tuple(mv(t) for t in e) for k, e in eng.packed.items()
               if k == "lm_head" or any(k.startswith(p) for p in keep)}
     return QuantizedLlama(cfg=cfg, params=params, packed=packed,
                           max_seq=eng.max_seq, kv_quant=eng.kv_quant,
                           fused_splits=eng.fused_splits,
-                          device=torch.device(device))
+                          device=torch.device(device),
+                          packed_kinds={k: eng.packed_kinds[k]
+                                        for k in packed},
+                          moe_capacity_factor=eng.moe_capacity_factor)
 
 
 def _kernel_times(prof):
@@ -472,20 +611,28 @@ def serve_bounds(eng, B, S, bw, flops_peak):
     for the first decode step after it (pos = S): the larger of bytes over
     bandwidth and FLOPs over the bf16 peak.  Prefill FLOPs: every block
     weight for all B*S tokens, the lm_head for the last position only (the
-    engine runs it there alone), causal attention.  Bytes: the packed
+    engine runs it there alone), causal attention; a MoE block counts
+    all its experts for every token (dense-then-mask routing, which is what
+    the engine runs by default) and the router.  Bytes: the packed
     weights and scales and the dense leaves once, the embedding rows
     used, the int8 cache written (prefill) or read up to pos (decode)."""
+    from autoround_tpu_torch.utils.pytree import tree_map
+
     cfg = eng.cfg
     L, hid, hd, V = cfg.num_layers, cfg.hidden_size, cfg.hd, cfg.vocab_size
     H, Hkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
-    w_block = hid * (H + 2 * Hkv) * hd + H * hd * hid + 3 * hid * inter
+    n_exp = getattr(cfg, "num_experts", 0)
+    w_block = (hid * (H + 2 * Hkv) * hd + H * hd * hid
+               + max(n_exp, 1) * 3 * hid * inter + n_exp * hid)
 
     def nbytes(t):
         return 0 if t is None else t.numel() * t.element_size()
     w_bytes = sum(nbytes(t) for e in eng.packed.values() for t in e)
     w_bytes += sum(nbytes(t) for k, t in eng.params.items()
                    if k not in ("blocks", "embed_tokens"))
-    w_bytes += sum(nbytes(t) for b in eng.params["blocks"] for t in b.values())
+    leaves = []
+    tree_map(leaves.append, eng.params["blocks"])
+    w_bytes += sum(nbytes(t) for t in leaves)
     row = hid * eng.params["embed_tokens"].element_size()
     kv_tok = 2 * L * B * Hkv * hd            # int8 k and v of one position
     pre_flops = (2 * B * S * w_block * L + 2 * B * hid * V
@@ -501,13 +648,127 @@ def _kernel_fns():
     from autoround_tpu_torch.ops.decode_attention import decode_attention
     from autoround_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
-    from autoround_tpu_torch.ops.qmatmul import w4a16_matmul
+    from autoround_tpu_torch.ops.qmatmul import (w4a16_matmul,
+                                                 w4a16_matmul_grouped)
+    from autoround_tpu_torch.ops.qmatmul_ext import w4a16_asym_matmul
 
     return {"flash_attention": flash_attention,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "w4a16_matmul": w4a16_matmul,
+            "w4a16_matmul_grouped": w4a16_matmul_grouped,
+            "w4a16_asym_matmul": w4a16_asym_matmul,
             "decode_attention": decode_attention}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the block, every kernel wrapper the engine and the model call
+    is its plain PyTorch version (on whatever device the tensors lie)."""
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.ops.decode_attention import decode_attention_plain
+    from autoround_tpu_torch.ops.flash_attention import flash_attention_plain
+    from autoround_tpu_torch.ops.qmatmul import (w4a16_matmul_grouped_plain,
+                                                 w4a16_matmul_plain)
+    from autoround_tpu_torch.ops.qmatmul_ext import w4a16_asym_matmul_plain
+    from autoround_tpu_torch.serve import engine
+
+    patches = [
+        (llama, "flash_attention",
+         lambda q, k, v, causal=True: flash_attention_plain(q, k, v, causal)),
+        (engine, "decode_attention", decode_attention_plain),
+        (engine, "w4a16_matmul", w4a16_matmul_plain),
+        (engine, "w4a16_matmul_grouped", w4a16_matmul_grouped_plain),
+        (engine, "w4a16_asym_matmul", w4a16_asym_matmul_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def time_serving(eng, prompts, n_new, bw, flops_peak):
+    """Time one prefill and the decode steps after it, print them beside
+    their bounds and a profile; returns (prefill ms, median step ms)."""
+    B, S = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, cache = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.time() - t0) * 1e3
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    tok = logits.argmax(-1).to(torch.int32)
+    steps = []
+    for _ in range(n_new - 1):
+        t0 = time.time()
+        logits, cache = eng.decode_step(tok, cache)
+        torch.cuda.synchronize()
+        steps.append((time.time() - t0) * 1e3)
+        tok = logits.argmax(-1).to(torch.int32)
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    step_ms = statistics.median(steps)
+    log(f"serve: prefill_ms={prefill_ms:.2f} (B={B} S={S}) "
+        f"decode_step_ms_median={step_ms:.3f} "
+        f"decode_tok_s={B / step_ms * 1e3:.1f} "
+        f"(steps {min(steps):.3f}..{max(steps):.3f} ms)")
+    pre_bound, step_bound = serve_bounds(eng, B, S, bw, flops_peak)
+    log(f"serve bounds: prefill_bound_ms={pre_bound:.3f} (FLOPs) "
+        f"decode_step_bound_ms={step_bound:.4f} (bytes, pos={S})")
+    del cache, logits
+    profile_serving(eng, prompts, prefill_ms, step_ms)
+    return prefill_ms, step_ms
+
+
+def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL):
+    """A 2-layer copy of the engine, 2 prompts, 8 greedy tokens: once through
+    the kernels on the card, once through the plain versions — on the CPU
+    (``reference="cpu"``) or, where the CPU would take minutes (MoE: every
+    step dequantizes 2 x 24 expert matrices), on the card
+    (``reference="card"``).  Step-1 logits must agree within ``tol`` and
+    the greedy tokens must match."""
+    p2 = prompts[:2]
+    gpu = copy_engine(eng, 2, "cuda")
+    lg_gpu, _ = gpu.prefill(p2)
+    tok_gpu = gpu.generate(p2, max_new_tokens=8).cpu()
+    ref = gpu if reference == "card" else copy_engine(eng, 2, "cpu")
+    t0 = time.time()
+    with plain_versions() if reference == "card" \
+            else contextlib.nullcontext():
+        logits, cache = ref.prefill(p2)
+        ref_logits = [logits.cpu()]
+        tok_ref = [logits.argmax(-1).to(torch.int32)]
+        for _ in range(7):
+            logits, cache = ref.decode_step(tok_ref[-1], cache)
+            ref_logits.append(logits.cpu())
+            tok_ref.append(logits.argmax(-1).to(torch.int32))
+    tok_ref = torch.stack(tok_ref, 1).cpu()
+    t_ref = time.time() - t0
+    err, rel = row_err(lg_gpu.cpu(), ref_logits[0])
+    log(f"2-layer copy (plain versions on the {reference}): step-1 logits "
+        f"max_abs_err={err:.4g} row_err={rel:.4g} (tol {tol}) "
+        f"reference_s={t_ref:.1f}")
+    check(rel <= tol, "2-layer copy: step-1 logits disagree")
+    # greedy tokens: equal step by step; at the first step where they
+    # differ (if any), the card's token must be a near-tie of the plain
+    # choice — within the row tolerance of the plain maximum — and the
+    # comparison stops there (the two sequences' contexts diverge)
+    n_equal = 0
+    for i, lg in enumerate(ref_logits):
+        if torch.equal(tok_gpu[:, i], tok_ref[:, i]):
+            n_equal = i + 1
+            continue
+        lg = lg.float()
+        picked = lg.gather(1, tok_gpu[:, i:i + 1].long())[:, 0]
+        gap = (lg.max(-1).values - picked) / lg.pow(2).mean(-1).sqrt()
+        check(gap.max().item() <= tol,
+              f"2-layer copy: step {i} card token is {gap.tolist()} row "
+              f"RMS below the plain maximum (tol {tol})")
+        break
+    log(f"2-layer copy tokens: kernels {tok_gpu.tolist()} plain "
+        f"{tok_ref.tolist()} equal for {n_equal} of {len(ref_logits)} steps")
 
 
 def rtn_path(bw, flops_peak, n_layers):
@@ -562,73 +823,8 @@ def rtn_path(bw, flops_peak, n_layers):
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "tokens out of range")
 
-    # timing of the same path: prefill, then decode steps
-    torch.cuda.synchronize()
-    t0 = time.time()
-    logits, cache = eng.prefill(prompts)
-    torch.cuda.synchronize()
-    prefill_ms = (time.time() - t0) * 1e3
-    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    tok = logits.argmax(-1).to(torch.int32)
-    steps = []
-    for _ in range(NEW - 1):
-        t0 = time.time()
-        logits, cache = eng.decode_step(tok, cache)
-        torch.cuda.synchronize()
-        steps.append((time.time() - t0) * 1e3)
-        tok = logits.argmax(-1).to(torch.int32)
-    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
-    step_ms = statistics.median(steps)
-    log(f"serve: prefill_ms={prefill_ms:.2f} (B={B} S={S}) "
-        f"decode_step_ms_median={step_ms:.3f} "
-        f"decode_tok_s={B / step_ms * 1e3:.1f} "
-        f"(steps {min(steps):.3f}..{max(steps):.3f} ms)")
-    pre_bound, step_bound = serve_bounds(eng, B, S, bw, flops_peak)
-    log(f"serve bounds: prefill_bound_ms={pre_bound:.3f} (FLOPs) "
-        f"decode_step_bound_ms={step_bound:.4f} (bytes, pos={S})")
-    del cache, logits
-    profile_serving(eng, prompts, prefill_ms, step_ms)
-
-    # 2-layer copy: kernels on the card vs plain versions on the CPU
-    n_cmp = 2
-    p2 = prompts[:n_cmp]
-    gpu = copy_engine(eng, 2, "cuda")
-    lg_gpu, _ = gpu.prefill(p2)
-    tok_gpu = gpu.generate(p2, max_new_tokens=8).cpu()
-    cpu = copy_engine(eng, 2, "cpu")
-    t0 = time.time()
-    lg_cpu, cache = cpu.prefill(p2)
-    logits = lg_cpu
-    ref_logits = [logits]
-    tok_cpu = [logits.argmax(-1).to(torch.int32)]
-    for _ in range(7):
-        logits, cache = cpu.decode_step(tok_cpu[-1], cache)
-        ref_logits.append(logits)
-        tok_cpu.append(logits.argmax(-1).to(torch.int32))
-    tok_cpu = torch.stack(tok_cpu, 1)
-    t_cpu = time.time() - t0
-    err, rel = row_err(lg_gpu.cpu(), lg_cpu)
-    log(f"2-layer copy: step-1 logits max_abs_err={err:.4g} row_err="
-        f"{rel:.4g} (tol {COPY_ROW_TOL}) cpu_s={t_cpu:.1f}")
-    check(rel <= COPY_ROW_TOL, "2-layer copy: step-1 logits disagree")
-    # greedy tokens: equal step by step; at the first step where they
-    # differ (if any), the card's token must be a near-tie of the plain
-    # choice — within the row tolerance of the CPU maximum — and the
-    # comparison stops there (the two sequences' contexts diverge)
-    n_equal = 0
-    for i, lg in enumerate(ref_logits):
-        if torch.equal(tok_gpu[:, i], tok_cpu[:, i]):
-            n_equal = i + 1
-            continue
-        lg = lg.float()
-        picked = lg.gather(1, tok_gpu[:, i:i + 1].long())[:, 0]
-        gap = (lg.max(-1).values - picked) / lg.pow(2).mean(-1).sqrt()
-        check(gap.max().item() <= COPY_ROW_TOL,
-              f"2-layer copy: step {i} card token is {gap.tolist()} row "
-              f"RMS below the plain maximum (tol {COPY_ROW_TOL})")
-        break
-    log(f"2-layer copy tokens: card {tok_gpu.tolist()} cpu {tok_cpu.tolist()}"
-        f" equal for {n_equal} of {len(ref_logits)} steps")
+    prefill_ms, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
+    check_copy(eng, prompts, "cpu")
     return launches, dict(quantize_s=t_quant, prefill_ms=prefill_ms,
                           decode_step_ms=step_ms, peak_mem_gb=peak_gb)
 
@@ -872,12 +1068,360 @@ def tune_path(n_layers):
     return launches
 
 
+# Prefill logits (last position, 8 prompts) of the MoE engine through capacity
+# dispatch with factor E / top_k (C = N, nothing drops) against the default
+# dense-then-mask route.  The grouped kernel gives a token's row the same
+# bits in whatever slab and row it sits, and the two routes share one
+# combine, so the logits are expected to be equal; the limit is far below
+# what a wrong dispatch gives (a token sent to another expert, dropped or
+# weighted wrongly moves its row by order 1) and leaves room for one bf16
+# ulp.  (With another summation order in the combine alone, last-bit
+# differences in fp32 flip top-k near-ties of the random router in later
+# blocks and the row error grows with depth: 0.025 at 2 blocks, 0.061 at 6,
+# measured on an H100.)  Same row measure as above.
+CAPACITY_ROW_TOL = 0.01
+
+
+def _serve_counts(n_layers, forwards, decode_steps, per_block, head=True):
+    """Launches an RTN run on one calibration batch and one ``generate``
+    imply: ``per_block`` packed projections per block per forward (+ the
+    lm_head), flash once per block in the calibration forward and once in
+    prefill, decode attention once per block per decode step."""
+    return dict(matmul=(per_block * n_layers + (1 if head else 0)) * forwards,
+                flash_attention=2 * n_layers,
+                decode_attention=n_layers * decode_steps)
+
+
+def _check_tokens(toks, B, n_new, vocab):
+    check(toks.shape == (B, n_new), f"tokens shape {tuple(toks.shape)}")
+    check(bool(((toks >= 0) & (toks < vocab)).all()), "tokens out of range")
+
+
+def moe_path(bw, flops_peak, n_layers):
+    """RTN → stack → serve at mixtral-8x7b width; returns the launches."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import mixtral
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(mixtral.CONFIG_PRESETS["mixtral-8x7b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ = 8, 512, 32, 1024
+    ids_gen = torch.Generator().manual_seed(4)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+
+    def stage_peak():
+        """Peak memory since the last call, in GB."""
+        gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        return gb
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=0,
+                   quant_lm_head=True, donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    peaks_gb = {"quantize": stage_peak()}
+    check(len(result.layers) == n_layers * (4 + 3 * cfg.num_experts) + 1,
+          f"moe path: {len(result.layers)} quantized layers")
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    del ar, result
+    torch.cuda.synchronize()
+    t_pack = time.time() - t0
+    peaks_gb["pack"] = stage_peak()
+    for i in range(n_layers):
+        stacked = sorted(k for k in eng.packed
+                         if k.startswith(f"blocks.{i}.experts_stack."))
+        check(stacked == [f"blocks.{i}.experts_stack.w{j}" for j in (1, 2, 3)],
+              f"moe path: block {i} stacked {stacked}")
+    check(not any(".experts." in k for k in eng.packed),
+          "moe path: a per-expert entry is left beside the stacks")
+    check(eng.moe_capacity_factor == 0.0, "moe path: default routing")
+    t0 = time.time()
+    toks = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peaks_gb["generate"] = stage_peak()
+    torch.cuda.empty_cache()
+    log(f"moe path mixtral-8x7b ({n_layers} of 32 layers, random weights, "
+        f"E={cfg.num_experts} top_k={cfg.top_k}): init_s={t_init:.2f} "
+        f"quantize_s={t_quant:.2f} pack_s={t_pack:.2f} "
+        f"generate_s={t_gen:.2f} peak_mem_gb={max(peaks_gb.values()):.2f} "
+        f"(by stage {json.dumps({k: round(v, 2) for k, v in peaks_gb.items()})}) "
+        f"resident_after_pack_gb={torch.cuda.memory_allocated() / 1e9:.2f}")
+    log(f"moe path kernels {json.dumps(launches)}")
+    # per block and forward: qkv + o_proj through the ungrouped kernel,
+    # w1 / w3 / w2 of all experts through 3 grouped launches
+    want = _serve_counts(n_layers, NEW, NEW - 1, per_block=2)
+    want["w4a16_matmul"] = want.pop("matmul")
+    want["w4a16_matmul_grouped"] = 3 * n_layers * NEW
+    want.update(w4a16_asym_matmul=0, flash_attention_bwd_dq=0,
+                flash_attention_bwd_dkv=0)
+    for n, c in want.items():
+        check(launches[n] == c, f"moe path: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+
+    # capacity dispatch with C = N on the same packed weights
+    factor = cfg.num_experts / cfg.top_k
+    cap = dataclasses.replace(eng, moe_capacity_factor=factor)
+    before = kernels["w4a16_matmul_grouped"].launches
+    lg_dense, _ = eng.prefill(prompts)
+    lg_cap, _ = cap.prefill(prompts)
+    torch.cuda.synchronize()
+    check(kernels["w4a16_matmul_grouped"].launches - before
+          == 2 * 3 * n_layers, "moe path: capacity route left the grouped "
+          "kernel")
+    err, rel = row_err(lg_cap, lg_dense)
+    log(f"moe capacity route (factor {factor}, C = N = {B * S}): prefill "
+        f"logits vs dense-then-mask max_abs_err={err:.4g} row_err={rel:.4g} "
+        f"(tol {CAPACITY_ROW_TOL}), argmax equal "
+        f"{int((lg_cap.argmax(-1) == lg_dense.argmax(-1)).sum())} of {B}")
+    check(bool(torch.isfinite(lg_cap).all()) and rel <= CAPACITY_ROW_TOL,
+          "moe path: capacity-route logits disagree with the default route")
+    t0 = time.time()
+    cap.prefill(prompts)
+    torch.cuda.synchronize()
+    log(f"moe capacity route: prefill_ms={(time.time() - t0) * 1e3:.2f}")
+    del cap, lg_dense, lg_cap
+
+    time_serving(eng, prompts, NEW, bw, flops_peak)
+    check_copy(eng, prompts, "card", MOE_COPY_ROW_TOL)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_tuning_step(bw, flops_peak):
+    """Time, peak memory and profile of one SignRound step on one full-width
+    Mixtral block (4 + 3 x 8 linears, dense-then-mask), batch 8 x 512."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from autoround_tpu_torch.algorithms.signround import TuneConfig, tune_block
+    from autoround_tpu_torch.models import llama, mixtral
+    from autoround_tpu_torch.schemes import parse_scheme
+    from autoround_tpu_torch.utils.pytree import get_by_path
+
+    cfg = dataclasses.replace(mixtral.CONFIG_PRESETS["mixtral-8x7b"],
+                              num_layers=1)
+    B, S = 8, 512
+    torch.cuda.empty_cache()
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    block = params["blocks"][0]
+    ids = torch.randint(0, cfg.vocab_size, (B, S),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    cos, sin = llama.rope_tables(cfg, S, device="cuda")
+
+    def block_fn(w, xb):
+        return mixtral.block_fwd(w, xb, cos, sin, cfg)
+
+    with torch.no_grad():
+        x = llama.embed_fwd(params, ids, cfg)
+        ref = block_fn(block, x)
+    del params
+    schemes = {n: parse_scheme("W4A16")
+               for n in mixtral.block_linear_names(cfg)}
+    tcfg = TuneConfig(iters=20, batch_size=B)
+
+    def run(iters):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tune_block(block_fn, block, x, ref, schemes,
+                   dataclasses.replace(tcfg, iters=iters))
+        torch.cuda.synchronize()
+        return (time.time() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    run(1)                                       # warm-up; the peak of a step
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = (run(5) - run(2)) / 3
+    n_w = sum(get_by_path(block, n).numel() for n in schemes)
+    n_exp_w = 3 * cfg.num_experts * cfg.hidden_size * cfg.intermediate_size
+    attn = (4 + 14) * B * cfg.num_heads * (S * (S + 1) // 2) * cfg.hd
+    # dense-then-mask: every expert's three products for all B * S tokens
+    t_f = (3 * 2 * n_w * B * S + attn) / flops_peak * 1e3
+    t_b = n_w * (2 + 4 + 4) / bw * 1e3
+    log(f"moe tuning step (1 mixtral-8x7b block, {len(schemes)} linears, "
+        f"{n_w / 1e9:.3f}e9 weights of which experts {n_exp_w / 1e9:.3f}e9, "
+        f"B={B} S={S}, W4A16 g128): tune_step_ms={step_ms:.2f} "
+        f"tune_step_bound_ms={max(t_f, t_b):.3f} (operations {t_f:.3f}, "
+        f"bytes of one qdq pass over W, v, grad {t_b:.3f}) "
+        f"peak_mem_gb={peak_gb:.2f}")
+    n = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tune_block(block_fn, block, x, ref, schemes,
+                   dataclasses.replace(tcfg, iters=n))
+        torch.cuda.synchronize()
+    times = _kernel_times(prof)
+    total = sum(ms for ms, _ in times.values()) / n
+    family = {"flash kernels": 0.0, "pytorch elementwise and reductions": 0.0,
+              "matrix products and the rest": 0.0}
+    for kname, (ms, _) in times.items():
+        key = ("flash kernels" if "flash_" in kname else
+               "pytorch elementwise and reductions" if "at::native" in kname
+               else "matrix products and the rest")
+        family[key] += ms / n
+    log(f"profile moe tuning step: kernel_ms={total:.2f} of tune_step_ms="
+        f"{step_ms:.2f} busy_share={total / step_ms:.3f}; ms per step by "
+        f"family {json.dumps({k: round(v, 3) for k, v in family.items()})}; "
+        f"top per step: " + _top(times, n))
+
+
+def moe_tune_path(n_layers):
+    """SignRound → stack → serve at mixtral-8x7b width."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import mixtral
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(mixtral.CONFIG_PRESETS["mixtral-8x7b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ, NS, ITERS, CB = 8, 512, 32, 1024, 16, 20, 8
+    ids_gen = torch.Generator().manual_seed(6)
+    calib = torch.randint(0, cfg.vocab_size, (NS, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=ITERS, batch_size=B,
+                   donate_params=True, cache_batch=CB)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_tune = time.time() - t0
+    traces = result.loss_traces
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    del ar, result
+    toks = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    first = [float(traces[b][0]) for b in range(n_layers)]
+    best = [float(traces[b].min()) for b in range(n_layers)]
+    log(f"moe tune path mixtral-8x7b ({n_layers} of 32 layers, random "
+        f"weights, {NS} x {S} ids, iters={ITERS}, batch {B}): "
+        f"tune_s={t_tune:.2f} peak_mem_gb={peak_gb:.2f}; losses (first -> "
+        f"best per block): "
+        + " ".join(f"{f:.4g}->{b:.4g}" for f, b in zip(first, best)))
+    log(f"moe tune path kernels {json.dumps(launches)}")
+    check(len(traces) == n_layers and all(
+        len(traces[b]) == ITERS and bool(abs(traces[b]).max() < float("inf"))
+        and bool((traces[b] == traces[b]).all()) for b in range(n_layers)),
+        "moe tune path: a loss is missing or not finite")
+    check(all(b < f for b, f in zip(best, first)),
+          "moe tune path: a block's best loss is not below its first")
+    fwd = n_layers * (2 * (NS // CB) + ITERS) + n_layers
+    want = {"flash_attention": fwd, "flash_attention_bwd_dq": n_layers * ITERS,
+            "flash_attention_bwd_dkv": n_layers * ITERS,
+            "w4a16_matmul_grouped": 3 * n_layers * NEW,
+            "w4a16_matmul": 2 * n_layers * NEW,      # the lm_head stays dense
+            "decode_attention": n_layers * (NEW - 1)}
+    for n, c in want.items():
+        check(launches[n] == c, f"moe tune path: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def asym_path(n_layers):
+    """int4 asym RTN → the w4a16_asym engine → serve at llama3-8b width;
+    returns the launches."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ = 8, 512, 32, 1024
+    ids_gen = torch.Generator().manual_seed(7)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    scheme = dict(bits=4, group_size=128, sym=False, data_type="int")
+    ar = AutoRound((params, cfg), scheme=scheme, iters=0, quant_lm_head=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    zp = result.layers["blocks.0.q_proj"].zp
+    check(zp is not None and float(zp.min()) >= 0 and float(zp.max()) <= 15,
+          "asym path: zero points missing or out of range")
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    del ar, result
+    check(set(eng.packed_kinds.values()) == {"w4a16_asym"}
+          and len(eng.packed) == 4 * n_layers + 1
+          and all(len(e) == 3 for e in eng.packed.values()),
+          f"asym path: packed kinds {sorted(set(eng.packed_kinds.values()))}")
+    t0 = time.time()
+    toks = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    log(f"asym path llama3-8b ({n_layers} layers, random weights, int4 asym "
+        f"g128): generate_s={t_gen:.2f}")
+    log(f"asym path kernels {json.dumps(launches)}")
+    # per block and forward: qkv, o_proj, gate_up, down_proj
+    want = _serve_counts(n_layers, NEW, NEW - 1, per_block=4)
+    want["w4a16_asym_matmul"] = want.pop("matmul")
+    want.update(w4a16_matmul=0, w4a16_matmul_grouped=0)
+    for n, c in want.items():
+        check(launches[n] == c, f"asym path: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    check_copy(eng, prompts, "card")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_device_memory():
+    """Between phases: the moe path peaks at 72 of the card's 80 GB, and
+    tensors kept alive by a reference cycle of the phase before (seen once:
+    22 GB, until a collection happened to run) would push it over."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rtn-layers", type=int, default=32,
                     help="depth of the RTN -> serve path (default 32)")
     ap.add_argument("--tune-layers", type=int, default=32,
                     help="depth of the SignRound -> serve path (default 32)")
+    ap.add_argument("--moe-layers", type=int, default=16,
+                    help="depth of the Mixtral RTN -> serve path (default "
+                         "16 of 32: the bf16 blocks must fit the card "
+                         "beside their packed copies)")
+    ap.add_argument("--moe-tune-layers", type=int, default=2,
+                    help="depth of the Mixtral SignRound -> serve path "
+                         "(default 2)")
+    ap.add_argument("--asym-layers", type=int, default=4,
+                    help="depth of the int4 asym -> serve path (default 4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -911,16 +1455,30 @@ def main() -> int:
     bw, fl = peaks(name)
     rows = kernel_phase(Timer(), bw, fl)
     rtn_launches, _ = rtn_path(bw, fl, args.rtn_layers)
-    torch.cuda.empty_cache()
+    free_device_memory()
     tuning_step_phase(bw, fl)
-    torch.cuda.empty_cache()
+    free_device_memory()
     launches = tune_path(args.tune_layers)
+    free_device_memory()
+    moe_launches = moe_path(bw, fl, args.moe_layers)
+    free_device_memory()
+    moe_tuning_step(bw, fl)
+    free_device_memory()
+    moe_tune_path(args.moe_tune_layers)
+    free_device_memory()
+    asym_launches = asym_path(args.asym_layers)
+    # each kernel's count on the path that is its own: the Llama tune path
+    # runs the first five, the moe path the grouped one, the asym path its
+    # kernel; the counts of the other paths ride along where not zero
+    launches["w4a16_matmul_grouped"] = moe_launches["w4a16_matmul_grouped"]
+    launches["w4a16_asym_matmul"] = asym_launches["w4a16_asym_matmul"]
     for n, row in rows.items():
-        # counts of this slice's path, which runs all five kernels; the RTN
-        # path's counts of the three it runs ride along
         row["launches"] = launches[n]
-        if rtn_launches[n]:
-            row["launches_rtn_path"] = rtn_launches[n]
+        for key, other in (("launches_rtn_path", rtn_launches),
+                           ("launches_moe_path", moe_launches),
+                           ("launches_asym_path", asym_launches)):
+            if other[n] and other[n] != row["launches"]:
+                row[key] = other[n]
     log(smi)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {

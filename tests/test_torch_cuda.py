@@ -6,8 +6,9 @@ These need a CUDA device and skip without one.  On a machine with a card:
 
 (``--noconftest``: the suite's conftest configures JAX, which these tests
 neither use nor need.)  They cover the edges ``chip_smoke.py`` does not
-reach: every GEMV template of the W4A16 kernel, ragged O, small groups,
-D = 256 and S < T flash attention (forward and the backward pair, every
+reach: every GEMV template of the W4A16 kernels (ungrouped, grouped, asym),
+ragged O, small groups, every activation layout the grouped kernel takes,
+integral and fractional zero points, D = 256 and S < T flash attention (forward and the backward pair, every
 GQA ratio, run-to-run bit equality, autograd through the op), every GQA
 ratio and mask of the decode kernel, and the wrappers' refusals.
 
@@ -34,7 +35,11 @@ from autoround_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_plain)
 from autoround_tpu_torch.ops.qmatmul import (pack_w4, w4a16_matmul,
+                                             w4a16_matmul_grouped,
+                                             w4a16_matmul_grouped_plain,
                                              w4a16_matmul_plain)
+from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul,
+                                                 w4a16_asym_matmul_plain)
 
 pytestmark = pytest.mark.cuda
 ROW_TOL = {"flash": 0.1, "w4a16": 0.1, "decode": 0.025, "flash_bwd": 0.07}
@@ -71,6 +76,51 @@ def test_w4a16_all_regimes(gen, M, O, K, g):
     _check(w4a16_matmul(x, qw, sc, g), w4a16_matmul_plain(x, qw, sc, g),
            "w4a16")
     assert w4a16_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "shared", "slice"])
+@pytest.mark.parametrize("C", [1, 2, 5, 8, 16, 17, 32, 33, 130])
+@pytest.mark.parametrize("E,O,K,g", [(3, 200, 1024, 128), (2, 72, 512, 32)])
+def test_grouped_all_regimes(gen, layout, C, E, O, K, g):
+    """Same limit as the ungrouped kernel (the tile bodies are shared).
+    Activation layouts: contiguous (E, C, K); one slab shared by all
+    experts (expert stride 0); the first C rows of a taller (E, C + 1, K)
+    buffer, as capacity dispatch hands it over."""
+    before = w4a16_matmul_grouped.launches
+    codes = torch.randint(0, 16, (E, O, K), generator=gen, device="cuda")
+    sc = (torch.rand(E, O, K // g, generator=gen, device="cuda") - 0.5) * 0.02
+    qw = torch.stack([pack_w4(codes[e]) for e in range(E)])
+    if layout == "shared":
+        x = torch.randn(C, K, generator=gen, device="cuda").bfloat16() \
+            .expand(E, C, K)
+    elif layout == "slice":
+        x = torch.randn(E, C + 1, K, generator=gen,
+                        device="cuda").bfloat16()[:, :C]
+    else:
+        x = torch.randn(E, C, K, generator=gen, device="cuda").bfloat16()
+    _check(w4a16_matmul_grouped(x, qw, sc, g),
+           w4a16_matmul_grouped_plain(x, qw, sc, g), "w4a16")
+    assert w4a16_matmul_grouped.launches == before + 1
+
+
+@pytest.mark.parametrize("zp_kind", ["integral", "fractional"])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 200])
+@pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32)])
+def test_asym_all_regimes(gen, zp_kind, M, O, K, g):
+    """Same limit as the sym kernel: the GEMM body rounds (code - zp) *
+    scale to bf16 as the plain version does, the GEMV body keeps it in
+    fp32 (measured worst row on an H100 at the main path's shapes 0.035)."""
+    before = w4a16_asym_matmul.launches
+    codes = torch.randint(0, 16, (O, K), generator=gen, device="cuda")
+    sc = torch.rand(O, K // g, generator=gen, device="cuda") * 0.01 + 0.002
+    zp = torch.rand(O, K // g, generator=gen, device="cuda") * 15
+    if zp_kind == "integral":
+        zp = zp.round()
+    qw = pack_w4(codes)
+    x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
+    _check(w4a16_asym_matmul(x, qw, sc, zp, g),
+           w4a16_asym_matmul_plain(x, qw, sc, zp, g), "w4a16")
+    assert w4a16_asym_matmul.launches == before + 1
 
 
 @pytest.mark.parametrize("D", [128, 256])
@@ -154,6 +204,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         w4a16_matmul(x, qw, sc, 128)
     with pytest.raises(ValueError):            # non-contiguous activations
         w4a16_matmul(x.bfloat16().T.contiguous().T, qw, sc, 128)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError):            # fp16 zero points
+        w4a16_asym_matmul(xb, qw, sc, sc.half(), 128)
+    with pytest.raises(ValueError):            # zero points of another shape
+        w4a16_asym_matmul(xb, qw, sc, sc[:, :1].contiguous(), 128)
+    with pytest.raises(ValueError):            # group size not % 32
+        w4a16_asym_matmul(xb, qw, torch.ones((64, 16), device="cuda"),
+                          torch.ones((64, 16), device="cuda"), 16)
+    xe = xb[None].expand(3, 4, 256)
+    qwe, sce = qw[None].expand(3, 64, 32), sc[None].expand(3, 64, 2)
+    with pytest.raises(ValueError):            # stacked weights not contiguous
+        w4a16_matmul_grouped(xe, qwe, sce.contiguous(), 128)
+    with pytest.raises(ValueError):            # 2-D activations
+        w4a16_matmul_grouped(xb, qwe.contiguous(), sce.contiguous(), 128)
+    with pytest.raises(ValueError):            # slab rows not contiguous
+        w4a16_matmul_grouped(
+            torch.zeros((3, 4, 512), dtype=torch.bfloat16,
+                        device="cuda")[:, :, :256],
+            qwe.contiguous(), sce.contiguous(), 128)
+    with pytest.raises(ValueError):            # another expert count
+        w4a16_matmul_grouped(xe[:2], qwe.contiguous(), sce.contiguous(), 128)
     q = torch.zeros((1, 2, 96, 128), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):            # S not a multiple of 64
         flash_attention(q, q, q)

@@ -440,3 +440,45 @@ def test_unported_options_raise(kw, item):
         tsr.tune_block(t_linear, {"w": torch.from_numpy(w)},
                        torch.from_numpy(x), torch.from_numpy(ref),
                        {"w": t_parse("W4A16", group_size=32)}, cfg, **kw)
+
+
+def test_tuner_leaves_no_reference_cycles():
+    """With the cyclic collector off, everything a tuning run allocated is
+    freed by reference counting alone: a closure that calls itself (as
+    ``set_by_path`` and the sign-SGD update once did) would keep qdq
+    weights and their graphs alive until a collection happened to run,
+    which on the card showed as gigabytes of dead tensors."""
+    import gc
+    import weakref
+
+    from autoround_tpu_torch.utils.pytree import set_by_path
+
+    rng = np.random.default_rng(0)
+    w = {"a": torch.from_numpy(rng.standard_normal((64, 128)).astype(
+        np.float32)), "b": [{"c": torch.from_numpy(rng.standard_normal(
+            (32, 64)).astype(np.float32))}]}
+    x = torch.from_numpy(rng.standard_normal((8, 4, 128)).astype(np.float32))
+
+    def fwd(ws, xb):
+        return torch.relu(xb @ ws["a"].T) @ ws["b"][0]["c"].T
+
+    schemes = {"a": t_parse("W4A16G32"), "b.0.c": t_parse("W4A16G32")}
+    gc.collect()
+    gc.disable()
+    try:
+        value = torch.zeros(3)
+        ref = weakref.ref(value)
+        tree = set_by_path(w, "b.0.c", value)
+        del tree, value
+        assert ref() is None
+        for momentum in (0.0, 0.5):
+            best, _ = tsr.tune_block(
+                fwd, w, x, fwd(w, x), schemes,
+                tsr.TuneConfig(iters=3, batch_size=4, momentum=momentum))
+            refs = [weakref.ref(t) for p in best.values()
+                    for t in p.values()]
+            del best
+            assert all(r() is None for r in refs)
+            assert gc.collect() == 0
+    finally:
+        gc.enable()
