@@ -2,7 +2,10 @@
 (counterpart of ``autoround_tpu/algorithms/signround.py``).
 
 The tunable state is one tree ``{layer: {v, min_scale, max_scale}}`` of
-fp32 tensors.  Each step substitutes the block's quantized layers with
+fp32 tensors; with ``tune_act_scales`` and static activation scales in the
+weights' reserved ``_act_scales`` entry it also holds ``_act: {layer:
+{scale}}``, one shrink factor per static scale, trained with the clip
+scales.  Each step substitutes the block's quantized layers with
 their qdq'd weights, runs the caller's pure ``block_fwd(weights, inputs)``
 on a batch, takes MSE(pred, fp_ref) x ``loss_scale`` and moves the state
 by sign-SGD.  The step loop is a Python loop (the JAX package scans); it
@@ -12,7 +15,7 @@ freezes further updates, and the loss trace is fetched once at the end.
 The tuned tensors are updated in place.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``enable_alg_ext``, ``optimizer="adam"``, ``tune_act_scales``,
+item): ``enable_alg_ext``, ``optimizer="adam"``,
 ``enable_norm_bias_tuning``, ``lfq_fn``, ``extras``, ``init_scales``.
 """
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dtypes.intq import _clip
 from ..dtypes.registry import get_quant_func
 from ..schemes import QuantizationScheme
 from ..utils.pytree import get_by_path, set_by_path, tree_map
@@ -58,7 +62,9 @@ class TuneConfig:
     # recompute the block forward in the backward pass instead of holding
     # its activations (trades FLOPs for device memory)
     use_remat: bool = False
-    tune_act_scales: bool = False       # not ported (ROADMAP A9)
+    # tune a per-layer shrink on the static activation scales, clamped to
+    # [clip_lo, clip_hi] like the clip scales
+    tune_act_scales: bool = False
     enable_norm_bias_tuning: bool = False  # not ported (ROADMAP A3)
 
     def resolved_lr(self) -> float:
@@ -77,8 +83,6 @@ def _check_ported(cfg: TuneConfig, extras=None, lfq_fn=None,
          "outlier-masked loss)", "A3"),
         (cfg.optimizer != "signsgd", f"optimizer={cfg.optimizer!r} "
          "(AdamRound)", "A3"),
-        (cfg.tune_act_scales, "tune_act_scales (activation quantization)",
-         "A9"),
         (cfg.enable_norm_bias_tuning, "enable_norm_bias_tuning", "A3"),
         (lfq_fn is not None, "lfq_fn (last-block LM loss)", "A5"),
         (extras is not None, "extras (per-layer statics: imatrix, frozen "
@@ -116,6 +120,16 @@ def init_tune_params(
                 layer[key] = torch.ones((O, -(-I // g)), dtype=torch.float32,
                                         device=w.device)
         params[name] = layer
+    if (cfg.tune_act_scales and isinstance(weights, dict)
+            and "_act_scales" in weights):
+        static = weights["_act_scales"].get("static") or {}
+        # the leaf key "scale" puts these into the min/max learning-rate
+        # group
+        act = {n: {"scale": torch.ones((), dtype=torch.float32,
+                                       device=static[n].device)}
+               for n in static if n in schemes}
+        if act:
+            params["_act"] = act
     return params
 
 
@@ -128,6 +142,17 @@ def make_qdq_weights(
     """Substitute qdq'd weights for every tuned layer; pass the rest
     through.  Layer names may be dotted paths into nested structures."""
     out = weights
+    if ("_act" in tune_params and isinstance(weights, dict)
+            and "_act_scales" in weights):
+        sc = dict(weights["_act_scales"])
+        static = dict(sc.get("static") or {})
+        for n, m in tune_params["_act"].items():
+            if n in static:
+                static[n] = static[n] * _clip(m["scale"], cfg.clip_lo,
+                                              cfg.clip_hi)
+        sc["static"] = static
+        out = dict(out)
+        out["_act_scales"] = sc
     for name, scheme in schemes.items():
         fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym)
         p = tune_params.get(name, {})

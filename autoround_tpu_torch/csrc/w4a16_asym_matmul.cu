@@ -23,5 +23,5 @@
 extern "C" int w4a16_asym_matmul(const void* x, const void* qw,
                                  const void* sc, const void* zp, void* y,
                                  int M, int K, int O, int g, void* stream) {
-  return w4a16::launch<true>(x, qw, sc, zp, y, 1, 0, M, K, O, g, stream);
+  return w4a16::launch<w4a16::ASYM4>(x, qw, sc, zp, y, 1, 0, M, K, O, g, stream);
 }

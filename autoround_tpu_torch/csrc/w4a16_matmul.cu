@@ -15,6 +15,6 @@
 extern "C" int w4a16_matmul(const void* x, const void* qw, const void* sc,
                             void* y, int M, int K, int O, int g,
                             void* stream) {
-  return w4a16::launch<false>(x, qw, sc, nullptr, y, 1, 0, M, K, O, g,
+  return w4a16::launch<w4a16::SYM4>(x, qw, sc, nullptr, y, 1, 0, M, K, O, g,
                               stream);
 }

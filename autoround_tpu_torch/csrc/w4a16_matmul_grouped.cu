@@ -28,6 +28,6 @@ extern "C" int w4a16_matmul_grouped(const void* x, const void* qw,
                                     const void* sc, void* y, int E,
                                     long long x_stride_e, int C, int K, int O,
                                     int g, void* stream) {
-  return w4a16::launch<false>(x, qw, sc, nullptr, y, E, x_stride_e, C, K, O,
+  return w4a16::launch<w4a16::SYM4>(x, qw, sc, nullptr, y, E, x_stride_e, C, K, O,
                               g, stream);
 }

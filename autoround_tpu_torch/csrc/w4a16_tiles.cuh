@@ -1,15 +1,19 @@
-// Tile bodies shared by the W4A16 dequant-matmul family:
+// Tile bodies shared by the A16 dequant-matmul family:
 //   w4a16_matmul.cu          y    = x    . ((code - 8)  * scale)^T
 //   w4a16_matmul_grouped.cu  y[e] = x[e] . ((code[e] - 8) * scale[e])^T
 //   w4a16_asym_matmul.cu     y    = x    . ((code - zp) * scale)^T
-// bf16 activations in and out, fp32 accumulation.
+//   w8a16_matmul.cu          y    = x    . (Wi * scale)^T        (Wi int8)
+// bf16 activations in and out, fp32 accumulation.  The bodies are templated
+// on the weight format (SYM4, ASYM4, INT8): it decides how 16 bytes of a
+// weight row are read and dequantized, nothing else.
 //
 // Layout (the port's own, chosen for coalesced 16-byte loads on the card):
 // qweight (E, O, K/8) int32, word w of row o holds the codes of columns
-// 8w..8w+7, column 8w+j in nibble j.  scales (E, O, K/g) fp32, signed: the
-// sign carries the full-range flip of the symmetric quantizer, so nothing
-// here takes an abs or a log.  zps (O, K/g) fp32 for the asym kernel (may
-// be fractional); the sym kernels use the constant 8.
+// 8w..8w+7, column 8w+j in nibble j; INT8: (E, O, K) int8 as it lies.
+// scales (E, O, K/g) fp32, signed: the sign carries the full-range flip of
+// the symmetric quantizer, so nothing here takes an abs or a log.  zps
+// (O, K/g) fp32 for the asym kernel (may be fractional); the sym kernels
+// use the constant 8, INT8 has none.
 //
 // The expert is a grid axis (y of the GEMV grid, z of the GEMM grid): block
 // (.., e) offsets every pointer by its expert's slab, so one launch serves
@@ -19,8 +23,8 @@
 // product.
 //
 // What bounds it on an H100:
-//  * decode (M = batch <= 32): ~0.5 byte of codes per weight against 2*M
-//    operations per weight, far below the card's ~295 operations per byte:
+//  * decode (M = batch <= 32): ~0.5 byte of codes per weight (INT8: 1)
+//    against 2*M operations per weight, far below the card's ~295 operations per byte:
 //    the weight stream from memory bounds it.  `gemv_kernel` streams each
 //    row's codes once with 16-byte coalesced loads (32 codes per lane),
 //    dequantizes each code once into fp32 registers and reuses it for all
@@ -53,12 +57,48 @@ using namespace nvcuda;
 // 0x4B000000 | c is the float 2^23 + c exactly; the sym kernels fold their
 // zero of 8 into the same subtraction, the asym kernels subtract their
 // (possibly fractional) zero point in a second exact-input step.
-template <bool ASYM>
+constexpr int SYM4 = 0, ASYM4 = 1, INT8 = 2;
+
+template <int FMT>
 __device__ __forceinline__ float code_minus_zero(uint32_t word, int j,
                                                  float zero) {
   uint32_t c = (word >> (4 * j)) & 0xFu;
-  if (ASYM) return (__uint_as_float(0x4B000000u | c) - 8388608.0f) - zero;
+  if (FMT == ASYM4)
+    return (__uint_as_float(0x4B000000u | c) - 8388608.0f) - zero;
   return __uint_as_float(0x4B000000u | c) - 8388616.0f;   // 2^23 + 8
+}
+
+// byte j of `word` (an int8) as fp32: (b ^ 0x80) is b + 128 unsigned, and
+// 0x4B000000 | u is the float 2^23 + u exactly.
+__device__ __forceinline__ float s8_to_f32(uint32_t word, int j) {
+  const uint32_t u = __byte_perm(word ^ 0x80808080u, 0x4B000000u, 0x7650 + j);
+  return __uint_as_float(u) - 8388736.0f;            // 2^23 + 128
+}
+
+// Weights in 16 bytes of a row, and bytes in a row of K weights.
+template <int FMT> constexpr int CHUNK = FMT == INT8 ? 16 : 32;
+template <int FMT>
+__device__ __forceinline__ size_t row_bytes(int K) {
+  return FMT == INT8 ? (size_t)K : (size_t)K / 2;
+}
+
+// Weights 8q..8q+7 of the 16-byte chunk `wv`, dequantized into wf.
+template <int FMT>
+__device__ __forceinline__ void dequant8(const uint4& wv, int q, float z,
+                                         float s, float* wf) {
+  if (FMT == INT8) {
+    const uint32_t w0 = q == 0 ? wv.x : wv.z, w1 = q == 0 ? wv.y : wv.w;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wf[j] = s8_to_f32(w0, j) * s;
+      wf[4 + j] = s8_to_f32(w1, j) * s;
+    }
+  } else {
+    const uint32_t word = (q == 0) ? wv.x : (q == 1) ? wv.y
+                        : (q == 2) ? wv.z : wv.w;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wf[j] = code_minus_zero<FMT>(word, j, z) * s;
+  }
 }
 
 __device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float* f) {
@@ -74,25 +114,26 @@ __device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float* f) {
 constexpr int GEMV_WARPS = 4;
 
 // MT: activation rows held in registers (power of two >= M); R: output
-// rows per block.  Lane l of warp w handles 32-code chunks c = w*32 + l,
-// stepping by 128 chunks.  blockIdx.y is the expert.
-template <int MT, int R, bool ASYM>
+// rows per block.  Lane l of warp w handles the 16-byte chunks (32 codes or
+// 16 int8) c = w*32 + l, stepping by 128 chunks.  blockIdx.y is the expert.
+template <int MT, int R, int FMT>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 gemv_kernel(const __nv_bfloat16* __restrict__ x,
-            const uint32_t* __restrict__ qw, const float* __restrict__ sc,
+            const uint8_t* __restrict__ qw, const float* __restrict__ sc,
             const float* __restrict__ zp, __nv_bfloat16* __restrict__ y,
             long long x_stride_e, int M, int K, int O, int g) {
   __shared__ float red[GEMV_WARPS][R][MT];
+  constexpr int CW = CHUNK<FMT>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int o0 = blockIdx.x * R;
-  const int n_chunks = K / 32;
-  const int kw = K / 8;                   // words per row
+  const int n_chunks = K / CW;
+  const size_t rb = row_bytes<FMT>(K);
   const int ng = K / g;                   // groups per row
   const size_t e = blockIdx.y;
   x += e * (size_t)x_stride_e;
-  qw += e * (size_t)O * kw;
+  qw += e * (size_t)O * rb;
   sc += e * (size_t)O * ng;
-  if (ASYM) zp += e * (size_t)O * ng;
+  if (FMT == ASYM4) zp += e * (size_t)O * ng;
   y += e * (size_t)M * O;
 
   float acc[R][MT];
@@ -109,32 +150,26 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
       const int o = o0 + r;
       z[r] = 0.f;
       if (o < O) {
-        wv[r] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)o * kw) + c);
-        s[r] = __ldg(sc + (size_t)o * ng + (c * 32) / g);
-        if (ASYM) z[r] = __ldg(zp + (size_t)o * ng + (c * 32) / g);
-      } else {
+        wv[r] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)o * rb) + c);
+        s[r] = __ldg(sc + (size_t)o * ng + (c * CW) / g);
+        if (FMT == ASYM4) z[r] = __ldg(zp + (size_t)o * ng + (c * CW) / g);
+      } else {                            // any codes: their scale is 0
         wv[r] = make_uint4(0x88888888u, 0x88888888u, 0x88888888u,
                            0x88888888u);
         s[r] = 0.f;
       }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {         // the 4 words of the chunk
+    for (int q = 0; q < CW / 8; ++q) {    // the chunk, 8 weights at a time
       float wf[R][8];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const uint32_t word = (q == 0) ? wv[r].x : (q == 1) ? wv[r].y
-                            : (q == 2) ? wv[r].z : wv[r].w;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          wf[r][j] = code_minus_zero<ASYM>(word, j, z[r]) * s[r];
-      }
+      for (int r = 0; r < R; ++r) dequant8<FMT>(wv[r], q, z[r], s[r], wf[r]);
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         if (m < M) {
           float xf[8];
           bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(
-                            x + (size_t)m * K + c * 32 + q * 8)), xf);
+                            x + (size_t)m * K + c * CW + q * 8)), xf);
 #pragma unroll
           for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -176,10 +211,10 @@ constexpr int GEMM_THREADS = 256;         // 8 warps: 2 (M) x 4 (N)
 // fit easily): the bound keeps the kernel at 128 registers a thread; at 130
 // only one block of 256 threads fits an SM's 65,536 registers and the
 // product takes 1.7-1.9x as long (measured on an H100).
-template <bool ASYM>
+template <int FMT>
 __global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_kernel(const __nv_bfloat16* __restrict__ x,
-            const uint32_t* __restrict__ qw, const float* __restrict__ sc,
+            const uint8_t* __restrict__ qw, const float* __restrict__ sc,
             const float* __restrict__ zp, __nv_bfloat16* __restrict__ y,
             long long x_stride_e, int M, int K, int O, int g) {
   __shared__ __align__(128) __nv_bfloat16 As[BM * LDT];
@@ -189,12 +224,13 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;   // warp tile 64 (M) x 32 (N)
-  const int kw = K / 8, ng = K / g;
+  const size_t rb = row_bytes<FMT>(K);
+  const int ng = K / g;
   const size_t e = blockIdx.z;
   x += e * (size_t)x_stride_e;
-  qw += e * (size_t)O * kw;
+  qw += e * (size_t)O * rb;
   sc += e * (size_t)O * ng;
-  if (ASYM) zp += e * (size_t)O * ng;
+  if (FMT == ASYM4) zp += e * (size_t)O * ng;
   y += e * (size_t)M * O;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
@@ -213,23 +249,40 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
             x + (size_t)(m0 + r) * K + k0 + cv));
       *reinterpret_cast<uint4*>(As + r * LDT + cv) = val;
     }
-    // weight tile: 128 rows x 32 codes; two threads per row, 16 codes each
+    // weight tile: 128 rows x 32 weights; two threads per row, 16 weights
+    // each (8 bytes of codes or 16 int8), rounded to bf16 as the plain
+    // version rounds them
     {
       const int r = threadIdx.x / 2, hlf = threadIdx.x % 2;
       const int o = n0 + r;
-      uint2 wv = make_uint2(0x88888888u, 0x88888888u);
       float s = 0.f, z = 0.f;
       if (o < O) {
-        wv = __ldg(reinterpret_cast<const uint2*>(
-            qw + (size_t)o * kw + k0 / 8 + hlf * 2));
         s = __ldg(sc + (size_t)o * ng + k0 / g);
-        if (ASYM) z = __ldg(zp + (size_t)o * ng + k0 / g);
+        if (FMT == ASYM4) z = __ldg(zp + (size_t)o * ng + k0 / g);
       }
       __align__(16) __nv_bfloat16 vals[16];
+      if (FMT == INT8) {
+        uint4 wv = make_uint4(0u, 0u, 0u, 0u);
+        if (o < O)
+          wv = __ldg(reinterpret_cast<const uint4*>(
+              qw + (size_t)o * rb + k0 + hlf * 16));
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        vals[j] = __float2bfloat16(code_minus_zero<ASYM>(wv.x, j, z) * s);
-        vals[8 + j] = __float2bfloat16(code_minus_zero<ASYM>(wv.y, j, z) * s);
+        for (int j = 0; j < 4; ++j) {
+          vals[j] = __float2bfloat16(s8_to_f32(wv.x, j) * s);
+          vals[4 + j] = __float2bfloat16(s8_to_f32(wv.y, j) * s);
+          vals[8 + j] = __float2bfloat16(s8_to_f32(wv.z, j) * s);
+          vals[12 + j] = __float2bfloat16(s8_to_f32(wv.w, j) * s);
+        }
+      } else {
+        uint2 wv = make_uint2(0x88888888u, 0x88888888u);
+        if (o < O)
+          wv = __ldg(reinterpret_cast<const uint2*>(
+              qw + (size_t)o * rb + k0 / 2 + hlf * 8));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          vals[j] = __float2bfloat16(code_minus_zero<FMT>(wv.x, j, z) * s);
+          vals[8 + j] = __float2bfloat16(code_minus_zero<FMT>(wv.y, j, z) * s);
+        }
       }
       uint4* dst = reinterpret_cast<uint4*>(Bs + r * LDT + hlf * 16);
       dst[0] = *reinterpret_cast<const uint4*>(vals);
@@ -278,22 +331,23 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
     }
 }
 
-template <int MT, int R, bool ASYM>
-void launch_gemv(const __nv_bfloat16* x, const uint32_t* qw, const float* sc,
+template <int MT, int R, int FMT>
+void launch_gemv(const __nv_bfloat16* x, const uint8_t* qw, const float* sc,
                  const float* zp, __nv_bfloat16* y, int E, long long xse,
                  int M, int K, int O, int g, cudaStream_t st) {
   dim3 grid((O + R - 1) / R, E);
-  gemv_kernel<MT, R, ASYM><<<grid, GEMV_WARPS * 32, 0, st>>>(
+  gemv_kernel<MT, R, FMT><<<grid, GEMV_WARPS * 32, 0, st>>>(
       x, qw, sc, zp, y, xse, M, K, O, g);
 }
 
 // x (E, M, K) bf16, each (M, K) slab contiguous, at an expert stride of
 // `x_stride_e` elements (a multiple of 8; M*K when contiguous, 0 for one
-// slab shared by all experts), qweight (E, O, K/8) int32, scales and
-// (ASYM) zps (E, O, K/g) fp32, y (E, M, O) bf16, contiguous.  E, M >= 1,
-// E <= 65535, K % 32 == 0, g % 32 == 0, K % g == 0.  Returns the
-// cudaError_t of the launch (0 on success).
-template <bool ASYM>
+// slab shared by all experts), qweight (E, O, K/8) int32 or (INT8) (E, O, K)
+// int8, scales and (ASYM4) zps (E, O, K/g) fp32, y (E, M, O) bf16,
+// contiguous.  E, M >= 1, E <= 65535, K % 32 == 0, g % 32 == 0, K % g == 0
+// (g = K: one scale per output channel).  Returns the cudaError_t of the
+// launch (0 on success).
+template <int FMT>
 int launch(const void* x_, const void* qw_, const void* sc_, const void* zp_,
            void* y_, int E, long long x_stride_e, int M, int K, int O, int g,
            void* stream) {
@@ -302,13 +356,13 @@ int launch(const void* x_, const void* qw_, const void* sc_, const void* zp_,
       || g % 32 || K % g || (M + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(x_);
-  const uint32_t* qw = static_cast<const uint32_t*>(qw_);
+  const uint8_t* qw = static_cast<const uint8_t*>(qw_);
   const float* sc = static_cast<const float*>(sc_);
   const float* zp = static_cast<const float*>(zp_);
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(y_);
   const long long xse = x_stride_e;
 #define W4A16_GEMV(MT, R) \
-  launch_gemv<MT, R, ASYM>(x, qw, sc, zp, y, E, xse, M, K, O, g, st)
+  launch_gemv<MT, R, FMT>(x, qw, sc, zp, y, E, xse, M, K, O, g, st)
   if (M == 1)       W4A16_GEMV(1, 4);
   else if (M <= 2)  W4A16_GEMV(2, 4);
   else if (M <= 4)  W4A16_GEMV(4, 4);
@@ -317,7 +371,7 @@ int launch(const void* x_, const void* qw_, const void* sc_, const void* zp_,
   else if (M <= 32) W4A16_GEMV(32, 1);
   else {
     dim3 grid((O + BN - 1) / BN, (M + BM - 1) / BM, E);
-    gemm_kernel<ASYM><<<grid, GEMM_THREADS, 0, st>>>(x, qw, sc, zp, y, xse, M,
+    gemm_kernel<FMT><<<grid, GEMM_THREADS, 0, st>>>(x, qw, sc, zp, y, xse, M,
                                                      K, O, g);
   }
 #undef W4A16_GEMV

@@ -1,0 +1,39 @@
+// W8A8 product: y = (q8(x) . Wi^T) * xs * ws, int8 activations quantized
+// per row on the fly, int8 weights with one fp32 scale per output channel
+// (signed: the sign carries the full-range flip of the symmetric
+// quantizer), bf16 in and out.
+//
+// Replaces: autoround_tpu/ops/qmatmul_int8.py, `w8a8_matmul` ->
+// `_w8a8_kernel` (the Pallas TPU kernel) and the `quantize_rows` pass in
+// front of it.
+//
+// The TPU kernel carries an int32 tile in scratch memory across its K grid
+// steps and lane-replicates the row scales for its epilogue.  Here a block
+// loops over K itself with its int32 sums in registers (mma.sync m16n8k32
+// for M > 32, dp4a for M <= 32), and the epilogue reads xs[m] and ws[o]
+// directly: `float(acc) * xs * ws`, in that order.  Row-major Wi (O, K) is
+// already the `col` B operand, so the weights are served as they are
+// stored.
+//
+// Bounds and bodies: a8_tiles.cuh.
+
+#include "a8_tiles.cuh"
+
+// x (M, K) bf16, wi (O, K) int8, ws (O,) fp32, scratch xi (M, K) int8 and
+// xs (M,) fp32, y (M, O) bf16 (or, when y32 is not null, fp32 written
+// there), all contiguous.  M >= 1, K % 32 == 0.  Returns the cudaError_t
+// of the launches (0 on success).
+extern "C" int w8a8_matmul(const void* x, const void* wi, const void* ws,
+                           void* xi, void* xs, void* y, void* y32, int M,
+                           int K, int O, void* stream) {
+  return a8::launch<false>(x, wi, ws, xi, xs, y, y32, M, K, O, 0, stream);
+}
+
+// x (M, K) bf16 -> xi (M, K) int8, xs (M,) fp32.  K % 8 == 0.
+extern "C" int quantize_rows(const void* x, void* xi, void* xs, int M, int K,
+                             void* stream) {
+  if (M <= 0 || K <= 0 || K % 8) return (int)cudaErrorInvalidValue;
+  a8::launch_quantize_rows(x, xi, xs, M, K,
+                           static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}

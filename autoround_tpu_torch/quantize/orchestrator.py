@@ -7,9 +7,16 @@ reference forward on the FP input cache; tune the block's linears with
 SignRound (``iters > 0``) on the quantized-input cache against that
 reference, or RTN them (``iters == 0``); write the qdq weights back into
 the block (layer names may be dotted paths into nested leaves, e.g.
-``experts.3.w1`` of a MoE block); and advance both caches, the FP one through the original block
-and the quantized one through the qdq block (the dual chains).  The lm_head,
-when the plan holds it, is tuned against the final hidden states or RTN'd.
+``experts.3.w1`` of a MoE block); and advance both caches, the FP one
+through the original block and the quantized one through the qdq block
+(the dual chains).  The lm_head, when the plan holds it, is tuned against
+the final hidden states or RTN'd (its activations are never quantized).
+
+A scheme that quantizes activations adds, per block: the input amax of
+every such layer on the FP pass, static (and global) activation scales from
+it, and a ``linear_fn`` that qdq's those layers' inputs in the tuning loss
+and on the quantized chain.  ``enable_act_minmax_tuning`` also tunes a
+shrink factor on each static scale.
 
 Everything but the tuning step runs without autograd; ``tune_block``
 switches gradients on for its own loss.
@@ -25,6 +32,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..algorithms.actquant import (build_static_act_scales,
+                                   collect_act_stats, collect_imatrix,
+                                   collect_output_stats,
+                                   make_act_quant_linear_fn)
 from ..algorithms.rtn import rtn_quantize_layer
 from ..algorithms.signround import TuneConfig, tune_block
 from ..dtypes.registry import get_quant_func
@@ -74,6 +85,9 @@ class QuantizeConfig:
     # recompute the tuning forward in the backward pass instead of holding
     # its activations
     use_remat: bool = False
+    # tune a shrink factor on the static activation scales (the JAX
+    # package reads this switch from the environment)
+    enable_act_minmax_tuning: bool = False
 
     def tune_config(self) -> TuneConfig:
         return TuneConfig(
@@ -88,6 +102,7 @@ class QuantizeConfig:
             optimizer=self.optimizer,
             enable_norm_bias_tuning=self.enable_norm_bias_tuning,
             use_remat=self.use_remat,
+            tune_act_scales=self.enable_act_minmax_tuning,
         )
 
 
@@ -96,8 +111,6 @@ class QuantizeConfig:
 _UNPORTED = (
     ("nblocks", 1, "joint tuning of several blocks", "A5"),
     ("enable_awq", False, "AWQ smoothing", "A12"),
-    ("use_imatrix", False, "imatrix collection", "A9"),
-    ("quant_attention", False, "static attention quantization", "A9"),
     ("enable_lfq", False, "last-block LM loss", "A5"),
     ("resume_dir", None, "crash resume", "A12"),
     ("immediate_save_dir", None, "immediate streaming pack", "A5"),
@@ -107,13 +120,16 @@ _UNPORTED = (
 
 @dataclass
 class QuantizedLayer:
-    """Export payload for one layer: qdq weight + scale/zp + scheme."""
+    """Export payload for one layer: qdq weight + scale/zp + scheme, plus
+    the static activation scales when the scheme quantizes activations."""
 
     name: str
     scheme: QuantizationScheme
     qdq: torch.Tensor
     scale: torch.Tensor
     zp: Optional[torch.Tensor]
+    act_scale: Optional[torch.Tensor] = None         # static act scale
+    act_global_scale: Optional[torch.Tensor] = None  # NVFP4 global scale
 
 
 @dataclass
@@ -122,11 +138,17 @@ class QuantizeResult:
     layers: Dict[str, QuantizedLayer]    # per-layer export payloads
     # per-block loss trace of the tuning run (numpy, one loss per iteration)
     loss_traces: Dict[int, np.ndarray] = field(default_factory=dict)
+    # per-block attention scales {block: {"q_proj" / "k_proj" / "v_proj": s}}
+    # (``quant_attention``: output amax / 448)
+    attention_scales: Dict[int, Dict[str, Any]] = field(default_factory=dict)
+    # per-layer input second moments collected under ``use_imatrix``
+    imatrices: Dict[str, np.ndarray] = field(default_factory=dict)
 
 
-def _batched_block_apply(block_fn, block_weights, x, batch: int):
+def _batched_block_apply(block_fn, block_weights, x, batch: int,
+                         linear_fn=None):
     """Advance a cache through one block, ``batch`` samples at a time."""
-    outs = [block_fn(block_weights, x[s:s + batch])
+    outs = [block_fn(block_weights, x[s:s + batch], linear_fn)
             for s in range(0, x.shape[0], batch)]
     return torch.cat(outs, dim=0)
 
@@ -170,12 +192,12 @@ def quantize_model(
             raise NotImplementedError(
                 f"QuantizeConfig.{name}={getattr(cfg, name)!r} ({what}) is "
                 f"not ported yet (ROADMAP {item})")
-    if any(s.effective_act().is_act_quantized
-           for s in layer_schemes.values()):
-        raise NotImplementedError(
-            "activation quantization is not ported yet (ROADMAP A9)")
     per_block: Dict[int, Dict[str, QuantizationScheme]] = {}
     for flat, scheme in layer_schemes.items():
+        if scheme.data_type != "int":
+            raise NotImplementedError(
+                f"{flat}: weight data type {scheme.data_type!r} is not ported "
+                f"yet (ROADMAP A9); the port quantizes the int data types")
         parts = flat.split(".", 2)
         if parts[0] == "blocks":
             per_block.setdefault(int(parts[1]), {})[parts[2]] = scheme
@@ -197,26 +219,73 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     x_q = x_fp if (cfg.enable_quanted_input and cfg.iters > 0) else None
     cos, sin = mfns.rope_tables(model_cfg, seqlen, device=x_fp.device)
 
-    def block_fn(w, xb):
-        return mfns.block_fwd(w, xb, cos, sin, model_cfg)
+    def block_fn(w, xb, linear_fn=None):
+        return mfns.block_fwd(w, xb, cos, sin, model_cfg,
+                              linear_fn=linear_fn)
 
     new_blocks = []
     layers: Dict[str, QuantizedLayer] = {}
     traces: Dict[int, np.ndarray] = {}
+    attention_scales: Dict[int, Dict[str, Any]] = {}
+    imatrices: Dict[str, np.ndarray] = {}
     for bi, block in enumerate(params["blocks"]):
         t_block = time.time()
         schemes = per_block.get(bi, {})
         ref_out = _batched_block_apply(block_fn, block, x_fp,
                                        cfg.cache_batch)
         qdq_block = block         # set_by_path copies the branches it edits
+        if schemes and cfg.quant_attention:
+            qkv_amax = collect_output_stats(
+                block_fn, block, x_fp[:cfg.cache_batch],
+                ("q_proj", "k_proj", "v_proj"))
+            attention_scales[bi] = {k: v / 448.0 for k, v in qkv_amax.items()}
+
+        # activation quantization: per-layer amax on the FP pass, static
+        # and global scales from it, and the interceptor
+        act_lf = None
+        static_scales: Dict[str, torch.Tensor] = {}
+        global_scales: Dict[str, torch.Tensor] = {}
+        if any(s.effective_act().is_act_quantized for s in schemes.values()):
+            amax = collect_act_stats(block_fn, block, x_fp[:cfg.cache_batch],
+                                     set(schemes))
+            static_scales, global_scales = build_static_act_scales(schemes,
+                                                                   amax)
+            act_lf = make_act_quant_linear_fn(schemes, static_scales,
+                                              global_scales)
+
         if schemes and cfg.iters > 0:
             tune_in = x_q if x_q is not None else x_fp
-            best, info = tune_block(block_fn, block, tune_in, ref_out,
+            tune_fn, tune_weights = block_fn, block
+            if act_lf is not None:
+                # the scales ride in the weights under a reserved key, so
+                # the tuner can put its shrink factors on them
+                tune_weights = dict(block)
+                tune_weights["_act_scales"] = {"static": static_scales,
+                                               "global": global_scales}
+
+                def tune_fn(w, xb, _schemes=schemes):
+                    scales = w["_act_scales"]
+                    lf = make_act_quant_linear_fn(
+                        _schemes, scales.get("static") or None,
+                        scales.get("global") or None)
+                    inner = {k: v for k, v in w.items()
+                             if k != "_act_scales"}
+                    return block_fn(inner, xb, lf)
+            best, info = tune_block(tune_fn, tune_weights, tune_in, ref_out,
                                     schemes, tcfg, mask=mask)
             traces[bi] = info["loss_trace"]
             logger.info("block %d: loss iter0 %.6f -> best %.6f (%.1fs)", bi,
                         info["first_loss"], info["best_loss"],
                         time.time() - t_block)
+            if "_act" in best:
+                # bake the tuned shrink into the static scales
+                for lname, p in best["_act"].items():
+                    if lname in static_scales:
+                        static_scales[lname] = static_scales[lname] \
+                            * torch.clamp(p["scale"], tcfg.clip_lo,
+                                          tcfg.clip_hi)
+                act_lf = make_act_quant_linear_fn(schemes, static_scales,
+                                                  global_scales)
             for lname, scheme in schemes.items():
                 w_orig = get_by_path(block, lname)
                 ql = _finalize_layer(f"blocks.{bi}.{lname}", w_orig, scheme,
@@ -226,24 +295,35 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
                 layers[ql.name] = ql
             del best
         else:
+            im: Dict[str, torch.Tensor] = {}
+            if schemes and cfg.use_imatrix:
+                im = collect_imatrix(block_fn, block, x_fp[:cfg.cache_batch],
+                                     set(schemes))
+                for ln, v in im.items():
+                    imatrices[f"blocks.{bi}.{ln}"] = v.cpu().numpy()
             for lname, scheme in schemes.items():
                 w_orig = get_by_path(block, lname)
-                r = rtn_quantize_layer(w_orig, scheme)
+                r = rtn_quantize_layer(w_orig, scheme, imatrix=im.get(lname))
                 qdq = r.qdq.to(w_orig.dtype)
                 qdq_block = set_by_path(qdq_block, lname, qdq)
                 layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
                     name=f"blocks.{bi}.{lname}", scheme=scheme, qdq=qdq,
                     scale=r.scale, zp=r.zp)
+        for lname in schemes:
+            ql = layers[f"blocks.{bi}.{lname}"]
+            ql.act_scale = static_scales.get(lname)
+            ql.act_global_scale = global_scales.get(lname)
         new_blocks.append(qdq_block)
         if cfg.donate_params:
             params["blocks"][bi] = None   # free the FP block
         block = None
         # advance the chains: FP through the original block (done above),
-        # the quantized one through the qdq block
+        # the quantized one through the qdq block with the activation
+        # interceptor still on
         x_fp = ref_out
         if x_q is not None:
             x_q = _batched_block_apply(block_fn, qdq_block, x_q,
-                                       cfg.cache_batch)
+                                       cfg.cache_batch, linear_fn=act_lf)
 
     new_params = dict(params)
     new_params["blocks"] = new_blocks
@@ -278,4 +358,6 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
         new_params[head_name] = ql.qdq
         layers["lm_head"] = ql
     return QuantizeResult(params=new_params, layers=layers,
-                          loss_traces=traces)
+                          loss_traces=traces,
+                          attention_scales=attention_scales,
+                          imatrices=imatrices)

@@ -1,11 +1,15 @@
-"""Quantized serving engine: packed W4A16 weights + KV cache + decode loop
+"""Quantized serving engine: packed weights + KV cache + decode loop
 (counterpart of ``autoround_tpu/serve/engine.py``; the Llama and Mixtral
-families, the ``w4a16`` and ``w4a16_asym`` kinds, ``kv_quant`` None or
-``"int8"``).
+families, the kinds ``w4a16``, ``w4a16_asym``, ``w4a8``, ``w8a8`` and
+``w8a16``, ``kv_quant`` None or ``"int8"``).
 
-Packed int4 weights stay resident on the card and every packed projection
-runs its kind's kernel (``ops/qmatmul``, ``ops/qmatmul_ext``); q/k/v and
-gate/up are fused along O so one launch serves each group.  The experts of
+Packed weights stay resident on the card and every packed projection
+runs its kind's kernel (``ops/qmatmul``, ``ops/qmatmul_ext``,
+``ops/qmatmul_int8``); q/k/v and gate/up are fused along O so one launch
+serves each group.  The ``w4a16`` and ``w4a8`` kernels read the same
+packed words, so the two opt-in modes that put a W4A16 result on the int8
+kernel (``serve_a8`` at packing time, ``prefill_a8`` for prompt passes
+only) hold no second copy of the weights.  The experts of
 a MoE block are stacked per projection and run the grouped kernel, one
 launch for all experts (``_stack_experts``); a block whose experts cannot
 all stack serves them one by one through the ungrouped kernel.  Expert
@@ -33,7 +37,8 @@ from ..models import llama, mixtral
 from ..ops.decode_attention import decode_attention
 from ..ops.qmatmul import (PLANES, pack_w4, w4a16_matmul,
                            w4a16_matmul_grouped)
-from ..ops.qmatmul_ext import w4a16_asym_matmul
+from ..ops.qmatmul_ext import w4a16_asym_matmul, w8a16_matmul
+from ..ops.qmatmul_int8 import w4a8_matmul, w8a8_matmul
 from ..quantize.orchestrator import QuantizeResult
 from ..utils.pytree import set_by_path, tree_map
 from .sampling import SamplingParams, sample_token
@@ -99,7 +104,7 @@ def _fuse_packed(packed: Dict[str, Tuple[torch.Tensor, ...]],
             entries = [packed[k] for k in keys]
             if (len({kinds[k] for k in keys}) != 1
                     or len({len(e) for e in entries}) != 1
-                    or len({e[1].shape[1] for e in entries}) != 1):
+                    or len({tuple(e[1].shape[1:]) for e in entries}) != 1):
                 continue   # another kernel or group count: no shared call
             key = f"blocks.{bi}.{fused_name}"
             out[key] = tuple(torch.cat([e[c] for e in entries], dim=0)
@@ -165,14 +170,17 @@ def _stack_experts(packed, kinds, cfg):
 
 
 # kinds of the JAX engine's ``_serving_kind`` that the port has a kernel for
-_PORTED_KINDS = ("w4a16", "w4a16_asym")
+_PORTED_KINDS = ("w4a16", "w4a16_asym", "w4a8", "w8a8", "w8a16")
 
 
 def _serving_kind(s) -> Optional[str]:
     """Map a quantization scheme to a packed serving-kernel kind, as the
     JAX engine's ``_serving_kind`` does: ``w4a16`` (sym int codes of at
     most 4 bits: 3- and small-group 2-bit codes fit the int4 layout),
-    ``w4a16_asym`` (the same with a per-group zero point), or None when the
+    ``w4a16_asym`` (the same with a per-group zero point), ``w4a8`` (sym
+    int4, g >= 128, with sym int8 activations: quantized per token on the
+    fly), ``w8a8`` (per-channel sym int8 with sym int8 activations),
+    ``w8a16`` (any other sym int8), or None when the
     scheme has no packed path and serves its dense qdq weights.  A scheme
     whose kind the port has no kernel for yet raises
     ``NotImplementedError`` naming ROADMAP A10."""
@@ -231,18 +239,50 @@ def w4_asym_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
         torch.int32)
 
 
-def _packed_matmul(x: torch.Tensor, entry, kind: str) -> torch.Tensor:
+# sequence length from which ``prefill_a8`` sends a W4A16 projection to the
+# int8 kernel (the JAX engine's threshold)
+_A8_PROMPT_SEQ = 256
+
+
+def w8_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Int8 codes of a sym qdq: clip(rint(qdq / scale), -128, 127) in fp32
+    with |scale| < 1e-12 replaced by 1e-12, the JAX engine's recovery
+    (``engine.py:425-441``).  ``scale`` is (O, columns), each column one
+    group of K / columns input columns (one column: per channel)."""
+    K = qdq.shape[1]
+    srep = scale.float().repeat_interleave(K // scale.shape[1], dim=1)
+    srep = torch.where(srep.abs() < 1e-12, torch.full_like(srep, 1e-12),
+                       srep)
+    return torch.clamp(torch.round(qdq.float() / srep), -128, 127).to(
+        torch.int8)
+
+
+def _packed_matmul(x: torch.Tensor, entry, kind: str,
+                   a8_prompt: bool = False) -> torch.Tensor:
     """One packed projection through its kind's kernel; the group size
-    follows from shapes."""
+    follows from shapes.  With ``a8_prompt`` a ``w4a16`` entry of group
+    size 128 runs the W4A8 kernel on the same words when the sequence is
+    at least 256 long; the mode keys on the sequence length, not the token
+    count, so a decode step stays exact A16 at any batch."""
     qw, scales = entry[0], entry[1]
+    x = x.contiguous()
+    if kind == "w8a8":
+        return w8a8_matmul(x, qw, scales)
+    if kind == "w8a16":
+        ncols = scales.shape[1]
+        return w8a16_matmul(x, qw, scales,
+                            0 if ncols == 1 else qw.shape[1] // ncols)
     group_size = (qw.shape[1] * PLANES) // scales.shape[1]
     if kind == "w4a16_asym":
-        return w4a16_asym_matmul(x.contiguous(), qw, scales, entry[2],
-                                 group_size)
-    return w4a16_matmul(x.contiguous(), qw, scales, group_size)
+        return w4a16_asym_matmul(x, qw, scales, entry[2], group_size)
+    seq = x.shape[-2] if x.ndim >= 3 else x.numel() // x.shape[-1]
+    if kind == "w4a8" or (a8_prompt and kind == "w4a16" and group_size == 128
+                          and seq >= _A8_PROMPT_SEQ):
+        return w4a8_matmul(x, qw, scales, group_size)
+    return w4a16_matmul(x, qw, scales, group_size)
 
 
-def _make_linear_fn(packed, kinds, block_idx: int):
+def _make_linear_fn(packed, kinds, block_idx: int, a8_prompt: bool = False):
     """The block's linear interceptor: packed layers go to their kernel,
     the rest to a dense product.  ``lf.grouped(wname, x_slabs)`` runs the
     block's stacked experts on (E, C, K) slabs; ``lf.grouped_names`` says
@@ -250,7 +290,8 @@ def _make_linear_fn(packed, kinds, block_idx: int):
     def lf(name, x, w):
         key = f"blocks.{block_idx}.{name}"
         entry = packed.get(key)
-        return (_packed_matmul(x, entry, kinds[key]) if entry is not None
+        return (_packed_matmul(x, entry, kinds[key], a8_prompt)
+                if entry is not None
                 else torch.einsum("...i,oi->...o", x, w))
 
     prefix = f"blocks.{block_idx}.experts_stack."
@@ -266,13 +307,14 @@ def _make_linear_fn(packed, kinds, block_idx: int):
     return lf
 
 
-def _fused_call(packed, kinds, splits, block_idx: int, fused_name: str, x):
+def _fused_call(packed, kinds, splits, block_idx: int, fused_name: str, x,
+                a8_prompt: bool = False):
     """Member outputs of a fused projection group, or None."""
     key = f"blocks.{block_idx}.{fused_name}"
     entry = packed.get(key)
     if entry is None:
         return None
-    y = _packed_matmul(x, entry, kinds[key])
+    y = _packed_matmul(x, entry, kinds[key], a8_prompt)
     return list(torch.split(y, splits[key], dim=-1))
 
 
@@ -287,7 +329,8 @@ def _final_fwd_packed(params, packed, kinds, x, cfg):
 
 
 def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
-                      block_idx, splits, moe_capacity_factor: float = 0.0):
+                      block_idx, splits, moe_capacity_factor: float = 0.0,
+                      a8_prompt: bool = False):
     """Decoder block returning (out, k_new, v_new).  A block that holds
     ``experts`` runs the Mixtral routed MLP through ``lf``.
 
@@ -300,7 +343,8 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     B, S, H = x.shape
     hd = cfg.hd
     h = llama.rms_norm(x, weights["input_layernorm"], cfg.rms_eps)
-    fused = _fused_call(packed, kinds, splits, block_idx, "qkv", h)
+    fused = _fused_call(packed, kinds, splits, block_idx, "qkv", h,
+                        a8_prompt)
     if fused is not None:
         q, k, v = fused
     else:
@@ -337,7 +381,8 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     if "experts" in weights:
         return x + mixtral._moe_mlp(
             weights, h, cfg, lf, capacity_factor=moe_capacity_factor), k, v
-    fused_gu = _fused_call(packed, kinds, splits, block_idx, "gate_up", h)
+    fused_gu = _fused_call(packed, kinds, splits, block_idx, "gate_up", h,
+                           a8_prompt)
     if fused_gu is not None:
         gate, up = fused_gu
     else:
@@ -347,10 +392,11 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
 
 
 def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
-                  kv_quant, moe_capacity_factor):
+                  kv_quant, moe_capacity_factor, a8_prompt=False):
     """Prompt pass: fill the cache (int8: per-(layer, head) scales
     calibrated on the prompt as max(amax over (B, S, hd), 1e-6) / 127) and
-    return the last position's logits."""
+    return the last position's logits.  ``a8_prompt`` reaches the blocks'
+    projections only: the lm_head stays exact, as in the JAX engine."""
     B, S = input_ids.shape
     if S > max_seq:
         raise ValueError(f"prompt length {S} exceeds max_seq {max_seq}")
@@ -362,8 +408,8 @@ def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
     for i in range(cfg.num_layers):
         x, k_new, v_new = _block_with_cache(
             params["blocks"][i], x, cos, sin, cfg, None, None,
-            _make_linear_fn(packed, kinds, i), packed, kinds, i, splits,
-            moe_capacity_factor)
+            _make_linear_fn(packed, kinds, i, a8_prompt), packed, kinds, i,
+            splits, moe_capacity_factor, a8_prompt)
         if kv_quant is not None:
             qmax = _KV_QMAX[kv_quant]
             ks = torch.clamp(k_new.float().abs().amax(dim=(0, 1, 3),
@@ -419,15 +465,21 @@ class QuantizedLlama:
 
     cfg: llama.LlamaConfig
     params: Dict[str, Any]                 # non-packed leaves
-    # name -> (qweight, scales) or, for w4a16_asym, (qweight, scales, zps)
+    # name -> (qweight, scales) or, for w4a16_asym, (qweight, scales, zps);
+    # qweight is packed int4 words, or int8 codes for w8a8 / w8a16; the w8a8
+    # scales are (O,), all others (O, columns)
     packed: Dict[str, Tuple[torch.Tensor, ...]]
     max_seq: int = 2048
     kv_quant: Optional[str] = None         # None | "int8"
     fused_splits: Optional[Dict[str, Tuple[int, ...]]] = None
     device: Optional[torch.device] = None
     # kernel kind per packed entry: "w4a16" | "w4a16_asym" | "w4a16_grouped"
-    # (None: every entry is w4a16)
+    # | "w4a8" | "w8a8" | "w8a16" (None: every entry is w4a16)
     packed_kinds: Optional[Dict[str, str]] = None
+    # opt-in: prompt passes run the W4A16 projections of the blocks on the
+    # int8 kernel with per-token int8 activations; decode stays exact A16.
+    # Changes prompt numerics.
+    prefill_a8: bool = False
     # MoE routing: 0 = dense-then-mask (exact; every expert runs every
     # token); > 0 = capacity dispatch, each expert runs C = ceil(N * top_k
     # / E * factor) tokens and slots beyond C drop
@@ -441,14 +493,21 @@ class QuantizedLlama:
     def from_quantize_result(cls, result: QuantizeResult,
                              cfg: llama.LlamaConfig, max_seq: int = 2048,
                              kv_quant: Optional[str] = None,
-                             device=None, moe_capacity_factor: float = 0.0
-                             ) -> "QuantizedLlama":
-        """Derive int4 codes from each layer's qdq, scale and zero point
-        (exactly the JAX engine's codes), pack them in the port's layout,
-        stack the experts of MoE blocks and fuse q/k/v and gate/up.
+                             device=None, moe_capacity_factor: float = 0.0,
+                             serve_a8: bool = False) -> "QuantizedLlama":
+        """Derive the integer codes from each layer's qdq, scale and zero
+        point (exactly the JAX engine's codes), pack them in the port's
+        layout, stack the experts of MoE blocks and fuse q/k/v and gate/up.
         Layers whose scheme has no packed path or whose shapes the kernel
         cannot take serve their dense qdq weights (as in the JAX engine);
-        a scheme served by a kernel not ported yet raises."""
+        a scheme served by a kernel not ported yet raises.
+
+        ``serve_a8=True`` (opt-in) serves W4A16 layers of group size 128
+        through the W4A8 kernel with per-token int8 activations: it changes
+        serving numerics.  The JAX engine's further shape gates (O and K
+        multiples of 256) are its TPU tiles'; the kernels here need
+        K % g == 0 and g % 32 == 0 (K % 32 == 0 per channel) and take any
+        O."""
         if kv_quant not in (None, "int8"):
             raise NotImplementedError(
                 f"kv_quant={kv_quant!r} is not ported yet (None or 'int8')")
@@ -466,19 +525,36 @@ class QuantizedLlama:
                 raise NotImplementedError(f"{name}: {e}") from None
             O, K = ql.qdq.shape
             g = s.group_size if isinstance(s.group_size, int) else 0
-            if (kind is None or g <= 0 or g % 32 or K % g
+            if serve_a8 and kind == "w4a16" and g == 128:
+                kind = "w4a8"
+            if kind in ("w8a8", "w8a16"):
+                tileable = K % 32 == 0 and (g <= 0 or (g % 32 == 0
+                                                       and K % g == 0))
+            else:
+                tileable = g > 0 and g % 32 == 0 and K % g == 0
+            if (kind is None or not tileable
                     or (kind == "w4a16_asym" and ql.zp is None)):
                 dense += 1
                 continue
             scale = ql.scale.to(device=dev, dtype=torch.float32).contiguous()
             if kind == "w4a16_asym":
                 zp = ql.zp.to(device=dev, dtype=torch.float32).contiguous()
-                codes = w4_asym_codes_from_qdq(ql.qdq.to(dev), scale, zp, g)
-                packed[name] = (pack_w4(codes), scale, zp)
+                packed[name] = (pack_w4(w4_asym_codes_from_qdq(
+                    ql.qdq.to(dev), scale, zp, g)), scale, zp)
+            elif kind == "w8a16":
+                scale = scale.reshape(O, -1)
+                packed[name] = (w8_codes_from_qdq(ql.qdq.to(dev), scale),
+                                scale)
+            elif kind == "w8a8":
+                # one signed scale per output channel, (O,)
+                sc = scale.reshape(O, -1)[:, :1]
+                sc = torch.where(sc.abs() < 1e-12,
+                                 torch.full_like(sc, 1e-12), sc)
+                packed[name] = (w8_codes_from_qdq(ql.qdq.to(dev), sc),
+                                sc[:, 0].contiguous())
             else:
-                codes = w4_codes_from_qdq(ql.qdq.to(dev), scale, g)
-                packed[name] = (pack_w4(codes), scale)
-            del codes
+                packed[name] = (pack_w4(w4_codes_from_qdq(
+                    ql.qdq.to(dev), scale, g)), scale)
             kinds[name] = kind
             # drop the dense copy (dotted paths reach MoE expert leaves)
             parts = name.split(".", 2)
@@ -507,7 +583,8 @@ class QuantizedLlama:
         return _prefill_core(self.params, self.packed, self.packed_kinds,
                              self.fused_splits, ids, cfg=self.cfg,
                              max_seq=self.max_seq, kv_quant=self.kv_quant,
-                             moe_capacity_factor=self.moe_capacity_factor)
+                             moe_capacity_factor=self.moe_capacity_factor,
+                             a8_prompt=self.prefill_a8)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, cache: KVCache

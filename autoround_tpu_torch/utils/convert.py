@@ -9,6 +9,8 @@ JAX package: both sides then compute on the same weights.
 ``tune_params_from_jax`` carries a tuned state the same way, and
 ``quantize_result_to_numpy`` goes the other way: a port result as the numpy
 tree the JAX package's results can be compared with.
+``packed_from_jax`` turns one packed payload of the JAX serving engine
+(numpy) into the port's for the kinds ``w4a8``, ``w8a8`` and ``w8a16``.
 """
 
 from __future__ import annotations
@@ -21,9 +23,10 @@ import torch
 from .._device import resolve_device
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..models.mixtral import MixtralConfig
+from ..ops.qmatmul import pack_w4
 
 __all__ = ["params_from_jax", "config_from_jax", "tune_params_from_jax",
-           "quantize_result_to_numpy"]
+           "quantize_result_to_numpy", "unpack_w4_bytes", "packed_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -95,8 +98,8 @@ def tune_params_from_jax(tree: Mapping[str, Mapping[str, Any]],
 
 def quantize_result_to_numpy(result) -> Dict[str, Any]:
     """A port ``QuantizeResult`` as numpy: ``{"params": tree, "layers":
-    {name: {qdq, scale, zp}}, "loss_traces": {...}}``, floats widened to
-    fp32 (exact from bf16)."""
+    {name: {qdq, scale, zp, act_scale}}, "loss_traces": {...}}``, floats
+    widened to fp32 (exact from bf16)."""
     def arr(t):
         if t is None:
             return None
@@ -112,6 +115,37 @@ def quantize_result_to_numpy(result) -> Dict[str, Any]:
 
     return {"params": rec(result.params),
             "layers": {n: {"qdq": arr(q.qdq), "scale": arr(q.scale),
-                           "zp": arr(q.zp)}
+                           "zp": arr(q.zp), "act_scale": arr(q.act_scale)}
                        for n, q in result.layers.items()},
             "loss_traces": dict(result.loss_traces)}
+
+
+def unpack_w4_bytes(packed: np.ndarray) -> np.ndarray:
+    """The JAX package's W4A8 byte pairs (O, K // 2) int8 → (O, K) int32
+    codes in [0, 15]: in each tile of 2 x 128 columns, byte column c holds
+    the first group's code in its low nibble and the second group's code
+    XOR 8 in its high nibble."""
+    O, Kb = packed.shape
+    g = 128
+    b = np.asarray(packed).astype(np.int32) & 0xFF
+    lo = b & 0xF
+    hi = ((b >> 4) & 0xF) ^ 8
+    c = np.stack([lo.reshape(O, Kb // g, g), hi.reshape(O, Kb // g, g)],
+                 axis=2)
+    return c.reshape(O, 2 * Kb)
+
+
+def packed_from_jax(entry, kind: str, device=None):
+    """One packed payload of the JAX engine (a tuple of numpy arrays) →
+    the port's, on ``device``: ``w4a8`` byte pairs become the packed words
+    of ``pack_w4``; the int8 codes and the scales of ``w8a8`` and ``w8a16``
+    cross as they are."""
+    dev = resolve_device(device)
+    if kind == "w4a8":
+        codes = torch.from_numpy(unpack_w4_bytes(entry[0])).to(dev)
+        return (pack_w4(codes), _leaf(entry[1], dev).float())
+    if kind in ("w8a8", "w8a16"):
+        return (_leaf(entry[0], dev).to(torch.int8),
+                _leaf(entry[1], dev).float())
+    raise NotImplementedError(f"packed kind {kind!r} is not ported yet "
+                              f"(ROADMAP A10)")

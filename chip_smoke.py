@@ -10,16 +10,19 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
              nvcc per source, in parallel); print the seconds and the
              compiler's register / spill report.
-2. kernels — run each of the seven kernels (flash forward, flash backward
+2. kernels — run each of the ten kernels (flash forward, flash backward
              dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym W4A16
-             matmul, int8-KV decode attention) at the
+             matmul, int8-KV decode attention, W4A8, W8A8 and W8A16
+             matmul) at the
              main paths' shapes against its plain PyTorch version on the
              card (bf16), check the stated tolerance (and, for the
              backward pair, that two launches give the same bits), and
              time kernel, plain version and one library call (a yardstick
              the port never calls) with CUDA events, the L2 cache flushed
              before every timed launch (median of several runs), beside
-             the least time the card could take.
+             the least time the card could take.  The int8 kinds also
+             check ``quantize_rows`` (codes and scales bit-equal) and say
+             whether the fp32 result before the cast is bit-equal.
 3. rtn     — the RTN → serve path at the full width of ``llama3-8b``
              (random weights from a seeded generator, all 32 layers):
              ``AutoRound(scheme="W4A16", iters=0, quant_lm_head=True)`` on
@@ -65,12 +68,30 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 8. asym    — ``llama3-8b`` width, ``--asym-layers`` layers, int4 asym g128
              RTN → the ``w4a16_asym`` engine → ``generate``; launch counts
              checked; 2-layer copy against the plain versions.
-9. report  — the card's name and power limit (nvidia-smi), a JSON line of
+9. a8      — the int8 serving kinds at ``llama3-8b`` width, each RTN
+             (``quant_lm_head=True``, 8 x 512 calibration ids) → engine →
+             ``generate`` (8 x 512 prompts, 32 new tokens, int8 KV):
+             ``W4A8`` (``--a8-layers``), ``W8A8`` (``--w8a8-layers``),
+             ``W8A16`` (``--w8a16-layers``); every packed kind checked,
+             launch counts equal to what the loops imply, the W4A16
+             kernels at 0, timings with bounds at the int8 peak, 2-layer
+             copy against the plain versions.
+10. a8 modes — a W4A16 result (``--a8-modes-layers``) served with
+             ``serve_a8=True`` (kinds ``w4a8`` on the same packed words)
+             and with ``prefill_a8=True`` (W4A8 kernel in the prompt pass,
+             W4A16 kernel in decode): prefill logits against exact-A16
+             serving.
+11. a8 tune — SignRound (``iters=20``) with ``W4A8`` on ``--a8-tune-layers``
+             blocks, once with dynamic activations and once with static
+             int8 activations and act-scale tuning → serve.
+12. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
-``--rtn-layers``, ``--tune-layers``, ``--moe-layers``, ``--moe-tune-layers``
-and ``--asym-layers`` cut the depth of the paths for a quicker run.
+``--rtn-layers``, ``--tune-layers``, ``--moe-layers``, ``--moe-tune-layers``,
+``--asym-layers``, ``--a8-layers``, ``--w8a8-layers``, ``--w8a16-layers``,
+``--a8-modes-layers`` and ``--a8-tune-layers`` cut the depth of the paths
+for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -94,8 +115,10 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 
-# Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16 FLOP/s.
-PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100": (3.35e12, 989e12)}
+# Published dense peaks (NVIDIA data sheets): memory bytes/s, bf16 FLOP/s,
+# int8 OP/s.
+PEAKS = {"H100 PCIe": (2.0e12, 756e12, 1513e12),
+         "H100": (3.35e12, 989e12, 1979e12)}
 
 # Kernel vs plain version on the card, bf16 out on both sides.  Error
 # measure: in each output row (last axis) max |kernel - plain| over the RMS
@@ -106,6 +129,15 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100": (3.35e12, 989e12)}
 # the same as SDPA's against the plain version; W4A16 0.037; decode
 # attention 0.0072; PERF.md).
 ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
+           # bf16 out against the plain version's bf16: W8A8 and the W4A8
+           # GEMM are bit-equal in fp32 before the cast (row error 0), the
+           # W4A8 GEMV sums its groups in another order (fp32 row error
+           # 2.1e-6), which moves a few outputs by one bf16 ulp: of a row's
+           # largest output that is 0.0185 of the row's RMS (measured, lm_head
+           # M = 8); W8A16 rounds float(wi) * s to bf16 in the plain version
+           # and the GEMM body, not in the GEMV (measured 0.0503 per channel
+           # at K = 14336)
+           "w4a8_matmul": 0.06, "w8a8_matmul": 0.06, "w8a16_matmul": 0.15,
            "decode_attention": 0.025,
            # the tile bodies of w4a16_matmul with an expert grid axis / a
            # zero point: the same limit
@@ -118,6 +150,15 @@ ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
 # tensor's RMS are held to that scale instead of their own.
 BWD_ROW_FLOOR = 0.01
 LSE_ATOL = 1e-5          # lse is fp32 on both sides (~1e-6 measured)
+# fp32 result of W4A8 before the cast, same row measure (measured 2.1e-6)
+W4A8_F32_ROW_TOL = 1e-5
+# a8 serving modes: prefill logits against exact-A16 serving, max |diff| over
+# max |exact| (the JAX package's own measure; its test's limit of 0.06 is for
+# fp32 at hidden 1024).  At llama3-8b width in bf16 with random weights the
+# int8 activation noise of 2 blocks and their 8 products measures 0.064
+# (serve_a8) and 0.066 (prefill_a8) on an H100; limit about 3x.  A product
+# that computed something else would give about 1.4.
+A8_MODE_TOL = 0.2
 # the library yardstick must compute the same function: a wrong causal
 # anchor (top-left instead of bottom-right) gives row errors of order 10
 LIB_ROW_TOL = 0.1
@@ -531,6 +572,179 @@ def kernel_phase(timer, bw, flops_peak):
     return rows
 
 
+def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
+    """The int8 kinds at the llama3-8b projections: quantize_rows, W8A8,
+    W4A8 (g = 128) and W8A16 (g = 128 and per channel) against their plain
+    versions, plus two edge shapes; kernel, plain, library and bound times.  Library: for W8A8
+    at M = 4096 ``torch._int_mm`` on rows quantized beforehand plus the
+    epilogue in torch ops; elsewhere ``torch.matmul`` on the dequantized
+    bf16 weight."""
+    from autoround_tpu_torch.ops.qmatmul import pack_w4, unpack_w4
+    from autoround_tpu_torch.ops.qmatmul_ext import (w8a16_matmul,
+                                                     w8a16_matmul_plain)
+    from autoround_tpu_torch.ops.qmatmul_int8 import (
+        quantize_rows, quantize_rows_plain, w4a8_matmul, w4a8_matmul_plain,
+        w8a8_matmul, w8a8_matmul_plain)
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = {}
+
+    def bound(nbytes, nops, peak):
+        t_b, t_f = nbytes / bw * 1e3, nops / peak * 1e3
+        return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+    def report(kernel, shape, err, rel, extra, ms, plain_ms, lib_ms, b_ms,
+               b_by):
+        tol = ROW_TOL[kernel]
+        log(f"kernel {kernel} [{shape}] max_abs_err={err:.3g} "
+            f"row_err={rel:.3g} (tol {tol}){extra} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        check(rel <= tol, f"{kernel} {shape}: row err {rel}")
+
+    for (M, K) in [(8, 4096), (4096, 4096), (8, 14336), (4096, 14336)]:
+        x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+        x[0] = 0
+        xi, xs = quantize_rows(x)
+        pi, ps = quantize_rows_plain(x)
+        torch.cuda.synchronize()
+        check(torch.equal(xi, pi) and torch.equal(xs, ps),
+              f"quantize_rows M={M} K={K}: codes or scales differ from the "
+              f"plain version")
+        ms = timer(lambda: quantize_rows(x))
+        plain_ms = timer(lambda: quantize_rows_plain(x))
+        b_ms, _ = bound(3 * M * K + 4 * M, 0, 1.0)
+        log(f"kernel quantize_rows [M={M} K={K}] codes and scales bit-equal "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
+            f"(bytes); it runs inside every w4a8_matmul / w8a8_matmul call")
+
+    # the last: ragged M and O on the GEMM body, and a K (a multiple of 32,
+    # not of the int8 GEMM's 64-column tile) whose last tile is half empty
+    cases = [(8, 6144, 4096, "qkv", 128), (8, 4096, 14336, "down_proj", 128),
+             (8, 128256, 4096, "lm_head", 128), (4096, 6144, 4096, "qkv", 128),
+             (4096, 4096, 14336, "down_proj", 128),
+             (4096, 128256, 4096, "lm_head", 128),
+             (5, 1000, 4096, "ragged", 128), (200, 1000, 1056, "K edge", 96)]
+    for (M, O, K, name, G) in cases:
+        x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+        out_bytes = 2 * M * K + 2 * M * O
+
+        # row 7, W8A8: per-channel signed scales
+        wi = torch.randint(-128, 128, (O, K), generator=gen,
+                           device=dev).to(torch.int8)
+        ws = (torch.rand(O, generator=gen, device=dev) - 0.5) * 0.002
+        y = w8a8_matmul(x, wi, ws)
+        y32 = w8a8_matmul(x, wi, ws, torch.float32)
+        p32 = w8a8_matmul_plain(x, wi, ws, torch.float32)
+        torch.cuda.synchronize()
+        err, rel = row_err(y, p32.bfloat16())
+        equal = torch.equal(y32, p32)
+        check(equal, f"w8a8 M={M} O={O} K={K}: fp32 result differs from the "
+              f"plain version's (both are exact integers times two scales)")
+        del y32, p32
+        ms = timer(lambda: w8a8_matmul(x, wi, ws))
+        plain_ms = timer(lambda: w8a8_matmul_plain(x, wi, ws))
+        if M > 16:
+            xi, xs = quantize_rows(x)
+            wt = wi.T
+
+            def lib():
+                return (torch._int_mm(xi, wt).float() * xs[:, None]
+                        * ws[None, :]).bfloat16()
+            lib_what = "int_mm+epilogue"
+        else:
+            w_bf16 = (wi.float() * ws[:, None]).bfloat16()
+
+            def lib():
+                return torch.matmul(x, w_bf16.T)
+            lib_what = "matmul(bf16 dequant)"
+        lib_ms = timer(lib)
+        b_ms, b_by = bound(out_bytes + O * K + 4 * O, 2 * M * O * K,
+                           int8_peak)
+        shape = f"{name} M={M} O={O} K={K} per channel"
+        report("w8a8_matmul", shape, err, rel,
+               f" f32_bit_equal={equal} library={lib_what}", ms, plain_ms,
+               lib_ms, b_ms, b_by)
+        if M == 8 and name == "qkv":
+            rows["w8a8_matmul"] = dict(
+                name="w8a8_matmul", route="cuda",
+                source="autoround_tpu_torch/csrc/w8a8_matmul.cu",
+                replaces="autoround_tpu/ops/qmatmul_int8.py:130",
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        lib = None
+        xi = xs = wt = w_bf16 = None
+
+        # row 11, W8A16 on the same codes: per group and per channel
+        for g in (G, 0):
+            sc = (torch.rand(O, K // g if g else 1, generator=gen,
+                             device=dev) - 0.5) * 0.002
+            y = w8a16_matmul(x, wi, sc, g)
+            yp = w8a16_matmul_plain(x, wi, sc, g)
+            torch.cuda.synchronize()
+            err, rel = row_err(y, yp)
+            del yp
+            ms = timer(lambda: w8a16_matmul(x, wi, sc, g))
+            plain_ms = timer(lambda: w8a16_matmul_plain(x, wi, sc, g))
+            w_bf16 = (wi.float() * sc.repeat_interleave(
+                g if g else K, dim=1)).bfloat16()
+            lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+            del w_bf16
+            b_ms, b_by = bound(out_bytes + O * K + 4 * sc.numel(),
+                               2 * M * O * K, flops_peak)
+            shape = f"{name} M={M} O={O} K={K} " + (
+                f"g={g}" if g else "per channel")
+            report("w8a16_matmul", shape, err, rel, "", ms, plain_ms, lib_ms,
+                   b_ms, b_by)
+            if M == 8 and name == "qkv" and g:
+                rows["w8a16_matmul"] = dict(
+                    name="w8a16_matmul", route="cuda",
+                    source="autoround_tpu_torch/csrc/w8a16_matmul.cu",
+                    replaces="autoround_tpu/ops/qmatmul_ext.py:330",
+                    shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del wi, ws, sc, y
+        torch.cuda.empty_cache()
+
+        # row 8, W4A8: the packed words of the W4A16 kernel
+        qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen, device=dev))
+        sc = (torch.rand(O, K // G, generator=gen, device=dev) - 0.5) * 0.02
+        y = w4a8_matmul(x, qw, sc, G)
+        y32 = w4a8_matmul(x, qw, sc, G, torch.float32)
+        p32 = w4a8_matmul_plain(x, qw, sc, G, torch.float32)
+        torch.cuda.synchronize()
+        err, rel = row_err(y, p32.bfloat16())
+        equal = torch.equal(y32, p32)
+        _, rel32 = row_err(y32, p32)
+        check(rel32 <= W4A8_F32_ROW_TOL and (equal or M <= 32),
+              f"w4a8 M={M} O={O} K={K}: fp32 row err {rel32}, bit-equal "
+              f"{equal} (the GEMM body must be)")
+        del y32, p32
+        ms = timer(lambda: w4a8_matmul(x, qw, sc, G))
+        plain_ms = timer(lambda: w4a8_matmul_plain(x, qw, sc, G))
+        w_bf16 = ((unpack_w4(qw) - 8).float()
+                  * sc.repeat_interleave(G, dim=1)).bfloat16()
+        lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+        del w_bf16
+        b_ms, b_by = bound(out_bytes + O * K // 2 + 4 * sc.numel(),
+                           2 * M * O * K, int8_peak)
+        shape = f"{name} M={M} O={O} K={K} g={G}"
+        report("w4a8_matmul", shape, err, rel,
+               f" f32_bit_equal={equal} f32_row_err={rel32:.3g} (tol "
+               f"{W4A8_F32_ROW_TOL})", ms, plain_ms, lib_ms, b_ms, b_by)
+        if M == 8 and name == "qkv":
+            rows["w4a8_matmul"] = dict(
+                name="w4a8_matmul", route="cuda",
+                source="autoround_tpu_torch/csrc/w4a8_matmul.cu",
+                replaces="autoround_tpu/ops/qmatmul_int8.py:295",
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del qw, sc, x, y
+        torch.cuda.empty_cache()
+    return rows
+
+
 def copy_engine(eng, n_layers, device):
     """The first ``n_layers`` blocks of an engine, on ``device``."""
     import dataclasses
@@ -555,7 +769,8 @@ def copy_engine(eng, n_layers, device):
                           device=torch.device(device),
                           packed_kinds={k: eng.packed_kinds[k]
                                         for k in packed},
-                          moe_capacity_factor=eng.moe_capacity_factor)
+                          moe_capacity_factor=eng.moe_capacity_factor,
+                          prefill_a8=eng.prefill_a8)
 
 
 def _kernel_times(prof):
@@ -606,10 +821,13 @@ def profile_serving(eng, prompts, prefill_ms, step_ms):
         + _top(times, n))
 
 
-def serve_bounds(eng, B, S, bw, flops_peak):
+def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     """Least times the card could take for one prefill of B x S tokens and
     for the first decode step after it (pos = S): the larger of bytes over
-    bandwidth and FLOPs over the bf16 peak.  Prefill FLOPs: every block
+    bandwidth and operations over their peak: the bf16 peak, or with
+    ``int8_peak`` (an engine whose packed projections all run int8
+    products: the kinds w4a8 and w8a8) the int8 peak for the projections
+    and the bf16 peak for attention.  Prefill FLOPs: every block
     weight for all B*S tokens, the lm_head for the last position only (the
     engine runs it there alone), causal attention; a MoE block counts
     all its experts for every token (dense-then-mask routing, which is what
@@ -635,13 +853,15 @@ def serve_bounds(eng, B, S, bw, flops_peak):
     w_bytes += sum(nbytes(t) for t in leaves)
     row = hid * eng.params["embed_tokens"].element_size()
     kv_tok = 2 * L * B * Hkv * hd            # int8 k and v of one position
-    pre_flops = (2 * B * S * w_block * L + 2 * B * hid * V
-                 + 4 * B * H * hd * (S * (S + 1) // 2) * L)
+    lin_peak = int8_peak or flops_peak
+    pre_ops_s = ((2 * B * S * w_block * L + 2 * B * hid * V) / lin_peak
+                 + 4 * B * H * hd * (S * (S + 1) // 2) * L / flops_peak)
     pre_bytes = w_bytes + B * S * row + S * kv_tok
-    step_flops = 2 * B * (w_block * L + hid * V) + 4 * B * H * hd * (S + 1) * L
+    step_ops_s = (2 * B * (w_block * L + hid * V) / lin_peak
+                  + 4 * B * H * hd * (S + 1) * L / flops_peak)
     step_bytes = w_bytes + B * row + (S + 1) * kv_tok
-    return (max(pre_bytes / bw, pre_flops / flops_peak) * 1e3,
-            max(step_bytes / bw, step_flops / flops_peak) * 1e3)
+    return (max(pre_bytes / bw, pre_ops_s) * 1e3,
+            max(step_bytes / bw, step_ops_s) * 1e3)
 
 
 def _kernel_fns():
@@ -650,7 +870,10 @@ def _kernel_fns():
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
     from autoround_tpu_torch.ops.qmatmul import (w4a16_matmul,
                                                  w4a16_matmul_grouped)
-    from autoround_tpu_torch.ops.qmatmul_ext import w4a16_asym_matmul
+    from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul,
+                                                     w8a16_matmul)
+    from autoround_tpu_torch.ops.qmatmul_int8 import (w4a8_matmul,
+                                                      w8a8_matmul)
 
     return {"flash_attention": flash_attention,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
@@ -658,19 +881,26 @@ def _kernel_fns():
             "w4a16_matmul": w4a16_matmul,
             "w4a16_matmul_grouped": w4a16_matmul_grouped,
             "w4a16_asym_matmul": w4a16_asym_matmul,
-            "decode_attention": decode_attention}
+            "decode_attention": decode_attention,
+            "w4a8_matmul": w4a8_matmul, "w8a8_matmul": w8a8_matmul,
+            "w8a16_matmul": w8a16_matmul}
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(attention=True):
     """Inside the block, every kernel wrapper the engine and the model call
-    is its plain PyTorch version (on whatever device the tensors lie)."""
+    is its plain PyTorch version (on whatever device the tensors lie);
+    with ``attention=False`` only the packed products are, and the two
+    attention kernels stay."""
     from autoround_tpu_torch.models import llama
     from autoround_tpu_torch.ops.decode_attention import decode_attention_plain
     from autoround_tpu_torch.ops.flash_attention import flash_attention_plain
     from autoround_tpu_torch.ops.qmatmul import (w4a16_matmul_grouped_plain,
                                                  w4a16_matmul_plain)
-    from autoround_tpu_torch.ops.qmatmul_ext import w4a16_asym_matmul_plain
+    from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul_plain,
+                                                     w8a16_matmul_plain)
+    from autoround_tpu_torch.ops.qmatmul_int8 import (w4a8_matmul_plain,
+                                                      w8a8_matmul_plain)
     from autoround_tpu_torch.serve import engine
 
     patches = [
@@ -679,7 +909,12 @@ def plain_versions():
         (engine, "decode_attention", decode_attention_plain),
         (engine, "w4a16_matmul", w4a16_matmul_plain),
         (engine, "w4a16_matmul_grouped", w4a16_matmul_grouped_plain),
-        (engine, "w4a16_asym_matmul", w4a16_asym_matmul_plain)]
+        (engine, "w4a16_asym_matmul", w4a16_asym_matmul_plain),
+        (engine, "w4a8_matmul", w4a8_matmul_plain),
+        (engine, "w8a8_matmul", w8a8_matmul_plain),
+        (engine, "w8a16_matmul", w8a16_matmul_plain)]
+    if not attention:
+        patches = patches[2:]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -690,7 +925,7 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def time_serving(eng, prompts, n_new, bw, flops_peak):
+def time_serving(eng, prompts, n_new, bw, flops_peak, int8_peak=None):
     """Time one prefill and the decode steps after it, print them beside
     their bounds and a profile; returns (prefill ms, median step ms)."""
     B, S = prompts.shape
@@ -714,28 +949,39 @@ def time_serving(eng, prompts, n_new, bw, flops_peak):
         f"decode_step_ms_median={step_ms:.3f} "
         f"decode_tok_s={B / step_ms * 1e3:.1f} "
         f"(steps {min(steps):.3f}..{max(steps):.3f} ms)")
-    pre_bound, step_bound = serve_bounds(eng, B, S, bw, flops_peak)
-    log(f"serve bounds: prefill_bound_ms={pre_bound:.3f} (FLOPs) "
+    pre_bound, step_bound = serve_bounds(eng, B, S, bw, flops_peak,
+                                         int8_peak)
+    log(f"serve bounds: prefill_bound_ms={pre_bound:.3f} "
+        f"({'int8 OPs, attention bf16' if int8_peak else 'FLOPs'}) "
         f"decode_step_bound_ms={step_bound:.4f} (bytes, pos={S})")
     del cache, logits
     profile_serving(eng, prompts, prefill_ms, step_ms)
     return prefill_ms, step_ms
 
 
-def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL):
+def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL, attention=True):
     """A 2-layer copy of the engine, 2 prompts, 8 greedy tokens: once through
     the kernels on the card, once through the plain versions — on the CPU
     (``reference="cpu"``) or, where the CPU would take minutes (MoE: every
     step dequantizes 2 x 24 expert matrices), on the card
     (``reference="card"``).  Step-1 logits must agree within ``tol`` and
-    the greedy tokens must match."""
+    the greedy tokens must match.
+
+    ``attention=False`` (card only) keeps the attention kernels in the
+    reference run too.  The int8-activation kinds need it: the per-token
+    quantizer rounds bf16 activations onto a grid whose step (1 / 127 of a
+    row's amax) is about one bf16 ulp, so the bf16-level difference between
+    an attention kernel and its plain version flips many codes and moves
+    the logits by 0.26 of a row's RMS (measured, W4A8) whatever the
+    products do; with the same attention on both sides the check holds the
+    int8 products alone, which are exact."""
     p2 = prompts[:2]
     gpu = copy_engine(eng, 2, "cuda")
     lg_gpu, _ = gpu.prefill(p2)
     tok_gpu = gpu.generate(p2, max_new_tokens=8).cpu()
     ref = gpu if reference == "card" else copy_engine(eng, 2, "cpu")
     t0 = time.time()
-    with plain_versions() if reference == "card" \
+    with plain_versions(attention) if reference == "card" \
             else contextlib.nullcontext():
         logits, cache = ref.prefill(p2)
         ref_logits = [logits.cpu()]
@@ -751,6 +997,14 @@ def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL):
         f"max_abs_err={err:.4g} row_err={rel:.4g} (tol {tol}) "
         f"reference_s={t_ref:.1f}")
     check(rel <= tol, "2-layer copy: step-1 logits disagree")
+    if not attention:
+        # reported, not held: the same prefill with every kernel plain, so
+        # that a drift of the flips' size shows from run to run
+        with plain_versions(True):
+            full, _ = ref.prefill(p2)
+        err, rel = row_err(lg_gpu.cpu(), full.cpu())
+        log(f"2-layer copy (attention plain too, not held): step-1 logits "
+            f"max_abs_err={err:.4g} row_err={rel:.4g}")
     # greedy tokens: equal step by step; at the first step where they
     # differ (if any), the card's token must be a near-tie of the plain
     # choice — within the row tolerance of the plain maximum — and the
@@ -1399,6 +1653,271 @@ def asym_path(n_layers):
     return launches
 
 
+# The static int8 activation scheme of the a8 tune path: W4A8's fields with
+# one static scale per layer (amax of the FP pass / 127) instead of a dynamic
+# per-tensor one.
+STATIC_W4A8 = dict(bits=4, group_size=128, sym=True, data_type="int",
+                   act_bits=8, act_group_size=0, act_sym=True,
+                   act_data_type="int", act_dynamic=False)
+
+
+def a8_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
+    """RTN with one of the 8-bit presets → its serving kind → serve at
+    llama3-8b width; returns the launches."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kind = {"W4A8": "w4a8", "W8A8": "w8a8", "W8A16": "w8a16"}[scheme]
+    act = kind != "w8a16"
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ = 8, 512, 32, 1024
+    ids_gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme=scheme, iters=0, quant_lm_head=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    check(all(q.act_scale is None for q in result.layers.values()),
+          f"{scheme} path: a dynamic scheme left a static act scale")
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    del ar, result
+    torch.cuda.synchronize()
+    t_pack = time.time() - t0
+    check(set(eng.packed_kinds.values()) == {kind}
+          and len(eng.packed) == 4 * n_layers + 1,
+          f"{scheme} path: packed kinds "
+          f"{sorted(set(eng.packed_kinds.values()))}, {len(eng.packed)} "
+          f"entries")
+    t0 = time.time()
+    toks = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{scheme} path llama3-8b ({n_layers} layers, random weights, kind "
+        f"{kind}): quantize_s={t_quant:.2f} pack_s={t_pack:.2f} "
+        f"generate_s={t_gen:.2f} peak_mem_gb={peak_gb:.2f}")
+    log(f"{scheme} path kernels {json.dumps(launches)}")
+    # per block and forward: qkv, o_proj, gate_up, down_proj; an
+    # act-quantized scheme adds the amax pass over the FP block (flash once
+    # more per block)
+    want = _serve_counts(n_layers, NEW, NEW - 1, per_block=4)
+    want[f"{kind}_matmul"] = want.pop("matmul")
+    if act:
+        want["flash_attention"] += n_layers
+    for n in kernels:
+        want.setdefault(n, 0)
+    for n, c in want.items():
+        check(launches[n] == c, f"{scheme} path: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    time_serving(eng, prompts, NEW, bw, flops_peak,
+                 int8_peak if act else None)
+    check_copy(eng, prompts, "card", attention=not act)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def a8_modes_path(n_layers):
+    """A W4A16 result on the int8 kernel: ``serve_a8`` and ``prefill_a8``;
+    returns the launches of the ``prefill_a8`` engine's prefill and decode
+    step."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
+    B, S, MAX_SEQ = 8, 512, 1024
+    ids_gen = torch.Generator().manual_seed(11)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=0, quant_lm_head=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    exact = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                                kv_quant="int8")
+    a8 = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                             kv_quant="int8", serve_a8=True)
+    del ar, result
+    check(set(exact.packed_kinds.values()) == {"w4a16"}
+          and set(a8.packed_kinds.values()) == {"w4a8"},
+          "a8 modes: packed kinds")
+    check(all(torch.equal(a8.packed[k][0], e[0])
+              and torch.equal(a8.packed[k][1], e[1])
+              for k, e in exact.packed.items()),
+          "a8 modes: serve_a8 packed other words than the exact engine")
+    pa8 = dataclasses.replace(exact, prefill_a8=True)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-6)).item()
+
+    def rel_rms(a, b):
+        return ((a.float() - b.float()).pow(2).mean().sqrt()
+                / b.float().pow(2).mean().sqrt()).item()
+
+    for fn in kernels.values():
+        fn.launches = 0
+    le, _ = exact.prefill(prompts)
+    check(kernels["w4a8_matmul"].launches == 0
+          and kernels["w4a16_matmul"].launches == 4 * n_layers + 1,
+          "a8 modes: exact engine's prefill launches")
+    for fn in kernels.values():
+        fn.launches = 0
+    la, _ = a8.prefill(prompts)
+    check(kernels["w4a16_matmul"].launches == 0
+          and kernels["w4a8_matmul"].launches == 4 * n_layers + 1,
+          "a8 modes: serve_a8 engine's prefill launches")
+    for fn in kernels.values():
+        fn.launches = 0
+    lp, cache = pa8.prefill(prompts)
+    pre = {n: fn.launches for n, fn in kernels.items()}
+    # the blocks' projections on the int8 kernel, the lm_head exact
+    check(pre["w4a8_matmul"] == 4 * n_layers and pre["w4a16_matmul"] == 1,
+          f"a8 modes: prefill_a8 prefill launched {pre}")
+    tok = lp.argmax(-1).to(torch.int32)
+    step_logits, cache = pa8.decode_step(tok, cache)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    check(launches["w4a8_matmul"] == 4 * n_layers
+          and launches["w4a16_matmul"] == 4 * n_layers + 2
+          and launches["decode_attention"] == n_layers,
+          f"a8 modes: prefill_a8 decode step launched {launches} after {pre}")
+    check(bool(torch.isfinite(step_logits).all()), "a8 modes: decode logits")
+    r_a8, r_pa8 = rel(la, le), rel(lp, le)
+    log(f"a8 modes llama3-8b ({n_layers} layers, W4A16 g128 result): "
+        f"prefill logits vs exact A16, max|diff|/max|exact|: serve_a8 "
+        f"{r_a8:.4g}, prefill_a8 {r_pa8:.4g} (tol {A8_MODE_TOL}); rms(diff)/"
+        f"rms(exact): {rel_rms(la, le):.4g}, {rel_rms(lp, le):.4g}; prefill_a8 "
+        f"kernels prefill + 1 decode step {json.dumps(launches)}")
+    check(r_a8 < A8_MODE_TOL and r_pa8 < A8_MODE_TOL,
+          "a8 modes: prefill logits too far from exact-A16 serving")
+    check(r_a8 > 0 and r_pa8 > 0, "a8 modes: the a8 logits equal the exact "
+          "ones (the int8 kernel did not run)")
+    del exact, a8, pa8, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def a8_tune_path(n_layers):
+    """SignRound with int8 activations in the loss → serve at llama3-8b
+    width: W4A8 as shipped (dynamic per-tensor), then static scales with
+    act-scale tuning."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ, NS, ITERS, CB = 8, 512, 32, 1024, 16, 20, 8
+    ids_gen = torch.Generator().manual_seed(12)
+    calib = torch.randint(0, cfg.vocab_size, (NS, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+
+    def init():
+        return llama.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+    # the static scales before any tuning: amax of the FP pass / 127
+    rtn = AutoRound((init(), cfg), scheme=dict(STATIC_W4A8), iters=0,
+                    donate_params=True).quantize(calib)
+    fixed = {n: q.act_scale for n, q in rtn.layers.items()}
+    del rtn
+    for label, scheme, kw in (
+            ("dynamic", "W4A8", {}),
+            ("static + act-scale tuning", dict(STATIC_W4A8),
+             dict(enable_act_minmax_tuning=True))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.time()
+        ar = AutoRound((init(), cfg), scheme=scheme, iters=ITERS,
+                       batch_size=B, donate_params=True, cache_batch=CB, **kw)
+        result = ar.quantize(calib)
+        torch.cuda.synchronize()
+        t_tune = time.time() - t0
+        traces = result.loss_traces
+        first = [float(traces[b][0]) for b in range(n_layers)]
+        best = [float(traces[b].min()) for b in range(n_layers)]
+        check(len(traces) == n_layers and all(
+            len(traces[b]) == ITERS and bool((traces[b] == traces[b]).all())
+            and bool(abs(traces[b]).max() < float("inf"))
+            for b in range(n_layers)),
+            f"a8 tune ({label}): a loss is missing or not finite")
+        check(all(b <= f for b, f in zip(best, first)),
+              f"a8 tune ({label}): a block's best loss is above its first")
+        shrink = None
+        if kw:
+            tcfg = ar.cfg.tune_config()
+            ratios = [float(q.act_scale / fixed[n])
+                      for n, q in result.layers.items()]
+            check(all(q.act_scale is not None and q.act_scale.ndim == 0
+                      for q in result.layers.values()),
+                  "a8 tune: a static act scale is missing")
+            check(all(tcfg.clip_lo <= r <= tcfg.clip_hi * (1 + 1e-6)
+                      for r in ratios),
+                  f"a8 tune: act scales outside [clip_lo, clip_hi] x amax / "
+                  f"127: ratios {ratios}")
+            shrink = (min(ratios), max(ratios))
+        else:
+            check(all(q.act_scale is None for q in result.layers.values()),
+                  "a8 tune: a dynamic scheme left a static act scale")
+        eng = QuantizedLlama.from_quantize_result(result, cfg,
+                                                  max_seq=MAX_SEQ,
+                                                  kv_quant="int8")
+        del ar, result
+        check(set(eng.packed_kinds.values()) == {"w4a8"},
+              f"a8 tune ({label}): packed kinds")
+        toks = eng.generate(prompts, max_new_tokens=NEW)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in kernels.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"a8 tune path ({label}) llama3-8b ({n_layers} layers, {NS} x "
+            f"{S} ids, iters={ITERS}, batch {B}): tune_s={t_tune:.2f} "
+            f"peak_mem_gb={peak_gb:.2f}; losses (first -> best per block): "
+            + " ".join(f"{f:.4g}->{b:.4g}" for f, b in zip(first, best))
+            + (f"; act scale over amax / 127, least and most: "
+               f"{shrink[0]:.4f} {shrink[1]:.4f}" if shrink else ""))
+        log(f"a8 tune path ({label}) kernels {json.dumps(launches)}")
+        # per block: the amax pass, the FP chain and the quantized chain
+        # (NS / CB forwards each), one forward and one backward per step;
+        # generate's prefill adds one forward per layer
+        fwd = n_layers * (1 + 2 * (NS // CB) + ITERS) + n_layers
+        want = {"flash_attention": fwd,
+                "flash_attention_bwd_dq": n_layers * ITERS,
+                "flash_attention_bwd_dkv": n_layers * ITERS,
+                "w4a8_matmul": 4 * n_layers * NEW,   # the lm_head stays dense
+                "decode_attention": n_layers * (NEW - 1),
+                "w4a16_matmul": 0}
+        for n, c in want.items():
+            check(launches[n] == c, f"a8 tune ({label}): {n} launched "
+                  f"{launches[n]} times, the loops imply {c}")
+        _check_tokens(toks, B, NEW, cfg.vocab_size)
+        del eng
+    torch.cuda.empty_cache()
+
+
 def free_device_memory():
     """Between phases: the moe path peaks at 72 of the card's 80 GB, and
     tensors kept alive by a reference cycle of the phase before (seen once:
@@ -1422,6 +1941,18 @@ def main() -> int:
                          "(default 2)")
     ap.add_argument("--asym-layers", type=int, default=4,
                     help="depth of the int4 asym -> serve path (default 4)")
+    ap.add_argument("--a8-layers", type=int, default=32,
+                    help="depth of the W4A8 -> serve path (default 32)")
+    ap.add_argument("--w8a8-layers", type=int, default=32,
+                    help="depth of the W8A8 -> serve path (default 32)")
+    ap.add_argument("--w8a16-layers", type=int, default=4,
+                    help="depth of the W8A16 -> serve path (default 4)")
+    ap.add_argument("--a8-modes-layers", type=int, default=4,
+                    help="depth of the W4A16 result served with serve_a8 and "
+                         "prefill_a8 (default 4)")
+    ap.add_argument("--a8-tune-layers", type=int, default=2,
+                    help="depth of the W4A8 SignRound -> serve path "
+                         "(default 2)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1452,8 +1983,11 @@ def main() -> int:
             if "registers" in line or "spill stores" in line:
                 log(f"  {p.stem.split('-')[0]}: {line.strip()}")
 
-    bw, fl = peaks(name)
-    rows = kernel_phase(Timer(), bw, fl)
+    bw, fl, i8 = peaks(name)
+    timer = Timer()
+    rows = kernel_phase(timer, bw, fl)
+    rows.update(a8_kernel_phase(timer, bw, fl, i8))
+    del timer
     rtn_launches, _ = rtn_path(bw, fl, args.rtn_layers)
     free_device_memory()
     tuning_step_phase(bw, fl)
@@ -1467,16 +2001,31 @@ def main() -> int:
     moe_tune_path(args.moe_tune_layers)
     free_device_memory()
     asym_launches = asym_path(args.asym_layers)
+    free_device_memory()
+    a8_launches = a8_path(bw, fl, i8, "W4A8", args.a8_layers, seed=8)
+    free_device_memory()
+    w8a8_launches = a8_path(bw, fl, i8, "W8A8", args.w8a8_layers, seed=9)
+    free_device_memory()
+    w8a16_launches = a8_path(bw, fl, i8, "W8A16", args.w8a16_layers, seed=10)
+    free_device_memory()
+    modes_launches = a8_modes_path(args.a8_modes_layers)
+    free_device_memory()
+    a8_tune_path(args.a8_tune_layers)
     # each kernel's count on the path that is its own: the Llama tune path
-    # runs the first five, the moe path the grouped one, the asym path its
-    # kernel; the counts of the other paths ride along where not zero
+    # runs the first five, the moe path the grouped one, the asym path and
+    # the three 8-bit paths their kernels; the counts of the other paths
+    # ride along where not zero
     launches["w4a16_matmul_grouped"] = moe_launches["w4a16_matmul_grouped"]
     launches["w4a16_asym_matmul"] = asym_launches["w4a16_asym_matmul"]
+    launches["w4a8_matmul"] = a8_launches["w4a8_matmul"]
+    launches["w8a8_matmul"] = w8a8_launches["w8a8_matmul"]
+    launches["w8a16_matmul"] = w8a16_launches["w8a16_matmul"]
     for n, row in rows.items():
         row["launches"] = launches[n]
         for key, other in (("launches_rtn_path", rtn_launches),
                            ("launches_moe_path", moe_launches),
-                           ("launches_asym_path", asym_launches)):
+                           ("launches_asym_path", asym_launches),
+                           ("launches_a8_modes_path", modes_launches)):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)

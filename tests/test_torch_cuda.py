@@ -8,9 +8,13 @@ These need a CUDA device and skip without one.  On a machine with a card:
 neither use nor need.)  They cover the edges ``chip_smoke.py`` does not
 reach: every GEMV template of the W4A16 kernels (ungrouped, grouped, asym),
 ragged O, small groups, every activation layout the grouped kernel takes,
-integral and fractional zero points, D = 256 and S < T flash attention (forward and the backward pair, every
-GQA ratio, run-to-run bit equality, autograd through the op), every GQA
-ratio and mask of the decode kernel, and the wrappers' refusals.
+integral and fractional zero points, the int8 kinds (``quantize_rows``,
+W8A8, W4A8, W8A16: every GEMV template and the GEMM body, ragged O, g of
+32, 128 and 256, per-channel and per-group scales, negative scales, an
+all-zero activation row), D = 256 and S < T flash attention (forward and
+the backward pair, every GQA ratio, run-to-run bit equality, autograd
+through the op), every GQA ratio and mask of the decode kernel, and the
+wrappers' refusals.
 
 Tolerance: both sides give bf16.  In each output row (last axis), max
 |kernel - plain| over the RMS of the plain row must stay within the
@@ -24,6 +28,15 @@ weight (W4A16) or probability (flash) to bf16.  The backward pair against
 0.020 at the main path's shapes, limit 0.07; a gradient row may be zero in
 exact arithmetic (row 0 of dQ when S = T), so a row's RMS counts as at
 least 1% of the tensor's.
+
+The int8 kinds: ``quantize_rows`` gives the plain version's codes and
+scales bit for bit.  The integer part of W8A8 and W4A8 is exact on both
+sides, so their fp32 results before the cast are held directly: W8A8 and
+the W4A8 GEMM body (M > 32) bit-equal to the plain version; the W4A8 GEMV
+body (M <= 32) sums the groups' fp32 terms in another order (measured
+worst row 2.1e-6 of the row's RMS on an H100, limit 1e-5).  W8A16 is held
+like W4A16 (measured worst row 0.049 per channel at K = 14336, limit
+0.15).
 """
 
 import pytest
@@ -39,10 +52,19 @@ from autoround_tpu_torch.ops.qmatmul import (pack_w4, w4a16_matmul,
                                              w4a16_matmul_grouped_plain,
                                              w4a16_matmul_plain)
 from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul,
-                                                 w4a16_asym_matmul_plain)
+                                                 w4a16_asym_matmul_plain,
+                                                 w8a16_matmul,
+                                                 w8a16_matmul_plain)
+from autoround_tpu_torch.ops.qmatmul_int8 import (quantize_rows,
+                                                  quantize_rows_plain,
+                                                  w4a8_matmul,
+                                                  w4a8_matmul_plain,
+                                                  w8a8_matmul,
+                                                  w8a8_matmul_plain)
 
 pytestmark = pytest.mark.cuda
-ROW_TOL = {"flash": 0.1, "w4a16": 0.1, "decode": 0.025, "flash_bwd": 0.07}
+ROW_TOL = {"flash": 0.1, "w4a16": 0.1, "decode": 0.025, "flash_bwd": 0.07,
+           "w8a16": 0.15, "w4a8_f32": 1e-5}
 BWD_ROW_FLOOR = 0.01
 LSE_ATOL = 1e-5      # lse is fp32 on both sides (~1e-6 measured)
 
@@ -121,6 +143,94 @@ def test_asym_all_regimes(gen, zp_kind, M, O, K, g):
     _check(w4a16_asym_matmul(x, qw, sc, zp, g),
            w4a16_asym_matmul_plain(x, qw, sc, zp, g), "w4a16")
     assert w4a16_asym_matmul.launches == before + 1
+
+
+def _a8_input(gen, M, K):
+    """(2, M, K) bf16 activations with an all-zero row."""
+    x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
+    x[0, 0] = 0
+    return x
+
+
+@pytest.mark.parametrize("M,K", [(1, 512), (5, 4096), (33, 1024),
+                                 (4096, 4096)])
+def test_quantize_rows_bit_equal(gen, M, K):
+    before = quantize_rows.launches
+    x = _a8_input(gen, M, K)
+    x[1, 0, :2] = torch.tensor([3.0, -3.0])
+    xi, xs = quantize_rows(x)
+    pi, ps = quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    assert xi.dtype == torch.int8 and xs.shape == (2, M)
+    assert torch.equal(xi, pi) and torch.equal(xs, ps)
+    assert not xi[0, 0].any() and xs[0, 0].item() == pytest.approx(1e-8)
+    assert quantize_rows.launches == before + 1
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 32, 33, 200, 4096])
+@pytest.mark.parametrize("O,K", [(1000, 1024), (72, 512), (256, 14336),
+                                 (72, 96), (200, 1056)])
+def test_w8a8_all_regimes(gen, M, O, K):
+    """Exact int32 accumulation, then two fp32 multiplications in the plain
+    version's order: the fp32 result is bit-equal, and so the bf16 one.
+    K = 96 and 1056 are multiples of 32 and not of the GEMM's 64-column
+    tile: its last tile is half empty."""
+    if M == 4096 and K == 14336:
+        pytest.skip("covered at M = 200")
+    before = w8a8_matmul.launches
+    x = _a8_input(gen, M, K)
+    wi = torch.randint(-128, 128, (O, K), generator=gen,
+                       device="cuda").to(torch.int8)
+    ws = (torch.rand(O, generator=gen, device="cuda") - 0.5) * 0.002
+    y32 = w8a8_matmul(x, wi, ws, torch.float32)
+    y = w8a8_matmul(x, wi, ws)
+    p32 = w8a8_matmul_plain(x, wi, ws, torch.float32)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (2, M, O)
+    assert torch.equal(y32, p32)
+    assert torch.equal(y, p32.bfloat16())
+    assert not y[0, 0].any()
+    assert w8a8_matmul.launches == before + 2
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 32, 33, 200, 4096])
+@pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32),
+                                   (200, 2048, 256), (72, 96, 32),
+                                   (72, 160, 32), (200, 1056, 96)])
+def test_w4a8_all_regimes(gen, M, O, K, g):
+    """The last three: K a multiple of 32 and not of the GEMM's 64-column
+    tile, with a group that closes on the tile's first half."""
+    before = w4a8_matmul.launches
+    x = _a8_input(gen, M, K)
+    qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen, device="cuda"))
+    sc = (torch.rand(O, K // g, generator=gen, device="cuda") - 0.5) * 0.02
+    y32 = w4a8_matmul(x, qw, sc, g, torch.float32)
+    y = w4a8_matmul(x, qw, sc, g)
+    p32 = w4a8_matmul_plain(x, qw, sc, g, torch.float32)
+    torch.cuda.synchronize()
+    if 2 * M > 32:                     # the GEMM body: the plain order
+        assert torch.equal(y32, p32)
+    _check(y32, p32, "w4a8_f32")
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y32.bfloat16())
+    assert not y[0, 0].any()
+    assert w4a8_matmul.launches == before + 2
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 32, 33, 200, 4096])
+@pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32),
+                                   (200, 2048, 256), (1000, 1024, 0),
+                                   (72, 14336, 0), (72, 96, 32)])
+def test_w8a16_all_regimes(gen, M, O, K, g):
+    """Per group and per channel (g = 0: scales (O, 1)), negative scales."""
+    before = w8a16_matmul.launches
+    x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
+    wi = torch.randint(-128, 128, (O, K), generator=gen,
+                       device="cuda").to(torch.int8)
+    sc = (torch.rand(O, K // g if g else 1, generator=gen, device="cuda")
+          - 0.5) * 0.002
+    _check(w8a16_matmul(x, wi, sc, g), w8a16_matmul_plain(x, wi, sc, g),
+           "w8a16")
+    assert w8a16_matmul.launches == before + 1
 
 
 @pytest.mark.parametrize("D", [128, 256])
@@ -212,6 +322,25 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):            # group size not % 32
         w4a16_asym_matmul(xb, qw, torch.ones((64, 16), device="cuda"),
                           torch.ones((64, 16), device="cuda"), 16)
+    wi = torch.zeros((64, 256), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):            # fp32 activations
+        w8a8_matmul(x, wi, torch.ones(64, device="cuda"))
+    with pytest.raises(ValueError):            # 2-D channel scales
+        w8a8_matmul(xb, wi, torch.ones((64, 1), device="cuda"))
+    with pytest.raises(ValueError):            # int32 codes for int8
+        w8a8_matmul(xb, wi.int(), torch.ones(64, device="cuda"))
+    with pytest.raises(ValueError):            # group size not % 32
+        w4a8_matmul(xb, qw, torch.ones((64, 16), device="cuda"), 16)
+    with pytest.raises(ValueError):            # scales of another group count
+        w4a8_matmul(xb, qw, sc, 64)
+    with pytest.raises(ValueError):            # non-contiguous activations
+        w4a8_matmul(xb.T.contiguous().T, qw, sc, 128)
+    with pytest.raises(ValueError):            # fp32 activations
+        quantize_rows(x)
+    with pytest.raises(ValueError):            # per-group scales, g = 0 asked
+        w8a16_matmul(xb, wi, sc, 0)
+    with pytest.raises(ValueError):            # fp16 scales
+        w8a16_matmul(xb, wi, sc.half(), 128)
     xe = xb[None].expand(3, 4, 256)
     qwe, sce = qw[None].expand(3, 64, 32), sc[None].expand(3, 64, 2)
     with pytest.raises(ValueError):            # stacked weights not contiguous

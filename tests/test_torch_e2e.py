@@ -167,8 +167,6 @@ def test_quantize_model_entry_and_unported_options(model):
     assert all(not q.qdq.requires_grad for q in res.layers.values())
     assert model["tp"]["blocks"][0] is not None      # nothing donated
     for kw, item in ((dict(nblocks=2), "A5"), (dict(enable_awq=True), "A12"),
-                     (dict(use_imatrix=True), "A9"),
-                     (dict(quant_attention=True), "A9"),
                      (dict(enable_lfq=True), "A5"),
                      (dict(resume_dir="x"), "A12"),
                      (dict(immediate_save_dir="x"), "A5"),
@@ -179,10 +177,24 @@ def test_quantize_model_entry_and_unported_options(model):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             quantize_model(model["tp"], model["tcfg"], plan, ids,
                            QuantizeConfig(iters=2, **kw))
+    # ported since: imatrix collection, static attention scales and a
+    # plan that quantizes activations
+    res = quantize_model(model["tp"], model["tcfg"], plan, ids,
+                         QuantizeConfig(iters=0, use_imatrix=True,
+                                        quant_attention=True))
+    assert len(res.imatrices) == len(plan) and sorted(
+        res.attention_scales) == [0, 1]
+    assert res.imatrices["blocks.0.q_proj"].shape == (JCFG.hidden_size,)
     act = resolve_layer_schemes(JCFG.num_layers, tl.LINEAR_KEYS,
                                 parse_scheme("W4A8"))
+    res = quantize_model(model["tp"], model["tcfg"], act, ids,
+                         QuantizeConfig(iters=2, batch_size=2))
+    assert sorted(res.loss_traces) == [0, 1] and len(res.layers) == len(act)
+    assert all(q.act_scale is None for q in res.layers.values())
+    mx = resolve_layer_schemes(JCFG.num_layers, tl.LINEAR_KEYS,
+                               parse_scheme("MXFP4"))
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        quantize_model(model["tp"], model["tcfg"], act, ids,
+        quantize_model(model["tp"], model["tcfg"], mx, ids,
                        QuantizeConfig(iters=0))
 
 
@@ -218,6 +230,47 @@ def test_engine_serves_a_tuned_result(model):
 @pytest.fixture(scope="module")
 def rtn_pair(model):
     return _both(model, scheme="W4A16G32", iters=0, quant_lm_head=True)
+
+
+@pytest.fixture(scope="module")
+def rtn_pairs(model, rtn_pair):
+    """scheme → (JAX result, port result, port AutoRound) of an RTN run."""
+    built = {"W4A16G32": rtn_pair}
+
+    def get(scheme):
+        if scheme not in built:
+            built[scheme] = _both(model, scheme=scheme, iters=0,
+                                  quant_lm_head=True)
+        return built[scheme]
+    return get
+
+
+@pytest.mark.parametrize("scheme", ["W8A16", "W8A8"])
+@pytest.mark.parametrize("fmt", ["fake", "autoround"])
+def test_export_bytes_of_the_8bit_schemes(rtn_pairs, tmp_path, fmt, scheme):
+    """8-bit codes (per group and per channel) through the packed export,
+    and the qdq weights of an act-quantized scheme through ``fake``: the
+    files equal the JAX package's byte for byte."""
+    jres, tres, ar = rtn_pairs(scheme)
+    from autoround_tpu.export import save_quantized as j_save
+    jd = j_save(jres, JCFG, str(tmp_path / "j"), fmt)
+    td = ar.save_quantized(str(tmp_path / "t"), fmt)
+    for f in ("model.safetensors", "quantization_config.json"):
+        assert filecmp.cmp(os.path.join(jd, f), os.path.join(td, f),
+                           shallow=False), f
+    assert sorted(os.listdir(td)) == sorted(os.listdir(jd))
+    if fmt == "autoround":
+        from safetensors.numpy import load_file
+        t = load_file(os.path.join(td, "model.safetensors"))
+        ql = tres.layers["blocks.0.q_proj"]
+        O, I = ql.qdq.shape
+        g = ql.scheme.group_size if ql.scheme.group_size > 0 else I
+        q, s, zp = unpack_quantized(
+            {k: t[f"blocks.0.q_proj.{k}"]
+             for k in ("qweight", "qzeros", "scales")}, 8, O, I)
+        np.testing.assert_array_equal(
+            q, codes_from_qdq(ql.qdq.numpy(), ql.scale.numpy(), None, 8, g))
+        assert (zp == 128).all() and s.shape == (O, -(-I // g))
 
 
 @pytest.mark.parametrize("fmt", ["fake", "autoround"])

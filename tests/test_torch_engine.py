@@ -194,7 +194,9 @@ def test_sampling_modes():
 def test_unpackable_layers_serve_dense_and_other_kinds_raise():
     """hidden 64 < g = 128: those W4A16 layers serve their dense qdq (as
     in the JAX engine); down_proj (K = 128) packs, since the port's layout
-    needs only K % g == 0.  A W8A16 result needs a kernel not ported yet."""
+    needs only K % g == 0.  A W8A16 result serves through its own kind (g =
+    128 > K = 64: those layers dense too, down_proj packed); a W2A16 g128
+    result needs a kernel not ported yet."""
     cfg = tl.CONFIG_PRESETS["tiny"]
     p = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
@@ -207,8 +209,19 @@ def test_unpackable_layers_serve_dense_and_other_kinds_raise():
     assert torch.isfinite(logits).all() and cache.length == 8
     res8 = AutoRound((p, cfg), scheme="W8A16", iters=0,
                      device="cpu").quantize(ids)
-    with pytest.raises(NotImplementedError, match="w8a16"):
-        QuantizedLlama.from_quantize_result(res8, cfg, max_seq=16,
+    eng8 = QuantizedLlama.from_quantize_result(res8, cfg, max_seq=16,
+                                               device="cpu")
+    assert sorted(eng8.packed) == ["blocks.0.down_proj", "blocks.1.down_proj"]
+    assert set(eng8.packed_kinds.values()) == {"w8a16"}
+    assert eng8.packed["blocks.0.down_proj"][0].dtype == torch.int8
+    logits8, _ = eng8.prefill(ids[:1])
+    dense8 = tl.model_fwd(res8.params, torch.as_tensor(ids[:1]), cfg)[:, -1]
+    np.testing.assert_allclose(logits8.numpy(), dense8.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    res2 = AutoRound((p, cfg), scheme="W2A16", iters=0,
+                     device="cpu").quantize(ids)
+    with pytest.raises(NotImplementedError, match="w2a16"):
+        QuantizedLlama.from_quantize_result(res2, cfg, max_seq=16,
                                             device="cpu")
 
 
