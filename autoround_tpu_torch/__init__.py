@@ -7,8 +7,10 @@ quantize-then-serve path on an NVIDIA H100, with hand-written CUDA kernels
 the JAX package.
 
 Ported so far: SignRound (``iters > 0``) and RTN (``iters=0``) quantization
-of Llama-family models, the W4A16 serving engine with an int8 KV cache,
-and the ``fake`` / ``autoround`` export formats::
+of Llama-family and Mixtral models with the int and float (FP8, MX, NVFP4)
+data types and their activation quantization, the serving engine for every
+packed kind of the JAX engine with an int8 KV cache, and the ``fake`` /
+``autoround`` export formats::
 
     ar = AutoRound((params, cfg), scheme="W4A16", iters=200,
                    quant_lm_head=True)

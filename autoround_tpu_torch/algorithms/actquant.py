@@ -10,9 +10,10 @@ Activation grouping (the scheme's act fields):
   * act_group_size -1 → per-token (row)
   * act_group_size n  → groups of n along the channel axis (MX / NVFP)
 
-The integer data types are ported.  The ``mx_``, ``nv_fp`` and ``fp8``
-activation types need ``dtypes/mxfp``, ``dtypes/nvfp`` and ``dtypes/fp8``
-and raise ``NotImplementedError`` until those are (ROADMAP A9).
+Every activation qdq of the JAX package runs under ``jit`` (the tuning
+loss, the quantized chain), where XLA turns a division by a constant into
+a product with its fp32 reciprocal; the port computes that form
+(``recip=True`` for the float types).
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from ..dtypes import fp8 as fp8_mod
+from ..dtypes import mxfp as mxfp_mod
+from ..dtypes import nvfp as nvfp_mod
 from ..dtypes.intq import _clip
 from ..dtypes.ste import round_ste
 from ..schemes import QuantizationScheme
@@ -71,10 +75,27 @@ def qdq_act(x: torch.Tensor, scheme: QuantizationScheme,
     if not s.is_act_quantized:
         return x
     adt = s.act_data_type
-    if adt.startswith("mx_") or adt.startswith("nv_fp") or "fp8" in adt:
-        raise NotImplementedError(
-            f"activation data type {adt!r} is not ported yet (ROADMAP A9); "
-            f"the port quantizes int activations")
+    shp = x.shape
+    x2 = x.reshape(-1, shp[-1])
+    if adt.startswith("mx_"):
+        name = adt if adt in mxfp_mod.MX_FORMATS else {
+            ("mx_fp", 4): "mx_fp4", ("mx_fp", 6): "mx_fp6_e2m3",
+            ("mx_fp", 8): "mx_fp8", ("mx_int", 8): "mx_int8",
+            ("mx_int", 4): "mx_int4",
+        }[(adt, s.act_bits)]
+        r = mxfp_mod.qdq_mx(x2, name, group_size=s.act_group_size or 32,
+                            rounding="rceil", recip=True)
+        return r.qdq.reshape(shp)
+    if adt.startswith("nv_fp"):
+        r = nvfp_mod.qdq_nvfp4(x2, group_size=s.act_group_size or 16,
+                               global_scale=global_scale, recip=True)
+        return r.qdq.reshape(shp)
+    if "fp8" in adt:
+        gs = 0 if not s.act_dynamic else (s.act_group_size
+                                          if s.act_group_size in (0, -1) else 0)
+        r = fp8_mod.qdq_fp8_sym(x2, group_size=gs, scale=static_scale,
+                                recip=True)
+        return r.qdq.reshape(shp)
     return _qdq_act_int(x, s.act_bits, s.act_group_size or 0, bool(s.act_sym),
                         static_scale=static_scale)
 
@@ -162,10 +183,12 @@ def build_static_act_scales(
             continue
         amax = torch.clamp(act_amax[name], min=1e-12)
         adt = s.act_data_type
+        # the JAX package runs these eagerly: true divisions
         if adt.startswith("nv_fp"):
-            global_scales[name] = (448.0 * 6.0) / amax
+            global_scales[name] = torch.full_like(amax, 448.0 * 6.0) / amax
         elif "fp8" in adt and not s.act_dynamic:
-            static_scales[name] = amax / 448.0
+            static_scales[name] = fp8_mod.div_const(amax, 448.0)
         elif adt.startswith("int") and not s.act_dynamic:
-            static_scales[name] = amax / (2.0 ** (s.act_bits - 1) - 1)
+            static_scales[name] = fp8_mod.div_const(
+                amax, 2.0 ** (s.act_bits - 1) - 1)
     return static_scales, global_scales

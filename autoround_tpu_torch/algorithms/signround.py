@@ -107,17 +107,15 @@ def init_tune_params(
         w = get_by_path(weights, name)
         O, I = w.shape
         g = scheme.group_size if scheme.group_size not in (-1, 0) else I
-        if not isinstance(g, int):
-            raise NotImplementedError(
-                f"{name}: 2-D block groups {g!r} are not ported yet "
-                f"(ROADMAP A9)")
+        # 2-D block groups (block FP8): per-tensor clip scales
+        groups_shape = (1, 1) if isinstance(g, tuple) else (O, -(-I // g))
         layer = {}
         if cfg.enable_round_tuning:
             layer["v"] = torch.zeros((O, I), dtype=torch.float32,
                                      device=w.device)
         if cfg.enable_minmax_tuning:
             for key in ("min_scale", "max_scale"):
-                layer[key] = torch.ones((O, -(-I // g)), dtype=torch.float32,
+                layer[key] = torch.ones(groups_shape, dtype=torch.float32,
                                         device=w.device)
         params[name] = layer
     if (cfg.tune_act_scales and isinstance(weights, dict)
@@ -140,7 +138,10 @@ def make_qdq_weights(
     cfg: TuneConfig,
 ) -> Dict[str, Any]:
     """Substitute qdq'd weights for every tuned layer; pass the rest
-    through.  Layer names may be dotted paths into nested structures."""
+    through.  Layer names may be dotted paths into nested structures.
+    This is the tuning loss's qdq, which the JAX package runs under
+    ``jit``: the float types divide by their constants as XLA compiles it
+    (``recip``)."""
     out = weights
     if ("_act" in tune_params and isinstance(weights, dict)
             and "_act_scales" in weights):
@@ -159,7 +160,7 @@ def make_qdq_weights(
         r = fn(get_by_path(weights, name), bits=scheme.bits,
                group_size=scheme.group_size, v=p.get("v"),
                min_scale=p.get("min_scale"), max_scale=p.get("max_scale"),
-               clip_lo=cfg.clip_lo, clip_hi=cfg.clip_hi)
+               clip_lo=cfg.clip_lo, clip_hi=cfg.clip_hi, recip=True)
         out = set_by_path(out, name, r.qdq)
     return out
 

@@ -1,0 +1,35 @@
+// MXFP4 / NVFP4 weight-only matmul: y = x . (e2m1(code) * scale)^T with
+// 4-bit E2M1 codes and one fp32 scale per group of g = 32 (MX: a power of
+// two) or g = 16 (NVFP4: an e4m3 value over the global scale, folded into
+// the scale at packing time) input columns; bf16 activations in and out,
+// fp32 accumulation.
+//
+// Replaces: autoround_tpu/ops/qmatmul_ext.py, `mxfp4_matmul` ->
+// `_mxfp4_kernel` (the Pallas TPU kernel, which expands each plane's scales
+// onto its lanes with a one-hot matrix product because its vector unit has
+// no interleaving repeat).
+//
+// Here a code is decoded by placing its bits into an fp32 (exact for all 16
+// values) and multiplied by its group's scale in registers before the tile
+// product, as mxfp4_matmul_ref does: the GEMV body (M <= 32) keeps e2m1 * s
+// in fp32, the GEMM body (M > 32) rounds it to bf16 into its shared-memory
+// tile (exact for MX's power-of-two scales, one bf16 rounding for NVFP4's)
+// and runs WMMA bf16.  Codes use the W4A16 kernel's nibble layout; at g = 16
+// a 32-column chunk spans two groups, and the bodies read the second scale.
+//
+// What bounds it on an H100: decode streams half a byte a weight plus 4
+// bytes of scale per group (1/4 of the codes' bytes at g = 32, 1/2 at g =
+// 16); prefill is bound by the bf16 tensor cores.
+
+#include "w4a16_tiles.cuh"
+
+// x (M, K) bf16, qweight (O, K/8) int32, scales (O, K/g) fp32, y (M, O)
+// bf16, all contiguous.  M >= 1, K % 32 == 0, g in {16, 32}, K % g == 0.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int mxfp4_matmul(const void* x, const void* qw, const void* sc,
+                            void* y, int M, int K, int O, int g,
+                            void* stream) {
+  if (g != 16 && g != 32) return (int)cudaErrorInvalidValue;
+  return w4a16::launch<w4a16::E2M1>(x, qw, sc, nullptr, y, 1, 0, M, K, O, g,
+                                    stream);
+}

@@ -3,17 +3,24 @@
 //   w4a16_matmul_grouped.cu  y[e] = x[e] . ((code[e] - 8) * scale[e])^T
 //   w4a16_asym_matmul.cu     y    = x    . ((code - zp) * scale)^T
 //   w8a16_matmul.cu          y    = x    . (Wi * scale)^T        (Wi int8)
+//   w2a16_matmul.cu          y    = x    . ((code - 2)  * scale)^T  (2-bit)
+//   fp8_matmul.cu            y    = (x   . e4m3(W)^T) * scale_row
+//   mxfp4_matmul.cu          y    = x    . (e2m1(code)  * scale)^T
 // bf16 activations in and out, fp32 accumulation.  The bodies are templated
-// on the weight format (SYM4, ASYM4, INT8): it decides how 16 bytes of a
-// weight row are read and dequantized, nothing else.
+// on the weight format (SYM4, ASYM4, INT8, INT2, E4M3, E2M1): it decides how
+// a chunk of a weight row is read and dequantized, and where the scale
+// enters, nothing else.
 //
-// Layout (the port's own, chosen for coalesced 16-byte loads on the card):
+// Layout (the port's own, chosen for coalesced loads on the card):
 // qweight (E, O, K/8) int32, word w of row o holds the codes of columns
-// 8w..8w+7, column 8w+j in nibble j; INT8: (E, O, K) int8 as it lies.
-// scales (E, O, K/g) fp32, signed: the sign carries the full-range flip of
-// the symmetric quantizer, so nothing here takes an abs or a log.  zps
-// (O, K/g) fp32 for the asym kernel (may be fractional); the sym kernels
-// use the constant 8, INT8 has none.
+// 8w..8w+7, column 8w+j in nibble j (SYM4, ASYM4; E2M1 codes likewise);
+// INT2: (O, K/16) int32, column 16w+j in bits 2j..2j+1 of word w; INT8 and
+// E4M3: (E, O, K) bytes as they lie.  scales (E, O, K/g) fp32, signed: the
+// sign carries the full-range flip of the symmetric quantizer, so nothing
+// here takes an abs or a log; E4M3 has one scale per output row, applied to
+// the fp32 sum (as the TPU kernel does).  zps (O, K/g) fp32 for the asym
+// kernel (may be fractional); the sym kernels use the constant 8 (INT2: 2),
+// the float formats have none.
 //
 // The expert is a grid axis (y of the GEMV grid, z of the GEMM grid): block
 // (.., e) offsets every pointer by its expert's slab, so one launch serves
@@ -23,8 +30,9 @@
 // product.
 //
 // What bounds it on an H100:
-//  * decode (M = batch <= 32): ~0.5 byte of codes per weight (INT8: 1)
-//    against 2*M operations per weight, far below the card's ~295 operations per byte:
+//  * decode (M = batch <= 32): ~0.5 byte of codes per weight (INT8, E4M3:
+//    1; INT2: 0.25) against 2*M operations per weight, far below the card's
+//    ~295 operations per byte:
 //    the weight stream from memory bounds it.  `gemv_kernel` streams each
 //    row's codes once with 16-byte coalesced loads (32 codes per lane),
 //    dequantizes each code once into fp32 registers and reuses it for all
@@ -40,7 +48,8 @@
 //    the plain version does) and runs WMMA bf16 16x16x16 with fp32
 //    accumulation over it for all 128 activation rows of its M tile.
 // The ragged M and O edges are masked in the kernels (zero-filled tiles,
-// guarded stores).  Needs K % 32 == 0 and g % 32 == 0.
+// guarded stores).  Needs K % 32 == 0 and g % 32 == 0 (E2M1: g % 16 == 0,
+// so one 32-column chunk may span two groups; E4M3: g = K).
 
 #pragma once
 
@@ -57,7 +66,7 @@ using namespace nvcuda;
 // 0x4B000000 | c is the float 2^23 + c exactly; the sym kernels fold their
 // zero of 8 into the same subtraction, the asym kernels subtract their
 // (possibly fractional) zero point in a second exact-input step.
-constexpr int SYM4 = 0, ASYM4 = 1, INT8 = 2;
+constexpr int SYM4 = 0, ASYM4 = 1, INT8 = 2, INT2 = 3, E4M3 = 4, E2M1 = 5;
 
 template <int FMT>
 __device__ __forceinline__ float code_minus_zero(uint32_t word, int j,
@@ -75,24 +84,65 @@ __device__ __forceinline__ float s8_to_f32(uint32_t word, int j) {
   return __uint_as_float(u) - 8388736.0f;            // 2^23 + 128
 }
 
-// Weights in 16 bytes of a row, and bytes in a row of K weights.
-template <int FMT> constexpr int CHUNK = FMT == INT8 ? 16 : 32;
+// e4m3 byte j of `word` as fp32, exactly: its 7 magnitude bits placed at
+// bit 20 of an fp32 are the same number times 2^-120 (normals and, as fp32
+// subnormals, the e4m3 subnormals alike).  0x7F / 0xFF (NaN) never occur:
+// the quantizer clips to 448 first.
+__device__ __forceinline__ float e4m3_to_f32(uint32_t word, int j) {
+  const uint32_t b = (word >> (8 * j)) & 0xFFu;
+  return __uint_as_float(((b & 0x80u) << 24) | ((b & 0x7Fu) << 20))
+         * 0x1p120f;
+}
+
+// e2m1 nibble j of `word` as fp32, exactly: sign to bit 31, the 3 bits of
+// exponent and mantissa to bit 22 give the value times 2^-126 (the
+// subnormal 0.5 included): {0, .5, 1, 1.5, 2, 3, 4, 6} and their negatives.
+__device__ __forceinline__ float e2m1_to_f32(uint32_t word, int j) {
+  const uint32_t c = (word >> (4 * j)) & 0xFu;
+  return __uint_as_float(((c & 8u) << 28) | ((c & 7u) << 22)) * 0x1p126f;
+}
+
+// 2-bit code j of `word` minus 2 as fp32 (the magic-number conversion).
+__device__ __forceinline__ float c2_minus_two(uint32_t word, int j) {
+  return __uint_as_float(0x4B000000u | ((word >> (2 * j)) & 3u))
+         - 8388610.0f;                                 // 2^23 + 2
+}
+
+// Weights of one chunk of a row that a GEMV lane loads (16 bytes; INT2: 8
+// bytes), and bytes in a row of K weights.
+template <int FMT>
+constexpr int CHUNK = (FMT == INT8 || FMT == E4M3) ? 16 : 32;
 template <int FMT>
 __device__ __forceinline__ size_t row_bytes(int K) {
-  return FMT == INT8 ? (size_t)K : (size_t)K / 2;
+  return (FMT == INT8 || FMT == E4M3) ? (size_t)K
+         : FMT == INT2 ? (size_t)K / 4 : (size_t)K / 2;
 }
 
 // Weights 8q..8q+7 of the 16-byte chunk `wv`, dequantized into wf.
 template <int FMT>
 __device__ __forceinline__ void dequant8(const uint4& wv, int q, float z,
                                          float s, float* wf) {
-  if (FMT == INT8) {
+  if (FMT == INT8 || FMT == E4M3) {
     const uint32_t w0 = q == 0 ? wv.x : wv.z, w1 = q == 0 ? wv.y : wv.w;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      wf[j] = s8_to_f32(w0, j) * s;
-      wf[4 + j] = s8_to_f32(w1, j) * s;
+      if (FMT == INT8) {
+        wf[j] = s8_to_f32(w0, j) * s;
+        wf[4 + j] = s8_to_f32(w1, j) * s;
+      } else {
+        wf[j] = e4m3_to_f32(w0, j);
+        wf[4 + j] = e4m3_to_f32(w1, j);
+      }
     }
+  } else if (FMT == INT2) {
+    const uint32_t word = q < 2 ? wv.x : wv.y;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wf[j] = c2_minus_two(word, 8 * (q & 1) + j) * s;
+  } else if (FMT == E2M1) {
+    const uint32_t word = (q == 0) ? wv.x : (q == 1) ? wv.y
+                        : (q == 2) ? wv.z : wv.w;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wf[j] = e2m1_to_f32(word, j) * s;
   } else {
     const uint32_t word = (q == 0) ? wv.x : (q == 1) ? wv.y
                         : (q == 2) ? wv.z : wv.w;
@@ -150,8 +200,15 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
       const int o = o0 + r;
       z[r] = 0.f;
       if (o < O) {
-        wv[r] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)o * rb) + c);
-        s[r] = __ldg(sc + (size_t)o * ng + (c * CW) / g);
+        if (FMT == INT2) {
+          const uint2 h = __ldg(
+              reinterpret_cast<const uint2*>(qw + (size_t)o * rb) + c);
+          wv[r] = make_uint4(h.x, h.y, 0u, 0u);
+        } else {
+          wv[r] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)o * rb)
+                        + c);
+        }
+        s[r] = FMT == E4M3 ? 1.f : __ldg(sc + (size_t)o * ng + (c * CW) / g);
         if (FMT == ASYM4) z[r] = __ldg(zp + (size_t)o * ng + (c * CW) / g);
       } else {                            // any codes: their scale is 0
         wv[r] = make_uint4(0x88888888u, 0x88888888u, 0x88888888u,
@@ -161,6 +218,13 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
     }
 #pragma unroll
     for (int q = 0; q < CW / 8; ++q) {    // the chunk, 8 weights at a time
+      // E2M1 at g = 16: the chunk's second half is the next group
+      if (FMT == E2M1 && q > 0 && (q * 8) % g == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (o0 + r < O)
+            s[r] = __ldg(sc + (size_t)(o0 + r) * ng + (c * CW + q * 8) / g);
+      }
       float wf[R][8];
 #pragma unroll
       for (int r = 0; r < R; ++r) dequant8<FMT>(wv[r], q, z[r], s[r], wf[r]);
@@ -198,6 +262,7 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
       float v = 0.f;
 #pragma unroll
       for (int w = 0; w < GEMV_WARPS; ++w) v += red[w][r][m];
+      if (FMT == E4M3) v *= __ldg(sc + o);   // the row's scale, after the sum
       y[(size_t)m * O + o] = __float2bfloat16(v);
     }
   }
@@ -255,23 +320,50 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
     {
       const int r = threadIdx.x / 2, hlf = threadIdx.x % 2;
       const int o = n0 + r;
+      // the thread's 16 weights lie in one group (g % 16 == 0)
+      const int gi = (k0 + hlf * 16) / g;
       float s = 0.f, z = 0.f;
       if (o < O) {
-        s = __ldg(sc + (size_t)o * ng + k0 / g);
-        if (FMT == ASYM4) z = __ldg(zp + (size_t)o * ng + k0 / g);
+        s = FMT == E4M3 ? 1.f : __ldg(sc + (size_t)o * ng + gi);
+        if (FMT == ASYM4) z = __ldg(zp + (size_t)o * ng + gi);
       }
       __align__(16) __nv_bfloat16 vals[16];
-      if (FMT == INT8) {
+      if (FMT == INT8 || FMT == E4M3) {
         uint4 wv = make_uint4(0u, 0u, 0u, 0u);
         if (o < O)
           wv = __ldg(reinterpret_cast<const uint4*>(
               qw + (size_t)o * rb + k0 + hlf * 16));
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          vals[j] = __float2bfloat16(s8_to_f32(wv.x, j) * s);
-          vals[4 + j] = __float2bfloat16(s8_to_f32(wv.y, j) * s);
-          vals[8 + j] = __float2bfloat16(s8_to_f32(wv.z, j) * s);
-          vals[12 + j] = __float2bfloat16(s8_to_f32(wv.w, j) * s);
+          if (FMT == INT8) {
+            vals[j] = __float2bfloat16(s8_to_f32(wv.x, j) * s);
+            vals[4 + j] = __float2bfloat16(s8_to_f32(wv.y, j) * s);
+            vals[8 + j] = __float2bfloat16(s8_to_f32(wv.z, j) * s);
+            vals[12 + j] = __float2bfloat16(s8_to_f32(wv.w, j) * s);
+          } else {                        // exact in bf16; scale after
+            vals[j] = __float2bfloat16(e4m3_to_f32(wv.x, j));
+            vals[4 + j] = __float2bfloat16(e4m3_to_f32(wv.y, j));
+            vals[8 + j] = __float2bfloat16(e4m3_to_f32(wv.z, j));
+            vals[12 + j] = __float2bfloat16(e4m3_to_f32(wv.w, j));
+          }
+        }
+      } else if (FMT == INT2) {
+        uint32_t wv = 0u;
+        if (o < O)
+          wv = __ldg(reinterpret_cast<const uint32_t*>(
+              qw + (size_t)o * rb + k0 / 4 + hlf * 4));
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          vals[j] = __float2bfloat16(c2_minus_two(wv, j) * s);
+      } else if (FMT == E2M1) {
+        uint2 wv = make_uint2(0u, 0u);
+        if (o < O)
+          wv = __ldg(reinterpret_cast<const uint2*>(
+              qw + (size_t)o * rb + k0 / 2 + hlf * 8));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          vals[j] = __float2bfloat16(e2m1_to_f32(wv.x, j) * s);
+          vals[8 + j] = __float2bfloat16(e2m1_to_f32(wv.y, j) * s);
         }
       } else {
         uint2 wv = make_uint2(0x88888888u, 0x88888888u);
@@ -323,9 +415,11 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
       if (m < M) {
 #pragma unroll
         for (int e8 = 0; e8 < 8; ++e8)
-          if (nb + e8 < O)
-            y[(size_t)m * O + nb + e8] =
-                __float2bfloat16(st[rr * 16 + cc + e8]);
+          if (nb + e8 < O) {
+            float v = st[rr * 16 + cc + e8];
+            if (FMT == E4M3) v *= __ldg(sc + nb + e8);   // row scale last
+            y[(size_t)m * O + nb + e8] = __float2bfloat16(v);
+          }
       }
       __syncwarp();
     }
@@ -342,18 +436,20 @@ void launch_gemv(const __nv_bfloat16* x, const uint8_t* qw, const float* sc,
 
 // x (E, M, K) bf16, each (M, K) slab contiguous, at an expert stride of
 // `x_stride_e` elements (a multiple of 8; M*K when contiguous, 0 for one
-// slab shared by all experts), qweight (E, O, K/8) int32 or (INT8) (E, O, K)
-// int8, scales and (ASYM4) zps (E, O, K/g) fp32, y (E, M, O) bf16,
-// contiguous.  E, M >= 1, E <= 65535, K % 32 == 0, g % 32 == 0, K % g == 0
-// (g = K: one scale per output channel).  Returns the cudaError_t of the
-// launch (0 on success).
+// slab shared by all experts), qweight (E, O, K/8) int32 (SYM4, ASYM4,
+// E2M1), (E, O, K/16) int32 (INT2) or (E, O, K) bytes (INT8, E4M3), scales
+// and (ASYM4) zps (E, O, K/g) fp32, y (E, M, O) bf16, contiguous.  E, M >=
+// 1, E <= 65535, K % 32 == 0, g % 32 == 0 (E2M1: g % 16 == 0; E4M3: g = K),
+// K % g == 0 (g = K: one scale per output channel).  Returns the
+// cudaError_t of the launch (0 on success).
 template <int FMT>
 int launch(const void* x_, const void* qw_, const void* sc_, const void* zp_,
            void* y_, int E, long long x_stride_e, int M, int K, int O, int g,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E <= 0 || E > 65535 || M <= 0 || O <= 0 || K <= 0 || K % 32 || g <= 0
-      || g % 32 || K % g || (M + BM - 1) / BM > 65535)
+      || g % (FMT == E2M1 ? 16 : 32) || K % g || (FMT == E4M3 && g != K)
+      || (M + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(x_);
   const uint8_t* qw = static_cast<const uint8_t*>(qw_);

@@ -71,20 +71,21 @@ def w4a16_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
 
 
 def check_w4_operands(what: str, x: torch.Tensor, K: int, g: int,
-                      operands) -> None:
+                      operands, g_multiple: int = 32) -> None:
     """Raise ``ValueError`` unless the kernels of the W4A16 family can take
-    these tensors: x bf16 on a CUDA device, K % g == 0, g % 32 == 0, and
-    every ``(name, tensor, shape, dtype)`` of ``operands`` contiguous on
-    x's device with exactly that shape and dtype."""
+    these tensors: x bf16 on a CUDA device, K % 32 == 0, K % g == 0,
+    g % g_multiple == 0, and every ``(name, tensor, shape, dtype)`` of
+    ``operands`` contiguous on x's device with exactly that shape and
+    dtype."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{what}: needs x bf16, got {x.dtype}")
     if x.numel() == 0:
         raise ValueError(f"{what}: empty input")
-    if g <= 0 or g % 32 or K <= 0 or K % g:
-        raise ValueError(f"{what}: K={K} group_size={g} (needs K % g == 0 "
-                         f"and g % 32 == 0)")
+    if g <= 0 or g % g_multiple or K <= 0 or K % g or K % 32:
+        raise ValueError(f"{what}: K={K} group_size={g} (needs K % 32 == 0, "
+                         f"K % g == 0 and g % {g_multiple} == 0)")
     for name, t, shape, dtype in operands:
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
             raise ValueError(f"{what}: {name} must be {tuple(shape)} "

@@ -194,10 +194,13 @@ def quantize_model(
                 f"not ported yet (ROADMAP {item})")
     per_block: Dict[int, Dict[str, QuantizationScheme]] = {}
     for flat, scheme in layer_schemes.items():
-        if scheme.data_type != "int":
+        try:
+            get_quant_func(scheme.data_type, scheme.bits, scheme.sym)
+        except KeyError:
             raise NotImplementedError(
                 f"{flat}: weight data type {scheme.data_type!r} is not ported "
-                f"yet (ROADMAP A9); the port quantizes the int data types")
+                f"yet (ROADMAP A9); the port quantizes the int, MX, NVFP4, "
+                f"fp4_v2 and FP8 data types") from None
         parts = flat.split(".", 2)
         if parts[0] == "blocks":
             per_block.setdefault(int(parts[1]), {})[parts[2]] = scheme

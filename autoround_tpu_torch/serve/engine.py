@@ -1,7 +1,10 @@
 """Quantized serving engine: packed weights + KV cache + decode loop
 (counterpart of ``autoround_tpu/serve/engine.py``; the Llama and Mixtral
-families, the kinds ``w4a16``, ``w4a16_asym``, ``w4a8``, ``w8a8`` and
-``w8a16``, ``kv_quant`` None or ``"int8"``).
+families, every kind of the JAX engine — ``w4a16``, ``w4a16_asym``,
+``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``, ``fp8``, ``mxfp4_g32`` and
+``mxfp4_g16`` — and ``kv_quant`` None or ``"int8"``).  The float kinds and
+W2A16 serve weight-only with bf16 activations, as the JAX engine does: the
+act fields of their schemes shape calibration and tuning only.
 
 Packed weights stay resident on the card and every packed projection
 runs its kind's kernel (``ops/qmatmul``, ``ops/qmatmul_ext``,
@@ -37,7 +40,8 @@ from ..models import llama, mixtral
 from ..ops.decode_attention import decode_attention
 from ..ops.qmatmul import (PLANES, pack_w4, w4a16_matmul,
                            w4a16_matmul_grouped)
-from ..ops.qmatmul_ext import w4a16_asym_matmul, w8a16_matmul
+from ..ops.qmatmul_ext import (fp8_matmul, mxfp4_matmul, pack_w2,
+                               w2a16_matmul, w4a16_asym_matmul, w8a16_matmul)
 from ..ops.qmatmul_int8 import w4a8_matmul, w8a8_matmul
 from ..quantize.orchestrator import QuantizeResult
 from ..utils.pytree import set_by_path, tree_map
@@ -169,10 +173,6 @@ def _stack_experts(packed, kinds, cfg):
     return out, kinds
 
 
-# kinds of the JAX engine's ``_serving_kind`` that the port has a kernel for
-_PORTED_KINDS = ("w4a16", "w4a16_asym", "w4a8", "w8a8", "w8a16")
-
-
 def _serving_kind(s) -> Optional[str]:
     """Map a quantization scheme to a packed serving-kernel kind, as the
     JAX engine's ``_serving_kind`` does: ``w4a16`` (sym int codes of at
@@ -180,10 +180,11 @@ def _serving_kind(s) -> Optional[str]:
     ``w4a16_asym`` (the same with a per-group zero point), ``w4a8`` (sym
     int4, g >= 128, with sym int8 activations: quantized per token on the
     fly), ``w8a8`` (per-channel sym int8 with sym int8 activations),
-    ``w8a16`` (any other sym int8), or None when the
-    scheme has no packed path and serves its dense qdq weights.  A scheme
-    whose kind the port has no kernel for yet raises
-    ``NotImplementedError`` naming ROADMAP A10."""
+    ``w8a16`` (any other sym int8), ``w2a16`` (sym int2, g >= 128; smaller
+    groups ride ``w4a16``), ``fp8`` (e4m3 per channel or per tensor),
+    ``mxfp4_g32`` / ``mxfp4_g16`` (MXFP4 / NVFP4: E2M1 codes, 32- or
+    16-wide group scales), or None when the scheme has no packed path and
+    serves its dense qdq weights."""
     act_int8 = s.act_bits == 8 and s.act_data_type == "int" and s.act_sym
     g = s.group_size if isinstance(s.group_size, int) else 0
     kind = None
@@ -205,12 +206,6 @@ def _serving_kind(s) -> Optional[str]:
         kind = "fp8"
     elif s.data_type in ("mx_fp", "nv_fp") and s.bits == 4 and g in (16, 32):
         kind = f"mxfp4_g{g}"
-    if kind is not None and kind not in _PORTED_KINDS:
-        raise NotImplementedError(
-            f"scheme w{s.bits}a{s.act_bits} ({s.data_type}, sym={s.sym}, "
-            f"group_size={s.group_size}) is served by the {kind} kernel, "
-            f"which is not ported yet (ROADMAP A10); the port serves "
-            f"{' and '.join(_PORTED_KINDS)}")
     return kind
 
 
@@ -257,6 +252,53 @@ def w8_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         torch.int8)
 
 
+_E2M1_MIDPOINTS = (0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0)
+
+
+def e2m1_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
+                        group_size: int) -> torch.Tensor:
+    """E2M1 codes of an MXFP4 / NVFP4 qdq: the nearest of the 16 values to
+    qdq / scale (|scale| < 1e-12 replaced by 1e-12), as the JAX engine's
+    ``_encode_e2m1`` picks it, the first table entry on a tie (so -0.0 and
+    any value nearest to zero take code 0, and an exact midpoint the smaller
+    magnitude).  Counting midpoints below |v| does it without the table's
+    (O, K, 16) distances."""
+    K = qdq.shape[1]
+    srep = scale.float().repeat_interleave(group_size, dim=1)[:, :K]
+    srep = torch.where(srep.abs() < 1e-12, torch.full_like(srep, 1e-12),
+                       srep)
+    v = qdq.float() / srep
+    mids = torch.tensor(_E2M1_MIDPOINTS, device=v.device)
+    mag = torch.bucketize(v.abs(), mids)              # midpoints < |v|
+    return (mag + 8 * ((v < 0) & (mag > 0))).to(torch.int32)
+
+
+def w2_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
+                      group_size: int) -> torch.Tensor:
+    """2-bit codes of a sym full-range qdq: clip(rint(qdq / scale) + 2, 0,
+    3) in fp32 with |scale| < 1e-12 replaced by 1e-12, the JAX engine's
+    recovery."""
+    K = qdq.shape[1]
+    srep = scale.float().repeat_interleave(group_size, dim=1)[:, :K]
+    srep = torch.where(srep.abs() < 1e-12, torch.full_like(srep, 1e-12),
+                       srep)
+    return torch.clamp(torch.round(qdq.float() / srep) + 2, 0, 3).to(
+        torch.int32)
+
+
+def fp8_from_qdq(qdq: torch.Tensor, scale: torch.Tensor):
+    """e4m3 bytes and (O,) scales of an FP8 qdq: qdq / s cast to
+    float8_e4m3fn (round to nearest even, as the JAX engine's cast), with
+    |s| < 1e-12 replaced by 1e-12; a per-tensor scale is repeated per
+    row."""
+    O = qdq.shape[0]
+    sc = scale.float().reshape(-1)
+    sc = sc.expand(O) if sc.numel() == 1 else sc.reshape(O, -1)[:, 0]
+    sc = torch.where(sc.abs() < 1e-12, torch.full_like(sc, 1e-12), sc)
+    return ((qdq.float() / sc[:, None]).to(torch.float8_e4m3fn),
+            sc.contiguous())
+
+
 def _packed_matmul(x: torch.Tensor, entry, kind: str,
                    a8_prompt: bool = False) -> torch.Tensor:
     """One packed projection through its kind's kernel; the group size
@@ -266,6 +308,13 @@ def _packed_matmul(x: torch.Tensor, entry, kind: str,
     count, so a decode step stays exact A16 at any batch."""
     qw, scales = entry[0], entry[1]
     x = x.contiguous()
+    if kind == "fp8":
+        return fp8_matmul(x, qw, scales)
+    if kind.startswith("mxfp4_g"):
+        return mxfp4_matmul(x, qw, scales, int(kind[len("mxfp4_g"):]))
+    if kind == "w2a16":
+        return w2a16_matmul(x, qw, scales,
+                            (qw.shape[1] * 16) // scales.shape[1])
     if kind == "w8a8":
         return w8a8_matmul(x, qw, scales)
     if kind == "w8a16":
@@ -466,15 +515,17 @@ class QuantizedLlama:
     cfg: llama.LlamaConfig
     params: Dict[str, Any]                 # non-packed leaves
     # name -> (qweight, scales) or, for w4a16_asym, (qweight, scales, zps);
-    # qweight is packed int4 words, or int8 codes for w8a8 / w8a16; the w8a8
-    # scales are (O,), all others (O, columns)
+    # qweight is packed int4 words (E2M1 codes for mxfp4), packed int2 words
+    # (w2a16), int8 codes (w8a8, w8a16) or e4m3 bytes (fp8); the w8a8 and
+    # fp8 scales are (O,), all others (O, columns)
     packed: Dict[str, Tuple[torch.Tensor, ...]]
     max_seq: int = 2048
     kv_quant: Optional[str] = None         # None | "int8"
     fused_splits: Optional[Dict[str, Tuple[int, ...]]] = None
     device: Optional[torch.device] = None
     # kernel kind per packed entry: "w4a16" | "w4a16_asym" | "w4a16_grouped"
-    # | "w4a8" | "w8a8" | "w8a16" (None: every entry is w4a16)
+    # | "w4a8" | "w8a8" | "w8a16" | "w2a16" | "fp8" | "mxfp4_g16" |
+    # "mxfp4_g32" (None: every entry is w4a16)
     packed_kinds: Optional[Dict[str, str]] = None
     # opt-in: prompt passes run the W4A16 projections of the blocks on the
     # int8 kernel with per-token int8 activations; decode stays exact A16.
@@ -495,18 +546,19 @@ class QuantizedLlama:
                              kv_quant: Optional[str] = None,
                              device=None, moe_capacity_factor: float = 0.0,
                              serve_a8: bool = False) -> "QuantizedLlama":
-        """Derive the integer codes from each layer's qdq, scale and zero
-        point (exactly the JAX engine's codes), pack them in the port's
-        layout, stack the experts of MoE blocks and fuse q/k/v and gate/up.
-        Layers whose scheme has no packed path or whose shapes the kernel
-        cannot take serve their dense qdq weights (as in the JAX engine);
-        a scheme served by a kernel not ported yet raises.
+        """Derive the codes from each layer's qdq, scale and zero point
+        (exactly the JAX engine's codes and e4m3 bytes), pack them in the
+        port's layout, stack the experts of MoE blocks and fuse q/k/v and
+        gate/up.  Layers whose scheme has no packed path or whose shapes the
+        kernel cannot take serve their dense qdq weights (as in the JAX
+        engine).
 
         ``serve_a8=True`` (opt-in) serves W4A16 layers of group size 128
         through the W4A8 kernel with per-token int8 activations: it changes
         serving numerics.  The JAX engine's further shape gates (O and K
-        multiples of 256) are its TPU tiles'; the kernels here need
-        K % g == 0 and g % 32 == 0 (K % 32 == 0 per channel) and take any
+        multiples of 256, K % (16 g) for w2a16, K % 1024 for mxfp4) are its
+        TPU tiles'; the kernels here need K % 32 == 0, K % g == 0 and
+        g % 32 == 0 (mxfp4: g in {16, 32}; per channel: g = K) and take any
         O."""
         if kv_quant not in (None, "int8"):
             raise NotImplementedError(
@@ -519,17 +571,16 @@ class QuantizedLlama:
         dense = 0
         for name, ql in result.layers.items():
             s = ql.scheme
-            try:
-                kind = _serving_kind(s)
-            except NotImplementedError as e:
-                raise NotImplementedError(f"{name}: {e}") from None
+            kind = _serving_kind(s)
             O, K = ql.qdq.shape
             g = s.group_size if isinstance(s.group_size, int) else 0
             if serve_a8 and kind == "w4a16" and g == 128:
                 kind = "w4a8"
-            if kind in ("w8a8", "w8a16"):
+            if kind in ("w8a8", "w8a16", "fp8"):
                 tileable = K % 32 == 0 and (g <= 0 or (g % 32 == 0
                                                        and K % g == 0))
+            elif kind in ("mxfp4_g16", "mxfp4_g32"):
+                tileable = K % 32 == 0 and K % g == 0
             else:
                 tileable = g > 0 and g % 32 == 0 and K % g == 0
             if (kind is None or not tileable
@@ -552,6 +603,17 @@ class QuantizedLlama:
                                  torch.full_like(sc, 1e-12), sc)
                 packed[name] = (w8_codes_from_qdq(ql.qdq.to(dev), sc),
                                 sc[:, 0].contiguous())
+            elif kind == "fp8":
+                packed[name] = fp8_from_qdq(ql.qdq.to(dev), scale)
+            elif kind == "w2a16":
+                packed[name] = (pack_w2(w2_codes_from_qdq(
+                    ql.qdq.to(dev), scale, g)), scale)
+            elif kind in ("mxfp4_g16", "mxfp4_g32"):
+                # the scale holds the MX power of two, or NVFP4's e4m3
+                # group scale over the global scale
+                scale = scale.reshape(O, -1)
+                packed[name] = (pack_w4(e2m1_codes_from_qdq(
+                    ql.qdq.to(dev), scale, g)), scale)
             else:
                 packed[name] = (pack_w4(w4_codes_from_qdq(
                     ql.qdq.to(dev), scale, g)), scale)

@@ -10,7 +10,8 @@ JAX package: both sides then compute on the same weights.
 ``quantize_result_to_numpy`` goes the other way: a port result as the numpy
 tree the JAX package's results can be compared with.
 ``packed_from_jax`` turns one packed payload of the JAX serving engine
-(numpy) into the port's for the kinds ``w4a8``, ``w8a8`` and ``w8a16``.
+(numpy) into the port's, for every kind of the JAX engine but the stacked
+experts.
 """
 
 from __future__ import annotations
@@ -24,9 +25,11 @@ from .._device import resolve_device
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..models.mixtral import MixtralConfig
 from ..ops.qmatmul import pack_w4
+from ..ops.qmatmul_ext import pack_w2
 
 __all__ = ["params_from_jax", "config_from_jax", "tune_params_from_jax",
-           "quantize_result_to_numpy", "unpack_w4_bytes", "packed_from_jax"]
+           "quantize_result_to_numpy", "unpack_w4_bytes", "unpack_planes",
+           "packed_from_jax"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "float64": torch.float64}
@@ -115,7 +118,8 @@ def quantize_result_to_numpy(result) -> Dict[str, Any]:
 
     return {"params": rec(result.params),
             "layers": {n: {"qdq": arr(q.qdq), "scale": arr(q.scale),
-                           "zp": arr(q.zp), "act_scale": arr(q.act_scale)}
+                           "zp": arr(q.zp), "act_scale": arr(q.act_scale),
+                           "act_global_scale": arr(q.act_global_scale)}
                        for n, q in result.layers.items()},
             "loss_traces": dict(result.loss_traces)}
 
@@ -135,11 +139,30 @@ def unpack_w4_bytes(packed: np.ndarray) -> np.ndarray:
     return c.reshape(O, 2 * Kb)
 
 
+def unpack_planes(words: np.ndarray, bits: int,
+                  group_size: int) -> np.ndarray:
+    """The JAX package's bit-plane words (O, K * bits // 32) int32 → (O, K)
+    int32 codes: in K-tile t of width (32 // bits) * g, column ``t * (32 //
+    bits) * g + j * g + i`` sits in field j (of ``bits`` bits) of word ``t *
+    g + i`` (``pack_w4_planes`` for 4 bits, ``pack_w2_planes`` for 2)."""
+    planes = 32 // bits
+    O, Kw = words.shape
+    g = group_size
+    w = np.asarray(words).astype(np.uint32).reshape(O, Kw // g, 1, g)
+    shifts = (np.arange(planes, dtype=np.uint32) * bits)[None, None, :, None]
+    codes = (w >> shifts) & ((1 << bits) - 1)
+    return codes.reshape(O, Kw * planes).astype(np.int32)
+
+
 def packed_from_jax(entry, kind: str, device=None):
     """One packed payload of the JAX engine (a tuple of numpy arrays) →
-    the port's, on ``device``: ``w4a8`` byte pairs become the packed words
-    of ``pack_w4``; the int8 codes and the scales of ``w8a8`` and ``w8a16``
-    cross as they are."""
+    the port's, on ``device``: ``w4a8`` byte pairs and the nibble planes of
+    ``w4a16``, ``w4a16_asym`` and ``mxfp4`` become the packed words of
+    ``pack_w4``, the ``w2a16`` planes those of ``pack_w2``; the int8 codes and the scales of ``w8a8`` and
+    ``w8a16`` and the e4m3 bytes and scales of ``fp8`` cross as they are.
+    The ``mxfp4_g*`` scales lose the JAX engine's lane padding, by the g of
+    the kind (two paddings can give one column count: K = 2048 holds 128
+    columns at g = 16 exact and at g = 32 padded)."""
     dev = resolve_device(device)
     if kind == "w4a8":
         codes = torch.from_numpy(unpack_w4_bytes(entry[0])).to(dev)
@@ -147,5 +170,28 @@ def packed_from_jax(entry, kind: str, device=None):
     if kind in ("w8a8", "w8a16"):
         return (_leaf(entry[0], dev).to(torch.int8),
                 _leaf(entry[1], dev).float())
-    raise NotImplementedError(f"packed kind {kind!r} is not ported yet "
-                              f"(ROADMAP A10)")
+    if kind == "fp8":
+        raw = np.array(entry[0]).view(np.uint8)    # a writable copy
+        return (torch.from_numpy(raw).to(dev).view(torch.float8_e4m3fn),
+                _leaf(entry[1], dev).float())
+    if kind.startswith("mxfp4_g"):
+        g = int(kind[len("mxfp4_g"):])
+        codes = unpack_planes(entry[0], 4, 128)
+        K = codes.shape[1]
+        return (pack_w4(torch.from_numpy(codes).to(dev)),
+                _leaf(np.asarray(entry[1])[:, :K // g], dev).float()
+                .contiguous())
+    if kind == "w2a16":
+        scales = np.asarray(entry[1])
+        K = entry[0].shape[1] * 16
+        codes = unpack_planes(entry[0], 2, K // scales.shape[1])
+        return (pack_w2(torch.from_numpy(codes).to(dev)),
+                _leaf(scales, dev).float())
+    if kind in ("w4a16", "w4a16_asym"):
+        scales = np.asarray(entry[1])
+        K = entry[0].shape[1] * 8
+        codes = unpack_planes(entry[0], 4, K // scales.shape[1])
+        return (pack_w4(torch.from_numpy(codes).to(dev)),
+                _leaf(scales, dev).float()) + tuple(
+                    _leaf(e, dev).float() for e in entry[2:])
+    raise ValueError(f"unknown packed kind {kind!r}")

@@ -10,10 +10,10 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
              nvcc per source, in parallel); print the seconds and the
              compiler's register / spill report.
-2. kernels — run each of the ten kernels (flash forward, flash backward
-             dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym W4A16
-             matmul, int8-KV decode attention, W4A8, W8A8 and W8A16
-             matmul) at the
+2. kernels — run each of the thirteen kernels (flash forward, flash
+             backward dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym
+             W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
+             FP8 and MXFP4 / NVFP4 matmul) at the
              main paths' shapes against its plain PyTorch version on the
              card (bf16), check the stated tolerance (and, for the
              backward pair, that two launches give the same bits), and
@@ -84,14 +84,27 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 11. a8 tune — SignRound (``iters=20``) with ``W4A8`` on ``--a8-tune-layers``
              blocks, once with dynamic activations and once with static
              int8 activations and act-scale tuning → serve.
-12. report — the card's name and power limit (nvidia-smi), a JSON line of
+12. float  — the float and 2-bit serving kinds at ``llama3-8b`` width, each
+             RTN (``quant_lm_head=True``; the scheme's activation
+             quantization in calibration) → engine (weight-only, bf16
+             activations) → ``generate``: ``FP8_STATIC`` (kind ``fp8``,
+             ``--fp8-layers``), ``MXFP4`` (``mxfp4_g32``,
+             ``--mxfp4-layers``), ``NVFP4`` (``mxfp4_g16``,
+             ``--nvfp4-layers``), ``W2A16`` (``w2a16``, ``--w2-layers``);
+             launch counts, timings, 2-layer copy against the plain
+             versions.
+13. mx tune — SignRound (``iters=20``) with ``MXFP4`` (MX activations in the
+             loss) on ``--mx-tune-layers`` blocks → serve, timed, with a
+             2-layer copy against the plain versions.
+14. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
 ``--rtn-layers``, ``--tune-layers``, ``--moe-layers``, ``--moe-tune-layers``,
 ``--asym-layers``, ``--a8-layers``, ``--w8a8-layers``, ``--w8a16-layers``,
-``--a8-modes-layers`` and ``--a8-tune-layers`` cut the depth of the paths
-for a quicker run.
+``--a8-modes-layers``, ``--a8-tune-layers``, ``--fp8-layers``,
+``--mxfp4-layers``, ``--nvfp4-layers``, ``--w2-layers`` and
+``--mx-tune-layers`` cut the depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -144,7 +157,11 @@ ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
            "w4a16_matmul_grouped": 0.1, "w4a16_asym_matmul": 0.1,
            # backward pair vs flash_attention_bwd_plain: measured worst rows
            # dQ 0.027, dK / dV 0.023 (S = T = 512 and S = 256, T = 512)
-           "flash_attention_bwd_dq": 0.07, "flash_attention_bwd_dkv": 0.07}
+           "flash_attention_bwd_dq": 0.07, "flash_attention_bwd_dkv": 0.07,
+           # the W4A16 bodies in their INT2 and E2M1 formats (measured 0.035
+           # and 0.036); FP8 applies the channel scale to the fp32 sum where
+           # the plain version rounds e4m3 * s to bf16 first (measured 0.056)
+           "w2a16_matmul": 0.1, "mxfp4_matmul": 0.1, "fp8_matmul": 0.15}
 # A gradient row may be zero in exact arithmetic (row 0 of dQ when S = T: one
 # visible key, P = 1, dS = 0), so rows smaller than this share of the whole
 # tensor's RMS are held to that scale instead of their own.
@@ -745,6 +762,104 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
     return rows
 
 
+def float_kernel_phase(timer, bw, flops_peak):
+    """The float and 2-bit weight-only kinds at the llama3-8b projections:
+    W2A16 (g = 128), FP8 (per channel) and MXFP4 (g = 32, powers of two)
+    / NVFP4 (g = 16, any positive scale) against their plain versions, plus
+    one K-edge shape each (K = 1056: a multiple of 32, not of 64); kernel,
+    plain, library (``torch.matmul`` on the dequantized bf16 weight) and
+    bound times."""
+    from autoround_tpu_torch.ops.qmatmul import pack_w4, unpack_w4
+    from autoround_tpu_torch.ops.qmatmul_ext import (
+        decode_e2m1, fp8_matmul, fp8_matmul_plain, mxfp4_matmul,
+        mxfp4_matmul_plain, pack_w2, unpack_w2, w2a16_matmul,
+        w2a16_matmul_plain)
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = {}
+
+    def run(kernel, shape, fn, plain, w_bf16, x, nbytes, replaces, source):
+        M, K = x.shape
+        O = w_bf16.shape[0]
+        y, yp = fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = row_err(y, yp)
+        del y, yp
+        ms = timer(fn)
+        plain_ms = timer(plain)
+        lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+        t_b = (nbytes + 2 * M * K + 2 * M * O) / bw * 1e3
+        t_f = 2 * M * O * K / flops_peak * 1e3
+        b_ms, b_by = max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+        tol = ROW_TOL[kernel]
+        log(f"kernel {kernel} [{shape}] max_abs_err={err:.3g} "
+            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        check(rel <= tol, f"{kernel} {shape}: row err {rel}")
+        if M == 8 and shape.startswith("qkv") and kernel not in rows:
+            rows[kernel] = dict(
+                name=kernel, route="cuda", source=source, replaces=replaces,
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    cases = [(8, 6144, 4096, "qkv"), (8, 4096, 14336, "down_proj"),
+             (8, 128256, 4096, "lm_head"), (4096, 6144, 4096, "qkv"),
+             (4096, 4096, 14336, "down_proj"),
+             (4096, 128256, 4096, "lm_head"), (200, 1000, 1056, "K edge")]
+    for (M, O, K, name) in cases:
+        x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+
+        # row 10, W2A16: signed group scales
+        G = 96 if K == 1056 else 128
+        qw = pack_w2(torch.randint(0, 4, (O, K), generator=gen, device=dev))
+        sc = (torch.rand(O, K // G, generator=gen, device=dev) - 0.5) * 0.02
+        w_bf16 = ((unpack_w2(qw) - 2).float()
+                  * sc.repeat_interleave(G, dim=1)).bfloat16()
+        run("w2a16_matmul", f"{name} M={M} O={O} K={K} g={G}",
+            lambda: w2a16_matmul(x, qw, sc, G),
+            lambda: w2a16_matmul_plain(x, qw, sc, G), w_bf16, x,
+            O * K // 4 + 4 * sc.numel(), "autoround_tpu/ops/qmatmul_ext.py:247",
+            "autoround_tpu_torch/csrc/w2a16_matmul.cu")
+        del qw, sc, w_bf16
+        torch.cuda.empty_cache()
+
+        # row 12, FP8: e4m3 weights, one scale per output channel
+        wf = (torch.randn(O, K, generator=gen, device=dev) * 60).clamp(
+            -448, 448).to(torch.float8_e4m3fn)
+        sc = torch.rand(O, generator=gen, device=dev) * 0.002 + 1e-4
+        w_bf16 = (wf.float() * sc[:, None]).bfloat16()
+        run("fp8_matmul", f"{name} M={M} O={O} K={K} per channel",
+            lambda: fp8_matmul(x, wf, sc), lambda: fp8_matmul_plain(x, wf, sc),
+            w_bf16, x, O * K + 4 * O, "autoround_tpu/ops/qmatmul_ext.py:407",
+            "autoround_tpu_torch/csrc/fp8_matmul.cu")
+        del wf, sc, w_bf16
+        torch.cuda.empty_cache()
+
+        # row 13, MXFP4 (g = 32) and NVFP4 (g = 16) on the same codes
+        qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen, device=dev))
+        vals = decode_e2m1(unpack_w4(qw))
+        for G in (32, 16):
+            if G == 32:
+                sc = torch.exp2(torch.randint(-10, -4, (O, K // G),
+                                              generator=gen,
+                                              device=dev).float())
+            else:
+                sc = torch.rand(O, K // G, generator=gen, device=dev) * 0.004
+            w_bf16 = (vals * sc.repeat_interleave(G, dim=1)).bfloat16()
+            run("mxfp4_matmul", f"{name} M={M} O={O} K={K} g={G}",
+                lambda: mxfp4_matmul(x, qw, sc, G),
+                lambda: mxfp4_matmul_plain(x, qw, sc, G), w_bf16, x,
+                O * K // 2 + 4 * sc.numel(),
+                "autoround_tpu/ops/qmatmul_ext.py:559",
+                "autoround_tpu_torch/csrc/mxfp4_matmul.cu")
+            del sc, w_bf16
+        del qw, vals, x
+        torch.cuda.empty_cache()
+    return rows
+
+
 def copy_engine(eng, n_layers, device):
     """The first ``n_layers`` blocks of an engine, on ``device``."""
     import dataclasses
@@ -870,7 +985,10 @@ def _kernel_fns():
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
     from autoround_tpu_torch.ops.qmatmul import (w4a16_matmul,
                                                  w4a16_matmul_grouped)
-    from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul,
+    from autoround_tpu_torch.ops.qmatmul_ext import (fp8_matmul,
+                                                     mxfp4_matmul,
+                                                     w2a16_matmul,
+                                                     w4a16_asym_matmul,
                                                      w8a16_matmul)
     from autoround_tpu_torch.ops.qmatmul_int8 import (w4a8_matmul,
                                                       w8a8_matmul)
@@ -883,7 +1001,8 @@ def _kernel_fns():
             "w4a16_asym_matmul": w4a16_asym_matmul,
             "decode_attention": decode_attention,
             "w4a8_matmul": w4a8_matmul, "w8a8_matmul": w8a8_matmul,
-            "w8a16_matmul": w8a16_matmul}
+            "w8a16_matmul": w8a16_matmul, "w2a16_matmul": w2a16_matmul,
+            "fp8_matmul": fp8_matmul, "mxfp4_matmul": mxfp4_matmul}
 
 
 @contextlib.contextmanager
@@ -897,7 +1016,10 @@ def plain_versions(attention=True):
     from autoround_tpu_torch.ops.flash_attention import flash_attention_plain
     from autoround_tpu_torch.ops.qmatmul import (w4a16_matmul_grouped_plain,
                                                  w4a16_matmul_plain)
-    from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul_plain,
+    from autoround_tpu_torch.ops.qmatmul_ext import (fp8_matmul_plain,
+                                                     mxfp4_matmul_plain,
+                                                     w2a16_matmul_plain,
+                                                     w4a16_asym_matmul_plain,
                                                      w8a16_matmul_plain)
     from autoround_tpu_torch.ops.qmatmul_int8 import (w4a8_matmul_plain,
                                                       w8a8_matmul_plain)
@@ -912,7 +1034,10 @@ def plain_versions(attention=True):
         (engine, "w4a16_asym_matmul", w4a16_asym_matmul_plain),
         (engine, "w4a8_matmul", w4a8_matmul_plain),
         (engine, "w8a8_matmul", w8a8_matmul_plain),
-        (engine, "w8a16_matmul", w8a16_matmul_plain)]
+        (engine, "w8a16_matmul", w8a16_matmul_plain),
+        (engine, "w2a16_matmul", w2a16_matmul_plain),
+        (engine, "fp8_matmul", fp8_matmul_plain),
+        (engine, "mxfp4_matmul", mxfp4_matmul_plain)]
     if not attention:
         patches = patches[2:]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
@@ -1661,14 +1786,27 @@ STATIC_W4A8 = dict(bits=4, group_size=128, sym=True, data_type="int",
                    act_data_type="int", act_dynamic=False)
 
 
-def a8_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
-    """RTN with one of the 8-bit presets → its serving kind → serve at
-    llama3-8b width; returns the launches."""
-    from autoround_tpu_torch import AutoRound, QuantizedLlama
+# preset → (serving kind, the wrapper that kind launches)
+SERVE_KINDS = {"W4A8": ("w4a8", "w4a8_matmul"), "W8A8": ("w8a8", "w8a8_matmul"),
+               "W8A16": ("w8a16", "w8a16_matmul"),
+               "W2A16": ("w2a16", "w2a16_matmul"),
+               "FP8_STATIC": ("fp8", "fp8_matmul"),
+               "MXFP4": ("mxfp4_g32", "mxfp4_matmul"),
+               "NVFP4": ("mxfp4_g16", "mxfp4_matmul")}
+
+
+def serve_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
+    """RTN with a preset that serves through a kind of its own (the 8-bit,
+    2-bit and float presets) → that kind → serve at llama3-8b width;
+    returns the launches.  The float presets quantize their activations in
+    calibration only and serve weight-only, with bf16 activations."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama, parse_scheme
     from autoround_tpu_torch.models import llama
 
-    kind = {"W4A8": "w4a8", "W8A8": "w8a8", "W8A16": "w8a16"}[scheme]
-    act = kind != "w8a16"
+    kind, kernel = SERVE_KINDS[scheme]
+    sch = parse_scheme(scheme)
+    act = sch.is_act_quantized              # an amax pass in calibration
+    int8_act = kind in ("w4a8", "w8a8")     # int8 activations in serving
     kernels = _kernel_fns()
     cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
                               num_layers=n_layers)
@@ -1689,8 +1827,14 @@ def a8_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
     result = ar.quantize(calib)
     torch.cuda.synchronize()
     t_quant = time.time() - t0
-    check(all(q.act_scale is None for q in result.layers.values()),
-          f"{scheme} path: a dynamic scheme left a static act scale")
+    for n, q in result.layers.items():
+        block = n != "lm_head"
+        check((q.act_scale is not None) == (block and act
+                                            and not sch.act_dynamic)
+              and (q.act_global_scale is not None)
+              == (block and (sch.act_data_type or "").startswith("nv_fp")),
+              f"{scheme} path: {n} act scales {q.act_scale} "
+              f"{q.act_global_scale}")
     t0 = time.time()
     eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
                                               kv_quant="int8")
@@ -1716,7 +1860,7 @@ def a8_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
     # act-quantized scheme adds the amax pass over the FP block (flash once
     # more per block)
     want = _serve_counts(n_layers, NEW, NEW - 1, per_block=4)
-    want[f"{kind}_matmul"] = want.pop("matmul")
+    want[kernel] = want.pop("matmul")
     if act:
         want["flash_attention"] += n_layers
     for n in kernels:
@@ -1726,8 +1870,8 @@ def a8_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
               f"times, the loops imply {c}")
     _check_tokens(toks, B, NEW, cfg.vocab_size)
     time_serving(eng, prompts, NEW, bw, flops_peak,
-                 int8_peak if act else None)
-    check_copy(eng, prompts, "card", attention=not act)
+                 int8_peak if int8_act else None)
+    check_copy(eng, prompts, "card", attention=not int8_act)
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -1918,6 +2062,81 @@ def a8_tune_path(n_layers):
     torch.cuda.empty_cache()
 
 
+def mx_tune_path(bw, flops_peak, n_layers):
+    """SignRound with MXFP4 (the shared exponent and the rounding offsets
+    tuned through the MX qdq, MX activations in the loss) → serve at
+    llama3-8b width, timed, and a 2-layer copy against the plain versions;
+    returns the launches."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ, NS, ITERS, CB = 8, 512, 32, 1024, 16, 20, 8
+    ids_gen = torch.Generator().manual_seed(17)
+    calib = torch.randint(0, cfg.vocab_size, (NS, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="MXFP4", iters=ITERS, batch_size=B,
+                   donate_params=True, cache_batch=CB)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_tune = time.time() - t0
+    traces = result.loss_traces
+    first = [float(traces[b][0]) for b in range(n_layers)]
+    best = [float(traces[b].min()) for b in range(n_layers)]
+    check(len(traces) == n_layers and all(
+        len(traces[b]) == ITERS and bool((traces[b] == traces[b]).all())
+        and bool(abs(traces[b]).max() < float("inf"))
+        for b in range(n_layers)), "mx tune: a loss is missing or not finite")
+    check(all(b <= f for b, f in zip(best, first)),
+          "mx tune: a block's best loss is above its first")
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    del ar, result
+    check(set(eng.packed_kinds.values()) == {"mxfp4_g32"},
+          "mx tune: packed kinds")
+    t0 = time.time()
+    toks = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"mx tune path llama3-8b ({n_layers} layers, {NS} x {S} ids, "
+        f"iters={ITERS}, batch {B}): tune_s={t_tune:.2f} "
+        f"generate_s={t_gen:.2f} peak_mem_gb={peak_gb:.2f}; losses (first "
+        f"-> best per block): "
+        + " ".join(f"{f:.4g}->{b:.4g}" for f, b in zip(first, best)))
+    log(f"mx tune path kernels {json.dumps(launches)}")
+    # per block: the amax pass, the FP chain and the quantized chain (NS /
+    # CB forwards each), one forward and one backward per step; generate's
+    # prefill adds one forward per layer
+    fwd = n_layers * (1 + 2 * (NS // CB) + ITERS) + n_layers
+    want = {"flash_attention": fwd,
+            "flash_attention_bwd_dq": n_layers * ITERS,
+            "flash_attention_bwd_dkv": n_layers * ITERS,
+            "mxfp4_matmul": 4 * n_layers * NEW,   # the lm_head stays dense
+            "decode_attention": n_layers * (NEW - 1),
+            "w4a16_matmul": 0}
+    for n, c in want.items():
+        check(launches[n] == c, f"mx tune: {n} launched {launches[n]} times, "
+              f"the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    time_serving(eng, prompts, NEW, bw, flops_peak)
+    check_copy(eng, prompts, "card")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def free_device_memory():
     """Between phases: the moe path peaks at 72 of the card's 80 GB, and
     tensors kept alive by a reference cycle of the phase before (seen once:
@@ -1953,6 +2172,17 @@ def main() -> int:
     ap.add_argument("--a8-tune-layers", type=int, default=2,
                     help="depth of the W4A8 SignRound -> serve path "
                          "(default 2)")
+    ap.add_argument("--fp8-layers", type=int, default=32,
+                    help="depth of the FP8_STATIC -> serve path (default 32)")
+    ap.add_argument("--mxfp4-layers", type=int, default=32,
+                    help="depth of the MXFP4 -> serve path (default 32)")
+    ap.add_argument("--nvfp4-layers", type=int, default=4,
+                    help="depth of the NVFP4 -> serve path (default 4)")
+    ap.add_argument("--w2-layers", type=int, default=4,
+                    help="depth of the W2A16 -> serve path (default 4)")
+    ap.add_argument("--mx-tune-layers", type=int, default=2,
+                    help="depth of the MXFP4 SignRound -> serve path "
+                         "(default 2)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1987,6 +2217,7 @@ def main() -> int:
     timer = Timer()
     rows = kernel_phase(timer, bw, fl)
     rows.update(a8_kernel_phase(timer, bw, fl, i8))
+    rows.update(float_kernel_phase(timer, bw, fl))
     del timer
     rtn_launches, _ = rtn_path(bw, fl, args.rtn_layers)
     free_device_memory()
@@ -2002,15 +2233,29 @@ def main() -> int:
     free_device_memory()
     asym_launches = asym_path(args.asym_layers)
     free_device_memory()
-    a8_launches = a8_path(bw, fl, i8, "W4A8", args.a8_layers, seed=8)
+    a8_launches = serve_path(bw, fl, i8, "W4A8", args.a8_layers, seed=8)
     free_device_memory()
-    w8a8_launches = a8_path(bw, fl, i8, "W8A8", args.w8a8_layers, seed=9)
+    w8a8_launches = serve_path(bw, fl, i8, "W8A8", args.w8a8_layers, seed=9)
     free_device_memory()
-    w8a16_launches = a8_path(bw, fl, i8, "W8A16", args.w8a16_layers, seed=10)
+    w8a16_launches = serve_path(bw, fl, i8, "W8A16", args.w8a16_layers,
+                                seed=10)
     free_device_memory()
     modes_launches = a8_modes_path(args.a8_modes_layers)
     free_device_memory()
     a8_tune_path(args.a8_tune_layers)
+    free_device_memory()
+    fp8_launches = serve_path(bw, fl, i8, "FP8_STATIC", args.fp8_layers,
+                              seed=13)
+    free_device_memory()
+    mxfp4_launches = serve_path(bw, fl, i8, "MXFP4", args.mxfp4_layers,
+                                seed=14)
+    free_device_memory()
+    nvfp4_launches = serve_path(bw, fl, i8, "NVFP4", args.nvfp4_layers,
+                                seed=15)
+    free_device_memory()
+    w2_launches = serve_path(bw, fl, i8, "W2A16", args.w2_layers, seed=16)
+    free_device_memory()
+    mx_tune_launches = mx_tune_path(bw, fl, args.mx_tune_layers)
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths
@@ -2020,12 +2265,17 @@ def main() -> int:
     launches["w4a8_matmul"] = a8_launches["w4a8_matmul"]
     launches["w8a8_matmul"] = w8a8_launches["w8a8_matmul"]
     launches["w8a16_matmul"] = w8a16_launches["w8a16_matmul"]
+    launches["fp8_matmul"] = fp8_launches["fp8_matmul"]
+    launches["mxfp4_matmul"] = mxfp4_launches["mxfp4_matmul"]
+    launches["w2a16_matmul"] = w2_launches["w2a16_matmul"]
     for n, row in rows.items():
         row["launches"] = launches[n]
         for key, other in (("launches_rtn_path", rtn_launches),
                            ("launches_moe_path", moe_launches),
                            ("launches_asym_path", asym_launches),
-                           ("launches_a8_modes_path", modes_launches)):
+                           ("launches_a8_modes_path", modes_launches),
+                           ("launches_nvfp4_path", nvfp4_launches),
+                           ("launches_mx_tune_path", mx_tune_launches)):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)

@@ -112,6 +112,87 @@ def test_qdq_act_values_and_ste_gradients(sym, mode, bits):
                                atol=1e-5 * np.abs(jgx).max())
 
 
+FLOAT_ACT = [("mx_fp", 4, 32, True, False), ("mx_fp", 8, 32, True, False),
+             ("mx_int", 8, 32, True, False),
+             ("nv_fp4_with_static_gs", 4, 16, True, False),
+             ("nv_fp4_with_static_gs", 4, 16, True, True),
+             ("fp8", 8, 0, True, False), ("fp8", 8, -1, True, False),
+             ("fp8", 8, 0, False, True)]
+
+
+@pytest.mark.parametrize("adt,bits,gs,dynamic,static", FLOAT_ACT,
+                         ids=[f"{a}{b}g{g}{'d' if d else 's'}"
+                              f"{'-scale' if s else ''}"
+                              for a, b, g, d, s in FLOAT_ACT])
+def test_float_qdq_act_values_and_ste_gradients(adt, bits, gs, dynamic,
+                                                static):
+    """The ``mx_``, ``nv_fp`` and ``fp8`` branches against the jitted JAX
+    function (as the tuning loss and the quantized chain run it): values
+    bit-equal, gradients w.r.t. x rtol 1e-5 with a floor of 1e-5 of the
+    largest, w.r.t. a static scale rtol 1e-4 (a sum over every element of x
+    in another order, as for the int static scale above; measured 4.4e-5).
+    NVFP4 takes a static global scale, fp8 a static scale; without one each
+    derives its own from x."""
+    rng = np.random.default_rng(bits + len(adt) + 3 * static)
+    x = rng.standard_normal((3, 5, 64)).astype(np.float32)
+    x[1, 2, 5] = 9.0
+    r = rng.standard_normal(x.shape).astype(np.float32)
+    kw = dict(bits=4, group_size=32, sym=True, data_type="int",
+              act_bits=bits, act_group_size=gs, act_sym=True,
+              act_data_type=adt, act_dynamic=dynamic)
+    js, ts = JScheme(**kw), QuantizationScheme(**kw)
+    sv = None
+    if static:
+        sv = np.float32(2688.0 / 9.0) if adt.startswith("nv") \
+            else np.float32(9.0 / 448.0)
+    skey = "global_scale" if adt.startswith("nv") else "static_scale"
+
+    def jfn(xx, ss):
+        return jnp.sum(jact.qdq_act(xx, js, **{skey: ss}) * jnp.asarray(r))
+
+    want = jax.jit(lambda xx, ss: jact.qdq_act(xx, js, **{skey: ss}))(
+        jnp.asarray(x), None if sv is None else jnp.asarray(sv))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tss = None if sv is None else torch.tensor(sv, requires_grad=True)
+    got = tact.qdq_act(tx, ts, **{skey: tss})
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+    argn = (0,) if sv is None else (0, 1)
+    jg = jax.jit(jax.grad(jfn, argnums=argn))(
+        jnp.asarray(x), None if sv is None else jnp.asarray(sv))
+    tg = torch.autograd.grad((got * torch.from_numpy(r)).sum(),
+                             (tx,) if sv is None else (tx, tss))
+    for i, (a, b) in enumerate(zip(tg, jg)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5 if i == 0 else 1e-4,
+                                   atol=1e-5 * max(np.abs(b).max(), 1e-30))
+
+
+def test_build_static_act_scales_float_rows():
+    """The NVFP4 global scale (448 * 6 / amax) and the static fp8 scale
+    (amax / 448), divided as the JAX package divides (eagerly)."""
+    amax = {"a": 3.5, "b": 0.0, "c": 7.25, "d": 1e-3}
+    kinds = {"a": ("nv_fp4_with_static_gs", 4, True),
+             "b": ("fp8", 8, False), "c": ("fp8", 8, True),
+             "d": ("fp8", 8, False)}
+
+    def schemes(cls):
+        return {n: cls(bits=4, group_size=16, act_bits=b, act_group_size=0,
+                       act_sym=True, act_data_type=adt, act_dynamic=dyn)
+                for n, (adt, b, dyn) in kinds.items()}
+    jst, jgl = jact.build_static_act_scales(
+        schemes(JScheme), {n: jnp.asarray(v, jnp.float32)
+                           for n, v in amax.items()})
+    tst, tgl = tact.build_static_act_scales(
+        schemes(QuantizationScheme),
+        {n: torch.tensor(v) for n, v in amax.items()})
+    assert sorted(tst) == sorted(jst) == ["b", "d"]
+    assert sorted(tgl) == sorted(jgl) == ["a"]
+    for got, want in ((tst, jst), (tgl, jgl)):
+        for n in got:
+            np.testing.assert_array_equal(got[n].numpy(), np.asarray(want[n]))
+
+
 def test_qdq_act_passes_through_and_unported_types_raise():
     x = torch.randn(2, 8, generator=torch.Generator().manual_seed(0))
     w16 = QuantizationScheme(bits=4, group_size=32)
@@ -119,11 +200,15 @@ def test_qdq_act_passes_through_and_unported_types_raise():
     bf = tact.qdq_act(x.to(torch.bfloat16),
                       _act_scheme(QuantizationScheme, True, 0))
     assert bf.dtype == torch.bfloat16
-    for adt in ("mx_fp", "nv_fp4_with_static_gs", "fp8"):
-        s = QuantizationScheme(bits=4, group_size=32, act_bits=8,
-                               act_group_size=32, act_data_type=adt)
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            tact.qdq_act(x, s)
+    # the float activation types are ported: same shape and dtype, values
+    # moved onto their grids
+    for adt, bits, gs in (("mx_fp", 4, 32), ("nv_fp4_with_static_gs", 4, 16),
+                          ("fp8", 8, 0)):
+        s = QuantizationScheme(bits=4, group_size=32, act_bits=bits,
+                               act_group_size=gs, act_data_type=adt)
+        y = tact.qdq_act(x.reshape(1, 2, 8).repeat(1, 1, 4), s)
+        assert y.shape == (1, 2, 32) and y.dtype == x.dtype
+        assert not torch.equal(y, x.reshape(1, 2, 8).repeat(1, 1, 4))
 
 
 def test_act_quant_linear_fn_quantizes_only_its_layers():

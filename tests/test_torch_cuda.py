@@ -37,6 +37,14 @@ body (M <= 32) sums the groups' fp32 terms in another order (measured
 worst row 2.1e-6 of the row's RMS on an H100, limit 1e-5).  W8A16 is held
 like W4A16 (measured worst row 0.049 per channel at K = 14336, limit
 0.15).
+
+The float and 2-bit kinds (every GEMV template and the GEMM body, ragged O,
+K edges where K is a multiple of 32 but not of 64, scales below 1e-12):
+W2A16 as W4A16 (measured worst row 0.035, limit 0.1); MXFP4 / NVFP4 at g =
+32 and 16 (the GEMV reads a second scale inside a 32-column chunk at g =
+16; measured 0.036, limit 0.1); FP8 applies the channel scale to the fp32
+sum where the plain version rounds w * s to bf16 first (measured 0.056,
+limit 0.15).
 """
 
 import pytest
@@ -51,10 +59,10 @@ from autoround_tpu_torch.ops.qmatmul import (pack_w4, w4a16_matmul,
                                              w4a16_matmul_grouped,
                                              w4a16_matmul_grouped_plain,
                                              w4a16_matmul_plain)
-from autoround_tpu_torch.ops.qmatmul_ext import (w4a16_asym_matmul,
-                                                 w4a16_asym_matmul_plain,
-                                                 w8a16_matmul,
-                                                 w8a16_matmul_plain)
+from autoround_tpu_torch.ops.qmatmul_ext import (
+    fp8_matmul, fp8_matmul_plain, mxfp4_matmul, mxfp4_matmul_plain, pack_w2,
+    w2a16_matmul, w2a16_matmul_plain, w4a16_asym_matmul,
+    w4a16_asym_matmul_plain, w8a16_matmul, w8a16_matmul_plain)
 from autoround_tpu_torch.ops.qmatmul_int8 import (quantize_rows,
                                                   quantize_rows_plain,
                                                   w4a8_matmul,
@@ -64,7 +72,8 @@ from autoround_tpu_torch.ops.qmatmul_int8 import (quantize_rows,
 
 pytestmark = pytest.mark.cuda
 ROW_TOL = {"flash": 0.1, "w4a16": 0.1, "decode": 0.025, "flash_bwd": 0.07,
-           "w8a16": 0.15, "w4a8_f32": 1e-5}
+           "w8a16": 0.15, "w4a8_f32": 1e-5, "w2a16": 0.1, "mxfp4": 0.1,
+           "fp8": 0.15}
 BWD_ROW_FLOOR = 0.01
 LSE_ATOL = 1e-5      # lse is fp32 on both sides (~1e-6 measured)
 
@@ -231,6 +240,85 @@ def test_w8a16_all_regimes(gen, M, O, K, g):
     _check(w8a16_matmul(x, wi, sc, g), w8a16_matmul_plain(x, wi, sc, g),
            "w8a16")
     assert w8a16_matmul.launches == before + 1
+
+
+FLOAT_M = [1, 2, 3, 5, 8, 9, 16, 17, 32, 33, 200]
+
+
+@pytest.mark.parametrize("M", FLOAT_M)
+@pytest.mark.parametrize("O,K,g", [(1000, 2048, 128), (72, 512, 32),
+                                   (200, 1056, 96), (72, 96, 32)])
+def test_w2a16_all_regimes(gen, M, O, K, g):
+    """Negative scales and one below 1e-12 (its group contributes 0)."""
+    before = w2a16_matmul.launches
+    x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
+    qw = pack_w2(torch.randint(0, 4, (O, K), generator=gen, device="cuda"))
+    sc = (torch.rand(O, K // g, generator=gen, device="cuda") - 0.5) * 0.02
+    sc[0, 0] = 1e-13
+    _check(w2a16_matmul(x, qw, sc, g), w2a16_matmul_plain(x, qw, sc, g),
+           "w2a16")
+    assert w2a16_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("M", FLOAT_M)
+@pytest.mark.parametrize("O,K,g", [(1000, 2048, 32), (1000, 2048, 16),
+                                   (72, 96, 32), (200, 1056, 16),
+                                   (72, 48 * 2, 16)])
+def test_mxfp4_all_regimes(gen, M, O, K, g):
+    """MX (g = 32, powers of two) and NVFP4 (g = 16, any positive scale, one
+    below 1e-12); every code value, the negative zero included."""
+    before = mxfp4_matmul.launches
+    x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
+    qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen, device="cuda"))
+    if g == 32:
+        sc = torch.exp2(torch.randint(-10, -3, (O, K // g), generator=gen,
+                                      device="cuda").float())
+    else:
+        sc = torch.rand(O, K // g, generator=gen, device="cuda") * 0.01
+        sc[0, 1] = 1e-13
+    _check(mxfp4_matmul(x, qw, sc, g), mxfp4_matmul_plain(x, qw, sc, g),
+           "mxfp4")
+    assert mxfp4_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("M", FLOAT_M)
+@pytest.mark.parametrize("O,K", [(1000, 2048), (72, 512), (200, 1056),
+                                 (72, 96)])
+def test_fp8_all_regimes(gen, M, O, K):
+    """e4m3 weights over their whole range (subnormals, ±448, zero) and
+    channel scales, one below 1e-12."""
+    before = fp8_matmul.launches
+    x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
+    w = (torch.randn(O, K, generator=gen, device="cuda") * 100).clamp(
+        -448, 448)
+    w[0, :4] = torch.tensor([0.0, 2.0 ** -9, -448.0, 3 * 2.0 ** -9])
+    wf = w.to(torch.float8_e4m3fn)
+    sc = torch.rand(O, generator=gen, device="cuda") * 0.01 + 1e-4
+    sc[1] = 1e-13
+    _check(fp8_matmul(x, wf, sc), fp8_matmul_plain(x, wf, sc), "fp8")
+    assert fp8_matmul.launches == before + 1
+
+
+def test_float_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    xb = torch.randn(4, 256, generator=gen, device="cuda").bfloat16()
+    qw4 = torch.zeros((64, 32), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):            # g 64 is no MX group
+        mxfp4_matmul(xb, qw4, torch.ones((64, 4), device="cuda"), 64)
+    with pytest.raises(ValueError):            # scales of another group count
+        mxfp4_matmul(xb, qw4, torch.ones((64, 8), device="cuda"), 16)
+    with pytest.raises(ValueError):            # fp32 activations
+        mxfp4_matmul(xb.float(), qw4, torch.ones((64, 8), device="cuda"), 32)
+    wf = torch.zeros((64, 256), dtype=torch.float8_e4m3fn, device="cuda")
+    with pytest.raises(ValueError):            # e5m2 weights
+        fp8_matmul(xb, wf.to(torch.float8_e5m2), torch.ones(64,
+                                                            device="cuda"))
+    with pytest.raises(ValueError):            # 2-D channel scales
+        fp8_matmul(xb, wf, torch.ones((64, 1), device="cuda"))
+    qw2 = torch.zeros((64, 16), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):            # group size not % 32
+        w2a16_matmul(xb, qw2, torch.ones((64, 16), device="cuda"), 16)
+    with pytest.raises(ValueError):            # 4-bit words for 2-bit codes
+        w2a16_matmul(xb, qw4, torch.ones((64, 2), device="cuda"), 128)
 
 
 @pytest.mark.parametrize("D", [128, 256])

@@ -195,8 +195,8 @@ def test_unpackable_layers_serve_dense_and_other_kinds_raise():
     """hidden 64 < g = 128: those W4A16 layers serve their dense qdq (as
     in the JAX engine); down_proj (K = 128) packs, since the port's layout
     needs only K % g == 0.  A W8A16 result serves through its own kind (g =
-    128 > K = 64: those layers dense too, down_proj packed); a W2A16 g128
-    result needs a kernel not ported yet."""
+    128 > K = 64: those layers dense too, down_proj packed); so does a
+    W2A16 g128 result through the ``w2a16`` kind."""
     cfg = tl.CONFIG_PRESETS["tiny"]
     p = tl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
@@ -220,9 +220,14 @@ def test_unpackable_layers_serve_dense_and_other_kinds_raise():
                                atol=1e-4)
     res2 = AutoRound((p, cfg), scheme="W2A16", iters=0,
                      device="cpu").quantize(ids)
-    with pytest.raises(NotImplementedError, match="w2a16"):
-        QuantizedLlama.from_quantize_result(res2, cfg, max_seq=16,
-                                            device="cpu")
+    eng2 = QuantizedLlama.from_quantize_result(res2, cfg, max_seq=16,
+                                               device="cpu")
+    assert sorted(eng2.packed) == ["blocks.0.down_proj", "blocks.1.down_proj"]
+    assert set(eng2.packed_kinds.values()) == {"w2a16"}
+    logits2, _ = eng2.prefill(ids[:1])
+    dense2 = tl.model_fwd(res2.params, torch.as_tensor(ids[:1]), cfg)[:, -1]
+    np.testing.assert_allclose(logits2.numpy(), dense2.numpy(), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_iters_positive_not_ported():

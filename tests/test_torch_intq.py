@@ -104,8 +104,8 @@ def test_rtn_bf16_weights_exact():
 def test_registry_resolution():
     assert get_quant_func("int", 4, True, mode="rtn") is not \
         get_quant_func("int", 4, True)
-    with pytest.raises(KeyError):
-        get_quant_func("mx_fp", 4, True)
+    with pytest.raises(KeyError):      # GGUF double quant: not ported
+        get_quant_func("int_dq", 4, True)
     # an imatrix routes sym int to the opt_rtn entry, asym (none
     # registered) to plain RTN, as in the JAX package
     assert get_quant_func("int", 4, True, mode="opt_rtn") is not \

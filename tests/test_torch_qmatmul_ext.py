@@ -203,11 +203,12 @@ def test_asym_engine_logits_and_greedy_tokens(asym_pair):
 
 
 def test_serving_kind_table():
-    """The JAX engine's mapping, restricted to the kinds the port has (the
-    int8 kinds among them)."""
+    """The JAX engine's mapping: every kind of it is ported (the int8, the
+    2-bit and the float kinds among them)."""
     from autoround_tpu.schemes import QuantizationScheme as JScheme
     from autoround_tpu.serve.engine import _serving_kind as j_kind
-    ported = ("w4a16", "w4a16_asym", "w4a8", "w8a8", "w8a16", None)
+    ported = ("w4a16", "w4a16_asym", "w4a8", "w8a8", "w8a16", "w2a16", "fp8",
+              "mxfp4_g16", "mxfp4_g32", None)
     seen = set()
     for kw in (dict(bits=4, group_size=128, sym=True),
                dict(bits=4, group_size=32, sym=False),
@@ -227,15 +228,14 @@ def test_serving_kind_table():
                dict(bits=4, group_size=64, sym=True, act_bits=8,
                     act_group_size=0, act_sym=True, act_data_type="int"),
                dict(bits=8, group_size=-1, data_type="fp8"),
-               dict(bits=4, group_size=32, data_type="mx_fp")):
+               dict(bits=4, group_size=32, data_type="mx_fp"),
+               dict(bits=4, group_size=16, data_type="nv_fp")):
         want = j_kind(JScheme(**kw))
         seen.add(want)
-        if want in ported:
-            assert _serving_kind(QuantizationScheme(**kw)) == want, kw
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-                _serving_kind(QuantizationScheme(**kw))
-    assert {"w4a8", "w8a8", "w8a16", "w2a16", "fp8", "mxfp4_g32"} <= seen
+        assert want in ported, kw
+        assert _serving_kind(QuantizationScheme(**kw)) == want, kw
+    assert {"w4a8", "w8a8", "w8a16", "w2a16", "fp8", "mxfp4_g32",
+            "mxfp4_g16"} <= seen
 
 
 def test_fuse_refuses_members_of_different_kinds():

@@ -194,8 +194,8 @@ def test_w4a8_converter_and_explicit_math():
                             pack_w4(torch.from_numpy(codes)),
                             torch.from_numpy(scales), g)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        packed_from_jax((packed, scales), "fp8", "cpu")
+    with pytest.raises(ValueError, match="unknown packed kind"):
+        packed_from_jax((packed, scales), "int3", "cpu")
 
 
 # ------------------------------------------------------------------ w8a16
