@@ -18,7 +18,7 @@
 #include "w4a16_tiles.cuh"
 
 // x (M, K) bf16, qweight (O, K/8) int32, scales and zps (O, K/g) fp32, y
-// (M, O) bf16, all contiguous.  M >= 1, K % 32 == 0, g % 32 == 0,
+// (M, O) bf16, all contiguous.  M >= 1, K % 32 == 0, g % 16 == 0,
 // K % g == 0.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int w4a16_asym_matmul(const void* x, const void* qw,
                                  const void* sc, const void* zp, void* y,

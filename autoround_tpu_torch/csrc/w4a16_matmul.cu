@@ -10,7 +10,7 @@
 #include "w4a16_tiles.cuh"
 
 // x (M, K) bf16, qweight (O, K/8) int32, scales (O, K/g) fp32, y (M, O)
-// bf16, all contiguous.  M >= 1, K % 32 == 0, g % 32 == 0, K % g == 0.
+// bf16, all contiguous.  M >= 1, K % 32 == 0, g % 16 == 0, K % g == 0.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int w4a16_matmul(const void* x, const void* qw, const void* sc,
                             void* y, int M, int K, int O, int g,

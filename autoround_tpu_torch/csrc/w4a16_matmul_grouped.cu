@@ -23,7 +23,7 @@
 // `x_stride_e` elements (a multiple of 8; C*K when contiguous, 0 for one
 // slab shared by all experts), qweight (E, O, K/8) int32, scales
 // (E, O, K/g) fp32, y (E, C, O) bf16, contiguous.  E, C >= 1, K % 32 == 0,
-// g % 32 == 0, K % g == 0.  Returns the cudaError_t of the launch.
+// g % 16 == 0, K % g == 0.  Returns the cudaError_t of the launch.
 extern "C" int w4a16_matmul_grouped(const void* x, const void* qw,
                                     const void* sc, void* y, int E,
                                     long long x_stride_e, int C, int K, int O,

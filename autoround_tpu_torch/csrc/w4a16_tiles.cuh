@@ -48,8 +48,9 @@
 //    the plain version does) and runs WMMA bf16 16x16x16 with fp32
 //    accumulation over it for all 128 activation rows of its M tile.
 // The ragged M and O edges are masked in the kernels (zero-filled tiles,
-// guarded stores).  Needs K % 32 == 0 and g % 32 == 0 (E2M1: g % 16 == 0,
-// so one 32-column chunk may span two groups; E4M3: g = K).
+// guarded stores).  Needs K % 32 == 0 and g % 32 == 0 (SYM4, ASYM4, E2M1:
+// g % 16 == 0, so one 32-column GEMV chunk may span two groups; E4M3: g =
+// K).
 
 #pragma once
 
@@ -107,6 +108,11 @@ __device__ __forceinline__ float c2_minus_two(uint32_t word, int j) {
   return __uint_as_float(0x4B000000u | ((word >> (2 * j)) & 3u))
          - 8388610.0f;                                 // 2^23 + 2
 }
+
+// Formats that take g = 16 (a 32-column GEMV chunk then spans two groups);
+// the others need g % 32 == 0.
+template <int FMT>
+constexpr bool G16 = FMT == SYM4 || FMT == ASYM4 || FMT == E2M1;
 
 // Weights of one chunk of a row that a GEMV lane loads (16 bytes; INT2: 8
 // bytes), and bytes in a row of K weights.
@@ -218,12 +224,16 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
     }
 #pragma unroll
     for (int q = 0; q < CW / 8; ++q) {    // the chunk, 8 weights at a time
-      // E2M1 at g = 16: the chunk's second half is the next group
-      if (FMT == E2M1 && q > 0 && (q * 8) % g == 0) {
+      // g % 32 == 16 (SYM4, ASYM4, E2M1): a group may start half way
+      // through the chunk, with its own scale (and zero point)
+      if (G16<FMT> && q == 2 && (c * CW + 16) % g == 0) {
 #pragma unroll
         for (int r = 0; r < R; ++r)
-          if (o0 + r < O)
-            s[r] = __ldg(sc + (size_t)(o0 + r) * ng + (c * CW + q * 8) / g);
+          if (o0 + r < O) {
+            const size_t gi = (size_t)(o0 + r) * ng + (c * CW + q * 8) / g;
+            s[r] = __ldg(sc + gi);
+            if (FMT == ASYM4) z[r] = __ldg(zp + gi);
+          }
       }
       float wf[R][8];
 #pragma unroll
@@ -439,7 +449,8 @@ void launch_gemv(const __nv_bfloat16* x, const uint8_t* qw, const float* sc,
 // slab shared by all experts), qweight (E, O, K/8) int32 (SYM4, ASYM4,
 // E2M1), (E, O, K/16) int32 (INT2) or (E, O, K) bytes (INT8, E4M3), scales
 // and (ASYM4) zps (E, O, K/g) fp32, y (E, M, O) bf16, contiguous.  E, M >=
-// 1, E <= 65535, K % 32 == 0, g % 32 == 0 (E2M1: g % 16 == 0; E4M3: g = K),
+// 1, E <= 65535, K % 32 == 0, g % 32 == 0 (SYM4, ASYM4, E2M1: g % 16 == 0;
+// E4M3: g = K),
 // K % g == 0 (g = K: one scale per output channel).  Returns the
 // cudaError_t of the launch (0 on success).
 template <int FMT>
@@ -448,7 +459,7 @@ int launch(const void* x_, const void* qw_, const void* sc_, const void* zp_,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (E <= 0 || E > 65535 || M <= 0 || O <= 0 || K <= 0 || K % 32 || g <= 0
-      || g % (FMT == E2M1 ? 16 : 32) || K % g || (FMT == E4M3 && g != K)
+      || g % (G16<FMT> ? 16 : 32) || K % g || (FMT == E4M3 && g != K)
       || (M + BM - 1) / BM > 65535)
     return (int)cudaErrorInvalidValue;
   const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(x_);

@@ -111,6 +111,27 @@ def _shared_exp(amax, fmt, rounding, divisor, recip):
     raise ValueError(f"unknown mx rounding {rounding!r}")
 
 
+# Weights above this many elements are done a slice of groups at a time:
+# the element-wise work after the group amax holds several fp32 copies of
+# its input, 2 GB each over an lm_head of 525 M weights.  Groups are
+# independent, so the bits (and, under autograd, the gradients) are the
+# same.
+_CHUNK_ELEMS = 1 << 24
+
+
+def _qdq_mx_groups(wg, fmt, vg, max_scale, rounding, divisor, rand, recip):
+    """qdq of grouped rows (n, g) in the compute dtype → (qdq, scales)."""
+    amax = wg.abs().amax(dim=-1, keepdim=True)
+    if max_scale is not None:
+        amax = amax * _clip(max_scale.to(wg.dtype), 0.0, 1.0)
+    amax = torch.clamp(amax, min=1e-30)
+    shared_exp = _clip(_shared_exp(amax, fmt, rounding, divisor, recip),
+                       _E8M0_MIN, _E8M0_MAX)
+    scale = pow2(shared_exp)
+    q = quant_fp_elements(wg / scale, fmt, vg, rand=rand)
+    return q * scale, scale
+
+
 def qdq_mx(
     w: torch.Tensor,
     data_type: str = "mx_fp4",
@@ -137,25 +158,29 @@ def qdq_mx(
     fmt = MX_FORMATS[data_type]
     O, I = w.shape
     cd = torch.promote_types(w.dtype, torch.float32)
-    wg, pad = to_groups(w.to(cd), group_size)
+    wg, pad = to_groups(w, group_size)
     vg = None
     if v is not None:
         vg, _ = to_groups(v.to(cd), group_size)
-
-    amax = wg.abs().amax(dim=-1, keepdim=True)
-    if max_scale is not None:
-        amax = amax * _clip(max_scale.reshape(-1, 1).to(cd), 0.0, 1.0)
-    amax = torch.clamp(amax, min=1e-30)
-    shared_exp = _clip(_shared_exp(amax, fmt, rounding, divisor, recip),
-                       _E8M0_MIN, _E8M0_MAX)
-    scale = pow2(shared_exp)
-
+    ms = None if max_scale is None else max_scale.reshape(-1, 1)
     if rand is None and generator is not None:
         rand = torch.rand(wg.shape, generator=generator, dtype=cd,
                           device=w.device)
-    q = quant_fp_elements(wg / scale, fmt, vg, rand=rand)
-    qdq = from_groups(q * scale, (O, I), pad).to(w.dtype)
-    return QdqResult(qdq, scale.reshape(O, -1), None)
+    n = wg.shape[0]
+    step = max(1, _CHUNK_ELEMS // wg.shape[1])
+    parts, scales = [], []
+    for r in range(0, n, step):
+        sl = slice(r, r + step)
+        qdq, scale = _qdq_mx_groups(
+            wg[sl].to(cd), fmt, None if vg is None else vg[sl],
+            None if ms is None else ms[sl], rounding, divisor,
+            None if rand is None else rand[sl], recip)
+        parts.append(qdq.to(w.dtype))
+        scales.append(scale)
+    qdq = parts[0] if len(parts) == 1 else torch.cat(parts)
+    scale = scales[0] if len(scales) == 1 else torch.cat(scales)
+    return QdqResult(from_groups(qdq, (O, I), pad), scale.reshape(O, -1),
+                     None)
 
 
 def rtn_mx(w, data_type="mx_fp4", group_size=32, rounding="rceil", **kw):

@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "w4a16_matmul",
            "w4a16_matmul_grouped", "w4a16_asym_matmul", "decode_attention",
            "w4a8_matmul", "w8a8_matmul", "w8a16_matmul", "w2a16_matmul",
-           "fp8_matmul", "mxfp4_matmul")
+           "fp8_matmul", "mxfp4_matmul", "sage_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")

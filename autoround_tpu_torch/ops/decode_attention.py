@@ -20,9 +20,28 @@ import torch
 
 from . import _build
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain",
+           "check_decode_shape"]
 
 _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
+# head dims the kernel is instantiated for, and the most query heads per kv
+# head (every G from 1 to it)
+KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_MAX_GROUP = 8
+
+
+def check_decode_shape(hd: int, nh: int, nkv: int) -> None:
+    """Raise ``ValueError`` naming the shape unless the decode kernel takes
+    it: hd in (64, 128, 256) and G = nh / n_kv a whole number from 1 to 8.
+    (The JAX op gives other shapes to its plain reference; here a CUDA
+    tensor of such a shape has no kernel and raises.)"""
+    if (hd not in KERNEL_HEAD_DIMS or nkv <= 0 or nh % nkv
+            or not 1 <= nh // nkv <= KERNEL_MAX_GROUP):
+        raise ValueError(
+            f"decode_attention: the int8-KV decode kernel takes head_dim in "
+            f"{KERNEL_HEAD_DIMS} and G = num_heads / num_kv_heads in 1.."
+            f"{KERNEL_MAX_GROUP}; got head_dim={hd} num_heads={nh} "
+            f"num_kv_heads={nkv}")
 
 
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
@@ -91,8 +110,9 @@ def decode_attention(q, k_cache, v_cache, pos, k_scale, v_scale,
     q (B, nh, hd); k/v_cache (B, T, n_kv, hd) int8; pos (B,) int32 or a
     scalar; k/v_scale (n_kv,) fp32; sinks (nh,) fp32 or None.
 
-    CUDA: q bf16, hd == 128, nh / n_kv in {1, 2, 4, 8}, contiguous
-    tensors; window and chunk positive when given.  Anything else raises.
+    CUDA: q bf16, hd in {64, 128, 256}, nh / n_kv in 1..8, contiguous
+    tensors; window and chunk positive when given.  Anything else raises
+    (:func:`check_decode_shape` names the shape).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, pos, k_scale,
@@ -106,9 +126,7 @@ def decode_attention(q, k_cache, v_cache, pos, k_scale, v_scale,
         raise ValueError(f"decode_attention: q {tuple(q.shape)} cache "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
     T, nkv = k_cache.shape[1], k_cache.shape[2]
-    if hd != 128 or nh % nkv or nh // nkv not in (1, 2, 4, 8):
-        raise ValueError(f"decode_attention: kernel takes hd == 128 and "
-                         f"G in (1, 2, 4, 8); got hd={hd} nh={nh} nkv={nkv}")
+    check_decode_shape(hd, nh, nkv)
     if q.dtype != torch.bfloat16 or k_cache.dtype != torch.int8 \
             or v_cache.dtype != torch.int8:
         raise ValueError("decode_attention: needs q bf16 and int8 caches")

@@ -28,9 +28,14 @@ from . import _build
 
 __all__ = ["PLANES", "pack_w4", "unpack_w4", "w4a16_matmul",
            "w4a16_matmul_plain", "w4a16_matmul_grouped",
-           "w4a16_matmul_grouped_plain", "check_w4_operands"]
+           "w4a16_matmul_grouped_plain", "check_w4_operands", "W4_G_MULTIPLE",
+           "w4_tileable"]
 
 PLANES = 8  # int4 codes per int32 word
+# The kernels' GEMV bodies read a 4-bit format's scale per 16-column half
+# of a 32-column chunk, so its groups may be any multiple of 16; the 8- and
+# 2-bit formats read one scale per chunk and pass 32.
+W4_G_MULTIPLE = 16
 
 
 def pack_w4(codes: torch.Tensor) -> torch.Tensor:
@@ -70,11 +75,17 @@ def w4a16_matmul_plain(x: torch.Tensor, qweight: torch.Tensor,
     return y.to(x.dtype).reshape(*x.shape[:-1], O)
 
 
+def w4_tileable(K: int, g: int, g_multiple: int = W4_G_MULTIPLE) -> bool:
+    """Whether the W4A16-family kernels take K columns in groups of g:
+    K % 32 == 0, K % g == 0 and g % g_multiple == 0."""
+    return g > 0 and g % g_multiple == 0 and K > 0 and K % g == 0 \
+        and K % 32 == 0
+
+
 def check_w4_operands(what: str, x: torch.Tensor, K: int, g: int,
-                      operands, g_multiple: int = 32) -> None:
+                      operands, g_multiple: int = W4_G_MULTIPLE) -> None:
     """Raise ``ValueError`` unless the kernels of the W4A16 family can take
-    these tensors: x bf16 on a CUDA device, K % 32 == 0, K % g == 0,
-    g % g_multiple == 0, and every ``(name, tensor, shape, dtype)`` of
+    these tensors: x bf16 on a CUDA device, :func:`w4_tileable`, and every ``(name, tensor, shape, dtype)`` of
     ``operands`` contiguous on x's device with exactly that shape and
     dtype."""
     if x.device.type != "cuda":
@@ -83,7 +94,7 @@ def check_w4_operands(what: str, x: torch.Tensor, K: int, g: int,
         raise ValueError(f"{what}: needs x bf16, got {x.dtype}")
     if x.numel() == 0:
         raise ValueError(f"{what}: empty input")
-    if g <= 0 or g % g_multiple or K <= 0 or K % g or K % 32:
+    if not w4_tileable(K, g, g_multiple):
         raise ValueError(f"{what}: K={K} group_size={g} (needs K % 32 == 0, "
                          f"K % g == 0 and g % {g_multiple} == 0)")
     for name, t, shape, dtype in operands:
@@ -109,8 +120,9 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     """y = x @ dequant(qweight).T for x (..., K), qweight (O, K//8) int32,
     scales (O, K//g) fp32 → (..., O) in x.dtype.
 
-    CUDA: x bf16, every tensor contiguous, K % g == 0, g % 32 == 0; any O
-    (the ragged edge is masked in the kernel).  Anything else raises."""
+    CUDA: x bf16, every tensor contiguous, K % 32 == 0, K % g == 0, g % 16
+    == 0; any O (the ragged edge is masked in the kernel).  Anything else
+    raises."""
     if x.device.type == "cpu":
         return w4a16_matmul_plain(x, qweight, scales, group_size)
     K = x.shape[-1]
@@ -167,8 +179,8 @@ def w4a16_matmul_grouped(x: torch.Tensor, qweight: torch.Tensor,
     (C, K) slab at any expert stride that keeps 16-byte alignment: the
     contiguous one, 0 (``h.expand(E, C, K)``: every expert reads the same
     rows, nothing is copied) or a slice of a taller buffer; any C >= 1 and
-    any O (ragged edges are masked in the kernel); K % g == 0, g % 32 == 0.
-    Anything else raises."""
+    any O (ragged edges are masked in the kernel); K % 32 == 0, K % g == 0,
+    g % 16 == 0.  Anything else raises."""
     if x.device.type == "cpu":
         return w4a16_matmul_grouped_plain(x, qweight, scales, group_size)
     if x.ndim != 3 or qweight.ndim != 3:

@@ -93,8 +93,9 @@ def w4a16_asym_matmul(x: torch.Tensor, qweight: torch.Tensor,
     """y = x @ ((codes - zps) * scales).T for x (..., K), qweight (O, K//8)
     int32, scales and zps (O, K//g) fp32 → (..., O) in x.dtype.
 
-    CUDA: x bf16, every tensor contiguous, K % g == 0, g % 32 == 0; any O
-    (the ragged edge is masked in the kernel).  Anything else raises."""
+    CUDA: x bf16, every tensor contiguous, K % 32 == 0, K % g == 0, g % 16
+    == 0; any O (the ragged edge is masked in the kernel).  Anything else
+    raises."""
     if x.device.type == "cpu":
         return w4a16_asym_matmul_plain(x, qweight, scales, zps, group_size)
     K = x.shape[-1]
@@ -142,7 +143,7 @@ def w8a16_matmul(x: torch.Tensor, wi: torch.Tensor, scales: torch.Tensor,
     check_w4_operands("w8a16_matmul", x, K, g,
                       (("wi", wi, (O, K), torch.int8),
                        ("scales", scales, (O, K // max(g, 1)),
-                        torch.float32)))
+                        torch.float32)), g_multiple=32)
     y = _launch("w8a16_matmul", x, K, O, (wi, scales), (g,))
     w8a16_matmul.launches += 1
     return y
@@ -207,7 +208,7 @@ def w2a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     check_w4_operands("w2a16_matmul", x, K, g,
                       (("qweight", qweight, (O, K // PLANES2), torch.int32),
                        ("scales", scales, (O, K // max(g, 1)),
-                        torch.float32)))
+                        torch.float32)), g_multiple=32)
     y = _launch("w2a16_matmul", x, K, O, (qweight, scales), (g,))
     w2a16_matmul.launches += 1
     return y
@@ -293,8 +294,7 @@ def mxfp4_matmul(x: torch.Tensor, qweight: torch.Tensor,
         raise ValueError(f"mxfp4_matmul: group_size {g} (16 or 32)")
     check_w4_operands("mxfp4_matmul", x, K, g,
                       (("qweight", qweight, (O, K // PLANES), torch.int32),
-                       ("scales", scales, (O, K // g), torch.float32)),
-                      g_multiple=16)
+                       ("scales", scales, (O, K // g), torch.float32)))
     y = _launch("mxfp4_matmul", x, K, O, (qweight, scales), (g,))
     mxfp4_matmul.launches += 1
     return y

@@ -51,7 +51,7 @@ def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def _check(what: str, x: torch.Tensor, K: int, g: int, operands=()) -> None:
     """The W4A16 family's operand check (``g = K`` where there are no
     groups), plus a contiguous x whose last axis is K."""
-    check_w4_operands(what, x, K, g, operands)
+    check_w4_operands(what, x, K, g, operands, g_multiple=32)
     if x.shape[-1] != K or not x.is_contiguous():
         raise ValueError(f"{what}: x {tuple(x.shape)} must be contiguous "
                          f"with K={K}")

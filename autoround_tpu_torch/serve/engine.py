@@ -37,9 +37,9 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..models import llama, mixtral
-from ..ops.decode_attention import decode_attention
-from ..ops.qmatmul import (PLANES, pack_w4, w4a16_matmul,
-                           w4a16_matmul_grouped)
+from ..ops.decode_attention import check_decode_shape, decode_attention
+from ..ops.qmatmul import (PLANES, W4_G_MULTIPLE, pack_w4, w4_tileable,
+                           w4a16_matmul, w4a16_matmul_grouped)
 from ..ops.qmatmul_ext import (fp8_matmul, mxfp4_matmul, pack_w2,
                                w2a16_matmul, w4a16_asym_matmul, w8a16_matmul)
 from ..ops.qmatmul_int8 import w4a8_matmul, w8a8_matmul
@@ -68,6 +68,11 @@ _KV_QMAX = {"int8": 127.0}
 
 def _init_cache(cfg: llama.LlamaConfig, batch: int, max_seq: int,
                 n_layers: int, kv_quant: Optional[str], device) -> KVCache:
+    """An empty cache.  On the card an int8 cache is decoded by the decode
+    kernel alone, so a head shape it does not take raises here, before the
+    prompt pass, naming the shape."""
+    if kv_quant == "int8" and torch.device(device).type == "cuda":
+        check_decode_shape(cfg.hd, cfg.num_heads, cfg.num_kv_heads)
     shape = (n_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
     store = torch.int8 if kv_quant == "int8" else cfg.dtype
     return KVCache(k=torch.zeros(shape, dtype=store, device=device),
@@ -253,6 +258,7 @@ def w8_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 _E2M1_MIDPOINTS = (0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0)
+_E2M1_ROWS = 4096
 
 
 def e2m1_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
@@ -262,15 +268,21 @@ def e2m1_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
     ``_encode_e2m1`` picks it, the first table entry on a tie (so -0.0 and
     any value nearest to zero take code 0, and an exact midpoint the smaller
     magnitude).  Counting midpoints below |v| does it without the table's
-    (O, K, 16) distances."""
-    K = qdq.shape[1]
-    srep = scale.float().repeat_interleave(group_size, dim=1)[:, :K]
-    srep = torch.where(srep.abs() < 1e-12, torch.full_like(srep, 1e-12),
-                       srep)
-    v = qdq.float() / srep
-    mids = torch.tensor(_E2M1_MIDPOINTS, device=v.device)
-    mag = torch.bucketize(v.abs(), mids)              # midpoints < |v|
-    return (mag + 8 * ((v < 0) & (mag > 0))).to(torch.int32)
+    (O, K, 16) distances.  Encoded _E2M1_ROWS rows at a time into int32
+    codes, so the fp32 temporaries span one slice, not the whole matrix (an
+    lm_head's 525 M weights would need 2 GB for each)."""
+    O, K = qdq.shape
+    mids = torch.tensor(_E2M1_MIDPOINTS, device=qdq.device)
+    codes = torch.empty((O, K), dtype=torch.int32, device=qdq.device)
+    for r0 in range(0, O, _E2M1_ROWS):
+        rows = slice(r0, r0 + _E2M1_ROWS)
+        srep = scale[rows].float().repeat_interleave(group_size, dim=1)[:, :K]
+        srep = torch.where(srep.abs() < 1e-12, torch.full_like(srep, 1e-12),
+                           srep)
+        v = qdq[rows].float() / srep
+        mag = torch.bucketize(v.abs(), mids, out_int32=True)  # mids < |v|
+        codes[rows] = mag + 8 * ((v < 0) & (mag > 0))
+    return codes
 
 
 def w2_codes_from_qdq(qdq: torch.Tensor, scale: torch.Tensor,
@@ -558,8 +570,8 @@ class QuantizedLlama:
         serving numerics.  The JAX engine's further shape gates (O and K
         multiples of 256, K % (16 g) for w2a16, K % 1024 for mxfp4) are its
         TPU tiles'; the kernels here need K % 32 == 0, K % g == 0 and
-        g % 32 == 0 (mxfp4: g in {16, 32}; per channel: g = K) and take any
-        O."""
+        g % 32 == 0 (w4a16 and w4a16_asym: g % 16 == 0; mxfp4: g in {16,
+        32}; per channel: g = K) and take any O."""
         if kv_quant not in (None, "int8"):
             raise NotImplementedError(
                 f"kv_quant={kv_quant!r} is not ported yet (None or 'int8')")
@@ -576,13 +588,14 @@ class QuantizedLlama:
             g = s.group_size if isinstance(s.group_size, int) else 0
             if serve_a8 and kind == "w4a16" and g == 128:
                 kind = "w4a8"
-            if kind in ("w8a8", "w8a16", "fp8"):
-                tileable = K % 32 == 0 and (g <= 0 or (g % 32 == 0
-                                                       and K % g == 0))
-            elif kind in ("mxfp4_g16", "mxfp4_g32"):
-                tileable = K % 32 == 0 and K % g == 0
+            if kind in ("w8a8", "w8a16", "fp8") and g <= 0:
+                tileable = K % 32 == 0                # per channel
             else:
-                tileable = g > 0 and g % 32 == 0 and K % g == 0
+                # a 4-bit group that is not a multiple of 16 (24, 40, ...)
+                # serves dense (ROADMAP C)
+                tileable = w4_tileable(K, g, W4_G_MULTIPLE if kind in (
+                    "w4a16", "w4a16_asym", "mxfp4_g16", "mxfp4_g32")
+                    else 32)
             if (kind is None or not tileable
                     or (kind == "w4a16_asym" and ql.zp is None)):
                 dense += 1

@@ -10,11 +10,14 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
              nvcc per source, in parallel); print the seconds and the
              compiler's register / spill report.
-2. kernels — run each of the thirteen kernels (flash forward, flash
+2. kernels — run each of the fourteen kernels (flash forward, flash
              backward dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym
              W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
-             FP8 and MXFP4 / NVFP4 matmul) at the
-             main paths' shapes against its plain PyTorch version on the
+             FP8 and MXFP4 / NVFP4 matmul, int8-QK attention) at the
+             main paths' shapes (W4A16 and asym also at g = 16; decode
+             also at head dims 64 and 256 and G = 7; int8-QK at row 1's
+             shapes and at S = T = 2048, beside row 1's time in the same
+             call) against its plain PyTorch version on the
              card (bf16), check the stated tolerance (and, for the
              backward pair, that two launches give the same bits), and
              time kernel, plain version and one library call (a yardstick
@@ -96,15 +99,28 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 13. mx tune — SignRound (``iters=20``) with ``MXFP4`` (MX activations in the
              loss) on ``--mx-tune-layers`` blocks → serve, timed, with a
              2-layer copy against the plain versions.
-14. report — the card's name and power limit (nvidia-smi), a JSON line of
+             The MXFP4 path's peak memory (quantize, pack, generate) must
+             not pass the FP8 path's.
+14. llama3.2-1b — full width and depth (16 layers, head dim 64, tied
+             embeddings): RTN W4A16 g128 → engine → ``generate`` with the
+             int8 KV cache, every decode step through the decode kernel at
+             hd 64 (launches = layers x steps); then the same at g = 16,
+             where no layer may serve dense; timings and a 2-layer copy
+             against the plain versions for each.
+15. sage    — the int8-QK op through its entry point for the prefill
+             attention of ``--sage-layers`` llama3-8b layers; launch count
+             checked, each output within 5e-3 mean |diff| of the flash
+             kernel (the op rides no engine path, as in the JAX package).
+16. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
 ``--rtn-layers``, ``--tune-layers``, ``--moe-layers``, ``--moe-tune-layers``,
 ``--asym-layers``, ``--a8-layers``, ``--w8a8-layers``, ``--w8a16-layers``,
 ``--a8-modes-layers``, ``--a8-tune-layers``, ``--fp8-layers``,
-``--mxfp4-layers``, ``--nvfp4-layers``, ``--w2-layers`` and
-``--mx-tune-layers`` cut the depth of the paths for a quicker run.
+``--mxfp4-layers``, ``--nvfp4-layers``, ``--w2-layers``,
+``--mx-tune-layers``, ``--llama1b-layers`` and ``--sage-layers`` cut the
+depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -161,7 +177,15 @@ ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
            # the W4A16 bodies in their INT2 and E2M1 formats (measured 0.035
            # and 0.036); FP8 applies the channel scale to the fp32 sum where
            # the plain version rounds e4m3 * s to bf16 first (measured 0.056)
-           "w2a16_matmul": 0.1, "mxfp4_matmul": 0.1, "fp8_matmul": 0.15}
+           "w2a16_matmul": 0.1, "mxfp4_matmul": 0.1, "fp8_matmul": 0.15,
+           # int8-QK attention against its plain version on the same mean
+           # key: the same codes, scores and softmax on both sides up to
+           # the order of fp32 sums; P rounded to bf16 as in flash
+           "sage_attention": 0.1}
+# int8-QK attention against the bf16 flash kernel, mean |diff| over all
+# outputs: the JAX test's limit for the int8 path against the fp path (the
+# JAX docstring measured 4.7e-4 on the TPU)
+SAGE_FLASH_MAE = 5e-3
 # A gradient row may be zero in exact arithmetic (row 0 of dQ when S = T: one
 # visible key, P = 1, dS = 0), so rows smaller than this share of the whole
 # tensor's RMS are held to that scale instead of their own.
@@ -388,39 +412,43 @@ def kernel_phase(timer, bw, flops_peak):
         del pdv, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
 
-    # K2 W4A16: fused qkv, down_proj, lm_head at decode and prefill M
-    for (M, O, K, name) in [(8, 6144, 4096, "qkv"),
-                            (8, 4096, 14336, "down_proj"),
-                            (8, 128256, 4096, "lm_head"),
-                            (4096, 6144, 4096, "qkv"),
-                            (4096, 4096, 14336, "down_proj"),
-                            (4096, 128256, 4096, "lm_head")]:
+    # K2 W4A16: fused qkv, down_proj, lm_head at decode and prefill M, at
+    # g = 128 and g = 16 (the GEMV reads a second scale half way through a
+    # 32-column chunk)
+    for (M, O, K, name, G) in [(M, O, K, name, G) for G in (128, 16)
+                               for (M, O, K, name) in [
+                                   (8, 6144, 4096, "qkv"),
+                                   (8, 4096, 14336, "down_proj"),
+                                   (8, 128256, 4096, "lm_head"),
+                                   (4096, 6144, 4096, "qkv"),
+                                   (4096, 4096, 14336, "down_proj"),
+                                   (4096, 128256, 4096, "lm_head")]]:
         codes = torch.randint(0, 16, (O, K), generator=g, device=dev)
-        sc = (torch.rand(O, K // 128, generator=g, device=dev) - 0.5) * 0.02
+        sc = (torch.rand(O, K // G, generator=g, device=dev) - 0.5) * 0.02
         qw = pack_w4(codes)
         del codes
         x = torch.randn(M, K, generator=g, device=dev).bfloat16()
-        y = w4a16_matmul(x, qw, sc, 128)
-        yp = w4a16_matmul_plain(x, qw, sc, 128)
+        y = w4a16_matmul(x, qw, sc, G)
+        yp = w4a16_matmul_plain(x, qw, sc, G)
         torch.cuda.synchronize()
         err, rel = row_err(y, yp)
         del yp
         tol = ROW_TOL["w4a16_matmul"]
-        check(rel <= tol, f"w4a16 M={M} O={O} K={K}: row err {rel}")
-        ms = timer(lambda: w4a16_matmul(x, qw, sc, 128))
-        plain_ms = timer(lambda: w4a16_matmul_plain(x, qw, sc, 128))
+        check(rel <= tol, f"w4a16 M={M} O={O} K={K} g={G}: row err {rel}")
+        ms = timer(lambda: w4a16_matmul(x, qw, sc, G))
+        plain_ms = timer(lambda: w4a16_matmul_plain(x, qw, sc, G))
         w_bf16 = ((unpack_w4(qw) - 8).float()
-                  * sc.repeat_interleave(128, dim=1)).bfloat16()
+                  * sc.repeat_interleave(G, dim=1)).bfloat16()
         lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
         del w_bf16
         nbytes = 2 * M * K + O * K // 2 + 4 * sc.numel() + 2 * M * O
         b_ms, b_by = bound(nbytes, 2 * M * O * K)
-        shape = f"{name} M={M} O={O} K={K} g=128"
+        shape = f"{name} M={M} O={O} K={K} g={G}"
         log(f"kernel w4a16_matmul [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
-        if M == 8 and name == "qkv":
+        if M == 8 and name == "qkv" and G == 128:
             rows["w4a16_matmul"] = dict(
                 name="w4a16_matmul", route="cuda",
                 source="autoround_tpu_torch/csrc/w4a16_matmul.cu",
@@ -488,38 +516,41 @@ def kernel_phase(timer, bw, flops_peak):
         del qw, sc, x, y
         torch.cuda.empty_cache()
 
-    # K5 asym W4A16: the llama3-8b projections of K2, fractional zero points
-    for (M, O, K, name) in [(8, 6144, 4096, "qkv"),
-                            (8, 4096, 14336, "down_proj"),
-                            (8, 128256, 4096, "lm_head"),
-                            (4096, 6144, 4096, "qkv"),
-                            (4096, 4096, 14336, "down_proj"),
-                            (4096, 128256, 4096, "lm_head")]:
+    # K5 asym W4A16: the llama3-8b projections of K2, fractional zero
+    # points, g = 128 and g = 16
+    for (M, O, K, name, G) in [(M, O, K, name, G) for G in (128, 16)
+                               for (M, O, K, name) in [
+                                   (8, 6144, 4096, "qkv"),
+                                   (8, 4096, 14336, "down_proj"),
+                                   (8, 128256, 4096, "lm_head"),
+                                   (4096, 6144, 4096, "qkv"),
+                                   (4096, 4096, 14336, "down_proj"),
+                                   (4096, 128256, 4096, "lm_head")]]:
         qw = pack_w4(torch.randint(0, 16, (O, K), generator=g, device=dev))
-        sc = torch.rand(O, K // 128, generator=g, device=dev) * 0.01 + 0.002
-        zp = torch.rand(O, K // 128, generator=g, device=dev) * 15
+        sc = torch.rand(O, K // G, generator=g, device=dev) * 0.01 + 0.002
+        zp = torch.rand(O, K // G, generator=g, device=dev) * 15
         x = torch.randn(M, K, generator=g, device=dev).bfloat16()
-        y = w4a16_asym_matmul(x, qw, sc, zp, 128)
-        yp = w4a16_asym_matmul_plain(x, qw, sc, zp, 128)
+        y = w4a16_asym_matmul(x, qw, sc, zp, G)
+        yp = w4a16_asym_matmul_plain(x, qw, sc, zp, G)
         torch.cuda.synchronize()
         err, rel = row_err(y, yp)
         del yp
         tol = ROW_TOL["w4a16_asym_matmul"]
-        check(rel <= tol, f"asym M={M} O={O} K={K}: row err {rel}")
-        ms = timer(lambda: w4a16_asym_matmul(x, qw, sc, zp, 128))
-        plain_ms = timer(lambda: w4a16_asym_matmul_plain(x, qw, sc, zp, 128))
-        w_bf16 = ((unpack_w4(qw).float() - zp.repeat_interleave(128, dim=1))
-                  * sc.repeat_interleave(128, dim=1)).bfloat16()
+        check(rel <= tol, f"asym M={M} O={O} K={K} g={G}: row err {rel}")
+        ms = timer(lambda: w4a16_asym_matmul(x, qw, sc, zp, G))
+        plain_ms = timer(lambda: w4a16_asym_matmul_plain(x, qw, sc, zp, G))
+        w_bf16 = ((unpack_w4(qw).float() - zp.repeat_interleave(G, dim=1))
+                  * sc.repeat_interleave(G, dim=1)).bfloat16()
         lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
         del w_bf16
         nbytes = 2 * M * K + O * K // 2 + 8 * sc.numel() + 2 * M * O
         b_ms, b_by = bound(nbytes, 2 * M * O * K)
-        shape = f"{name} M={M} O={O} K={K} g=128 fractional zp"
+        shape = f"{name} M={M} O={O} K={K} g={G} fractional zp"
         log(f"kernel w4a16_asym_matmul [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
-        if M == 8 and name == "qkv":
+        if M == 8 and name == "qkv" and G == 128:
             rows["w4a16_asym_matmul"] = dict(
                 name="w4a16_asym_matmul", route="cuda",
                 source="autoround_tpu_torch/csrc/w4a16_asym_matmul.cu",
@@ -529,63 +560,84 @@ def kernel_phase(timer, bw, flops_peak):
         del qw, sc, zp, x, y
         torch.cuda.empty_cache()
 
-    # K3 int8-KV decode attention: B=8, T=1024, G=4 (llama3-8b heads)
-    B, T, nkv, G = 8, 1024, 8, 4
-    nh = nkv * G
-    q = torch.randn(B, nh, 128, generator=g, device=dev).bfloat16()
-    kc = torch.randint(-127, 128, (B, T, nkv, 128), generator=g,
-                       device=dev).to(torch.int8)
-    vc = torch.randint(-127, 128, (B, T, nkv, 128), generator=g,
-                       device=dev).to(torch.int8)
-    ks = torch.rand(nkv, generator=g, device=dev) * 0.02 + 0.01
-    vs = torch.rand(nkv, generator=g, device=dev) * 0.02 + 0.01
-    sinks = torch.randn(nh, generator=g, device=dev)
-    sm = 128 ** -0.5
-    for pos, window, use_sinks in [(511, None, False), (700, None, False),
-                                   (700, 256, True)]:
-        sk = sinks if use_sinks else None
-        pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
-        o = decode_attention(q, kc, vc, pv, ks, vs, sm, window=window,
-                             sinks=sk)
-        op = decode_attention_plain(q, kc, vc, pv, ks, vs, sm, window=window,
-                                    sinks=sk)
-        torch.cuda.synchronize()
-        err, rel = row_err(o, op)
-        tol = ROW_TOL["decode_attention"]
-        check(rel <= tol, f"decode pos={pos}: row err {rel}")
-        ms = timer(lambda: decode_attention(q, kc, vc, pv, ks, vs, sm,
-                                            window=window, sinks=sk))
-        plain_ms = timer(lambda: decode_attention_plain(
-            q, kc, vc, pv, ks, vs, sm, window=window, sinks=sk))
-        lib_ms = None
-        if window is None and not use_sinks:
+    # K3 int8-KV decode attention: B=8, T=1024; llama3-8b's heads (hd 128,
+    # G = 4), llama3.2-1b's (hd 64), hd 256 (Gemma) and G = 7 (qwen2.5-7b's
+    # 28 / 4).  Library: SDPA on the dequantized bf16 cache up to pos, with
+    # the window as a boolean mask where there is one (no single call adds
+    # the sinks: that yardstick leaves them out and is checked against the
+    # plain version without sinks)
+    B, T = 8, 1024
+    for (hd, nkv, G, cases) in [
+            (128, 8, 4, [(511, None, False), (700, None, False),
+                         (700, 256, True)]),
+            (64, 8, 4, [(511, None, False), (700, 256, True)]),
+            (256, 8, 4, [(511, None, False), (700, 256, True)]),
+            (128, 4, 7, [(511, None, False)])]:
+        nh = nkv * G
+        q = torch.randn(B, nh, hd, generator=g, device=dev).bfloat16()
+        kc = torch.randint(-127, 128, (B, T, nkv, hd), generator=g,
+                           device=dev).to(torch.int8)
+        vc = torch.randint(-127, 128, (B, T, nkv, hd), generator=g,
+                           device=dev).to(torch.int8)
+        ks = torch.rand(nkv, generator=g, device=dev) * 0.02 + 0.01
+        vs = torch.rand(nkv, generator=g, device=dev) * 0.02 + 0.01
+        sinks = torch.randn(nh, generator=g, device=dev)
+        sm = hd ** -0.5
+        for pos, window, use_sinks in cases:
+            sk = sinks if use_sinks else None
+            pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
+            o = decode_attention(q, kc, vc, pv, ks, vs, sm, window=window,
+                                 sinks=sk)
+            op = decode_attention_plain(q, kc, vc, pv, ks, vs, sm,
+                                        window=window, sinks=sk)
+            torch.cuda.synchronize()
+            err, rel = row_err(o, op)
+            tol = ROW_TOL["decode_attention"]
+            check(rel <= tol, f"decode hd={hd} G={G} pos={pos}: row err "
+                  f"{rel}")
+            ms = timer(lambda: decode_attention(q, kc, vc, pv, ks, vs, sm,
+                                                window=window, sinks=sk))
+            plain_ms = timer(lambda: decode_attention_plain(
+                q, kc, vc, pv, ks, vs, sm, window=window, sinks=sk))
             kd = (kc[:, :pos + 1].float() * ks.view(1, 1, nkv, 1)) \
                 .bfloat16().transpose(1, 2).contiguous()
             vd = (vc[:, :pos + 1].float() * vs.view(1, 1, nkv, 1)) \
                 .bfloat16().transpose(1, 2).contiguous()
             q4 = q[:, :, None]
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                q4, kd, vd, enable_gqa=True))
+            mask = None
+            if window is not None:
+                idx = torch.arange(pos + 1, device=dev)
+                mask = (idx > pos - window)[None, None, None, :]
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q4, kd, vd, attn_mask=mask, scale=sm, enable_gqa=True)
+            _, lib_rel = row_err(lib()[:, :, 0], decode_attention_plain(
+                q, kc, vc, pv, ks, vs, sm, window=window))
+            check(lib_rel <= LIB_ROW_TOL,
+                  f"decode hd={hd} pos={pos}: library call computes another "
+                  f"function (row err {lib_rel})")
+            lib_ms = timer(lib)
             del kd, vd
-        n_tok = min(pos + 1, window or pos + 1)
-        nbytes = 2 * q.numel() * 2 + 2 * B * n_tok * nkv * 128 + 8 * nkv
-        b_ms, b_by = bound(nbytes, 4 * B * nh * n_tok * 128)
-        shape = (f"B={B} T={T} nh={nh} nkv={nkv} pos={pos}"
-                 + (f" window={window} sinks" if window else ""))
-        log(f"kernel decode_attention [{shape}] max_abs_err={err:.3g} "
-            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms="
-            f"{lib_ms if lib_ms is None else round(lib_ms, 4)} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
-        if pos == 511 and window is None:
-            rows["decode_attention"] = dict(
-                name="decode_attention", route="cuda",
-                source="autoround_tpu_torch/csrc/decode_attention.cu",
-                replaces="autoround_tpu/ops/decode_attention.py:240",
-                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    del q, kc, vc
-    torch.cuda.empty_cache()
+            n_tok = min(pos + 1, window or pos + 1)
+            nbytes = 2 * q.numel() * 2 + 2 * B * n_tok * nkv * hd + 8 * nkv
+            b_ms, b_by = bound(nbytes, 4 * B * nh * n_tok * hd)
+            shape = (f"B={B} T={T} nh={nh} nkv={nkv} hd={hd} pos={pos}"
+                     + (f" window={window} sinks" if window else ""))
+            log(f"kernel decode_attention [{shape}] max_abs_err={err:.3g} "
+                f"row_err={rel:.3g} (tol {tol}) library_row_err="
+                f"{lib_rel:.3g}{' (no sinks)' if use_sinks else ''} "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            if hd == 128 and G == 4 and pos == 511:
+                rows["decode_attention"] = dict(
+                    name="decode_attention", route="cuda",
+                    source="autoround_tpu_torch/csrc/decode_attention.cu",
+                    replaces="autoround_tpu/ops/decode_attention.py:240",
+                    shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        del q, kc, vc
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -860,6 +912,130 @@ def float_kernel_phase(timer, bw, flops_peak):
     return rows
 
 
+def sage_kernel_phase(timer, bw, flops_peak, int8_peak):
+    """Row 14, the int8-QK attention, at row 1's shapes (B8 H32 Hkv8 S=T=512
+    and S=256 T=512, D128, causal) and the JAX docstring's B4 H32 Hkv8
+    S=T=2048: against its plain version in the jitted form it follows (the
+    same mean key), timed beside its bound, SDPA on the same bf16 q/k/v
+    (the library yardstick) and row 1's flash kernel in the same call.
+    Bound: the bytes of q, k, v and the output, or QK^T's operations over
+    the int8 peak plus P.V's over the bf16 peak (the causal pairs)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from autoround_tpu_torch.ops.flash_attention import flash_attention
+    from autoround_tpu_torch.ops.sage_attention import (sage_attention,
+                                                        sage_attention_plain)
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = {}
+    for (B, H, Hkv, S, T) in [(8, 32, 8, 512, 512), (8, 32, 8, 256, 512),
+                              (4, 32, 8, 2048, 2048)]:
+        D = 128
+        q = torch.randn(B, H, S, D, generator=gen, device=dev).bfloat16()
+        k = (torch.randn(B, Hkv, T, D, generator=gen, device=dev)
+             + 2).bfloat16()
+        v = torch.randn(B, Hkv, T, D, generator=gen, device=dev).bfloat16()
+        o = sage_attention(q, k, v, True)
+        op = sage_attention_plain(q, k, v, True, recip=True)
+        torch.cuda.synchronize()
+        err, rel = row_err(o, op)
+        tol = ROW_TOL["sage_attention"]
+        check(bool(torch.isfinite(o).all()) and rel <= tol,
+              f"sage S={S} T={T}: row err {rel}")
+        # the JAX docstring's accuracy claim: against the bf16 flash kernel
+        fo, _ = flash_attention(q, k, v, True)
+        flash_mae = (o.float() - fo.float()).abs().mean().item()
+        check(flash_mae < SAGE_FLASH_MAE,
+              f"sage S={S} T={T}: mean abs err vs flash {flash_mae}")
+        del op, fo
+
+        def lib():
+            if S == T:
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=causal_lower_right(S, T), enable_gqa=True)
+        ms = timer(lambda: sage_attention(q, k, v, True))
+        plain_ms = timer(lambda: sage_attention_plain(q, k, v, True,
+                                                      recip=True))
+        lib_ms = timer(lib)
+        flash_ms = timer(lambda: flash_attention(q, k, v, True))
+        valid = sum(min(T, i + T - S + 1) for i in range(S))
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
+        t_b = nbytes / bw * 1e3
+        ops = 2 * B * H * valid * D
+        t_f = (ops / int8_peak + ops / flops_peak) * 1e3
+        b_ms, b_by = max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+        shape = f"B={B} H={H} Hkv={Hkv} S={S} T={T} D={D} causal"
+        log(f"kernel sage_attention [{shape}] max_abs_err={err:.3g} "
+            f"row_err={rel:.3g} (tol {tol}) mean_abs_err_vs_flash="
+            f"{flash_mae:.3g} (tol {SAGE_FLASH_MAE}) kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"flash_ms={flash_ms:.4f} (sage / flash {ms / flash_ms:.3f}) "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        if S == T == 512:
+            rows["sage_attention"] = dict(
+                name="sage_attention", route="cuda",
+                source="autoround_tpu_torch/csrc/sage_attention.cu",
+                replaces="autoround_tpu/ops/sage_attention.py:176",
+                shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                flash_ms=flash_ms)
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sage_path(n_layers):
+    """The int8-QK op through its entry point, as a user calls it: the
+    attention of a llama3-8b prefill (8 x 512 tokens, 32 heads, 8 kv heads,
+    hd 128, causal) for each of ``n_layers`` layers, fresh q/k/v per layer
+    from a seeded generator.  Counts are read right after; then the same
+    q/k/v, drawn again, go through the flash kernel, and each output must
+    be within the JAX docstring's accuracy of it.  No engine path routes to
+    the op (as in the JAX package); returns the launches."""
+    from autoround_tpu_torch.ops.flash_attention import flash_attention
+    from autoround_tpu_torch.ops.sage_attention import sage_attention
+
+    kernels = _kernel_fns()
+    B, H, Hkv, S, D = 8, 32, 8, 512, 128
+
+    def layer_inputs(gen):
+        q = torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
+        k = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+             + 2).bfloat16()
+        v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").bfloat16()
+        return q, k, v
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for fn in kernels.values():
+        fn.launches = 0
+    outs = [sage_attention(*layer_inputs(gen), True)
+            for _ in range(n_layers)]
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    worst = 0.0
+    for o in outs:
+        q, k, v = layer_inputs(gen)
+        check(bool(torch.isfinite(o).all()) and o.shape == q.shape,
+              "sage path: output not finite or of another shape")
+        fo, _ = flash_attention(q, k, v, True)
+        worst = max(worst, (o.float() - fo.float()).abs().mean().item())
+    log(f"sage path ({n_layers} layers of llama3-8b prefill attention): "
+        f"worst mean_abs_err_vs_flash={worst:.3g} (tol {SAGE_FLASH_MAE})")
+    log(f"sage path kernels {json.dumps(launches)}")
+    check(worst < SAGE_FLASH_MAE, "sage path: output far from flash")
+    want = {n: 0 for n in kernels}
+    want["sage_attention"] = n_layers
+    for n, c in want.items():
+        check(launches[n] == c, f"sage path: {n} launched {launches[n]} "
+              f"times, the loop implies {c}")
+    return launches
+
+
 def copy_engine(eng, n_layers, device):
     """The first ``n_layers`` blocks of an engine, on ``device``."""
     import dataclasses
@@ -992,6 +1168,7 @@ def _kernel_fns():
                                                      w8a16_matmul)
     from autoround_tpu_torch.ops.qmatmul_int8 import (w4a8_matmul,
                                                       w8a8_matmul)
+    from autoround_tpu_torch.ops.sage_attention import sage_attention
 
     return {"flash_attention": flash_attention,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
@@ -1002,7 +1179,8 @@ def _kernel_fns():
             "decode_attention": decode_attention,
             "w4a8_matmul": w4a8_matmul, "w8a8_matmul": w8a8_matmul,
             "w8a16_matmul": w8a16_matmul, "w2a16_matmul": w2a16_matmul,
-            "fp8_matmul": fp8_matmul, "mxfp4_matmul": mxfp4_matmul}
+            "fp8_matmul": fp8_matmul, "mxfp4_matmul": mxfp4_matmul,
+            "sage_attention": sage_attention}
 
 
 @contextlib.contextmanager
@@ -1835,12 +2013,16 @@ def serve_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
               == (block and (sch.act_data_type or "").startswith("nv_fp")),
               f"{scheme} path: {n} act scales {q.act_scale} "
               f"{q.act_global_scale}")
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
                                               kv_quant="int8")
-    del ar, result
     torch.cuda.synchronize()
     t_pack = time.time() - t0
+    pack_gb = torch.cuda.max_memory_allocated() / 1e9
+    del ar, result
+    torch.cuda.reset_peak_memory_stats()
     check(set(eng.packed_kinds.values()) == {kind}
           and len(eng.packed) == 4 * n_layers + 1,
           f"{scheme} path: packed kinds "
@@ -1851,10 +2033,12 @@ def serve_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
     torch.cuda.synchronize()
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gen_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(quant_gb, pack_gb, gen_gb)
     log(f"{scheme} path llama3-8b ({n_layers} layers, random weights, kind "
         f"{kind}): quantize_s={t_quant:.2f} pack_s={t_pack:.2f} "
-        f"generate_s={t_gen:.2f} peak_mem_gb={peak_gb:.2f}")
+        f"generate_s={t_gen:.2f} peak_mem_gb={peak_gb:.2f} (quantize "
+        f"{quant_gb:.2f}, pack {pack_gb:.2f}, generate {gen_gb:.2f})")
     log(f"{scheme} path kernels {json.dumps(launches)}")
     # per block and forward: qkv, o_proj, gate_up, down_proj; an
     # act-quantized scheme adds the amax pass over the FP block (flash once
@@ -1872,6 +2056,78 @@ def serve_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
     time_serving(eng, prompts, NEW, bw, flops_peak,
                  int8_peak if int8_act else None)
     check_copy(eng, prompts, "card", attention=not int8_act)
+    del eng
+    torch.cuda.empty_cache()
+    return launches, peak_gb
+
+
+def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
+    """llama3.2-1b at full width (hidden 2048, 32 heads, 8 kv heads, head
+    dim 64, tied embeddings), RTN W4A16 at ``group_size`` with the lm_head
+    quantized → engine → ``generate`` (8 x 512 prompts, 32 new tokens)
+    with the int8 KV cache, whose every decode step runs the decode kernel
+    at hd 64.  The prompt passes take the plain attention: the flash gate
+    needs hd 128 or 256, as the JAX model's needs hd % 128 == 0.  Every
+    quantized layer must serve packed (g = 16 too), the launch counts equal
+    what the loops imply; timings, and a 2-layer copy against the plain
+    versions on the card; returns the launches."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3.2-1b"],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ = 8, 512, 32, 1024
+    ids_gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    scheme = dict(bits=4, group_size=group_size, sym=True, data_type="int")
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme=scheme, iters=0, quant_lm_head=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    del ar, result
+    dense = [f"blocks.{i}.{n}" for i, blk in enumerate(eng.params["blocks"])
+             for n in llama.LINEAR_KEYS if blk.get(n) is not None]
+    if eng.params.get("lm_head") is not None:
+        dense.append("lm_head")
+    check(not dense and set(eng.packed_kinds.values()) == {"w4a16"}
+          and len(eng.packed) == 4 * n_layers + 1,
+          f"llama3.2-1b g{group_size}: dense layers {dense}, packed kinds "
+          f"{sorted(set(eng.packed_kinds.values()))}, {len(eng.packed)} "
+          f"entries")
+    t0 = time.time()
+    toks = eng.generate(prompts, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"llama3.2-1b path ({n_layers} layers, random weights, W4A16 "
+        f"g{group_size}, hd {cfg.hd}): quantize_s={t_quant:.2f} "
+        f"generate_s={t_gen:.2f} peak_mem_gb={peak_gb:.2f} dense_layers=0")
+    log(f"llama3.2-1b g{group_size} path kernels {json.dumps(launches)}")
+    want = _serve_counts(n_layers, NEW, NEW - 1, per_block=4)
+    want["w4a16_matmul"] = want.pop("matmul")
+    want["flash_attention"] = 0              # hd 64: plain prompt attention
+    for n in kernels:
+        want.setdefault(n, 0)
+    for n, c in want.items():
+        check(launches[n] == c, f"llama3.2-1b g{group_size} path: {n} "
+              f"launched {launches[n]} times, the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    time_serving(eng, prompts, NEW, bw, flops_peak)
+    check_copy(eng, prompts, "card")
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -2183,6 +2439,12 @@ def main() -> int:
     ap.add_argument("--mx-tune-layers", type=int, default=2,
                     help="depth of the MXFP4 SignRound -> serve path "
                          "(default 2)")
+    ap.add_argument("--llama1b-layers", type=int, default=16,
+                    help="depth of the two llama3.2-1b paths (W4A16 g128 "
+                         "and g16; default 16, all of them)")
+    ap.add_argument("--sage-layers", type=int, default=32,
+                    help="layers of prefill attention on the int8-QK path "
+                         "(default 32)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2218,6 +2480,7 @@ def main() -> int:
     rows = kernel_phase(timer, bw, fl)
     rows.update(a8_kernel_phase(timer, bw, fl, i8))
     rows.update(float_kernel_phase(timer, bw, fl))
+    rows.update(sage_kernel_phase(timer, bw, fl, i8))
     del timer
     rtn_launches, _ = rtn_path(bw, fl, args.rtn_layers)
     free_device_memory()
@@ -2233,29 +2496,43 @@ def main() -> int:
     free_device_memory()
     asym_launches = asym_path(args.asym_layers)
     free_device_memory()
-    a8_launches = serve_path(bw, fl, i8, "W4A8", args.a8_layers, seed=8)
+    a8_launches, _ = serve_path(bw, fl, i8, "W4A8", args.a8_layers,
+                                seed=8)
     free_device_memory()
-    w8a8_launches = serve_path(bw, fl, i8, "W8A8", args.w8a8_layers, seed=9)
+    w8a8_launches, _ = serve_path(bw, fl, i8, "W8A8", args.w8a8_layers,
+                                  seed=9)
     free_device_memory()
-    w8a16_launches = serve_path(bw, fl, i8, "W8A16", args.w8a16_layers,
-                                seed=10)
+    w8a16_launches, _ = serve_path(bw, fl, i8, "W8A16",
+                                   args.w8a16_layers, seed=10)
     free_device_memory()
     modes_launches = a8_modes_path(args.a8_modes_layers)
     free_device_memory()
     a8_tune_path(args.a8_tune_layers)
     free_device_memory()
-    fp8_launches = serve_path(bw, fl, i8, "FP8_STATIC", args.fp8_layers,
-                              seed=13)
+    fp8_launches, fp8_gb = serve_path(bw, fl, i8, "FP8_STATIC",
+                                      args.fp8_layers, seed=13)
     free_device_memory()
-    mxfp4_launches = serve_path(bw, fl, i8, "MXFP4", args.mxfp4_layers,
-                                seed=14)
+    mxfp4_launches, mxfp4_gb = serve_path(bw, fl, i8, "MXFP4",
+                                          args.mxfp4_layers, seed=14)
+    log(f"peak memory: MXFP4 path {mxfp4_gb:.2f} GB, FP8_STATIC path "
+        f"{fp8_gb:.2f} GB ({args.mxfp4_layers} / {args.fp8_layers} layers)")
+    if args.mxfp4_layers == args.fp8_layers:
+        check(mxfp4_gb <= fp8_gb, "the MXFP4 path peaks above the FP8 path")
     free_device_memory()
-    nvfp4_launches = serve_path(bw, fl, i8, "NVFP4", args.nvfp4_layers,
-                                seed=15)
+    nvfp4_launches, _ = serve_path(bw, fl, i8, "NVFP4",
+                                   args.nvfp4_layers, seed=15)
     free_device_memory()
-    w2_launches = serve_path(bw, fl, i8, "W2A16", args.w2_layers, seed=16)
+    w2_launches, _ = serve_path(bw, fl, i8, "W2A16", args.w2_layers,
+                                seed=16)
     free_device_memory()
     mx_tune_launches = mx_tune_path(bw, fl, args.mx_tune_layers)
+    free_device_memory()
+    l1b_launches = llama1b_path(bw, fl, args.llama1b_layers, 128, seed=19)
+    free_device_memory()
+    l1b_g16_launches = llama1b_path(bw, fl, args.llama1b_layers, 16,
+                                    seed=20)
+    free_device_memory()
+    sage_launches = sage_path(args.sage_layers)
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths
@@ -2268,6 +2545,7 @@ def main() -> int:
     launches["fp8_matmul"] = fp8_launches["fp8_matmul"]
     launches["mxfp4_matmul"] = mxfp4_launches["mxfp4_matmul"]
     launches["w2a16_matmul"] = w2_launches["w2a16_matmul"]
+    launches["sage_attention"] = sage_launches["sage_attention"]
     for n, row in rows.items():
         row["launches"] = launches[n]
         for key, other in (("launches_rtn_path", rtn_launches),
@@ -2275,7 +2553,9 @@ def main() -> int:
                            ("launches_asym_path", asym_launches),
                            ("launches_a8_modes_path", modes_launches),
                            ("launches_nvfp4_path", nvfp4_launches),
-                           ("launches_mx_tune_path", mx_tune_launches)):
+                           ("launches_mx_tune_path", mx_tune_launches),
+                           ("launches_llama1b_path", l1b_launches),
+                           ("launches_llama1b_g16_path", l1b_g16_launches)):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)

@@ -45,6 +45,14 @@ W2A16 as W4A16 (measured worst row 0.035, limit 0.1); MXFP4 / NVFP4 at g =
 16; measured 0.036, limit 0.1); FP8 applies the channel scale to the fp32
 sum where the plain version rounds w * s to bf16 first (measured 0.056,
 limit 0.15).
+
+Groups of 16 (and 48: a group that starts half way through a GEMV chunk)
+for the sym, asym and grouped W4A16 kernels, held like W4A16; the decode
+kernel at every head dim (64, 128, 256) and G (1 to 8) it takes, with the
+window and sinks, the softcap and the chunk; the int8-QK attention against
+its plain version on the same mean key (D 128 and 256, causal or not, T
+> S, GQA 1 / 4 / 8; limit 0.1 as flash: the same codes and scores, P
+rounded to bf16 after an online softmax), and its refusals.
 """
 
 import pytest
@@ -63,6 +71,8 @@ from autoround_tpu_torch.ops.qmatmul_ext import (
     fp8_matmul, fp8_matmul_plain, mxfp4_matmul, mxfp4_matmul_plain, pack_w2,
     w2a16_matmul, w2a16_matmul_plain, w4a16_asym_matmul,
     w4a16_asym_matmul_plain, w8a16_matmul, w8a16_matmul_plain)
+from autoround_tpu_torch.ops.sage_attention import (sage_attention,
+                                                    sage_attention_plain)
 from autoround_tpu_torch.ops.qmatmul_int8 import (quantize_rows,
                                                   quantize_rows_plain,
                                                   w4a8_matmul,
@@ -73,7 +83,7 @@ from autoround_tpu_torch.ops.qmatmul_int8 import (quantize_rows,
 pytestmark = pytest.mark.cuda
 ROW_TOL = {"flash": 0.1, "w4a16": 0.1, "decode": 0.025, "flash_bwd": 0.07,
            "w8a16": 0.15, "w4a8_f32": 1e-5, "w2a16": 0.1, "mxfp4": 0.1,
-           "fp8": 0.15}
+           "fp8": 0.15, "sage": 0.1}
 BWD_ROW_FLOOR = 0.01
 LSE_ATOL = 1e-5      # lse is fp32 on both sides (~1e-6 measured)
 
@@ -394,6 +404,19 @@ def test_decode_masks_and_groups(gen, G, case):
                                   chunk=kw["chunk"]), "decode")
 
 
+@pytest.mark.parametrize("hd", [384, 512])
+def test_model_attention_sends_wide_heads_to_the_flash_kernel(gen, hd):
+    """The model's routing gate is the JAX one (hd % 128 == 0): a head the
+    kernel does not take raises by name, it does not run plain on the card."""
+    from autoround_tpu_torch.models import llama as tl
+
+    cfg = tl.LlamaConfig(num_heads=2, num_kv_heads=2, head_dim=hd,
+                         hidden_size=2 * hd)
+    q = torch.zeros((1, 512, 2, hd), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match=f"D={hd}"):
+        tl.attention(q, q, q, None, cfg)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x = torch.randn(4, 256, generator=gen, device="cuda")
     qw = torch.zeros((64, 32), dtype=torch.int32, device="cuda")
@@ -407,9 +430,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         w4a16_asym_matmul(xb, qw, sc, sc.half(), 128)
     with pytest.raises(ValueError):            # zero points of another shape
         w4a16_asym_matmul(xb, qw, sc, sc[:, :1].contiguous(), 128)
-    with pytest.raises(ValueError):            # group size not % 32
-        w4a16_asym_matmul(xb, qw, torch.ones((64, 16), device="cuda"),
-                          torch.ones((64, 16), device="cuda"), 16)
+    with pytest.raises(ValueError):            # group size not % 16
+        w4a16_asym_matmul(xb, qw, torch.ones((64, 32), device="cuda"),
+                          torch.ones((64, 32), device="cuda"), 8)
+    with pytest.raises(ValueError):            # group size not % 16
+        w4a16_matmul(xb, qw, torch.ones((64, 32), device="cuda"), 8)
     wi = torch.zeros((64, 256), dtype=torch.int8, device="cuda")
     with pytest.raises(ValueError):            # fp32 activations
         w8a8_matmul(x, wi, torch.ones(64, device="cuda"))
@@ -459,8 +484,117 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                                 q[..., :64].contiguous(),
                                 q[..., :64].contiguous(),
                                 q[..., :64].contiguous(), st, st, True)
-    qd = torch.zeros((1, 6, 64), dtype=torch.bfloat16, device="cuda")
-    c = torch.zeros((1, 16, 2, 64), dtype=torch.int8, device="cuda")
-    with pytest.raises(ValueError):            # head_dim 64, G = 3
+    qd = torch.zeros((1, 6, 96), dtype=torch.bfloat16, device="cuda")
+    c = torch.zeros((1, 16, 2, 96), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="head_dim=96"):     # head_dim 96
         decode_attention(qd, c, c, 0, torch.ones(2, device="cuda"),
                          torch.ones(2, device="cuda"), 0.1)
+    qd = torch.zeros((1, 32, 128), dtype=torch.bfloat16, device="cuda")
+    c = torch.zeros((1, 16, 2, 128), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="num_heads=32 num_kv_heads=2"):
+        decode_attention(qd, c, c, 0, torch.ones(2, device="cuda"),
+                         torch.ones(2, device="cuda"), 0.1)   # G = 16
+
+
+# ------------------------------------------------------------ this slice's
+# edges: int4 groups of 16 (and 48: a group starting half way through a
+# GEMV chunk), the decode kernel at every head dim and G it takes, and the
+# int8-QK attention
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 32, 33, 200])
+@pytest.mark.parametrize("O,K,g", [(1000, 1024, 16), (72, 1056, 16),
+                                   (200, 1536, 48)])
+@pytest.mark.parametrize("kind", ["sym", "asym", "grouped"])
+def test_int4_small_groups(gen, kind, M, O, K, g):
+    codes = torch.randint(0, 16, (O, K), generator=gen, device="cuda")
+    qw = pack_w4(codes)
+    sc = (torch.rand(O, K // g, generator=gen, device="cuda") - 0.5) * 0.02
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    if kind == "sym":
+        _check(w4a16_matmul(x, qw, sc, g), w4a16_matmul_plain(x, qw, sc, g),
+               "w4a16")
+    elif kind == "asym":
+        zp = torch.rand(O, K // g, generator=gen, device="cuda") * 15
+        _check(w4a16_asym_matmul(x, qw, sc, zp, g),
+               w4a16_asym_matmul_plain(x, qw, sc, zp, g), "w4a16")
+    else:
+        qwe = torch.stack([qw, qw.flip(0)])
+        sce = torch.stack([sc, -sc])
+        xe = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
+        _check(w4a16_matmul_grouped(xe, qwe, sce, g),
+               w4a16_matmul_grouped_plain(xe, qwe, sce, g), "w4a16")
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("case", ["plain", "window_sinks", "softcap",
+                                  "chunk"])
+def test_decode_head_dims_and_groups(gen, hd, G, case):
+    B, T, nkv = 4, 384, 2
+    nh = nkv * G
+    q = torch.randn(B, nh, hd, generator=gen, device="cuda").bfloat16()
+    kc = torch.randint(-127, 128, (B, T, nkv, hd), generator=gen,
+                       device="cuda").to(torch.int8)
+    vc = torch.randint(-127, 128, (B, T, nkv, hd), generator=gen,
+                       device="cuda").to(torch.int8)
+    ks = torch.rand(nkv, generator=gen, device="cuda") * 0.02 + 0.01
+    vs = torch.rand(nkv, generator=gen, device="cuda") * 0.02 + 0.01
+    pos = torch.tensor([0, 63, 200, T - 1], dtype=torch.int32, device="cuda")
+    kw = dict(softcap=30.0 if case == "softcap" else 0.0,
+              window=50 if case == "window_sinks" else None,
+              chunk=96 if case == "chunk" else None,
+              sinks=(torch.randn(nh, generator=gen, device="cuda")
+                     if case == "window_sinks" else None))
+    before = decode_attention.launches
+    _check(decode_attention(q, kc, vc, pos, ks, vs, hd ** -0.5, **kw),
+           decode_attention_plain(q, kc, vc, pos, ks, vs, hd ** -0.5,
+                                  kw["softcap"], kw["window"], kw["sinks"],
+                                  chunk=kw["chunk"]), "decode")
+    assert decode_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("S,T", [(64, 64), (128, 320), (256, 256)])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sage_shapes(gen, D, S, T, rep, causal):
+    """The kernel against its plain version in the jitted form it follows
+    (the same mean key, taken once by the wrapper's torch reduction); the
+    +2 key offset is the common mode the smoothing removes."""
+    B, Hkv = 2, 2
+    H = Hkv * rep
+    q = torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(B, Hkv, T, D, generator=gen, device="cuda")
+         + 2).bfloat16()
+    v = torch.randn(B, Hkv, T, D, generator=gen, device="cuda").bfloat16()
+    before = sage_attention.launches
+    _check(sage_attention(q, k, v, causal),
+           sage_attention_plain(q, k, v, causal, recip=True), "sage")
+    assert sage_attention.launches == before + 1
+
+
+def test_sage_refuses_what_the_kernel_does_not_take(gen):
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype, device="cuda")
+    with pytest.raises(ValueError):            # D = 64
+        sage_attention(t(1, 2, 64, 64), t(1, 2, 64, 64), t(1, 2, 64, 64))
+    with pytest.raises(ValueError):            # S not a multiple of 64
+        sage_attention(t(1, 2, 96, 128), t(1, 2, 128, 128),
+                       t(1, 2, 128, 128))
+    with pytest.raises(ValueError):            # causal with T < S
+        sage_attention(t(1, 2, 128, 128), t(1, 2, 64, 128),
+                       t(1, 2, 64, 128))
+    with pytest.raises(ValueError):            # fp32
+        sage_attention(t(1, 2, 64, 128, dtype=torch.float32),
+                       t(1, 2, 64, 128, dtype=torch.float32),
+                       t(1, 2, 64, 128, dtype=torch.float32))
+    with pytest.raises(ValueError):            # H % Hkv
+        sage_attention(t(1, 3, 64, 128), t(1, 2, 64, 128), t(1, 2, 64, 128))
+    with pytest.raises(ValueError):            # non-contiguous q
+        sage_attention(t(1, 2, 128, 64).transpose(2, 3)[:, :, :64],
+                       t(1, 2, 64, 128), t(1, 2, 64, 128))
+    # T < S without the causal mask is taken
+    out = sage_attention(t(1, 2, 128, 128), t(1, 2, 64, 128),
+                         t(1, 2, 64, 128), causal=False)
+    assert out.shape == (1, 2, 128, 128)

@@ -285,3 +285,102 @@ def test_import_isolation():
         text = f.read_text()
         assert "import jax" not in text, f
         assert not _IMPORT_RE.search(text), f
+
+
+# ---------------------------------------------- head shapes of the int8 decode
+#
+# The int8-KV decode kernel takes hd in (64, 128, 256) and any G = nh / n_kv
+# from 1 to 8.  On the CPU the engine runs the kernel's plain version; these
+# configs hold the engine at the head shapes the kernel gained (llama3.2-1b's
+# hd 64 with G = 4, tied embeddings; G = 7 as in qwen2.5-7b) against the JAX
+# engine, with the int8 cache, at the tolerances above.
+
+DECODE_SHAPES = {"llama3.2-1b_hd64_G4": dict(num_heads=8, num_kv_heads=2,
+                                             tie_embeddings=True),
+                 "hd64_G7": dict(num_heads=14, num_kv_heads=2)}
+
+
+@pytest.mark.parametrize("shape", sorted(DECODE_SHAPES))
+def test_int8_decode_head_shapes_match_jax(shape):
+    jcfg = jl.LlamaConfig(vocab_size=128, hidden_size=256,
+                          intermediate_size=512, num_layers=2, head_dim=64,
+                          rope_theta=1e4, dtype=jnp.float32,
+                          **DECODE_SHAPES[shape])
+    jp = jl.init_params(jcfg, jax.random.PRNGKey(1))
+    tcfg = config_from_jax(dataclasses.asdict(jcfg))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    rng = np.random.default_rng(1)
+    calib = rng.integers(0, 128, (2, 16))
+    prompts = rng.integers(0, 128, (2, 16))
+    jres = JAutoRound((jp, jcfg), scheme="W4A16", iters=0,
+                      quant_lm_head=True).quantize(jnp.asarray(calib))
+    tres = AutoRound((tp, tcfg), scheme="W4A16", iters=0, quant_lm_head=True,
+                     device="cpu").quantize(calib)
+    je = JQuantizedLlama.from_quantize_result(jres, jcfg, max_seq=32,
+                                              kv_quant="int8")
+    te = QuantizedLlama.from_quantize_result(tres, tcfg, max_seq=32,
+                                             kv_quant="int8", device="cpu")
+    n_new = 6
+    logits, cache = je.prefill(jnp.asarray(prompts))
+    tlog, tcache = te.prefill(prompts)
+    _close(logits, tlog, LOGIT_TOL)
+    toks, gaps = [], []
+    for step in range(n_new):
+        lg = np.asarray(logits, np.float32)
+        top2 = np.sort(lg, axis=-1)[:, -2:]
+        gaps.append((top2[:, 1] - top2[:, 0]).min())
+        toks.append(lg.argmax(-1).astype(np.int32))
+        if step < n_new - 1:
+            logits, cache = je.decode_step(jnp.asarray(toks[-1]), cache)
+            tlog, tcache = te.decode_step(torch.from_numpy(toks[-1]), tcache)
+            _close(logits, tlog, INT8_LOGIT_TOL)
+    assert tcache.k.dtype == torch.int8 and tcache.k.shape[-1] == 64
+    want = np.stack(toks, axis=1)
+    got = te.generate(prompts, max_new_tokens=n_new).numpy()
+    first_close = next((i for i, g in enumerate(gaps) if g < GAP_TOL), n_new)
+    assert first_close >= 1, gaps
+    np.testing.assert_array_equal(want[:, :first_close],
+                                  got[:, :first_close])
+
+
+@pytest.mark.parametrize("hd,nh,nkv", [(96, 8, 2), (128, 32, 2), (64, 6, 4),
+                                       (32, 4, 4)])
+def test_decode_gate_names_the_shape(hd, nh, nkv):
+    """hd 96 / 32, G = 16 and a G that is not whole raise by name, both in
+    the gate and where the engine builds an int8 cache on the card (before
+    any tensor is made, so no card is needed to see it)."""
+    from autoround_tpu_torch.ops.decode_attention import check_decode_shape
+    from autoround_tpu_torch.serve.engine import _init_cache
+
+    with pytest.raises(ValueError, match=f"head_dim={hd} num_heads={nh} "
+                                         f"num_kv_heads={nkv}"):
+        check_decode_shape(hd, nh, nkv)
+    cfg = dataclasses.replace(tl.CONFIG_PRESETS["tiny"], head_dim=hd,
+                              num_heads=nh, num_kv_heads=nkv)
+    with pytest.raises(ValueError, match=f"head_dim={hd}"):
+        _init_cache(cfg, 1, 16, cfg.num_layers, "int8", "cuda")
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", range(1, 9))
+def test_decode_gate_takes_every_kernel_shape(hd, G):
+    from autoround_tpu_torch.ops.decode_attention import check_decode_shape
+
+    check_decode_shape(hd, 2 * G, 2)
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128, 256, 384, 512])
+def test_flash_gate_is_the_jax_gate(hd):
+    """The port routes where the JAX model does (hd % 128 == 0); a head
+    dim the kernel does not take reaches ``flash_attention`` and raises
+    there by name instead of running plain attention on the card."""
+    from autoround_tpu_torch.ops.flash_attention import _check_qkv
+
+    q = torch.zeros(1, 512, 2, hd)
+    assert tl._flash_eligible(q, q, None) == (hd % 128 == 0)
+    qb = torch.zeros(1, 2, 512, hd, dtype=torch.bfloat16)
+    if hd in (128, 256):
+        _check_qkv("flash_attention", qb, qb, qb, True)
+    else:
+        with pytest.raises(ValueError, match=f"D={hd}"):
+            _check_qkv("flash_attention", qb, qb, qb, True)

@@ -110,6 +110,46 @@ def test_mx_values_and_scales_exact(dt, rounding):
     _same(a.scale, b.scale)
 
 
+@pytest.mark.parametrize("dt", ["mx_fp4", "mx_fp8"])
+def test_mx_qdq_in_slices_of_groups_is_bit_equal(monkeypatch, dt):
+    """A weight above the slice size is done a slice of groups at a time
+    (an lm_head's fp32 temporaries); the values and scales, and the
+    gradients of w, the rounding offset and the clip scale, equal the
+    whole-tensor qdq bit for bit, with given uniforms too, and a tail
+    slice shorter than the rest."""
+    w = torch.from_numpy(_weights(24, 200, seed=3, scale=0.05))
+    rng = np.random.default_rng(4)
+    groups = 24 * 7                            # 200 columns: 7 groups of 32
+    kw = dict(v=torch.from_numpy(rng.uniform(-0.5, 0.5, (24, 200))
+                                 .astype(np.float32)),
+              max_scale=torch.from_numpy(rng.uniform(0.5, 1.0, groups)
+                                         .astype(np.float32)),
+              rand=torch.from_numpy(rng.uniform(0, 1, (groups, 32))
+                                    .astype(np.float32)))
+    dy = torch.from_numpy(rng.standard_normal((24, 200)).astype(np.float32))
+
+    def run(extra):
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (w, extra.get("v"), extra.get("max_scale"))
+                  if t is not None]
+        args = dict(extra, **dict(zip(("v", "max_scale"), leaves[1:])))
+        r = tmx.qdq_mx(leaves[0], dt, 32, rounding="rceil", **args)
+        return r, torch.autograd.grad(r.qdq, leaves, dy, allow_unused=True)
+
+    no_rand = {k: kw[k] for k in ("v", "max_scale")}
+    for extra in ({}, no_rand, kw):
+        whole, gw = run(extra)
+        monkeypatch.setattr(tmx, "_CHUNK_ELEMS", 32 * 10)
+        sliced, gs = run(extra)
+        monkeypatch.undo()
+        assert torch.equal(whole.qdq, sliced.qdq)
+        assert torch.equal(whole.scale, sliced.scale)
+        if "rand" not in extra:                # uniforms take v's place
+            assert all(a is not None for a in gw)
+        for a, b in zip(gw, gs):
+            assert (a is None and b is None) or torch.equal(a, b)
+
+
 def test_mx_fp8_e5m2_within_the_exp2_deviation():
     """e5m2 elements (emax 15) put shared exponents below -12 at any normal
     weight size, where the JAX package's exp2 misses the power of two: the

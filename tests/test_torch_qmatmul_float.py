@@ -195,6 +195,26 @@ def test_e2m1_codes_equal_the_jax_encoder():
     assert got[grid.size + 0] == 0 and got[2 * grid.size] == 0   # -0.0
 
 
+def test_e2m1_codes_in_row_slices_equal_the_jax_encoder(monkeypatch):
+    """The encoder works a slice of rows at a time (an lm_head's fp32
+    temporaries); with slices of 3 rows over 10 (a short tail) and group
+    scales of 16 columns, including ones below 1e-12, the codes are those
+    of ``_encode_e2m1`` on the scale-divided values."""
+    from autoround_tpu_torch.serve import engine as teng
+
+    rng = np.random.default_rng(8)
+    O, K, g = 10, 64, 16
+    scale = rng.uniform(0.001, 0.01, (O, K // g)).astype(np.float32)
+    scale[0, 0], scale[4, 2] = 1e-13, 0.0
+    srep = np.repeat(scale, g, 1)
+    qdq = (rng.uniform(-7, 7, (O, K)) * srep).astype(np.float32)
+    monkeypatch.setattr(teng, "_E2M1_ROWS", 3)
+    got = e2m1_codes_from_qdq(torch.from_numpy(qdq),
+                              torch.from_numpy(scale), g).numpy()
+    guard = np.where(np.abs(srep) < 1e-12, 1e-12, srep).astype(np.float32)
+    np.testing.assert_array_equal(got, _encode_e2m1(qdq / guard))
+
+
 def test_w2_codes_and_fp8_bytes_with_tiny_scales():
     rng = np.random.default_rng(6)
     O, K, g = 8, 256, 128
