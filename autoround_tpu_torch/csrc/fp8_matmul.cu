@@ -27,3 +27,9 @@ extern "C" int fp8_matmul(const void* x, const void* w, const void* sc,
   return w4a16::launch<w4a16::E4M3>(x, w, sc, nullptr, y, 1, 0, M, K, O, K,
                                     stream);
 }
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMM
+// body (M > 32) into info[0..3].  Returns a cudaError_t.
+extern "C" int fp8_matmul_gemm_info(int* info) {
+  return w4a16::gemm_info<w4a16::E4M3>(info);
+}

@@ -13,8 +13,8 @@
 // values) and multiplied by its group's scale in registers before the tile
 // product, as mxfp4_matmul_ref does: the GEMV body (M <= 32) keeps e2m1 * s
 // in fp32, the GEMM body (M > 32) rounds it to bf16 into its shared-memory
-// tile (exact for MX's power-of-two scales, one bf16 rounding for NVFP4's)
-// and runs WMMA bf16.  Codes use the W4A16 kernel's nibble layout; at g = 16
+// tile for mma.sync (exact for MX's power-of-two scales, one bf16 rounding
+// for NVFP4's).  Codes use the W4A16 kernel's nibble layout; at g = 16
 // a 32-column chunk spans two groups, and the bodies read the second scale.
 //
 // What bounds it on an H100: decode streams half a byte a weight plus 4
@@ -32,4 +32,10 @@ extern "C" int mxfp4_matmul(const void* x, const void* qw, const void* sc,
   if (g != 16 && g != 32) return (int)cudaErrorInvalidValue;
   return w4a16::launch<w4a16::E2M1>(x, qw, sc, nullptr, y, 1, 0, M, K, O, g,
                                     stream);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMM
+// body (M > 32) into info[0..3].  Returns a cudaError_t.
+extern "C" int mxfp4_matmul_gemm_info(int* info) {
+  return w4a16::gemm_info<w4a16::E2M1>(info);
 }

@@ -21,7 +21,7 @@
 // TB/s) outweigh the operations (half of them int8 at 1979 TOP/s, half
 // bf16 at 989 TFLOP/s); at S = 2048 the operations bound it.
 //
-// Design (simple on purpose; `csrc/flash_attention.cu`'s structure): one
+// Design (simple on purpose): one
 // block per (q tile of 64 rows, head, batch) loops over the kv tiles of 64
 // keys, skipping those wholly above the causal diagonal; 4 warps, 16 query
 // rows each.  The block quantizes its q tile once and each k tile as it
@@ -31,8 +31,8 @@
 // fragment layout of `a8_tiles.cuh`): each warp's 16 x 64 int32 scores stay
 // in registers, are dequantized there and stored as fp32 for the online
 // softmax (two lanes per row, m and l in fp32).  P.V runs on bf16 WMMA
-// with the running output in shared memory as fp32, as in the flash
-// forward.  No cp.async / TMA / wgmma, single-buffered: right first.
+// with the running output in shared memory as fp32.  No cp.async / TMA /
+// wgmma, single-buffered: right first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

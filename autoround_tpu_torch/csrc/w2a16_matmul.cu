@@ -11,9 +11,9 @@
 // format: the port packs 16 codes per int32 word in K order (column 16w+j in
 // bits 2j..2j+1 of word w).  The GEMV body (M <= 32) turns each code into
 // (code - 2) * s in fp32 registers once and reuses it for all M rows; the
-// GEMM body (M > 32) dequantizes its 128 x 32 weight tile into shared
-// memory as bf16((code - 2) * s), exactly what the plain version rounds,
-// and runs WMMA bf16 over it.
+// GEMM body (M > 32) dequantizes the packed codes of each k-step once into
+// a bf16 shared-memory tile as bf16((code - 2) * s), exactly what the plain
+// version rounds, and runs mma.sync over it.
 //
 // What bounds it on an H100: decode streams a quarter of a byte a weight
 // plus 4 bytes of scale per group (for g = 128 the scales are 1/8 of the
@@ -29,4 +29,10 @@ extern "C" int w2a16_matmul(const void* x, const void* qw, const void* sc,
                             void* stream) {
   return w4a16::launch<w4a16::INT2>(x, qw, sc, nullptr, y, 1, 0, M, K, O, g,
                                     stream);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMM
+// body (M > 32) into info[0..3].  Returns a cudaError_t.
+extern "C" int w2a16_matmul_gemm_info(int* info) {
+  return w4a16::gemm_info<w4a16::INT2>(info);
 }

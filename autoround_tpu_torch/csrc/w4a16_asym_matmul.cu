@@ -25,3 +25,9 @@ extern "C" int w4a16_asym_matmul(const void* x, const void* qw,
                                  int M, int K, int O, int g, void* stream) {
   return w4a16::launch<w4a16::ASYM4>(x, qw, sc, zp, y, 1, 0, M, K, O, g, stream);
 }
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMM
+// body (M > 32) into info[0..3].  Returns a cudaError_t.
+extern "C" int w4a16_asym_matmul_gemm_info(int* info) {
+  return w4a16::gemm_info<w4a16::ASYM4>(info);
+}

@@ -14,7 +14,7 @@
 // What bounds it on an H100: at decode (C = batch) every expert's packed
 // weights stream once per launch whatever the routing, ~0.53 byte per
 // weight, so memory bounds it (GEMV bodies, E x O/R blocks); at prefill
-// (C in the thousands) 2*C operations per weight bound it (WMMA GEMM
+// (C in the thousands) 2*C operations per weight bound it (mma.sync GEMM
 // bodies with per-tile dequant, E x C/128 x O/128 blocks).
 
 #include "w4a16_tiles.cuh"
@@ -30,4 +30,10 @@ extern "C" int w4a16_matmul_grouped(const void* x, const void* qw,
                                     int g, void* stream) {
   return w4a16::launch<w4a16::SYM4>(x, qw, sc, nullptr, y, E, x_stride_e, C, K, O,
                               g, stream);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMM
+// body (M > 32) into info[0..3].  Returns a cudaError_t.
+extern "C" int w4a16_matmul_grouped_gemm_info(int* info) {
+  return w4a16::gemm_info<w4a16::SYM4>(info);
 }

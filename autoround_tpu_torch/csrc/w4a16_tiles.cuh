@@ -42,26 +42,39 @@
 //    At M = 8 the M fp32 FMAs per weight on the CUDA cores come close to
 //    the memory time; that is the next thing to move to tensor cores.
 //  * prefill (M = B*S in the thousands): 2*M operations per weight, the
-//    tensor cores bound it.  `gemm_kernel` tiles M x O x K as 128 x 128 x
-//    32: each block dequantizes its 128 x 32 weight tile ONCE into shared
-//    memory as bf16 ((code - zero) * scale rounded to bf16, exactly what
-//    the plain version does) and runs WMMA bf16 16x16x16 with fp32
-//    accumulation over it for all 128 activation rows of its M tile.
+//    tensor cores bound it.  `gemm_kernel` tiles M x O x K as 256 x 128 x
+//    64, four warpgroups of 64 x 128.  A ring of 4 slots in dynamic shared
+//    memory, filled by cp.async (zero-filling past M, O and K), holds each
+//    k-step's activation tile and PACKED weight codes; each thread reads
+//    the scale (zero point) of its 16-column slice from global memory a
+//    step before it needs it.  Each k-step issues its products as
+//    asynchronous wgmma (m64n128k16, both operands read from shared memory
+//    through descriptors, K-major with the 128-byte swizzle) and, while
+//    they run, the block dequantizes the next step's codes once into one
+//    of three bf16 tiles (bf16((code - zero) * scale), exactly what the
+//    plain version rounds); one barrier per k-step, with the products of
+//    two steps in flight across it.  Every dequantized weight feeds 256
+//    rows.  The epilogue writes bf16 from the fp32 accumulators in
+//    registers.  What bounds it: all 16 warps take turns at copy issue,
+//    dequantization and wgmma issue around one barrier a step (no warp
+//    specialisation, no TMA), at 128 registers a thread.
 // The ragged M and O edges are masked in the kernels (zero-filled tiles,
-// guarded stores).  Needs K % 32 == 0 and g % 32 == 0 (SYM4, ASYM4, E2M1:
-// g % 16 == 0, so one 32-column GEMV chunk may span two groups; E4M3: g =
-// K).
+// guarded stores; K % 64 == 32 leaves the GEMM a half last k-step, zero-
+// filled).  Needs K % 32 == 0 and g % 32 == 0 (SYM4, ASYM4, E2M1: g % 16 ==
+// 0, so one 32-column GEMV chunk, or a 16-column GEMM slice's neighbour,
+// may lie in another group; E4M3: g = K).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "sm90_ptx.cuh"
 
 namespace w4a16 {
 
-using namespace nvcuda;
+using namespace ptx;
 
 // code in [0, 15] -> (code - zero) as fp32.  The magic-number conversion
 // 0x4B000000 | c is the float 2^23 + c exactly; the sym kernels fold their
@@ -278,27 +291,227 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDT = BK + 8;               // bf16 row stride of the tiles
-constexpr int GEMM_THREADS = 256;         // 8 warps: 2 (M) x 4 (N)
+// ---- the GEMM body (M > 32) ----------------------------------------------
 
-// blockIdx.z is the expert.  Two blocks per SM (2 x 28 KB of shared memory
-// fit easily): the bound keeps the kernel at 128 registers a thread; at 130
-// only one block of 256 threads fits an SM's 65,536 registers and the
-// product takes 1.7-1.9x as long (measured on an H100).
+constexpr int BM = 256, BN = 128, BK = 64;
+constexpr int GEMM_THREADS = 512;         // 4 warpgroups of 64 x 128
+constexpr int STAGES = 4;                 // ring slots of one k-step each
+constexpr int NB = 3;                     // dequantized bf16 weight tiles
+constexpr int GROUP_M = 16;               // m-tiles a band of blocks shares
+
+// Bytes of codes in one weight row's BK columns.
 template <int FMT>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
+constexpr int W_ROW = (FMT == INT8 || FMT == E4M3) ? BK : FMT == INT2
+                                                               ? BK / 4
+                                                               : BK / 2;
+
+// One ring slot: the activation tile (BM x BK bf16, 16-byte chunks XOR-
+// swizzled by row) and the packed weight tile (BN rows of W_ROW bytes).
+// After the slots, NB dequantized weight tiles (BN x BK bf16, swizzled).
+template <int FMT>
+struct Slot {
+  static constexpr int w_off = BM * BK * 2;
+  static constexpr int bytes = w_off + BN * W_ROW<FMT>;
+  static_assert(bytes % 1024 == 0, "tiles start on 1 KB (wgmma swizzle)");
+  static constexpr int smem = STAGES * bytes + NB * BN * BK * 2 + 1024;
+};
+
+// Shared-memory matrix descriptor of a K-major bf16 tile with 128-byte rows
+// in the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8),
+// 8-row groups 1 KB apart, the tile on a 1 KB boundary); stepping K by 16
+// moves the start address by 32 bytes.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator registers while a wgmma that
+// writes them is in flight
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64 x 128 fp32 of this warpgroup) += A (64 x 16) . B (16 x 128), both
+// read from shared memory through their descriptors (K-major, 128-byte
+// swizzle); issued asynchronously, complete after wgmma_wait
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// element offset of 16-byte chunk c of row r in a swizzled BK-wide tile
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * BK + ((c ^ (r & 7)) << 3);
+}
+
+// Fill ring slot `st` with k-step k0: every copy past M, O or K reads
+// nothing and leaves zeros.
+template <int FMT>
+__device__ __forceinline__ void load_slot(
+    unsigned char* st, const __nv_bfloat16* x, const uint8_t* qw, int m0,
+    int n0, int k0, int M, int K, int O, size_t rb) {
+  const int tid = threadIdx.x;
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(st);
+  for (int i = tid; i < BM * 8; i += GEMM_THREADS) {   // 8 chunks a row
+    const int r = i >> 3, c = i & 7;
+    const bool ok = m0 + r < M && k0 + 8 * c < K;
+    cp_async<16>(As + swz(r, c),
+                 ok ? x + (size_t)(m0 + r) * K + k0 + 8 * c : x, ok);
+  }
+  // codes: a row's 64 columns in pieces of 32 (16 bytes; INT2: 8) or,
+  // for the byte formats, 16 (16 bytes)
+  unsigned char* Ws = st + Slot<FMT>::w_off;
+  constexpr int PC = (FMT == INT8 || FMT == E4M3) ? 16 : 32;  // columns
+  constexpr int PB = PC * W_ROW<FMT> / BK;                    // bytes
+  for (int i = tid; i < BN * (BK / PC); i += GEMM_THREADS) {
+    const int r = i / (BK / PC), c = i % (BK / PC);
+    const bool ok = n0 + r < O && k0 + PC * c < K;
+    cp_async<PB>(Ws + r * W_ROW<FMT> + PB * c,
+                 ok ? qw + (size_t)(n0 + r) * rb + (k0 + PC * c) * PB / PC
+                    : qw, ok);
+  }
+}
+
+// The scale (and zero point) of the 16-column slice a thread dequantizes,
+// k-step after k-step, read from global memory one step before its use.
+// Thread (r, q) owns slice q of row r; the group index is stepped by BK
+// columns a step (no division in the loop).  Past O or K the scale is 0
+// (zero-filled codes under it are weight 0).
+template <int FMT>
+struct SliceScale {
+  const float* sc;
+  const float* zp;
+  int g, K, col, grp, grem;
+  bool row_ok;
+  float s, z;
+
+  __device__ __forceinline__ SliceScale(const float* sc_, const float* zp_,
+                                        int n0, int O, int K_, int g_,
+                                        int ng)
+      : g(g_), K(K_) {
+    const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+    row_ok = n0 + r < O;
+    sc = sc_ + (row_ok ? (size_t)(n0 + r) * ng : 0);
+    zp = FMT == ASYM4 ? zp_ + (row_ok ? (size_t)(n0 + r) * ng : 0) : zp_;
+    col = 16 * q;
+    grp = col / g;
+    grem = col % g;
+  }
+
+  // fetch the current step's values, then step to the next
+  __device__ __forceinline__ void fetch() {
+    const bool ok = row_ok && col < K;
+    s = FMT == E4M3 ? 1.f : ok ? __ldg(sc + grp) : 0.f;
+    z = FMT == ASYM4 && ok ? __ldg(zp + grp) : 0.f;
+    col += BK;
+    for (grem += BK; grem >= g; grem -= g) ++grp;
+  }
+};
+
+// Dequantize the packed slot `st` into the bf16 tile Bs: thread (r, q)
+// turns columns 16q..16q+15 of weight row r (one 16-column slice, one
+// scale s, zero point z) into bf16(fp32(code - zero) * scale), as the plain
+// version rounds them (E4M3: the exact e4m3 value; its row scale
+// multiplies the fp32 sum).
+template <int FMT>
+__device__ __forceinline__ void dequant_slot(const unsigned char* st,
+                                             __nv_bfloat16* Bs, float s,
+                                             float z) {
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const unsigned char* w = st + Slot<FMT>::w_off + r * W_ROW<FMT>
+                           + q * (W_ROW<FMT> / 4);
+  uint4 wv;
+  if (FMT == INT8 || FMT == E4M3) {
+    wv = *reinterpret_cast<const uint4*>(w);
+  } else if (FMT == INT2) {
+    wv = make_uint4(*reinterpret_cast<const uint32_t*>(w), 0u, 0u, 0u);
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(w);
+    wv = make_uint4(v.x, v.y, 0u, 0u);
+  }
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {         // 8 columns each
+    float wf[8];
+    dequant8<FMT>(wv, c, z, s, wf);
+    *reinterpret_cast<uint4*>(Bs + swz(r, 2 * q + c)) = make_uint4(
+        pack_bf16(wf[0], wf[1]), pack_bf16(wf[2], wf[3]),
+        pack_bf16(wf[4], wf[5]), pack_bf16(wf[6], wf[7]));
+  }
+}
+
+// blockIdx.z is the expert.  Blocks walk the (m-tile, n-tile) grid in bands
+// of GROUP_M m-tiles, so the blocks resident at once share their weight
+// tiles through L2.  Warpgroup w (4 warps) owns rows 64w..64w+63 of the
+// tile and all 128 columns: 64 fp32 accumulators a thread, 128 registers
+// at most (512 threads fill an SM's 65,536).  Every dequantized weight
+// feeds 256 rows.  One block per SM: the slots and the three bf16 tiles
+// take at most 209 KB.
+template <int FMT>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
 gemm_kernel(const __nv_bfloat16* __restrict__ x,
             const uint8_t* __restrict__ qw, const float* __restrict__ sc,
             const float* __restrict__ zp, __nv_bfloat16* __restrict__ y,
             long long x_stride_e, int M, int K, int O, int g) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDT];
-  __shared__ __align__(128) __nv_bfloat16 Bs[BN * LDT];
-  __shared__ __align__(128) float stage[GEMM_THREADS / 32][16 * 16];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  constexpr int SB = Slot<FMT>::bytes;
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * SB);
 
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int mt = (M + BM - 1) / BM, nt = (O + BN - 1) / BN;
+  const long long pid = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const long long band = (long long)GROUP_M * nt;
+  const int first_m = (int)(pid / band) * GROUP_M;
+  const int gsz = min(mt - first_m, GROUP_M);
+  const int local = (int)(pid % band);
+  const int m0 = (first_m + local % gsz) * BM, n0 = (local / gsz) * BN;
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;   // warp tile 64 (M) x 32 (N)
+  const int wg = warp / 4, w4 = warp % 4;
+  const int gq = lane >> 2, t = lane & 3;
   const size_t rb = row_bytes<FMT>(K);
   const int ng = K / g;
   const size_t e = blockIdx.z;
@@ -308,131 +521,120 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
   if (FMT == ASYM4) zp += e * (size_t)O * ng;
   y += e * (size_t)M * O;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // activation tile: 128 rows x 32 bf16 = 4 x 16 bytes per row
-    for (int i = threadIdx.x; i < BM * 4; i += GEMM_THREADS) {
-      const int r = i / 4, cv = (i % 4) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M)
-        val = __ldg(reinterpret_cast<const uint4*>(
-            x + (size_t)(m0 + r) * K + k0 + cv));
-      *reinterpret_cast<uint4*>(As + r * LDT + cv) = val;
-    }
-    // weight tile: 128 rows x 32 weights; two threads per row, 16 weights
-    // each (8 bytes of codes or 16 int8), rounded to bf16 as the plain
-    // version rounds them
-    {
-      const int r = threadIdx.x / 2, hlf = threadIdx.x % 2;
-      const int o = n0 + r;
-      // the thread's 16 weights lie in one group (g % 16 == 0)
-      const int gi = (k0 + hlf * 16) / g;
-      float s = 0.f, z = 0.f;
-      if (o < O) {
-        s = FMT == E4M3 ? 1.f : __ldg(sc + (size_t)o * ng + gi);
-        if (FMT == ASYM4) z = __ldg(zp + (size_t)o * ng + gi);
-      }
-      __align__(16) __nv_bfloat16 vals[16];
-      if (FMT == INT8 || FMT == E4M3) {
-        uint4 wv = make_uint4(0u, 0u, 0u, 0u);
-        if (o < O)
-          wv = __ldg(reinterpret_cast<const uint4*>(
-              qw + (size_t)o * rb + k0 + hlf * 16));
+  // k-step ks multiplies slot ks % STAGES's activations by Bs[ks % NB],
+  // which step ks - 1 dequantized while the products of steps ks - 2 and
+  // ks - 1 ran; two steps of products stay in flight across the barrier,
+  // so the tensor cores do not drain at each k-step.  Copies run two steps
+  // ahead.  K % 64 == 32 leaves a half last step.
+  const int nk = (K + BK - 1) / BK;
+  SliceScale<FMT> ss(sc, zp, n0, O, K, g, ng);
+  constexpr int AHEAD = STAGES - 2;       // copies this many steps ahead
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (FMT == INT8) {
-            vals[j] = __float2bfloat16(s8_to_f32(wv.x, j) * s);
-            vals[4 + j] = __float2bfloat16(s8_to_f32(wv.y, j) * s);
-            vals[8 + j] = __float2bfloat16(s8_to_f32(wv.z, j) * s);
-            vals[12 + j] = __float2bfloat16(s8_to_f32(wv.w, j) * s);
-          } else {                        // exact in bf16; scale after
-            vals[j] = __float2bfloat16(e4m3_to_f32(wv.x, j));
-            vals[4 + j] = __float2bfloat16(e4m3_to_f32(wv.y, j));
-            vals[8 + j] = __float2bfloat16(e4m3_to_f32(wv.z, j));
-            vals[12 + j] = __float2bfloat16(e4m3_to_f32(wv.w, j));
-          }
-        }
-      } else if (FMT == INT2) {
-        uint32_t wv = 0u;
-        if (o < O)
-          wv = __ldg(reinterpret_cast<const uint32_t*>(
-              qw + (size_t)o * rb + k0 / 4 + hlf * 4));
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-          vals[j] = __float2bfloat16(c2_minus_two(wv, j) * s);
-      } else if (FMT == E2M1) {
-        uint2 wv = make_uint2(0u, 0u);
-        if (o < O)
-          wv = __ldg(reinterpret_cast<const uint2*>(
-              qw + (size_t)o * rb + k0 / 2 + hlf * 8));
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          vals[j] = __float2bfloat16(e2m1_to_f32(wv.x, j) * s);
-          vals[8 + j] = __float2bfloat16(e2m1_to_f32(wv.y, j) * s);
-        }
-      } else {
-        uint2 wv = make_uint2(0x88888888u, 0x88888888u);
-        if (o < O)
-          wv = __ldg(reinterpret_cast<const uint2*>(
-              qw + (size_t)o * rb + k0 / 2 + hlf * 8));
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          vals[j] = __float2bfloat16(code_minus_zero<FMT>(wv.x, j, z) * s);
-          vals[8 + j] = __float2bfloat16(code_minus_zero<FMT>(wv.y, j, z) * s);
-        }
-      }
-      uint4* dst = reinterpret_cast<uint4*>(Bs + r * LDT + hlf * 16);
-      dst[0] = *reinterpret_cast<const uint4*>(vals);
-      dst[1] = *reinterpret_cast<const uint4*>(vals + 8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 64 + i * 16) * LDT + kk, LDT);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + (wn * 32 + j * 16) * LDT + kk, LDT);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j],
-                                                   acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < AHEAD; ++s) {
+    if (s < nk)
+      load_slot<FMT>(smem + s * SB, x, qw, m0, n0, s * BK, M, K, O, rb);
+    cp_commit();
   }
+  ss.fetch();
+  float s_cur = ss.s, z_cur = ss.z;
+  ss.fetch();                           // step 1's, used one step later
+  cp_wait<AHEAD - 1>();
+  __syncthreads();
+  dequant_slot<FMT>(smem, Bs, s_cur, z_cur);
 
-  float* st = stage[warp];
+  for (int ks = 0; ks < nk; ++ks) {
+    wgmma_wait<1>();      // step ks - 2's products (and their reads) done
+    fence_acc(acc);
+    cp_wait<0>();
+    fence_async_smem();
+    __syncthreads();      // slot ks + 1 landed, Bs[ks % NB] written
+    if (ks + AHEAD < nk)    // into the slot of step ks - 2
+      load_slot<FMT>(smem + ((ks + AHEAD) % STAGES) * SB, x, qw, m0, n0,
+                     (ks + AHEAD) * BK, M, K, O, rb);
+    cp_commit();
+
+    const unsigned char* At = smem + (ks % STAGES) * SB + wg * 64 * BK * 2;
+    const unsigned char* Bt =
+        reinterpret_cast<const unsigned char*>(Bs + (ks % NB) * BN * BK);
+    wgmma_fence();
+    fence_acc(acc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int rr = lane / 2, cc = (lane % 2) * 8;
-      const int m = m0 + wm * 64 + i * 16 + rr;
-      const int nb = n0 + wn * 32 + j * 16 + cc;
-      if (m < M) {
-#pragma unroll
-        for (int e8 = 0; e8 < 8; ++e8)
-          if (nb + e8 < O) {
-            float v = st[rr * 16 + cc + e8];
-            if (FMT == E4M3) v *= __ldg(sc + nb + e8);   // row scale last
-            y[(size_t)m * O + nb + e8] = __float2bfloat16(v);
-          }
-      }
-      __syncwarp();
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16(acc, smem_desc(At + 32 * kk), smem_desc(Bt + 32 * kk));
+    wgmma_commit();
+    fence_acc(acc);
+
+    if (ks + 1 < nk) {  // into the tile of step ks - 2
+      s_cur = ss.s;
+      z_cur = ss.z;
+      ss.fetch();         // step ks + 2's
+      dequant_slot<FMT>(smem + ((ks + 1) % STAGES) * SB,
+                        Bs + ((ks + 1) % NB) * BN * BK, s_cur, z_cur);
     }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  cp_wait<0>();
+
+  // epilogue: bf16 straight from the accumulators (E4M3: row scale first);
+  // value 4j + c of a lane is row 16 w4 + gq + 8 (c / 2), column 8j + 2t +
+  // c % 2 of its warpgroup's 64 x 128
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * t;
+    float s0 = 1.f, s1 = 1.f;
+    if (FMT == E4M3) {
+      if (n < O) s0 = __ldg(sc + n);
+      if (n + 1 < O) s1 = __ldg(sc + n + 1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = m0 + wg * 64 + w4 * 16 + gq + 8 * r;
+      if (m >= M) continue;
+      const float v0 = acc[4 * j + 2 * r] * s0;
+      const float v1 = acc[4 * j + 2 * r + 1] * s1;
+      __nv_bfloat16* dst = y + (size_t)m * O + n;
+      if (n + 1 < O && O % 2 == 0) {
+        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+      } else {
+        if (n < O) dst[0] = __float2bfloat16(v0);
+        if (n + 1 < O) dst[1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory of the GEMM body: set once per instance before its
+// first launch (above 48 KB it must be asked for).
+template <int FMT>
+cudaError_t gemm_smem(int* bytes) {
+  *bytes = Slot<FMT>::smem;
+  return cudaFuncSetAttribute(gemm_kernel<FMT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *bytes);
+}
+
+// The GEMM body's resources on this card: info = {registers a thread, local
+// (spill) bytes a thread, dynamic shared bytes a block, blocks per SM}.
+template <int FMT>
+int gemm_info(int* info) {
+  int smem = 0, blocks = 0;
+  cudaFuncAttributes a;
+  cudaError_t err = gemm_smem<FMT>(&smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, gemm_kernel<FMT>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, gemm_kernel<FMT>, GEMM_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = smem;
+  info[3] = blocks;
+  return 0;
 }
 
 template <int MT, int R, int FMT>
@@ -477,9 +679,12 @@ int launch(const void* x_, const void* qw_, const void* sc_, const void* zp_,
   else if (M <= 16) W4A16_GEMV(16, 2);
   else if (M <= 32) W4A16_GEMV(32, 1);
   else {
+    int smem = 0;
+    const cudaError_t err = gemm_smem<FMT>(&smem);
+    if (err != cudaSuccess) return (int)err;
     dim3 grid((O + BN - 1) / BN, (M + BM - 1) / BM, E);
-    gemm_kernel<FMT><<<grid, GEMM_THREADS, 0, st>>>(x, qw, sc, zp, y, xse, M,
-                                                     K, O, g);
+    gemm_kernel<FMT><<<grid, GEMM_THREADS, smem, st>>>(x, qw, sc, zp, y, xse,
+                                                        M, K, O, g);
   }
 #undef W4A16_GEMV
   return (int)cudaGetLastError();

@@ -9,9 +9,9 @@
 // and scales each group's partial product afterwards, with the scales
 // transposed to (K/g, O) for its lanes.  Here the tile bodies are those of
 // the W4A16 kernels (w4a16_tiles.cuh) in their INT8 format, a byte load
-// where the nibble unpack is: the GEMM body (M > 32) dequantizes its 128 x
-// 32 weight tile once into shared memory as bf16(float(wi) * s), exactly
-// what the plain version rounds, and runs WMMA bf16 over it; the GEMV body
+// where the nibble unpack is: the GEMM body (M > 32) dequantizes each
+// k-step's codes once into a bf16 shared-memory tile as bf16(float(wi) *
+// s), exactly what the plain version rounds, for mma.sync; the GEMV body
 // (M <= 32) keeps float(wi) * s in fp32 registers and reuses it for all M
 // rows.  The scales stay (O, K/g) as the engine stores them.
 //
@@ -29,4 +29,10 @@ extern "C" int w8a16_matmul(const void* x, const void* wi, const void* sc,
                             void* stream) {
   return w4a16::launch<w4a16::INT8>(x, wi, sc, nullptr, y, 1, 0, M, K, O, g,
                                     stream);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMM
+// body (M > 32) into info[0..3].  Returns a cudaError_t.
+extern "C" int w8a16_matmul_gemm_info(int* info) {
+  return w4a16::gemm_info<w4a16::INT8>(info);
 }

@@ -8,13 +8,16 @@ the target).  It needs no arguments and no network, and imports neither
 JAX nor the JAX package.  Phases, each of which fails the run on error:
 
 1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
-             nvcc per source, in parallel); print the seconds and the
-             compiler's register / spill report.
+             nvcc per source, in parallel); print the seconds, the
+             compiler's register / spill / warning lines by kernel, and the
+             flash forward's and the seven GEMM bodies' registers, spill
+             bytes, dynamic shared memory and blocks per SM.
 2. kernels — run each of the fourteen kernels (flash forward, flash
              backward dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym
              W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
              FP8 and MXFP4 / NVFP4 matmul, int8-QK attention) at the
-             main paths' shapes (W4A16 and asym also at g = 16; decode
+             main paths' shapes (flash also at D = 256; W4A16 and asym
+             also at g = 16; decode
              also at head dims 64 and 256 and G = 7; int8-QK at row 1's
              shapes and at S = T = 2048, beside row 1's time in the same
              call) against its plain PyTorch version on the
@@ -23,7 +26,7 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              time kernel, plain version and one library call (a yardstick
              the port never calls) with CUDA events, the L2 cache flushed
              before every timed launch (median of several runs), beside
-             the least time the card could take.  The int8 kinds also
+             the least time the card could take and the achieved rate.  The int8 kinds also
              check ``quantize_rows`` (codes and scales bit-equal) and say
              whether the fp32 result before the cast is bit-equal.
 3. rtn     — the RTN → serve path at the full width of ``llama3-8b``
@@ -134,6 +137,7 @@ import dataclasses
 import gc
 import json
 import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -262,6 +266,11 @@ def row_err(out, ref, floor: float = 0.0):
     return d.max().item(), (d.amax(-1) / rms).max().item()
 
 
+def tflops(n_ops, ms, unit="TFLOP/s") -> str:
+    """Achieved rate of `n_ops` operations in `ms` milliseconds."""
+    return f"achieved={n_ops / ms / 1e9:.1f} {unit}"
+
+
 def check(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
@@ -291,12 +300,13 @@ def kernel_phase(timer, bw, flops_peak):
         return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
     # K1 flash attention, forward then backward: calibration / tuning /
-    # prefill shapes
-    for (B, H, Hkv, S, T, rep_row) in [(8, 32, 8, 512, 512, True),
-                                       (8, 32, 8, 256, 512, False)]:
-        q = torch.randn(B, H, S, 128, generator=g, device=dev).bfloat16()
-        k = torch.randn(B, Hkv, T, 128, generator=g, device=dev).bfloat16()
-        v = torch.randn(B, Hkv, T, 128, generator=g, device=dev).bfloat16()
+    # prefill shapes, and D = 256 (Gemma's heads)
+    for (B, H, Hkv, S, T, D, rep_row) in [(8, 32, 8, 512, 512, 128, True),
+                                          (8, 32, 8, 256, 512, 128, False),
+                                          (8, 32, 8, 512, 512, 256, False)]:
+        q = torch.randn(B, H, S, D, generator=g, device=dev).bfloat16()
+        k = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
+        v = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
         out, lse = flash_attention(q, k, v, True)
         pout, plse = flash_attention_plain(q, k, v, True)
         torch.cuda.synchronize()
@@ -327,13 +337,15 @@ def kernel_phase(timer, bw, flops_peak):
         valid = sum(min(T, i + T - S + 1) for i in range(S))
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) \
             + 4 * lse.numel()
-        b_ms, b_by = bound(nbytes, 4 * B * H * valid * 128)
-        shape = f"B={B} H={H} Hkv={Hkv} S={S} T={T} D=128 causal"
+        n_ops = 4 * B * H * valid * D
+        b_ms, b_by = bound(nbytes, n_ops)
+        shape = f"B={B} H={H} Hkv={Hkv} S={S} T={T} D={D} causal"
         log(f"kernel flash_attention [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) lse_err={lerr:.3g} "
             f"(tol {LSE_ATOL}) library_row_err={lib_rel:.3g} "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+            f"{tflops(n_ops, ms)} library {tflops(n_ops, lib_ms)}")
         if rep_row:
             rows["flash_attention"] = dict(
                 name="flash_attention", route="cuda",
@@ -345,7 +357,7 @@ def kernel_phase(timer, bw, flops_peak):
 
         # the backward pair on the same tensors: dQ and dK/dV against the
         # plain version, bit-equal run to run; library = SDPA's backward
-        do = torch.randn(B, H, S, 128, generator=g, device=dev).bfloat16()
+        do = torch.randn(B, H, S, D, generator=g, device=dev).bfloat16()
         delta = (out.float() * do.float()).sum(-1)
         got = {"flash_attention_bwd_dq":
                (flash_attention_bwd_dq(q, k, v, do, lse, delta, True),),
@@ -394,7 +406,7 @@ def kernel_phase(timer, bw, flops_peak):
             check(rel <= tol, f"{name} S={S} T={T}: row err {rel}")
             ms = timer(runs[name])
             nbytes, n_prod = work[name]
-            b_ms, b_by = bound(nbytes, 2 * n_prod * B * H * valid * 128)
+            b_ms, b_by = bound(nbytes, 2 * n_prod * B * H * valid * D)
             log(f"kernel {name} [{shape}] max_abs_err={err:.3g} "
                 f"row_err={rel:.3g} (tol {tol}, row floor {BWD_ROW_FLOOR}) "
                 f"run_to_run=equal library_row_err={lib_rel:.3g} "
@@ -447,7 +459,9 @@ def kernel_phase(timer, bw, flops_peak):
         log(f"kernel w4a16_matmul [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by}) "
+            f"{tflops(2 * M * O * K, ms)} library "
+            f"{tflops(2 * M * O * K, lib_ms)}")
         if M == 8 and name == "qkv" and G == 128:
             rows["w4a16_matmul"] = dict(
                 name="w4a16_matmul", route="cuda",
@@ -505,7 +519,9 @@ def kernel_phase(timer, bw, flops_peak):
         log(f"kernel w4a16_matmul_grouped [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by}) "
+            f"{tflops(2 * E * C * O * K, ms)} library "
+            f"{tflops(2 * E * C * O * K, lib_ms)}")
         if C == 8 and name == "w1":
             rows["w4a16_matmul_grouped"] = dict(
                 name="w4a16_matmul_grouped", route="cuda",
@@ -549,7 +565,9 @@ def kernel_phase(timer, bw, flops_peak):
         log(f"kernel w4a16_asym_matmul [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by}) "
+            f"{tflops(2 * M * O * K, ms)} library "
+            f"{tflops(2 * M * O * K, lib_ms)}")
         if M == 8 and name == "qkv" and G == 128:
             rows["w4a16_asym_matmul"] = dict(
                 name="w4a16_asym_matmul", route="cuda",
@@ -666,10 +684,11 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
     def report(kernel, shape, err, rel, extra, ms, plain_ms, lib_ms, b_ms,
                b_by):
         tol = ROW_TOL[kernel]
+        unit = "TFLOP/s" if kernel == "w8a16_matmul" else "TOP/s"
         log(f"kernel {kernel} [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}){extra} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by}) {tflops(2 * M * O * K, ms, unit)}")
         check(rel <= tol, f"{kernel} {shape}: row err {rel}")
 
     for (M, K) in [(8, 4096), (4096, 4096), (8, 14336), (4096, 14336)]:
@@ -848,7 +867,9 @@ def float_kernel_phase(timer, bw, flops_peak):
         log(f"kernel {kernel} [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by}) "
+            f"{tflops(2 * M * O * K, ms)} library "
+            f"{tflops(2 * M * O * K, lib_ms)}")
         check(rel <= tol, f"{kernel} {shape}: row err {rel}")
         if M == 8 and shape.startswith("qkv") and kernel not in rows:
             rows[kernel] = dict(
@@ -2393,6 +2414,61 @@ def mx_tune_path(bw, flops_peak, n_layers):
     return launches
 
 
+GEMM_SOURCES = ("w4a16_matmul", "w4a16_matmul_grouped", "w4a16_asym_matmul",
+                "w8a16_matmul", "w2a16_matmul", "fp8_matmul", "mxfp4_matmul")
+
+
+def _kernel_name(mangled: str) -> str:
+    """`gemm_kernel<0>` for the mangled name of a kernel (template
+    instance): the last of its length-prefixed names, then its integer
+    template arguments."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    args = re.match(r"I((?:L[ij]\d+E)+)E", mangled[i:])
+    if args:
+        name += "<" + ",".join(re.findall(r"L[ij](\d+)E", args[1])) + ">"
+    return name
+
+
+def build_report(build):
+    """The compiler's register and spill lines of every kernel, by function,
+    then the flash forward's and the GEMM bodies' registers, spill bytes,
+    dynamic shared memory and resident blocks per SM as the runtime reports
+    them."""
+    import ctypes
+
+    for p in sorted(build.BUILD_DIR.glob("*.log")):
+        fn = "?"
+        for line in p.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = _kernel_name(m[1])
+            elif ("registers" in line or "spill stores" in line
+                  or "warning" in line):
+                log(f"  {p.stem.split('-')[0]} {fn}: {line.strip()}")
+    info = (ctypes.c_int * 4)()
+    entries = [("flash_attention", f"D={D}", D) for D in (128, 256)]
+    entries += [(src, "gemm body", None) for src in GEMM_SOURCES]
+    for src, what, arg in entries:
+        if arg is None:
+            fn = getattr(build.load(src), f"{src}_gemm_info")
+            fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            build.check(fn(info), f"{src}_gemm_info")
+        else:
+            fn = build.load(src).flash_attention_fwd_info
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            build.check(fn(arg, info), "flash_attention_fwd_info")
+        log(f"  resources {src} {what}: {info[0]} registers, {info[1]} "
+            f"spill bytes, {info[2]} bytes of dynamic shared memory, "
+            f"{info[3]} blocks per SM")
+
+
 def free_device_memory():
     """Between phases: the moe path peaks at 72 of the card's 80 GB, and
     tensors kept alive by a reference cycle of the phase before (seen once:
@@ -2470,10 +2546,7 @@ def main() -> int:
     t0 = time.time()
     secs = _build.build_all()
     log(f"build_s={time.time() - t0:.2f} per source {json.dumps(secs)}")
-    for p in sorted(_build.BUILD_DIR.glob("*.log")):
-        for line in p.read_text().splitlines():
-            if "registers" in line or "spill stores" in line:
-                log(f"  {p.stem.split('-')[0]}: {line.strip()}")
+    build_report(_build)
 
     bw, fl, i8 = peaks(name)
     timer = Timer()

@@ -53,6 +53,13 @@ window and sinks, the softcap and the chunk; the int8-QK attention against
 its plain version on the same mean key (D 128 and 256, causal or not, T
 > S, GQA 1 / 4 / 8; limit 0.1 as flash: the same codes and scores, P
 rounded to bf16 after an online softmax), and its refusals.
+
+The pipelined GEMM body (M > 32) in every weight format, at K with a half
+last k-step (K % 64 == 32), groups of 16, 48, 128 and K, M edges, an odd
+O, and the grouped form's expert axis with a shared slab and a slice
+layout; the register-resident flash forward at D = 128 and 256, T = 320
+(an odd tile count), S < T causal and GQA 1 / 4 / 8.  Both are held to the
+limits above.
 """
 
 import pytest
@@ -598,3 +605,110 @@ def test_sage_refuses_what_the_kernel_does_not_take(gen):
     out = sage_attention(t(1, 2, 128, 128), t(1, 2, 64, 128),
                          t(1, 2, 64, 128), causal=False)
     assert out.shape == (1, 2, 128, 128)
+
+
+# ------------------------------------------------------------ the pipelined
+# GEMM body (M > 32: a cp.async ring of 64-column k-steps whose packed codes
+# are dequantized into bf16 tiles for wgmma) and the register-resident flash
+# forward (a 2-stage K/V ring; KV tiles of 64 rows at D = 128, 32 at 256)
+
+# K % 64 == 32 leaves the GEMM a half last k-step (96, 1056); K = 1152 takes
+# g = 128.  INT2 rows of K = 96 are 24 bytes: 8-byte copies.
+PIPE_FORMATS = {"sym4": (16, 32, 48, 128), "asym4": (16, 32, 48, 128),
+                "int2": (32, 128), "int8": (32, 128), "e4m3": (),
+                "e2m1": (16, 32)}
+PIPE_CASES = [(fmt, K, g) for fmt, gs in PIPE_FORMATS.items()
+              for K in (96, 1056, 1152)
+              for g in sorted({*(g for g in gs if K % g == 0), K})
+              if fmt != "e2m1" or g in (16, 32)]
+
+
+def _pipe_call(gen, fmt, x, O, K, g):
+    """(kernel output, plain output) of the format's wrapper on random
+    weights: signed scales, a zero point of any fraction, e4m3 over its
+    range."""
+    dev = "cuda"
+    sc = (torch.rand(O, K // g, generator=gen, device=dev) - 0.5) * 0.02
+    if fmt in ("sym4", "asym4", "e2m1"):
+        qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen, device=dev))
+        if fmt == "sym4":
+            return (w4a16_matmul(x, qw, sc, g),
+                    w4a16_matmul_plain(x, qw, sc, g))
+        if fmt == "asym4":
+            zp = torch.rand(O, K // g, generator=gen, device=dev) * 15
+            return (w4a16_asym_matmul(x, qw, sc, zp, g),
+                    w4a16_asym_matmul_plain(x, qw, sc, zp, g))
+        sc = sc.abs()
+        return mxfp4_matmul(x, qw, sc, g), mxfp4_matmul_plain(x, qw, sc, g)
+    if fmt == "int2":
+        qw = pack_w2(torch.randint(0, 4, (O, K), generator=gen, device=dev))
+        return w2a16_matmul(x, qw, sc, g), w2a16_matmul_plain(x, qw, sc, g)
+    if fmt == "int8":
+        wi = torch.randint(-128, 128, (O, K), generator=gen,
+                           device=dev).to(torch.int8)
+        return w8a16_matmul(x, wi, sc, g), w8a16_matmul_plain(x, wi, sc, g)
+    wf = (torch.randn(O, K, generator=gen, device=dev) * 100).clamp(
+        -448, 448).to(torch.float8_e4m3fn)
+    sc = sc[:, 0].abs() + 1e-4
+    return fp8_matmul(x, wf, sc), fp8_matmul_plain(x, wf, sc)
+
+
+PIPE_TOL = {"sym4": "w4a16", "asym4": "w4a16", "int2": "w2a16",
+            "int8": "w8a16", "e4m3": "fp8", "e2m1": "mxfp4"}
+
+
+@pytest.mark.parametrize("M", [33, 129, 200])
+@pytest.mark.parametrize("fmt,K,g", PIPE_CASES)
+def test_gemm_pipeline_edges(gen, fmt, K, g, M):
+    """Every format through the GEMM body at half k-steps, groups of 16 (four
+    in a k-step), 48 (a group across two k-steps), 128 and K, M edges of 1
+    and 72 rows past a 128-row tile, and an odd O (pairwise stores fall back
+    to single ones)."""
+    O = 203
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    got, ref = _pipe_call(gen, fmt, x, O, K, g)
+    _check(got, ref, PIPE_TOL[fmt])
+
+
+@pytest.mark.parametrize("M", [33, 129, 200])
+@pytest.mark.parametrize("layout", ["shared", "slice"])
+@pytest.mark.parametrize("K,g", [(K, g) for fmt, K, g in PIPE_CASES
+                                 if fmt == "sym4"])
+def test_grouped_gemm_pipeline_edges(gen, K, g, layout, M):
+    """The expert axis (E = 3) of the GEMM body: every pointer offset by its
+    expert, the activation read at expert stride 0 (one shared slab) or from
+    the first M rows of taller slabs."""
+    E, O = 3, 203
+    qw = torch.stack([pack_w4(torch.randint(0, 16, (O, K), generator=gen,
+                                            device="cuda")) for _ in range(E)])
+    sc = (torch.rand(E, O, K // g, generator=gen, device="cuda") - 0.5) * 0.02
+    if layout == "shared":
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16() \
+            .expand(E, M, K)
+    else:
+        x = torch.randn(E, M + 3, K, generator=gen,
+                        device="cuda").bfloat16()[:, :M]
+    _check(w4a16_matmul_grouped(x, qw, sc, g),
+           w4a16_matmul_grouped_plain(x, qw, sc, g), "w4a16")
+
+
+FLASH_PIPE = [(S, T, causal) for S, T in [(64, 320), (128, 320), (192, 320),
+                                          (320, 320), (320, 128)]
+              for causal in (True, False) if not (causal and T < S)]
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("S,T,causal", FLASH_PIPE)
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_flash_forward_pipeline(gen, D, S, T, causal, G):
+    """T = 320: five 64-row KV tiles at D = 128, ten 32-row tiles at D = 256
+    (an odd count for the two-stage ring); S < T causal shifts the diagonal
+    off the tile grid of the q rows."""
+    Hkv = 2
+    q = torch.randn(2, Hkv * G, S, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(2, Hkv, T, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(2, Hkv, T, D, generator=gen, device="cuda").bfloat16()
+    out, lse = flash_attention(q, k, v, causal)
+    pout, plse = flash_attention_plain(q, k, v, causal)
+    _check(out, pout, "flash")
+    assert (lse - plse).abs().max().item() <= LSE_ATOL
