@@ -1,6 +1,9 @@
 // PTX helpers shared by the kernels written for sm_90a: shared-memory
-// addresses, cp.async, ldmatrix, mma.sync bf16, exp2 and the bf16 pair
-// packing.
+// addresses, cp.async, ldmatrix, mma.sync bf16, exp2, the bf16 pair
+// packing, and what the wgmma GEMMs (w4a16_tiles.cuh, a8_tiles.cuh) share:
+// the 128-byte swizzle, the shared-memory matrix descriptor, the wgmma
+// fences, commit and wait; and the tensor-memory-accelerator (TMA) tile
+// copy with its shared-memory barrier.
 
 #pragma once
 
@@ -71,6 +74,108 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- wgmma (warpgroup products read from shared memory) ------------------
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows in the
+// 128-byte swizzle: chunk c of row r lies at chunk c ^ (r % 8), rows 128
+// bytes apart, so 8-row groups are 1 KB apart (64 bf16 or 128 int8 of K a
+// row).
+__device__ __forceinline__ int swz128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// Shared-memory matrix descriptor of a K-major tile with 128-byte rows in
+// the 128-byte swizzle (swz128, 8-row groups 1 KB apart, the tile on a 1 KB
+// boundary); stepping K by 32 bytes (16 bf16, 32 int8: one wgmma's depth)
+// moves the start address by 32 bytes.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of this warpgroup's committed wgmma groups are in
+// flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator registers while a wgmma that
+// writes them is in flight (fp32 and int32 accumulators)
+template <int N = 64>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int N = 64>
+__device__ __forceinline__ void fence_acc(int* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// ---- TMA tile copies completing on an mbarrier ----------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// make barrier initialisations visible to the other threads and to the
+// async proxy that completes them (then a block-wide barrier)
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` more to be written by TMA copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed; a copy
+// that never lands traps (a launch failure) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// copy the box at (x, y) (x innermost, in elements) of the 2-D tensor map
+// `map` (a __grid_constant__ kernel parameter) into shared memory at dst;
+// the bytes count against `bar`.  Elements out of the tensor read as zero.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
+         "r"(y), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace ptx

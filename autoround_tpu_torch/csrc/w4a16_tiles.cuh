@@ -316,41 +316,6 @@ struct Slot {
   static constexpr int smem = STAGES * bytes + NB * BN * BK * 2 + 1024;
 };
 
-// Shared-memory matrix descriptor of a K-major bf16 tile with 128-byte rows
-// in the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8),
-// 8-row groups 1 KB apart, the tile on a 1 KB boundary); stepping K by 16
-// moves the start address by 32 bytes.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
-         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// make this thread's generic-proxy writes to shared memory (st.shared,
-// cp.async) visible to the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator registers while a wgmma that
-// writes them is in flight
-__device__ __forceinline__ void fence_acc(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
 // d (64 x 128 fp32 of this warpgroup) += A (64 x 16) . B (16 x 128), both
 // read from shared memory through their descriptors (K-major, 128-byte
 // swizzle); issued asynchronously, complete after wgmma_wait
@@ -382,10 +347,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
       : "memory");
 }
 
-// element offset of 16-byte chunk c of row r in a swizzled BK-wide tile
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * BK + ((c ^ (r & 7)) << 3);
-}
+// element offset of 16-byte chunk c of row r in a swizzled BK-wide bf16
+// tile (128-byte rows)
+__device__ __forceinline__ int swz(int r, int c) { return swz128(r, c) >> 1; }
 
 // Fill ring slot `st` with k-step k0: every copy past M, O or K reads
 // nothing and leaves zeros.

@@ -11,10 +11,11 @@
 // in one int8, the high one XOR 8) because its int8 vector unit can only
 // AND, corrects the low half with -8 * rowsum(x) and folds 1/16 into the
 // high half's scale; it is fixed at g = 128.  Here a nibble becomes a
-// signed int8 `code - 8` in registers (mask, byte permute, per-byte
-// subtract) and goes to the int8 product, so the kernel reads the same
-// packed words as the W4A16 kernels: no second copy of the weights for the
-// A8 serving modes, no correction term, any g that is a multiple of 32.
+// signed int8 `code - 8` (mask, byte permute, per-byte subtract; once a
+// k-step into a shared tile in the GEMM body) and goes to the int8
+// product, so the kernel reads the same packed words as the W4A16
+// kernels: no second copy of the weights for the A8 serving modes, no
+// correction term, any g that is a multiple of 32.
 //
 // Bounds and bodies: a8_tiles.cuh.
 
@@ -28,4 +29,14 @@ extern "C" int w4a8_matmul(const void* x, const void* qw, const void* sc,
                            void* xi, void* xs, void* y, void* y32, int M,
                            int K, int O, int g, void* stream) {
   return a8::launch<true>(x, qw, sc, xi, xs, y, y32, M, K, O, g, stream);
+}
+
+// The GEMM body's registers, spill bytes, dynamic shared memory and blocks
+// per SM on this card (info[4]): at the served g = 128, and at any other g.
+extern "C" int w4a8_matmul_gemm_info(int* info) {
+  return a8::gemm_info<a8::W4_G128>(info);
+}
+
+extern "C" int w4a8_matmul_gemm_any_info(int* info) {
+  return a8::gemm_info<a8::W4_ANY>(info);
 }

@@ -9,10 +9,10 @@
 //
 // The TPU kernel carries an int32 tile in scratch memory across its K grid
 // steps and lane-replicates the row scales for its epilogue.  Here a block
-// loops over K itself with its int32 sums in registers (mma.sync m16n8k32
-// for M > 32, dp4a for M <= 32), and the epilogue reads xs[m] and ws[o]
+// loops over K itself with its int32 sums in registers (wgmma m64n128k32
+// s8 for M > 32, dp4a for M <= 32), and the epilogue reads xs[m] and ws[o]
 // directly: `float(acc) * xs * ws`, in that order.  Row-major Wi (O, K) is
-// already the `col` B operand, so the weights are served as they are
+// already the K-major B operand, so the weights are served as they are
 // stored.
 //
 // Bounds and bodies: a8_tiles.cuh.
@@ -36,4 +36,10 @@ extern "C" int quantize_rows(const void* x, void* xi, void* xs, int M, int K,
   a8::launch_quantize_rows(x, xi, xs, M, K,
                            static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
+}
+
+// The GEMM body's registers, spill bytes, dynamic shared memory and blocks
+// per SM on this card (info[4]).
+extern "C" int w8a8_matmul_gemm_info(int* info) {
+  return a8::gemm_info<a8::W8>(info);
 }

@@ -3,7 +3,9 @@
 
 ``decode_attention`` launches ``csrc/decode_attention.cu`` on a CUDA
 tensor (or raises) and runs :func:`decode_attention_plain`, which mirrors
-``decode_attention_ref``, on a CPU tensor.  The K scale folds into the
+``decode_attention_ref``, on a CPU tensor.  The kernel splits the token
+axis into :func:`decode_splits` pieces, each block writing a partial
+softmax state that a second kernel combines (flash-decoding).  The K scale folds into the
 score scale and the V scale into the output; ``pos`` is the index of the
 current token per sequence (columns ``<= pos`` attend), ``window`` keeps
 ``idx > pos - window``, ``chunk`` keeps ``idx >= (pos // chunk) * chunk``,
@@ -21,13 +23,33 @@ import torch
 from . import _build
 
 __all__ = ["decode_attention", "decode_attention_plain",
-           "check_decode_shape"]
+           "check_decode_shape", "decode_splits"]
 
 _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 # head dims the kernel is instantiated for, and the most query heads per kv
 # head (every G from 1 to it)
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_MAX_GROUP = 8
+# the split kernel's token tile, and the blocks it aims for: about two
+# waves over an H100's 132 SMs
+SPLIT_TILE = 64
+SPLIT_TARGET_BLOCKS = 2 * 132
+
+
+def decode_splits(B: int, nkv: int, T: int) -> int:
+    """Pieces of the token axis for a batch of B slots, nkv kv heads and a
+    cache of T tokens: enough (sequence, kv head, piece) blocks for about
+    two waves over the card, and no piece shorter than one 64-token tile
+    when a slot's range is the whole cache (pos = T - 1).  It reads only
+    host-known shapes, never ``pos`` (a device vector: reading it would
+    sync the host on every layer of every decode step and break CUDA-graph
+    capture)."""
+    want = max(1, min(-(-SPLIT_TARGET_BLOCKS // max(1, B * nkv)),
+                      -(-T // SPLIT_TILE)))
+    # the kernel cuts a range into pieces of whole tiles: drop the pieces
+    # that rounding would leave empty at pos = T - 1
+    per = -(-(-(-T // want)) // SPLIT_TILE) * SPLIT_TILE
+    return -(-T // per)
 
 
 def check_decode_shape(hd: int, nh: int, nkv: int) -> None:
@@ -95,7 +117,8 @@ def _entry():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -150,13 +173,17 @@ def decode_attention(q, k_cache, v_cache, pos, k_scale, v_scale,
         raise ValueError("decode_attention: k/v_scale must be fp32 (n_kv,)")
     pos_v = _pos_vector(pos, B, q.device)
     out = torch.empty_like(q)
+    splits = decode_splits(B, nkv, T)
+    # per (slot, head, split): (m, l) and the unnormalized fp32 P.V row
+    partial = torch.empty(B * nh * splits * (hd + 2), dtype=torch.float32,
+                          device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    pos_v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
                    None if sinks is None else sinks.data_ptr(),
                    out.data_ptr(), B, T, nh, nkv, hd, float(sm_scale),
                    float(softcap or 0.0), int(window or 0), int(chunk or 0),
-                   stream)
+                   stream, splits, partial.data_ptr())
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     return out

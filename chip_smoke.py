@@ -10,8 +10,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
              nvcc per source, in parallel); print the seconds, the
              compiler's register / spill / warning lines by kernel, and the
-             flash forward's and the seven GEMM bodies' registers, spill
-             bytes, dynamic shared memory and blocks per SM.
+             flash forward's, the nine GEMM bodies' and the decode split
+             and combine kernels' registers, spill bytes, dynamic shared
+             memory and blocks per SM.
 2. kernels — run each of the fourteen kernels (flash forward, flash
              backward dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym
              W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
@@ -26,7 +27,10 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              time kernel, plain version and one library call (a yardstick
              the port never calls) with CUDA events, the L2 cache flushed
              before every timed launch (median of several runs), beside
-             the least time the card could take and the achieved rate.  The int8 kinds also
+             the least time the card could take and the achieved rate.
+             The decode and int8 kernels (split + combine, quantize_rows +
+             product) and their library calls also get ``device_ms``: the
+             kernels' own time by torch.profiler.  The int8 kinds also
              check ``quantize_rows`` (codes and scales bit-equal) and say
              whether the fp32 result before the cast is bit-equal.
 3. rtn     — the RTN → serve path at the full width of ``llama3-8b``
@@ -233,7 +237,8 @@ def peaks(name: str):
 
 
 class Timer:
-    """CUDA-event timing of single launches, L2 flushed before each."""
+    """CUDA-event timing of single launches, L2 flushed before each; and
+    device time by the profiler."""
 
     def __init__(self, reps: int = 7):
         self.reps = reps
@@ -252,6 +257,45 @@ class Timer:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return statistics.median(times)
+
+    def device(self, fn, reps: int = 20):
+        """(ms, how): the device time of one call of `fn`, the kernels it
+        launches summed (split + combine, quantize_rows + GEMM, a library
+        call's own kernels), from torch.profiler's CUDA activity over `reps`
+        calls; `how` names the source and each kernel's share.  Before each
+        call the L2 is flushed by reading 128 MB (the max of the flush
+        buffer, left out of the sum): it holds no line of the call's inputs
+        and no dirty line, as after a decode step's weight reads (the event
+        timer's flush writes, and the write-back of its dirty lines lands
+        in the kernels after it).  If three profiles see no kernel,
+        CUDA events around `reps` back-to-back calls over the count (then
+        the host's time per call where the host is the slower)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):          # a profile now and then sees no kernel
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.amax()
+                    fn()
+                torch.cuda.synchronize()
+            parts = {name: ms / reps
+                     for name, (ms, _) in _kernel_times(prof).items()
+                     if "MaxNanFunctor<unsigned char>" not in name
+                     and not name.startswith(("Memset", "Memcpy"))}
+            total = sum(parts.values())
+            if total > 0:
+                return total, "profiler: " + " + ".join(
+                    f"{_short(name)} {ms:.4f}" for name, ms in parts.items())
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / reps, "events"
 
 
 def row_err(out, ref, floor: float = 0.0):
@@ -280,8 +324,6 @@ def kernel_phase(timer, bw, flops_peak):
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
 
-    from autoround_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_plain)
     from autoround_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_bwd_plain, flash_attention_plain)
@@ -578,12 +620,32 @@ def kernel_phase(timer, bw, flops_peak):
         del qw, sc, zp, x, y
         torch.cuda.empty_cache()
 
-    # K3 int8-KV decode attention: B=8, T=1024; llama3-8b's heads (hd 128,
-    # G = 4), llama3.2-1b's (hd 64), hd 256 (Gemma) and G = 7 (qwen2.5-7b's
-    # 28 / 4).  Library: SDPA on the dequantized bf16 cache up to pos, with
-    # the window as a boolean mask where there is one (no single call adds
-    # the sinks: that yardstick leaves them out and is checked against the
-    # plain version without sinks)
+    return rows
+
+
+def decode_kernel_phase(timer, bw, flops_peak):
+    """Row 6, the int8-KV decode attention: B=8, T=1024; llama3-8b's heads
+    (hd 128, G = 4), llama3.2-1b's (hd 64), hd 256 (Gemma) and G = 7
+    (qwen2.5-7b's 28 / 4).  Library: SDPA on the dequantized bf16 cache up
+    to pos, with the window as a boolean mask where there is one (no single
+    call adds the sinks: that yardstick leaves them out and is checked
+    against the plain version without sinks).  Event times include the
+    wrapper's Python; device times (`device_ms`) are the kernels' own, split
+    plus combine, and the comparison with SDPA and the bound is made on
+    them."""
+    import torch.nn.functional as F
+
+    from autoround_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_plain, decode_splits)
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+
+    def bound(nbytes, nflops):
+        t_b, t_f = nbytes / bw * 1e3, nflops / flops_peak * 1e3
+        return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
     B, T = 8, 1024
     for (hd, nkv, G, cases) in [
             (128, 8, 4, [(511, None, False), (700, None, False),
@@ -636,24 +698,31 @@ def kernel_phase(timer, bw, flops_peak):
                   f"decode hd={hd} pos={pos}: library call computes another "
                   f"function (row err {lib_rel})")
             lib_ms = timer(lib)
+            dev_ms, how = timer.device(lambda: decode_attention(
+                q, kc, vc, pv, ks, vs, sm, window=window, sinks=sk))
+            lib_dev_ms, _ = timer.device(lib)
             del kd, vd
             n_tok = min(pos + 1, window or pos + 1)
             nbytes = 2 * q.numel() * 2 + 2 * B * n_tok * nkv * hd + 8 * nkv
             b_ms, b_by = bound(nbytes, 4 * B * nh * n_tok * hd)
             shape = (f"B={B} T={T} nh={nh} nkv={nkv} hd={hd} pos={pos}"
                      + (f" window={window} sinks" if window else ""))
-            log(f"kernel decode_attention [{shape}] max_abs_err={err:.3g} "
+            log(f"kernel decode_attention [{shape} splits="
+                f"{decode_splits(B, nkv, T)}] max_abs_err={err:.3g} "
                 f"row_err={rel:.3g} (tol {tol}) library_row_err="
                 f"{lib_rel:.3g}{' (no sinks)' if use_sinks else ''} "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+                f"library_ms={lib_ms:.4f} device_ms={dev_ms:.4f} ({how}) "
+                f"library_device_ms={lib_dev_ms:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by})")
             if hd == 128 and G == 4 and pos == 511:
                 rows["decode_attention"] = dict(
                     name="decode_attention", route="cuda",
                     source="autoround_tpu_torch/csrc/decode_attention.cu",
                     replaces="autoround_tpu/ops/decode_attention.py:240",
                     shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    device_ms=dev_ms, library_device_ms=lib_dev_ms)
         del q, kc, vc
         torch.cuda.empty_cache()
     return rows
@@ -748,11 +817,16 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
                 return torch.matmul(x, w_bf16.T)
             lib_what = "matmul(bf16 dequant)"
         lib_ms = timer(lib)
+        dev_ms, how = timer.device(lambda: w8a8_matmul(x, wi, ws))
+        lib_dev_ms, _ = timer.device(lib)
         b_ms, b_by = bound(out_bytes + O * K + 4 * O, 2 * M * O * K,
                            int8_peak)
         shape = f"{name} M={M} O={O} K={K} per channel"
         report("w8a8_matmul", shape, err, rel,
-               f" f32_bit_equal={equal} library={lib_what}", ms, plain_ms,
+               f" f32_bit_equal={equal} library={lib_what} device_ms="
+               f"{dev_ms:.4f} ({how}, quantize_rows + product) "
+               f"library_device_ms={lib_dev_ms:.4f} device "
+               f"{tflops(2 * M * O * K, dev_ms, 'TOP/s')}", ms, plain_ms,
                lib_ms, b_ms, b_by)
         if M == 8 and name == "qkv":
             rows["w8a8_matmul"] = dict(
@@ -760,7 +834,8 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
                 source="autoround_tpu_torch/csrc/w8a8_matmul.cu",
                 replaces="autoround_tpu/ops/qmatmul_int8.py:130",
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                device_ms=dev_ms, library_device_ms=lib_dev_ms)
         lib = None
         xi = xs = wt = w_bf16 = None
 
@@ -814,20 +889,27 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
         w_bf16 = ((unpack_w4(qw) - 8).float()
                   * sc.repeat_interleave(G, dim=1)).bfloat16()
         lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+        dev_ms, how = timer.device(lambda: w4a8_matmul(x, qw, sc, G))
+        lib_dev_ms, _ = timer.device(lambda: torch.matmul(x, w_bf16.T))
         del w_bf16
         b_ms, b_by = bound(out_bytes + O * K // 2 + 4 * sc.numel(),
                            2 * M * O * K, int8_peak)
         shape = f"{name} M={M} O={O} K={K} g={G}"
         report("w4a8_matmul", shape, err, rel,
                f" f32_bit_equal={equal} f32_row_err={rel32:.3g} (tol "
-               f"{W4A8_F32_ROW_TOL})", ms, plain_ms, lib_ms, b_ms, b_by)
+               f"{W4A8_F32_ROW_TOL}) device_ms={dev_ms:.4f} ({how}, "
+               f"quantize_rows + product) library_device_ms="
+               f"{lib_dev_ms:.4f} device "
+               f"{tflops(2 * M * O * K, dev_ms, 'TOP/s')}", ms, plain_ms,
+               lib_ms, b_ms, b_by)
         if M == 8 and name == "qkv":
             rows["w4a8_matmul"] = dict(
                 name="w4a8_matmul", route="cuda",
                 source="autoround_tpu_torch/csrc/w4a8_matmul.cu",
                 replaces="autoround_tpu/ops/qmatmul_int8.py:295",
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                device_ms=dev_ms, library_device_ms=lib_dev_ms)
         del qw, sc, x, y
         torch.cuda.empty_cache()
     return rows
@@ -1097,6 +1179,14 @@ def _kernel_times(prof):
         ms, n = out.get(e.name, (0.0, 0))
         out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     return out
+
+
+def _short(name: str) -> str:
+    """`split_kernel<128, 4>` for a profiler's kernel name (its function
+    name and template arguments, without the signature)."""
+    head = name.replace("(anonymous namespace)", "").split("(")[0]
+    return re.sub(r"^.*?(\w+(<[^()]*>)?)$", r"\1",
+                  head.replace("void ", "").strip())[:40]
 
 
 def _top(times, per=1):
@@ -2438,9 +2528,9 @@ def _kernel_name(mangled: str) -> str:
 
 def build_report(build):
     """The compiler's register and spill lines of every kernel, by function,
-    then the flash forward's and the GEMM bodies' registers, spill bytes,
-    dynamic shared memory and resident blocks per SM as the runtime reports
-    them."""
+    then the flash forward's, the GEMM bodies' and the decode kernels'
+    registers, spill bytes, dynamic shared memory and resident blocks per SM
+    as the runtime reports them."""
     import ctypes
 
     for p in sorted(build.BUILD_DIR.glob("*.log")):
@@ -2452,12 +2542,15 @@ def build_report(build):
             elif ("registers" in line or "spill stores" in line
                   or "warning" in line):
                 log(f"  {p.stem.split('-')[0]} {fn}: {line.strip()}")
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 8)()
     entries = [("flash_attention", f"D={D}", D) for D in (128, 256)]
-    entries += [(src, "gemm body", None) for src in GEMM_SOURCES]
+    entries += [(src, "gemm body", None)
+                for src in GEMM_SOURCES + ("w8a8_matmul", "w4a8_matmul")]
+    entries.append(("w4a8_matmul", "gemm body g != 128", "any"))
     for src, what, arg in entries:
-        if arg is None:
-            fn = getattr(build.load(src), f"{src}_gemm_info")
+        if arg is None or arg == "any":
+            fn = getattr(build.load(src),
+                         f"{src}_gemm_{'any_' if arg else ''}info")
             fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
             build.check(fn(info), f"{src}_gemm_info")
         else:
@@ -2467,6 +2560,15 @@ def build_report(build):
         log(f"  resources {src} {what}: {info[0]} registers, {info[1]} "
             f"spill bytes, {info[2]} bytes of dynamic shared memory, "
             f"{info[3]} blocks per SM")
+    fn = build.load("decode_attention").decode_attention_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for hd, G in ((128, 4), (128, 7), (64, 4), (256, 4), (256, 8)):
+        build.check(fn(hd, G, info), "decode_attention_info")
+        for what, i in (("split", 0), ("combine", 4)):
+            log(f"  resources decode_attention {what} hd={hd} G={G}: "
+                f"{info[i]} registers, {info[i + 1]} spill bytes, "
+                f"{info[i + 2]} bytes of dynamic shared memory, "
+                f"{info[i + 3]} blocks per SM")
 
 
 def free_device_memory():
@@ -2551,6 +2653,7 @@ def main() -> int:
     bw, fl, i8 = peaks(name)
     timer = Timer()
     rows = kernel_phase(timer, bw, fl)
+    rows.update(decode_kernel_phase(timer, bw, fl))
     rows.update(a8_kernel_phase(timer, bw, fl, i8))
     rows.update(float_kernel_phase(timer, bw, fl))
     rows.update(sage_kernel_phase(timer, bw, fl, i8))

@@ -60,6 +60,13 @@ O, and the grouped form's expert axis with a shared slab and a slice
 layout; the register-resident flash forward at D = 128 and 256, T = 320
 (an odd tile count), S < T causal and GQA 1 / 4 / 8.  Both are held to the
 limits above.
+
+The decode kernel split over T: per-slot positions on piece boundaries, a
+window and a chunk shorter than a piece (empty pieces, with the sinks
+too), B = 1 and 16, run-to-run bit equality; the int8 GEMM body on wgmma
+at M = 33, 255, 257 and 4096, a ragged O, K not a multiple of its
+128-column k-step, g of 32, 64, 96, 128, 256 and K, its fp32 result
+bit-equal to the plain version for W8A8 and W4A8.
 """
 
 import pytest
@@ -712,3 +719,117 @@ def test_flash_forward_pipeline(gen, D, S, T, causal, G):
     pout, plse = flash_attention_plain(q, k, v, causal)
     _check(out, pout, "flash")
     assert (lse - plse).abs().max().item() <= LSE_ATOL
+
+
+# The decode kernel split over T (flash-decoding): per-slot positions at 0,
+# inside the first tile, on the end and the start of a piece and at T - 1 in
+# one batch; a window and a chunk shorter than one piece, so pieces are
+# empty (with the sinks too); the softcap; B = 1 (the most pieces) and
+# B = 16 (the fewest); held like the rest of row 6.
+SPLIT_CASES = {"plain": {}, "short_window": {"window": 20},
+               "short_chunk": {"chunk": 32},
+               "sinks_short_window": {"window": 20, "sinks": True},
+               "softcap": {"softcap": 30.0}}
+
+
+def _decode_operands(gen, B, T, nkv, G, hd):
+    nh = nkv * G
+    q = torch.randn(B, nh, hd, generator=gen, device="cuda").bfloat16()
+    kc = torch.randint(-127, 128, (B, T, nkv, hd), generator=gen,
+                       device="cuda").to(torch.int8)
+    vc = torch.randint(-127, 128, (B, T, nkv, hd), generator=gen,
+                       device="cuda").to(torch.int8)
+    ks = torch.rand(nkv, generator=gen, device="cuda") * 0.02 + 0.01
+    vs = torch.rand(nkv, generator=gen, device="cuda") * 0.02 + 0.01
+    sinks = torch.randn(nh, generator=gen, device="cuda")
+    return q, kc, vc, ks, vs, sinks
+
+
+@pytest.mark.parametrize("B", [1, 16])
+@pytest.mark.parametrize("hd,G", [(64, 4), (128, 7), (256, 8), (128, 1)])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_split_positions(gen, B, hd, G, case):
+    from autoround_tpu_torch.ops.decode_attention import decode_splits
+
+    T, nkv = 1024, 2
+    q, kc, vc, ks, vs, sinks = _decode_operands(gen, B, T, nkv, G, hd)
+    S = decode_splits(B, nkv, T)
+    assert S > 1
+    # pos 127 ends a piece and 128 is one piece's only token when S pieces
+    # cut 129 tokens into 64-token tiles
+    slots = [0, 40, 127, 128, 511, 700, T - 1]
+    kw = dict(SPLIT_CASES[case])
+    kw["sinks"] = sinks if kw.get("sinks") else None
+    runs = ([torch.tensor([p], dtype=torch.int32, device="cuda")
+             for p in slots] if B == 1 else
+            [torch.tensor((slots * 3)[:B], dtype=torch.int32,
+                          device="cuda")])
+    before = decode_attention.launches
+    for pos in runs:
+        out = decode_attention(q, kc, vc, pos, ks, vs, hd ** -0.5, **kw)
+        ref = decode_attention_plain(q, kc, vc, pos, ks, vs, hd ** -0.5,
+                                     kw.get("softcap", 0.0), kw.get("window"),
+                                     kw["sinks"], chunk=kw.get("chunk"))
+        assert torch.isfinite(out.float()).all()
+        _check(out, ref, "decode")
+    assert decode_attention.launches == before + len(runs)
+
+
+def test_decode_split_run_to_run(gen):
+    """The combine adds the pieces in index order, with no atomics: two
+    launches give the same bits."""
+    B, T, nkv, G, hd = 8, 1024, 8, 4, 128
+    q, kc, vc, ks, vs, sinks = _decode_operands(gen, B, T, nkv, G, hd)
+    pos = torch.randint(0, T, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    a = decode_attention(q, kc, vc, pos, ks, vs, hd ** -0.5, window=300,
+                         sinks=sinks)
+    b = decode_attention(q, kc, vc, pos, ks, vs, hd ** -0.5, window=300,
+                         sinks=sinks)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+# The int8 GEMM body on wgmma (M > 32): M on both sides of a 128- and a
+# 256-row tile, O not a multiple of the 128-column tile, K a multiple of 32
+# and not of 64 or of the 128-column k-step, groups of 32, 64, 96, 128 and
+# K; the fp32 result bit-equal to the plain version for W8A8 and W4A8.
+WGMMA_M = [33, 255, 257, 4096]
+
+
+@pytest.mark.parametrize("M", WGMMA_M)
+@pytest.mark.parametrize("O,K", [(1000, 1088), (72, 1056), (136, 160),
+                                 (200, 4096)])
+def test_w8a8_wgmma_edges(gen, M, O, K):
+    x = _a8_input(gen, M, K)[0]
+    wi = torch.randint(-128, 128, (O, K), generator=gen,
+                       device="cuda").to(torch.int8)
+    ws = (torch.rand(O, generator=gen, device="cuda") - 0.5) * 0.002
+    y32 = w8a8_matmul(x, wi, ws, torch.float32)
+    p32 = w8a8_matmul_plain(x, wi, ws, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(y32, p32)
+    assert torch.equal(w8a8_matmul(x, wi, ws), p32.bfloat16())
+
+
+@pytest.mark.parametrize("M", WGMMA_M)
+@pytest.mark.parametrize("O,K,g", [(1000, 1088, 64), (72, 1056, 96),
+                                   (136, 160, 32), (200, 1024, 1024),
+                                   (1000, 4096, 128), (72, 2048, 256),
+                                   (72, 1152, 128), (200, 1024, 128)])
+def test_w4a8_wgmma_edges(gen, M, O, K, g):
+    """g = 128 takes the two-set body with its scales copied by TMA, which
+    needs (K / g) % 4 == 0 and 16-byte aligned scales: K = 1152 (9 groups)
+    and, at O = 200, scales one float into their buffer take the one-set
+    body."""
+    x = _a8_input(gen, M, K)[0]
+    qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen, device="cuda"))
+    sc = (torch.rand(O * (K // g) + 1, generator=gen, device="cuda") - 0.5) \
+        * 0.02
+    sc = sc[1:] if O == 200 else sc[:-1]
+    sc = sc.view(O, K // g)
+    y32 = w4a8_matmul(x, qw, sc, g, torch.float32)
+    p32 = w4a8_matmul_plain(x, qw, sc, g, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(y32, p32)
+    assert torch.equal(w4a8_matmul(x, qw, sc, g), p32.bfloat16())
