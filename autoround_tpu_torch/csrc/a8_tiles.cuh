@@ -764,44 +764,6 @@ int gemm_info(int* info) {
   return 0;
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                              &found) != cudaSuccess
-      || found != cudaDriverEntryPointSuccess)
-    return nullptr;
-  return reinterpret_cast<EncodeTiledFn>(fn);
-}
-
-// The tensor map of a row-major byte matrix (rows, cols) with a row pitch of
-// `cols` bytes, copied in boxes of box_rows x box_cols (128-byte swizzle
-// when asked: box_cols must then be 128).
-inline bool byte_map(EncodeTiledFn encode, CUtensorMap* map, const void* base,
-                     int rows, int cols, int box_rows, int box_cols,
-                     bool swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
-                        : CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int MODE>
 int launch_gemm(const int8_t* xi, const float* xs, const void* w,
                 const float* sc, __nv_bfloat16* y, float* y32, int M, int K,

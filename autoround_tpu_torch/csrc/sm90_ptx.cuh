@@ -1,13 +1,18 @@
 // PTX helpers shared by the kernels written for sm_90a: shared-memory
 // addresses, cp.async, ldmatrix, mma.sync bf16, exp2, the bf16 pair
-// packing, and what the wgmma GEMMs (w4a16_tiles.cuh, a8_tiles.cuh) share:
-// the 128-byte swizzle, the shared-memory matrix descriptor, the wgmma
-// fences, commit and wait; and the tensor-memory-accelerator (TMA) tile
-// copy with its shared-memory barrier.
+// packing, and what the wgmma kernels (w4a16_tiles.cuh, a8_tiles.cuh,
+// flash_attention_bwd.cu) share: the 128-byte swizzle, the shared-memory
+// matrix descriptors (K-major, and MN-major for a transposed B), the bf16
+// products with A from shared memory or from registers, the wgmma fences,
+// commit and wait; the tensor-memory-accelerator (TMA) tile and bulk copies
+// with their shared-memory barrier, and on the host the tensor maps those
+// copies read (byte and bf16 matrices).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ptx {
@@ -95,6 +100,18 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
          | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// Descriptor of an MN-major (transposed) B tile in the same swizzle: K runs
+// down the 128-byte rows (a tile loaded row by row serves as the B of a
+// product over its rows), 8-row groups 1 KB apart, and the next 64 bf16
+// columns of N lie `lbo` bytes on (the next 64-column TMA box of the tile).
+// Stepping K by 16 rows moves the start address by 2 KB (the tile on a 1 KB
+// boundary).
+__device__ __forceinline__ uint64_t smem_desc_mn(const void* p, int lbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -128,6 +145,75 @@ template <int N = 64>
 __device__ __forceinline__ void fence_acc(int* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+// the same for A fragments held in registers: alive (not reused by the
+// compiler) until the wgmma that reads them has been waited for
+template <int N>
+__device__ __forceinline__ void fence_acc(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
+// d (64 x 64 fp32 of this warpgroup) = (scale_d ? d : 0) + A (64 x 16 bf16)
+// . B (16 x 64 bf16), both read from shared memory through K-major
+// descriptors (smem_desc); issued asynchronously, complete after
+// wgmma_wait.  Value 4j + c of a lane is row 16 (warp % 4) + lane / 4 + 8
+// (c / 2), column 8j + 2 (lane % 4) + c % 2.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// d (64 x 128 fp32) = (scale_d ? d : 0) + A (64 x 16 bf16) . B (16 x 128
+// bf16) with A held in registers and B read MN-major from shared memory
+// (smem_desc_mn).  A fragment of a lane (four registers of two bf16, low
+// half first): rows r = 16 (warp % 4) + lane / 4 and r + 8, columns
+// k = 2 (lane % 4), k + 1 and k + 8, k + 9, in the order (r, k), (r + 8, k),
+// (r, k + 8), (r + 8, k + 8) -- the accumulator layout of two neighbouring
+// 8-column chunks of an m64nN product, so a score held in registers feeds
+// the next product without leaving them.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
+      : "memory");
 }
 
 // ---- TMA tile copies completing on an mbarrier ----------------------------
@@ -176,6 +262,74 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
          "r"(y), "r"(smem_addr(bar))
       : "memory");
+}
+
+// copy `bytes` contiguous bytes from global src to shared dst (both 16-byte
+// aligned, bytes % 16 == 0); the bytes count against `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- host: the tensor maps of the TMA copies -------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                              &found) != cudaSuccess
+      || found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return reinterpret_cast<EncodeTiledFn>(fn);
+}
+
+// The tensor map of a row-major byte matrix (rows, cols) with a row pitch of
+// `cols` bytes, copied in boxes of box_rows x box_cols (128-byte swizzle
+// when asked: box_cols must then be 128).
+inline bool byte_map(EncodeTiledFn encode, CUtensorMap* map, const void* base,
+                     int rows, int cols, int box_rows, int box_cols,
+                     bool swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a row-major bf16 matrix (rows, cols), cols % 8 == 0,
+// copied in boxes of box_rows rows x 64 columns (one 128-byte row each) in
+// the 128-byte swizzle: the tile layout smem_desc and smem_desc_mn read.  A
+// row of 128 bf16 arrives as two boxes.
+inline bool bf16_map(EncodeTiledFn encode, CUtensorMap* map, const void* base,
+                     long long rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace ptx

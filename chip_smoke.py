@@ -10,8 +10,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 1. build   — compile the CUDA sources of ``autoround_tpu_torch/csrc`` (one
              nvcc per source, in parallel); print the seconds, the
              compiler's register / spill / warning lines by kernel, and the
-             flash forward's, the nine GEMM bodies' and the decode split
-             and combine kernels' registers, spill bytes, dynamic shared
+             flash forward's, the backward pair's (dQ, dK/dV at D = 128
+             and 256), the nine GEMM bodies' and the decode split and
+             combine kernels' registers, spill bytes, dynamic shared
              memory and blocks per SM.
 2. kernels — run each of the fourteen kernels (flash forward, flash
              backward dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym
@@ -29,8 +30,11 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              before every timed launch (median of several runs), beside
              the least time the card could take and the achieved rate.
              The decode and int8 kernels (split + combine, quantize_rows +
-             product) and their library calls also get ``device_ms``: the
-             kernels' own time by torch.profiler.  The int8 kinds also
+             product), the backward pair (each kernel, and the whole
+             ``flash_attention_bwd``: delta + dQ + dK/dV, against SDPA's
+             backward), the A16 GEMV at M = 8 (C = 8 grouped) and their
+             library calls also get ``device_ms``: the kernels' own time
+             by torch.profiler.  The int8 kinds also
              check ``quantize_rows`` (codes and scales bit-equal) and say
              whether the fp32 result before the cast is bit-equal.
 3. rtn     — the RTN → serve path at the full width of ``llama3-8b``
@@ -315,6 +319,15 @@ def tflops(n_ops, ms, unit="TFLOP/s") -> str:
     return f"achieved={n_ops / ms / 1e9:.1f} {unit}"
 
 
+def device_pair(timer, fn, lib):
+    """(device ms of `fn`, of its library call `lib`, the text the kernel
+    lines print for them)."""
+    dev_ms, how = timer.device(fn)
+    lib_dev_ms, _ = timer.device(lib)
+    return dev_ms, lib_dev_ms, (f" device_ms={dev_ms:.4f} ({how}) "
+                                f"library_device_ms={lib_dev_ms:.4f}")
+
+
 def check(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
@@ -325,8 +338,9 @@ def kernel_phase(timer, bw, flops_peak):
     from torch.nn.attention.bias import causal_lower_right
 
     from autoround_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
-        flash_attention_bwd_plain, flash_attention_plain)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_bwd_plain,
+        flash_attention_plain)
     from autoround_tpu_torch.ops.qmatmul import (
         pack_w4, unpack_w4, w4a16_matmul, w4a16_matmul_grouped,
         w4a16_matmul_grouped_plain, w4a16_matmul_plain)
@@ -336,6 +350,7 @@ def kernel_phase(timer, bw, flops_peak):
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
     rows = {}
+    bwd_shapes = {"flash_attention_bwd_dq": [], "flash_attention_bwd_dkv": []}
 
     def bound(nbytes, nflops):
         t_b, t_f = nbytes / bw * 1e3, nflops / flops_peak * 1e3
@@ -428,8 +443,19 @@ def kernel_phase(timer, bw, flops_peak):
               f"flash backward S={S} T={T}: library call computes another "
               f"function (row err {lib_rel})")
         lib_ms = timer(lib_bwd)
+        lib_dev_ms, lib_how = timer.device(lib_bwd)
         plain_ms = timer(lambda: flash_attention_bwd_plain(
             q, k, v, out, lse, do, True))
+        # the whole backward as the autograd route runs it: delta, dQ, dK/dV
+        bwd_dev_ms, bwd_how = timer.device(lambda: flash_attention_bwd(
+            q, k, v, out, lse, do, True))
+        n_bwd = 2 * 7 * B * H * valid * D
+        log(f"kernel flash_attention_bwd [{shape}] (delta + dQ + dK/dV) "
+            f"device_ms={bwd_dev_ms:.4f} ({bwd_how}) "
+            f"library_device_ms(SDPA backward)={lib_dev_ms:.4f} ({lib_how}) "
+            f"over_library={bwd_dev_ms / lib_dev_ms:.3f} "
+            f"{tflops(n_bwd, bwd_dev_ms)} (7 products) library "
+            f"{tflops(2 * 5 * B * H * valid * D, lib_dev_ms)} (5 products)")
         runs = {"flash_attention_bwd_dq": lambda: flash_attention_bwd_dq(
                     q, k, v, do, lse, delta, True),
                 "flash_attention_bwd_dkv": lambda: flash_attention_bwd_dkv(
@@ -447,24 +473,39 @@ def kernel_phase(timer, bw, flops_peak):
             tol = ROW_TOL[name]
             check(rel <= tol, f"{name} S={S} T={T}: row err {rel}")
             ms = timer(runs[name])
+            dev_ms, how = timer.device(runs[name])
             nbytes, n_prod = work[name]
-            b_ms, b_by = bound(nbytes, 2 * n_prod * B * H * valid * D)
+            n_ops = 2 * n_prod * B * H * valid * D
+            b_ms, b_by = bound(nbytes, n_ops)
             log(f"kernel {name} [{shape}] max_abs_err={err:.3g} "
                 f"row_err={rel:.3g} (tol {tol}, row floor {BWD_ROW_FLOOR}) "
                 f"run_to_run=equal library_row_err={lib_rel:.3g} "
-                f"kernel_ms={ms:.4f} plain_ms(dq+dk+dv)={plain_ms:.4f} "
-                f"library_ms(dq+dk+dv)={lib_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({b_by})")
+                f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} ({how}) "
+                f"plain_ms(dq+dk+dv)={plain_ms:.4f} "
+                f"library_ms(dq+dk+dv)={lib_ms:.4f} "
+                f"library_device_ms(dq+dk+dv)={lib_dev_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by}) device "
+                f"{tflops(n_ops, dev_ms)}")
+            bwd_shapes[name].append(dict(
+                shape=shape, max_abs_err=err, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                bwd_device_ms=bwd_dev_ms))
             if rep_row:
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="autoround_tpu_torch/csrc/flash_attention_bwd.cu",
                     replaces=f"autoround_tpu/ops/flash_attention.py:{line}",
                     shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                    bwd_device_ms=bwd_dev_ms)
         del q, k, v, out, lse, do, delta, got, again, first, plain, pdq, pdk
         del pdv, ql, kl, vl, lib_out
         torch.cuda.empty_cache()
+    # every shape of the backward pair in its row (the row's own first)
+    for name, shapes in bwd_shapes.items():
+        rows[name]["shapes"] = shapes
 
     # K2 W4A16: fused qkv, down_proj, lm_head at decode and prefill M, at
     # g = 128 and g = 16 (the GEMV reads a second scale half way through a
@@ -494,12 +535,17 @@ def kernel_phase(timer, bw, flops_peak):
         w_bf16 = ((unpack_w4(qw) - 8).float()
                   * sc.repeat_interleave(G, dim=1)).bfloat16()
         lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+        dev_txt = ""
+        if M == 8:
+            dev_ms, lib_dev_ms, dev_txt = device_pair(
+                timer, lambda: w4a16_matmul(x, qw, sc, G),
+                lambda: torch.matmul(x, w_bf16.T))
         del w_bf16
         nbytes = 2 * M * K + O * K // 2 + 4 * sc.numel() + 2 * M * O
         b_ms, b_by = bound(nbytes, 2 * M * O * K)
         shape = f"{name} M={M} O={O} K={K} g={G}"
         log(f"kernel w4a16_matmul [{shape}] max_abs_err={err:.3g} "
-            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f}{dev_txt} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) "
             f"{tflops(2 * M * O * K, ms)} library "
@@ -510,7 +556,8 @@ def kernel_phase(timer, bw, flops_peak):
                 source="autoround_tpu_torch/csrc/w4a16_matmul.cu",
                 replaces="autoround_tpu/ops/qmatmul.py:168",
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                device_ms=dev_ms, library_device_ms=lib_dev_ms)
         del qw, sc, x, y
         torch.cuda.empty_cache()
 
@@ -552,6 +599,11 @@ def kernel_phase(timer, bw, flops_peak):
              * sc[e].repeat_interleave(128, dim=1)).bfloat16()
             for e in range(E)])
         lib_ms = timer(lambda: torch.bmm(x, w_bf16.transpose(1, 2)))
+        dev_txt = ""
+        if C == 8:
+            dev_ms, lib_dev_ms, dev_txt = device_pair(
+                timer, lambda: w4a16_matmul_grouped(x, qw, sc, 128),
+                lambda: torch.bmm(x, w_bf16.transpose(1, 2)))
         del w_bf16
         x_slabs = 1 if layout == "shared" else E
         nbytes = (2 * x_slabs * C * K + E * O * K // 2 + 4 * sc.numel()
@@ -559,7 +611,7 @@ def kernel_phase(timer, bw, flops_peak):
         b_ms, b_by = bound(nbytes, 2 * E * C * O * K)
         shape = f"{name} E={E} C={C} O={O} K={K} g=128 x {layout}"
         log(f"kernel w4a16_matmul_grouped [{shape}] max_abs_err={err:.3g} "
-            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f}{dev_txt} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) "
             f"{tflops(2 * E * C * O * K, ms)} library "
@@ -570,7 +622,8 @@ def kernel_phase(timer, bw, flops_peak):
                 source="autoround_tpu_torch/csrc/w4a16_matmul_grouped.cu",
                 replaces="autoround_tpu/ops/qmatmul.py:280",
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                device_ms=dev_ms, library_device_ms=lib_dev_ms)
         del qw, sc, x, y
         torch.cuda.empty_cache()
 
@@ -600,12 +653,17 @@ def kernel_phase(timer, bw, flops_peak):
         w_bf16 = ((unpack_w4(qw).float() - zp.repeat_interleave(G, dim=1))
                   * sc.repeat_interleave(G, dim=1)).bfloat16()
         lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+        dev_txt = ""
+        if M == 8:
+            dev_ms, lib_dev_ms, dev_txt = device_pair(
+                timer, lambda: w4a16_asym_matmul(x, qw, sc, zp, G),
+                lambda: torch.matmul(x, w_bf16.T))
         del w_bf16
         nbytes = 2 * M * K + O * K // 2 + 8 * sc.numel() + 2 * M * O
         b_ms, b_by = bound(nbytes, 2 * M * O * K)
         shape = f"{name} M={M} O={O} K={K} g={G} fractional zp"
         log(f"kernel w4a16_asym_matmul [{shape}] max_abs_err={err:.3g} "
-            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f}{dev_txt} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) "
             f"{tflops(2 * M * O * K, ms)} library "
@@ -616,7 +674,8 @@ def kernel_phase(timer, bw, flops_peak):
                 source="autoround_tpu_torch/csrc/w4a16_asym_matmul.cu",
                 replaces="autoround_tpu/ops/qmatmul_ext.py:162",
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                device_ms=dev_ms, library_device_ms=lib_dev_ms)
         del qw, sc, zp, x, y
         torch.cuda.empty_cache()
 
@@ -853,20 +912,26 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
             w_bf16 = (wi.float() * sc.repeat_interleave(
                 g if g else K, dim=1)).bfloat16()
             lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+            extra = ""
+            if M == 8:
+                dev_ms, lib_dev_ms, extra = device_pair(
+                    timer, lambda: w8a16_matmul(x, wi, sc, g),
+                    lambda: torch.matmul(x, w_bf16.T))
             del w_bf16
             b_ms, b_by = bound(out_bytes + O * K + 4 * sc.numel(),
                                2 * M * O * K, flops_peak)
             shape = f"{name} M={M} O={O} K={K} " + (
                 f"g={g}" if g else "per channel")
-            report("w8a16_matmul", shape, err, rel, "", ms, plain_ms, lib_ms,
-                   b_ms, b_by)
+            report("w8a16_matmul", shape, err, rel, extra, ms, plain_ms,
+                   lib_ms, b_ms, b_by)
             if M == 8 and name == "qkv" and g:
                 rows["w8a16_matmul"] = dict(
                     name="w8a16_matmul", route="cuda",
                     source="autoround_tpu_torch/csrc/w8a16_matmul.cu",
                     replaces="autoround_tpu/ops/qmatmul_ext.py:330",
                     shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                    bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                    device_ms=dev_ms, library_device_ms=lib_dev_ms)
         del wi, ws, sc, y
         torch.cuda.empty_cache()
 
@@ -942,12 +1007,16 @@ def float_kernel_phase(timer, bw, flops_peak):
         ms = timer(fn)
         plain_ms = timer(plain)
         lib_ms = timer(lambda: torch.matmul(x, w_bf16.T))
+        dev_txt = ""
+        if M == 8:
+            dev_ms, lib_dev_ms, dev_txt = device_pair(
+                timer, fn, lambda: torch.matmul(x, w_bf16.T))
         t_b = (nbytes + 2 * M * K + 2 * M * O) / bw * 1e3
         t_f = 2 * M * O * K / flops_peak * 1e3
         b_ms, b_by = max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
         tol = ROW_TOL[kernel]
         log(f"kernel {kernel} [{shape}] max_abs_err={err:.3g} "
-            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+            f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f}{dev_txt} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) "
             f"{tflops(2 * M * O * K, ms)} library "
@@ -957,7 +1026,8 @@ def float_kernel_phase(timer, bw, flops_peak):
             rows[kernel] = dict(
                 name=kernel, route="cuda", source=source, replaces=replaces,
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                device_ms=dev_ms, library_device_ms=lib_dev_ms)
 
     cases = [(8, 6144, 4096, "qkv"), (8, 4096, 14336, "down_proj"),
              (8, 128256, 4096, "lm_head"), (4096, 6144, 4096, "qkv"),
@@ -1645,7 +1715,8 @@ class _HeadLosses(logging.Handler):
 
 
 def tune_path(n_layers):
-    """SignRound → pack → serve at llama3-8b width; returns the launches."""
+    """SignRound → pack → serve at llama3-8b width; returns the launches
+    and the seconds of the quantize call (tune_s)."""
     from autoround_tpu_torch import AutoRound, QuantizedLlama
     from autoround_tpu_torch.models import llama
 
@@ -1733,7 +1804,7 @@ def tune_path(n_layers):
           "tokens out of range")
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, t_tune
 
 
 # Prefill logits (last position, 8 prompts) of the MoE engine through capacity
@@ -2528,9 +2599,9 @@ def _kernel_name(mangled: str) -> str:
 
 def build_report(build):
     """The compiler's register and spill lines of every kernel, by function,
-    then the flash forward's, the GEMM bodies' and the decode kernels'
-    registers, spill bytes, dynamic shared memory and resident blocks per SM
-    as the runtime reports them."""
+    then the flash forward's and backward pair's, the GEMM bodies' and the
+    decode kernels' registers, spill bytes, dynamic shared memory and
+    resident blocks per SM as the runtime reports them."""
     import ctypes
 
     for p in sorted(build.BUILD_DIR.glob("*.log")):
@@ -2560,6 +2631,14 @@ def build_report(build):
         log(f"  resources {src} {what}: {info[0]} registers, {info[1]} "
             f"spill bytes, {info[2]} bytes of dynamic shared memory, "
             f"{info[3]} blocks per SM")
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for D in (128, 256):
+        for which, what in enumerate(("dQ", "dK/dV")):
+            build.check(fn(D, which, info), "flash_attention_bwd_info")
+            log(f"  resources flash_attention_bwd {what} D={D}: {info[0]} "
+                f"registers, {info[1]} spill bytes, {info[2]} bytes of "
+                f"dynamic shared memory, {info[3]} blocks per SM")
     fn = build.load("decode_attention").decode_attention_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     for hd, G in ((128, 4), (128, 7), (64, 4), (256, 4), (256, 8)):
@@ -2662,7 +2741,7 @@ def main() -> int:
     free_device_memory()
     tuning_step_phase(bw, fl)
     free_device_memory()
-    launches = tune_path(args.tune_layers)
+    launches, _ = tune_path(args.tune_layers)
     free_device_memory()
     moe_launches = moe_path(bw, fl, args.moe_layers)
     free_device_memory()

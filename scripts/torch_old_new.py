@@ -13,12 +13,19 @@ each case the two outputs are compared (bit-equal, or the worst row's max
 |new - old| over the row's RMS), then each version is timed in the order
 old, new, new, old: event time of one call with the L2 flushed (as
 ``chip_smoke.py`` times, the wrapper's Python included) and device time
-(the kernels' own, torch.profiler).  Cases: row 6 (decode) at every shape
-of ``chip_smoke.py``'s decode phase, rows 7 and 8 (W8A8, W4A8 g128) at
-M = 4096 for llama3-8b's qkv, down_proj and lm_head, and the seven A16
-GEMM bodies at M = 4096 qkv (bit-equality of the shared tiles).  Prints
-one JSON line per case, the card's name and power limit, and writes all of
-it to ``chiprun_out/old_new.json``.  Needs a CUDA card.
+(the kernels' own, torch.profiler).  Cases: rows 2 and 3 (the flash
+backward pair, dQ and dK/dV) at the three shapes of ``chip_smoke.py``'s
+flash phase (B8 H32 Hkv8 causal: S=T=512 D128, S=256 T=512 D128, S=T=512
+D256; their outputs are compared by row error with the backward's row
+floor: the summation order differs), row 6 (decode) at every shape of
+``chip_smoke.py``'s decode phase, rows 7 and 8 (W8A8, W4A8 g128) at M =
+4096 for llama3-8b's qkv, down_proj and lm_head, and the seven A16 GEMM
+bodies at M = 4096 qkv (bit-equality of the shared tiles).  Then, with
+every kernel above old and then new, ``chip_smoke.py``'s tuning step
+(gradient check, step ms; turns old, new, new, old) and its llama3-8b tune
+path at 32 layers (old, new) for ``tune_s``.  Prints one JSON line per case, the card's name and power
+limit, and writes all of it to ``chiprun_out/old_new.json``.  Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import chip_smoke as cs  # noqa: E402
 from autoround_tpu_torch._device import resolve_device  # noqa: E402
 from autoround_tpu_torch.ops import _build  # noqa: E402
 
-NAMES = ("decode_attention", "w8a8_matmul", "w4a8_matmul", "w4a16_matmul",
+NAMES = ("flash_attention_bwd", "decode_attention", "w8a8_matmul", "w4a8_matmul", "w4a16_matmul",
          "w4a16_matmul_grouped", "w4a16_asym_matmul", "w8a16_matmul",
          "w2a16_matmul", "fp8_matmul", "mxfp4_matmul")
 
@@ -84,14 +91,17 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = []
 
-    def run(case, fn, n_ops=None):
+    def run(case, fn, n_ops=None, floor=0.0):
         use("old")
         y0 = fn()
         use("new")
         y1 = fn()
         torch.cuda.synchronize()
-        equal = torch.equal(y0, y1)
-        rel = 0.0 if equal else cs.row_err(y1, y0)[1]
+        if not isinstance(y0, tuple):
+            y0, y1 = (y0,), (y1,)
+        equal = all(torch.equal(a, b) for a, b in zip(y0, y1))
+        rel = 0.0 if equal else max(cs.row_err(b, a, floor)[1]
+                                    for a, b in zip(y0, y1))
         ms = {"old": [], "new": []}
         device_ms = {"old": [], "new": []}
         for w in ("old", "new", "new", "old"):
@@ -107,6 +117,25 @@ def main() -> int:
                                 for v, t in device_ms.items()}
         print(json.dumps(r), flush=True)
         results.append(r)
+
+    from autoround_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    B, H, Hkv = 8, 32, 8
+    for (S, T, D) in [(512, 512, 128), (256, 512, 128), (512, 512, 256)]:
+        q = torch.randn(B, H, S, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, Hkv, T, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, Hkv, T, D, generator=gen, device=dev).bfloat16()
+        do = torch.randn(B, H, S, D, generator=gen, device=dev).bfloat16()
+        out, lse = flash_attention(q, k, v, True)
+        delta = (out.float() * do.float()).sum(-1)
+        n_ops = 2 * B * H * sum(min(T, i + T - S + 1) for i in range(S)) * D
+        shape = f"B{B} H{H} Hkv{Hkv} S{S} T{T} D{D} causal"
+        run(f"row2 flash dQ {shape}", lambda: flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, True), 3 * n_ops, cs.BWD_ROW_FLOOR)
+        run(f"row3 flash dK/dV {shape}", lambda: flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, True), 4 * n_ops, cs.BWD_ROW_FLOOR)
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
 
     from autoround_tpu_torch.ops.decode_attention import decode_attention
     B, T = 8, 1024
@@ -178,6 +207,32 @@ def main() -> int:
             del zp, sc32, q2, wf, s8, xe, qwe, sce
         del x, wi, ws, qw, sc
         torch.cuda.empty_cache()
+
+    # the tuning step and the tune path, every kernel above old then new
+    bw, fl, _ = cs.peaks(torch.cuda.get_device_name(0))
+    del timer
+    cs.free_device_memory()
+    steps = {"old": [], "new": []}
+    for w in ("old", "new", "new", "old"):
+        use(w)
+        print(f"tuning step, {w} kernels", flush=True)
+        steps[w].append(cs.tuning_step_phase(bw, fl))
+        cs.free_device_memory()
+    r = dict(case="llama3-8b tuning step (1 block, B8 S512, W4A16)",
+             tune_step_ms=steps)
+    print(json.dumps(r), flush=True)
+    results.append(r)
+    tune_s = {}
+    for w in ("old", "new"):
+        use(w)
+        print(f"tune path, {w} kernels", flush=True)
+        tune_s[w] = cs.tune_path(32)[1]
+        cs.free_device_memory()
+    r = dict(case="llama3-8b tune path (32 layers + lm_head, iters 20)",
+             tune_s=tune_s)
+    print(json.dumps(r), flush=True)
+    results.append(r)
+    use("new")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "old_new.json").write_text(json.dumps(

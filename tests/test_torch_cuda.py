@@ -61,6 +61,15 @@ layout; the register-resident flash forward at D = 128 and 256, T = 320
 (an odd tile count), S < T causal and GQA 1 / 4 / 8.  Both are held to the
 limits above.
 
+The backward pair on wgmma (dQ; dK/dV summed over the group): kv loops of
+an odd tile count, one q tile against eight kv tiles, the tuning step's
+B1 H32 Hkv8 S=T=512, D = 128 and 256, causal or not, held like the rest of
+the pair with run-to-run bit equality and the autograd route; and each of
+its two wgmma products alone against ``torch.matmul`` in fp32 (both operands
+K-major from TMA boxes; A in registers with B read MN-major), to 1e-5
+relative: the products of bf16 values are exact in fp32 and only the order
+of the sums differs.
+
 The decode kernel split over T: per-slot positions on piece boundaries, a
 window and a chunk shorter than a piece (empty pieces, with the sinks
 too), B = 1 and 16, run-to-run bit equality; the int8 GEMM body on wgmma
@@ -360,16 +369,11 @@ def test_flash_shapes(gen, D, S, T, rep, causal):
     assert (lse - plse).abs().max().item() <= LSE_ATOL
 
 
-@pytest.mark.parametrize("D", [128, 256])
-@pytest.mark.parametrize("S,T", [(64, 64), (128, 320), (256, 256)])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_backward_pair(gen, D, S, T, G, causal):
-    Hkv = 2
-    q = torch.randn(2, Hkv * G, S, D, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(2, Hkv, T, D, generator=gen, device="cuda").bfloat16()
-    v = torch.randn(2, Hkv, T, D, generator=gen, device="cuda").bfloat16()
-    do = torch.randn(2, Hkv * G, S, D, generator=gen, device="cuda").bfloat16()
+def _backward_pair(gen, B, Hkv, G, S, T, D, causal):
+    q = torch.randn(B, Hkv * G, S, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, Hkv, T, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, Hkv, T, D, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(B, Hkv * G, S, D, generator=gen, device="cuda").bfloat16()
     out, lse = flash_attention(q, k, v, causal)
     counts = (flash_attention_bwd_dq.launches,
               flash_attention_bwd_dkv.launches, flash_attention_bwd.launches)
@@ -391,6 +395,68 @@ def test_flash_backward_pair(gen, D, S, T, G, causal):
     grads = torch.autograd.grad(o2, (ql, kl, vl), do_view)
     for a, b in zip(grads, got):
         assert torch.equal(a, b)
+
+
+# T = 320 and 448 give the kv loops an odd tile count for the two-slot
+# ring; S = 64 T = 512 causal leaves one q tile against eight kv tiles (the
+# dK/dV blocks each walk one step a head, the diagonal on the last)
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("S,T", [(64, 64), (128, 320), (256, 256), (64, 320),
+                                 (192, 448), (64, 512)])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_pair(gen, D, S, T, G, causal):
+    _backward_pair(gen, 2, 2, G, S, T, D, causal)
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_tuning_shape(gen, D, causal):
+    """One sequence of the tuning step's attention: B1 H32 Hkv8 S=T=512."""
+    _backward_pair(gen, 1, 8, 4, 512, 512, D, causal)
+
+
+def _probe(mode, a, b, nbox, box0):
+    """flash_attention_bwd_probe: one of the two wgmma products the backward
+    kernels are built from, alone (csrc/flash_attention_bwd.cu)."""
+    import ctypes
+
+    from autoround_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_probe
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    c = torch.full((64, 64 if mode == 0 else 128), float("nan"),
+                   device="cuda")
+    err = fn(mode, a.data_ptr(), b.data_ptr(), c.data_ptr(), nbox, box0,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    torch.cuda.synchronize()
+    return c
+
+
+def test_wgmma_k_major_operands(gen):
+    """m64n64k16 with both operands read K-major from TMA-loaded swizzled
+    boxes (two 64-column boxes a 128-column row): a . b^T."""
+    a = torch.randn(64, 128, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(64, 128, generator=gen, device="cuda").bfloat16()
+    torch.testing.assert_close(_probe(0, a, b, 2, 0),
+                               torch.matmul(a.float(), b.float().T),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("nbox,box0", [(2, 0), (4, 0), (4, 2)])
+def test_wgmma_register_a_transposed_b(gen, nbox, box0):
+    """m64n128k16 with A held in registers (the layout a score accumulator
+    packs into) and B read MN-major from a TMA-loaded tile of nbox boxes,
+    from box box0 on (D = 256: a warpgroup's half): a . b[:, cols]."""
+    a = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(64, 64 * nbox, generator=gen, device="cuda").bfloat16()
+    cols = slice(64 * box0, 64 * box0 + 128)
+    torch.testing.assert_close(_probe(1, a, b, nbox, box0),
+                               torch.matmul(a.float(), b[:, cols].float()),
+                               rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
