@@ -33,3 +33,11 @@ extern "C" int fp8_matmul(const void* x, const void* w, const void* sc,
 extern "C" int fp8_matmul_gemm_info(int* info) {
   return w4a16::gemm_info<w4a16::E4M3>(info);
 }
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (E, M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int fp8_matmul_gemv_info(int E, int M, int K, int O, int* info) {
+  return w4a16::gemv_info<w4a16::E4M3>(E, M, K, O, info);
+}

@@ -11,10 +11,10 @@
 //
 // Here a code is decoded by placing its bits into an fp32 (exact for all 16
 // values) and multiplied by its group's scale in registers before the tile
-// product, as mxfp4_matmul_ref does: the GEMV body (M <= 32) keeps e2m1 * s
-// in fp32, the GEMM body (M > 32) rounds it to bf16 into its shared-memory
-// tile for mma.sync (exact for MX's power-of-two scales, one bf16 rounding
-// for NVFP4's).  Codes use the W4A16 kernel's nibble layout; at g = 16
+// product, as mxfp4_matmul_ref does, and rounded to bf16 (exact for MX's
+// power-of-two scales, one bf16 rounding for NVFP4's): the GEMV body (M <=
+// 32) into its mma.sync A fragments, the GEMM body (M > 32) into its
+// shared-memory tile for wgmma.  Codes use the W4A16 kernel's nibble layout; at g = 16
 // a 32-column chunk spans two groups, and the bodies read the second scale.
 //
 // What bounds it on an H100: decode streams half a byte a weight plus 4
@@ -38,4 +38,12 @@ extern "C" int mxfp4_matmul(const void* x, const void* qw, const void* sc,
 // body (M > 32) into info[0..3].  Returns a cudaError_t.
 extern "C" int mxfp4_matmul_gemm_info(int* info) {
   return w4a16::gemm_info<w4a16::E2M1>(info);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (E, M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int mxfp4_matmul_gemv_info(int E, int M, int K, int O, int* info) {
+  return w4a16::gemv_info<w4a16::E2M1>(E, M, K, O, info);
 }

@@ -10,10 +10,10 @@
 // bodies are those of the W4A16 kernels (w4a16_tiles.cuh) in their INT2
 // format: the port packs 16 codes per int32 word in K order (column 16w+j in
 // bits 2j..2j+1 of word w).  The GEMV body (M <= 32) turns each code into
-// (code - 2) * s in fp32 registers once and reuses it for all M rows; the
+// bf16((code - 2) * s) in registers, the A of its mma.sync products; the
 // GEMM body (M > 32) dequantizes the packed codes of each k-step once into
 // a bf16 shared-memory tile as bf16((code - 2) * s), exactly what the plain
-// version rounds, and runs mma.sync over it.
+// version rounds, and runs wgmma over it.
 //
 // What bounds it on an H100: decode streams a quarter of a byte a weight
 // plus 4 bytes of scale per group (for g = 128 the scales are 1/8 of the
@@ -35,4 +35,12 @@ extern "C" int w2a16_matmul(const void* x, const void* qw, const void* sc,
 // body (M > 32) into info[0..3].  Returns a cudaError_t.
 extern "C" int w2a16_matmul_gemm_info(int* info) {
   return w4a16::gemm_info<w4a16::INT2>(info);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (E, M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int w2a16_matmul_gemv_info(int E, int M, int K, int O, int* info) {
+  return w4a16::gemv_info<w4a16::INT2>(E, M, K, O, info);
 }

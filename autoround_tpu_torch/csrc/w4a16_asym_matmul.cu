@@ -9,8 +9,8 @@
 // group.  Here the dequant already runs per code in registers (GEMV) or per
 // weight tile (GEMM), so the zero point is subtracted there: (code - zp) *
 // scale in fp32, one more subtraction per weight and no second reduction
-// over x.  The GEMM body rounds that product to bf16 exactly as the plain
-// version does; the GEMV body keeps it in fp32 (as the sym GEMV does).
+// over x.  Both bodies round that product to bf16 exactly as the plain
+// version does before their tensor-core products.
 //
 // Bounds and tile bodies as in w4a16_tiles.cuh; the zero points add 4 bytes
 // per group of g weights to the stream.
@@ -30,4 +30,12 @@ extern "C" int w4a16_asym_matmul(const void* x, const void* qw,
 // body (M > 32) into info[0..3].  Returns a cudaError_t.
 extern "C" int w4a16_asym_matmul_gemm_info(int* info) {
   return w4a16::gemm_info<w4a16::ASYM4>(info);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (E, M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int w4a16_asym_matmul_gemv_info(int E, int M, int K, int O, int* info) {
+  return w4a16::gemv_info<w4a16::ASYM4>(E, M, K, O, info);
 }

@@ -24,3 +24,11 @@ extern "C" int w4a16_matmul(const void* x, const void* qw, const void* sc,
 extern "C" int w4a16_matmul_gemm_info(int* info) {
   return w4a16::gemm_info<w4a16::SYM4>(info);
 }
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (E, M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int w4a16_matmul_gemv_info(int E, int M, int K, int O, int* info) {
+  return w4a16::gemv_info<w4a16::SYM4>(E, M, K, O, info);
+}

@@ -13,8 +13,8 @@
 //
 // What bounds it on an H100: at decode (C = batch) every expert's packed
 // weights stream once per launch whatever the routing, ~0.53 byte per
-// weight, so memory bounds it (GEMV bodies, E x O/R blocks); at prefill
-// (C in the thousands) 2*C operations per weight bound it (mma.sync GEMM
+// weight, so memory bounds it (the GEMV body, E x O/(16 rw) blocks); at
+// prefill (C in the thousands) 2*C operations per weight bound it (wgmma GEMM
 // bodies with per-tile dequant, E x C/128 x O/128 blocks).
 
 #include "w4a16_tiles.cuh"
@@ -36,4 +36,12 @@ extern "C" int w4a16_matmul_grouped(const void* x, const void* qw,
 // body (M > 32) into info[0..3].  Returns a cudaError_t.
 extern "C" int w4a16_matmul_grouped_gemm_info(int* info) {
   return w4a16::gemm_info<w4a16::SYM4>(info);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (E, M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int w4a16_matmul_grouped_gemv_info(int E, int M, int K, int O, int* info) {
+  return w4a16::gemv_info<w4a16::SYM4>(E, M, K, O, info);
 }

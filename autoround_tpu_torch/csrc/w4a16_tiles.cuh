@@ -32,15 +32,38 @@
 // What bounds it on an H100:
 //  * decode (M = batch <= 32): ~0.5 byte of codes per weight (INT8, E4M3:
 //    1; INT2: 0.25) against 2*M operations per weight, far below the card's
-//    ~295 operations per byte:
-//    the weight stream from memory bounds it.  `gemv_kernel` streams each
-//    row's codes once with 16-byte coalesced loads (32 codes per lane),
-//    dequantizes each code once into fp32 registers and reuses it for all
-//    M activation rows, accumulates in fp32 and reduces across the block
-//    (warp shuffles, then shared memory).  Each block owns R output rows
-//    and splits K over its 4 warps, so even O = 4096 gives ~1000 blocks.
-//    At M = 8 the M fp32 FMAs per weight on the CUDA cores come close to
-//    the memory time; that is the next thing to move to tensor cores.
+//    ~295 operations per byte: the weight stream from memory bounds it.
+//    `gemv_kernel` runs the products on mma.sync.m16n8k16 bf16 with the
+//    operands swapped (weights as A, 16 rows a warp; activations as B, 8
+//    tokens an n-tile, up to 4), so the CUDA cores only dequantize: per
+//    weight a byte permute (the magic-number conversion), a subtraction, a
+//    product with the scale and half a cvt.rn.bf16x2.f32.  A lane's four A
+//    values of an mma are four consecutive codes of its own chunk (4-bit:
+//    one word feeds two mmas; INT8 / E4M3: one; INT2: four), and x is
+//    staged once a block in shared memory in the same k order (fragment
+//    order: a warp's B operands are 512 contiguous bytes).  Each warp
+//    streams its 16 rows through a ring of two 2 KB slots in shared memory
+//    (128 bytes of each row a slot: each copy instruction reads four whole
+//    128-byte row segments) by cp.async; the scales come 4 steps (INT2: 8)
+//    ahead in registers.  Bytes in flight (Little's law): 3.35 TB/s x ~1
+//    us of loaded HBM latency is ~3.4 MB, ~25 KB an SM; 24 warps (M <= 8:
+//    three blocks of 8 at 80 registers) or 16 (two at <= 128) keep 24-48
+//    KB in flight with a slot each.  A block takes 8 row tiles, so each
+//    staged x feeds 128 rows; where those blocks give too few warps
+//    (qkv, down_proj) or a block's x would pass 32 KB (M <= 8) or 64 KB,
+//    K is split over a thread-block cluster of up to 16 blocks, whose
+//    partial sums rank 0 adds in a fixed order through distributed shared
+//    memory (no workspace, no atomics: two launches give the same bits).
+//    `gemv_plan` picks the split from host shapes (E, M, K, O) and the SM
+//    count only, so the launch is capturable.  What bounds it now (H100,
+//    lm_head at M = 8): the instructions a code costs; without the
+//    dequantization the same loop streams at ~2.3 TB/s.  The time hardly
+//    depends on M, so at M = 1 and small O (o_proj, down_proj) the work a
+//    code costs and the cluster's reduction, which waits for its slowest
+//    rank, leave it slower than the design it replaced.  Was: fp32 FMAs
+//    on the CUDA cores, M FMAs per weight with x reloaded and reconverted
+//    per row, 4 warps a block splitting K, R <= 4 rows of 16-byte loads
+//    in flight a lane, the weight kept in fp32.
 //  * prefill (M = B*S in the thousands): 2*M operations per weight, the
 //    tensor cores bound it.  `gemm_kernel` tiles M x O x K as 256 x 128 x
 //    64, four warpgroups of 64 x 128.  A ring of 4 slots in dynamic shared
@@ -70,9 +93,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "sm90_ptx.cuh"
 
 namespace w4a16 {
+
+namespace cg = cooperative_groups;
 
 using namespace ptx;
 
@@ -170,34 +197,245 @@ __device__ __forceinline__ void dequant8(const uint4& wv, int q, float z,
   }
 }
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// ---- the GEMV body (M <= 32) ---------------------------------------------
+//
+// Products on mma.sync.m16n8k16 bf16 with the operands swapped: the weights
+// are A (16 output rows x 16 k), the activations B (16 k x 8 tokens), so
+// M <= 8 is one n-tile, M <= 16 two and M <= 32 four.  The k order inside
+// an mma is free so long as A and B agree: lane (g, t) feeds logical k 2t,
+// 2t + 1, 2t + 8, 2t + 9 with four CONSECUTIVE codes of its own chunk of a
+// row (codes 4q..4q+3 for the chunk's q-th mma), and B with the activations
+// of those same columns.  So a lane takes one chunk of a row (16 bytes: 32
+// 4-bit codes, 16 bytes of int8 / e4m3; INT2: 8 bytes, 32 codes) for rows
+// g and g + 8 of its warp's 16-row tile, and four lanes (t = 0..3) cover a
+// step of 4 chunks of K.  Each weight is dequantized once in fp32 (bf16 of
+// (code - zero) * scale, e2m1 * scale, wi * scale: the plain version's
+// value; E4M3 its exact e4m3 value, the row scale after the sum) and
+// rounded once to bf16 (cvt.rn.bf16x2.f32).
+
+// Columns of one warp step (4 lanes x one chunk), bytes of a lane's chunk,
+// steps a 128-byte row segment of the weight ring holds, steps of scales a
+// lane keeps in flight in registers (two ring slots), x bytes a block may
+// stage, ring slots.
+template <int FMT>
+constexpr int STEP_K = 4 * CHUNK<FMT>;
+template <int FMT>
+constexpr int CHUNK_BYTES = FMT == INT2 ? 8 : 16;
+template <int FMT>
+constexpr int SLOT_STEPS = 128 / (4 * CHUNK_BYTES<FMT>);
+template <int FMT>
+constexpr int DEPTH = 2 * SLOT_STEPS<FMT>;
+constexpr int GEMV_MAX_WARPS = 8;
+constexpr int GEMV_MAX_CLUSTER = 16;      // beyond 8: a non-portable size
+constexpr int GEMV_SLOTS = 2;             // a warp's ring: 2 x 16 rows x 128 B
+constexpr int GEMV_RING = GEMV_SLOTS * 16 * 128;
+// x a block may stage, and blocks an SM: one n-tile (M <= 8) keeps three
+// blocks of 8 warps (80 registers, 64 KB of shared memory each; ASYM4,
+// whose zero points would spill there, two), more n-tiles two (x up to 64
+// KB)
+constexpr int gemv_x_max(int nt) { return nt == 1 ? 32 << 10 : 64 << 10; }
+constexpr int gemv_min_blocks(int fmt, int nt) {
+  return nt == 1 && fmt != ASYM4 ? 3 : 2;
+}
+constexpr int GEMV_SMEM_MAX = gemv_x_max(2) + GEMV_MAX_WARPS * GEMV_RING;
+
+// One step's scales of a lane: for rows g and g + 8, the scale (and zero
+// point) of each 16-column half of its chunk (G16 formats: a group may
+// start half way).
+struct GemvScales {
+  float s[2][2], z[2][2];
+};
+
+__device__ __forceinline__ uint32_t word_of(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// byte b of `bytes` as the float 2^23 + byte (the magic-number conversion)
+__device__ __forceinline__ float magic_byte(uint32_t bytes, int b) {
+  return __uint_as_float(__byte_perm(bytes, 0x4B000000u, 0x7650 + b));
+}
+
+// The four values of mma q of a chunk (codes 4q..4q+3), in fp32: exactly
+// the plain version's dequantized weight before its bf16 rounding.  The
+// 4-bit and 2-bit codes are first spread one to a byte with masks (a word
+// of 8 nibbles: even nibbles in one register, odd in another), so each
+// code costs one byte permute, one subtraction and one product.
+template <int FMT>
+__device__ __forceinline__ void dequant4(const uint4& w, int q, float s,
+                                         float z, float* f) {
+  if (FMT == SYM4 || FMT == ASYM4) {
+    const uint32_t word = word_of(w, q / 2);
+    const uint32_t ev = word & 0x0F0F0F0Fu, od = (word >> 4) & 0x0F0F0F0Fu;
+    const int b = 2 * (q % 2);          // nibbles 4 (q % 2) + 0..3
+    const float v[4] = {magic_byte(ev, b), magic_byte(od, b),
+                        magic_byte(ev, b + 1), magic_byte(od, b + 1)};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
+    for (int i = 0; i < 4; ++i)
+      f[i] = (FMT == ASYM4 ? (v[i] - 8388608.0f) - z : v[i] - 8388616.0f)
+             * s;
+  } else if (FMT == INT2) {
+    const uint32_t word = word_of(w, q / 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)        // code 4 (q % 4) + i: byte q % 4 of
+      f[i] = (magic_byte((word >> (2 * i)) & 0x03030303u, q % 4)
+              - 8388610.0f) * s;         // the codes i, i + 4, ... of word
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (FMT == INT8)
+        f[i] = s8_to_f32(word_of(w, q), i) * s;
+      else if (FMT == E4M3)
+        f[i] = e4m3_to_f32(word_of(w, q), i);
+      else
+        f[i] = e2m1_to_f32(word_of(w, q / 2), 4 * (q % 2) + i) * s;
+    }
   }
 }
 
-constexpr int GEMV_WARPS = 4;
+// A lane's scale (and zero point) rows for its weight rows g and g + 8.
+struct GemvRows {
+  const float* s[2];
+  const float* z[2];
+  bool ok[2];
+};
 
-// MT: activation rows held in registers (power of two >= M); R: output
-// rows per block.  Lane l of warp w handles the 16-byte chunks (32 codes or
-// 16 int8) c = w*32 + l, stepping by 128 chunks.  blockIdx.y is the expert.
-template <int MT, int R, int FMT>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
+// Scales of local step i (the lane's chunk at column k = (s_lo + i) *
+// STEP_K + CHUNK * t); past O, K or the block's range they are 0.  The
+// group index is k * ceil(2^32 / g) >> 32 (exact for k * g < 2^32), no
+// division.
+template <int FMT>
+__device__ __forceinline__ void gemv_scales(GemvScales& sl,
+                                            const GemvRows& rw, int i,
+                                            int n_local, int s_lo, int t,
+                                            int K, uint32_t g_magic) {
+  const int k = (s_lo + i) * STEP_K<FMT> + CHUNK<FMT> * t;
+  const bool in = i < n_local && k < K;
+  const uint32_t gi = __umulhi((uint32_t)k, g_magic);
+  const bool split = G16<FMT> && __umulhi((uint32_t)k + 16, g_magic) != gi;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sl.s[h][0] = sl.s[h][1] = 0.f;
+    sl.z[h][0] = sl.z[h][1] = 0.f;
+    if (in && rw.ok[h] && FMT != E4M3) {
+      sl.s[h][0] = __ldg(rw.s[h] + gi);
+      sl.s[h][1] = split ? __ldg(rw.s[h] + gi + 1) : sl.s[h][0];
+      if (FMT == ASYM4) {
+        sl.z[h][0] = __ldg(rw.z[h] + gi);
+        sl.z[h][1] = split ? __ldg(rw.z[h] + gi + 1) : sl.z[h][0];
+      }
+    }
+  }
+}
+
+// A lane's part of copying one ring slot of the warp's 16 weight rows (a
+// 128-byte segment of each) into shared memory: 16 rows x 128 bytes,
+// 16-byte chunk c of row r at chunk c ^ 4 (r & 1), so a quarter warp's
+// fragment reads (rows 2q, 2q + 1, four chunks each) hit distinct banks.
+// Each copy instruction of the warp reads whole 128-byte row segments (4
+// rows; INT2, whose rows need not be 16-byte aligned: 8-byte copies, 2
+// rows).  Everything but the segment's column is fixed for the lane, so it
+// is worked out once.
+template <int FMT>
+struct GemvCopy {
+  static constexpr int PB = FMT == INT2 ? 8 : 16;   // bytes a copy
+  static constexpr int PER_ROW = 128 / PB;
+  static constexpr int N = 16 * PER_ROW / 32;       // copies a lane
+  const uint8_t* src[N];   // the lane's row at the range's first byte
+  int off[N];              // its place in a slot
+  bool row_ok[N];
+  int col;                 // its byte within a segment
+
+  __device__ __forceinline__ GemvCopy(const uint8_t* w0, size_t rb, int rows,
+                                      size_t b_lo, int lane) {
+    col = (lane % PER_ROW) * PB;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int r = (32 * j + lane) / PER_ROW;
+      row_ok[j] = r < rows;
+      src[j] = w0 + (row_ok[j] ? (size_t)r * rb : 0) + b_lo + col;
+      off[j] = r * 128 + (((col / 16) ^ ((r & 1) << 2)) << 4) + col % 16;
+    }
+  }
+
+  // segment `st` of the range (bytes b_lo + 128 st ..) into `slot`; rows
+  // past O and bytes past the row or the block's range (n_bytes) are zeros
+  __device__ __forceinline__ void copy(unsigned char* slot, int st,
+                                       size_t n_bytes) const {
+    const bool in = (size_t)st * 128 + col < n_bytes;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const bool ok = in && row_ok[j];
+      cp_async<PB>(slot + off[j], ok ? src[j] + (size_t)st * 128 : src[j],
+                   ok);
+    }
+  }
+};
+
+// Stage the block's x (steps s_lo .. s_lo + n - 1) into `dst` in fragment
+// order: 16-byte piece p (8 bf16) of lane (g, t)'s chunk of n-tile nt, step
+// j lies at ((j * NT + nt) * P + p) * 32 + 4 g + t, so a warp's B operands
+// are 512 contiguous bytes.  Eight neighbouring threads write 128
+// contiguous bytes; a warp reads two x rows' 256 contiguous bytes (128 for
+// the byte formats: four rows).  Rows past M and columns past K are zeros.
+template <int FMT, int NT>
+__device__ __forceinline__ void gemv_stage(uint4* dst, const __nv_bfloat16* x,
+                                           int s_lo, int n, int M, int K) {
+  constexpr int CW = CHUNK<FMT>, P = CW / 8;
+  const int pieces = n * NT * P * 32;
+  for (int i = threadIdx.x; i < pieces; i += blockDim.x) {
+    int v = i;
+    const int t = v & 3;
+    v >>= 2;
+    const int gl = v & 1;
+    v >>= 1;
+    const int p = v % P;
+    v /= P;
+    const int gp = v & 3;
+    v >>= 2;
+    const int nt = v % NT, j = v / NT;
+    const int gq = 2 * gp + gl, m = 8 * nt + gq;
+    const int k = (s_lo + j) * STEP_K<FMT> + CW * t + 8 * p;
+    const bool ok = m < M && k < K;
+    cp_async<16>(dst + ((j * NT + nt) * P + p) * 32 + 4 * gq + t,
+                 ok ? x + (size_t)m * K + k : x, ok);
+  }
+}
+
+// A block of rw warps (blockDim.x / 32), warp w owning row tile w of the
+// block's 16 rw rows, over one range of steps_pb steps of K: the block's
+// rank in a thread-block cluster of kc blocks along K (blockIdx.x % kc).
+// The block stages its x range once (at most gemv_x_max, x_bytes of shared
+// memory; each warp's weight ring lies after it).  Each warp streams its
+// rows' codes through a ring of GEMV_SLOTS slots of 16 rows x 128 bytes
+// (two to four steps a slot) by cp.async, GEMV_SLOTS - 1 slots ahead of
+// their use, with one warp barrier a slot and no block barrier in the
+// loop; the scales arrive DEPTH steps ahead in registers.  The mma sums
+// alternate between two accumulator sets (a shorter dependence chain),
+// added at the end.  With kc > 1 the cluster's blocks add their partial
+// sums into rank 0 through distributed shared memory in the order rank 0,
+// 1, ... (no workspace, no atomics: two launches give the same bits).
+// blockIdx.y is the expert.
+template <int FMT, int NT>
+__global__ void __launch_bounds__(GEMV_MAX_WARPS * 32,
+                                  gemv_min_blocks(FMT, NT))
 gemv_kernel(const __nv_bfloat16* __restrict__ x,
             const uint8_t* __restrict__ qw, const float* __restrict__ sc,
             const float* __restrict__ zp, __nv_bfloat16* __restrict__ y,
-            long long x_stride_e, int M, int K, int O, int g) {
-  __shared__ float red[GEMV_WARPS][R][MT];
-  constexpr int CW = CHUNK<FMT>;
+            long long x_stride_e, int M, int K, int O, int g,
+            uint32_t g_magic, int kc, int steps_pb, int x_bytes) {
+  constexpr int CW = CHUNK<FMT>, CB = CHUNK_BYTES<FMT>, P = CW / 8;
+  constexpr int SS = SLOT_STEPS<FMT>, D = DEPTH<FMT>;
+  extern __shared__ __align__(128) unsigned char gemv_smem_raw[];
+  uint4* xs = reinterpret_cast<uint4*>(gemv_smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int o0 = blockIdx.x * R;
-  const int n_chunks = K / CW;
+  const int gq = lane >> 2, t = lane & 3;
+  const int n_warps = blockDim.x / 32;
+  unsigned char* ring = gemv_smem_raw + x_bytes + warp * GEMV_RING;
+  const int kr = blockIdx.x % kc;
+  const int row0 = ((blockIdx.x / kc) * n_warps + warp) * 16;
+  const int r0 = row0 + gq;
   const size_t rb = row_bytes<FMT>(K);
-  const int ng = K / g;                   // groups per row
+  const int ng = K / g;
   const size_t e = blockIdx.y;
   x += e * (size_t)x_stride_e;
   qw += e * (size_t)O * rb;
@@ -205,90 +443,282 @@ gemv_kernel(const __nv_bfloat16* __restrict__ x,
   if (FMT == ASYM4) zp += e * (size_t)O * ng;
   y += e * (size_t)M * O;
 
-  float acc[R][MT];
+  const int n_steps = (K + STEP_K<FMT> - 1) / STEP_K<FMT>;
+  const int s_lo = kr * steps_pb;
+  const int n_local = max(0, min(n_steps - s_lo, steps_pb));
+  const int n_slots = (n_local + SS - 1) / SS;
+  // the warp's rows in the ring: n_bytes bytes of each from byte b_lo
+  const size_t b_lo = (size_t)s_lo * 4 * CB;
+  const size_t b_hi = b_lo + (size_t)n_local * 4 * CB;
+  const GemvCopy<FMT> wcopy(qw + (size_t)min(row0, O - 1) * rb, rb,
+                            min(16, O - row0), b_lo, lane);
+  const size_t n_bytes = (b_hi < rb ? b_hi : rb) - b_lo;
+  GemvRows srows;
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    srows.ok[h] = r < O;
+    const size_t rr = srows.ok[h] ? (size_t)r : 0;
+    srows.s[h] = sc + rr * ng;
+    srows.z[h] = FMT == ASYM4 ? zp + rr * ng : zp;
+  }
 
-  for (int c = warp * 32 + lane; c < n_chunks; c += GEMV_WARPS * 32) {
-    uint4 wv[R];
-    float s[R], z[R];
+  float c[2][NT][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int o = o0 + r;
-      z[r] = 0.f;
-      if (o < O) {
-        if (FMT == INT2) {
-          const uint2 h = __ldg(
-              reinterpret_cast<const uint2*>(qw + (size_t)o * rb) + c);
-          wv[r] = make_uint4(h.x, h.y, 0u, 0u);
-        } else {
-          wv[r] = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)o * rb)
-                        + c);
-        }
-        s[r] = FMT == E4M3 ? 1.f : __ldg(sc + (size_t)o * ng + (c * CW) / g);
-        if (FMT == ASYM4) z[r] = __ldg(zp + (size_t)o * ng + (c * CW) / g);
-      } else {                            // any codes: their scale is 0
-        wv[r] = make_uint4(0x88888888u, 0x88888888u, 0x88888888u,
-                           0x88888888u);
-        s[r] = 0.f;
-      }
-    }
+  for (int a = 0; a < 2; ++a)
 #pragma unroll
-    for (int q = 0; q < CW / 8; ++q) {    // the chunk, 8 weights at a time
-      // g % 32 == 16 (SYM4, ASYM4, E2M1): a group may start half way
-      // through the chunk, with its own scale (and zero point)
-      if (G16<FMT> && q == 2 && (c * CW + 16) % g == 0) {
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (o0 + r < O) {
-            const size_t gi = (size_t)(o0 + r) * ng + (c * CW + q * 8) / g;
-            s[r] = __ldg(sc + gi);
-            if (FMT == ASYM4) z[r] = __ldg(zp + gi);
+      for (int i = 0; i < 4; ++i) c[a][n][i] = 0.f;
+
+  gemv_stage<FMT, NT>(xs, x, s_lo, n_local, M, K);
+  cp_commit();
+#pragma unroll
+  for (int st = 0; st < GEMV_SLOTS - 1; ++st) {
+    if (st < n_slots) wcopy.copy(ring + st * 2048, st, n_bytes);
+    cp_commit();
+  }
+  GemvScales sl[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+    gemv_scales<FMT>(sl[d], srows, d, n_local, s_lo, t, K, g_magic);
+  cp_wait<GEMV_SLOTS - 1>();              // x has landed (this thread's)
+  __syncthreads();                        // (every thread's)
+
+  // ring slot st holds steps st * SS .. st * SS + SS - 1; scales of step
+  // i sit in sl[i % D] (D = 2 SS: the loop advances two slots at a time)
+  for (int st0 = 0; st0 < n_slots; st0 += 2) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int st = st0 + u;
+      if (st < n_slots) {
+        cp_wait<GEMV_SLOTS - 2>();        // slot st landed (this lane's)
+        __syncwarp();                     // (every lane's), slot st - 1 read
+        const int nx = st + GEMV_SLOTS - 1;
+        if (nx < n_slots)
+          wcopy.copy(ring + (nx % GEMV_SLOTS) * 2048, nx, n_bytes);
+        cp_commit();
+        const unsigned char* slot = ring + (st % GEMV_SLOTS) * 2048;
+#pragma unroll
+        for (int ss = 0; ss < SS; ++ss) {
+          const int i = st * SS + ss, d = u * SS + ss;
+          if (i < n_local) {
+            // this lane's chunk of rows g, g + 8 at byte (ss * 4 + t) * CB
+            // of the slot's 128-byte row segments
+            const int cb = (ss * 4 + t) * CB;
+            uint4 w[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = gq + 8 * h;
+              const unsigned char* src =
+                  slot + r * 128 + (((cb / 16) ^ ((r & 1) << 2)) << 4)
+                  + cb % 16;
+              if (FMT == INT2) {
+                const uint2 v = *reinterpret_cast<const uint2*>(src);
+                w[h] = make_uint4(v.x, v.y, 0u, 0u);
+              } else {
+                w[h] = *reinterpret_cast<const uint4*>(src);
+              }
+            }
+            const uint4* xb = xs + i * NT * P * 32 + lane;
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+              uint4 xv[NT];
+#pragma unroll
+              for (int n = 0; n < NT; ++n) xv[n] = xb[(n * P + p) * 32];
+#pragma unroll
+              for (int hq = 0; hq < 2; ++hq) {
+                const int q = 2 * p + hq;
+                const int half = (4 * q) / 16;
+                float f0[4], f1[4];
+                dequant4<FMT>(w[0], q, sl[d].s[0][half], sl[d].z[0][half],
+                              f0);
+                dequant4<FMT>(w[1], q, sl[d].s[1][half], sl[d].z[1][half],
+                              f1);
+                const uint32_t a[4] = {pack_bf16(f0[0], f0[1]),
+                                       pack_bf16(f1[0], f1[1]),
+                                       pack_bf16(f0[2], f0[3]),
+                                       pack_bf16(f1[2], f1[3])};
+#pragma unroll
+                for (int n = 0; n < NT; ++n)
+                  mma16816(c[hq][n], a, hq ? xv[n].z : xv[n].x,
+                           hq ? xv[n].w : xv[n].y);
+              }
+            }
           }
-      }
-      float wf[R][8];
-#pragma unroll
-      for (int r = 0; r < R; ++r) dequant8<FMT>(wv[r], q, z[r], s[r], wf[r]);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m < M) {
-          float xf[8];
-          bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(
-                            x + (size_t)m * K + c * CW + q * 8)), xf);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[r][m] = fmaf(xf[j], wf[r][j],
-                                                         acc[r][m]);
+          gemv_scales<FMT>(sl[d], srows, i + D, n_local, s_lo, t, K,
+                           g_magic);
         }
       }
     }
   }
+  cp_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[0][n][i] += c[1][n][i];
 
+  // the cluster's partial sums into rank 0, in the order of the ranks
+  if (kc > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    __syncthreads();                      // every warp's x reads are done
+    float* red = reinterpret_cast<float*>(xs);
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float v = acc[r][m];
+      for (int i = 0; i < 4; ++i)
+        red[((warp * NT + n) * 4 + i) * 32 + lane] = c[0][n][i];
+    cluster.sync();
+    if (kr == 0) {
+      for (int r = 1; r < kc; ++r) {
+        const float* other = cluster.map_shared_rank(red, r);
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][r][m] = v;
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            c[0][n][i] += other[((warp * NT + n) * 4 + i) * 32 + lane];
+      }
     }
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
-    const int r = i / MT, m = i % MT;
-    const int o = o0 + r;
-    if (o < O && m < M) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < GEMV_WARPS; ++w) v += red[w][r][m];
-      if (FMT == E4M3) v *= __ldg(sc + o);   // the row's scale, after the sum
-      y[(size_t)m * O + o] = __float2bfloat16(v);
-    }
+    cluster.sync();                       // the ranks' shared memory stays
+    if (kr != 0) return;                  // until rank 0 has read it
   }
+  // value i of n-tile n: row r0 + 8 (i / 2), token 8 n + 2 t + i % 2
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = r0 + 8 * h;
+    if (o >= O) continue;
+    const float rs = FMT == E4M3 ? __ldg(sc + o) : 1.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int m = 8 * n + 2 * t + j;
+        if (m < M)
+          y[(size_t)m * O + o] = __float2bfloat16(c[0][n][2 * h + j] * rs);
+      }
+  }
+}
+
+// The GEMV's grid, from host shapes only (never a tensor's values, so the
+// launch can be captured in a CUDA graph): a block takes rw = min(8, row
+// tiles) row tiles (each staged x feeds 16 rw rows), and the cluster splits
+// K into kc ranges, doubling kc (to 8) while the warps stay within one wave
+// of 16 an SM, and further (to 16, H100's non-portable cluster size) until
+// a block's x range fits in gemv_x_max.
+struct GemvPlan {
+  int rw, kc, steps_pb;
+};
+
+template <int FMT>
+GemvPlan gemv_plan(int E, int M, int K, int O, int sms) {
+  const int mt = M <= 8 ? 8 : M <= 16 ? 16 : 32;
+  const int steps = (K + STEP_K<FMT> - 1) / STEP_K<FMT>;
+  const int tiles = (O + 15) / 16;
+  const int rw = min(GEMV_MAX_WARPS, tiles);
+  const long long warps = (long long)E * ((tiles + rw - 1) / rw) * rw;
+  auto x_bytes = [&](int kc) {
+    return (long long)((steps + kc - 1) / kc) * STEP_K<FMT> * mt * 2;
+  };
+  int kc = 1;
+  while (2 * kc <= GEMV_MAX_CLUSTER && 2 * kc <= steps
+         && ((2 * kc <= 8 && warps * 2 * kc <= 16LL * sms)
+             || x_bytes(kc) > gemv_x_max(mt / 8)))
+    kc *= 2;
+  return {rw, kc, (steps + kc - 1) / kc};
+}
+
+// Dynamic shared memory of a plan: its x range (or the cluster's partial
+// sums if larger), then each warp's weight ring.
+template <int FMT, int NT>
+int gemv_x_bytes(const GemvPlan& p) {
+  const int xb = p.steps_pb * STEP_K<FMT> * NT * 8 * 2;
+  const int red = p.kc > 1 ? p.rw * NT * 4 * 32 * 4 : 0;
+  const int b = xb > red ? xb : red;
+  return (b + 127) / 128 * 128;
+}
+
+template <int FMT, int NT>
+int gemv_smem(const GemvPlan& p) {
+  return gemv_x_bytes<FMT, NT>(p) + p.rw * GEMV_RING;
+}
+
+// The SM count of the current device.
+inline int device_sms() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Whether a block's x range under plan p fits its shared memory.
+template <int FMT, int NT>
+bool gemv_fits(const GemvPlan& p) {
+  return gemv_x_bytes<FMT, NT>(p) <= gemv_x_max(NT);
+}
+
+template <int FMT, int NT>
+cudaError_t launch_gemv(const GemvPlan& p, const __nv_bfloat16* x,
+                        const uint8_t* qw, const float* sc, const float* zp,
+                        __nv_bfloat16* y, int E, long long xse, int M, int K,
+                        int O, int g, cudaStream_t st) {
+  const int smem = gemv_smem<FMT, NT>(p);
+  cudaError_t err = cudaFuncSetAttribute(
+      gemv_kernel<FMT, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      GEMV_SMEM_MAX);
+  if (err == cudaSuccess && p.kc > 8)
+    err = cudaFuncSetAttribute(gemv_kernel<FMT, NT>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return err;
+  const int tiles = (O + 15) / 16;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles + p.rw - 1) / p.rw * p.kc, E);
+  cfg.blockDim = dim3(32 * p.rw);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.kc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const uint32_t g_magic = (uint32_t)((0x100000000ULL + g - 1) / g);
+  return cudaLaunchKernelEx(&cfg, gemv_kernel<FMT, NT>, x, qw, sc, zp, y,
+                            xse, M, K, O, g, g_magic, p.kc, p.steps_pb,
+                            gemv_x_bytes<FMT, NT>(p));
+}
+
+// The GEMV's resources on this card for M rows (its n-tile tier) and its
+// plan for (E, M, K, O): info = {registers a thread, local (spill) bytes a
+// thread, dynamic shared bytes a block, blocks per SM at the plan's block
+// size and shared memory, rw (row tiles a block), kc (blocks a cluster
+// along K)}.
+template <int FMT>
+int gemv_info(int E, int M, int K, int O, int* info) {
+  cudaFuncAttributes a;
+  int blocks = 0;
+  const GemvPlan p = gemv_plan<FMT>(E, M, K, O, device_sms());
+  const void* fn = M <= 8    ? (const void*)gemv_kernel<FMT, 1>
+                   : M <= 16 ? (const void*)gemv_kernel<FMT, 2>
+                             : (const void*)gemv_kernel<FMT, 4>;
+  const int smem = M <= 8    ? gemv_smem<FMT, 1>(p)
+                   : M <= 16 ? gemv_smem<FMT, 2>(p)
+                             : gemv_smem<FMT, 4>(p);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMV_SMEM_MAX);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                        32 * p.rw, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = smem;
+  info[3] = blocks;
+  info[4] = p.rw;
+  info[5] = p.kc;
+  return 0;
 }
 
 // ---- the GEMM body (M > 32) ----------------------------------------------
@@ -601,15 +1031,6 @@ int gemm_info(int* info) {
   return 0;
 }
 
-template <int MT, int R, int FMT>
-void launch_gemv(const __nv_bfloat16* x, const uint8_t* qw, const float* sc,
-                 const float* zp, __nv_bfloat16* y, int E, long long xse,
-                 int M, int K, int O, int g, cudaStream_t st) {
-  dim3 grid((O + R - 1) / R, E);
-  gemv_kernel<MT, R, FMT><<<grid, GEMV_WARPS * 32, 0, st>>>(
-      x, qw, sc, zp, y, xse, M, K, O, g);
-}
-
 // x (E, M, K) bf16, each (M, K) slab contiguous, at an expert stride of
 // `x_stride_e` elements (a multiple of 8; M*K when contiguous, 0 for one
 // slab shared by all experts), qweight (E, O, K/8) int32 (SYM4, ASYM4,
@@ -634,23 +1055,26 @@ int launch(const void* x_, const void* qw_, const void* sc_, const void* zp_,
   const float* zp = static_cast<const float*>(zp_);
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(y_);
   const long long xse = x_stride_e;
-#define W4A16_GEMV(MT, R) \
-  launch_gemv<MT, R, FMT>(x, qw, sc, zp, y, E, xse, M, K, O, g, st)
-  if (M == 1)       W4A16_GEMV(1, 4);
-  else if (M <= 2)  W4A16_GEMV(2, 4);
-  else if (M <= 4)  W4A16_GEMV(4, 4);
-  else if (M <= 8)  W4A16_GEMV(8, 4);
-  else if (M <= 16) W4A16_GEMV(16, 2);
-  else if (M <= 32) W4A16_GEMV(32, 1);
-  else {
-    int smem = 0;
-    const cudaError_t err = gemm_smem<FMT>(&smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((O + BN - 1) / BN, (M + BM - 1) / BM, E);
-    gemm_kernel<FMT><<<grid, GEMM_THREADS, smem, st>>>(x, qw, sc, zp, y, xse,
-                                                        M, K, O, g);
+  // M <= 32: the GEMV, unless a block's x range would not fit even split
+  // over a cluster of 16 (K past ~32k at M = 32); the GEMM body takes any M
+  if (M <= 32) {
+    const GemvPlan p = gemv_plan<FMT>(E, M, K, O, device_sms());
+    if (M <= 8 && gemv_fits<FMT, 1>(p))
+      return (int)launch_gemv<FMT, 1>(p, x, qw, sc, zp, y, E, xse, M, K, O, g,
+                                      st);
+    if (M > 8 && M <= 16 && gemv_fits<FMT, 2>(p))
+      return (int)launch_gemv<FMT, 2>(p, x, qw, sc, zp, y, E, xse, M, K, O, g,
+                                      st);
+    if (M > 16 && gemv_fits<FMT, 4>(p))
+      return (int)launch_gemv<FMT, 4>(p, x, qw, sc, zp, y, E, xse, M, K, O, g,
+                                      st);
   }
-#undef W4A16_GEMV
+  int smem = 0;
+  const cudaError_t err = gemm_smem<FMT>(&smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((O + BN - 1) / BN, (M + BM - 1) / BM, E);
+  gemm_kernel<FMT><<<grid, GEMM_THREADS, smem, st>>>(x, qw, sc, zp, y, xse,
+                                                      M, K, O, g);
   return (int)cudaGetLastError();
 }
 

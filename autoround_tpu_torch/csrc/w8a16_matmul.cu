@@ -11,9 +11,9 @@
 // the W4A16 kernels (w4a16_tiles.cuh) in their INT8 format, a byte load
 // where the nibble unpack is: the GEMM body (M > 32) dequantizes each
 // k-step's codes once into a bf16 shared-memory tile as bf16(float(wi) *
-// s), exactly what the plain version rounds, for mma.sync; the GEMV body
-// (M <= 32) keeps float(wi) * s in fp32 registers and reuses it for all M
-// rows.  The scales stay (O, K/g) as the engine stores them.
+// s), exactly what the plain version rounds, for wgmma; the GEMV body
+// (M <= 32) rounds the same value in registers into the A fragments of
+// mma.sync.  The scales stay (O, K/g) as the engine stores them.
 //
 // What bounds it on an H100: decode streams 1 byte a weight (twice the
 // W4A16 stream), prefill is bound by the bf16 tensor cores as W4A16 is.
@@ -35,4 +35,12 @@ extern "C" int w8a16_matmul(const void* x, const void* wi, const void* sc,
 // body (M > 32) into info[0..3].  Returns a cudaError_t.
 extern "C" int w8a16_matmul_gemm_info(int* info) {
   return w4a16::gemm_info<w4a16::INT8>(info);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (E, M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int w8a16_matmul_gemv_info(int E, int M, int K, int O, int* info) {
+  return w4a16::gemv_info<w4a16::INT8>(E, M, K, O, info);
 }

@@ -53,9 +53,9 @@ def int8_rows(x: torch.Tensor, recip: bool = False
 
 def key_mean(k: torch.Tensor) -> torch.Tensor:
     """The per-(batch, head) mean key of k (B, Hkv, T, D) over T → (B, Hkv,
-    D) fp32.  (An fp32 sum: its order, and so its last bit, differs from
-    XLA's.)"""
-    return k.float().mean(dim=2)
+    D) fp32: one reduction that reads k in its own dtype and sums in fp32.
+    (Its order, and so its last bit, differs from XLA's.)"""
+    return k.mean(dim=2, dtype=torch.float32)
 
 
 def sage_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,13 +88,31 @@ def sage_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _entry():
-    fn = _build.load("sage_attention").sage_attention_fwd
+def _entry(name: str, n_ptr: int, n_int: int, has_float: bool = False):
+    fn = getattr(_build.load("sage_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * has_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _quantize_keys(k: torch.Tensor, k_mean: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's pre-pass on a CUDA k (B, Hkv, T, D) bf16 and its mean
+    key (B, Hkv, D) fp32: int8 codes (B, Hkv, T, D) and fp32 scales (B,
+    Hkv, T) of k - k_mean, those of ``int8_rows(k.float() - k_mean[:, :,
+    None], recip=True)`` bit for bit.  Shapes as :func:`sage_attention`
+    checks them."""
+    B, Hkv, T, D = k.shape
+    ki = torch.empty((B, Hkv, T, D), dtype=torch.int8, device=k.device)
+    ks = torch.empty((B, Hkv, T), dtype=torch.float32, device=k.device)
+    stream = torch.cuda.current_stream(k.device).cuda_stream
+    err = _entry("sage_quantize_keys", 4, 4)(
+        k.data_ptr(), k_mean.data_ptr(), ki.data_ptr(), ks.data_ptr(), B,
+        Hkv, T, D, stream)
+    _build.check(err, "sage_attention (key pre-pass)")
+    return ki, ks
 
 
 def sage_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,9 +123,10 @@ def sage_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA: bf16, contiguous, D in {128, 256}, S and T multiples of 64,
     H % Hkv == 0 and, when causal, T >= S (the kernel would give a row
     with no visible key 0 where the reference gives the uniform softmax);
-    anything else raises.  The mean key is one torch reduction; the kernel
-    quantizes the q and smoothed k tiles itself.  CPU: the plain version in
-    the kernel's (and the jitted JAX op's) reciprocal form."""
+    anything else raises.  The mean key is one torch reduction; a pre-pass
+    kernel quantizes the smoothed keys once, the attention kernel its q
+    tiles.  CPU: the plain version in the kernel's (and the jitted JAX
+    op's) reciprocal form."""
     if q.device.type == "cpu":
         return sage_attention_plain(q, k, v, causal, recip=True)
     if q.device.type != "cuda":
@@ -123,12 +142,13 @@ def sage_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sage_attention: kernel takes D in (128, 256), "
                          f"S, T % 64 == 0, H % Hkv == 0, T >= S if causal; "
                          f"got D={D} S={S} T={T} H={H} Hkv={Hkv}")
-    k_mean = key_mean(k).contiguous()
+    ki, ks = _quantize_keys(k, key_mean(k).contiguous())
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   k_mean.data_ptr(), out.data_ptr(), B, H, Hkv, S, T, D,
-                   int(causal), 1.0 / math.sqrt(D), stream)
+    err = _entry("sage_attention_fwd", 5, 7, True)(
+        q.data_ptr(), ki.data_ptr(), ks.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, H, Hkv, S, T, D, int(causal), 1.0 / math.sqrt(D),
+        stream)
     _build.check(err, "sage_attention")
     sage_attention.launches += 1
     return out

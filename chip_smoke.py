@@ -11,9 +11,11 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              nvcc per source, in parallel); print the seconds, the
              compiler's register / spill / warning lines by kernel, and the
              flash forward's, the backward pair's (dQ, dK/dV at D = 128
-             and 256), the nine GEMM bodies' and the decode split and
-             combine kernels' registers, spill bytes, dynamic shared
-             memory and blocks per SM.
+             and 256), the nine GEMM bodies', the seven A16 GEMVs' (per
+             M tier, with their plans at the main path's shapes), the
+             int8-QK attention's and its key pre-pass's, and the decode
+             split and combine kernels' registers, spill bytes, dynamic
+             shared memory and blocks per SM.
 2. kernels — run each of the fourteen kernels (flash forward, flash
              backward dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym
              W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
@@ -32,7 +34,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              The decode and int8 kernels (split + combine, quantize_rows +
              product), the backward pair (each kernel, and the whole
              ``flash_attention_bwd``: delta + dQ + dK/dV, against SDPA's
-             backward), the A16 GEMV at M = 8 (C = 8 grouped) and their
+             backward), the A16 GEMV at M = 8 (C = 8 grouped), the
+             int8-QK attention (beside row 1 and SDPA) and their
              library calls also get ``device_ms``: the kernels' own time
              by torch.profiler.  The int8 kinds also
              check ``quantize_rows`` (codes and scales bit-equal) and say
@@ -175,9 +178,10 @@ ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
            # W4A8 GEMV sums its groups in another order (fp32 row error
            # 2.1e-6), which moves a few outputs by one bf16 ulp: of a row's
            # largest output that is 0.0185 of the row's RMS (measured, lm_head
-           # M = 8); W8A16 rounds float(wi) * s to bf16 in the plain version
-           # and the GEMM body, not in the GEMV (measured 0.0503 per channel
-           # at K = 14336)
+           # M = 8); W8A16 rounds float(wi) * s to bf16 as the plain version
+           # does in both bodies (the GEMV: worst row 0.0124 at M = 8;
+           # the GEMM per channel at K = 14336, M = 4096: 0.0503, the sums'
+           # order over 14336 products)
            "w4a8_matmul": 0.06, "w8a8_matmul": 0.06, "w8a16_matmul": 0.15,
            "decode_attention": 0.025,
            # the tile bodies of w4a16_matmul with an expert grid axis / a
@@ -188,7 +192,8 @@ ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
            "flash_attention_bwd_dq": 0.07, "flash_attention_bwd_dkv": 0.07,
            # the W4A16 bodies in their INT2 and E2M1 formats (measured 0.035
            # and 0.036); FP8 applies the channel scale to the fp32 sum where
-           # the plain version rounds e4m3 * s to bf16 first (measured 0.056)
+           # the plain version rounds e4m3 * s to bf16 first (measured 0.056
+           # in the GEMM, 0.029 in the GEMV at M = 8)
            "w2a16_matmul": 0.1, "mxfp4_matmul": 0.1, "fp8_matmul": 0.15,
            # int8-QK attention against its plain version on the same mean
            # key: the same codes, scores and softmax on both sides up to
@@ -1090,7 +1095,8 @@ def sage_kernel_phase(timer, bw, flops_peak, int8_peak):
     and S=256 T=512, D128, causal) and the JAX docstring's B4 H32 Hkv8
     S=T=2048: against its plain version in the jitted form it follows (the
     same mean key), timed beside its bound, SDPA on the same bf16 q/k/v
-    (the library yardstick) and row 1's flash kernel in the same call.
+    (the library yardstick) and row 1's flash kernel in the same call, by
+    event and by device time (``Timer.device``).
     Bound: the bytes of q, k, v and the output, or QK^T's operations over
     the int8 peak plus P.V's over the bf16 peak (the causal pairs)."""
     import torch.nn.functional as F
@@ -1135,6 +1141,12 @@ def sage_kernel_phase(timer, bw, flops_peak, int8_peak):
                                                       recip=True))
         lib_ms = timer(lib)
         flash_ms = timer(lambda: flash_attention(q, k, v, True))
+        # device times: the op's kernels summed (the mean key's reduction,
+        # the key pre-pass, the attention kernel), row 1's, SDPA's
+        dev_ms, how = timer.device(lambda: sage_attention(q, k, v, True))
+        flash_dev_ms, _ = timer.device(lambda: flash_attention(q, k, v,
+                                                               True))
+        lib_dev_ms, _ = timer.device(lib)
         valid = sum(min(T, i + T - S + 1) for i in range(S))
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
         t_b = nbytes / bw * 1e3
@@ -1147,7 +1159,10 @@ def sage_kernel_phase(timer, bw, flops_peak, int8_peak):
             f"{flash_mae:.3g} (tol {SAGE_FLASH_MAE}) kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"flash_ms={flash_ms:.4f} (sage / flash {ms / flash_ms:.3f}) "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"device_ms={dev_ms:.4f} ({how}) flash_device_ms="
+            f"{flash_dev_ms:.4f} (sage / flash {dev_ms / flash_dev_ms:.3f}) "
+            f"library_device_ms={lib_dev_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by})")
         if S == T == 512:
             rows["sage_attention"] = dict(
                 name="sage_attention", route="cuda",
@@ -1155,7 +1170,8 @@ def sage_kernel_phase(timer, bw, flops_peak, int8_peak):
                 replaces="autoround_tpu/ops/sage_attention.py:176",
                 shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                flash_ms=flash_ms)
+                flash_ms=flash_ms, device_ms=dev_ms,
+                flash_device_ms=flash_dev_ms, library_device_ms=lib_dev_ms)
         del q, k, v, o
         torch.cuda.empty_cache()
     return rows
@@ -2637,6 +2653,33 @@ def build_report(build):
         for which, what in enumerate(("dQ", "dK/dV")):
             build.check(fn(D, which, info), "flash_attention_bwd_info")
             log(f"  resources flash_attention_bwd {what} D={D}: {info[0]} "
+                f"registers, {info[1]} spill bytes, {info[2]} bytes of "
+                f"dynamic shared memory, {info[3]} blocks per SM")
+    # the A16 GEMV (M <= 32) of each format, per n-tile tier (M 8, 16,
+    # 32), with its plan (rw row tiles a block, K split over a cluster of
+    # kc blocks) at the main path's shapes
+    shapes = {"w4a16_matmul_grouped": (("w1", 8, 4096, 14336),
+                                       ("w2", 8, 14336, 4096))}
+    llama = (("qkv", 1, 4096, 6144), ("down", 1, 14336, 4096),
+             ("lm_head", 1, 4096, 128256))
+    for src in GEMM_SOURCES:
+        fn = getattr(build.load(src), f"{src}_gemv_info")
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        for M in (8, 16, 32):
+            plans = []
+            for name, E, K, O in shapes.get(src, llama):
+                build.check(fn(E, M, K, O, info), f"{src}_gemv_info")
+                plans.append(f"{name} rw={info[4]} kc={info[5]}")
+            log(f"  resources {src} gemv M<={M}: {info[0]} registers, "
+                f"{info[1]} spill bytes, {info[2]} bytes of dynamic shared "
+                f"memory, {info[3]} blocks per SM (at the last plan's "
+                f"block); plan {', '.join(plans)}")
+    fn = build.load("sage_attention").sage_attention_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for D in (128, 256):
+        for which, what in enumerate(("attention", "key pre-pass")):
+            build.check(fn(D, which, info), "sage_attention_info")
+            log(f"  resources sage_attention {what} D={D}: {info[0]} "
                 f"registers, {info[1]} spill bytes, {info[2]} bytes of "
                 f"dynamic shared memory, {info[3]} blocks per SM")
     fn = build.load("decode_attention").decode_attention_info

@@ -35,8 +35,9 @@ sides, so their fp32 results before the cast are held directly: W8A8 and
 the W4A8 GEMM body (M > 32) bit-equal to the plain version; the W4A8 GEMV
 body (M <= 32) sums the groups' fp32 terms in another order (measured
 worst row 2.1e-6 of the row's RMS on an H100, limit 1e-5).  W8A16 is held
-like W4A16 (measured worst row 0.049 per channel at K = 14336, limit
-0.15).
+like W4A16 (measured worst row 0.049 per channel at K = 14336 in the GEMM
+body, 0.012 in the GEMV, which rounds each weight to bf16 as the plain
+version does; limit 0.15).
 
 The float and 2-bit kinds (every GEMV template and the GEMM body, ragged O,
 K edges where K is a multiple of 32 but not of 64, scales below 1e-12):
@@ -53,6 +54,13 @@ window and sinks, the softcap and the chunk; the int8-QK attention against
 its plain version on the same mean key (D 128 and 256, causal or not, T
 > S, GQA 1 / 4 / 8; limit 0.1 as flash: the same codes and scores, P
 rounded to bf16 after an online softmax), and its refusals.
+
+The GEMV body (M <= 32: weights as the A of mma.sync, K split over a
+thread-block cluster) at one output row, K of a single chunk, K whose
+split leaves a ragged last range, groups that start half way through a
+lane's chunk, every expert layout, two launches bit-equal, and its plan at
+the main path's shapes; the int8-QK attention's key pre-pass bit-equal to
+``int8_rows`` and the attention at S = T = 2048.
 
 The pipelined GEMM body (M > 32) in every weight format, at K with a half
 last k-step (K % 64 == 32), groups of 16, 48, 128 and K, M edges, an odd
@@ -94,7 +102,9 @@ from autoround_tpu_torch.ops.qmatmul_ext import (
     fp8_matmul, fp8_matmul_plain, mxfp4_matmul, mxfp4_matmul_plain, pack_w2,
     w2a16_matmul, w2a16_matmul_plain, w4a16_asym_matmul,
     w4a16_asym_matmul_plain, w8a16_matmul, w8a16_matmul_plain)
-from autoround_tpu_torch.ops.sage_attention import (sage_attention,
+from autoround_tpu_torch.ops.sage_attention import (_quantize_keys,
+                                                    int8_rows, key_mean,
+                                                    sage_attention,
                                                     sage_attention_plain)
 from autoround_tpu_torch.ops.qmatmul_int8 import (quantize_rows,
                                                   quantize_rows_plain,
@@ -129,8 +139,17 @@ def _check(out, ref, kernel, floor=0.0):
     assert row_err <= ROW_TOL[kernel], row_err
 
 
+# GEMV edges (M <= 32): one output row, K of one 32-column chunk, K whose
+# split over a thread-block cluster leaves ragged and empty ranks (1056: 9
+# steps of 128 over 8 ranks, four of 2, one of 1 whose step holds a single
+# 32-column chunk, three empty), K split over a cluster of 8 ranks, 16 at
+# M = 32 (14336), groups starting half way through a lane's chunk (48)
+GEMV_EDGES = [(1, 32, 16), (72, 1056, 48), (1000, 14336, 128)]
+
+
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 200])
-@pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32)])
+@pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32)]
+                         + GEMV_EDGES)
 def test_w4a16_all_regimes(gen, M, O, K, g):
     before = w4a16_matmul.launches
     codes = torch.randint(0, 16, (O, K), generator=gen, device="cuda")
@@ -144,7 +163,9 @@ def test_w4a16_all_regimes(gen, M, O, K, g):
 
 @pytest.mark.parametrize("layout", ["contiguous", "shared", "slice"])
 @pytest.mark.parametrize("C", [1, 2, 5, 8, 16, 17, 32, 33, 130])
-@pytest.mark.parametrize("E,O,K,g", [(3, 200, 1024, 128), (2, 72, 512, 32)])
+@pytest.mark.parametrize("E,O,K,g", [(3, 200, 1024, 128), (2, 72, 512, 32),
+                                     (8, 72, 1056, 16), (1, 1000, 14336, 128),
+                                     (5, 1, 32, 32)])
 def test_grouped_all_regimes(gen, layout, C, E, O, K, g):
     """Same limit as the ungrouped kernel (the tile bodies are shared).
     Activation layouts: contiguous (E, C, K); one slab shared by all
@@ -169,11 +190,12 @@ def test_grouped_all_regimes(gen, layout, C, E, O, K, g):
 
 @pytest.mark.parametrize("zp_kind", ["integral", "fractional"])
 @pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 200])
-@pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32)])
+@pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32)]
+                         + GEMV_EDGES)
 def test_asym_all_regimes(gen, zp_kind, M, O, K, g):
-    """Same limit as the sym kernel: the GEMM body rounds (code - zp) *
-    scale to bf16 as the plain version does, the GEMV body keeps it in
-    fp32 (measured worst row on an H100 at the main path's shapes 0.035)."""
+    """Same limit as the sym kernel: both bodies round (code - zp) * scale
+    to bf16 as the plain version does (measured worst row on an H100 at the
+    main path's shapes 0.024)."""
     before = w4a16_asym_matmul.launches
     codes = torch.randint(0, 16, (O, K), generator=gen, device="cuda")
     sc = torch.rand(O, K // g, generator=gen, device="cuda") * 0.01 + 0.002
@@ -261,7 +283,8 @@ def test_w4a8_all_regimes(gen, M, O, K, g):
 @pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 32, 33, 200, 4096])
 @pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32),
                                    (200, 2048, 256), (1000, 1024, 0),
-                                   (72, 14336, 0), (72, 96, 32)])
+                                   (72, 14336, 0), (72, 96, 32), (1, 32, 32),
+                                   (1000, 14336, 128)])
 def test_w8a16_all_regimes(gen, M, O, K, g):
     """Per group and per channel (g = 0: scales (O, 1)), negative scales."""
     before = w8a16_matmul.launches
@@ -280,7 +303,8 @@ FLOAT_M = [1, 2, 3, 5, 8, 9, 16, 17, 32, 33, 200]
 
 @pytest.mark.parametrize("M", FLOAT_M)
 @pytest.mark.parametrize("O,K,g", [(1000, 2048, 128), (72, 512, 32),
-                                   (200, 1056, 96), (72, 96, 32)])
+                                   (200, 1056, 96), (72, 96, 32), (1, 32, 32),
+                                   (1000, 14336, 128)])
 def test_w2a16_all_regimes(gen, M, O, K, g):
     """Negative scales and one below 1e-12 (its group contributes 0)."""
     before = w2a16_matmul.launches
@@ -296,7 +320,8 @@ def test_w2a16_all_regimes(gen, M, O, K, g):
 @pytest.mark.parametrize("M", FLOAT_M)
 @pytest.mark.parametrize("O,K,g", [(1000, 2048, 32), (1000, 2048, 16),
                                    (72, 96, 32), (200, 1056, 16),
-                                   (72, 48 * 2, 16)])
+                                   (72, 48 * 2, 16), (1, 32, 16),
+                                   (72, 14336, 32)])
 def test_mxfp4_all_regimes(gen, M, O, K, g):
     """MX (g = 32, powers of two) and NVFP4 (g = 16, any positive scale, one
     below 1e-12); every code value, the negative zero included."""
@@ -316,7 +341,7 @@ def test_mxfp4_all_regimes(gen, M, O, K, g):
 
 @pytest.mark.parametrize("M", FLOAT_M)
 @pytest.mark.parametrize("O,K", [(1000, 2048), (72, 512), (200, 1056),
-                                 (72, 96)])
+                                 (72, 96), (8, 32), (1000, 14336)])
 def test_fp8_all_regimes(gen, M, O, K):
     """e4m3 weights over their whole range (subnormals, ±448, zero) and
     channel scales, one below 1e-12."""
@@ -327,9 +352,73 @@ def test_fp8_all_regimes(gen, M, O, K):
     w[0, :4] = torch.tensor([0.0, 2.0 ** -9, -448.0, 3 * 2.0 ** -9])
     wf = w.to(torch.float8_e4m3fn)
     sc = torch.rand(O, generator=gen, device="cuda") * 0.01 + 1e-4
-    sc[1] = 1e-13
+    sc[min(1, O - 1)] = 1e-13
     _check(fp8_matmul(x, wf, sc), fp8_matmul_plain(x, wf, sc), "fp8")
     assert fp8_matmul.launches == before + 1
+
+
+@pytest.mark.parametrize("M", [1, 8, 17, 32])
+@pytest.mark.parametrize("kind", ["w4a16", "grouped", "asym", "w8a16",
+                                  "w2a16", "fp8", "mxfp4"])
+def test_gemv_run_to_run(gen, kind, M):
+    """Two launches of the GEMV give the same bits: K = 14336 at O = 1000
+    splits K over a thread-block cluster, whose partial sums rank 0 adds in
+    rank order (no atomics)."""
+    O, K = 1000, 14336
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    c4 = torch.randint(0, 16, (O, K), generator=gen, device="cuda")
+    sc = (torch.rand(O, K // 128, generator=gen, device="cuda") - 0.5) * 0.02
+    if kind == "w4a16":
+        fn = lambda: w4a16_matmul(x, pack_w4(c4), sc, 128)
+    elif kind == "grouped":
+        qw = torch.stack([pack_w4(c4), pack_w4(15 - c4)])
+        fn = lambda: w4a16_matmul_grouped(x.expand(2, M, K), qw,
+                                          torch.stack([sc, -sc]), 128)
+    elif kind == "asym":
+        fn = lambda: w4a16_asym_matmul(x, pack_w4(c4), sc.abs(),
+                                       sc.abs() * 700, 128)
+    elif kind == "w8a16":
+        fn = lambda: w8a16_matmul(x, (c4 - 8).to(torch.int8), sc, 128)
+    elif kind == "w2a16":
+        fn = lambda: w2a16_matmul(x, pack_w2(c4 % 4), sc, 128)
+    elif kind == "fp8":
+        fn = lambda: fp8_matmul(x, (c4 - 8).float().to(torch.float8_e4m3fn),
+                                sc[:, 0].abs())
+    else:
+        fn = lambda: mxfp4_matmul(x, pack_w4(c4), sc.repeat_interleave(4, 1)
+                                  .abs(), 32)
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("src,E,M,K,O,want", [
+    ("w4a16_matmul", 1, 8, 4096, 6144, (8, 4)),
+    ("w4a16_matmul", 1, 8, 14336, 4096, (8, 8)),
+    ("w4a16_matmul", 1, 8, 4096, 128256, (8, 2)),
+    ("w4a16_matmul", 1, 32, 4096, 128256, (8, 4)),
+    ("w4a16_matmul_grouped", 8, 8, 4096, 14336, (8, 2)),
+    ("w4a16_matmul_grouped", 8, 8, 14336, 4096, (8, 8)),
+    ("w8a16_matmul", 1, 8, 14336, 4096, (8, 8)),
+    ("w4a16_matmul", 1, 32, 14336, 4096, (8, 16)),
+    ("w2a16_matmul", 1, 1, 32, 1, (1, 1))])
+def test_gemv_plan(gen, src, E, M, K, O, want):
+    """The GEMV's plan (row tiles a block, blocks a cluster along K) at the
+    main path's shapes on a 132-SM H100 (a block's x within 32 KB at M <=
+    8, 64 KB above: M = 32 at K = 14336 takes a cluster of 16), its shared
+    memory within 96 KB (x and a 4 KB weight ring a warp), no spill and at
+    least two blocks an SM."""
+    import ctypes
+
+    from autoround_tpu_torch.ops import _build
+    props = torch.cuda.get_device_properties(0)
+    fn = getattr(_build.load(src), f"{src}_gemv_info")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 6)()
+    assert fn(E, M, K, O, info) == 0
+    assert info[1] == 0 and info[2] <= 96 << 10 and info[3] >= 2
+    if props.multi_processor_count == 132:
+        assert (info[4], info[5]) == want
 
 
 def test_float_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -652,6 +741,37 @@ def test_sage_shapes(gen, D, S, T, rep, causal):
     _check(sage_attention(q, k, v, causal),
            sage_attention_plain(q, k, v, causal, recip=True), "sage")
     assert sage_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sage_long(gen, D, rep, causal):
+    """S = T = 2048, B = 1: 32 (D = 128) or 64 (D = 256) kv tiles a block."""
+    B, Hkv, S = 1, 2, 2048
+    H = Hkv * rep
+    q = torch.randn(B, H, S, D, generator=gen, device="cuda").bfloat16()
+    k = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda")
+         + 2).bfloat16()
+    v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").bfloat16()
+    _check(sage_attention(q, k, v, causal),
+           sage_attention_plain(q, k, v, causal, recip=True), "sage")
+
+
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("T", [64, 320, 2048])
+def test_sage_key_prepass_bit_equal(gen, D, T):
+    """The pre-pass's int8 K and scales are int8_rows(k - key_mean(k),
+    recip=True)'s bit for bit (a constant row gives the 1e-8 floor)."""
+    B, Hkv = 2, 3
+    k = (torch.randn(B, Hkv, T, D, generator=gen, device="cuda") * 3
+         + 2).bfloat16()
+    k[0, 0, 1] = 0
+    km = key_mean(k).contiguous()
+    ki, ks = _quantize_keys(k, km)
+    want_i, want_s = int8_rows(k.float() - km[:, :, None], recip=True)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, want_i) and torch.equal(ks, want_s[..., 0])
 
 
 def test_sage_refuses_what_the_kernel_does_not_take(gen):
