@@ -8,23 +8,30 @@
 // those of the plain version bit for bit.
 //
 // Integer arithmetic is exact: int8 x int8 products accumulate in int32 on
-// the tensor cores (wgmma m64n128k32 s8, GEMM body, M > 32) or on the CUDA
-// cores (dp4a, GEMV body, M <= 32).  The W8A8 kernels keep one int32 sum
+// the tensor cores (wgmma m64n128k32 s8, GEMM body, M > 32; mma.sync
+// m16n8k32 s8, GEMV body, M <= 32).  The W8A8 kernels keep one int32 sum
 // over the whole K and apply `float(acc) * xs * ws` in that order.  The
 // W4A8 kernels turn each nibble into a signed int8 `code - 8` and feed it
-// to the same product; the GEMM body closes every group of g columns by
-// `accf += float(acc) * s_g` (separate multiply and add, no FMA: the plain
-// version's fp32 operations in its order) and ends with `* xs`, so its
-// fp32 result is the plain version's bit for bit.
+// to the same product, close every group of g columns by `accf +=
+// float(acc) * s_g` (separate multiply and add, no FMA: the plain
+// version's fp32 operations in its order) and end with `* xs`, so the
+// fp32 result is the plain version's bit for bit; a GEMV whose K is split
+// over a cluster adds its ranks' fp32 partial sums (each a whole number of
+// groups) in rank order, the only difference from that order.
 //
-// Layouts: xi (M, K) int8 row-major is the A operand; Wi (O, K) int8
-// row-major is the B operand as it lies (both K-major, which is all 8-bit
-// wgmma takes); the int4 words are those of the W4A16 kernels (word w of a
-// row holds columns 8w..8w+7, column 8w+j in nibble j), so one packed copy
-// of the weights serves A16 and A8.
+// Layouts: xi (M, K) int8 row-major is the A operand of the GEMM; Wi (O, K)
+// int8 row-major is its B operand as it lies (both K-major, which is all
+// 8-bit wgmma takes); the int4 words are those of the W4A16 kernels (word w
+// of a row holds columns 8w..8w+7, column 8w+j in nibble j), so one packed
+// copy of the weights serves A16 and A8.  The GEMV swaps the operands (the
+// weights are the A of its mma.sync, see below).
 //
 // What bounds them on an H100: at decode (M <= 32) the weight stream (1 or
-// 0.5 byte a weight against 2*M operations); at prefill the int8 tensor
+// 0.5 byte a weight against 2*M operations), which the GEMV keeps in
+// flight with a cp.async ring a warp and, where the row tiles alone give
+// the card too few warps, a split of K over a thread-block cluster; the
+// products run on the tensor cores and the int4 codes cost the CUDA cores
+// under one integer operation each.  At prefill the int8 tensor
 // cores (1979 TOP/s dense) and, for W4A8, the group close: 4 operations
 // per output a group of 128 columns, which at the tensor cores' rate would
 // take every issue slot of the SM.  The GEMM body carries over the A16
@@ -47,9 +54,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "sm90_ptx.cuh"
 
 namespace a8 {
+
+namespace cg = cooperative_groups;
 
 using namespace ptx;
 
@@ -133,165 +144,507 @@ __device__ __forceinline__ void w4_to_s8(uint32_t word, uint32_t& lo,
 }
 
 // ------------------------------------------------------------------ GEMV
+//
+// M <= 32: products on mma.sync.m16n8k32 with the operands swapped.  The
+// weights are A (16 output rows x 32 k), the activation codes B (32 k x 8
+// tokens, s8), so M <= 8 is one n-tile, M <= 16 two and M <= 32 four.  Each
+// mma takes one aligned 32-column chunk of K: lane (g, t) feeds 8 columns
+// 8t .. 8t + 7 of it, four as k 4t .. 4t + 3 (a[0] row g, a[1] row g + 8,
+// b0 token g) and four as k 16 + 4t .. (a[2], a[3], b1).  W8A8: the first
+// four columns, then the last four, s8 x s8.  W4A8: the even columns, then
+// the odd ones -- a word's even and odd nibbles are its codes 0..15 as
+// bytes after one mask (and a shift), u8 x s8 -- and a second mma of the
+// constant -8 (s8) with the same B adds -8 sum(x), so the int32 sum is
+// that of (code - 8) x.  A W4A8 group (g % 32 == 0) is whole after g / 32
+// chunks, its int32 sum exact, and it is closed there by `accf = accf +
+// float(acc) * s_g` (separate multiply and add, the plain version's
+// operations in its order); W8A8 keeps one int32 sum over its range of K.
+//
+// A block of rw warps (blockDim.x / 32, rw <= 8) owns 16 rw output rows,
+// warp w row tile w, over one range of K: its rank kr in a thread-block
+// cluster of kc blocks along K (blockIdx.x % kc).  The block stages its
+// range of the codes of x once, in fragment order: the 32 codes of token
+// 8 nt + g of chunk c lie at byte (c NT + nt) 256 + 32 g (W4A8: each lane's
+// 8 columns even ones first), so a lane's b0, b1 are one 8-byte read and a
+// warp's B operands 256 contiguous bytes.  Each warp streams its 16 rows
+// through a ring of GEMV_SLOTS slots of 16 rows x SEG bytes by cp.async,
+// one slot ahead, with one warp barrier a slot and no block barrier in the
+// loop; W4A8 copies the scales of the groups a slot touches beside its
+// weights, so the group close reads them from shared memory.  A 16-byte
+// unit u of row r of a slot lies at unit u ^ (r % 8) (W4A8: a lane reads
+// word t of a unit, rows g = 0..7 in distinct banks) or u ^ 2 (r % 4)
+// (W8A8: 8 bytes at 8 t of a 32-byte chunk, a half warp's four rows in
+// distinct banks).  With kc > 1 a rank's range is a whole number of
+// groups (W4A8) and rank 0 adds the cluster's partial sums (int32; W4A8
+// fp32) through distributed shared memory in the order of the ranks: no
+// workspace, no atomics, two launches give the same bits.
+//
+// What bounds it (H100, decode shapes of llama3-8b): at lm_head and gate_up
+// (kc = 1) the weight stream, at 2.3-2.9 TB/s; at qkv, o_proj and down_proj
+// (K split over 4-8 ranks) fixed costs of a few microseconds a launch --
+// the x staging, one slot of latency after another, the cluster's
+// reduction -- which the dp4a parent, one short block per 4 rows with all
+// its loads in flight at once, did not pay: at M = 1 the parent stays
+// ahead (PERF.md).  Deeper rings, wider slots, 4-warp blocks, other splits
+// of K (across a block's warps too) and a quantizer fused into the staging
+// were each no faster on the card.
 
-constexpr int GEMV_WARPS = 4;
+constexpr int GEMV_MAX_WARPS = 8;
+constexpr int GEMV_MAX_CLUSTER = 16;      // beyond 8: a non-portable size
+constexpr int GEMV_SLOTS = 2;             // a warp's ring
+constexpr int SEG = 128;                  // bytes of a weight row a slot holds
+constexpr int SLOT_W = 16 * SEG;          // a slot's weight bytes
+// weight bytes of a 32-column chunk of a row, chunks a slot holds, bytes
+// of a slot (W4A8: and the scales of the at most SLOT_CHUNKS groups its
+// chunks touch, [group][16 rows] fp32)
+template <bool W4>
+constexpr int CHUNK_B = W4 ? 16 : 32;
+template <bool W4>
+constexpr int SLOT_CHUNKS = SEG / CHUNK_B<W4>;
+template <bool W4>
+constexpr int SLOT_BYTES = SLOT_W + (W4 ? SLOT_CHUNKS<true> * 16 * 4 : 0);
+template <bool W4>
+constexpr int GEMV_RING = GEMV_SLOTS * SLOT_BYTES<W4>;
+// x a block may stage, and blocks an SM: one n-tile (M <= 8) keeps three
+// blocks of 8 warps, more n-tiles two (x up to 64 KB)
+constexpr int gemv_x_max(int nt) { return nt == 1 ? 32 << 10 : 64 << 10; }
+constexpr int gemv_min_blocks(int nt) { return nt == 1 ? 3 : 2; }
+template <bool W4>
+constexpr int gemv_smem_max(int nt) {
+  return gemv_x_max(nt) + GEMV_MAX_WARPS * GEMV_RING<W4>;
+}
+// warps an SM below which the plan splits K further (up to 8 ranks)
+constexpr int GEMV_WARPS_PER_SM = 16;
 
-template <int R, int MT>
-__device__ __forceinline__ void block_reduce_store_i32(
-    int (&acc)[R][MT], int (*red)[R][MT], int warp, int lane) {
+// byte offset of 16-byte unit u of row r in a slot
+template <bool W4>
+__device__ __forceinline__ int slot_off(int r, int u) {
+  return r * SEG + ((u ^ (W4 ? (r & 7) : ((r & 3) << 1))) << 4);
+}
+
+// A lane's part of copying one slot of the warp's 16 weight rows (SEG bytes
+// of each) into shared memory: each copy instruction of the warp reads
+// whole SEG-byte row segments.  Everything but the segment is fixed for the
+// lane, so it is worked out once.
+template <bool W4>
+struct GemvCopy {
+  static constexpr int PER_ROW = SEG / 16;
+  static constexpr int N = 16 * PER_ROW / 32;        // copies a lane
+  const uint8_t* src[N];   // the lane's row at the range's first byte
+  int off[N];              // its place in a slot
+  bool row_ok[N];
+  int col;                 // its byte within a segment
+
+  __device__ __forceinline__ GemvCopy(const uint8_t* w0, size_t rb, int rows,
+                                      int lane) {
+    col = (lane % PER_ROW) * 16;
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int j = 0; j < N; ++j) {
+      const int r = (32 * j + lane) / PER_ROW;
+      row_ok[j] = r < rows;
+      src[j] = w0 + (row_ok[j] ? (size_t)r * rb : 0) + col;
+      off[j] = slot_off<W4>(r, lane % PER_ROW);
+    }
+  }
+
+  // segment `st` of the range into `slot`; rows past O and bytes past the
+  // range (n_bytes) are zeros
+  __device__ __forceinline__ void copy(unsigned char* slot, int st,
+                                       int n_bytes) const {
+    const bool in = st * SEG + col < n_bytes;
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      int v = acc[r][m];
+    for (int j = 0; j < N; ++j) {
+      const bool ok = in && row_ok[j];
+      cp_async<16>(slot + off[j], ok ? src[j] + (size_t)st * SEG : src[j], ok);
+    }
+  }
+};
+
+// W4A8: the scales of the groups that chunks c0 .. c1 - 1 (global) touch,
+// for the warp's 16 rows from row0, into ss[group - c0 / gc][row] (zeros
+// past O).  c / gc is c g_magic >> 32 with g_magic = ceil(2^32 / gc) (2^32
+// at gc = 1, hence 64 bits): exact for c gc < 2^32.
+__device__ __forceinline__ void gemv_scales(float* ss, const float* sc,
+                                            int row0, int O, int ng, int c0,
+                                            int c1, uint64_t g_magic,
+                                            int lane) {
+  const int gi0 = (int)((uint64_t)c0 * g_magic >> 32);
+  const int cnt = (int)((uint64_t)(c1 - 1) * g_magic >> 32) - gi0 + 1;
+  for (int i = lane; i < 16 * cnt; i += 32) {
+    const int r = i % 16, j = i / 16;
+    const bool ok = row0 + r < O;
+    cp_async<4>(ss + i, ok ? sc + (size_t)(row0 + r) * ng + gi0 + j : sc, ok);
+  }
+}
+
+// W4A8 group close: accf = accf + float(a0 + a1) * s (the row's scale), and
+// the group's sums back to zero.  Value i of an n-tile is row g (i < 2) or
+// g + 8.
+template <int NT>
+__device__ __forceinline__ void close_group(float (&accf)[NT][4],
+                                            int (&acc)[2][NT][4], float s0,
+                                            float s1) {
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][r][m] = v;
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int v = acc[0][n][i] + acc[1][n][i];
+      acc[0][n][i] = acc[1][n][i] = 0;
+      accf[n][i] = __fadd_rn(accf[n][i],
+                             __fmul_rn(__int2float_rn(v), i < 2 ? s0 : s1));
     }
 }
 
-// W8A8, M <= MT <= 32.  Each block owns R output rows and splits K over
-// its 4 warps; lane l of warp w takes the 16-byte chunks w*32 + l, + 128,
-// ...  One int32 sum per (row, m) over the whole K: exact.
-template <int MT, int R>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-w8a8_gemv_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
-                 const int8_t* __restrict__ wi, const float* __restrict__ ws,
-                 __nv_bfloat16* __restrict__ y, float* __restrict__ y32,
-                 int M, int K, int O) {
-  __shared__ int red[GEMV_WARPS][R][MT];
+// xi (M, K) int8 codes and xs (M,) scales of quantize_rows; w: Wi (O, K)
+// int8 (W8A8) or the packed words (O, K / 8) int32 (W4A8); sc: ws (O,) or
+// the scales (O, K / g); gc = g / 32 (W4A8); a rank takes cpb chunks from
+// kr cpb; x_bytes: the shared bytes before the rings.
+template <bool W4, int NT>
+__global__ void __launch_bounds__(GEMV_MAX_WARPS * 32, gemv_min_blocks(NT))
+gemv_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
+            const uint8_t* __restrict__ w, const float* __restrict__ sc,
+            __nv_bfloat16* __restrict__ y, float* __restrict__ y32, int M,
+            int K, int O, int gc, uint64_t g_magic, int kc, int cpb,
+            int x_bytes) {
+  constexpr int SC = SLOT_CHUNKS<W4>, CB = CHUNK_B<W4>;
+  extern __shared__ __align__(128) unsigned char a8_gemv_smem[];
+  unsigned char* xsm = a8_gemv_smem;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int o0 = blockIdx.x * R;
-  const int n_chunks = K / 16;
-  int acc[R][MT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[r][m] = 0;
-
-  for (int c = warp * 32 + lane; c < n_chunks; c += GEMV_WARPS * 32) {
-    uint4 wv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int o = o0 + r;
-      wv[r] = (o < O) ? __ldg(reinterpret_cast<const uint4*>(
-                                  wi + (size_t)o * K) + c)
-                      : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        const uint4 xv = __ldg(reinterpret_cast<const uint4*>(
-                                   xi + (size_t)m * K) + c);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          int a = acc[r][m];
-          a = __dp4a((int)wv[r].x, (int)xv.x, a);
-          a = __dp4a((int)wv[r].y, (int)xv.y, a);
-          a = __dp4a((int)wv[r].z, (int)xv.z, a);
-          a = __dp4a((int)wv[r].w, (int)xv.w, a);
-          acc[r][m] = a;
-        }
-      }
-    }
-  }
-  block_reduce_store_i32<R, MT>(acc, red, warp, lane);
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
-    const int r = i / MT, m = i % MT;
-    const int o = o0 + r;
-    if (o < O && m < M) {
-      int v = 0;
-#pragma unroll
-      for (int w = 0; w < GEMV_WARPS; ++w) v += red[w][r][m];
-      const float f = __fmul_rn(__fmul_rn(__int2float_rn(v), xs[m]), ws[o]);
-      if (y32) y32[(size_t)m * O + o] = f;
-      else y[(size_t)m * O + o] = __float2bfloat16(f);
-    }
-  }
-}
-
-// W4A8, M <= MT <= 32.  A lane's chunk is 16 bytes of packed words = 32
-// columns, inside one group (g % 32 == 0): its int32 dot is exact, then
-// `float(dot) * s_g` accumulates in fp32 (per chunk here, per group in the
-// GEMM body and the plain version: the same sum in another order).
-template <int MT, int R>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-w4a8_gemv_kernel(const int8_t* __restrict__ xi, const float* __restrict__ xs,
-                 const uint32_t* __restrict__ qw, const float* __restrict__ sc,
-                 __nv_bfloat16* __restrict__ y, float* __restrict__ y32,
-                 int M, int K, int O, int g) {
-  __shared__ float red[GEMV_WARPS][R][MT];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int o0 = blockIdx.x * R;
+  const int gq = lane >> 2, t = lane & 3;
+  const int n_warps = blockDim.x / 32;
+  unsigned char* ring = a8_gemv_smem + x_bytes + warp * GEMV_RING<W4>;
+  const int kr = blockIdx.x % kc;
+  const int row0 = ((blockIdx.x / kc) * n_warps + warp) * 16;
   const int n_chunks = K / 32;
-  const int kw = K / 8, ng = K / g;
-  float acc[R][MT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[r][m] = 0.f;
+  const int c_lo = kr * cpb;
+  const int n_local = max(0, min(n_chunks - c_lo, cpb));
+  const int n_slots = (n_local + SC - 1) / SC;
+  const size_t rb = (size_t)n_chunks * CB;
+  const int ng = W4 ? n_chunks / gc : 1;
+  const GemvCopy<W4> wcopy(w + (size_t)min(row0, O - 1) * rb
+                               + (size_t)c_lo * CB,
+                           rb, min(16, O - row0), lane);
+  const int n_bytes = n_local * CB;
 
-  for (int c = warp * 32 + lane; c < n_chunks; c += GEMV_WARPS * 32) {
-    uint32_t w8[R][8];
-    float s[R];
+  auto issue = [&](int st) {
+    unsigned char* slot = ring + (st % GEMV_SLOTS) * SLOT_BYTES<W4>;
+    wcopy.copy(slot, st, n_bytes);
+    if constexpr (W4)
+      gemv_scales(reinterpret_cast<float*>(slot + SLOT_W), sc, row0, O, ng,
+                  c_lo + st * SC, c_lo + min(n_local, st * SC + SC), g_magic,
+                  lane);
+  };
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int o = o0 + r;
-      uint4 wv = make_uint4(0x88888888u, 0x88888888u, 0x88888888u,
-                            0x88888888u);
-      s[r] = 0.f;
-      if (o < O) {
-        wv = __ldg(reinterpret_cast<const uint4*>(qw + (size_t)o * kw) + c);
-        s[r] = __ldg(sc + (size_t)o * ng + (c * 32) / g);
-      }
-      w4_to_s8(wv.x, w8[r][0], w8[r][1]);
-      w4_to_s8(wv.y, w8[r][2], w8[r][3]);
-      w4_to_s8(wv.z, w8[r][4], w8[r][5]);
-      w4_to_s8(wv.w, w8[r][6], w8[r][7]);
+  for (int st = 0; st < GEMV_SLOTS - 1; ++st) {
+    if (st < n_slots) issue(st);
+    cp_commit();
+  }
+  // x, while the ring fills: 16-byte piece p of token m's chunk c (lanes
+  // 2p, 2p + 1 of the token's row g = m % 8); sixteen consecutive threads
+  // write a chunk's 256 contiguous bytes; tokens past M are zeros.  W4A8
+  // stores a lane's 8 columns as the even ones, then the odd ones: the k
+  // order of its A, the even and the odd nibbles of a word.
+  const int pieces = NT * 8 * n_local * 2;
+  for (int i = threadIdx.x; i < pieces; i += blockDim.x) {
+    const int p = i & 1, m = (i >> 1) % (NT * 8), c = (i >> 1) / (NT * 8);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (m < M)
+      v = __ldg(reinterpret_cast<const uint4*>(
+          xi + (size_t)m * K + (size_t)(c_lo + c) * 32 + 16 * p));
+    if constexpr (W4)
+      v = make_uint4(__byte_perm(v.x, v.y, 0x6420),
+                     __byte_perm(v.x, v.y, 0x7531),
+                     __byte_perm(v.z, v.w, 0x6420),
+                     __byte_perm(v.z, v.w, 0x7531));
+    *reinterpret_cast<uint4*>(xsm + (c * NT + m / 8) * 256 + 32 * (m % 8)
+                              + 16 * p) = v;
+  }
+
+  int acc[2][NT][4];
+  float accf[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[0][n][i] = acc[1][n][i] = 0;
+      accf[n][i] = 0.f;
     }
+  __syncthreads();                        // x is staged
+
+  int gcnt = 0;                           // W4A8: chunks into the open group
+  const uint32_t MINUS8[4] = {0xF8F8F8F8u, 0xF8F8F8F8u, 0xF8F8F8F8u,
+                              0xF8F8F8F8u};
+  for (int st = 0; st < n_slots; ++st) {
+    cp_wait<GEMV_SLOTS - 2>();            // slot st landed (this lane's)
+    __syncwarp();                         // (every lane's), slot st - 1 read
+    if (st + GEMV_SLOTS - 1 < n_slots) issue(st + GEMV_SLOTS - 1);
+    cp_commit();
+    const unsigned char* slot = ring + (st % GEMV_SLOTS) * SLOT_BYTES<W4>;
+    const float* ss = reinterpret_cast<const float*>(slot + SLOT_W);
+    int j = 0;                            // W4A8: the slot's open group
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        const uint4* xp = reinterpret_cast<const uint4*>(
-                              xi + (size_t)m * K) + 2 * c;
-        const uint4 x0 = __ldg(xp), x1 = __ldg(xp + 1);
-        const int xw[8] = {(int)x0.x, (int)x0.y, (int)x0.z, (int)x0.w,
-                           (int)x1.x, (int)x1.y, (int)x1.z, (int)x1.w};
+    for (int q = 0; q < SC; ++q) {
+      const int c = st * SC + q;
+      if (c < n_local) {
+        uint32_t a[4];
+        if constexpr (W4) {               // codes 0..15, even / odd
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
+              slot + slot_off<true>(gq, q) + 4 * t);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
+              slot + slot_off<true>(gq + 8, q) + 4 * t);
+          a[0] = w0 & 0x0F0F0F0Fu;
+          a[1] = w1 & 0x0F0F0F0Fu;
+          a[2] = (w0 >> 4) & 0x0F0F0F0Fu;
+          a[3] = (w1 >> 4) & 0x0F0F0F0Fu;
+        } else {
+          const int u = 2 * q + (t >> 1), b = 8 * (t & 1);
+          const uint2 r0 = *reinterpret_cast<const uint2*>(
+              slot + slot_off<false>(gq, u) + b);
+          const uint2 r1 = *reinterpret_cast<const uint2*>(
+              slot + slot_off<false>(gq + 8, u) + b);
+          a[0] = r0.x;
+          a[2] = r0.y;
+          a[1] = r1.x;
+          a[3] = r1.y;
+        }
+        const uint2* xb =
+            reinterpret_cast<const uint2*>(xsm + c * NT * 256) + lane;
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          int d = 0;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) d = __dp4a((int)w8[r][j], xw[j], d);
-          acc[r][m] = fmaf(__int2float_rn(d), s[r], acc[r][m]);
+        for (int n = 0; n < NT; ++n) {
+          const uint2 bv = xb[n * 32];
+          if constexpr (W4) {             // sum (code - 8) x: code x, - 8 x
+            mma_u8s8(acc[q & 1][n], a, bv.x, bv.y);
+            mma_s8(acc[q & 1][n], MINUS8, bv.x, bv.y);
+          } else {
+            mma_s8(acc[q & 1][n], a, bv.x, bv.y);
+          }
+        }
+        if constexpr (W4) {
+          if (++gcnt == gc) {             // the group closes here
+            close_group<NT>(accf, acc, ss[16 * j + gq], ss[16 * j + gq + 8]);
+            gcnt = 0;
+            ++j;
+          }
         }
       }
     }
   }
+  cp_wait<0>();
+  if constexpr (!W4) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float v = acc[r][m];
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0) red[warp][r][m] = v;
-    }
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * MT; i += blockDim.x) {
-    const int r = i / MT, m = i % MT;
-    const int o = o0 + r;
-    if (o < O && m < M) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < GEMV_WARPS; ++w) v += red[w][r][m];
-      const float f = __fmul_rn(v, xs[m]);
-      if (y32) y32[(size_t)m * O + o] = f;
-      else y[(size_t)m * O + o] = __float2bfloat16(f);
-    }
+      for (int i = 0; i < 4; ++i) acc[0][n][i] += acc[1][n][i];
   }
+
+  // the cluster's partial sums into rank 0, in the order of the ranks
+  if (kc > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    __syncthreads();                      // every warp's x reads are done
+    uint32_t* red = reinterpret_cast<uint32_t*>(xsm);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        red[((warp * NT + n) * 4 + i) * 32 + lane] =
+            W4 ? __float_as_uint(accf[n][i]) : (uint32_t)acc[0][n][i];
+    cluster.sync();
+    if (kr == 0) {
+      // RB ranks' values are read together (one remote round trip), then
+      // added in rank order
+      constexpr int RB = NT == 1 ? 4 : 2;
+      for (int r0 = 1; r0 < kc; r0 += RB) {
+        uint32_t v[RB][NT][4];
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          if (r0 + b < kc) {
+            const uint32_t* other = cluster.map_shared_rank(red, r0 + b);
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                v[b][n][i] = other[((warp * NT + n) * 4 + i) * 32 + lane];
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < RB; ++b) {
+          if (r0 + b < kc) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                if constexpr (W4)
+                  accf[n][i] = __fadd_rn(accf[n][i],
+                                         __uint_as_float(v[b][n][i]));
+                else acc[0][n][i] += (int)v[b][n][i];
+              }
+          }
+        }
+      }
+    }
+    cluster.sync();                       // the ranks' shared memory stays
+    if (kr != 0) return;                  // until rank 0 has read it
+  }
+  // value i of n-tile n: row row0 + g + 8 (i / 2), token 8 n + 2 t + i % 2;
+  // W8A8 float(acc) * xs * ws, W4A8 accf * xs
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int o = row0 + gq + 8 * h;
+    if (o >= O) continue;
+    const float wso = W4 ? 1.f : __ldg(sc + o);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = 8 * n + 2 * t + e, i = 2 * h + e;
+        if (m >= M) continue;
+        const float f =
+            W4 ? __fmul_rn(accf[n][i], __ldg(xs + m))
+               : __fmul_rn(__fmul_rn(__int2float_rn(acc[0][n][i]),
+                                     __ldg(xs + m)), wso);
+        if (y32) y32[(size_t)m * O + o] = f;
+        else y[(size_t)m * O + o] = __float2bfloat16(f);
+      }
+  }
+}
+
+// The GEMV's grid, from host shapes only (never a tensor's values, so the
+// launch can be captured in a CUDA graph): a block takes rw = min(8, row
+// tiles) row tiles (each staged x feeds 16 rw rows), and the cluster splits
+// K into kc ranges of whole units (W4A8: a group of g / 32 chunks; W8A8: a
+// chunk), doubling kc (to 8) while the warps stay below GEMV_WARPS_PER_SM
+// an SM, and further (to 16, H100's non-portable cluster size) until a
+// block's x range fits in gemv_x_max.
+struct GemvPlan {
+  int rw, kc, cpb;           // cpb: chunks of K a rank
+};
+
+inline GemvPlan gemv_plan(int M, int K, int O, int unit, int sms) {
+  const int nt = M <= 8 ? 1 : M <= 16 ? 2 : 4;
+  const int units = K / 32 / unit;
+  const int tiles = (O + 15) / 16;
+  const int rw = min(GEMV_MAX_WARPS, tiles);
+  const long long warps = (long long)((tiles + rw - 1) / rw) * rw;
+  auto x_bytes = [&](int kc) {
+    return (long long)((units + kc - 1) / kc) * unit * nt * 256;
+  };
+  int kc = 1;
+  while (2 * kc <= GEMV_MAX_CLUSTER && 2 * kc <= units
+         && ((2 * kc <= 8 && warps * 2 * kc <= GEMV_WARPS_PER_SM * sms)
+             || x_bytes(kc) > gemv_x_max(nt)))
+    kc *= 2;
+  return {rw, kc, (units + kc - 1) / kc * unit};
+}
+
+// Dynamic shared memory of a plan: its x range (or the cluster's partial
+// sums if larger), then each warp's ring.
+template <int NT>
+int gemv_x_bytes(const GemvPlan& p) {
+  const int xb = p.cpb * NT * 256;
+  const int red = p.kc > 1 ? p.rw * NT * 4 * 32 * 4 : 0;
+  const int b = xb > red ? xb : red;
+  return (b + 127) / 128 * 128;
+}
+
+template <bool W4, int NT>
+int gemv_smem(const GemvPlan& p) {
+  return gemv_x_bytes<NT>(p) + p.rw * GEMV_RING<W4>;
+}
+
+// The SM count of the current device.
+inline int device_sms() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+inline int gemv_unit(bool w4, int g) { return w4 ? g / 32 : 1; }
+
+template <bool W4, int NT>
+cudaError_t launch_gemv(const GemvPlan& p, const int8_t* xi, const float* xs,
+                        const void* w, const float* sc, __nv_bfloat16* y,
+                        float* y32, int M, int K, int O, int g,
+                        cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemv_kernel<W4, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemv_smem_max<W4>(NT));
+  if (err == cudaSuccess && p.kc > 8)
+    err = cudaFuncSetAttribute(gemv_kernel<W4, NT>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return err;
+  const int tiles = (O + 15) / 16;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles + p.rw - 1) / p.rw * p.kc);
+  cfg.blockDim = dim3(32 * p.rw);
+  cfg.dynamicSmemBytes = gemv_smem<W4, NT>(p);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.kc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gemv_kernel<W4, NT>, xi, xs,
+                            static_cast<const uint8_t*>(w), sc, y, y32, M, K,
+                            O, W4 ? g / 32 : 0,
+                            W4 ? (0x100000000ULL + g / 32 - 1) / (g / 32)
+                               : 0ULL,
+                            p.kc, p.cpb, gemv_x_bytes<NT>(p));
+}
+
+// The GEMV body (M <= 32) if its x range fits: returns -1 where it does not
+// (the GEMM body takes the shape), else the launch's cudaError_t.
+template <bool W4>
+int try_gemv(const int8_t* xi, const float* xs, const void* w,
+             const float* sc, __nv_bfloat16* y, float* y32, int M, int K,
+             int O, int g, cudaStream_t st) {
+  const GemvPlan p = gemv_plan(M, K, O, gemv_unit(W4, g), device_sms());
+  if (M <= 8 && gemv_x_bytes<1>(p) <= gemv_x_max(1))
+    return (int)launch_gemv<W4, 1>(p, xi, xs, w, sc, y, y32, M, K, O, g, st);
+  if (M > 8 && M <= 16 && gemv_x_bytes<2>(p) <= gemv_x_max(2))
+    return (int)launch_gemv<W4, 2>(p, xi, xs, w, sc, y, y32, M, K, O, g, st);
+  if (M > 16 && M <= 32 && gemv_x_bytes<4>(p) <= gemv_x_max(4))
+    return (int)launch_gemv<W4, 4>(p, xi, xs, w, sc, y, y32, M, K, O, g, st);
+  return -1;
+}
+
+// The GEMV's resources on this card for M rows (its n-tile tier) and its
+// plan for (M, K, O, g): info = {registers a thread, local (spill) bytes a
+// thread, dynamic shared bytes a block, blocks per SM at the plan's block
+// size and shared memory, rw (row tiles a block), kc (blocks a cluster
+// along K)}.
+template <bool W4>
+int gemv_info(int M, int K, int O, int g, int* info) {
+  if (M <= 0 || M > 32 || K <= 0 || K % 32 || O <= 0
+      || (W4 && (g <= 0 || g % 32 || K % g)))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  int blocks = 0;
+  const GemvPlan p = gemv_plan(M, K, O, gemv_unit(W4, g), device_sms());
+  const void* fn = M <= 8    ? (const void*)gemv_kernel<W4, 1>
+                   : M <= 16 ? (const void*)gemv_kernel<W4, 2>
+                             : (const void*)gemv_kernel<W4, 4>;
+  const int smem = M <= 8    ? gemv_smem<W4, 1>(p)
+                   : M <= 16 ? gemv_smem<W4, 2>(p)
+                             : gemv_smem<W4, 4>(p);
+  const int nt = M <= 8 ? 1 : M <= 16 ? 2 : 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, gemv_smem_max<W4>(nt));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                        32 * p.rw, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = smem;
+  info[3] = blocks;
+  info[4] = p.rw;
+  info[5] = p.kc;
+  return 0;
 }
 
 // ------------------------------------------------------------------ GEMM
@@ -806,34 +1159,20 @@ int launch(const void* x, const void* w, const void* sc_, void* xi_,
   const float* sc = static_cast<const float*>(sc_);
   __nv_bfloat16* y = static_cast<__nv_bfloat16*>(y_);
   float* y32 = static_cast<float*>(y32_);
-#define A8_GEMV(MT, R)                                                       \
-  do {                                                                       \
-    dim3 grid((O + R - 1) / R);                                              \
-    if constexpr (W4)                                                        \
-      w4a8_gemv_kernel<MT, R><<<grid, GEMV_WARPS * 32, 0, st>>>(             \
-          xi, xs, static_cast<const uint32_t*>(w), sc, y, y32, M, K, O, g);  \
-    else                                                                     \
-      w8a8_gemv_kernel<MT, R><<<grid, GEMV_WARPS * 32, 0, st>>>(             \
-          xi, xs, static_cast<const int8_t*>(w), sc, y, y32, M, K, O);       \
-  } while (0)
-  if (M == 1)       A8_GEMV(1, 4);
-  else if (M <= 2)  A8_GEMV(2, 4);
-  else if (M <= 4)  A8_GEMV(4, 4);
-  else if (M <= 8)  A8_GEMV(8, 4);
-  else if (M <= 16) A8_GEMV(16, 2);
-  else if (M <= 32) A8_GEMV(32, 1);
-  else {
-    int err;
-    if constexpr (!W4)
-      err = launch_gemm<W8>(xi, xs, w, sc, y, y32, M, K, O, g, st);
-    else if (g == BK && (K / g) % 4 == 0
-             && reinterpret_cast<uintptr_t>(sc) % 16 == 0)   // TMA scales
-      err = launch_gemm<W4_G128>(xi, xs, w, sc, y, y32, M, K, O, g, st);
-    else
-      err = launch_gemm<W4_ANY>(xi, xs, w, sc, y, y32, M, K, O, g, st);
-    if (err) return err;
+  if (M <= 32) {                // the GEMV, where its x range fits
+    const int err = try_gemv<W4>(xi, xs, w, sc, y, y32, M, K, O, g, st);
+    if (err > 0) return err;
+    if (err == 0) return (int)cudaGetLastError();
   }
-#undef A8_GEMV
+  int err;
+  if constexpr (!W4)
+    err = launch_gemm<W8>(xi, xs, w, sc, y, y32, M, K, O, g, st);
+  else if (g == BK && (K / g) % 4 == 0
+           && reinterpret_cast<uintptr_t>(sc) % 16 == 0)   // TMA scales
+    err = launch_gemm<W4_G128>(xi, xs, w, sc, y, y32, M, K, O, g, st);
+  else
+    err = launch_gemm<W4_ANY>(xi, xs, w, sc, y, y32, M, K, O, g, st);
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 

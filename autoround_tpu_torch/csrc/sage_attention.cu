@@ -97,18 +97,6 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * RB + ((c ^ (r & 7)) << 4);
 }
 
-// D (16 x 8, int32) += A (16 x 32, int8, row) . B (32 x 8, int8, col).
-// Lane (g, t): A rows g, g + 8, k 4t..4t+3 and 16 + 4t..; B key g, the same
-// k; C rows g, g + 8, keys 2t, 2t + 1 (the layout of m16n8k16's C).
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // int32 -> fp32 for |v| < 2^22 (a QK^T sum: |v| <= D * 127^2 < 2^22 for D
 // <= 256), exactly as a conversion: v added to the bits of 1.5 * 2^23 is the
 // float 1.5 * 2^23 + v.  The int32 accumulators start at those bits

@@ -1,6 +1,6 @@
 // PTX helpers shared by the kernels written for sm_90a: shared-memory
-// addresses, cp.async, ldmatrix, mma.sync bf16, exp2, the bf16 pair
-// packing, and what the wgmma kernels (w4a16_tiles.cuh, a8_tiles.cuh,
+// addresses, cp.async, ldmatrix, mma.sync (bf16; s8 and u8), exp2, the bf16
+// pair packing, and what the wgmma kernels (w4a16_tiles.cuh, a8_tiles.cuh,
 // flash_attention_bwd.cu) share: the 128-byte swizzle, the shared-memory
 // matrix descriptors (K-major, and MN-major for a transposed B), the bf16
 // products with A from shared memory or from registers, the wgmma fences,
@@ -64,6 +64,30 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16x8 int32) += a (16x32 s8, row) . b (32x8 s8, col), exact.  Lane
+// (g, t) = (lane / 4, lane % 4): a[0] row g, k 4t..4t+3; a[1] row g + 8, the
+// same k; a[2], a[3] rows g, g + 8, k 16 + 4t..16 + 4t + 3; b0 column g, k
+// 4t..4t+3, b1 k 16 + 4t..; c rows g, g + 8, columns 2t, 2t + 1 (the layout
+// of m16n8k16's C).  Four bytes of a register are four consecutive k.
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the same with a unsigned (u8 codes 0..255) and b signed
+__device__ __forceinline__ void mma_u8s8(int* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

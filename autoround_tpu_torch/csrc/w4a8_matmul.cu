@@ -40,3 +40,11 @@ extern "C" int w4a8_matmul_gemm_info(int* info) {
 extern "C" int w4a8_matmul_gemm_any_info(int* info) {
   return a8::gemm_info<a8::W4_ANY>(info);
 }
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (M, K, O, g), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int w4a8_matmul_gemv_info(int M, int K, int O, int g, int* info) {
+  return a8::gemv_info<true>(M, K, O, g, info);
+}

@@ -10,10 +10,11 @@
 // The TPU kernel carries an int32 tile in scratch memory across its K grid
 // steps and lane-replicates the row scales for its epilogue.  Here a block
 // loops over K itself with its int32 sums in registers (wgmma m64n128k32
-// s8 for M > 32, dp4a for M <= 32), and the epilogue reads xs[m] and ws[o]
-// directly: `float(acc) * xs * ws`, in that order.  Row-major Wi (O, K) is
-// already the K-major B operand, so the weights are served as they are
-// stored.
+// s8 for M > 32; mma.sync m16n8k32 s8 for M <= 32, K split over a
+// thread-block cluster where the rows alone give too few warps), and the
+// epilogue reads xs[m] and ws[o] directly: `float(acc) * xs * ws`, in that
+// order.  Row-major Wi (O, K) is already the K-major operand of both, so
+// the weights are served as they are stored.
 //
 // Bounds and bodies: a8_tiles.cuh.
 
@@ -42,4 +43,12 @@ extern "C" int quantize_rows(const void* x, void* xi, void* xs, int M, int K,
 // per SM on this card (info[4]).
 extern "C" int w8a8_matmul_gemm_info(int* info) {
   return a8::gemm_info<a8::W8>(info);
+}
+
+// Registers, spill bytes, dynamic shared bytes and blocks per SM of the GEMV
+// body (M <= 32) at M's n-tile tier, and its plan (rw row tiles a block, K
+// split over a cluster of kc blocks) for (M, K, O), into info[0..5].
+// Returns a cudaError_t.
+extern "C" int w8a8_matmul_gemv_info(int M, int K, int O, int* info) {
+  return a8::gemv_info<false>(M, K, O, 32, info);
 }

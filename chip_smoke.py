@@ -11,8 +11,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              nvcc per source, in parallel); print the seconds, the
              compiler's register / spill / warning lines by kernel, and the
              flash forward's, the backward pair's (dQ, dK/dV at D = 128
-             and 256), the nine GEMM bodies', the seven A16 GEMVs' (per
-             M tier, with their plans at the main path's shapes), the
+             and 256), the nine GEMM bodies', the seven A16 GEMVs' and
+             the two int8 GEMVs' (per M tier, with their plans at the main
+             path's shapes), the
              int8-QK attention's and its key pre-pass's, and the decode
              split and combine kernels' registers, spill bytes, dynamic
              shared memory and blocks per SM.
@@ -38,8 +39,12 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              int8-QK attention (beside row 1 and SDPA) and their
              library calls also get ``device_ms``: the kernels' own time
              by torch.profiler.  The int8 kinds also
-             check ``quantize_rows`` (codes and scales bit-equal) and say
-             whether the fp32 result before the cast is bit-equal.
+             check ``quantize_rows`` (codes and scales bit-equal, its own
+             device time at M = 1, 8, 32) and say whether the fp32 result
+             before the cast is bit-equal (it must be for W8A8, and for
+             W4A8 in the GEMM body and where the GEMV's plan splits no
+             K); the int8 GEMV runs at M = 1, 8 and 32, with the A16 GEMV
+             on the same packed words beside W4A8 at M = 8.
 3. rtn     — the RTN → serve path at the full width of ``llama3-8b``
              (random weights from a seeded generator, all 32 layers):
              ``AutoRound(scheme="W4A16", iters=0, quant_lm_head=True)`` on
@@ -174,11 +179,12 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12, 1513e12),
 # attention 0.0072; PERF.md).
 ROW_TOL = {"flash_attention": 0.1, "w4a16_matmul": 0.1,
            # bf16 out against the plain version's bf16: W8A8 and the W4A8
-           # GEMM are bit-equal in fp32 before the cast (row error 0), the
-           # W4A8 GEMV sums its groups in another order (fp32 row error
-           # 2.1e-6), which moves a few outputs by one bf16 ulp: of a row's
-           # largest output that is 0.0185 of the row's RMS (measured, lm_head
-           # M = 8); W8A16 rounds float(wi) * s to bf16 as the plain version
+           # GEMM are bit-equal in fp32 before the cast (row error 0), as is
+           # the W4A8 GEMV where its plan splits no K; split over a cluster
+           # it adds the ranks' sums in rank order (fp32 row error 2.1e-6),
+           # which moves a few outputs by one bf16 ulp: 0.0099 of the row's
+           # RMS at worst (measured, down_proj M = 32); W8A16 rounds
+           # float(wi) * s to bf16 as the plain version
            # does in both bodies (the GEMV: worst row 0.0124 at M = 8;
            # the GEMM per channel at K = 14336, M = 4096: 0.0503, the sums'
            # order over 14336 products)
@@ -792,14 +798,33 @@ def decode_kernel_phase(timer, bw, flops_peak):
     return rows
 
 
+def a8_gemv_info(src, M, K, O, g=128):
+    """{registers, spill bytes, dynamic shared bytes, blocks per SM, rw,
+    kc} of the int8 GEMV of `src` (``w8a8_matmul`` or ``w4a8_matmul``) at
+    (M, K, O[, g]): its resources and its plan."""
+    import ctypes
+
+    from autoround_tpu_torch.ops import _build
+    fn = getattr(_build.load(src), f"{src}_gemv_info")
+    args = (M, K, O) if src == "w8a8_matmul" else (M, K, O, g)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 6)()
+    _build.check(fn(*args, info), f"{src}_gemv_info")
+    return list(info)
+
+
 def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
     """The int8 kinds at the llama3-8b projections: quantize_rows, W8A8,
     W4A8 (g = 128) and W8A16 (g = 128 and per channel) against their plain
-    versions, plus two edge shapes; kernel, plain, library and bound times.  Library: for W8A8
-    at M = 4096 ``torch._int_mm`` on rows quantized beforehand plus the
-    epilogue in torch ops; elsewhere ``torch.matmul`` on the dequantized
-    bf16 weight."""
-    from autoround_tpu_torch.ops.qmatmul import pack_w4, unpack_w4
+    versions, plus two edge shapes; kernel, plain, library and bound times.
+    Library: for W8A8 at M > 32 ``torch._int_mm`` on rows quantized
+    beforehand plus the epilogue in torch ops; elsewhere ``torch.matmul``
+    on the dequantized bf16 weight.  The decode shapes (the int8 GEMV) at
+    M = 1, 8 and 32 with device times (W8A16 not at M = 1 and 32); at M =
+    8 the A16 SYM4 GEMV (row 4) on the W4A8 case's packed words beside it,
+    and ``quantize_rows`` alone at M = 1, 8 and 32."""
+    from autoround_tpu_torch.ops.qmatmul import (pack_w4, unpack_w4,
+                                                 w4a16_matmul)
     from autoround_tpu_torch.ops.qmatmul_ext import (w8a16_matmul,
                                                      w8a16_matmul_plain)
     from autoround_tpu_torch.ops.qmatmul_int8 import (
@@ -824,7 +849,8 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
             f"bound_ms={b_ms:.4f} ({b_by}) {tflops(2 * M * O * K, ms, unit)}")
         check(rel <= tol, f"{kernel} {shape}: row err {rel}")
 
-    for (M, K) in [(8, 4096), (4096, 4096), (8, 14336), (4096, 14336)]:
+    for (M, K) in [(1, 4096), (8, 4096), (32, 4096), (4096, 4096),
+                   (1, 14336), (8, 14336), (32, 14336), (4096, 14336)]:
         x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
         x[0] = 0
         xi, xs = quantize_rows(x)
@@ -835,18 +861,21 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
               f"plain version")
         ms = timer(lambda: quantize_rows(x))
         plain_ms = timer(lambda: quantize_rows_plain(x))
+        dev_ms, _ = timer.device(lambda: quantize_rows(x))
         b_ms, _ = bound(3 * M * K + 4 * M, 0, 1.0)
         log(f"kernel quantize_rows [M={M} K={K}] codes and scales bit-equal "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} "
-            f"(bytes); it runs inside every w4a8_matmul / w8a8_matmul call")
+            f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms="
+            f"{plain_ms:.4f} bound_ms={b_ms:.4f} (bytes); it runs inside "
+            f"every w4a8_matmul / w8a8_matmul call")
 
     # the last: ragged M and O on the GEMM body, and a K (a multiple of 32,
     # not of the int8 GEMM's 64-column tile) whose last tile is half empty
-    cases = [(8, 6144, 4096, "qkv", 128), (8, 4096, 14336, "down_proj", 128),
-             (8, 128256, 4096, "lm_head", 128), (4096, 6144, 4096, "qkv", 128),
-             (4096, 4096, 14336, "down_proj", 128),
-             (4096, 128256, 4096, "lm_head", 128),
-             (5, 1000, 4096, "ragged", 128), (200, 1000, 1056, "K edge", 96)]
+    decode = [(6144, 4096, "qkv"), (4096, 14336, "down_proj"),
+              (128256, 4096, "lm_head")]
+    cases = [(M, O, K, name, 128) for M in (1, 8, 32)
+             for (O, K, name) in decode]
+    cases += [(4096, O, K, name, 128) for (O, K, name) in decode]
+    cases += [(5, 1000, 4096, "ragged", 128), (200, 1000, 1056, "K edge", 96)]
     for (M, O, K, name, G) in cases:
         x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
         out_bytes = 2 * M * K + 2 * M * O
@@ -866,7 +895,7 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
         del y32, p32
         ms = timer(lambda: w8a8_matmul(x, wi, ws))
         plain_ms = timer(lambda: w8a8_matmul_plain(x, wi, ws))
-        if M > 16:
+        if M > 32:
             xi, xs = quantize_rows(x)
             wt = wi.T
 
@@ -904,7 +933,7 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
         xi = xs = wt = w_bf16 = None
 
         # row 11, W8A16 on the same codes: per group and per channel
-        for g in (G, 0):
+        for g in (G, 0) if M not in (1, 32) else ():
             sc = (torch.rand(O, K // g if g else 1, generator=gen,
                              device=dev) - 0.5) * 0.002
             y = w8a16_matmul(x, wi, sc, g)
@@ -937,7 +966,8 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
                     shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                     device_ms=dev_ms, library_device_ms=lib_dev_ms)
-        del wi, ws, sc, y
+        del wi, ws, y
+        sc = None
         torch.cuda.empty_cache()
 
         # row 8, W4A8: the packed words of the W4A16 kernel
@@ -950,9 +980,11 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
         err, rel = row_err(y, p32.bfloat16())
         equal = torch.equal(y32, p32)
         _, rel32 = row_err(y32, p32)
-        check(rel32 <= W4A8_F32_ROW_TOL and (equal or M <= 32),
+        kc = a8_gemv_info("w4a8_matmul", M, K, O, G)[5] if M <= 32 else 1
+        check(rel32 <= W4A8_F32_ROW_TOL and (equal or kc > 1),
               f"w4a8 M={M} O={O} K={K}: fp32 row err {rel32}, bit-equal "
-              f"{equal} (the GEMM body must be)")
+              f"{equal} (the GEMM body and a GEMV that splits no K must "
+              f"be)")
         del y32, p32
         ms = timer(lambda: w4a8_matmul(x, qw, sc, G))
         plain_ms = timer(lambda: w4a8_matmul_plain(x, qw, sc, G))
@@ -962,16 +994,22 @@ def a8_kernel_phase(timer, bw, flops_peak, int8_peak):
         dev_ms, how = timer.device(lambda: w4a8_matmul(x, qw, sc, G))
         lib_dev_ms, _ = timer.device(lambda: torch.matmul(x, w_bf16.T))
         del w_bf16
+        a16 = ""
+        if M == 8 and name in ("qkv", "down_proj", "lm_head"):
+            # the A16 SYM4 GEMV reads the same packed words
+            a16_ms, a16_how = timer.device(lambda: w4a16_matmul(x, qw, sc, G))
+            a16 = f" a16_sym4_gemv_device_ms={a16_ms:.4f} ({a16_how})"
         b_ms, b_by = bound(out_bytes + O * K // 2 + 4 * sc.numel(),
                            2 * M * O * K, int8_peak)
         shape = f"{name} M={M} O={O} K={K} g={G}"
         report("w4a8_matmul", shape, err, rel,
-               f" f32_bit_equal={equal} f32_row_err={rel32:.3g} (tol "
-               f"{W4A8_F32_ROW_TOL}) device_ms={dev_ms:.4f} ({how}, "
+               f" f32_bit_equal={equal} (kc={kc}) f32_row_err="
+               f"{rel32:.3g} (tol {W4A8_F32_ROW_TOL}) device_ms="
+               f"{dev_ms:.4f} ({how}, "
                f"quantize_rows + product) library_device_ms="
                f"{lib_dev_ms:.4f} device "
-               f"{tflops(2 * M * O * K, dev_ms, 'TOP/s')}", ms, plain_ms,
-               lib_ms, b_ms, b_by)
+               f"{tflops(2 * M * O * K, dev_ms, 'TOP/s')}{a16}", ms,
+               plain_ms, lib_ms, b_ms, b_by)
         if M == 8 and name == "qkv":
             rows["w4a8_matmul"] = dict(
                 name="w4a8_matmul", route="cuda",
@@ -1304,8 +1342,14 @@ def profile_serving(eng, prompts, prefill_ms, step_ms):
         torch.cuda.synchronize()
     times = _kernel_times(prof)
     total = sum(ms for ms, _ in times.values()) / n
+    # the GEMV family (A16 and int8 bodies) and the int8 quantizer a step
+    gemv = sum(ms for name, (ms, _) in times.items()
+               if "gemv_kernel" in name) / n
+    quant = sum(ms for name, (ms, _) in times.items()
+                if "quantize_rows_kernel" in name) / n
     log(f"profile decode step: kernel_ms={total:.3f} of step_ms="
-        f"{step_ms:.3f} busy_share={total / step_ms:.3f}; top per step: "
+        f"{step_ms:.3f} busy_share={total / step_ms:.3f} gemv_ms="
+        f"{gemv:.3f} quantize_rows_ms={quant:.3f}; top per step: "
         + _top(times, n))
 
 
@@ -2674,6 +2718,20 @@ def build_report(build):
                 f"{info[1]} spill bytes, {info[2]} bytes of dynamic shared "
                 f"memory, {info[3]} blocks per SM (at the last plan's "
                 f"block); plan {', '.join(plans)}")
+    # the int8 GEMV (M <= 32) of W8A8 and W4A8 (g = 128) per n-tile tier,
+    # with its plan at the decode launches of llama3-8b
+    llama8 = llama + (("o_proj", 1, 4096, 4096), ("gate_up", 1, 4096, 28672))
+    for src in ("w8a8_matmul", "w4a8_matmul"):
+        for M in (1, 8, 16, 32):
+            plans = []
+            for name, _, K, O in llama8:
+                info = a8_gemv_info(src, M, K, O)
+                plans.append(f"{name} rw={info[4]} kc={info[5]}")
+            log(f"  resources {src} gemv M<={M}: {info[0]} registers, "
+                f"{info[1]} spill bytes, {info[2]} bytes of dynamic shared "
+                f"memory, {info[3]} blocks per SM (at the last plan's "
+                f"block); plan {', '.join(plans)}")
+    info = (ctypes.c_int * 8)()
     fn = build.load("sage_attention").sage_attention_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     for D in (128, 256):

@@ -24,8 +24,12 @@ bodies at M = 4096 qkv (bit-equality of the shared tiles), the A16 GEMV
 (M <= 32) of all seven sources at M = 8 for qkv, down_proj and lm_head
 (the grouped one: mixtral-8x7b's w1 and w2 at E = 8, C = 8), rows 4 and 5
 at M = 1 (batch-1 decode) for every projection of llama3-8b, mixtral-8x7b
-and llama3.2-1b (``DECODE_SHAPES``), row 4 also at M = 16 and 32 for qkv
-and lm_head, and row 14 (int8-QK attention) at ``chip_smoke.py``'s three
+and llama3.2-1b (``DECODE_SHAPES``) beside the library call on the
+dequantized bf16 weight (``torch.matmul``; the experts ``torch.bmm``), row
+4 also at M = 16 and 32 for qkv and lm_head, rows 7 and 8 (the int8 GEMV,
+W8A8 and W4A8 g128, fp32 out: W8A8 must stay bit-equal, W4A8 within
+``chip_smoke.W4A8_F32_ROW_TOL``) at M = 1, 8, 16 and 32 for every decode
+launch of llama3-8b, and row 14 (int8-QK attention) at ``chip_smoke.py``'s three
 shapes.  Then, with every
 kernel above old and then new, ``chip_smoke.py``'s tuning step (gradient
 check, step ms; turns old, new, new, old), its llama3-8b tune path at 32
@@ -33,7 +37,7 @@ layers (old, new) for ``tune_s``, and the mixtral-8x7b decode step at
 ``MOE_LAYERS`` layers (RTN W4A16 g128, 8 x 512 prompts, int8 KV; turns
 old, new, new, old of 8 steps each, their median, and the device time of
 one profiled step: all kernels and the GEMVs').  ``--only gemv,sage,moe``
-runs just those groups.  Prints one JSON line per case, the card's name
+runs just those groups (``a8gemv``: rows 7 and 8 at decode).  Prints one JSON line per case, the card's name
 and power limit, and writes all of it to ``chiprun_out/old_new.json``.
 Needs a CUDA card.
 """
@@ -61,7 +65,8 @@ NAMES = ("flash_attention_bwd", "decode_attention", "w8a8_matmul",
          "w4a8_matmul", "w4a16_matmul", "w4a16_matmul_grouped",
          "w4a16_asym_matmul", "w8a16_matmul", "w2a16_matmul", "fp8_matmul",
          "mxfp4_matmul", "sage_attention")
-GROUPS = ("flash", "decode", "int8", "gemm", "gemv", "sage", "tune", "moe")
+GROUPS = ("flash", "decode", "int8", "gemm", "gemv", "a8gemv", "sage", "tune",
+          "moe")
 # mixtral-8x7b blocks of the decode step: 4 of 32 fit the card with room
 # to spare beside both builds and keep the RTN pass that packs them short;
 # a block's share of the step does not depend on the depth
@@ -190,8 +195,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = []
 
-    def run(case, fn, n_ops=None, floor=0.0, fn_old=None):
-        """`fn_old`: the old version's call where its C interface differs."""
+    def run(case, fn, n_ops=None, floor=0.0, fn_old=None, tol=None,
+            lib=None):
+        """`fn_old`: the old version's call where its C interface differs;
+        `tol`: the row error new against old must stay within it (None:
+        not checked); `lib`: one PyTorch call computing the same function,
+        whose device time is recorded beside."""
         use("old")
         y0 = (fn_old or fn)()
         use("new")
@@ -213,11 +222,16 @@ def main() -> int:
         o, n = (statistics.mean(device_ms[v]) for v in ("old", "new"))
         r = dict(case=case, bit_equal=equal, row_err_new_vs_old=rel,
                  ms=ms, device_ms=device_ms, device_speedup=o / n)
+        if tol is not None:
+            r["within_tol"] = rel <= tol
+        if lib is not None:
+            r["library_device_ms"] = timer.device(lib)[0]
         if n_ops:
             r["device_tops"] = {v: n_ops / statistics.mean(t) / 1e9
                                 for v, t in device_ms.items()}
         print(json.dumps(r), flush=True)
         results.append(r)
+        return r
 
     from autoround_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
@@ -355,24 +369,58 @@ def main() -> int:
         run(f"row12 fp8 gemv {nm} M{M}", lambda: fp8_matmul(x, wf, s8))
         del wf, s8, sc, x
         torch.cuda.empty_cache()
-    # rows 4 and 5 at M = 1, every decode launch
-    from autoround_tpu_torch.ops.qmatmul import w4a16_matmul_grouped
+    # rows 4 and 5 at M = 1, every decode launch, beside the library call
+    # on the dequantized bf16 weight (torch.matmul; the experts torch.bmm)
+    from autoround_tpu_torch.ops.qmatmul import unpack_w4, w4a16_matmul_grouped
     for (model, nm, E, O, K) in [] if "gemv" not in only else DECODE_SHAPES:
         qw = torch.stack([pack_w4(torch.randint(0, 16, (O, K), generator=gen,
                                                 device=dev))
                           for _ in range(E)])
         sc = (torch.rand(E, O, K // 128, generator=gen, device=dev) - .5) * .02
         x = torch.randn(E, 1, K, generator=gen, device=dev).bfloat16()
+        wb = torch.stack([((unpack_w4(qw[e]) - 8).float()
+                           * sc[e].repeat_interleave(128, dim=1)).bfloat16()
+                          for e in range(E)])
         if E == 1:
             run(f"row4 w4a16 gemv g128 {model} {nm} M1",
-                lambda: w4a16_matmul(x[0], qw[0], sc[0], 128))
+                lambda: w4a16_matmul(x[0], qw[0], sc[0], 128),
+                lib=lambda: torch.matmul(x[0], wb[0].T))
         else:
             if nm.startswith("w1"):
                 x = x[0].expand(E, 1, K)
             run(f"row5 grouped gemv {model} {nm} E{E} C1",
-                lambda: w4a16_matmul_grouped(x, qw, sc, 128))
-        del qw, sc, x
+                lambda: w4a16_matmul_grouped(x, qw, sc, 128),
+                lib=lambda: torch.bmm(x, wb.transpose(1, 2)))
+        del qw, sc, x, wb
         torch.cuda.empty_cache()
+    # rows 7 and 8 (the int8 GEMV) at M = 1, 8, 16 and 32, every decode
+    # launch of llama3-8b, fp32 out: W8A8 bit-equal, W4A8 within
+    # W4A8_F32_ROW_TOL (the parent closed each 32-column chunk, the new
+    # body each group)
+    for M in [] if "a8gemv" not in only else (1, 8, 16, 32):
+        for (model, nm, E, O, K) in DECODE_SHAPES:
+            if model != "llama3-8b":
+                continue
+            x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+            wi = torch.randint(-128, 128, (O, K), generator=gen,
+                               device=dev).to(torch.int8)
+            ws = (torch.rand(O, generator=gen, device=dev) - .5) * .002
+            r = run(f"row7 w8a8 gemv {model} {nm} M{M} (fp32 out)",
+                    lambda: w8a8_matmul(x, wi, ws, torch.float32),
+                    2 * M * O * K, tol=0.0)
+            cs.check(r["bit_equal"], f"{r['case']}: new differs from old")
+            del wi, ws
+            qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen,
+                                       device=dev))
+            sc = (torch.rand(O, K // 128, generator=gen, device=dev)
+                  - .5) * .02
+            r = run(f"row8 w4a8 gemv g128 {model} {nm} M{M} (fp32 out)",
+                    lambda: w4a8_matmul(x, qw, sc, 128, torch.float32),
+                    2 * M * O * K, tol=cs.W4A8_F32_ROW_TOL)
+            cs.check(r["within_tol"], f"{r['case']}: row err "
+                     f"{r['row_err_new_vs_old']}")
+            del qw, sc, x
+            torch.cuda.empty_cache()
     # row 4 at the other M tiers (two n-tiles at 16, four at 32) for qkv
     # and lm_head
     for (M, O, K, nm) in [] if "gemv" not in only else [

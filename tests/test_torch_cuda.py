@@ -31,10 +31,13 @@ least 1% of the tensor's.
 
 The int8 kinds: ``quantize_rows`` gives the plain version's codes and
 scales bit for bit.  The integer part of W8A8 and W4A8 is exact on both
-sides, so their fp32 results before the cast are held directly: W8A8 and
-the W4A8 GEMM body (M > 32) bit-equal to the plain version; the W4A8 GEMV
-body (M <= 32) sums the groups' fp32 terms in another order (measured
-worst row 2.1e-6 of the row's RMS on an H100, limit 1e-5).  W8A16 is held
+sides, so their fp32 results before the cast are held directly: W8A8
+bit-equal to the plain version in both bodies, W4A8 in the GEMM body (M >
+32) and in the GEMV body (M <= 32: ``mma.sync`` s8, each group closed in
+the plain version's order) wherever its plan splits no K (kc = 1, read
+from ``w4a8_matmul_gemv_info``); with K split over a cluster the ranks'
+fp32 partial sums are added in rank order (limit 1e-5 of a row's RMS,
+``chip_smoke.W4A8_F32_ROW_TOL``).  W8A16 is held
 like W4A16 (measured worst row 0.049 per channel at K = 14336 in the GEMM
 body, 0.012 in the GEMV, which rounds each weight to bf16 as the plain
 version does; limit 0.15).
@@ -58,8 +61,9 @@ rounded to bf16 after an online softmax), and its refusals.
 The GEMV body (M <= 32: weights as the A of mma.sync, K split over a
 thread-block cluster) at one output row, K of a single chunk, K whose
 split leaves a ragged last range, groups that start half way through a
-lane's chunk, every expert layout, two launches bit-equal, and its plan at
-the main path's shapes; the int8-QK attention's key pre-pass bit-equal to
+lane's chunk, every expert layout, two launches bit-equal (the int8 kinds
+too, in fp32), and its plan at the main path's shapes (the int8 GEMV's at
+every decode launch of llama3-8b); the int8-QK attention's key pre-pass bit-equal to
 ``int8_rows`` and the attention at S = T = 2048.
 
 The pipelined GEMM body (M > 32) in every weight format, at K with a half
@@ -209,6 +213,20 @@ def test_asym_all_regimes(gen, zp_kind, M, O, K, g):
     assert w4a16_asym_matmul.launches == before + 1
 
 
+def _a8_gemv_info(src, M, K, O, g=128):
+    """{registers, spill bytes, shared bytes, blocks per SM, rw, kc} of the
+    int8 GEMV of `src` at (M, K, O[, g])."""
+    import ctypes
+
+    from autoround_tpu_torch.ops import _build
+    fn = getattr(_build.load(src), f"{src}_gemv_info")
+    args = (M, K, O) if src == "w8a8_matmul" else (M, K, O, g)
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    info = (ctypes.c_int * 6)()
+    assert fn(*args, info) == 0
+    return list(info)
+
+
 def _a8_input(gen, M, K):
     """(2, M, K) bf16 activations with an all-zero row."""
     x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
@@ -233,12 +251,14 @@ def test_quantize_rows_bit_equal(gen, M, K):
 
 @pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 32, 33, 200, 4096])
 @pytest.mark.parametrize("O,K", [(1000, 1024), (72, 512), (256, 14336),
-                                 (72, 96), (200, 1056)])
+                                 (72, 96), (200, 1056), (1, 1024),
+                                 (1000, 14336)])
 def test_w8a8_all_regimes(gen, M, O, K):
     """Exact int32 accumulation, then two fp32 multiplications in the plain
     version's order: the fp32 result is bit-equal, and so the bf16 one.
     K = 96 and 1056 are multiples of 32 and not of the GEMM's 64-column
-    tile: its last tile is half empty."""
+    tile: its last tile is half empty.  The GEMV edges: one output row
+    (its K split over a cluster of 8), and K = 14336 over 8 ranks."""
     if M == 4096 and K == 14336:
         pytest.skip("covered at M = 200")
     before = w8a8_matmul.launches
@@ -260,10 +280,19 @@ def test_w8a8_all_regimes(gen, M, O, K):
 @pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 32, 33, 200, 4096])
 @pytest.mark.parametrize("O,K,g", [(1000, 1024, 128), (72, 512, 32),
                                    (200, 2048, 256), (72, 96, 32),
-                                   (72, 160, 32), (200, 1056, 96)])
+                                   (72, 160, 32), (200, 1056, 96),
+                                   (1, 1024, 32), (1000, 14336, 32),
+                                   (20480, 512, 32)])
 def test_w4a8_all_regimes(gen, M, O, K, g):
-    """The last three: K a multiple of 32 and not of the GEMM's 64-column
-    tile, with a group that closes on the tile's first half."""
+    """K = 96, 160, 1056: a multiple of 32 and not of the GEMM's 64-column
+    tile, with a group that closes on the tile's first half.  The GEMV
+    edges: one output row, K = 14336 at g = 32 (a chunk of an mma is a
+    whole group) over 8 ranks, and 20480 rows, whose plan splits no K.
+    The GEMM body and a GEMV whose plan gives kc = 1 close the groups in
+    the plain version's order: bit-equal.  With kc > 1 the ranks' partial
+    sums are added in rank order; a row of one output (O = 1) is held to
+    the tensor's RMS (the floor), not to its single, possibly cancelled,
+    value."""
     before = w4a8_matmul.launches
     x = _a8_input(gen, M, K)
     qw = pack_w4(torch.randint(0, 16, (O, K), generator=gen, device="cuda"))
@@ -272,9 +301,9 @@ def test_w4a8_all_regimes(gen, M, O, K, g):
     y = w4a8_matmul(x, qw, sc, g)
     p32 = w4a8_matmul_plain(x, qw, sc, g, torch.float32)
     torch.cuda.synchronize()
-    if 2 * M > 32:                     # the GEMM body: the plain order
+    if 2 * M > 32 or _a8_gemv_info("w4a8_matmul", 2 * M, K, O, g)[5] == 1:
         assert torch.equal(y32, p32)
-    _check(y32, p32, "w4a8_f32")
+    _check(y32, p32, "w4a8_f32", floor=1.0 if O == 1 else 0.0)
     assert y.dtype == torch.bfloat16 and torch.equal(y, y32.bfloat16())
     assert not y[0, 0].any()
     assert w4a8_matmul.launches == before + 2
@@ -359,11 +388,11 @@ def test_fp8_all_regimes(gen, M, O, K):
 
 @pytest.mark.parametrize("M", [1, 8, 17, 32])
 @pytest.mark.parametrize("kind", ["w4a16", "grouped", "asym", "w8a16",
-                                  "w2a16", "fp8", "mxfp4"])
+                                  "w2a16", "fp8", "mxfp4", "w8a8", "w4a8"])
 def test_gemv_run_to_run(gen, kind, M):
     """Two launches of the GEMV give the same bits: K = 14336 at O = 1000
     splits K over a thread-block cluster, whose partial sums rank 0 adds in
-    rank order (no atomics)."""
+    rank order (no atomics).  The int8 kinds are held in fp32."""
     O, K = 1000, 14336
     x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
     c4 = torch.randint(0, 16, (O, K), generator=gen, device="cuda")
@@ -384,6 +413,11 @@ def test_gemv_run_to_run(gen, kind, M):
     elif kind == "fp8":
         fn = lambda: fp8_matmul(x, (c4 - 8).float().to(torch.float8_e4m3fn),
                                 sc[:, 0].abs())
+    elif kind == "w8a8":
+        fn = lambda: w8a8_matmul(x, (c4 * 17 - 128).to(torch.int8),
+                                 sc[:, 0].contiguous(), torch.float32)
+    elif kind == "w4a8":
+        fn = lambda: w4a8_matmul(x, pack_w4(c4), sc, 128, torch.float32)
     else:
         fn = lambda: mxfp4_matmul(x, pack_w4(c4), sc.repeat_interleave(4, 1)
                                   .abs(), 32)
@@ -401,22 +435,37 @@ def test_gemv_run_to_run(gen, kind, M):
     ("w4a16_matmul_grouped", 8, 8, 14336, 4096, (8, 8)),
     ("w8a16_matmul", 1, 8, 14336, 4096, (8, 8)),
     ("w4a16_matmul", 1, 32, 14336, 4096, (8, 16)),
-    ("w2a16_matmul", 1, 1, 32, 1, (1, 1))])
+    ("w2a16_matmul", 1, 1, 32, 1, (1, 1))] + [
+    (src, 1, M, K, O, want) for src in ("w8a8_matmul", "w4a8_matmul")
+    for M in (1, 8) for (K, O, want) in [
+        (4096, 6144, (8, 4)), (4096, 4096, (8, 8)), (4096, 28672, (8, 1)),
+        (14336, 4096, (8, 8)), (4096, 128256, (8, 1))]] + [
+    ("w4a8_matmul", 1, 32, 4096, 128256, (8, 2)),
+    ("w8a8_matmul", 1, 32, 14336, 4096, (8, 8))])
 def test_gemv_plan(gen, src, E, M, K, O, want):
     """The GEMV's plan (row tiles a block, blocks a cluster along K) at the
     main path's shapes on a 132-SM H100 (a block's x within 32 KB at M <=
     8, 64 KB above: M = 32 at K = 14336 takes a cluster of 16), its shared
     memory within 96 KB (x and a 4 KB weight ring a warp), no spill and at
-    least two blocks an SM."""
-    import ctypes
-
-    from autoround_tpu_torch.ops import _build
+    least two blocks an SM.  The int8 GEMV (W8A8, W4A8 at g = 128) at every
+    decode launch of llama3-8b: the same caps on half the bytes of x, a
+    W4A8 ring of 5 KB a warp (the scales beside the weights: 104 KB at
+    most), at least three blocks an SM at M <= 8."""
     props = torch.cuda.get_device_properties(0)
-    fn = getattr(_build.load(src), f"{src}_gemv_info")
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
-    info = (ctypes.c_int * 6)()
-    assert fn(E, M, K, O, info) == 0
-    assert info[1] == 0 and info[2] <= 96 << 10 and info[3] >= 2
+    if src in ("w8a8_matmul", "w4a8_matmul"):
+        info = _a8_gemv_info(src, M, K, O)
+        smem_max = 104 << 10 if src == "w4a8_matmul" else 96 << 10
+        assert M > 8 or info[3] >= 3
+    else:
+        import ctypes
+
+        from autoround_tpu_torch.ops import _build
+        fn = getattr(_build.load(src), f"{src}_gemv_info")
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        info = (ctypes.c_int * 6)()
+        assert fn(E, M, K, O, info) == 0
+        smem_max = 96 << 10
+    assert info[1] == 0 and info[2] <= smem_max and info[3] >= 2
     if props.multi_processor_count == 132:
         assert (info[4], info[5]) == want
 

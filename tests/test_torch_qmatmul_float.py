@@ -23,6 +23,7 @@ Tolerances (fp32 on the CPU unless stated):
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -262,12 +263,10 @@ def test_serving_kinds_equal_the_jax_engine():
 
 # ------------------------------------------------------------------ engine
 
-@pytest.fixture(scope="module")
-def float_model():
-    # hidden 2048 so even the JAX engine's W2 16-plane packing (K % 2048)
-    # packs
-    jcfg = jl.LlamaConfig(vocab_size=128, hidden_size=2048,
-                          intermediate_size=2048, num_layers=1,
+@functools.lru_cache(maxsize=None)
+def _float_model(hidden):
+    jcfg = jl.LlamaConfig(vocab_size=128, hidden_size=hidden,
+                          intermediate_size=hidden, num_layers=1,
                           num_heads=4, num_kv_heads=2, rope_theta=1e4,
                           dtype=jnp.float32)
     jp = jl.init_params(jcfg, jax.random.PRNGKey(0))
@@ -285,9 +284,11 @@ ENGINE_CASES = [("FP8_STATIC", "fp8"), ("MXFP4", "mxfp4_g32"),
 
 @pytest.fixture(scope="module", params=ENGINE_CASES, ids=[c[0] for c in
                                                           ENGINE_CASES])
-def engine_pair(request, float_model):
+def engine_pair(request):
     scheme, kind = request.param
-    m = float_model
+    # the smallest width at which the JAX engine packs the kind: K % 2048
+    # for W2's 16 planes, K % 1024 for the E2M1 planes (FP8: any K)
+    m = _float_model(2048 if scheme == "W2A16" else 1024)
     jres = JAutoRound((m["jp"], m["jcfg"]), scheme=scheme, iters=0,
                       quant_lm_head=True).quantize(jnp.asarray(m["calib"]))
     tres = AutoRound((m["tp"], m["tcfg"]), scheme=scheme, iters=0,
