@@ -9,8 +9,10 @@ the JAX package.
 Ported so far: SignRound (``iters > 0``) and RTN (``iters=0``) quantization
 of Llama-family and Mixtral models with the int and float (FP8, MX, NVFP4)
 data types and their activation quantization, the serving engine for every
-packed kind of the JAX engine with an int8 KV cache, and the ``fake`` /
-``autoround`` export formats::
+packed kind of the JAX engine with an int8 or fp8 KV cache, its decode loop
+as a replayed CUDA graph (``generate_scan``) and continuous batching
+(``serve.ContinuousBatchingEngine``), and the ``fake`` / ``autoround``
+export formats::
 
     ar = AutoRound((params, cfg), scheme="W4A16", iters=200,
                    quant_lm_head=True)
@@ -18,7 +20,7 @@ packed kind of the JAX engine with an int8 KV cache, and the ``fake`` /
     ar.save_quantized("out/", format="autoround")
     eng = QuantizedLlama.from_quantize_result(res, cfg, max_seq=1024,
                                               kv_quant="int8")
-    tokens = eng.generate(prompts, max_new_tokens=32)
+    tokens = eng.generate_scan(prompts, max_new_tokens=32)
 
 Every entry point takes ``device=None``, meaning the CUDA card; without
 one it raises.  Pass ``device="cpu"`` for the plain PyTorch path.

@@ -19,6 +19,7 @@ for a config that sets one.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -138,16 +139,17 @@ def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * g.float()).to(dt)
 
 
-def rope_tables(cfg: LlamaConfig, seqlen: int,
-                positions: Optional[torch.Tensor] = None,
-                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (seqlen, hd) in fp32, HF half-split convention.
-    ``positions`` (S,) overrides ``arange(seqlen)``; the tables land on
-    ``positions``' device, else on ``device``."""
-    hd = cfg.hd
-    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, hd, 2) / hd))
-    if cfg.rope_llama3 is not None:
-        factor, lo_f, hi_f, orig = cfg.rope_llama3
+@functools.lru_cache(maxsize=None)
+def _inv_freq(hd: int, theta: float,
+              rope_llama3: Optional[Tuple[float, float, float, int]],
+              device: torch.device) -> torch.Tensor:
+    """The rope frequencies (hd / 2,) fp32 on ``device``, computed in
+    float64 with numpy and copied once per (config, device): a decode step
+    then makes its tables on the device alone (a host-to-device copy cannot
+    be captured in a CUDA graph)."""
+    inv_freq = 1.0 / (theta ** (np.arange(0, hd, 2) / hd))
+    if rope_llama3 is not None:
+        factor, lo_f, hi_f, orig = rope_llama3
         wavelen = 2.0 * np.pi / inv_freq
         lo_wl, hi_wl = orig / lo_f, orig / hi_f
         smooth = np.clip((orig / wavelen - lo_f) / (hi_f - lo_f), 0.0, 1.0)
@@ -155,9 +157,20 @@ def rope_tables(cfg: LlamaConfig, seqlen: int,
         inv_freq = np.where(wavelen < hi_wl, inv_freq,
                             np.where(wavelen > lo_wl, inv_freq / factor,
                                      blended))
+    return torch.as_tensor(inv_freq.astype(np.float32), device=device)
+
+
+def rope_tables(cfg: LlamaConfig, seqlen: int,
+                positions: Optional[torch.Tensor] = None,
+                device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (seqlen, hd) in fp32, HF half-split convention.
+    ``positions`` (S,) overrides ``arange(seqlen)``; the tables land on
+    ``positions``' device, else on ``device``.  A decode step passes its
+    (B,) per-slot positions and gets one row per slot."""
     if positions is None:
         positions = torch.arange(seqlen, device=device)
-    inv = torch.as_tensor(inv_freq.astype(np.float32), device=positions.device)
+    inv = _inv_freq(cfg.hd, float(cfg.rope_theta), cfg.rope_llama3,
+                    positions.device)
     ang = positions[:, None].float() * inv[None, :]
     ang = torch.cat([ang, ang], dim=-1)
     return torch.cos(ang), torch.sin(ang)
@@ -170,9 +183,13 @@ def _rotate_half(x):
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, n, hd); cos/sin: (S, hd)."""
-    c = cos[None, :, None, :].float()
-    s = sin[None, :, None, :].float()
+    """x: (B, S, n, hd); cos/sin: (S, hd), or (B, S, hd) with a row per
+    slot (per-slot decode positions)."""
+    if cos.ndim == 3:
+        c, s = cos[:, :, None, :].float(), sin[:, :, None, :].float()
+    else:
+        c = cos[None, :, None, :].float()
+        s = sin[None, :, None, :].float()
     xf = x.float()
     return (xf * c + _rotate_half(xf) * s).to(x.dtype)
 

@@ -148,7 +148,10 @@ def capacity_slots(topi: torch.Tensor, E: int,
     is the slot's row in the slab, ``C`` (the spill row) for a dropped
     slot."""
     e_idx = topi.reshape(-1)
-    oh = F.one_hot(e_idx, E).to(torch.int32)               # (N*k, E)
+    # one-hot by comparison: F.one_hot may check its input's range on the
+    # host, which a captured CUDA graph cannot do
+    oh = (e_idx[:, None] == torch.arange(E, device=e_idx.device)).to(
+        torch.int32)                                       # (N*k, E)
     pos_e = (torch.cumsum(oh, dim=0) * oh).sum(dim=1) - 1
     keep = pos_e < C
     return keep, torch.where(keep, pos_e, torch.full_like(pos_e, C))

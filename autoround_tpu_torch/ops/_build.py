@@ -23,9 +23,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "check"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "COUNTED", "build_all", "load", "check",
+           "counted"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,6 +41,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+# every kernel wrapper with a ``launches`` count, registered by its module
+# as it is imported (:func:`counted`)
+COUNTED: List[Callable] = []
+
+
+def counted(fn: Callable) -> Callable:
+    """Give the wrapper ``fn`` a ``launches`` count of 0 (its module adds
+    one where it launches its kernel) and register it in ``COUNTED``."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
 
 
 def _nvcc() -> str:

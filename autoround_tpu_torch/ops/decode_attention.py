@@ -67,7 +67,12 @@ def check_decode_shape(hd: int, nh: int, nkv: int) -> None:
 
 
 def _pos_vector(pos, B: int, device) -> torch.Tensor:
-    p = torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(-1)
+    """(B,) int32 positions on ``device``: a tensor is cast and broadcast
+    on its device, a Python int filled there (no host-to-device copy, so a
+    CUDA graph can capture either)."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+    p = pos.to(device=device, dtype=torch.int32).reshape(-1)
     return p.expand(B).contiguous()
 
 
@@ -189,4 +194,4 @@ def decode_attention(q, k_cache, v_cache, pos, k_scale, v_scale,
     return out
 
 
-decode_attention.launches = 0
+_build.counted(decode_attention)

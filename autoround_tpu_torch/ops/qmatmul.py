@@ -145,7 +145,7 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     return y.reshape(*x.shape[:-1], O)
 
 
-w4a16_matmul.launches = 0
+_build.counted(w4a16_matmul)
 
 
 def w4a16_matmul_grouped_plain(x: torch.Tensor, qweight: torch.Tensor,
@@ -208,4 +208,4 @@ def w4a16_matmul_grouped(x: torch.Tensor, qweight: torch.Tensor,
     return y
 
 
-w4a16_matmul_grouped.launches = 0
+_build.counted(w4a16_matmul_grouped)

@@ -111,7 +111,7 @@ def w4a16_asym_matmul(x: torch.Tensor, qweight: torch.Tensor,
     return y
 
 
-w4a16_asym_matmul.launches = 0
+_build.counted(w4a16_asym_matmul)
 
 
 def w8a16_matmul_plain(x: torch.Tensor, wi: torch.Tensor,
@@ -149,7 +149,7 @@ def w8a16_matmul(x: torch.Tensor, wi: torch.Tensor, scales: torch.Tensor,
     return y
 
 
-w8a16_matmul.launches = 0
+_build.counted(w8a16_matmul)
 
 
 # ------------------------------------------------------------------ W2
@@ -214,7 +214,7 @@ def w2a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     return y
 
 
-w2a16_matmul.launches = 0
+_build.counted(w2a16_matmul)
 
 
 # ----------------------------------------------------------------- FP8
@@ -247,7 +247,7 @@ def fp8_matmul(x: torch.Tensor, wf8: torch.Tensor,
     return y
 
 
-fp8_matmul.launches = 0
+_build.counted(fp8_matmul)
 
 
 # --------------------------------------------------------------- MXFP4
@@ -300,4 +300,4 @@ def mxfp4_matmul(x: torch.Tensor, qweight: torch.Tensor,
     return y
 
 
-mxfp4_matmul.launches = 0
+_build.counted(mxfp4_matmul)

@@ -85,7 +85,7 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xi, xs
 
 
-quantize_rows.launches = 0
+_build.counted(quantize_rows)
 
 
 def _out(y: torch.Tensor, x: torch.Tensor, O: int, out_dtype):
@@ -175,7 +175,7 @@ def w8a8_matmul(x: torch.Tensor, wi: torch.Tensor, ws: torch.Tensor,
     return y.reshape(*x.shape[:-1], O)
 
 
-w8a8_matmul.launches = 0
+_build.counted(w8a8_matmul)
 
 
 def _w4a8_entry():
@@ -217,4 +217,4 @@ def w4a8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
     return y.reshape(*x.shape[:-1], O)
 
 
-w4a8_matmul.launches = 0
+_build.counted(w4a8_matmul)

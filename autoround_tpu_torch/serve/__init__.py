@@ -1,6 +1,8 @@
-"""Serving: the packed W4A16 engine and token sampling."""
+"""Serving: the packed engine, continuous batching and token sampling."""
 
+from .batching import ContinuousBatchingEngine, Request
 from .engine import KVCache, QuantizedLlama
 from .sampling import SamplingParams, sample_token
 
-__all__ = ["KVCache", "QuantizedLlama", "SamplingParams", "sample_token"]
+__all__ = ["ContinuousBatchingEngine", "KVCache", "QuantizedLlama",
+           "Request", "SamplingParams", "sample_token"]

@@ -2,7 +2,7 @@
 (counterpart of ``autoround_tpu/serve/engine.py``; the Llama and Mixtral
 families, every kind of the JAX engine — ``w4a16``, ``w4a16_asym``,
 ``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``, ``fp8``, ``mxfp4_g32`` and
-``mxfp4_g16`` — and ``kv_quant`` None or ``"int8"``).  The float kinds and
+``mxfp4_g16`` — and ``kv_quant`` None, ``"int8"`` or ``"fp8"``).  The float kinds and
 W2A16 serve weight-only with bf16 activations, as the JAX engine does: the
 act fields of their schemes shape calibration and tuning only.
 
@@ -20,6 +20,19 @@ routing is dense-then-mask unless ``moe_capacity_factor > 0`` asks for
 capacity dispatch.  Prefill attention takes the flash
 kernel where the routing gate passes; every decode step with the int8
 cache attends through the int8-KV decode kernel (``ops/decode_attention``).
+The fp8 cache (e4m3 storage, per-head scales as for int8) has no kernel, as
+in the JAX engine: a step dequantizes the layer's cache and runs the plain
+masked attention.
+
+A decode step carries its position as a (B,) int32 tensor on the device,
+one entry per slot, and reads no host value that changes from step to
+step.  ``generate_scan`` (the JAX engine's on-device ``lax.scan`` loop)
+uses that: on the card it runs the first decode step eagerly, captures the
+second as a CUDA graph over static buffers (token, positions, cache,
+sampler state, output columns) and replays it for the rest; the graph is
+kept per (batch, kv_quant, sampling, prefill_a8) and replayed by later
+calls.  A failed capture or replay raises; there is no eager fallback.  A
+CPU engine runs the same static-buffer step eagerly.
 
 Unlike the JAX package, the cache is updated in place: ``decode_step``
 returns the same buffers it was given, with one more token written.
@@ -29,14 +42,16 @@ from __future__ import annotations
 
 import logging
 import math
-from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..models import llama, mixtral
+from ..ops._build import COUNTED
 from ..ops.decode_attention import check_decode_shape, decode_attention
 from ..ops.qmatmul import (PLANES, W4_G_MULTIPLE, pack_w4, w4_tileable,
                            w4a16_matmul, w4a16_matmul_grouped)
@@ -53,39 +68,64 @@ logger = logging.getLogger("autoround_tpu_torch")
 
 
 class KVCache(NamedTuple):
-    """KV cache; optionally int8 storage with per-(layer, head) static
-    scales calibrated at prefill."""
+    """KV cache; optionally int8 or fp8 (e4m3) storage with per-(layer,
+    head) static scales calibrated at prefill."""
 
-    k: torch.Tensor  # (L, B, T, n_kv, hd) — cfg dtype, or int8 storage
+    k: torch.Tensor  # (L, B, T, n_kv, hd) — cfg dtype, or int8 / fp8 storage
     v: torch.Tensor
-    length: int      # tokens filled so far
-    k_scale: Optional[torch.Tensor] = None  # (L, 1, 1, n_kv, 1) when int8
+    length: int      # tokens filled so far (for the cache-full check)
+    k_scale: Optional[torch.Tensor] = None  # (L, 1, 1, n_kv, 1) when quantized
     v_scale: Optional[torch.Tensor] = None
+    # (B,) int32 on the device: the position each slot's next token takes
+    # (zeros from ``_init_cache``, the prompt length after the prefill)
+    pos: Optional[torch.Tensor] = None
 
 
-_KV_QMAX = {"int8": 127.0}
+_KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+_KV_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def _check_kv_quant(kv_quant: Optional[str]) -> None:
+    if kv_quant not in (None, "int8", "fp8"):
+        raise NotImplementedError(
+            f"kv_quant={kv_quant!r} is not ported (None, 'int8' or 'fp8')")
 
 
 def _init_cache(cfg: llama.LlamaConfig, batch: int, max_seq: int,
                 n_layers: int, kv_quant: Optional[str], device) -> KVCache:
-    """An empty cache.  On the card an int8 cache is decoded by the decode
-    kernel alone, so a head shape it does not take raises here, before the
-    prompt pass, naming the shape."""
+    """An empty cache (with scale buffers when quantized).  On the card an
+    int8 cache is decoded by the decode kernel alone, so a head shape it
+    does not take raises here, before the prompt pass, naming the shape."""
     if kv_quant == "int8" and torch.device(device).type == "cuda":
         check_decode_shape(cfg.hd, cfg.num_heads, cfg.num_kv_heads)
     shape = (n_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
-    store = torch.int8 if kv_quant == "int8" else cfg.dtype
+    store = _KV_DTYPE.get(kv_quant, cfg.dtype)
+    ks = vs = None
+    if kv_quant is not None:
+        ks = torch.ones((n_layers, 1, 1, cfg.num_kv_heads, 1), device=device)
+        vs = torch.ones_like(ks)
     return KVCache(k=torch.zeros(shape, dtype=store, device=device),
                    v=torch.zeros(shape, dtype=store, device=device),
-                   length=0)
+                   length=0, k_scale=ks, v_scale=vs,
+                   pos=torch.zeros((batch,), dtype=torch.int32,
+                                   device=device))
 
 
 def _kv_quantize(x: torch.Tensor, scale: torch.Tensor,
                  kv_quant: str) -> torch.Tensor:
-    """x (..., n_kv, hd) → int8 storage with a per-head scale."""
+    """x (..., n_kv, hd) → int8 or e4m3 storage with a per-head scale:
+    x / scale clipped to ±qmax, then rounded to int8 or cast to e4m3
+    (round to nearest even, as the JAX engine's cast)."""
     qmax = _KV_QMAX[kv_quant]
     y = torch.clamp(x.float() / scale, -qmax, qmax)
-    return torch.round(y).to(torch.int8)
+    if kv_quant == "int8":
+        return torch.round(y).to(torch.int8)
+    return y.to(torch.float8_e4m3fn)
+
+
+def _kv_dequantize(x: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (x.float() * scale).to(dtype)
 
 
 _FUSE_GROUPS = (("qkv", ("q_proj", "k_proj", "v_proj")),
@@ -395,12 +435,17 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     """Decoder block returning (out, k_new, v_new).  A block that holds
     ``experts`` runs the Mixtral routed MLP through ``lf``.
 
-    ``kv`` None: prompt pass (causal attention over the prompt).
-    ``kv = ("int8_cache", k_all, v_all, k_scale, v_scale, pos_v)``: decode
-    over the int8 cache (``pos_v`` the (B,) int32 position vector) — the
-    new token is quantized and written at ``pos`` in place, then the
-    decode kernel attends over [0, pos].
-    ``kv = (k_all, v_all)``: decode over a dense cache (plain math)."""
+    ``kv`` None: prompt pass (causal attention over the prompt; ``pos``
+    None).  At decode ``pos`` is the (B,) int32 position vector on the
+    device: slot b writes its token at ``pos[b]`` and attends over [0,
+    pos[b]] (the JAX engine's per-slot form, ``engine.py:1266-1269``,
+    ``:1299-1313``; a scalar position there is the case of equal entries).
+    ``kv = ("int8_cache", k_all, v_all, k_scale, v_scale)``: decode over
+    the int8 cache — the new token is quantized and written in place, then
+    the decode kernel attends.
+    ``kv = (k_all, v_all)``: decode over a dense cache (plain math); the
+    token is written unquantized (cast to the cache's dtype), which for
+    the fp8 cache's dequantized copy is the JAX engine's order."""
     B, S, H = x.shape
     hd = cfg.hd
     h = llama.rms_norm(x, weights["input_layernorm"], cfg.rms_eps)
@@ -424,18 +469,21 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     if kv is None:
         attn = llama.attention(q, k, v, None, cfg)
     elif isinstance(kv[0], str):               # the "int8_cache" tuple
-        _, k_all, v_all, ks, vs, pos_v = kv    # int8 (B, T, n_kv, hd)
-        k_all[:, pos] = _kv_quantize(k[:, 0], ks[0], "int8")
-        v_all[:, pos] = _kv_quantize(v[:, 0], vs[0], "int8")
-        attn = decode_attention(q[:, 0].contiguous(), k_all, v_all, pos_v,
+        _, k_all, v_all, ks, vs = kv           # int8 (B, T, n_kv, hd)
+        slots = torch.arange(B, device=x.device)
+        k_all[slots, pos] = _kv_quantize(k[:, 0], ks[0], "int8")
+        v_all[slots, pos] = _kv_quantize(v[:, 0], vs[0], "int8")
+        attn = decode_attention(q[:, 0].contiguous(), k_all, v_all, pos,
                                 ks.reshape(-1), vs.reshape(-1),
                                 1.0 / math.sqrt(hd))[:, None]
     else:
         k_all, v_all = kv                      # (B, T, n_kv, hd)
-        k_all[:, pos] = k[:, 0].to(k_all.dtype)
-        v_all[:, pos] = v[:, 0].to(v_all.dtype)
+        slots = torch.arange(B, device=x.device)
+        k_all[slots, pos] = k[:, 0].to(k_all.dtype)
+        v_all[slots, pos] = v[:, 0].to(v_all.dtype)
         idx = torch.arange(k_all.shape[1], device=x.device)
-        bias = torch.where(idx <= pos, 0.0, -1e30)[None, None, None, :]
+        valid = idx[None, :] <= pos[:, None]
+        bias = torch.where(valid, 0.0, -1e30)[:, None, None, :]
         attn = llama.attention(q, k_all, v_all, bias, cfg)
     x = x + lf("o_proj", attn.reshape(B, S, -1), weights["o_proj"])
     h = llama.rms_norm(x, weights["post_attention_layernorm"], cfg.rms_eps)
@@ -453,16 +501,20 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
 
 
 def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
-                  kv_quant, moe_capacity_factor, a8_prompt=False):
-    """Prompt pass: fill the cache (int8: per-(layer, head) scales
-    calibrated on the prompt as max(amax over (B, S, hd), 1e-6) / 127) and
+                  kv_quant, moe_capacity_factor, a8_prompt=False,
+                  cache: Optional[KVCache] = None):
+    """Prompt pass: fill the cache (int8 / fp8: per-(layer, head) scales
+    calibrated on the prompt as max(amax over (B, S, hd), 1e-6) / qmax) and
     return the last position's logits.  ``a8_prompt`` reaches the blocks'
-    projections only: the lm_head stays exact, as in the JAX engine."""
+    projections only: the lm_head stays exact, as in the JAX engine.
+    ``cache`` (the static buffers of ``generate_scan``) is filled in place,
+    its ``pos`` included; by default a new one is made."""
     B, S = input_ids.shape
     if S > max_seq:
         raise ValueError(f"prompt length {S} exceeds max_seq {max_seq}")
-    cache = _init_cache(cfg, B, max_seq, cfg.num_layers, kv_quant,
-                        input_ids.device)
+    if cache is None:
+        cache = _init_cache(cfg, B, max_seq, cfg.num_layers, kv_quant,
+                            input_ids.device)
     x = llama.embed_fwd(params, input_ids, cfg)
     cos, sin = llama.rope_tables(cfg, S, device=x.device)
     k_scales, v_scales = [], []
@@ -485,36 +537,120 @@ def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
             v_new = _kv_quantize(v_new, vs, kv_quant)
         cache.k[i, :, :S] = k_new.to(cache.k.dtype)
         cache.v[i, :, :S] = v_new.to(cache.v.dtype)
-    cache = cache._replace(length=S)
     if kv_quant is not None:
-        cache = cache._replace(k_scale=torch.stack(k_scales),
-                               v_scale=torch.stack(v_scales))
+        cache.k_scale.copy_(torch.stack(k_scales))
+        cache.v_scale.copy_(torch.stack(v_scales))
+    cache.pos.fill_(S)
+    cache = cache._replace(length=S)
     logits = _final_fwd_packed(params, packed, kinds, x[:, -1:], cfg)
     return logits[:, 0], cache
 
 
-def _decode_core(params, packed, kinds, splits, token, cache, *, cfg,
-                 kv_quant, moe_capacity_factor):
-    """One decode step for the whole batch at position ``cache.length``."""
-    pos = cache.length
-    if pos >= cache.k.shape[2]:
-        raise ValueError(f"KV cache full ({cache.k.shape[2]} positions)")
+def _decode_core(params, packed, kinds, splits, token, k, v, pos, *, cfg,
+                 kv_quant, moe_capacity_factor, k_scale=None, v_scale=None):
+    """One decode step for the whole batch, slot b at position ``pos[b]``
+    (``pos`` (B,) int32 on the device); returns the logits (B, V).  The
+    cache ``k``, ``v`` (L, B, T, n_kv, hd), with its scales when
+    quantized, is written in place.  Nothing here reads a host value that
+    changes between steps, so a CUDA graph can capture the step.
+
+    The fp8 cache is dequantized layer by layer into ``cfg.dtype`` and
+    attended by the plain masked attention, with the step's own K/V written
+    unquantized into that copy; they are quantized only when stored (the
+    JAX engine's ``_decode_core``).  The int8 cache's step attends to its
+    quantized token, through the decode kernel."""
     x = llama.embed_fwd(params, token[:, None], cfg)
-    cos, sin = llama.rope_tables(
-        cfg, 1, positions=torch.full((1,), pos, device=x.device))
-    pos_v = torch.full((x.shape[0],), pos, dtype=torch.int32, device=x.device)
+    cos, sin = llama.rope_tables(cfg, 1, positions=pos)
+    cos, sin = cos[:, None], sin[:, None]        # (B, 1, hd): a row a slot
+    slots = torch.arange(x.shape[0], device=x.device)
     for i in range(cfg.num_layers):
         if kv_quant is None:
-            kv = (cache.k[i], cache.v[i])
+            kv = (k[i], v[i])
+        elif kv_quant == "int8":
+            kv = ("int8_cache", k[i], v[i], k_scale[i], v_scale[i])
         else:
-            kv = ("int8_cache", cache.k[i], cache.v[i], cache.k_scale[i],
-                  cache.v_scale[i], pos_v)
-        x, _, _ = _block_with_cache(
+            kv = (_kv_dequantize(k[i], k_scale[i], cfg.dtype),
+                  _kv_dequantize(v[i], v_scale[i], cfg.dtype))
+        x, k_new, v_new = _block_with_cache(
             params["blocks"][i], x, cos, sin, cfg, kv, pos,
             _make_linear_fn(packed, kinds, i), packed, kinds, i, splits,
             moe_capacity_factor)
+        if kv_quant == "fp8":
+            k[i][slots, pos] = _kv_quantize(k_new[:, 0], k_scale[i][0], "fp8")
+            v[i][slots, pos] = _kv_quantize(v_new[:, 0], v_scale[i][0], "fp8")
     logits = _final_fwd_packed(params, packed, kinds, x, cfg)
-    return logits[:, 0], cache._replace(length=pos + 1)
+    return logits[:, 0]
+
+
+class _StepReplay:
+    """A step on static buffers, run ``n`` times by :meth:`run`.
+
+    On the card the first run's first step is eager: it loads every kernel
+    library and runs every first-call set-up (shared-memory attributes)
+    before capture.  The next step is captured as a CUDA graph on a side
+    stream and every later step replays it; each launch counter moves by
+    its increase over the capture times the replays (a wrapper's count is
+    Python, so only the capture ran it).  ``generator`` (a sampler's) is
+    registered with the graph, so each replay advances it as an eager step
+    does.  A failed capture or replay raises.  On the CPU every step runs
+    eagerly.  ``capture_ms`` is the host time of the capture alone (the
+    graph's instantiation included)."""
+
+    def __init__(self, fn: Callable[[], None], device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.generator = generator
+        self.graph = None
+        self.deltas: Tuple[Tuple[Any, int], ...] = ()
+        self.capture_ms = 0.0
+
+    def run(self, n: int) -> None:
+        if self.device.type != "cuda":
+            for _ in range(n):
+                self.fn()
+            return
+        if n > 0 and self.graph is None:
+            self._capture()                 # one eager step, then capture
+            n -= 1
+        for _ in range(n):
+            self.graph.replay()
+        for fn, d in self.deltas:
+            fn.launches += d * n
+
+    def _capture(self) -> None:
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        counters = list(COUNTED)
+        with torch.cuda.stream(side):
+            self.fn()
+            before = [c.launches for c in counters]
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, stream=side):
+                self.fn()
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+        main.wait_stream(side)
+        self.deltas = tuple((c, c.launches - b)
+                            for c, b in zip(counters, before)
+                            if c.launches != b)
+        for c, b in zip(counters, before):
+            c.launches = b
+        self.graph = graph
+
+
+@dataclass(eq=False)
+class _ScanState:
+    """The static buffers of ``generate_scan`` for one batch size."""
+
+    cache: KVCache       # its ``pos``: the position the next token takes
+    tok: torch.Tensor    # (B,) int32: the token the next step embeds
+    step: torch.Tensor   # (1,) int64: the column of ``out`` it fills
+    out: torch.Tensor    # (B, max_seq) int32: the generated tokens
 
 
 @dataclass(eq=False)
@@ -522,7 +658,8 @@ class QuantizedLlama:
     """Serving-side model: packed quantized layers + dense residue.
 
     Build with :meth:`from_quantize_result` and run :meth:`prefill` /
-    :meth:`decode_step` / :meth:`generate`."""
+    :meth:`decode_step` / :meth:`generate`, or :meth:`generate_scan` (the
+    decode loop as a replayed CUDA graph)."""
 
     cfg: llama.LlamaConfig
     params: Dict[str, Any]                 # non-packed leaves
@@ -532,7 +669,7 @@ class QuantizedLlama:
     # fp8 scales are (O,), all others (O, columns)
     packed: Dict[str, Tuple[torch.Tensor, ...]]
     max_seq: int = 2048
-    kv_quant: Optional[str] = None         # None | "int8"
+    kv_quant: Optional[str] = None         # None | "int8" | "fp8"
     fused_splits: Optional[Dict[str, Tuple[int, ...]]] = None
     device: Optional[torch.device] = None
     # kernel kind per packed entry: "w4a16" | "w4a16_asym" | "w4a16_grouped"
@@ -547,10 +684,23 @@ class QuantizedLlama:
     # token); > 0 = capacity dispatch, each expert runs C = ceil(N * top_k
     # / E * factor) tokens and slots beyond C drop
     moe_capacity_factor: float = 0.0
+    # generate_scan's static buffers per batch size, and its steps per
+    # (batch, kv_quant, sampling, prefill_a8); not copied by
+    # dataclasses.replace, so a changed engine captures its own
+    _scan_states: Dict[int, _ScanState] = field(
+        init=False, repr=False, default_factory=dict)
+    _scan_steps: Dict[Tuple, _StepReplay] = field(
+        init=False, repr=False, default_factory=dict)
 
     def __post_init__(self):
+        _check_kv_quant(self.kv_quant)
         if self.packed_kinds is None:
             self.packed_kinds = {k: "w4a16" for k in self.packed}
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs this engine has captured (0 on the CPU)."""
+        return sum(s.graph is not None for s in self._scan_steps.values())
 
     @classmethod
     def from_quantize_result(cls, result: QuantizeResult,
@@ -572,9 +722,7 @@ class QuantizedLlama:
         TPU tiles'; the kernels here need K % 32 == 0, K % g == 0 and
         g % 32 == 0 (w4a16 and w4a16_asym: g % 16 == 0; mxfp4: g in {16,
         32}; per channel: g = K) and take any O."""
-        if kv_quant not in (None, "int8"):
-            raise NotImplementedError(
-                f"kv_quant={kv_quant!r} is not ported yet (None or 'int8')")
+        _check_kv_quant(kv_quant)
         dev = resolve_device(device)
         params = dict(result.params)
         params["blocks"] = list(result.params["blocks"])
@@ -650,26 +798,40 @@ class QuantizedLlama:
                    packed_kinds=kinds,
                    moe_capacity_factor=moe_capacity_factor)
 
-    @torch.no_grad()
-    def prefill(self, input_ids) -> Tuple[torch.Tensor, KVCache]:
-        """Run the prompt (B, S), return (logits of the last position
-        (B, V), cache)."""
-        ids = torch.as_tensor(input_ids, device=self.device).long()
+    def _prefill(self, ids: torch.Tensor, cache: Optional[KVCache] = None
+                 ) -> Tuple[torch.Tensor, KVCache]:
         return _prefill_core(self.params, self.packed, self.packed_kinds,
                              self.fused_splits, ids, cfg=self.cfg,
                              max_seq=self.max_seq, kv_quant=self.kv_quant,
                              moe_capacity_factor=self.moe_capacity_factor,
-                             a8_prompt=self.prefill_a8)
+                             a8_prompt=self.prefill_a8, cache=cache)
+
+    @torch.no_grad()
+    def prefill(self, input_ids) -> Tuple[torch.Tensor, KVCache]:
+        """Run the prompt (B, S), return (logits of the last position
+        (B, V), cache)."""
+        return self._prefill(torch.as_tensor(input_ids,
+                                             device=self.device).long())
+
+    def _decode(self, token: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        return _decode_core(self.params, self.packed, self.packed_kinds,
+                            self.fused_splits, token, cache.k, cache.v,
+                            cache.pos, cfg=self.cfg, kv_quant=self.kv_quant,
+                            moe_capacity_factor=self.moe_capacity_factor,
+                            k_scale=cache.k_scale, v_scale=cache.v_scale)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, cache: KVCache
                     ) -> Tuple[torch.Tensor, KVCache]:
         """One token for the whole batch: token (B,) → (logits (B, V),
-        cache).  The cache buffers are updated in place."""
-        return _decode_core(self.params, self.packed, self.packed_kinds,
-                            self.fused_splits, token.to(self.device), cache,
-                            cfg=self.cfg, kv_quant=self.kv_quant,
-                            moe_capacity_factor=self.moe_capacity_factor)
+        cache).  The cache buffers are updated in place; each slot takes
+        its position from ``cache.pos``."""
+        T = cache.k.shape[2]
+        if cache.length >= T:
+            raise ValueError(f"KV cache full ({T} positions)")
+        logits = self._decode(token.to(self.device), cache)
+        return logits, cache._replace(length=cache.length + 1,
+                                      pos=cache.pos + 1)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  sampling: Optional[SamplingParams] = None) -> torch.Tensor:
@@ -688,3 +850,70 @@ class QuantizedLlama:
             tok = sample_token(logits, gen, sampling)
             out.append(tok)
         return torch.stack(out, dim=1)
+
+    @torch.no_grad()
+    def generate_scan(self, input_ids, max_new_tokens: int = 32,
+                      sampling: Optional[SamplingParams] = None
+                      ) -> torch.Tensor:
+        """:meth:`generate` with the decode loop on the device (the JAX
+        engine's ``generate_scan``, ``engine.py:851-886``): the same
+        tokens, from the same kernels in the same order.
+
+        The prompt pass runs eagerly (with ``prefill_a8``, on the int8
+        kernel) into a cache this engine keeps for the batch size.  On the
+        card the first decode step of the first call runs eagerly, the
+        next is captured as a CUDA graph and the rest replay it, one replay
+        a token, with one synchronisation at the end; a later call with the
+        same (batch, kv_quant, sampling, prefill_a8) replays the same graph
+        (``captures`` unchanged).  The sampler's generator, reseeded from
+        ``sampling.seed`` each call, advances under replay as in
+        ``generate``.  Returns (B, max_new_tokens) int32 token ids."""
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        B, S = ids.shape
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens={max_new_tokens} must be >= 1")
+        if S + max_new_tokens - 1 > self.max_seq:
+            raise ValueError(
+                f"prompt length {S} + max_new_tokens {max_new_tokens} - 1 "
+                f"exceeds max_seq {self.max_seq}")
+        st = self._scan_states.get(B)
+        if st is None:
+            st = _ScanState(
+                cache=_init_cache(self.cfg, B, self.max_seq,
+                                  self.cfg.num_layers, self.kv_quant,
+                                  self.device),
+                tok=torch.zeros((B,), dtype=torch.int32, device=self.device),
+                step=torch.zeros((1,), dtype=torch.int64, device=self.device),
+                out=torch.zeros((B, self.max_seq), dtype=torch.int32,
+                                device=self.device))
+            self._scan_states[B] = st
+        greedy = sampling is None or sampling.is_greedy
+        how = None if greedy else (sampling.temperature, sampling.top_k,
+                                   sampling.top_p)
+        key = (B, self.kv_quant, how, self.prefill_a8)
+        step = self._scan_steps.get(key)
+        if step is None:
+            gen = None if greedy else torch.Generator(device=self.device)
+
+            def one_step():
+                logits = self._decode(st.tok, st.cache)
+                tok = sample_token(logits, gen, sampling)
+                st.tok.copy_(tok)
+                st.out.index_copy_(1, st.step, tok[:, None])
+                st.cache.pos.add_(1)
+                st.step.add_(1)
+
+            step = self._scan_steps[key] = _StepReplay(one_step, self.device,
+                                                       gen)
+        if step.generator is not None:
+            step.generator.manual_seed(sampling.seed)
+        logits, _ = self._prefill(ids, cache=st.cache)
+        tok = sample_token(logits, step.generator, sampling)
+        st.tok.copy_(tok)
+        st.out[:, 0] = tok
+        st.step.fill_(1)
+        step.run(max_new_tokens - 1)
+        out = st.out[:, :max_new_tokens].clone()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out

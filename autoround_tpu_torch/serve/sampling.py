@@ -60,5 +60,9 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
     if sp.top_p < 1.0:
         x = _mask_top_p(x, sp.top_p)
     probs = torch.softmax(x, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    # one draw of torch.multinomial(probs, 1) as it computes it (argmax of
+    # probs over Exp(1) noise from the same generator: the same tokens),
+    # without its host-side check of probs, which reads a value back and
+    # so cannot run inside a captured CUDA graph
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, dim=-1).to(torch.int32)

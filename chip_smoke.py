@@ -56,6 +56,33 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              the same engine runs once on the card (kernels) and once on
              the CPU (plain versions): step-1 logits must agree within the
              stated tolerance and greedy tokens must match.
+             Every serving path below (and this one) then runs
+             ``generate_scan`` on the same engine and prompts: its tokens
+             must equal ``generate``'s and its launches ``generate``'s
+             (the loops' counts), and its replayed step ms prints beside
+             the eager step ms of the same call.
+   scan    — on this engine (32 layers, int8 KV, ``max_seq`` 1024), 512-
+             token prompts at batch 1, 8 and 32 (``bench.py``'s batch):
+             ``generate_scan`` against ``generate``, the capture ms alone,
+             the median replayed step ms (CUDA events between replays),
+             tok/s, the step's bound, the busy share (torch.profiler's
+             kernel time over replays against the unprofiled step) and the
+             step's top kernels beside the eager step; at batch 8 a second
+             call with new prompts must replay without a recapture, and
+             sampled decoding (temperature 0.7, top-p 0.95) must give
+             ``generate``'s tokens.  The same at batch 1 and 8 for W4A8,
+             W8A8 and llama3.2-1b, and at batch 8 for mixtral-8x7b.
+   fp8 kv  — the first 4 layers of this engine with ``kv_quant="fp8"``
+             (e4m3 cache): ``generate_scan`` equal to ``generate``, and a
+             2-layer copy on the card against the CPU (prefill and first
+             decode step logits within the copy limit).
+   batching — ``ContinuousBatchingEngine`` over this engine (max_batch 8,
+             max_seq 1024): 12 requests, prompts of 16–256 tokens over the
+             buckets, 8–32 new tokens, late joins and slot reuse; each
+             request's prompt-pass and first decode step logits within
+             the copy limit of the same prompt alone at batch 1; prints
+             the share of greedy tokens equal to batch 1's and the
+             replayed step ms at 8 active slots.
 4. grads   — one full-width block, one batch of 8 x 512: the gradients of
              the tuning loss w.r.t. ``v``, ``min_scale``, ``max_scale``
              through the flash kernels (forward and backward) against the
@@ -1569,6 +1596,460 @@ def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL, attention=True):
         f"{tok_ref.tolist()} equal for {n_equal} of {len(ref_logits)} steps")
 
 
+# ----------------------------------------------------------- the decode loop
+#
+# ``generate_scan`` runs the decode loop as a replayed CUDA graph.  Its tokens
+# must equal ``generate``'s (the same kernels, plans and order) and its
+# launches ``generate``'s, which the paths hold to what their loops imply.
+
+SCAN_REPLAYS = 32          # replays timed after a generate_scan call
+SCAN_PROFILE_REPLAYS = 3   # replays under the profiler
+EAGER_STEPS = 4            # eager decode steps timed beside them
+SCAN_NEW = 16              # new tokens of the scan phase's own calls
+
+
+def launch_counts():
+    """{wrapper name: launches} over every kernel wrapper of the port."""
+    from autoround_tpu_torch.ops._build import COUNTED
+    return {f.__name__: f.launches for f in COUNTED}
+
+
+@contextlib.contextmanager
+def counts_kept():
+    """Launches inside the block (timing, profiling) leave every count as
+    it was."""
+    from autoround_tpu_torch.ops._build import COUNTED
+    saved = [(f, f.launches) for f in COUNTED]
+    try:
+        yield
+    finally:
+        for f, c in saved:
+            f.launches = c
+
+
+def generate_counted(eng, prompts, n_new, sampling=None, step_ms=None):
+    """``eng.generate`` and the launches it made: (tokens, {name: count}).
+    With a list ``step_ms``, each of its decode steps is synchronised and
+    its host ms appended (the eager step of this call)."""
+    c0 = launch_counts()
+    if step_ms is not None:
+        decode_step = eng.decode_step
+
+        def timed(tok, cache):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = decode_step(tok, cache)
+            torch.cuda.synchronize()
+            step_ms.append((time.time() - t0) * 1e3)
+            return out
+        eng.decode_step = timed
+    try:
+        toks = eng.generate(prompts, max_new_tokens=n_new, sampling=sampling)
+    finally:
+        if step_ms is not None:
+            del eng.decode_step
+    torch.cuda.synchronize()
+    c1 = launch_counts()
+    return toks, {n: c1[n] - c0[n] for n in c0}
+
+
+def _scan_step(eng, B, sampling=None):
+    how = (None if sampling is None or sampling.is_greedy
+           else (sampling.temperature, sampling.top_k, sampling.top_p))
+    return eng._scan_steps[(B, eng.kv_quant, how, eng.prefill_a8)]
+
+
+def scan_against(eng, prompts, toks, gen_counts, label, sampling=None):
+    """``generate_scan`` on the prompts ``generate`` ran (giving ``toks``
+    and ``gen_counts``): equal tokens and equal launches, or the run fails.
+    Returns (seconds of the call, graphs it captured)."""
+    caps = eng.captures
+    c0 = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = eng.generate_scan(prompts, max_new_tokens=toks.shape[1],
+                            sampling=sampling)   # synchronises at its end
+    secs = time.time() - t0
+    c1 = launch_counts()
+    diff = {n: (c1[n] - c0[n], gen_counts[n]) for n in c0
+            if c1[n] - c0[n] != gen_counts[n]}
+    check(torch.equal(got, toks), f"{label}: generate_scan tokens "
+          f"{got.tolist()} differ from generate's {toks.tolist()}")
+    check(not diff, f"{label}: generate_scan launches differ from "
+          f"generate's (scan, generate): {diff}")
+    return secs, eng.captures - caps
+
+
+def eager_step_times(eng, prompts, n=EAGER_STEPS):
+    """Host ms of n eager decode steps after a prefill (synchronised each)."""
+    logits, cache = eng.prefill(prompts)
+    tok = logits.argmax(-1).to(torch.int32)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, cache = eng.decode_step(tok, cache)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+        tok = logits.argmax(-1).to(torch.int32)
+    return times
+
+
+def replay_times(eng, B, n, sampling=None):
+    """ms of each of n replays of the engine's captured step at batch B
+    (CUDA events between replays), continuing from its last generate_scan."""
+    step = _scan_step(eng, B, sampling)
+    st = eng._scan_states[B]
+    check(step.graph is not None, "replay_times: no graph captured")
+    check(int(st.step) + n <= eng.max_seq
+          and int(st.cache.pos.max()) + n <= eng.max_seq,
+          "replay_times: the replays would pass max_seq")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for i in range(n):
+        step.run(1)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
+
+
+def scan_path(eng, prompts, toks, gen_counts, label, eager=None):
+    """A serving path's check of ``generate_scan`` (tokens and launches
+    equal to ``generate``'s; the replayed launches measured, see
+    :func:`profile_replays`) and its replayed step beside the eager step,
+    both timed in this call (``eager``: the path's own median eager step
+    ms, else 4 steps are timed here); returns (graph step ms, eager step
+    ms)."""
+    t0 = time.time()
+    B = prompts.shape[0]
+    secs, captured = scan_against(eng, prompts, toks, gen_counts, label)
+    with counts_kept():
+        if eager is None:
+            eager = statistics.median(eager_step_times(eng, prompts, 4))
+        graph = statistics.median(replay_times(eng, B, 16))
+        prof = profile_replays(_scan_step(eng, B), label, n=2)
+    log(f"{label} generate_scan: tokens and launches equal to generate's "
+        f"(B={B}, {toks.shape[1]} new) generate_scan_s={secs:.3f} "
+        f"captured={captured} capture_ms="
+        f"{_scan_step(eng, B).capture_ms:.2f} graph_step_ms={graph:.4f} "
+        f"eager_step_ms={eager:.4f}; replayed launches measured per step "
+        f"{json.dumps(prof['launches'])}; scan_path_s={time.time() - t0:.1f}")
+    return graph, eager
+
+
+def _kernel_key(name: str) -> str:
+    """The port's kernel a profiler's kernel name is ("w4a16<fmt>": the A16
+    GEMV or GEMM of one weight format, "a8<w4>" / "a8<w8>": the int8 GEMV or
+    GEMM, "quantize_rows", "decode split" / "decode combine", "flash"), or
+    "torch" for PyTorch's own kernels."""
+    m = re.search(r"w4a16::ge[mv]+_kernel<(\d)", name)
+    if m:
+        return f"w4a16<{m.group(1)}>"
+    m = re.search(r"a8::(gemv_kernel<(true|false)|gemm_kernel<(\d))", name)
+    if m:
+        w4 = m.group(2) == "true" if m.group(2) else m.group(3) != "0"
+        return "a8<w4>" if w4 else "a8<w8>"
+    for key, k in (("quantize_rows_kernel", "quantize_rows"),
+                   ("split_kernel<", "decode split"),
+                   ("combine_kernel<", "decode combine"),
+                   ("flash_fwd_kernel<", "flash")):
+        if key in name:
+            return k
+    return "torch"
+
+
+# The port's kernels one call of each wrapper that a decode step can reach
+# launches (the A16 formats by csrc/w4a16_tiles.cuh's FMT: SYM4 0, ASYM4 1,
+# INT8 2, INT2 3, E4M3 4, E2M1 5); wrappers that share a kernel add up.
+WRAPPER_KERNELS = {
+    "w4a16_matmul": ("w4a16<0>",), "w4a16_matmul_grouped": ("w4a16<0>",),
+    "w4a16_asym_matmul": ("w4a16<1>",), "w8a16_matmul": ("w4a16<2>",),
+    "w2a16_matmul": ("w4a16<3>",), "fp8_matmul": ("w4a16<4>",),
+    "mxfp4_matmul": ("w4a16<5>",),
+    "w4a8_matmul": ("quantize_rows", "a8<w4>"),
+    "w8a8_matmul": ("quantize_rows", "a8<w8>"),
+    "quantize_rows": ("quantize_rows",),
+    "decode_attention": ("decode split", "decode combine"),
+    "flash_attention": ("flash",)}
+
+
+def _trace_busy(prof):
+    """(kernel ms, span ms) of one profile: the union of its device
+    kernels' intervals, and the time from the first kernel's start to the
+    last one's end, both on the trace's own clock."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "Command Buffer" not in e.name)
+    if not spans:
+        return 0.0, 0.0
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3
+
+
+def profile_replays(step, label, n=SCAN_PROFILE_REPLAYS):
+    """torch.profiler over n replays of a captured step (a ``_StepReplay``):
+    the port's kernels counted per replay must equal what the capture's
+    launch counters imply (each wrapper's increase over the capture times
+    ``WRAPPER_KERNELS``), so the replayed counts are measured on the card.
+    Returns per step the kernel ms, the span ms (first kernel start to last
+    kernel end, over n), busy = kernel / span from the same trace, kernel
+    ms by family, the measured launches and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    check(step.graph is not None, f"{label}: no graph to profile")
+    for _ in range(2):      # a profile that saw no kernel is taken again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step.run(1)
+            torch.cuda.synchronize()
+        times = _kernel_times(prof)
+        if times:
+            break
+    check(bool(times), f"{label}: the profiler saw no kernel of the graph")
+    fam, seen = {}, {}
+    for name, (ms, k) in times.items():
+        key = _kernel_key(name)
+        fam[key] = fam.get(key, 0.0) + ms / n
+        if key != "torch":
+            seen[key] = seen.get(key, 0) + k
+    want = {}
+    for fn, d in step.deltas:
+        check(fn.__name__ in WRAPPER_KERNELS, f"{label}: no kernel table "
+              f"for wrapper {fn.__name__} (WRAPPER_KERNELS)")
+        for key in WRAPPER_KERNELS[fn.__name__]:
+            want[key] = want.get(key, 0) + d * n
+    check(seen == want, f"{label}: the port's kernels in {n} replays "
+          f"{seen} differ from the capture's counts x {n} {want}")
+    kernel_ms, span_ms = _trace_busy(prof)
+    return dict(kernel_ms=kernel_ms / n, span_ms=span_ms / n,
+                busy=kernel_ms / span_ms, fam=fam,
+                launches={k: v // n for k, v in sorted(seen.items())},
+                top=_top(times, n))
+
+
+def scan_measure(eng, B, S, bw, flops_peak, int8_peak, seed, label,
+                 n_new=SCAN_NEW, second=False, sampled=False, ran=None):
+    """The scan phase at one batch size: ``generate_scan`` against
+    ``generate`` (tokens, launches), the capture ms alone, the median
+    replayed step ms (CUDA events over the replays), tok/s, the step's
+    bound, the busy share (kernel time over the span of the same replays,
+    both from one profile), the replayed launches measured by that profile
+    and the step's top kernels, beside the eager step of this call (the
+    median of ``generate``'s own decode steps, each synchronised).
+    ``second``: a second call with new prompts must replay without a
+    recapture; ``sampled``: temperature 0.7, top-p 0.95 must give
+    ``generate``'s tokens.  ``ran`` = (prompts, eager step ms) of a path
+    whose ``scan_path`` already held this batch's ``generate_scan``
+    against ``generate`` in this call: that check and eager step are
+    reused."""
+    from autoround_tpu_torch import SamplingParams
+
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(seed)
+    if ran is None:
+        prompts = torch.randint(0, eng.cfg.vocab_size, (B, S), generator=gen)
+        eager = []
+        toks, counts = generate_counted(eng, prompts, n_new, step_ms=eager)
+        secs, captured = scan_against(eng, prompts, toks, counts, label)
+    else:
+        (prompts, eager_ms), secs, captured = ran, float("nan"), 0
+        eager = [eager_ms]
+    step = _scan_step(eng, B)
+    with counts_kept():
+        times = replay_times(eng, B, SCAN_REPLAYS)
+        prof = profile_replays(step, f"{label} scan B={B}")
+    med, eager_med = statistics.median(times), statistics.median(eager)
+    bound = serve_bounds(eng, B, S, bw, flops_peak, int8_peak)[1]
+    log(f"{label} scan B={B} S={S}: capture_ms={step.capture_ms:.2f} "
+        f"(captured {captured}) generate_scan_s={secs:.3f} "
+        f"graph_step_ms_median={med:.4f} (replays {min(times):.4f}.."
+        f"{max(times):.4f}) tok_s={B / med * 1e3:.1f} "
+        f"eager_step_ms_median={eager_med:.4f} eager_tok_s="
+        f"{B / eager_med * 1e3:.1f} step_bound_ms={bound:.4f} "
+        f"graph/bound={med / bound:.2f}")
+    log(f"{label} scan B={B} profile (torch.profiler over "
+        f"{SCAN_PROFILE_REPLAYS} replays): kernel_ms={prof['kernel_ms']:.4f} "
+        f"of span_ms={prof['span_ms']:.4f} a step on the trace's clock, "
+        f"busy_share={prof['busy']:.3f}; by family "
+        + json.dumps({k: round(v, 4) for k, v in sorted(prof["fam"].items())})
+        + f"; launches measured per step {json.dumps(prof['launches'])}"
+        + f"; top per step: {prof['top']}")
+    if second:
+        new = torch.randint(0, eng.cfg.vocab_size, (B, S), generator=gen)
+        toks2, counts2 = generate_counted(eng, new, n_new)
+        caps = eng.captures
+        scan_against(eng, new, toks2, counts2, label + " second call")
+        check(eng.captures == caps, f"{label}: the second call recaptured")
+        log(f"{label} scan B={B}: a second call with new prompts replayed "
+            f"the same graph (captures {eng.captures}) with generate's "
+            f"tokens")
+    if sampled:
+        sp = SamplingParams(temperature=0.7, top_p=0.95, seed=seed)
+        toks3, counts3 = generate_counted(eng, prompts, n_new, sp)
+        scan_against(eng, prompts, toks3, counts3, label + " sampled", sp)
+        log(f"{label} scan B={B}: sampled (temperature 0.7, top-p 0.95, "
+            f"seed {seed}) tokens equal to generate's")
+    log(f"{label} scan B={B}: scan_measure_s={time.time() - t0:.1f}")
+    return dict(B=B, capture_ms=step.capture_ms, step_ms=med,
+                eager_step_ms=eager_med, bound_ms=bound, busy=prof["busy"])
+
+
+FP8_COPY_SEQ = 128     # prompt tokens of the fp8 copy's CPU reference
+
+
+def fp8_kv_phase(eng, prompts, n_layers=4):
+    """The fp8 KV cache: the first ``n_layers`` of a W4A16 engine with
+    ``kv_quant="fp8"`` (sharing its packed weights): ``generate`` and
+    ``generate_scan`` give equal tokens and launches, the cache is e4m3,
+    and a 2-layer copy on the card holds its prefill and first decode
+    step logits within ``COPY_ROW_TOL`` of the same copy on the CPU."""
+    t_phase = time.time()
+    fp8 = dataclasses.replace(copy_engine(eng, n_layers, "cuda"),
+                              kv_quant="fp8")
+    NEW = 16
+    toks, counts = generate_counted(fp8, prompts, NEW)
+    scan_against(fp8, prompts, toks, counts, "fp8 kv")
+    st = fp8._scan_states[prompts.shape[0]]
+    check(st.cache.k.dtype == torch.float8_e4m3fn
+          and st.cache.v.dtype == torch.float8_e4m3fn,
+          f"fp8 kv: cache dtype {st.cache.k.dtype}")
+    with counts_kept():
+        eager = statistics.median(eager_step_times(fp8, prompts))
+        graph = statistics.median(replay_times(fp8, prompts.shape[0], 16))
+        prof = profile_replays(_scan_step(fp8, prompts.shape[0]), "fp8 kv",
+                               n=2)
+    p2 = prompts[:2, :FP8_COPY_SEQ]
+    gpu = copy_engine(fp8, 2, "cuda")
+    cpu = copy_engine(fp8, 2, "cpu")
+    lg_gpu, c_gpu = gpu.prefill(p2)
+    tok = lg_gpu.argmax(-1).to(torch.int32)
+    step_gpu, _ = gpu.decode_step(tok, c_gpu)
+    t0 = time.time()
+    lg_cpu, c_cpu = cpu.prefill(p2)
+    step_cpu, _ = cpu.decode_step(tok.cpu(), c_cpu)
+    _, rel_pre = row_err(lg_gpu.cpu(), lg_cpu)
+    _, rel_step = row_err(step_gpu.cpu(), step_cpu)
+    log(f"fp8 kv llama3-8b W4A16 ({n_layers} layers, kv_quant fp8, e4m3 "
+        f"cache): tokens and launches of generate_scan equal generate's "
+        f"({prompts.shape[0]}x{NEW}), replayed launches measured per step "
+        f"{json.dumps(prof['launches'])}; graph_step_ms={graph:.4f} "
+        f"eager_step_ms={eager:.4f}; 2-layer copy card vs CPU: prefill "
+        f"row_err={rel_pre:.4g} decode step row_err={rel_step:.4g} (2 x "
+        f"{FP8_COPY_SEQ} prompt tokens; tol "
+        f"{COPY_ROW_TOL}, reference_s={time.time() - t0:.1f}); "
+        f"fp8_kv_s={time.time() - t_phase:.1f}")
+    check(rel_pre <= COPY_ROW_TOL and rel_step <= COPY_ROW_TOL,
+          "fp8 kv: the 2-layer copy disagrees with the CPU")
+    del fp8, gpu, cpu
+
+
+# (prompt length, new tokens) of the batching phase: 12 requests over the
+# buckets 16..256; the first 8 fill the batch, the rest join as slots free
+BATCH_REQUESTS = [(16, 8), (200, 32), (64, 12), (31, 20), (256, 16),
+                  (100, 24), (17, 10), (128, 32), (48, 8), (250, 12),
+                  (90, 16), (20, 24)]
+
+
+def batching_phase(eng, seed=21):
+    """``ContinuousBatchingEngine`` over the engine (max_batch 8, max_seq
+    1024): 12 requests of BATCH_REQUESTS, late joins and slot reuse.  Each
+    request's prompt-pass logits and first decode step logits must be
+    within ``COPY_ROW_TOL`` row error of the same prompt alone through
+    ``prefill`` and ``decode_step`` at batch 1; prints the share of greedy
+    tokens equal to batch 1's and the replayed step ms at 8 active
+    slots."""
+    from autoround_tpu_torch.serve import ContinuousBatchingEngine
+
+    t_phase = time.time()
+    gen = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, eng.cfg.vocab_size, (n,),
+                             generator=gen).tolist()
+               for n, _ in BATCH_REQUESTS]
+    be = ContinuousBatchingEngine(eng, max_batch=8, max_seq=1024)
+    first = {}          # rid → [prompt-pass logits, first step logits]
+    joined = {}         # rid → slot, for requests that have not stepped yet
+    waiting = list(range(len(BATCH_REQUESTS)))
+    rid_of = {}
+    step_ms_full, steps = [], 0
+    t0 = time.time()
+    while waiting or be.pending():
+        while waiting and be._free:
+            i = waiting.pop(0)
+            rid = be.submit(prompts[i], max_new_tokens=BATCH_REQUESTS[i][1])
+            rid_of[i] = rid
+            joined[rid] = be._requests[rid].slot
+            first[rid] = [be.last_logits[joined[rid]].float().cpu()]
+        full = len(be._slot_req) == 8
+        torch.cuda.synchronize()
+        s0 = time.time()
+        be.step()
+        if full and be._decode.graph is not None and steps > 0:
+            step_ms_full.append((time.time() - s0) * 1e3)
+        steps += 1
+        for rid, slot in joined.items():
+            first[rid].append(be.last_logits[slot].float().cpu())
+        joined.clear()
+    run_s = time.time() - t0
+    check(be._decode.graph is not None, "batching: the step was not captured")
+    worst = 0.0
+    agree = total = 0
+    for i, (n, n_new) in enumerate(BATCH_REQUESTS):
+        rid = rid_of[i]
+        ids = torch.tensor([prompts[i]])
+        logits, cache = eng.prefill(ids)
+        tok = logits.argmax(-1).to(torch.int32)
+        step_logits, _ = eng.decode_step(tok, cache)
+        _, r0 = row_err(first[rid][0], logits[0].float().cpu())
+        _, r1 = row_err(first[rid][1], step_logits[0].float().cpu())
+        worst = max(worst, r0, r1)
+        check(r0 <= COPY_ROW_TOL and r1 <= COPY_ROW_TOL,
+              f"batching: request {i} (prompt {n}) logits row_err {r0:.4g} / "
+              f"{r1:.4g} against batch 1 (tol {COPY_ROW_TOL})")
+        got = be.result(rid)
+        check(len(got) == n_new, f"batching: request {i} gave {len(got)} "
+              f"tokens, asked {n_new}")
+        want = eng.generate_scan(ids, max_new_tokens=n_new)[0].tolist()
+        agree += sum(a == b for a, b in zip(got, want))
+        total += n_new
+    full_ms = (statistics.median(step_ms_full) if step_ms_full
+               else float("nan"))
+    log(f"batching llama3-8b W4A16 ({eng.cfg.num_layers} layers, max_batch "
+        f"8, max_seq 1024): {len(BATCH_REQUESTS)} requests (prompts "
+        f"{min(n for n, _ in BATCH_REQUESTS)}.."
+        f"{max(n for n, _ in BATCH_REQUESTS)}, "
+        f"{sum(k for _, k in BATCH_REQUESTS)} new tokens) in {steps} steps, "
+        f"run_s={run_s:.2f}; prompt-pass and first-step logits vs batch 1: "
+        f"worst row_err={worst:.4g} (tol {COPY_ROW_TOL}); greedy tokens "
+        f"equal to batch 1's (generate_scan, whose tokens equal "
+        f"generate's): {agree} of {total} ({agree / total:.3f}); "
+        f"replayed step at 8 active slots (host, step() with its token "
+        f"read-back): median {full_ms:.4f} ms over {len(step_ms_full)} "
+        f"steps; capture_ms="
+        f"{be._decode.capture_ms:.2f}")
+    # where the batcher's step goes: its graph replayed with every slot
+    # idle (the same kernels; idle slots only rewrite their next position)
+    with counts_kept():
+        prof = profile_replays(be._decode, "batching", n=4)
+    log(f"batching step profile (4 graph replays, slots idle): kernel_ms="
+        f"{prof['kernel_ms']:.4f} of span_ms={prof['span_ms']:.4f} a step, "
+        f"busy_share={prof['busy']:.3f}; launches measured per step "
+        f"{json.dumps(prof['launches'])}; top per step: {prof['top']}; "
+        f"batching_s={time.time() - t_phase:.1f}")
+    del be
+
+
 def rtn_path(bw, flops_peak, n_layers):
     from autoround_tpu_torch import AutoRound, QuantizedLlama
     from autoround_tpu_torch.models import llama
@@ -1605,8 +2086,7 @@ def rtn_path(bw, flops_peak, n_layers):
     torch.cuda.synchronize()
     t_pack = time.time() - t0
     t0 = time.time()
-    toks = eng.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1623,6 +2103,17 @@ def rtn_path(bw, flops_peak, n_layers):
 
     prefill_ms, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
     check_copy(eng, prompts, "cpu")
+    scan_path(eng, prompts, toks, gen_counts, "rtn path", step_ms)
+    # the scan phase: bench.py's configuration (batch 32, W4A16 g128, int8
+    # KV) beside batch 1 and 8
+    for b in (1, 8, 32):
+        scan_measure(eng, b, S, bw, flops_peak, None, seed=30 + b,
+                     label="rtn", second=b == 8, sampled=b == 8,
+                     ran=(prompts, step_ms) if b == B else None)
+    free_device_memory()
+    fp8_kv_phase(eng, prompts)
+    free_device_memory()
+    batching_phase(eng)
     return launches, dict(quantize_s=t_quant, prefill_ms=prefill_ms,
                           decode_step_ms=step_ms, peak_mem_gb=peak_gb)
 
@@ -1817,8 +2308,7 @@ def tune_path(n_layers):
     torch.cuda.synchronize()
     t_pack = time.time() - t0
     t0 = time.time()
-    toks = eng.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1862,6 +2352,7 @@ def tune_path(n_layers):
     check(toks.shape == (B, NEW), f"tokens shape {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "tokens out of range")
+    scan_path(eng, prompts, toks, gen_counts, "tune path")
     del eng
     torch.cuda.empty_cache()
     return launches, t_tune
@@ -1950,8 +2441,7 @@ def moe_path(bw, flops_peak, n_layers):
           "moe path: a per-expert entry is left beside the stacks")
     check(eng.moe_capacity_factor == 0.0, "moe path: default routing")
     t0 = time.time()
-    toks = eng.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     peaks_gb["generate"] = stage_peak()
@@ -1998,8 +2488,11 @@ def moe_path(bw, flops_peak, n_layers):
     log(f"moe capacity route: prefill_ms={(time.time() - t0) * 1e3:.2f}")
     del cap, lg_dense, lg_cap
 
-    time_serving(eng, prompts, NEW, bw, flops_peak)
+    _, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
     check_copy(eng, prompts, "card", MOE_COPY_ROW_TOL)
+    scan_path(eng, prompts, toks, gen_counts, "moe path", step_ms)
+    scan_measure(eng, B, S, bw, flops_peak, None, seed=40, label="moe",
+                 ran=(prompts, step_ms))
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -2177,8 +2670,7 @@ def asym_path(n_layers):
           and all(len(e) == 3 for e in eng.packed.values()),
           f"asym path: packed kinds {sorted(set(eng.packed_kinds.values()))}")
     t0 = time.time()
-    toks = eng.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     log(f"asym path llama3-8b ({n_layers} layers, random weights, int4 asym "
@@ -2193,6 +2685,7 @@ def asym_path(n_layers):
               f"times, the loops imply {c}")
     _check_tokens(toks, B, NEW, cfg.vocab_size)
     check_copy(eng, prompts, "card")
+    scan_path(eng, prompts, toks, gen_counts, "asym path")
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -2271,8 +2764,7 @@ def serve_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
           f"{sorted(set(eng.packed_kinds.values()))}, {len(eng.packed)} "
           f"entries")
     t0 = time.time()
-    toks = eng.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     gen_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2295,9 +2787,15 @@ def serve_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
         check(launches[n] == c, f"{scheme} path: {n} launched {launches[n]} "
               f"times, the loops imply {c}")
     _check_tokens(toks, B, NEW, cfg.vocab_size)
-    time_serving(eng, prompts, NEW, bw, flops_peak,
-                 int8_peak if int8_act else None)
+    _, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak,
+                              int8_peak if int8_act else None)
     check_copy(eng, prompts, "card", attention=not int8_act)
+    scan_path(eng, prompts, toks, gen_counts, f"{scheme} path", step_ms)
+    if int8_act:
+        for b in (1, 8):
+            scan_measure(eng, b, S, bw, flops_peak, int8_peak,
+                         seed=seed + 50 + b, label=scheme,
+                         ran=(prompts, step_ms) if b == B else None)
     del eng
     torch.cuda.empty_cache()
     return launches, peak_gb
@@ -2350,8 +2848,7 @@ def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
           f"{sorted(set(eng.packed_kinds.values()))}, {len(eng.packed)} "
           f"entries")
     t0 = time.time()
-    toks = eng.generate(prompts, max_new_tokens=NEW)
-    torch.cuda.synchronize()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
     t_gen = time.time() - t0
     launches = {n: fn.launches for n, fn in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2368,8 +2865,15 @@ def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
         check(launches[n] == c, f"llama3.2-1b g{group_size} path: {n} "
               f"launched {launches[n]} times, the loops imply {c}")
     _check_tokens(toks, B, NEW, cfg.vocab_size)
-    time_serving(eng, prompts, NEW, bw, flops_peak)
+    _, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
     check_copy(eng, prompts, "card")
+    label = f"llama3.2-1b g{group_size}"
+    scan_path(eng, prompts, toks, gen_counts, label + " path", step_ms)
+    if group_size == 128:
+        for b in (1, 8):
+            scan_measure(eng, b, S, bw, flops_peak, None, seed=seed + 60 + b,
+                         label=label, ran=(prompts, step_ms) if b == B
+                         else None)
     del eng
     torch.cuda.empty_cache()
     return launches
@@ -2456,7 +2960,11 @@ def a8_modes_path(n_layers):
           "a8 modes: prefill logits too far from exact-A16 serving")
     check(r_a8 > 0 and r_pa8 > 0, "a8 modes: the a8 logits equal the exact "
           "ones (the int8 kernel did not run)")
-    del exact, a8, pa8, cache
+    del cache
+    for name, e in (("serve_a8", a8), ("prefill_a8", pa8)):
+        toks, gen_counts = generate_counted(e, prompts, 16)
+        scan_path(e, prompts, toks, gen_counts, f"a8 modes {name}")
+    del exact, a8, pa8
     torch.cuda.empty_cache()
     return launches
 
@@ -2825,6 +3333,11 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {name}")
 
+    t_run = time.time()
+
+    def mark(phase):
+        log(f"phase {phase} ended at run_s={time.time() - t_run:.1f}")
+
     t0 = time.time()
     secs = _build.build_all()
     log(f"build_s={time.time() - t0:.2f} per source {json.dumps(secs)}")
@@ -2838,18 +3351,22 @@ def main() -> int:
     rows.update(float_kernel_phase(timer, bw, fl))
     rows.update(sage_kernel_phase(timer, bw, fl, i8))
     del timer
+    mark("kernels")
     rtn_launches, _ = rtn_path(bw, fl, args.rtn_layers)
     free_device_memory()
+    mark("rtn, scan, fp8 kv, batching")
     tuning_step_phase(bw, fl)
     free_device_memory()
     launches, _ = tune_path(args.tune_layers)
     free_device_memory()
+    mark("grads, tune")
     moe_launches = moe_path(bw, fl, args.moe_layers)
     free_device_memory()
     moe_tuning_step(bw, fl)
     free_device_memory()
     moe_tune_path(args.moe_tune_layers)
     free_device_memory()
+    mark("moe, moe tune")
     asym_launches = asym_path(args.asym_layers)
     free_device_memory()
     a8_launches, _ = serve_path(bw, fl, i8, "W4A8", args.a8_layers,
@@ -2865,6 +3382,7 @@ def main() -> int:
     free_device_memory()
     a8_tune_path(args.a8_tune_layers)
     free_device_memory()
+    mark("asym, a8, a8 modes, a8 tune")
     fp8_launches, fp8_gb = serve_path(bw, fl, i8, "FP8_STATIC",
                                       args.fp8_layers, seed=13)
     free_device_memory()
@@ -2883,12 +3401,14 @@ def main() -> int:
     free_device_memory()
     mx_tune_launches = mx_tune_path(bw, fl, args.mx_tune_layers)
     free_device_memory()
+    mark("float, mx tune")
     l1b_launches = llama1b_path(bw, fl, args.llama1b_layers, 128, seed=19)
     free_device_memory()
     l1b_g16_launches = llama1b_path(bw, fl, args.llama1b_layers, 16,
                                     seed=20)
     free_device_memory()
     sage_launches = sage_path(args.sage_layers)
+    mark("llama3.2-1b, sage")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths

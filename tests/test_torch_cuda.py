@@ -1068,3 +1068,148 @@ def test_w4a8_wgmma_edges(gen, M, O, K, g):
     torch.cuda.synchronize()
     assert torch.equal(y32, p32)
     assert torch.equal(w4a8_matmul(x, qw, sc, g), p32.bfloat16())
+
+
+# ------------------------------------------ the decode loop under a CUDA graph
+#
+# ``generate_scan`` on the card runs one decode step eagerly, captures the
+# next as a CUDA graph and replays it: its tokens must equal ``generate``'s
+# bit for bit (the same kernels, plans and order), every kernel's launch
+# count must move exactly as under ``generate`` (the counters are Python, so
+# each replay adds the capture's increase), and a second call must replay
+# without a recapture.  The engines are llama3-8b at full width, 2 layers,
+# int8 KV.
+
+def _card_engine(scheme, seed):
+    import dataclasses
+
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"], num_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    calib = torch.randint(0, cfg.vocab_size, (2, 256),
+                          generator=torch.Generator().manual_seed(seed))
+    res = AutoRound((params, cfg), scheme=scheme, iters=0,
+                    quant_lm_head=True, donate_params=True).quantize(calib)
+    return QuantizedLlama.from_quantize_result(res, cfg, max_seq=512,
+                                               kv_quant="int8")
+
+
+@pytest.fixture(scope="module")
+def w4a16_engine():
+    return _card_engine("W4A16", 0)
+
+
+@pytest.fixture(scope="module")
+def w4a8_engine():
+    return _card_engine("W4A8", 1)
+
+
+def _launches():
+    from autoround_tpu_torch.ops._build import COUNTED
+    return {f.__name__: f.launches for f in COUNTED}
+
+
+def _scan_against_generate(eng, B, S, n_new, seed, sampling=None):
+    prompts = torch.randint(0, eng.cfg.vocab_size, (B, S),
+                            generator=torch.Generator().manual_seed(seed))
+    c0 = _launches()
+    want = eng.generate(prompts, max_new_tokens=n_new, sampling=sampling)
+    c1 = _launches()
+    got = eng.generate_scan(prompts, max_new_tokens=n_new, sampling=sampling)
+    c2 = _launches()
+    assert torch.equal(got, want), (got, want)
+    assert {n: c1[n] - c0[n] for n in c0} == {n: c2[n] - c1[n] for n in c0}
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_generate_scan_w4a16(w4a16_engine, B):
+    eng = w4a16_engine
+    _scan_against_generate(eng, B, 128, 12, seed=B)
+    caps = eng.captures
+    assert caps >= 1
+    _scan_against_generate(eng, B, 64, 20, seed=B + 100)   # new prompts
+    assert eng.captures == caps
+
+
+def test_generate_scan_w4a8_cluster_split(w4a8_engine):
+    """W4A8: ``quantize_rows`` and the int8 GEMV inside the graph, with K
+    split over a thread-block cluster (kc > 1) at qkv and down_proj."""
+    assert _a8_gemv_info("w4a8_matmul", 8, 4096, 6144)[5] > 1
+    assert _a8_gemv_info("w4a8_matmul", 8, 14336, 4096)[5] > 1
+    eng = w4a8_engine
+    _scan_against_generate(eng, 8, 128, 10, seed=3)
+    caps = eng.captures
+    _scan_against_generate(eng, 8, 96, 10, seed=4)
+    assert eng.captures == caps >= 1
+
+
+def test_generate_scan_sampled(w4a16_engine):
+    from autoround_tpu_torch import SamplingParams
+
+    sp = SamplingParams(temperature=0.7, top_p=0.95, seed=7)
+    _scan_against_generate(w4a16_engine, 4, 64, 12, seed=5, sampling=sp)
+    caps = w4a16_engine.captures
+    _scan_against_generate(w4a16_engine, 4, 64, 12, seed=6,
+                           sampling=SamplingParams(temperature=0.7,
+                                                   top_p=0.95, seed=8))
+    assert w4a16_engine.captures == caps
+
+
+@pytest.mark.parametrize("scheme", ["W4A16", "W4A8"])
+def test_replayed_launches_are_measured(w4a16_engine, w4a8_engine, scheme):
+    """The port's kernels that replays of the captured step run, counted by
+    torch.profiler, equal the capture's counter increases times the
+    replays (``chip_smoke.profile_replays``, which every serving path of
+    ``chip_smoke.py`` runs)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    eng = w4a16_engine if scheme == "W4A16" else w4a8_engine
+    prompts = torch.randint(0, eng.cfg.vocab_size, (8, 64),
+                            generator=torch.Generator().manual_seed(11))
+    eng.generate_scan(prompts, max_new_tokens=4)
+    with cs.counts_kept():
+        prof = cs.profile_replays(cs._scan_step(eng, 8), scheme, n=2)
+    gemv = "w4a16<0>" if scheme == "W4A16" else "a8<w4>"
+    # a step: qkv, o, gate/up and down in each of 2 layers, and lm_head
+    assert prof["launches"][gemv] == 2 * 4 + 1
+    assert prof["launches"]["decode split"] == 2
+
+
+def test_batcher_replay_equals_its_eager_step(w4a16_engine):
+    """The batcher's decode step replayed from its graph against the same
+    step run eagerly (a second batcher whose step never captures), with a
+    request joining late and one leaving: bit-equal tokens and logits."""
+    import types
+
+    from autoround_tpu_torch.serve import ContinuousBatchingEngine
+
+    kw = dict(max_batch=4, max_seq=512, prompt_buckets=(16, 64))
+    graph = ContinuousBatchingEngine(w4a16_engine, **kw)
+    eager = ContinuousBatchingEngine(w4a16_engine, **kw)
+    eager._decode = types.SimpleNamespace(
+        run=lambda n: [eager._decode_impl() for _ in range(n)])
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, 128256, (n,), generator=gen).tolist()
+               for n in (12, 40, 7)]
+    for e in (graph, eager):
+        e.submit(prompts[0], max_new_tokens=6)
+        e.submit(prompts[1], max_new_tokens=10)
+    for t in range(12):
+        if t == 6:
+            for e in (graph, eager):
+                e.submit(prompts[2], max_new_tokens=5)
+        assert graph.step() == eager.step()
+        assert torch.equal(graph.last_logits, eager.last_logits)
+    assert graph._decode.graph is not None
+    assert [graph.result(r) for r in range(3)] == [eager.result(r)
+                                                   for r in range(3)]

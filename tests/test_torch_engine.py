@@ -15,6 +15,15 @@ Tolerances (fp32 throughout):
     noise of a .5 boundary — at most 1 in 10^4 entries, never by more;
   * int8 decode logits: those rare one-code differences move the logits
     by ~1e-5; atol 1e-3 leaves margin;
+  * fp8 (e4m3) KV cache: the scales as for int8 (rtol 1e-6); x / scale is
+    the same IEEE division of values that agree to ~1e-6, so an e4m3 code
+    differs only where that value lies within rounding noise of a
+    midpoint between two codes, and then by one step (or +0 against -0):
+    compared as bit patterns, at most 1 in 10^4 entries differ; the decode
+    token's entries may also move further near 0, where e4m3 is finer
+    than the step's own differences, while their values stay within 1e-4
+    of the calibrated amax; the decode logits are held to the int8
+    tolerance;
   * greedy tokens: equal, up to the first step whose JAX top-2 logit gap
     is below 1e-3 (where either choice is within the logit tolerance).
 """
@@ -122,7 +131,7 @@ def test_engine_codes_identical(engines):
     assert te.params["blocks"][0]["q_proj"] is None
 
 
-@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("kv_quant", [None, "int8", "fp8"])
 def test_prefill_and_decode_logits_match(pair, engines, kv_quant):
     je, te = engines(kv_quant)
     prompts = pair["prompts"]
@@ -144,9 +153,35 @@ def test_prefill_and_decode_logits_match(pair, engines, kv_quant):
             b = b.numpy().astype(np.int32)[:, :, :SEQ + 1]
             assert np.abs(a - b).max() <= 1
             assert (a != b).sum() <= a.size // 10_000
+    if kv_quant == "fp8":
+        assert tc2.k.dtype == torch.float8_e4m3fn
+        for a, b in ((jc2.k_scale, tc2.k_scale), (jc2.v_scale, tc2.v_scale)):
+            np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-6)
+        for a, b in ((jc2.k, tc2.k), (jc2.v, tc2.v)):
+            # e4m3 bit patterns (sign bit 7, magnitude bits 0-6): a code
+            # that differs is +0 against -0 (x / scale within rounding noise
+            # of 0) or a neighbour of the same sign (magnitudes one apart).
+            # The decode token's entries come from activations that carry
+            # the step's own differences (~1e-5 of a head's amax); near 0
+            # e4m3 codes are finer than that, so there a code may also move
+            # further while its value stays within 1e-4 of the calibrated
+            # amax (qmax in scaled units; measured 1.8e-5)
+            ab = np.asarray(a)[:, :, :SEQ + 1]
+            bb = b[:, :, :SEQ + 1]
+            near = np.zeros(ab.shape, bool)
+            near[:, :, SEQ] = np.abs(ab[:, :, SEQ].astype(np.float32)
+                                     - bb[:, :, SEQ].float().numpy()
+                                     ) <= 1e-4 * 448.0
+            ab = ab.view(np.uint8).astype(np.int32)
+            bb = bb.view(torch.uint8).numpy().astype(np.int32)
+            diff = ab != bb
+            zeros = ((ab & 127) == 0) & ((bb & 127) == 0)
+            step = (ab >> 7 == bb >> 7) & (np.abs(ab - bb) == 1)
+            assert (zeros | step | near)[diff].all()
+            assert diff.sum() <= ab.size // 10_000
 
 
-@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("kv_quant", [None, "int8", "fp8"])
 def test_greedy_tokens_match(pair, engines, kv_quant):
     je, te = engines(kv_quant)
     prompts = pair["prompts"]
