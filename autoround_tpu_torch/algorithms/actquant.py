@@ -105,17 +105,19 @@ def make_act_quant_linear_fn(
     static_scales: Optional[Dict[str, torch.Tensor]] = None,
     global_scales: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Callable:
-    """A block ``linear_fn(name, x, w)`` that act-quantizes the inputs of
-    the layers whose scheme asks for it; the others pass through."""
+    """A block ``linear_fn(name, x, w, b=None)`` that act-quantizes the
+    inputs of the layers whose scheme asks for it; the others pass
+    through.  The bias adds after the product."""
     act_layers = {n: s for n, s in schemes.items()
                   if s.effective_act().is_act_quantized}
 
-    def linear_fn(name, x, w):
+    def linear_fn(name, x, w, b=None):
         if name in act_layers:
             ss = static_scales.get(name) if static_scales else None
             gs = global_scales.get(name) if global_scales else None
             x = qdq_act(x, act_layers[name], static_scale=ss, global_scale=gs)
-        return torch.einsum("...i,oi->...o", x, w)
+        y = torch.einsum("...i,oi->...o", x, w)
+        return y if b is None else y + b
 
     return linear_fn
 
@@ -123,11 +125,12 @@ def make_act_quant_linear_fn(
 def _stats_pass(fwd: Callable, kind: str, weights, inputs,
                 layer_names) -> Dict[str, torch.Tensor]:
     """One forward of ``fwd(weights, inputs, linear_fn)`` with a tapping
-    ``linear_fn``; ``kind`` is ``in_amax``, ``out_amax`` or ``imatrix``."""
+    ``linear_fn``; ``kind`` is ``in_amax``, ``out_amax`` (the output with
+    its bias) or ``imatrix``."""
     names = set(layer_names)
     stats: Dict[str, torch.Tensor] = {}
 
-    def tap(name, xx, ww):
+    def tap(name, xx, ww, b=None):
         if name in names:
             if kind == "in_amax":
                 stats[name] = xx.float().abs().amax()
@@ -135,6 +138,8 @@ def _stats_pass(fwd: Callable, kind: str, weights, inputs,
                 flat = xx.float().reshape(-1, xx.shape[-1])
                 stats[name] = (flat * flat).mean(dim=0)
         y = torch.einsum("...i,oi->...o", xx, ww)
+        if b is not None:
+            y = y + b
         if kind == "out_amax" and name in names:
             stats[name] = y.float().abs().amax()
         return y

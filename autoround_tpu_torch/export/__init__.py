@@ -34,8 +34,10 @@ _UNPORTED_FORMATS = ("gptq", "awq", "llm_compressor", "mlx")
 
 # "model_config" of quantization_config.json: the JAX LlamaConfig's fields
 # in its order, so a reader finds the same keys whichever package wrote the
-# checkpoint.  A field the port's config lacks is written at the value the
-# port's model implements (its "off" value).
+# checkpoint (``layer_types`` and ``rope_llama3`` as JSON lists, as the JAX
+# package writes its tuples).  A field the port's config lacks
+# (``chunked_attention``, ``online_r4``, ``r4_block``) is written at the
+# value the port's model implements (its "off" value).
 _MODEL_CONFIG_KEYS = (
     "vocab_size", "hidden_size", "intermediate_size", "num_layers",
     "num_heads", "num_kv_heads", "head_dim", "rope_theta", "rms_eps",

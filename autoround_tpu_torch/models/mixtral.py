@@ -63,9 +63,6 @@ class MixtralConfig(LlamaConfig):
     # renormalize top-k router probs (Mixtral yes; Qwen2-MoE
     # norm_topk_prob=False)
     norm_topk_prob: bool = True
-    # per-head RMSNorm on q and k before rope (Qwen3-MoE); a LlamaConfig
-    # field in the JAX package, ported for this family only
-    qk_norm: bool = False
 
 
 CONFIG_PRESETS: Dict[str, MixtralConfig] = {
@@ -290,20 +287,22 @@ def block_fwd(weights: Dict[str, Any], x: torch.Tensor, cos: torch.Tensor,
     lf = linear_fn or llama._plain_linear
     B, S, H = x.shape
     hd = cfg.hd
-    h = rms_norm(x, weights["input_layernorm"], cfg.rms_eps)
-    q = lf("q_proj", h, weights["q_proj"]).reshape(B, S, cfg.num_heads, hd)
-    k = lf("k_proj", h, weights["k_proj"]).reshape(B, S, cfg.num_kv_heads,
-                                                   hd)
-    v = lf("v_proj", h, weights["v_proj"]).reshape(B, S, cfg.num_kv_heads,
-                                                   hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, weights["q_norm"], cfg.rms_eps)
-        k = rms_norm(k, weights["k_norm"], cfg.rms_eps)
+    off = cfg.norm_offset                    # 0 for this family
+    h = rms_norm(x, weights["input_layernorm"], cfg.rms_eps, off)
+    q = lf("q_proj", h, weights["q_proj"], weights.get("q_bias"))
+    k = lf("k_proj", h, weights["k_proj"], weights.get("k_bias"))
+    v = lf("v_proj", h, weights["v_proj"], weights.get("v_bias"))
+    q = q.reshape(B, S, cfg.num_heads, hd)
+    k = k.reshape(B, S, cfg.num_kv_heads, hd)
+    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:                          # Qwen3-MoE
+        q = rms_norm(q, weights["q_norm"], cfg.rms_eps, off)
+        k = rms_norm(k, weights["k_norm"], cfg.rms_eps, off)
     q = llama.apply_rope(q, cos, sin)
     k = llama.apply_rope(k, cos, sin)
     attn = llama.attention(q, k, v, mask, cfg).reshape(B, S, -1)
     x = x + lf("o_proj", attn, weights["o_proj"])
-    h = rms_norm(x, weights["post_attention_layernorm"], cfg.rms_eps)
+    h = rms_norm(x, weights["post_attention_layernorm"], cfg.rms_eps, off)
     return x + _moe_mlp(weights, h, cfg, lf)
 
 

@@ -39,7 +39,8 @@ from ..algorithms.actquant import (build_static_act_scales,
 from ..algorithms.rtn import rtn_quantize_layer
 from ..algorithms.signround import TuneConfig, tune_block
 from ..dtypes.registry import get_quant_func
-from ..models.llama import LlamaConfig, rms_norm
+from ..models.llama import (LlamaConfig, dual_rope_tables, layer_is_sliding,
+                            rms_norm, sliding_mask)
 from ..models.registry import get_model_fns
 from ..schemes import QuantizationScheme
 from ..utils.pytree import get_by_path, set_by_path
@@ -220,11 +221,24 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     seqlen = input_ids.shape[1]
     x_fp = mfns.embed_fwd(params, input_ids, model_cfg)
     x_q = x_fp if (cfg.enable_quanted_input and cfg.iters > 0) else None
-    cos, sin = mfns.rope_tables(model_cfg, seqlen, device=x_fp.device)
+    (cos, sin), (cosl, sinl) = dual_rope_tables(model_cfg, seqlen,
+                                                device=x_fp.device)
+    # a sliding layer takes the local tables and, past the window, the
+    # sliding mask: in the FP reference, the stats passes and the tuning
+    # loss alike (the JAX orchestrator's guard against tuning a sliding
+    # layer toward a full-causal reference)
+    smask = (sliding_mask(model_cfg, seqlen, x_fp.device)
+             if model_cfg.sliding_window is not None
+             and seqlen > model_cfg.sliding_window else None)
 
-    def block_fn(w, xb, linear_fn=None):
-        return mfns.block_fwd(w, xb, cos, sin, model_cfg,
-                              linear_fn=linear_fn)
+    def block_fn_for(bi: int):
+        c, s, m = ((cosl, sinl, smask) if layer_is_sliding(model_cfg, bi)
+                   else (cos, sin, None))
+
+        def block_fn(w, xb, linear_fn=None):
+            return mfns.block_fwd(w, xb, c, s, model_cfg, mask=m,
+                                  linear_fn=linear_fn)
+        return block_fn
 
     new_blocks = []
     layers: Dict[str, QuantizedLayer] = {}
@@ -234,6 +248,7 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     for bi, block in enumerate(params["blocks"]):
         t_block = time.time()
         schemes = per_block.get(bi, {})
+        block_fn = block_fn_for(bi)
         ref_out = _batched_block_apply(block_fn, block, x_fp,
                                        cfg.cache_batch)
         qdq_block = block         # set_by_path copies the branches it edits
@@ -337,7 +352,9 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
         scheme = layer_schemes["lm_head"]
         if cfg.iters > 0:
             # tuned against the final hidden states; the fp32 reference
-            # logits are computed cache_batch samples at a time
+            # logits are computed cache_batch samples at a time.  The JAX
+            # orchestrator norms them without the Gemma offset and tunes
+            # against uncapped logits; the port does the same
             h_src = x_q if x_q is not None else x_fp
             normed = rms_norm(h_src, params["norm"], model_cfg.rms_eps)
             wf = w.float()

@@ -118,8 +118,9 @@ class ContinuousBatchingEngine:
         m, cfg = self.m, self.cfg
         bucket = tokens.shape[1]
         x = llama.embed_fwd(m.params, tokens, cfg)
-        cos, sin = llama.rope_tables(cfg, bucket, device=x.device)
+        tables = llama.dual_rope_tables(cfg, bucket, device=x.device)
         for i in range(cfg.num_layers):
+            cos, sin = tables[llama.layer_is_sliding(cfg, i)]
             x, k_new, v_new = _block_with_cache(
                 m.params["blocks"][i], x, cos, sin, cfg, None, None,
                 _make_linear_fn(m.packed, m.packed_kinds, i), m.packed,

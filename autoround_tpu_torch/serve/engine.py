@@ -4,7 +4,11 @@ families, every kind of the JAX engine — ``w4a16``, ``w4a16_asym``,
 ``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``, ``fp8``, ``mxfp4_g32`` and
 ``mxfp4_g16`` — and ``kv_quant`` None, ``"int8"`` or ``"fp8"``).  The float kinds and
 W2A16 serve weight-only with bf16 activations, as the JAX engine does: the
-act fields of their schemes shape calibration and tuning only.
+act fields of their schemes shape calibration and tuning only.  The Llama
+family's flags (Qwen2.5's q/k/v biases, qk-norm, Gemma's norm offset,
+sandwich norms, GeGLU, embedding scale and softcaps, sliding windows and
+local rope) ride the one block of ``_block_with_cache``, as in the JAX
+engine.
 
 Packed weights stay resident on the card and every packed projection
 runs its kind's kernel (``ops/qmatmul``, ``ops/qmatmul_ext``,
@@ -47,7 +51,6 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..models import llama, mixtral
@@ -388,12 +391,12 @@ def _make_linear_fn(packed, kinds, block_idx: int, a8_prompt: bool = False):
     the rest to a dense product.  ``lf.grouped(wname, x_slabs)`` runs the
     block's stacked experts on (E, C, K) slabs; ``lf.grouped_names`` says
     which projections are stacked."""
-    def lf(name, x, w):
+    def lf(name, x, w, b=None):
         key = f"blocks.{block_idx}.{name}"
         entry = packed.get(key)
-        return (_packed_matmul(x, entry, kinds[key], a8_prompt)
-                if entry is not None
-                else torch.einsum("...i,oi->...o", x, w))
+        y = (_packed_matmul(x, entry, kinds[key], a8_prompt)
+             if entry is not None else torch.einsum("...i,oi->...o", x, w))
+        return y if b is None else y + b
 
     prefix = f"blocks.{block_idx}.experts_stack."
 
@@ -425,15 +428,21 @@ def _final_fwd_packed(params, packed, kinds, x, cfg):
     entry = packed.get("lm_head")
     if entry is None:
         return llama.final_fwd(params, x, cfg)
-    h = llama.rms_norm(x, params["norm"], cfg.rms_eps)
-    return _packed_matmul(h, entry, kinds["lm_head"])
+    h = llama.rms_norm(x, params["norm"], cfg.rms_eps, cfg.norm_offset)
+    return llama._final_softcap(_packed_matmul(h, entry, kinds["lm_head"]),
+                                cfg)
 
 
 def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
                       block_idx, splits, moe_capacity_factor: float = 0.0,
                       a8_prompt: bool = False):
-    """Decoder block returning (out, k_new, v_new).  A block that holds
-    ``experts`` runs the Mixtral routed MLP through ``lf``.
+    """Decoder block returning (out, k_new, v_new), the JAX engine's
+    ``_block_with_cache`` (``engine.py:1179-1385``) for the Llama and
+    Mixtral families: q/k/v biases after the fused qkv product, qk-norm,
+    sandwich norms, the MLP's activation, and on a sliding layer the
+    window (the sliding mask at prefill, the decode kernel's ``window`` or
+    the dense cache's mask at decode).  A block that holds ``experts``
+    runs the Mixtral routed MLP through ``lf``.
 
     ``kv`` None: prompt pass (causal attention over the prompt; ``pos``
     None).  At decode ``pos`` is the (B,) int32 position vector on the
@@ -448,34 +457,47 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     the fp8 cache's dequantized copy is the JAX engine's order."""
     B, S, H = x.shape
     hd = cfg.hd
-    h = llama.rms_norm(x, weights["input_layernorm"], cfg.rms_eps)
+    off = cfg.norm_offset
+    h = llama.rms_norm(x, weights["input_layernorm"], cfg.rms_eps, off)
     fused = _fused_call(packed, kinds, splits, block_idx, "qkv", h,
                         a8_prompt)
     if fused is not None:
         q, k, v = fused
+        if weights.get("q_bias") is not None:
+            q = q + weights["q_bias"]
+            k = k + weights["k_bias"]
+            v = v + weights["v_bias"]
     else:
-        q = lf("q_proj", h, weights["q_proj"])
-        k = lf("k_proj", h, weights["k_proj"])
-        v = lf("v_proj", h, weights["v_proj"])
+        q = lf("q_proj", h, weights["q_proj"], weights.get("q_bias"))
+        k = lf("k_proj", h, weights["k_proj"], weights.get("k_bias"))
+        v = lf("v_proj", h, weights["v_proj"], weights.get("v_bias"))
     q = q.reshape(B, S, cfg.num_heads, hd)
     k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
-    if getattr(cfg, "qk_norm", False):
-        q = llama.rms_norm(q, weights["q_norm"], cfg.rms_eps)
-        k = llama.rms_norm(k, weights["k_norm"], cfg.rms_eps)
+    if cfg.qk_norm:
+        q = llama.rms_norm(q, weights["q_norm"], cfg.rms_eps, off)
+        k = llama.rms_norm(k, weights["k_norm"], cfg.rms_eps, off)
     q = llama.apply_rope(q, cos, sin)
     k = llama.apply_rope(k, cos, sin)
 
+    # a Python constant per layer: a captured step bakes in no tensor
+    window = (cfg.sliding_window if llama.layer_is_sliding(cfg, block_idx)
+              else None)
     if kv is None:
-        attn = llama.attention(q, k, v, None, cfg)
+        mask = (llama.sliding_mask(cfg, S, x.device)
+                if window is not None and S > window else None)
+        attn = llama.attention(q, k, v, mask, cfg)
     elif isinstance(kv[0], str):               # the "int8_cache" tuple
         _, k_all, v_all, ks, vs = kv           # int8 (B, T, n_kv, hd)
         slots = torch.arange(B, device=x.device)
         k_all[slots, pos] = _kv_quantize(k[:, 0], ks[0], "int8")
         v_all[slots, pos] = _kv_quantize(v[:, 0], vs[0], "int8")
+        sm = 1.0 / (cfg.attn_scale if cfg.attn_scale is not None
+                    else math.sqrt(hd))
         attn = decode_attention(q[:, 0].contiguous(), k_all, v_all, pos,
-                                ks.reshape(-1), vs.reshape(-1),
-                                1.0 / math.sqrt(hd))[:, None]
+                                ks.reshape(-1), vs.reshape(-1), sm,
+                                softcap=cfg.attn_logit_softcap or 0.0,
+                                window=window)[:, None]
     else:
         k_all, v_all = kv                      # (B, T, n_kv, hd)
         slots = torch.arange(B, device=x.device)
@@ -483,21 +505,27 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
         v_all[slots, pos] = v[:, 0].to(v_all.dtype)
         idx = torch.arange(k_all.shape[1], device=x.device)
         valid = idx[None, :] <= pos[:, None]
+        if window is not None:
+            valid = valid & (idx[None, :] > pos[:, None] - window)
         bias = torch.where(valid, 0.0, -1e30)[:, None, None, :]
         attn = llama.attention(q, k_all, v_all, bias, cfg)
-    x = x + lf("o_proj", attn.reshape(B, S, -1), weights["o_proj"])
-    h = llama.rms_norm(x, weights["post_attention_layernorm"], cfg.rms_eps)
+    attn_out = lf("o_proj", attn.reshape(B, S, -1), weights["o_proj"],
+                  weights.get("o_bias"))
+    x, h = llama._post_attention(weights, x, attn_out, cfg)
     if "experts" in weights:
-        return x + mixtral._moe_mlp(
-            weights, h, cfg, lf, capacity_factor=moe_capacity_factor), k, v
-    fused_gu = _fused_call(packed, kinds, splits, block_idx, "gate_up", h,
-                           a8_prompt)
-    if fused_gu is not None:
-        gate, up = fused_gu
+        mlp_out = mixtral._moe_mlp(weights, h, cfg, lf,
+                                   capacity_factor=moe_capacity_factor)
     else:
-        gate = lf("gate_proj", h, weights["gate_proj"])
-        up = lf("up_proj", h, weights["up_proj"])
-    return x + lf("down_proj", F.silu(gate) * up, weights["down_proj"]), k, v
+        act = llama._act(cfg.hidden_act)
+        fused_gu = _fused_call(packed, kinds, splits, block_idx, "gate_up",
+                               h, a8_prompt)
+        if fused_gu is not None:
+            gate, up = act(fused_gu[0]), fused_gu[1]
+        else:
+            gate = act(lf("gate_proj", h, weights["gate_proj"]))
+            up = lf("up_proj", h, weights["up_proj"])
+        mlp_out = lf("down_proj", gate * up, weights["down_proj"])
+    return llama._residual_mlp(weights, x, mlp_out, cfg), k, v
 
 
 def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
@@ -516,9 +544,10 @@ def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
         cache = _init_cache(cfg, B, max_seq, cfg.num_layers, kv_quant,
                             input_ids.device)
     x = llama.embed_fwd(params, input_ids, cfg)
-    cos, sin = llama.rope_tables(cfg, S, device=x.device)
+    tables = llama.dual_rope_tables(cfg, S, device=x.device)
     k_scales, v_scales = [], []
     for i in range(cfg.num_layers):
+        cos, sin = tables[llama.layer_is_sliding(cfg, i)]
         x, k_new, v_new = _block_with_cache(
             params["blocks"][i], x, cos, sin, cfg, None, None,
             _make_linear_fn(packed, kinds, i, a8_prompt), packed, kinds, i,
@@ -560,10 +589,12 @@ def _decode_core(params, packed, kinds, splits, token, k, v, pos, *, cfg,
     JAX engine's ``_decode_core``).  The int8 cache's step attends to its
     quantized token, through the decode kernel."""
     x = llama.embed_fwd(params, token[:, None], cfg)
-    cos, sin = llama.rope_tables(cfg, 1, positions=pos)
-    cos, sin = cos[:, None], sin[:, None]        # (B, 1, hd): a row a slot
+    # both table pairs from the device positions: (B, 1, rd), a row a slot
+    tables = [(c[:, None], s[:, None])
+              for c, s in llama.dual_rope_tables(cfg, 1, positions=pos)]
     slots = torch.arange(x.shape[0], device=x.device)
     for i in range(cfg.num_layers):
+        cos, sin = tables[llama.layer_is_sliding(cfg, i)]
         if kv_quant is None:
             kv = (k[i], v[i])
         elif kv_quant == "int8":

@@ -69,22 +69,29 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
     return rec(tree)
 
 
+# the ROADMAP item each unported config flag waits for
+_UNPORTED_ITEM = {"chunked_attention": "A11, models/llama4.py",
+                  "online_r4": "A12, transforms/hadamard.py"}
+
+
 def config_from_jax(fields: Mapping[str, Any]) -> LlamaConfig:
     """JAX config fields → the port's config: a ``MixtralConfig`` when the
-    fields hold ``num_experts``, else a ``LlamaConfig``.  Raises
-    ``NotImplementedError`` for a config that sets a flag the port does not
-    implement (sliding windows, local rope, chunked attention, online R4;
-    ``qk_norm`` outside the Mixtral family)."""
+    fields hold ``num_experts``, else a ``LlamaConfig``; ``layer_types``
+    and ``rope_llama3`` come back as tuples.  Raises
+    ``NotImplementedError`` for a config that sets a flag the port does
+    not implement (Llama4's chunked attention, online R4)."""
     cls = MixtralConfig if "num_experts" in fields else LlamaConfig
     known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():
-        if name in fields and name not in known and fields[name] != off:
+        if fields.get(name, off) != off:
             raise NotImplementedError(
-                f"{cls.__name__}.{name}={fields[name]!r} is not ported yet")
+                f"{cls.__name__}.{name}={fields[name]!r} is not ported yet "
+                f"(ROADMAP {_UNPORTED_ITEM[name]})")
     kw: Dict[str, Any] = {k: v for k, v in fields.items()
                           if k in known and k != "dtype"}
-    if kw.get("rope_llama3") is not None:
-        kw["rope_llama3"] = tuple(kw["rope_llama3"])
+    for name in ("rope_llama3", "layer_types"):
+        if kw.get(name) is not None:
+            kw[name] = tuple(kw[name])
     if "dtype" in fields:
         kw["dtype"] = _torch_dtype(fields["dtype"])
     return cls(**kw)

@@ -157,7 +157,23 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              attention of ``--sage-layers`` llama3-8b layers; launch count
              checked, each output within 5e-3 mean |diff| of the flash
              kernel (the op rides no engine path, as in the JAX package).
-16. report — the card's name and power limit (nvidia-smi), a JSON line of
+16. family  — the Llama-family flags at full width (random weights, every
+             norm gain and bias moved off its initial value; W4A16 g128,
+             lm_head quantized, int8 KV, 32 new tokens, greedy):
+             ``qwen2.5-7b`` RTN at all 28 layers (8 x 512 prompts: q/k/v
+             biases, G = 7 through flash and decode; timed, and its
+             replayed step measured at batch 1 and 8), ``qwen3-4b``
+             SignRound (``iters=20``, 16 x 512 ids) on 2 blocks (qk-norm
+             inside the tuning loss through flash forward and backward),
+             ``gemma2-2b`` RTN at 4 layers (8 x 512: attention and final
+             softcaps, GeGLU, sandwich norms, hd 256) and ``gemma3-12b``
+             RTN at 6 layers, five sliding and one global (2 x 1280
+             prompts, ``max_seq`` 2048: the 1024 window bites at prefill
+             and at every decode step; local and global rope).  Each
+             checks its launch counts against its loops, runs the 2-layer
+             copy against the plain versions on the card and
+             ``generate_scan`` against ``generate``.
+17. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -165,8 +181,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--asym-layers``, ``--a8-layers``, ``--w8a8-layers``, ``--w8a16-layers``,
 ``--a8-modes-layers``, ``--a8-tune-layers``, ``--fp8-layers``,
 ``--mxfp4-layers``, ``--nvfp4-layers``, ``--w2-layers``,
-``--mx-tune-layers``, ``--llama1b-layers`` and ``--sage-layers`` cut the
-depth of the paths for a quicker run.
+``--mx-tune-layers``, ``--llama1b-layers``, ``--sage-layers``,
+``--qwen25-layers``, ``--qwen3-tune-layers``, ``--gemma2-layers`` and
+``--gemma3-layers`` cut the depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -1318,14 +1335,17 @@ def copy_engine(eng, n_layers, device):
                           prefill_a8=eng.prefill_a8)
 
 
-def _kernel_times(prof):
+def _kernel_times(prof, after=None):
     """{kernel name: (total ms, launches)} over the device-side events of a
-    profile (each kernel counted once; CUPTI's own overhead markers out)."""
+    profile (each kernel counted once; CUPTI's own overhead markers out),
+    those that start at ``after`` or later on the trace's clock if given."""
     from torch.autograd import DeviceType
 
     out = {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA or "Command Buffer" in e.name:
+            continue
+        if after is not None and e.time_range.start < after:
             continue
         ms, n = out.get(e.name, (0.0, 0))
         out[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
@@ -1392,7 +1412,9 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     all its experts for every token (dense-then-mask routing, which is what
     the engine runs by default) and the router.  Bytes: the packed
     weights and scales and the dense leaves once, the embedding rows
-    used, the int8 cache written (prefill) or read up to pos (decode)."""
+    used, the int8 cache written (prefill) or read up to pos (decode).
+    A sliding layer's attention counts the keys of its window alone
+    (``_attended``)."""
     from autoround_tpu_torch.utils.pytree import tree_map
 
     cfg = eng.cfg
@@ -1411,14 +1433,15 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     tree_map(leaves.append, eng.params["blocks"])
     w_bytes += sum(nbytes(t) for t in leaves)
     row = hid * eng.params["embed_tokens"].element_size()
-    kv_tok = 2 * L * B * Hkv * hd            # int8 k and v of one position
+    kv_key = 2 * B * Hkv * hd                # int8 k and v of one key
+    step_keys, pre_keys = _attended(cfg, S)  # summed over the layers
     lin_peak = int8_peak or flops_peak
     pre_ops_s = ((2 * B * S * w_block * L + 2 * B * hid * V) / lin_peak
-                 + 4 * B * H * hd * (S * (S + 1) // 2) * L / flops_peak)
-    pre_bytes = w_bytes + B * S * row + S * kv_tok
+                 + 4 * B * H * hd * pre_keys / flops_peak)
+    pre_bytes = w_bytes + B * S * row + S * L * kv_key
     step_ops_s = (2 * B * (w_block * L + hid * V) / lin_peak
-                  + 4 * B * H * hd * (S + 1) * L / flops_peak)
-    step_bytes = w_bytes + B * row + (S + 1) * kv_tok
+                  + 4 * B * H * hd * step_keys / flops_peak)
+    step_bytes = w_bytes + B * row + step_keys * kv_key
     return (max(pre_bytes / bw, pre_ops_s) * 1e3,
             max(step_bytes / bw, step_ops_s) * 1e3)
 
@@ -1774,16 +1797,18 @@ WRAPPER_KERNELS = {
     "flash_attention": ("flash",)}
 
 
-def _trace_busy(prof):
+def _trace_busy(prof, after=None):
     """(kernel ms, span ms) of one profile: the union of its device
     kernels' intervals, and the time from the first kernel's start to the
-    last one's end, both on the trace's own clock."""
+    last one's end, both on the trace's own clock (the kernels that start
+    at ``after`` or later if given)."""
     from torch.autograd import DeviceType
 
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
-                   and "Command Buffer" not in e.name)
+                   and "Command Buffer" not in e.name
+                   and (after is None or e.time_range.start >= after))
     if not spans:
         return 0.0, 0.0
     busy, (lo, hi) = 0.0, spans[0]
@@ -1797,6 +1822,21 @@ def _trace_busy(prof):
     return busy / 1e3, (max(b for _, b in spans) - spans[0][0]) / 1e3
 
 
+# the marker between a profile's warm-up replay and its recorded ones: a
+# ``torch.cuda._sleep`` spin kernel of about 30 us
+MARK_CYCLES = 1 << 16
+
+
+def _mark_end(prof):
+    """The end of a profile's last marker kernel on the trace's clock, or
+    None when the trace lost it."""
+    from torch.autograd import DeviceType
+
+    ends = [e.time_range.end for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "spin_kernel" in e.name]
+    return max(ends) if ends else None
+
+
 def profile_replays(step, label, n=SCAN_PROFILE_REPLAYS):
     """torch.profiler over n replays of a captured step (a ``_StepReplay``):
     the port's kernels counted per replay must equal what the capture's
@@ -1808,31 +1848,41 @@ def profile_replays(step, label, n=SCAN_PROFILE_REPLAYS):
     from torch.profiler import ProfilerActivity, profile
 
     check(step.graph is not None, f"{label}: no graph to profile")
-    for _ in range(2):      # a profile that saw no kernel is taken again
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step.run(1)
-            torch.cuda.synchronize()
-        times = _kernel_times(prof)
-        if times:
-            break
-    check(bool(times), f"{label}: the profiler saw no kernel of the graph")
-    fam, seen = {}, {}
-    for name, (ms, k) in times.items():
-        key = _kernel_key(name)
-        fam[key] = fam.get(key, 0.0) + ms / n
-        if key != "torch":
-            seen[key] = seen.get(key, 0) + k
     want = {}
     for fn, d in step.deltas:
         check(fn.__name__ in WRAPPER_KERNELS, f"{label}: no kernel table "
               f"for wrapper {fn.__name__} (WRAPPER_KERNELS)")
         for key in WRAPPER_KERNELS[fn.__name__]:
             want[key] = want.get(key, 0) + d * n
+    # A trace has lost kernel records on an H100, from the start of its
+    # window: all of them, many, or the first (the same one in three takes
+    # running).  One replay goes first and a marker kernel after it; only
+    # the kernels after the marker count.  A trace that still lost records
+    # (or the marker) is taken again, and says so; the last one is held.
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step.run(1)
+            torch.cuda._sleep(MARK_CYCLES)
+            for _ in range(n):
+                step.run(1)
+            torch.cuda.synchronize()
+        mark = _mark_end(prof)
+        times = {} if mark is None else _kernel_times(prof, after=mark)
+        fam, seen = {}, {}
+        for name, (ms, k) in times.items():
+            key = _kernel_key(name)
+            fam[key] = fam.get(key, 0.0) + ms / n
+            if key != "torch":
+                seen[key] = seen.get(key, 0) + k
+        if seen == want:
+            break
+        log(f"{label}: profile {attempt + 1} of the replays held the "
+            f"port's kernels {seen}, not {want}: taken again")
+    check(bool(times), f"{label}: the profiler saw no kernel of the graph")
     check(seen == want, f"{label}: the port's kernels in {n} replays "
           f"{seen} differ from the capture's counts x {n} {want}")
-    kernel_ms, span_ms = _trace_busy(prof)
+    kernel_ms, span_ms = _trace_busy(prof, after=mark)
     return dict(kernel_ms=kernel_ms / n, span_ms=span_ms / n,
                 busy=kernel_ms / span_ms, fam=fam,
                 launches={k: v // n for k, v in sorted(seen.items())},
@@ -2879,6 +2929,184 @@ def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
     return launches
 
 
+# ------------------------------------------------------- the Llama family
+#
+# Four public configurations of the family flags at full width, random
+# weights from a seed with every norm gain and bias moved off its initial
+# value, W4A16 g128 with the lm_head quantized, the int8 KV cache, greedy.
+# preset: (batch, prompt tokens, max_seq, what the path holds on the card)
+FAMILY_PATHS = {
+    "qwen2.5-7b": (8, 512, 1024, "q/k/v biases after the fused qkv GEMV, "
+                   "G = 7 through flash (prefill) and decode"),
+    "qwen3-4b": (8, 512, 1024, "qk-norm inside the tuning loss through "
+                 "flash forward and backward, G = 4, tied lm_head"),
+    "gemma2-2b": (8, 512, 1024, "attention softcap (plain prefill, decode "
+                  "kernel), final softcap after the packed lm_head, "
+                  "GeGLU, sandwich norms, embed scale, hd 256"),
+    "gemma3-12b": (2, 1280, 2048, "the 1024 window biting at prefill (the "
+                   "sliding mask) and at every decode step (the decode "
+                   "kernel's window), local / global rope, qk-norm with "
+                   "the norm offset, hd 256"),
+}
+FAMILY_NEW = 32
+
+
+def perturb_gains(params, seed):
+    """Move every 1-D leaf (norm gains, q/k norms, biases) of the blocks
+    and the final norm by N(0, 0.1), from a seeded generator on the card,
+    so each of them counts in the run."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def move(t):
+        t.add_(torch.randn(t.shape, generator=gen, device=t.device,
+                           dtype=t.dtype), alpha=0.1)
+
+    move(params["norm"])
+    for b in params["blocks"]:
+        for t in b.values():
+            if isinstance(t, torch.Tensor) and t.ndim == 1:
+                move(t)
+
+
+def _attended(cfg, S):
+    """Keys each decode query at position S sees, summed over the layers
+    (a sliding layer sees at most its window), and the same summed over
+    a causal prefill of S rows."""
+    from autoround_tpu_torch.models import llama
+
+    step = prefill = 0
+    for i in range(cfg.num_layers):
+        w = (cfg.sliding_window if llama.layer_is_sliding(cfg, i)
+             else None) or S + 1
+        step += min(S + 1, w)
+        n = min(S, w)                    # rows r < w see r + 1 keys
+        prefill += n * (n + 1) // 2 + (S - n) * w
+    return step, prefill
+
+
+def family_path(bw, flops_peak, preset, n_layers, seed, iters=0):
+    """RTN (or SignRound with ``iters``) W4A16 g128, the lm_head quantized,
+    at the full width of a Llama-family preset and ``n_layers`` of its
+    depth → the int8-KV engine → ``generate`` (32 new tokens); launch
+    counts equal what the loops imply, the 2-layer copy against the plain
+    versions on the card, ``generate_scan`` against ``generate``; the main
+    path (qwen2.5-7b) is timed and its replayed step measured at batch 1
+    and 8.  Returns the launches."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    t_path = time.time()
+    B, S, max_seq, holds = FAMILY_PATHS[preset]
+    NEW, NS, CB = FAMILY_NEW, 16 if iters else B, 8
+    kernels = _kernel_fns()
+    full = llama.CONFIG_PRESETS[preset]
+    cfg = dataclasses.replace(full, num_layers=n_layers)
+    ids_gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (NS, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    perturb_gains(params, seed)
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=iters,
+                   batch_size=B, quant_lm_head=True, donate_params=True,
+                   cache_batch=CB)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    traces = result.loss_traces
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=max_seq,
+                                              kv_quant="int8")
+    del ar, result
+    dense = [f"blocks.{i}.{n}" for i, blk in enumerate(eng.params["blocks"])
+             for n in llama.LINEAR_KEYS if blk.get(n) is not None]
+    check(not dense and set(eng.packed_kinds.values()) == {"w4a16"}
+          and len(eng.packed) == 4 * n_layers + 1,
+          f"{preset} path: dense layers {dense}, packed kinds "
+          f"{sorted(set(eng.packed_kinds.values()))}, {len(eng.packed)} "
+          f"entries")
+    t0 = time.time()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    sliding = [i for i in range(n_layers) if llama.layer_is_sliding(cfg, i)]
+    flash = (hd % 128 == 0 and S >= 512 and S % 256 == 0
+             and not cfg.attn_logit_softcap and cfg.attn_scale is None)
+    log(f"{preset} path ({n_layers} of {full.num_layers} layers, full "
+        f"width: hidden {cfg.hidden_size}, {nh} / {nkv} heads (G = "
+        f"{nh // nkv}), hd {hd}, inter {cfg.intermediate_size}, vocab "
+        f"{cfg.vocab_size}; random weights, gains and biases moved; "
+        f"{'SignRound iters=%d' % iters if iters else 'RTN'} W4A16 g128, "
+        f"lm_head quantized; {B} x {S} prompts, {NEW} new, int8 KV, max_seq "
+        f"{max_seq}): quantize_s={t_quant:.2f} generate_s={t_gen:.2f} "
+        f"peak_mem_gb={peak_gb:.2f}; holds: {holds}")
+    log(f"{preset} path kernels {json.dumps(launches)}")
+    log(f"{preset} path attention: flash (row 1) "
+        f"{'at G = %d hd %d' % (nh // nkv, hd) if flash else 'not taken (softcap or attn_scale: the JAX gate)'}"
+        f"; decode (row 6) at hd {hd} G {nh // nkv} sm_scale 1/"
+        f"{cfg.attn_scale or hd ** 0.5:g} softcap "
+        f"{cfg.attn_logit_softcap or 0.0:g}; sliding layers {sliding} of "
+        f"{n_layers} with window {cfg.sliding_window} at decode positions "
+        f"{S}..{S + NEW - 2} (keys older than pos - window dropped: "
+        f"{'yes' if sliding and S > cfg.sliding_window else 'no'})")
+    # per block and forward: qkv, o_proj, gate_up, down_proj (+ the lm_head
+    # once a forward); calibration runs NS / CB forwards a chain (two chains
+    # and a forward and a backward a step when tuning), the prompt pass one
+    if iters:
+        fwd = n_layers * (2 * (NS // CB) + iters) + n_layers
+        bwd = n_layers * iters
+    else:
+        fwd, bwd = n_layers * (-(-NS // CB)) + n_layers, 0
+    want = {"w4a16_matmul": (4 * n_layers + 1) * NEW,
+            "decode_attention": n_layers * (NEW - 1),
+            "flash_attention": fwd if flash else 0,
+            "flash_attention_bwd_dq": bwd if flash else 0,
+            "flash_attention_bwd_dkv": bwd if flash else 0}
+    for n in kernels:
+        want.setdefault(n, 0)
+    for n, c in want.items():
+        check(launches[n] == c, f"{preset} path: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    if iters:
+        first = [float(traces[b][0]) for b in range(n_layers)]
+        best = [float(traces[b].min()) for b in range(n_layers)]
+        check(len(traces) == n_layers and all(
+            len(traces[b]) == iters and bool(torch.isfinite(
+                torch.as_tensor(traces[b])).all()) for b in range(n_layers)),
+            f"{preset} tune: a loss is missing or not finite")
+        check(all(b <= f for b, f in zip(best, first)),
+              f"{preset} tune: a block's best loss is above its first")
+        log(f"{preset} tune path ({NS} x {S} ids, iters={iters}, batch {B}, "
+            f"qk_norm={cfg.qk_norm}): tune_s={t_quant:.2f}; losses (first "
+            f"-> best per block): "
+            + " ".join(f"{f:.4g}->{b:.4g}" for f, b in zip(first, best))
+            + f"; flash forward {launches['flash_attention']}, dQ "
+            f"{launches['flash_attention_bwd_dq']}, dK/dV "
+            f"{launches['flash_attention_bwd_dkv']} launches")
+    step_ms = None
+    if preset == "qwen2.5-7b":
+        _, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
+    check_copy(eng, prompts, "card")
+    scan_path(eng, prompts, toks, gen_counts, f"{preset} path", step_ms)
+    if preset == "qwen2.5-7b":
+        for b in (1, 8):
+            scan_measure(eng, b, S, bw, flops_peak, None, seed=seed + 70 + b,
+                         label=preset, ran=(prompts, step_ms) if b == B
+                         else None)
+    log(f"{preset} path: path_s={time.time() - t_path:.1f}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def a8_modes_path(n_layers):
     """A W4A16 result on the int8 kernel: ``serve_a8`` and ``prefill_a8``;
     returns the launches of the ``prefill_a8`` engine's prefill and decode
@@ -3311,6 +3539,18 @@ def main() -> int:
     ap.add_argument("--sage-layers", type=int, default=32,
                     help="layers of prefill attention on the int8-QK path "
                          "(default 32)")
+    ap.add_argument("--qwen25-layers", type=int, default=28,
+                    help="depth of the qwen2.5-7b RTN -> serve path "
+                         "(default 28, all of them)")
+    ap.add_argument("--qwen3-tune-layers", type=int, default=2,
+                    help="depth of the qwen3-4b SignRound -> serve path "
+                         "(default 2)")
+    ap.add_argument("--gemma2-layers", type=int, default=4,
+                    help="depth of the gemma2-2b RTN -> serve path "
+                         "(default 4)")
+    ap.add_argument("--gemma3-layers", type=int, default=6,
+                    help="depth of the gemma3-12b RTN -> serve path "
+                         "(default 6: five sliding layers and one global)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3409,6 +3649,15 @@ def main() -> int:
     free_device_memory()
     sage_launches = sage_path(args.sage_layers)
     mark("llama3.2-1b, sage")
+    fam = {}
+    for preset, n_layers, seed, iters in (
+            ("qwen2.5-7b", args.qwen25_layers, 23, 0),
+            ("qwen3-4b", args.qwen3_tune_layers, 24, 20),
+            ("gemma2-2b", args.gemma2_layers, 25, 0),
+            ("gemma3-12b", args.gemma3_layers, 26, 0)):
+        fam[preset] = family_path(bw, fl, preset, n_layers, seed, iters)
+        free_device_memory()
+    mark("llama family")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths
@@ -3431,7 +3680,11 @@ def main() -> int:
                            ("launches_nvfp4_path", nvfp4_launches),
                            ("launches_mx_tune_path", mx_tune_launches),
                            ("launches_llama1b_path", l1b_launches),
-                           ("launches_llama1b_g16_path", l1b_g16_launches)):
+                           ("launches_llama1b_g16_path", l1b_g16_launches),
+                           ("launches_qwen2.5-7b_path", fam["qwen2.5-7b"]),
+                           ("launches_qwen3-4b_tune_path", fam["qwen3-4b"]),
+                           ("launches_gemma2-2b_path", fam["gemma2-2b"]),
+                           ("launches_gemma3-12b_path", fam["gemma3-12b"])):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)

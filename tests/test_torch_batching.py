@@ -14,8 +14,8 @@ same prompt alone through ``prefill`` / ``decode_step``, within
 order of fp32 sums).
 
 ``TestBatchingModelQuirks`` of the JAX suite (``tiny-qwen3``,
-``tiny-gemma2``) waits for ROADMAP queue A item 2: the port has neither
-preset nor their flags yet.
+``tiny-gemma2``) and tiny-gemma3 against the JAX batcher are in
+``tests/test_torch_families_serve.py``, with the Llama-family flags.
 """
 
 import dataclasses

@@ -370,10 +370,13 @@ def test_mxfp4_all_regimes(gen, M, O, K, g):
 
 @pytest.mark.parametrize("M", FLOAT_M)
 @pytest.mark.parametrize("O,K", [(1000, 2048), (72, 512), (200, 1056),
-                                 (72, 96), (8, 32), (1000, 14336)])
+                                 (72, 96), (8, 32), (1, 32), (1000, 14336)])
 def test_fp8_all_regimes(gen, M, O, K):
     """e4m3 weights over their whole range (subnormals, ±448, zero) and
-    channel scales, one below 1e-12."""
+    channel scales, one below 1e-12.  At O = 1 an output row is a single
+    value, whose own size may be a cancelled sum of 32 products: its
+    error is held to the RMS of the whole output (``_check``'s floor), the
+    scale a row of many outputs gives, under the same limit."""
     before = fp8_matmul.launches
     x = torch.randn(2, M, K, generator=gen, device="cuda").bfloat16()
     w = (torch.randn(O, K, generator=gen, device="cuda") * 100).clamp(
@@ -382,7 +385,8 @@ def test_fp8_all_regimes(gen, M, O, K):
     wf = w.to(torch.float8_e4m3fn)
     sc = torch.rand(O, generator=gen, device="cuda") * 0.01 + 1e-4
     sc[min(1, O - 1)] = 1e-13
-    _check(fp8_matmul(x, wf, sc), fp8_matmul_plain(x, wf, sc), "fp8")
+    _check(fp8_matmul(x, wf, sc), fp8_matmul_plain(x, wf, sc), "fp8",
+           floor=1.0 if O == 1 else 0.0)
     assert fp8_matmul.launches == before + 1
 
 
@@ -1213,3 +1217,56 @@ def test_batcher_replay_equals_its_eager_step(w4a16_engine):
     assert graph._decode.graph is not None
     assert [graph.result(r) for r in range(3)] == [eager.result(r)
                                                    for r in range(3)]
+
+
+# The Llama-family flags on the card: 2-layer full-width engines of
+# qwen2.5-7b (q/k/v biases after the fused qkv GEMV, G = 7 through flash
+# and decode) and gemma3-12b (hd 256, qk-norm with the norm offset, local
+# rope on its sliding layers, the 1024 window), random weights with every
+# gain and bias moved off its initial value, RTN W4A16 g128 with the lm_head
+# quantized, int8 KV.  gemma3's prompt (1100 tokens) is longer than its
+# window, so the sliding mask runs at prefill and the decode kernel drops
+# the oldest keys at every step; the replayed graph must give ``generate``'s
+# tokens and launches.
+
+def _family_engine(preset, S):
+    import dataclasses
+
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS[preset], num_layers=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b in params["blocks"]:
+        for t in b.values():
+            if t.ndim == 1:
+                t.add_(torch.randn(t.shape, generator=gen, device="cuda",
+                                   dtype=t.dtype), alpha=0.1)
+    calib = torch.randint(0, cfg.vocab_size, (2, S),
+                          generator=torch.Generator().manual_seed(5))
+    res = AutoRound((params, cfg), scheme="W4A16", iters=0,
+                    quant_lm_head=True, donate_params=True).quantize(calib)
+    return QuantizedLlama.from_quantize_result(res, cfg, max_seq=S + 64,
+                                               kv_quant="int8")
+
+
+@pytest.mark.parametrize("preset,S", [("qwen2.5-7b", 512),
+                                      ("gemma3-12b", 1100)])
+def test_generate_scan_llama_family(preset, S):
+    from autoround_tpu_torch.models import llama
+
+    eng = _family_engine(preset, S)
+    cfg = eng.cfg
+    assert "blocks.0.qkv" in eng.packed and "lm_head" in eng.packed
+    if preset == "gemma3-12b":
+        assert llama.layer_is_sliding(cfg, 0) and S > cfg.sliding_window
+    _scan_against_generate(eng, 2, S, 12, seed=7)
+    caps = eng.captures
+    assert caps >= 1
+    _scan_against_generate(eng, 2, S, 12, seed=8)       # new prompts
+    assert eng.captures == caps
+

@@ -91,17 +91,35 @@ def test_rms_norm_and_rope_parts():
            tl.apply_rope(torch.from_numpy(x), tc, ts), 1e-6)
 
 
+_FAMILY_PRESETS = ["tiny-qwen", "tiny-qwen3", "tiny-gemma2", "tiny-gemma3",
+                   "qwen2.5-7b", "qwen3-4b", "gemma2-2b", "gemma3-12b"]
+
+
 @pytest.mark.parametrize("name", ["tiny-qwen", "tiny-qwen3", "tiny-gemma2",
                                   "tiny-gemma3"])
 def test_config_from_jax_rejects_unported_flags(name):
-    with pytest.raises(NotImplementedError):
-        config_from_jax(dataclasses.asdict(jl.CONFIG_PRESETS[name]))
+    """The family flags map now (``test_config_from_jax_llama_presets``);
+    on the same preset, Llama4's chunked attention and online R4 still
+    raise, naming their ROADMAP item."""
+    jcfg = jl.CONFIG_PRESETS[name]
+    for flag, item in (("chunked_attention", "A11"), ("online_r4", "A12")):
+        with pytest.raises(NotImplementedError,
+                           match=f"{flag}=True .*ROADMAP {item}"):
+            config_from_jax(dataclasses.asdict(
+                dataclasses.replace(jcfg, **{flag: True})))
 
 
-@pytest.mark.parametrize("name", ["tiny", "llama3.2-1b", "llama3-8b"])
+@pytest.mark.parametrize("name", ["tiny", "llama3.2-1b", "llama3-8b"]
+                         + _FAMILY_PRESETS)
 def test_config_from_jax_llama_presets(name):
     cfg = config_from_jax(dataclasses.asdict(jl.CONFIG_PRESETS[name]))
     assert cfg == tl.CONFIG_PRESETS[name]
+    assert isinstance(cfg.layer_types, (tuple, type(None)))
+
+
+def test_every_jax_llama_preset_maps():
+    """Every JAX Llama preset has the port's equal preset."""
+    assert sorted(jl.CONFIG_PRESETS) == sorted(tl.CONFIG_PRESETS)
 
 
 def test_init_params_seeded_and_shaped():

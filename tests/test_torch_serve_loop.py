@@ -103,8 +103,9 @@ def _j_lf(name, x, w, bias=None):
     return y if bias is None else y + bias
 
 
-def _t_lf(name, x, w):
-    return torch.einsum("...i,oi->...o", x, w)
+def _t_lf(name, x, w, bias=None):
+    y = torch.einsum("...i,oi->...o", x, w)
+    return y if bias is None else y + bias
 
 
 def _run_both(block, kv_j, kv_t):
@@ -332,3 +333,37 @@ def test_busy_share_from_one_trace():
     kernel_ms, span_ms = cs._trace_busy(prof)
     assert kernel_ms == pytest.approx(0.025)
     assert span_ms == pytest.approx(0.030)
+
+
+def test_profile_counts_only_after_the_marker():
+    """``profile_replays`` counts the kernels that start after its marker
+    kernel (the warm-up replay before it may lose records), and a trace
+    that lost the marker counts nothing."""
+    import types
+
+    from torch.autograd import DeviceType
+
+    cs = _chip_smoke()
+
+    def ev(a, b, name):
+        return types.SimpleNamespace(
+            device_type=DeviceType.CUDA, name=name,
+            time_range=types.SimpleNamespace(start=a, end=b,
+                                             elapsed_us=lambda: b - a))
+
+    gemv = "void w4a16::gemv_kernel<0, 1>(__nv_bfloat16 const*)"
+    events = [ev(0, 5, gemv),
+              ev(6, 9, "void at::cuda::(anonymous namespace)::"
+                       "spin_kernel(long)"),
+              ev(10, 12, gemv), ev(13, 14, "split_kernel<128, 4>")]
+    prof = types.SimpleNamespace(events=lambda: events)
+    mark = cs._mark_end(prof)
+    assert mark == 9
+    times = cs._kernel_times(prof, after=mark)
+    assert times == {gemv: (pytest.approx(0.002), 1),
+                     "split_kernel<128, 4>": (pytest.approx(0.001), 1)}
+    assert cs._trace_busy(prof, after=mark) == (pytest.approx(0.003),
+                                                pytest.approx(0.004))
+    assert cs._mark_end(types.SimpleNamespace(
+        events=lambda: events[:1])) is None
+
