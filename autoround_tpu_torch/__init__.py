@@ -11,8 +11,12 @@ of Llama-family and Mixtral models with the int and float (FP8, MX, NVFP4)
 data types and their activation quantization, the serving engine for every
 packed kind of the JAX engine with an int8 or fp8 KV cache, its decode loop
 as a replayed CUDA graph (``generate_scan``) and continuous batching
-(``serve.ContinuousBatchingEngine``), and the ``fake`` / ``autoround``
-export formats::
+(``serve.ContinuousBatchingEngine``), the ``fake`` / ``autoround``
+export formats, and loading and user entry: local HF checkpoints
+(``utils.hf_loader``), ``QuantizedLlama.from_pretrained`` / ``from_gptq`` /
+``from_awq``, calibration data (``quantize.calib_data``) and the CLI
+(``python -m autoround_tpu_torch``), on the port's own safetensors reader
+and writer (``utils.safetensors_io``)::
 
     ar = AutoRound((params, cfg), scheme="W4A16", iters=200,
                    quant_lm_head=True)

@@ -8,14 +8,14 @@ Formats:
 
 The files equal the JAX package's byte for byte on the same result.  The
 other formats of the JAX package (``gptq``, ``awq``, ``llm_compressor``,
-``mlx``, ``gguf``) are not ported yet and raise.  ``safetensors`` is
-imported inside the functions that need it.
+``mlx``, ``gguf``) are not ported yet and raise; ``formats.py`` holds the
+GPTQ / AWQ layer packers their loaders read.  Files are written and read by
+``utils/safetensors_io.py``, not the ``safetensors`` package.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 from typing import Any, Dict
 
@@ -23,12 +23,14 @@ import numpy as np
 import torch
 
 from ..models.llama import UNSUPPORTED_FIELDS
-from .packing import pack_quantized, unpack_quantized
+from ..utils.logger import logger
+from ..utils.safetensors_io import load_file, save_file
+from .packing import (codes_from_qdq_torch, pack_quantized,
+                      pack_quantized_torch, unpack_quantized)
 
 __all__ = ["save_quantized", "load_fake", "pack_quantized",
            "unpack_quantized", "codes_from_qdq"]
 
-logger = logging.getLogger("autoround_tpu_torch")
 
 _UNPORTED_FORMATS = ("gptq", "awq", "llm_compressor", "mlx")
 
@@ -55,7 +57,8 @@ _MOE_CONFIG_KEYS = ("num_experts", "top_k", "shared_expert_intermediate",
 
 def _flatten_params(params: Dict[str, Any],
                     prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Nested dicts / lists of tensors → {dotted name: CPU tensor}."""
+    """Nested dicts / lists of tensors → {dotted name: tensor}, on the
+    tensors' own device (the writer moves one tensor at a time)."""
     out = {}
     for k, v in params.items():
         name = f"{prefix}{k}"
@@ -65,7 +68,7 @@ def _flatten_params(params: Dict[str, Any],
             for i, item in enumerate(v):
                 out.update(_flatten_params(item, f"{name}.{i}."))
         else:
-            out[name] = v.detach().cpu().contiguous()
+            out[name] = v.detach()
     return out
 
 
@@ -92,20 +95,12 @@ def _unflatten_params(flat: Dict[str, Any]) -> Dict[str, Any]:
 def codes_from_qdq(qdq: np.ndarray, scale: np.ndarray, zp, bits: int,
                    group_size: int) -> np.ndarray:
     """Recover integer codes from a qdq weight: q = round(qdq/s) + zp.
-    Exact because qdq lies on the grid."""
-    O, I = qdq.shape
-    g = group_size if group_size > 0 else I
-    s = np.repeat(np.asarray(scale, np.float64), g, axis=1)[:, :I]
-    if zp is None:
-        z = 2 ** (bits - 1)
-    else:
-        z = np.repeat(np.asarray(zp, np.float64), g, axis=1)[:, :I]
-    q = np.rint(np.asarray(qdq, np.float64) / s + z)
-    return np.clip(q, 0, 2 ** bits - 1).astype(np.uint32)
-
-
-def _np32(t: torch.Tensor) -> np.ndarray:
-    return t.detach().float().cpu().numpy()
+    Exact because qdq lies on the grid.  :func:`codes_from_qdq_torch` on
+    numpy arrays → (O, I) uint32."""
+    f64 = lambda a: torch.from_numpy(np.asarray(a, np.float64))
+    return codes_from_qdq_torch(
+        f64(qdq), f64(scale), None if zp is None else f64(zp), bits,
+        group_size).numpy().astype(np.uint32)
 
 
 def save_quantized(result, model_cfg, output_dir: str,
@@ -116,8 +111,6 @@ def save_quantized(result, model_cfg, output_dir: str,
             f"export format {format!r} is not ported yet (ROADMAP A13)")
     if format not in ("fake", "autoround"):
         raise ValueError(f"unknown export format {format!r}")
-    from safetensors.torch import save_file
-
     os.makedirs(output_dir, exist_ok=True)
     qcfg = {
         "quant_method": "auto-round",
@@ -150,13 +143,14 @@ def save_quantized(result, model_cfg, output_dir: str,
                     f"{format} packed export currently covers int schemes; "
                     f"layer {name} is {ql.scheme.data_type}")
             tensors.pop(name, None)
-            qdq, scale = _np32(ql.qdq), _np32(ql.scale)
-            zp = None if ql.zp is None else _np32(ql.zp)
-            codes = codes_from_qdq(qdq, scale, zp, ql.scheme.bits,
-                                   gs if gs > 0 else qdq.shape[1])
-            payload = pack_quantized(codes, scale, zp, ql.scheme.bits)
+            # codes_from_qdq + pack_quantized, on the weights' device
+            codes = codes_from_qdq_torch(ql.qdq, ql.scale, ql.zp,
+                                         ql.scheme.bits, gs)
+            payload = pack_quantized_torch(codes, ql.scale, ql.zp,
+                                           ql.scheme.bits)
+            del codes
             for pk, pv in payload.items():
-                tensors[f"{name}.{pk}"] = torch.from_numpy(pv)
+                tensors[f"{name}.{pk}"] = pv
     save_file(tensors, os.path.join(output_dir, "model.safetensors"))
 
     with open(os.path.join(output_dir, "quantization_config.json"), "w") as f:
@@ -167,8 +161,6 @@ def save_quantized(result, model_cfg, output_dir: str,
 
 def load_fake(path: str, device="cpu"):
     """Load a fake-format checkpoint back into a params tree (+ config)."""
-    from safetensors.torch import load_file
-
     flat = load_file(os.path.join(path, "model.safetensors"),
                      device=str(device))
     with open(os.path.join(path, "quantization_config.json")) as f:

@@ -3,21 +3,22 @@
 
 Buffers tensors, flushes at a shard-size budget, and ``finalize`` renames
 the shards to the ``-of-`` convention and writes the index, so a large
-export never holds more than one shard in memory.
+export never holds more than one shard in memory.  Shards are written by
+``utils/safetensors_io.py``, byte-equal to the ``safetensors`` package's.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["ShardWriter"]
+from ..utils.logger import logger
+from ..utils.safetensors_io import save_file
 
-logger = logging.getLogger("autoround_tpu_torch")
+__all__ = ["ShardWriter"]
 
 
 class ShardWriter:
@@ -50,8 +51,6 @@ class ShardWriter:
         """Write the current buffer as one shard."""
         if not self._buffer:
             return None
-        from safetensors.numpy import save_file
-
         self._shard_idx += 1
         fname = f"{self.prefix}-{self._shard_idx:05d}.safetensors"
         tmp = os.path.join(self.dir, fname + ".tmp")

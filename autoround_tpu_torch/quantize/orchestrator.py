@@ -24,7 +24,6 @@ switches gradients on for its own loss.
 
 from __future__ import annotations
 
-import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
@@ -43,12 +42,11 @@ from ..models.llama import (LlamaConfig, dual_rope_tables, layer_is_sliding,
                             rms_norm, sliding_mask)
 from ..models.registry import get_model_fns
 from ..schemes import QuantizationScheme
+from ..utils.logger import logger
 from ..utils.pytree import get_by_path, set_by_path
 
 __all__ = ["QuantizeConfig", "QuantizedLayer", "QuantizeResult",
            "quantize_model"]
-
-logger = logging.getLogger("autoround_tpu_torch")
 
 
 @dataclass(frozen=True)

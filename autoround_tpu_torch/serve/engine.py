@@ -44,7 +44,7 @@ returns the same buffers it was given, with one more token written.
 
 from __future__ import annotations
 
-import logging
+import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
@@ -62,12 +62,11 @@ from ..ops.qmatmul_ext import (fp8_matmul, mxfp4_matmul, pack_w2,
                                w2a16_matmul, w4a16_asym_matmul, w8a16_matmul)
 from ..ops.qmatmul_int8 import w4a8_matmul, w8a8_matmul
 from ..quantize.orchestrator import QuantizeResult
+from ..utils.logger import logger
 from ..utils.pytree import set_by_path, tree_map
 from .sampling import SamplingParams, sample_token
 
 __all__ = ["KVCache", "QuantizedLlama"]
-
-logger = logging.getLogger("autoround_tpu_torch")
 
 
 class KVCache(NamedTuple):
@@ -688,7 +687,9 @@ class _ScanState:
 class QuantizedLlama:
     """Serving-side model: packed quantized layers + dense residue.
 
-    Build with :meth:`from_quantize_result` and run :meth:`prefill` /
+    Build with :meth:`from_quantize_result`, :meth:`from_pretrained` (an
+    ``autoround`` export) or :meth:`from_gptq` / :meth:`from_awq` and run
+    :meth:`prefill` /
     :meth:`decode_step` / :meth:`generate`, or :meth:`generate_scan` (the
     decode loop as a replayed CUDA graph)."""
 
@@ -828,6 +829,101 @@ class QuantizedLlama:
                    kv_quant=kv_quant, fused_splits=splits, device=dev,
                    packed_kinds=kinds,
                    moe_capacity_factor=moe_capacity_factor)
+
+    @classmethod
+    def from_pretrained(cls, path: str, max_seq: int = 2048,
+                        kv_quant: Optional[str] = None, device=None,
+                        moe_capacity_factor: float = 0.0
+                        ) -> "QuantizedLlama":
+        """Load an ``autoround``-format export directory (the port's or
+        the JAX package's: the files are the same) onto ``device``.
+
+        ``cfg`` comes from ``quantization_config.json``'s ``model_config``
+        and its dtype from ``embed_tokens``.  Each layer's words are
+        unpacked on the device (``export.packing.unpack_quantized_torch``,
+        ``unpack_quantized``'s twin); an int4 sym layer
+        whose shape the W4A16 kernel takes (``w4_tileable``) packs in the
+        port's layout and keeps no dense leaf, every other layer serves
+        dense as ``(codes - zp) * scale`` in the model dtype.  The JAX
+        engine packs only g >= 128 with K % (8 g) == 0 (its TPU tiles), so
+        a g = 32 export packs here and serves dense there (ROADMAP C).  A
+        ``fake`` export's qdq leaves load as they are, dense."""
+        import json
+        import os
+
+        from ..export import _unflatten_params
+        from ..export.packing import unpack_quantized_torch
+        from ..utils.convert import config_from_jax
+        from ..utils.safetensors_io import DTYPE_CODES, SafeOpen
+        from .gptq_loader import _dense
+
+        _check_kv_quant(kv_quant)
+        dev = resolve_device(device)
+        with open(os.path.join(path, "quantization_config.json")) as f:
+            qcfg = json.load(f)
+        cfg = config_from_jax(qcfg["model_config"])
+        packed: Dict[str, Tuple[torch.Tensor, ...]] = {}
+        kinds: Dict[str, str] = {}
+        with SafeOpen(os.path.join(path, "model.safetensors"),
+                       device=dev) as f:
+            keys = set(f.keys())
+            if "embed_tokens" in keys:
+                cfg = dataclasses.replace(
+                    cfg, dtype=DTYPE_CODES[f.dtype_code("embed_tokens")])
+            flat = {k: f.get_tensor(k) for k in f.keys()
+                    if not k.endswith((".qweight", ".qzeros", ".scales"))}
+            for name, meta in qcfg["layers"].items():
+                if f"{name}.qweight" not in keys:
+                    continue          # a qdq leaf (fake format) is in flat
+                payload = {s: f.get_tensor(f"{name}.{s}")
+                           for s in ("qweight", "qzeros", "scales")}
+                bits, g = meta["bits"], meta["group_size"]
+                O = payload["qweight"].shape[1]
+                I = payload["qweight"].shape[0] * 32 // bits
+                codes, scales, zp = unpack_quantized_torch(payload, bits, O,
+                                                           I)
+                del payload
+                if (meta["data_type"] == "int" and bits == 4 and meta["sym"]
+                        and isinstance(g, int) and w4_tileable(I, g)):
+                    packed[name] = (pack_w4(codes), scales)
+                    kinds[name] = "w4a16"
+                    flat[name] = None
+                else:
+                    gi = g if isinstance(g, int) and g > 0 else I
+                    flat[name] = _dense(codes, scales, zp,
+                                        torch.arange(I, device=dev) // gi,
+                                        cfg.dtype)
+        params = _unflatten_params(flat)
+        logger.info("from_pretrained: %d packed layers, %d total quantized",
+                    len(packed), len(qcfg["layers"]))
+        packed, kinds = _stack_experts(packed, kinds, cfg)
+        fused, splits, kinds = _fuse_packed(packed, cfg, kinds)
+        return cls(cfg=cfg, params=params, packed=fused, max_seq=max_seq,
+                   kv_quant=kv_quant, fused_splits=splits, device=dev,
+                   packed_kinds=kinds,
+                   moe_capacity_factor=moe_capacity_factor)
+
+    @classmethod
+    def from_gptq(cls, path: str, max_seq: int = 2048,
+                  kv_quant: Optional[str] = None, device=None,
+                  moe_capacity_factor: float = 0.0) -> "QuantizedLlama":
+        """Load an HF-layout GPTQ or AWQ checkpoint (the CUDA ecosystem's
+        formats) onto ``device``; the layout is read from its
+        ``quantization_config`` (``serve/gptq_loader.py``)."""
+        from .gptq_loader import load_quantized_checkpoint
+
+        _check_kv_quant(kv_quant)
+        dev = resolve_device(device)
+        params, cfg, packed, kinds = load_quantized_checkpoint(path,
+                                                               device=dev)
+        fused, splits, kinds = _fuse_packed(packed, cfg, kinds)
+        return cls(cfg=cfg, params=params, packed=fused, max_seq=max_seq,
+                   kv_quant=kv_quant, fused_splits=splits, device=dev,
+                   packed_kinds=kinds,
+                   moe_capacity_factor=moe_capacity_factor)
+
+    # AWQ checkpoints take the same loader, which reads the layout
+    from_awq = from_gptq
 
     def _prefill(self, ids: torch.Tensor, cache: Optional[KVCache] = None
                  ) -> Tuple[torch.Tensor, KVCache]:

@@ -173,7 +173,38 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              checks its launch counts against its loops, runs the 2-layer
              copy against the plain versions on the card and
              ``generate_scan`` against ``generate``.
-17. report — the card's name and power limit (nvidia-smi), a JSON line of
+17. load    — loading and user entry, everything written to one
+             temporary directory that the phase removes (it prints the
+             bytes and seconds of each write and load).  (a) llama3-8b at
+             full width, ``--load-layers`` layers, Llama-3.1 rope scaling,
+             random bf16 weights with every norm gain moved: written with
+             ``save_hf_checkpoint``, read back with ``load_hf_checkpoint``
+             (leaves bit-equal; GB/s beside a plain read of the file and
+             one ``.to("cuda")`` of its bytes), then ``python -m
+             autoround_tpu_torch --model <dir> --scheme W4A16 --iters 0
+             --quant-lm-head --dataset <ids.npy> --format autoround`` in a
+             subprocess on the card, whose every file must equal an
+             in-process ``AutoRound(load_hf_checkpoint(dir))`` RTN +
+             ``save_quantized`` byte for byte (the export's two files; the
+             CLI may save a tokenizer beside them); ``from_pretrained`` of
+             the export packs all 7 x L + 1 layers (words bit-equal to the
+             in-memory engine's, scales its fp16 scales), prefill and
+             first-step logits within the copy limit of the in-memory
+             engine with its scales rounded to fp16 (what the files store;
+             the distance to its fp32 scales printed), launches equal to
+             the loops', ``generate_scan``
+             equal to ``generate``, the replayed step at batch 8 in turns
+             with the in-memory engine's, beside its bound, and the 2-layer
+             copy on the card against the plain versions on the CPU.  (b)
+             phase 14's llama3.2-1b g128 result (16 layers, tied) exported
+             and served the same way.  (c) the results of (a), W4A16 and
+             W4A16 asym, packed by ``gptq_pack_layer`` / ``awq_pack_layer``
+             into HF-layout directories: ``from_gptq`` on row 4,
+             ``from_awq`` on row 9 (row 4 at 0), and a GPTQ copy whose
+             block-0 ``o_proj`` is act-order, which must serve dense and
+             say so in the log.  The engines of (b) and (c) each hold a
+             2-layer copy against the plain versions on the card.
+18. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -182,8 +213,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--a8-modes-layers``, ``--a8-tune-layers``, ``--fp8-layers``,
 ``--mxfp4-layers``, ``--nvfp4-layers``, ``--w2-layers``,
 ``--mx-tune-layers``, ``--llama1b-layers``, ``--sage-layers``,
-``--qwen25-layers``, ``--qwen3-tune-layers``, ``--gemma2-layers`` and
-``--gemma3-layers`` cut the depth of the paths for a quicker run.
+``--qwen25-layers``, ``--qwen3-tune-layers``, ``--gemma2-layers``,
+``--gemma3-layers`` and ``--load-layers`` cut the depth of the paths for a
+quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -197,7 +229,9 @@ import dataclasses
 import gc
 import json
 import logging
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2851,7 +2885,7 @@ def serve_path(bw, flops_peak, int8_peak, scheme, n_layers, seed):
     return launches, peak_gb
 
 
-def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
+def llama1b_path(bw, flops_peak, n_layers, group_size, seed, keep=False):
     """llama3.2-1b at full width (hidden 2048, 32 heads, 8 kv heads, head
     dim 64, tied embeddings), RTN W4A16 at ``group_size`` with the lm_head
     quantized → engine → ``generate`` (8 x 512 prompts, 32 new tokens)
@@ -2860,7 +2894,8 @@ def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
     needs hd 128 or 256, as the JAX model's needs hd % 128 == 0.  Every
     quantized layer must serve packed (g = 16 too), the launch counts equal
     what the loops imply; timings, and a 2-layer copy against the plain
-    versions on the card; returns the launches."""
+    versions on the card; returns the launches and, with ``keep``, the
+    result, config, engine and prompts for the load phase (else None)."""
     from autoround_tpu_torch import AutoRound, QuantizedLlama
     from autoround_tpu_torch.models import llama
 
@@ -2887,11 +2922,9 @@ def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
     t_quant = time.time() - t0
     eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
                                               kv_quant="int8")
+    kept = (result, cfg, eng, prompts) if keep else None
     del ar, result
-    dense = [f"blocks.{i}.{n}" for i, blk in enumerate(eng.params["blocks"])
-             for n in llama.LINEAR_KEYS if blk.get(n) is not None]
-    if eng.params.get("lm_head") is not None:
-        dense.append("lm_head")
+    dense = _dense_linears(eng)
     check(not dense and set(eng.packed_kinds.values()) == {"w4a16"}
           and len(eng.packed) == 4 * n_layers + 1,
           f"llama3.2-1b g{group_size}: dense layers {dense}, packed kinds "
@@ -2926,7 +2959,7 @@ def llama1b_path(bw, flops_peak, n_layers, group_size, seed):
                          else None)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, kept
 
 
 # ------------------------------------------------------- the Llama family
@@ -3023,8 +3056,7 @@ def family_path(bw, flops_peak, preset, n_layers, seed, iters=0):
     eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=max_seq,
                                               kv_quant="int8")
     del ar, result
-    dense = [f"blocks.{i}.{n}" for i, blk in enumerate(eng.params["blocks"])
-             for n in llama.LINEAR_KEYS if blk.get(n) is not None]
+    dense = _dense_linears(eng)
     check(not dense and set(eng.packed_kinds.values()) == {"w4a16"}
           and len(eng.packed) == 4 * n_layers + 1,
           f"{preset} path: dense layers {dense}, packed kinds "
@@ -3105,6 +3137,592 @@ def family_path(bw, flops_peak, preset, n_layers, seed, iters=0):
     del eng
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------- loading and user entry
+#
+# The load phase writes checkpoints to a temporary directory and serves them
+# back: an HF checkpoint through the CLI (a subprocess) and
+# ``from_pretrained``, the llama3.2-1b export of phase 14, and GPTQ / AWQ
+# directories written with the port's packers.  Every loaded engine is held
+# against the in-memory engine of the same result.
+
+LOAD_NEW = 32
+# Llama-3.1's rope scaling, so that ``config_from_hf`` builds rope_llama3
+LOAD_ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+             "high_freq_factor": 4.0, "original_max_position_embeddings": 8192}
+
+
+def _dense_linears(eng):
+    """The quantizable linears an engine serves dense (block linears with a
+    dense leaf, and a dense lm_head)."""
+    from autoround_tpu_torch.models import llama
+
+    dense = [f"blocks.{i}.{n}" for i, blk in enumerate(eng.params["blocks"])
+             for n in llama.LINEAR_KEYS if blk.get(n) is not None]
+    if eng.params.get("lm_head") is not None:
+        dense.append("lm_head")
+    return dense
+
+
+def _flat(tree, prefix=""):
+    """{dotted path: tensor} over a parameter tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}{i}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+EXPORT_FILES = ("model.safetensors", "quantization_config.json")
+
+
+def _same_files(a, b, label):
+    """The export files of directories a and b are equal byte for byte;
+    returns the other files of a (a tokenizer the CLI saved beside the
+    export, when ``transformers`` built one)."""
+    import filecmp
+
+    for n in EXPORT_FILES:
+        check(filecmp.cmp(Path(a) / n, Path(b) / n, shallow=False),
+              f"{label}: {n} differs")
+    return sorted(p.name for p in Path(a).iterdir()
+                  if p.name not in EXPORT_FILES)
+
+
+def _packed_equal(eng, mem, label):
+    """Every packed entry of ``eng`` against the in-memory engine's: the
+    words bit-equal, the scales equal to the in-memory fp32 scales rounded
+    to fp16 (the files store fp16), the zero points equal; all of them
+    contiguous on the card (they reach the captured step)."""
+    check(sorted(eng.packed) == sorted(mem.packed)
+          and eng.packed_kinds == mem.packed_kinds,
+          f"{label}: packed entries {sorted(eng.packed_kinds.items())} "
+          f"against {sorted(mem.packed_kinds.items())}")
+    for k, e in eng.packed.items():
+        m = mem.packed[k]
+        check(torch.equal(e[0], m[0]), f"{label}: {k} words differ")
+        check(torch.equal(e[1], m[1].half().float()),
+              f"{label}: {k} scales are not the fp16 in-memory scales")
+        check(len(e) == len(m) and all(torch.equal(a, b)
+                                       for a, b in zip(e[2:], m[2:])),
+              f"{label}: {k} zero points differ")
+        check(all(t.device.type == eng.device.type and t.is_contiguous()
+                  for t in e),
+              f"{label}: {k} has a tensor off the card or not contiguous")
+
+
+def _fp16_scales(eng):
+    """The engine with every packed scale rounded to fp16, the precision
+    the autoround, GPTQ and AWQ files store (the rest shared)."""
+    from autoround_tpu_torch import QuantizedLlama
+
+    packed = {k: (e[0], e[1].half().float()) + tuple(e[2:])
+              for k, e in eng.packed.items()}
+    return QuantizedLlama(cfg=eng.cfg, params=eng.params, packed=packed,
+                          max_seq=eng.max_seq, kv_quant=eng.kv_quant,
+                          fused_splits=eng.fused_splits, device=eng.device,
+                          packed_kinds=dict(eng.packed_kinds),
+                          moe_capacity_factor=eng.moe_capacity_factor)
+
+
+def _step_logits(eng, prompts, tok=None):
+    """(prefill logits, first decode step logits on ``tok``, or on the
+    engine's own greedy token)."""
+    lg, c = eng.prefill(prompts)
+    if tok is None:
+        tok = lg.argmax(-1).to(torch.int32)
+    lg2, _ = eng.decode_step(tok, c)
+    return lg.cpu(), lg2.cpu(), tok
+
+
+def _logits_against(eng, mem, prompts, label):
+    """Prefill logits and the first decode step's (on one greedy token)
+    against the in-memory engine with its scales rounded to fp16, the
+    engine the file stores, within COPY_ROW_TOL; the distance to the
+    in-memory engine itself is printed beside it (fp16 scales alone: the
+    sym RTN scales are fp16 already, the asym ones are not)."""
+    r1, r2, tok = _step_logits(_fp16_scales(mem), prompts)
+    m1, m2, _ = _step_logits(mem, prompts, tok)
+    l1, l2, _ = _step_logits(eng, prompts, tok)
+    e1, q1 = row_err(l1, r1)
+    e2, q2 = row_err(l2, r2)
+    f1, f2 = row_err(l1, m1)[1], row_err(l2, m2)[1]
+    log(f"{label}: prefill logits max_abs_err={e1:.4g} row_err={q1:.4g}, "
+        f"first step max_abs_err={e2:.4g} row_err={q2:.4g} against the "
+        f"in-memory engine with fp16 scales (tol {COPY_ROW_TOL}); against "
+        f"its fp32 scales row_err={f1:.4g} / {f2:.4g}")
+    check(q1 <= COPY_ROW_TOL and q2 <= COPY_ROW_TOL,
+          f"{label}: logits disagree with the in-memory engine's")
+
+
+def _loaded_counts(eng, prompts, label, want):
+    """``generate`` on a loaded engine with every count zeroed just before
+    and read just after; each count must equal what the loops imply
+    (``want``, the rest 0).  Returns (tokens, counts)."""
+    kernels = _kernel_fns()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    toks, counts = generate_counted(eng, prompts, LOAD_NEW)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    log(f"{label} kernels {json.dumps(launches)} generate_s={t_gen:.2f}")
+    for n in kernels:
+        c = want.get(n, 0)
+        check(launches[n] == c, f"{label}: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    _check_tokens(toks, prompts.shape[0], LOAD_NEW, eng.cfg.vocab_size)
+    return toks, counts, launches
+
+
+def _read_rates(path):
+    """Seconds to read a file into host memory, and to copy those bytes to
+    the card in one ``.to("cuda")`` (the two halves of a load)."""
+    size = Path(path).stat().st_size
+    buf = bytearray(size)
+    view = memoryview(buf)
+    t0 = time.time()
+    with open(path, "rb", buffering=0) as f:
+        got = 0
+        while got < size:
+            n = f.readinto(view[got:])
+            check(n > 0, f"short read of {path}")
+            got += n
+    t_read = time.time() - t0
+    host = torch.frombuffer(buf, dtype=torch.uint8)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dev = host.to("cuda")
+    torch.cuda.synchronize()
+    t_h2d = time.time() - t0
+    del dev, host, view, buf
+    return size, t_read, t_h2d
+
+
+def load_path(bw, flops_peak, n_layers, root, seed=41):
+    """HF checkpoint → CLI → export → ``from_pretrained`` → serve at the
+    full width of llama3-8b (Llama-3.1 rope scaling, ``n_layers`` layers,
+    random bf16 weights with every norm gain moved).  Returns the launches
+    of the loaded engine's ``generate`` and, for the GPTQ / AWQ step, the
+    in-process W4A16 and W4A16-asym results, their config, the in-memory
+    W4A16 engine and the prompts."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.export import save_quantized
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.utils.hf_loader import (load_hf_checkpoint,
+                                                     save_hf_checkpoint)
+
+    t_path = time.time()
+    B, S, NEW, MAX_SEQ = 8, 512, LOAD_NEW, 1024
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers,
+                              rope_llama3=(8.0, 1.0, 4.0, 8192))
+    gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    perturb_gains(params, seed)
+    hf = root / "hf"
+    torch.cuda.synchronize()
+    t0 = time.time()
+    save_hf_checkpoint(params, cfg, str(hf), hf_extra={
+        "rope_scaling": LOAD_ROPE})
+    t_write = time.time() - t0
+    hf_bytes = _dir_bytes(hf)
+    size, t_read, t_h2d = _read_rates(hf / "model.safetensors")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lparams, lcfg = load_hf_checkpoint(str(hf))
+    torch.cuda.synchronize()
+    t_load = time.time() - t0
+    check(lcfg == cfg, f"load: config {lcfg} is not the written {cfg}")
+    want, got = _flat(params), _flat(lparams)
+    check(sorted(want) == sorted(got)
+          and all(torch.equal(want[k], got[k]) for k in want),
+          "load: the loaded leaves differ from the written ones")
+    del params, want, got
+    log(f"load path llama3-8b ({n_layers} of 32 layers, full width, "
+        f"Llama-3.1 rope scaling, random bf16 weights, gains moved): "
+        f"save_hf_checkpoint wrote {hf_bytes} bytes in {t_write:.2f} s "
+        f"({hf_bytes / t_write / 1e9:.2f} GB/s); load_hf_checkpoint "
+        f"{t_load:.2f} s ({size / t_load / 1e9:.2f} GB/s from the file to "
+        f"the card); the same file read into host memory {t_read:.2f} s "
+        f"({size / t_read / 1e9:.2f} GB/s) and its bytes copied to the card "
+        f"in one .to('cuda') {t_h2d:.2f} s ({size / t_h2d / 1e9:.2f} GB/s)")
+
+    np_ids = root / "ids.npy"
+    import numpy as np
+    np.save(np_ids, calib.numpy())
+    cli_out = root / "cli"
+    cmd = [sys.executable, "-m", "autoround_tpu_torch", "--model", str(hf),
+           "--scheme", "W4A16", "--iters", "0", "--quant-lm-head",
+           "--dataset", str(np_ids), "--format", "autoround", "--output",
+           str(cli_out)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(HERE)),
+                          timeout=600)
+    t_cli = time.time() - t0
+    check(proc.returncode == 0, f"load: the CLI exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]}")
+    report = proc.stdout.strip().splitlines()[-1]
+    check(json.loads(report) == {"output": str(cli_out),
+                                 "layers": 7 * n_layers + 1},
+          f"load: the CLI reported {report}")
+    log(f"load: python -m autoround_tpu_torch {' '.join(cmd[3:])}: exit 0 "
+        f"in {t_cli:.2f} s, report {report}")
+
+    t0 = time.time()
+    ar = AutoRound((lparams, lcfg), scheme="W4A16", iters=0, batch_size=8,
+                   quant_lm_head=True, seed=42)
+    result = ar.quantize(calib, mask=torch.ones(calib.shape))
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    mem_out = root / "mem"
+    t0 = time.time()
+    save_quantized(result, lcfg, str(mem_out), "autoround")
+    t_save = time.time() - t0
+    extra = _same_files(cli_out, mem_out, "load: the CLI's export against "
+                        "the in-process one")
+    asym = dict(bits=4, group_size=128, sym=False, data_type="int")
+    ares = AutoRound((lparams, lcfg), scheme=asym, iters=0,
+                     quant_lm_head=True).quantize(calib)
+    del ar, lparams
+    shutil.rmtree(hf)
+    log(f"load: in-process AutoRound(load_hf_checkpoint(dir)) RTN "
+        f"{t_quant:.2f} s, save_quantized {t_save:.2f} s "
+        f"({_dir_bytes(mem_out)} bytes); {' and '.join(EXPORT_FILES)} "
+        f"equal to the CLI's byte for byte (the CLI also saved {extra})")
+    shutil.rmtree(mem_out)
+
+    mem = QuantizedLlama.from_quantize_result(result, lcfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    disk = QuantizedLlama.from_pretrained(str(cli_out), max_seq=MAX_SEQ,
+                                          kv_quant="int8")
+    torch.cuda.synchronize()
+    t_fp = time.time() - t0
+    dense = _dense_linears(disk)
+    check(disk.cfg == lcfg and not dense
+          and set(disk.packed_kinds.values()) == {"w4a16"}
+          and len(disk.packed) == 4 * n_layers + 1,
+          f"load: from_pretrained dense layers {dense}, kinds "
+          f"{sorted(set(disk.packed_kinds.values()))}, {len(disk.packed)} "
+          f"entries")
+    _packed_equal(disk, mem, "load: from_pretrained")
+    log(f"load: from_pretrained {t_fp:.2f} s: {7 * n_layers + 1} layers "
+        f"packed (fused into {len(disk.packed)} entries), none dense; words "
+        f"bit-equal to the in-memory engine's, scales its fp16 scales")
+    _logits_against(disk, mem, prompts, "load: from_pretrained")
+    toks, counts, launches = _loaded_counts(
+        disk, prompts, "load: from_pretrained engine",
+        {"w4a16_matmul": (4 * n_layers + 1) * NEW,
+         "flash_attention": n_layers,
+         "decode_attention": n_layers * (NEW - 1)})
+    with counts_kept():
+        mtoks, _ = generate_counted(mem, prompts, NEW)
+    share = (toks == mtoks).float().mean().item()
+    log(f"load: greedy tokens equal to the in-memory engine's: "
+        f"{share:.4f} of {toks.numel()}")
+    scan_path(disk, prompts, toks, counts, "load: from_pretrained engine")
+    # the replayed step at batch 8: loaded and in-memory engines in turns
+    with counts_kept():
+        mem.generate_scan(prompts, max_new_tokens=NEW)
+        d1 = replay_times(disk, B, 16)
+        m1 = replay_times(mem, B, 16)
+        m2 = replay_times(mem, B, 16)
+        d2 = replay_times(disk, B, 16)
+    dmed = statistics.median(d1 + d2)
+    mmed = statistics.median(m1 + m2)
+    bound = serve_bounds(disk, B, S, bw, flops_peak)[1]
+    log(f"load: replayed step B={B} (median of 32 replays each, in turns "
+        f"loaded, in-memory, in-memory, loaded): loaded {dmed:.4f} ms "
+        f"({statistics.median(d1):.4f} / {statistics.median(d2):.4f}), "
+        f"in-memory {mmed:.4f} ms ({statistics.median(m1):.4f} / "
+        f"{statistics.median(m2):.4f}), step_bound_ms={bound:.4f}")
+    check_copy(disk, prompts, "cpu")
+    del disk
+    shutil.rmtree(cli_out)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"load path: peak_mem_gb={peak_gb:.2f} path_s="
+        f"{time.time() - t_path:.1f}")
+    stats = dict(write_gbs=hf_bytes / t_write / 1e9,
+                 load_gbs=size / t_load / 1e9, read_gbs=size / t_read / 1e9,
+                 h2d_gbs=size / t_h2d / 1e9, cli_s=t_cli,
+                 save_s=t_save, from_pretrained_s=t_fp, step_ms=dmed,
+                 mem_step_ms=mmed, bound_ms=bound)
+    return launches, (result, ares, lcfg, mem, prompts), stats
+
+
+def load_llama1b_path(kept, root):
+    """Phase 14's llama3.2-1b g128 RTN result (16 layers, tied embeddings)
+    exported, loaded with ``from_pretrained`` and served; held against the
+    engine phase 14 built from the same result.  Returns the launches."""
+    from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.export import save_quantized
+
+    result, cfg, mem, prompts = kept
+    L, NEW = cfg.num_layers, LOAD_NEW
+    out = root / "l1b"
+    t0 = time.time()
+    save_quantized(result, cfg, str(out), "autoround")
+    t_save = time.time() - t0
+    n_bytes = _dir_bytes(out)
+    del result
+    torch.cuda.synchronize()
+    t0 = time.time()
+    disk = QuantizedLlama.from_pretrained(str(out), max_seq=mem.max_seq,
+                                          kv_quant="int8")
+    torch.cuda.synchronize()
+    t_fp = time.time() - t0
+    dense = _dense_linears(disk)
+    check(disk.cfg == cfg and not dense and cfg.tie_embeddings
+          and set(disk.packed_kinds.values()) == {"w4a16"}
+          and len(disk.packed) == 4 * L + 1,
+          f"load llama3.2-1b: dense layers {dense}, kinds "
+          f"{sorted(set(disk.packed_kinds.values()))}")
+    check(torch.equal(disk.params["embed_tokens"], mem.params["embed_tokens"])
+          and disk.params.get("lm_head") is None,
+          "load llama3.2-1b: the tied embedding differs")
+    _packed_equal(disk, mem, "load llama3.2-1b")
+    log(f"load llama3.2-1b ({L} layers, tied embeddings, W4A16 g128): "
+        f"save_quantized {t_save:.2f} s ({n_bytes} bytes), from_pretrained "
+        f"{t_fp:.2f} s; {7 * L + 1} layers packed, words bit-equal, scales "
+        f"fp16, the tied embedding and the packed head as in memory")
+    _logits_against(disk, mem, prompts, "load llama3.2-1b")
+    toks, counts, launches = _loaded_counts(
+        disk, prompts, "load llama3.2-1b engine",
+        {"w4a16_matmul": (4 * L + 1) * NEW,
+         "decode_attention": L * (NEW - 1)})
+    scan_path(disk, prompts, toks, counts, "load llama3.2-1b engine")
+    check_copy(disk, prompts, "card")
+    del disk
+    shutil.rmtree(out)
+    return launches
+
+
+# the GPTQ layer given group ids out of order (the act-order layer)
+def _act_order(payload):
+    """An act-order copy of a GPTQ payload that computes the same weight:
+    group j becomes group j + 1 (the last the first; its scales and zero
+    points move with it) and g_idx says so, so g_idx is not arange(I) //
+    g.  A copy of ``_permute_groups`` in
+    ``tests/test_torch_from_pretrained.py``: the script stands without the
+    tests."""
+    import numpy as np
+
+    G = payload["scales"].shape[0]
+    perm = np.roll(np.arange(G), 1)
+    out = dict(payload)
+    for k in ("scales", "qzeros"):
+        moved = np.empty_like(payload[k])
+        moved[perm] = payload[k]
+        out[k] = moved
+    out["g_idx"] = perm[payload["g_idx"]].astype(np.int32)
+    return out
+
+
+class _LogLines(logging.Handler):
+    """Collects the messages of the port's log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _quant_dir(path, result, payloads, cfg, qcfg):
+    """An HF-layout directory: the packed payloads of every quantized
+    layer, the norms and the embedding, a config.json with its
+    quantization_config (and Llama-3.1's rope scaling)."""
+    from autoround_tpu_torch.utils.hf_loader import _BLOCK_MAP
+    from autoround_tpu_torch.utils.safetensors_io import save_file
+
+    inv = {v: k[: -len(".weight")] for k, v in _BLOCK_MAP.items()
+           if k.endswith(".weight")}
+    tensors = {}
+    for name, payload in payloads.items():
+        if name == "lm_head":
+            pre = "lm_head"
+        else:
+            _, li, short = name.split(".")
+            pre = f"model.layers.{li}.{inv[short]}"
+        for k, v in payload.items():
+            tensors[f"{pre}.{k}"] = v
+    p = result.params
+    tensors["model.embed_tokens.weight"] = p["embed_tokens"]
+    tensors["model.norm.weight"] = p["norm"]
+    for li, b in enumerate(p["blocks"]):
+        for short in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"model.layers.{li}.{short}.weight"] = b[short]
+    path.mkdir()
+    save_file(tensors, str(path / "model.safetensors"))
+    hf_cfg = {"model_type": "llama", "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads,
+              "num_key_value_heads": cfg.num_kv_heads,
+              "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+              "tie_word_embeddings": False, "rope_scaling": LOAD_ROPE,
+              "quantization_config": qcfg}
+    (path / "config.json").write_text(json.dumps(hf_cfg, indent=2))
+    return _dir_bytes(path)
+
+
+def load_gptq_awq_path(kept, root):
+    """The 4-layer results of the load path packed with the port's GPTQ and
+    AWQ packers into HF-layout directories and served with ``from_gptq`` /
+    ``from_awq``: GPTQ on row 4, AWQ on row 9 (row 4 at 0), a GPTQ copy
+    with one act-order layer served dense (and logged so); each held
+    against the in-memory engine of its source result.  Returns the
+    launches of the GPTQ and the AWQ engines' ``generate``."""
+    from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.export.formats import (awq_pack_layer,
+                                                    gptq_pack_layer)
+    from autoround_tpu_torch.ops.qmatmul import unpack_w4
+
+    result, ares, cfg, mem, prompts = kept
+    L, NEW, MAX_SEQ = cfg.num_layers, LOAD_NEW, mem.max_seq
+    serve = {"flash_attention": L, "decode_attention": L * (NEW - 1)}
+    out = {}
+
+    t0 = time.time()
+    gptq = {n: gptq_pack_layer(ql) for n, ql in result.layers.items()}
+    t_pack = time.time() - t0
+    qcfg = {"quant_method": "gptq", "bits": 4, "group_size": 128,
+            "sym": True, "desc_act": False}
+    n_bytes = _quant_dir(root / "gptq", result, gptq, cfg, qcfg)
+    t0 = time.time()
+    eng = QuantizedLlama.from_gptq(str(root / "gptq"), max_seq=MAX_SEQ,
+                                   kv_quant="int8")
+    t_load = time.time() - t0
+    check(eng.cfg == cfg and not _dense_linears(eng),
+          f"load gptq: config {eng.cfg} / dense {_dense_linears(eng)}")
+    _packed_equal(eng, mem, "load gptq")
+    log(f"load gptq: gptq_pack_layer x {len(gptq)} {t_pack:.2f} s, "
+        f"{n_bytes} bytes, from_gptq {t_load:.2f} s; every layer packed "
+        f"w4a16, words bit-equal to the in-memory engine's")
+    _logits_against(eng, mem, prompts, "load gptq")
+    toks, counts, out["gptq"] = _loaded_counts(
+        eng, prompts, "load gptq engine",
+        dict(serve, w4a16_matmul=(4 * L + 1) * NEW))
+    scan_path(eng, prompts, toks, counts, "load gptq engine")
+    check_copy(eng, prompts, "card")
+    del eng
+
+    # in block 0, so that the 2-layer copy below holds the dense layer too
+    name = "blocks.0.o_proj"
+    gptq[name] = _act_order(gptq[name])
+    shutil.rmtree(root / "gptq")
+    _quant_dir(root / "gptq", result, gptq, cfg, dict(qcfg, desc_act=True))
+    del gptq
+    lines = _LogLines()
+    pkg_log = logging.getLogger("autoround_tpu_torch")
+    pkg_log.addHandler(lines)
+    pkg_log.setLevel(logging.INFO)
+    try:
+        eng = QuantizedLlama.from_gptq(str(root / "gptq"), max_seq=MAX_SEQ,
+                                       kv_quant="int8")
+    finally:
+        pkg_log.removeHandler(lines)
+    msg = f"gptq loader: {name} has act-order g_idx; serving dense"
+    check(msg in lines.lines, f"load gptq act-order: no log line {msg!r} "
+          f"in {lines.lines}")
+    check(_dense_linears(eng) == [name] and set(eng.packed)
+          == set(mem.packed) - {name},
+          f"load gptq act-order: dense {_dense_linears(eng)}")
+    qw, sc = mem.packed[name]
+    want = ((unpack_w4(qw) - 8).float() * sc.half().float()
+            .repeat_interleave(128, 1)).to(cfg.dtype)
+    check(torch.equal(eng.params["blocks"][0]["o_proj"], want),
+          "load gptq act-order: the dense layer is not the source's weight")
+    log(f"load gptq act-order: {name} (its 32 groups moved round by one in g_idx) serves "
+        f"dense, equal to the source's weight; log line {msg!r}")
+    _logits_against(eng, mem, prompts, "load gptq act-order")
+    toks, counts, _ = _loaded_counts(
+        eng, prompts, "load gptq act-order engine",
+        dict(serve, w4a16_matmul=4 * L * NEW))
+    scan_path(eng, prompts, toks, counts, "load gptq act-order engine")
+    check_copy(eng, prompts, "card")
+    del eng
+    shutil.rmtree(root / "gptq")
+
+    t0 = time.time()
+    awq = {n: awq_pack_layer(ql) for n, ql in ares.layers.items()}
+    t_pack = time.time() - t0
+    qcfg = {"quant_method": "awq", "bits": 4, "group_size": 128,
+            "version": "gemm", "zero_point": True}
+    n_bytes = _quant_dir(root / "awq", ares, awq, cfg, qcfg)
+    del awq
+    amem = QuantizedLlama.from_quantize_result(ares, cfg, max_seq=MAX_SEQ,
+                                               kv_quant="int8")
+    t0 = time.time()
+    eng = QuantizedLlama.from_awq(str(root / "awq"), max_seq=MAX_SEQ,
+                                  kv_quant="int8")
+    t_load = time.time() - t0
+    check(eng.cfg == cfg and not _dense_linears(eng)
+          and set(eng.packed_kinds.values()) == {"w4a16_asym"},
+          f"load awq: dense {_dense_linears(eng)}, kinds "
+          f"{sorted(set(eng.packed_kinds.values()))}")
+    _packed_equal(eng, amem, "load awq")
+    log(f"load awq: awq_pack_layer x {len(ares.layers)} {t_pack:.2f} s, "
+        f"{n_bytes} bytes, from_awq {t_load:.2f} s; every layer packed "
+        f"w4a16_asym, words and zero points equal to the in-memory "
+        f"engine's")
+    _logits_against(eng, amem, prompts, "load awq")
+    toks, counts, out["awq"] = _loaded_counts(
+        eng, prompts, "load awq engine",
+        dict(serve, w4a16_asym_matmul=(4 * L + 1) * NEW))
+    check(out["awq"]["w4a16_asym_matmul"] > 0
+          and out["awq"]["w4a16_matmul"] == 0,
+          "load awq: row 9 not launched or row 4 launched")
+    scan_path(eng, prompts, toks, counts, "load awq engine")
+    check_copy(eng, prompts, "card")
+    del eng, amem
+    shutil.rmtree(root / "awq")
+    return out
+
+
+def load_phase(bw, flops_peak, n_layers, l1b_kept):
+    """Phase 17: every checkpoint the phase writes lies in one temporary
+    directory, removed at the end; prints its bytes and seconds."""
+    import tempfile
+
+    t0 = time.time()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_load_"))
+    try:
+        launches, kept, stats = load_path(bw, flops_peak, n_layers, root)
+        free_device_memory()
+        l1b = load_llama1b_path(l1b_kept, root)
+        del l1b_kept
+        free_device_memory()
+        qa = load_gptq_awq_path(kept, root)
+        del kept
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory()
+    log(f"load phase: {json.dumps({k: round(v, 4) for k, v in stats.items()})}"
+        f" load_phase_s={time.time() - t0:.1f}")
+    return dict(load=launches, load_llama1b=l1b, load_gptq=qa["gptq"],
+                load_awq=qa["awq"])
 
 
 def a8_modes_path(n_layers):
@@ -3551,6 +4169,9 @@ def main() -> int:
     ap.add_argument("--gemma3-layers", type=int, default=6,
                     help="depth of the gemma3-12b RTN -> serve path "
                          "(default 6: five sliding layers and one global)")
+    ap.add_argument("--load-layers", type=int, default=4,
+                    help="depth of the llama3-8b HF checkpoint of the load "
+                         "phase (default 4)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3642,10 +4263,11 @@ def main() -> int:
     mx_tune_launches = mx_tune_path(bw, fl, args.mx_tune_layers)
     free_device_memory()
     mark("float, mx tune")
-    l1b_launches = llama1b_path(bw, fl, args.llama1b_layers, 128, seed=19)
+    l1b_launches, l1b_kept = llama1b_path(bw, fl, args.llama1b_layers, 128,
+                                          seed=19, keep=True)
     free_device_memory()
-    l1b_g16_launches = llama1b_path(bw, fl, args.llama1b_layers, 16,
-                                    seed=20)
+    l1b_g16_launches, _ = llama1b_path(bw, fl, args.llama1b_layers, 16,
+                                       seed=20)
     free_device_memory()
     sage_launches = sage_path(args.sage_layers)
     mark("llama3.2-1b, sage")
@@ -3658,6 +4280,10 @@ def main() -> int:
         fam[preset] = family_path(bw, fl, preset, n_layers, seed, iters)
         free_device_memory()
     mark("llama family")
+    loads = load_phase(bw, fl, args.load_layers, l1b_kept)
+    del l1b_kept
+    free_device_memory()
+    mark("load")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths
@@ -3684,7 +4310,12 @@ def main() -> int:
                            ("launches_qwen2.5-7b_path", fam["qwen2.5-7b"]),
                            ("launches_qwen3-4b_tune_path", fam["qwen3-4b"]),
                            ("launches_gemma2-2b_path", fam["gemma2-2b"]),
-                           ("launches_gemma3-12b_path", fam["gemma3-12b"])):
+                           ("launches_gemma3-12b_path", fam["gemma3-12b"]),
+                           ("launches_load_path", loads["load"]),
+                           ("launches_load_llama1b_path",
+                            loads["load_llama1b"]),
+                           ("launches_load_gptq_path", loads["load_gptq"]),
+                           ("launches_load_awq_path", loads["load_awq"])):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)
