@@ -5,22 +5,31 @@ The tunable state is one tree ``{layer: {v, min_scale, max_scale}}`` of
 fp32 tensors; with ``tune_act_scales`` and static activation scales in the
 weights' reserved ``_act_scales`` entry it also holds ``_act: {layer:
 {scale}}``, one shrink factor per static scale, trained with the clip
-scales.  Each step substitutes the block's quantized layers with
-their qdq'd weights, runs the caller's pure ``block_fwd(weights, inputs)``
-on a batch, takes MSE(pred, fp_ref) x ``loss_scale`` and moves the state
-by sign-SGD.  The step loop is a Python loop (the JAX package scans); it
-never reads a loss back to the host: the best-loss snapshot is kept on the
-device with ``torch.where``, ``dynamic_max_gap`` is a device flag that
-freezes further updates, and the loss trace is fetched once at the end.
-The tuned tensors are updated in place.
+scales; with ``enable_norm_bias_tuning`` and ``norm_bias_leaves`` it holds
+``_nb: {leaf: {v}}``, a round-free offset per norm gain and bias
+(``dtypes.intq.qdq_asym_wo_round``), trained at the main learning rate.
+Each step substitutes the block's quantized layers with their qdq'd
+weights, runs the caller's pure ``block_fwd(weights, inputs)`` on a batch,
+takes MSE(pred, fp_ref) x ``loss_scale`` (or the caller's ``lfq_fn``) and
+moves the state by sign-SGD or, with ``optimizer="adam"``, by Adam
+(``adam.py``).  ``enable_alg_ext`` seeds the clip scales from a per-group
+search, widens their clamp to (0, 2) and, for schemes under 4 bits (or
+with activations at 4 bits or fewer), drops the largest
+``outlier_mask_frac`` of the squared errors from the loss.  The step loop
+is a Python loop (the JAX package scans); it never reads a loss back to
+the host: the best-loss snapshot is kept on the device with
+``torch.where``, ``dynamic_max_gap`` is a device flag that freezes further
+updates, and the loss trace is fetched once at the end.  The tuned tensors
+are updated in place.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``enable_alg_ext``, ``optimizer="adam"``,
-``enable_norm_bias_tuning``, ``lfq_fn``, ``extras``, ``init_scales``.
+item): ``extras``, ``init_scales`` and the GGUF double-quant schemes
+(``int_dq``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -28,14 +37,15 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..dtypes.intq import _clip
+from ..dtypes.intq import _clip, qdq_asym_wo_round, search_init_scale_ratio
 from ..dtypes.registry import get_quant_func
 from ..schemes import QuantizationScheme
 from ..utils.pytree import get_by_path, set_by_path, tree_map
+from .adam import adam
 from .signsgd import sign_sgd
 
 __all__ = ["TuneConfig", "init_tune_params", "make_qdq_weights",
-           "tune_block", "mse_loss", "batch_indices"]
+           "tune_block", "mse_loss", "batch_indices", "outlier_threshold"]
 
 
 @dataclass(frozen=True)
@@ -56,16 +66,19 @@ class TuneConfig:
     clip_hi: float = 1.0
     loss_scale: float = 1000.0
     gradient_accumulate_steps: int = 1
-    enable_alg_ext: bool = False        # not ported (ROADMAP A3)
+    # SignRoundV2: searched per-group init scale, clamp widened to (0, 2),
+    # outlier-masked loss under 4 bits
+    enable_alg_ext: bool = False
     outlier_mask_frac: float = 0.001
-    optimizer: str = "signsgd"          # "adam" not ported (ROADMAP A3)
+    optimizer: str = "signsgd"          # or "adam" (AdamRound)
     # recompute the block forward in the backward pass instead of holding
     # its activations (trades FLOPs for device memory)
     use_remat: bool = False
     # tune a per-layer shrink on the static activation scales, clamped to
     # [clip_lo, clip_hi] like the clip scales
     tune_act_scales: bool = False
-    enable_norm_bias_tuning: bool = False  # not ported (ROADMAP A3)
+    # tune norm gains and linear biases with a round-free asym-grid offset
+    enable_norm_bias_tuning: bool = False
 
     def resolved_lr(self) -> float:
         return self.lr if self.lr is not None else 1.0 / max(self.iters, 1)
@@ -74,17 +87,13 @@ class TuneConfig:
         return self.minmax_lr if self.minmax_lr is not None else self.resolved_lr()
 
 
-def _check_ported(cfg: TuneConfig, extras=None, lfq_fn=None,
-                  init_scales=None) -> None:
+def _check_ported(schemes, extras=None, init_scales=None) -> None:
     """Raise for every option of the JAX ``tune_block`` this slice leaves
     out."""
     unported = [
-        (cfg.enable_alg_ext, "enable_alg_ext (SignRoundV2 searched init and "
-         "outlier-masked loss)", "A3"),
-        (cfg.optimizer != "signsgd", f"optimizer={cfg.optimizer!r} "
-         "(AdamRound)", "A3"),
-        (cfg.enable_norm_bias_tuning, "enable_norm_bias_tuning", "A3"),
-        (lfq_fn is not None, "lfq_fn (last-block LM loss)", "A5"),
+        (any(s.data_type == "int_dq" for s in schemes.values()),
+         "GGUF double-quant schemes (int_dq; under enable_alg_ext their "
+         "frozen searched grid)", "A9"),
         (extras is not None, "extras (per-layer statics: imatrix, frozen "
          "double-quant grids)", "A9"),
         (init_scales is not None, "init_scales (AWQ clip search)", "A12"),
@@ -95,13 +104,50 @@ def _check_ported(cfg: TuneConfig, extras=None, lfq_fn=None,
                 f"tune_block: {what} is not ported yet (ROADMAP {item})")
 
 
+def _search_init_max_scale(w: torch.Tensor, scheme: QuantizationScheme
+                           ) -> torch.Tensor:
+    """alg_ext's searched init: the per-group ``max_scale`` with the least
+    qdq error, (O, groups).  Int sym uses ``search_init_scale_ratio``;
+    every other type sweeps ``1 - 0.05 k`` (k = 0..9; MX also ``1 + 0.25 k``,
+    k = 1..4) through its own qdq with the clamp at (0, 2), as the JAX
+    package's jitted sweep (the float types divide as ``recip``), and takes
+    the first candidate of least error per group."""
+    g = scheme.group_size
+    if (scheme.data_type == "int" and scheme.sym and isinstance(g, int)
+            and scheme.super_bits is None):
+        return search_init_scale_ratio(w, scheme.bits, g)
+    fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym)
+    O, I = w.shape
+    dev = w.device
+    cands = 1.0 - 0.05 * torch.arange(10, dtype=torch.float32, device=dev)
+    if scheme.data_type.startswith("mx"):
+        cands = torch.cat([cands, 1.0 + 0.25 * torch.arange(
+            1, 5, dtype=torch.float32, device=dev)])
+    gg = I if (not isinstance(g, int) or g in (-1, 0)) else min(g, I)
+    pad = (-I) % gg
+    wf = w.float()
+    errs = []
+    for c in cands:                    # one candidate at a time
+        ms = torch.full((O, -(-I // gg)), float(c), dtype=torch.float32,
+                        device=dev)
+        qdq = fn(w, bits=scheme.bits, group_size=g, max_scale=ms,
+                 clip_lo=0.0, clip_hi=2.0, recip=True).qdq
+        d = (qdq.float() - wf) ** 2
+        if pad:
+            d = torch.nn.functional.pad(d, (0, pad))
+        errs.append(d.reshape(O, -1, gg).sum(-1))
+    return cands[torch.argmin(torch.stack(errs), dim=0)]
+
+
 def init_tune_params(
     weights: Dict[str, Any],
     schemes: Dict[str, QuantizationScheme],
     cfg: TuneConfig,
+    norm_bias_leaves: Optional[Tuple[str, ...]] = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """V = 0 (shape of W), min/max_scale = 1.0 per group, (O, groups) in the
-    weight's row layout.  fp32 tensors on the weight's device."""
+    weight's row layout (under ``enable_alg_ext`` both start at the
+    searched scale).  fp32 tensors on the weight's device."""
     params = {}
     for name, scheme in schemes.items():
         w = get_by_path(weights, name)
@@ -114,9 +160,14 @@ def init_tune_params(
             layer["v"] = torch.zeros((O, I), dtype=torch.float32,
                                      device=w.device)
         if cfg.enable_minmax_tuning:
-            for key in ("min_scale", "max_scale"):
-                layer[key] = torch.ones(groups_shape, dtype=torch.float32,
-                                        device=w.device)
+            if cfg.enable_alg_ext and not isinstance(g, tuple):
+                init = _search_init_max_scale(w, scheme).reshape(
+                    groups_shape).float()
+            else:
+                init = torch.ones(groups_shape, dtype=torch.float32,
+                                  device=w.device)
+            layer["min_scale"] = init
+            layer["max_scale"] = init.clone()   # tuned in place apart
         params[name] = layer
     if (cfg.tune_act_scales and isinstance(weights, dict)
             and "_act_scales" in weights):
@@ -128,6 +179,13 @@ def init_tune_params(
                for n in static if n in schemes}
         if act:
             params["_act"] = act
+    if cfg.enable_norm_bias_tuning and norm_bias_leaves:
+        # the leaf key "v" puts these into the main learning-rate group
+        params["_nb"] = {
+            n: {"v": torch.zeros(get_by_path(weights, n).shape,
+                                 dtype=torch.float32,
+                                 device=get_by_path(weights, n).device)}
+            for n in norm_bias_leaves}
     return params
 
 
@@ -154,6 +212,9 @@ def make_qdq_weights(
         sc["static"] = static
         out = dict(out)
         out["_act_scales"] = sc
+    for name, p in tune_params.get("_nb", {}).items():
+        out = set_by_path(out, name, qdq_asym_wo_round(
+            get_by_path(weights, name), p["v"], recip=True))
     for name, scheme in schemes.items():
         fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym)
         p = tune_params.get(name, {})
@@ -176,6 +237,48 @@ def mse_loss(pred: torch.Tensor, ref: torch.Tensor,
         m = m[..., None]
     denom = torch.clamp(m.sum() * (diff.numel() / m.numel()), min=1.0)
     return (diff * m).sum() / denom
+
+
+def outlier_threshold(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.quantile(x.ravel(), q)`` (linear interpolation) of an fp32
+    tensor of any size (``torch.quantile`` refuses more than 2^24
+    elements).  The positions are the JAX package's float32 arithmetic on
+    the host (``q * (n - 1)`` with ``n`` as float32, floor / ceil, the
+    weights ``1 - h`` and ``h``); the two order statistics come from one
+    ``topk`` of the largest ``n - low`` values."""
+    f32 = np.float32
+    x = x.reshape(-1)
+    n = x.numel()
+    last = f32(n) - f32(1)
+    pos = f32(q) * last
+    lo, hi = np.floor(pos), np.ceil(pos)
+    w_hi = pos - lo
+    w_lo = f32(1) - w_hi
+    lo = int(np.clip(lo, f32(0), last))
+    hi = int(np.clip(hi, f32(0), last))
+    top = torch.topk(x, n - lo, largest=True, sorted=True).values
+    lo_v, hi_v = top[n - 1 - lo], top[n - 1 - hi]
+    return lo_v * float(w_lo) + hi_v * float(w_hi)
+
+
+def _outlier_masked_loss(out, ref, mask, cfg: TuneConfig) -> torch.Tensor:
+    """MSE over the squared errors at or below their ``1 -
+    outlier_mask_frac`` quantile (the threshold and the kept set carry no
+    gradient), x ``loss_scale``."""
+    diff2 = (out.float() - ref.float()) ** 2
+    with torch.no_grad():
+        keep = (diff2 <= outlier_threshold(
+            diff2, 1.0 - cfg.outlier_mask_frac)).float()
+    d = diff2 * keep
+    if mask is not None:
+        m = mask.float()
+        while m.ndim < d.ndim:
+            m = m[..., None]
+        d = d * m
+        denom = torch.clamp((keep * m).sum(), min=1.0)
+    else:
+        denom = torch.clamp(keep.sum(), min=1.0)
+    return d.sum() / denom * cfg.loss_scale
 
 
 def batch_indices(nsamples: int, cfg: TuneConfig) -> np.ndarray:
@@ -217,17 +320,26 @@ def tune_block(
     extras=None,
     lfq_fn: Optional[Callable] = None,
     init_scales=None,
+    norm_bias_leaves: Optional[Tuple[str, ...]] = None,
 ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Dict[str, Any]]:
     """Tune one block's rounding params.  Returns (best_params, info).
 
     inputs: tensor (or tree of tensors) batched along axis 0 with nsamples
     (cached block inputs); ref_outputs: (nsamples, ...) FP block outputs.
-    mask: optional (nsamples, seqlen) validity mask.  ``info`` holds
+    mask: optional (nsamples, seqlen) validity mask.  lfq_fn: optional
+    ``(block_output, idx) -> scalar`` that replaces the MSE loss (the last
+    block's LM loss).  norm_bias_leaves: block paths of the norm gains and
+    biases ``enable_norm_bias_tuning`` tunes.  ``info`` holds
     ``loss_trace`` (numpy, one loss per iteration), ``first_loss`` and
     ``best_loss``.  Gradients are taken here under ``torch.enable_grad()``
     whatever the caller's mode; the returned tensors carry no graph.
     """
-    _check_ported(cfg, extras, lfq_fn, init_scales)
+    _check_ported(schemes, extras, init_scales)
+    if cfg.enable_alg_ext and cfg.clip_hi <= 1.0:
+        cfg = dataclasses.replace(cfg, clip_lo=0.0, clip_hi=2.0)
+    mask_outliers = cfg.enable_alg_ext and any(
+        s.bits < 4 or (s.act_bits <= 4 and s.is_act_quantized)
+        for s in schemes.values())
     fwd = block_fwd
     if cfg.use_remat:
         def fwd(w, x):
@@ -238,20 +350,29 @@ def tune_block(
     batch_idx = torch.as_tensor(batch_indices(nsamples, cfg), device=device)
     accum = cfg.gradient_accumulate_steps
 
-    params = init_tune_params(weights, schemes, cfg)
+    params = init_tune_params(weights, schemes, cfg,
+                              norm_bias_leaves=norm_bias_leaves)
     leaves = _leaves(params)
-    lr_scale = cfg.resolved_minmax_lr() / max(cfg.resolved_lr(), 1e-12)
-    opt_init, opt_update = sign_sgd(
-        cfg.resolved_lr(), cfg.iters, momentum=cfg.momentum,
-        lr_scale_fn=lambda n: lr_scale if "scale" in n else 1.0)
+    if cfg.optimizer == "adam":
+        # the JAX package's Adam branch: no minmax_lr, no momentum
+        opt_init, opt_update = adam(cfg.resolved_lr(), cfg.iters)
+    else:
+        lr_scale = cfg.resolved_minmax_lr() / max(cfg.resolved_lr(), 1e-12)
+        opt_init, opt_update = sign_sgd(
+            cfg.resolved_lr(), cfg.iters, momentum=cfg.momentum,
+            lr_scale_fn=lambda n: lr_scale if "scale" in n else 1.0)
     opt_state = opt_init(params)
 
     def loss_fn(idx):
         qweights = make_qdq_weights(weights, params, schemes, cfg)
         batch_in = tree_map(lambda a: a.index_select(0, idx), inputs)
+        out = fwd(qweights, batch_in)
+        if lfq_fn is not None:
+            return lfq_fn(out, idx)
         batch_ref = ref_outputs.index_select(0, idx)
         batch_mask = None if mask is None else mask.index_select(0, idx)
-        out = fwd(qweights, batch_in)
+        if mask_outliers:
+            return _outlier_masked_loss(out, batch_ref, batch_mask, cfg)
         return mse_loss(out, batch_ref, batch_mask) * cfg.loss_scale
 
     def loss_and_grads(idx):

@@ -13,10 +13,11 @@ import torch
 
 from ._device import resolve_device
 from .models.registry import ALL_PRESETS, get_model_fns
-from .quantize.layer_config import resolve_layer_schemes
+from .quantize.layer_config import handle_special_scheme, resolve_layer_schemes
 from .quantize.orchestrator import QuantizeConfig, QuantizeResult, quantize_model
 from .schemes import QuantizationScheme, parse_scheme
 from .utils.logger import logger
+from .utils.offload import tree_to_host
 
 __all__ = ["AutoRound"]
 
@@ -51,9 +52,16 @@ class AutoRound:
     calibrates on when it is given no ids (``quantize.calib_data.
     get_calib_batch``).  Extra keyword arguments naming ``QuantizeConfig``
     fields pass through (e.g. ``cache_batch``, ``use_remat``,
-    ``enable_act_minmax_tuning``); an option this slice leaves out raises
+    ``enable_act_minmax_tuning``, ``nblocks``, ``enable_lfq``,
+    ``optimizer``); an option the port leaves out raises
     ``NotImplementedError`` when ``quantize`` runs, ``enable_rotation``
-    at once.
+    at once.  ``offload_params=True`` keeps the blocks in host memory
+    (pinned where the host allows it): a preset is then made block by
+    block, each block parked on the host as it is made, and the blocks of
+    a given model move there; the other params go to the device.
+    ``scheme="W4A16_MIXED"`` quantizes the routed experts W4A16 and the
+    rest W8A16 (``quantize.layer_config.handle_special_scheme``; an
+    explicit ``layer_config`` entry wins over the recipe).
     """
 
     def __init__(
@@ -89,19 +97,30 @@ class AutoRound:
                 f"rotations) is not ported yet (ROADMAP A12, "
                 f"transforms/hadamard.py, transforms/spinquant.py)")
         self.device = resolve_device(device)
+        offload = bool(kw.get("offload_params", False))
         if isinstance(model, str):
             cfg = ALL_PRESETS[model]
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = get_model_fns(cfg).init_params(cfg, gen, self.device)
+            params = get_model_fns(cfg).init_params(
+                cfg, gen, self.device, park=tree_to_host if offload else None)
         else:
             params, cfg = model
-            params = _to_device(params, self.device)
+            blocks = params["blocks"]
+            params = _to_device({k: v for k, v in params.items()
+                                 if k != "blocks"}, self.device)
+            params["blocks"] = ([tree_to_host(b) for b in blocks] if offload
+                                else _to_device(blocks, self.device))
         self.params = params
         self.model_cfg = cfg
+        lnames = get_model_fns(cfg).block_linear_names(cfg)
+        special = handle_special_scheme(scheme, lnames, quant_lm_head)
+        if special is not None:
+            # the recipe's overrides lose to an explicit layer_config
+            scheme, overrides, quant_lm_head = special
+            layer_config = {**overrides, **(layer_config or {})}
         self.scheme = parse_scheme(scheme)
         self.layer_schemes = resolve_layer_schemes(
-            cfg.num_layers, get_model_fns(cfg).block_linear_names(cfg),
-            self.scheme,
+            cfg.num_layers, lnames, self.scheme,
             layer_config=layer_config, ignore_layers=ignore_layers,
             quant_lm_head=quant_lm_head)
         cfg_fields = QuantizeConfig.__dataclass_fields__

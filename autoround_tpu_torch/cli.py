@@ -224,9 +224,6 @@ def _unported_flags(args):
         ("--enable-awq", args.enable_awq, "A12"),
         ("--enable-rotation", bool(args.enable_rotation), "A12"),
         ("--resume-dir", args.resume_dir is not None, "A12"),
-        ("--enable-alg-ext", args.enable_alg_ext, "A3"),
-        ("--optimizer adam", args.optimizer == "adam", "A3"),
-        ("--enable-norm-bias-tuning", args.enable_norm_bias_tuning, "A3"),
     )
 
 
@@ -252,11 +249,14 @@ def _quantize_kwargs(args) -> dict:
         v = getattr(args, flag)
         if v is not None:
             kw[flag] = v
+    if args.immediate_save_dir is not None:
+        kw["shard_size_bytes"] = int(args.shard_size_gb * (1 << 30))
     if args.not_use_best_mse:
         kw["use_best_params"] = False
     if args.nblocks != 1:
         kw["nblocks"] = args.nblocks
-    for flag in ("enable_lfq", "quant_attention"):
+    for flag in ("enable_alg_ext", "enable_norm_bias_tuning", "enable_lfq",
+                 "quant_attention"):
         if getattr(args, flag):
             kw[flag] = True
     if args.disable_quanted_input:
@@ -313,13 +313,19 @@ def main(argv=None) -> int:
         kw["enable_act_minmax_tuning"] = True
 
     tokenizer = None
+    # --device-map offload: the blocks are made or read into host memory
+    # (AutoRound moves the other params to the device)
+    offload = kw.get("offload_params", False)
     if args.model in ALL_PRESETS:
+        from .utils.offload import tree_to_host
         cfg = ALL_PRESETS[args.model]
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = get_model_fns(cfg).init_params(cfg, gen, device)
+        params = get_model_fns(cfg).init_params(
+            cfg, gen, device, park=tree_to_host if offload else None)
     else:
         from .utils.hf_loader import load_hf_checkpoint
-        params, cfg = load_hf_checkpoint(args.model, device=device)
+        params, cfg = load_hf_checkpoint(
+            args.model, device="cpu" if offload else device)
         tok_path = args.tokenizer or args.model
         try:
             from transformers import AutoTokenizer

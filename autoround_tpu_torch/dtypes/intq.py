@@ -30,7 +30,8 @@ from .grouping import from_groups, to_groups
 from .ste import round_ste
 
 __all__ = ["QdqResult", "qdq_int_sym", "qdq_int_asym", "rtn_int_sym",
-           "rtn_int_asym", "search_init_scale_ratio", "opt_rtn_int_sym"]
+           "rtn_int_asym", "search_init_scale_ratio", "opt_rtn_int_sym",
+           "qdq_asym_wo_round"]
 
 _EPS = 1e-8
 
@@ -83,6 +84,30 @@ def _clip_params(n_groups, min_scale, max_scale, clip_lo, clip_hi, dtype,
     mx = one if max_scale is None else _clip(
         max_scale.reshape(-1, 1).to(dtype), clip_lo, clip_hi)
     return mn, mx
+
+
+def qdq_asym_wo_round(w: torch.Tensor, v: torch.Tensor, bits: int = 4,
+                      q_scale_thresh: float = 1e-5,
+                      recip: bool = False) -> torch.Tensor:
+    """Round-free asym qdq for norm-gain and bias tuning: ``w`` (a 1-D
+    leaf, one group over its last axis) on the asym grid with a float zero
+    point and a continuous offset ``v`` in grid units, no rounding:
+    ``scale * (clip(w / scale + v + zp, 0, maxq) - zp)``.  At ``v = 0`` the
+    smallest element sits exactly on the lower bound, where the gradient is
+    halved as ``jnp.clip``'s is (:func:`_clip`).  ``recip=True`` divides
+    the range by ``maxq`` as the JAX package's jitted tuning loss does (a
+    product with its fp32 reciprocal); the bake divides."""
+    from .fp8 import div_const
+    maxq = 2.0 ** bits - 1
+    f = w.float()
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    wmin = torch.minimum(f.amin(dim=-1, keepdim=True), zero)
+    wmax = torch.maximum(f.amax(dim=-1, keepdim=True), zero)
+    scale = torch.clamp(div_const(wmax - wmin, maxq, recip),
+                        min=q_scale_thresh)
+    zp = -wmin / scale
+    q = _clip(f / scale + v + zp, 0.0, maxq)
+    return (scale * (q - zp)).to(w.dtype)
 
 
 def _group_v(v, group_size, dtype):

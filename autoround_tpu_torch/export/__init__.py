@@ -29,7 +29,7 @@ from .packing import (codes_from_qdq_torch, pack_quantized,
                       pack_quantized_torch, unpack_quantized)
 
 __all__ = ["save_quantized", "load_fake", "pack_quantized",
-           "unpack_quantized", "codes_from_qdq"]
+           "unpack_quantized", "codes_from_qdq", "quantization_config"]
 
 
 _UNPORTED_FORMATS = ("gptq", "awq", "llm_compressor", "mlx")
@@ -103,16 +103,13 @@ def codes_from_qdq(qdq: np.ndarray, scale: np.ndarray, zp, bits: int,
         group_size).numpy().astype(np.uint32)
 
 
-def save_quantized(result, model_cfg, output_dir: str,
-                   format: str = "fake") -> str:
-    """Write a quantized checkpoint.  Returns output_dir."""
-    if format in _UNPORTED_FORMATS or format.startswith("gguf"):
-        raise NotImplementedError(
-            f"export format {format!r} is not ported yet (ROADMAP A13)")
-    if format not in ("fake", "autoround"):
-        raise ValueError(f"unknown export format {format!r}")
-    os.makedirs(output_dir, exist_ok=True)
-    qcfg = {
+def quantization_config(result, model_cfg, format: str = "autoround"
+                        ) -> Dict[str, Any]:
+    """The ``quantization_config.json`` of ``result`` (per-layer bits,
+    group size, sym and data type; the model config), as
+    :func:`save_quantized` writes it; an ``immediate_save_dir`` stream of
+    shards takes it beside its index to load as an export."""
+    return {
         "quant_method": "auto-round",
         "provider": "autoround_tpu",
         "fmt": format,
@@ -133,6 +130,18 @@ def save_quantized(result, model_cfg, output_dir: str,
             for k in _MODEL_CONFIG_KEYS + tuple(
                 m for m in _MOE_CONFIG_KEYS if hasattr(model_cfg, m))},
     }
+
+
+def save_quantized(result, model_cfg, output_dir: str,
+                   format: str = "fake") -> str:
+    """Write a quantized checkpoint.  Returns output_dir."""
+    if format in _UNPORTED_FORMATS or format.startswith("gguf"):
+        raise NotImplementedError(
+            f"export format {format!r} is not ported yet (ROADMAP A13)")
+    if format not in ("fake", "autoround"):
+        raise ValueError(f"unknown export format {format!r}")
+    os.makedirs(output_dir, exist_ok=True)
+    qcfg = quantization_config(result, model_cfg, format)
 
     tensors = _flatten_params(result.params)
     if format == "autoround":

@@ -5,15 +5,18 @@ Buffers tensors, flushes at a shard-size budget, and ``finalize`` renames
 the shards to the ``-of-`` convention and writes the index, so a large
 export never holds more than one shard in memory.  Shards are written by
 ``utils/safetensors_io.py``, byte-equal to the ``safetensors`` package's.
+Tensors may be numpy arrays or torch tensors (a card tensor is copied to
+the host as it is added).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
+import torch
 
 from ..utils.logger import logger
 from ..utils.safetensors_io import save_file
@@ -28,22 +31,28 @@ class ShardWriter:
         self.budget = shard_size_bytes
         self.prefix = prefix
         os.makedirs(output_dir, exist_ok=True)
-        self._buffer: Dict[str, np.ndarray] = {}
+        self._buffer: Dict[str, Union[np.ndarray, torch.Tensor]] = {}
         self._buffered_bytes = 0
         self._shard_idx = 0
         self._weight_map: Dict[str, str] = {}
         self._shard_files = []
         self._finalized = False
 
-    def add(self, name: str, tensor: np.ndarray) -> None:
+    def add(self, name: str, tensor: Union[np.ndarray, torch.Tensor]
+            ) -> None:
         assert not self._finalized, "writer already finalized"
-        tensor = np.ascontiguousarray(tensor)
+        if isinstance(tensor, torch.Tensor):
+            tensor = tensor.detach().to("cpu").contiguous()
+            nbytes = tensor.numel() * tensor.element_size()
+        else:
+            tensor = np.ascontiguousarray(tensor)
+            nbytes = tensor.nbytes
         self._buffer[name] = tensor
-        self._buffered_bytes += tensor.nbytes
+        self._buffered_bytes += nbytes
         if self._buffered_bytes >= self.budget:
             self.flush()
 
-    def add_many(self, tensors: Dict[str, np.ndarray]) -> None:
+    def add_many(self, tensors) -> None:
         for k, v in tensors.items():
             self.add(k, v)
 

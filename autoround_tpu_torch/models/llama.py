@@ -173,10 +173,14 @@ def block_linear_names(cfg: LlamaConfig) -> Tuple[str, ...]:
 
 
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
-                device=None) -> Dict[str, Any]:
+                device=None, park=None) -> Dict[str, Any]:
     """Random-init parameters from a seeded ``torch.Generator`` (which
     must live on ``device``).  Same scales and leaves as the JAX package's
-    ``init_params``; the numbers differ (another generator)."""
+    ``init_params``; the numbers differ (another generator).
+    ``park(block)``, when given, takes each block as it is made and
+    returns what the tree holds (e.g. the block moved to host memory), so
+    the whole model is never on ``device`` at once; the numbers are the
+    same."""
     dev = resolve_device(device)
     H, hd = cfg.hidden_size, cfg.hd
     qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -215,7 +219,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
             b["q_bias"] = full(qd, 0.0)
             b["k_bias"] = full(kvd, 0.0)
             b["v_bias"] = full(kvd, 0.0)
-        blocks.append(b)
+        blocks.append(b if park is None else park(b))
     params = {
         "embed_tokens": normal((cfg.vocab_size, H), 0.02),
         "norm": full(H, 1.0),

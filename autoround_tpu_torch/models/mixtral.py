@@ -91,10 +91,14 @@ def block_linear_names(cfg: MixtralConfig) -> Tuple[str, ...]:
 
 
 def init_params(cfg: MixtralConfig, generator: torch.Generator,
-                device=None) -> Dict[str, Any]:
+                device=None, park=None) -> Dict[str, Any]:
     """Random-init parameters from a seeded ``torch.Generator`` (which
     must live on ``device``).  The JAX package's tree and scales; the
-    numbers differ (another generator)."""
+    numbers differ (another generator).
+    ``park(block)``, when given, takes each block as it is made and
+    returns what the tree holds (e.g. the block moved to host memory), so
+    the whole model is never on ``device`` at once; the numbers are the
+    same."""
     dev = resolve_device(device)
     H, hd, I = cfg.hidden_size, cfg.hd, cfg.intermediate_size
     qd, kvd = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -126,7 +130,7 @@ def init_params(cfg: MixtralConfig, generator: torch.Generator,
             b["shared_expert"] = mlp(cfg.shared_expert_intermediate)
             if cfg.shared_expert_gate:
                 b["shared_expert_gate"] = normal((1, H))
-        blocks.append(b)
+        blocks.append(b if park is None else park(b))
     params = {"embed_tokens": normal((cfg.vocab_size, H)), "norm": ones(H),
               "blocks": blocks}
     if not cfg.tie_embeddings:

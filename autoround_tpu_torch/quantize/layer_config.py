@@ -3,8 +3,9 @@
 
 Layer names are ``blocks.<i>.<linear>`` plus ``lm_head``; ``<linear>`` may
 itself be a dotted path (``experts.3.w1`` in a MoE block).  The special
-mixed recipes (``GGUF:Q2_K_MIXED``, ``W4A16_MIXED``) and the GGUF cascade
-come with later slices of the port.
+mixed recipe ``W4A16_MIXED`` expands in :func:`handle_special_scheme`;
+``GGUF:Q2_K_MIXED`` and the GGUF cascade come with the GGUF slice (ROADMAP
+A9).
 """
 
 from __future__ import annotations
@@ -14,7 +15,27 @@ from typing import Dict, Iterable, Optional, Union
 
 from ..schemes import QuantizationScheme, parse_scheme
 
-__all__ = ["resolve_layer_schemes"]
+__all__ = ["resolve_layer_schemes", "handle_special_scheme"]
+
+
+def handle_special_scheme(scheme, linear_names, quant_lm_head: bool):
+    """Expand a special recipe into (base scheme, per-layer overrides,
+    effective quant_lm_head), or None for any other scheme.
+    ``W4A16_MIXED``: the routed experts W4A16, everything else W8A16, the
+    lm_head W8A16 when ``quant_lm_head``.  ``GGUF:Q2_K_MIXED`` raises: its
+    GGUF grids and the embedding quantization are not ported."""
+    if not isinstance(scheme, str):
+        return None
+    s = scheme.lower()
+    if s == "gguf:q2_k_mixed":
+        raise NotImplementedError(
+            "scheme GGUF:Q2_K_MIXED (GGUF grids for the experts, the rest "
+            "and the embedding) is not ported yet (ROADMAP A9)")
+    if s == "w4a16_mixed":
+        overrides = {ln: "W4A16" for ln in linear_names
+                     if "experts." in ln and "shared" not in ln}
+        return "W8A16", overrides, quant_lm_head
+    return None
 
 
 def _matches(name: str, pattern: str) -> bool:

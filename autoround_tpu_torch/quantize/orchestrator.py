@@ -1,6 +1,6 @@
 """Block-chain quantization loop (counterpart of
-``autoround_tpu/quantize/orchestrator.py``), ``nblocks=1``, for every
-family of ``models.registry``.
+``autoround_tpu/quantize/orchestrator.py``) for every family of
+``models.registry``.
 
 Cache the block-0 inputs, then walk the blocks.  Per block: run the FP
 reference forward on the FP input cache; tune the block's linears with
@@ -18,15 +18,26 @@ it, and a ``linear_fn`` that qdq's those layers' inputs in the tuning loss
 and on the quantized chain.  ``enable_act_minmax_tuning`` also tunes a
 shrink factor on each static scale.
 
+The driver options: ``enable_norm_bias_tuning`` tunes and bakes each
+block's norm gains and biases; ``enable_lfq`` tunes the last block against
+the LM loss of the next token; ``nblocks > 1`` tunes groups of blocks
+jointly (:func:`_quantize_grouped`); ``immediate_save_dir`` streams each
+block's packed layers to sharded safetensors as it finishes;
+``offload_params`` keeps the FP blocks in host memory, brings one block
+(and, on a side stream, the next) to the card for its window and parks its
+qdq replacement back on the host (``utils/offload.py``).
+
 Everything but the tuning step runs without autograd; ``tune_block``
 switches gradients on for its own loss.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,12 +48,14 @@ from ..algorithms.actquant import (build_static_act_scales,
                                    make_act_quant_linear_fn)
 from ..algorithms.rtn import rtn_quantize_layer
 from ..algorithms.signround import TuneConfig, tune_block
+from ..dtypes.intq import qdq_asym_wo_round
 from ..dtypes.registry import get_quant_func
 from ..models.llama import (LlamaConfig, dual_rope_tables, layer_is_sliding,
                             rms_norm, sliding_mask)
 from ..models.registry import get_model_fns
 from ..schemes import QuantizationScheme
 from ..utils.logger import logger
+from ..utils.offload import BlockPrefetcher, tree_to_host
 from ..utils.pytree import get_by_path, set_by_path
 
 __all__ = ["QuantizeConfig", "QuantizedLayer", "QuantizeResult",
@@ -51,7 +64,7 @@ __all__ = ["QuantizeConfig", "QuantizedLayer", "QuantizeResult",
 
 @dataclass(frozen=True)
 class QuantizeConfig:
-    """Run-level knobs (the JAX config's fields; the options this slice
+    """Run-level knobs (the JAX config's fields; the options the port
     leaves out raise ``NotImplementedError`` in :func:`quantize_model`)."""
 
     iters: int = 200
@@ -76,6 +89,7 @@ class QuantizeConfig:
     enable_lfq: bool = False
     resume_dir: Optional[str] = None
     immediate_save_dir: Optional[str] = None
+    shard_size_bytes: int = 4 << 30
     # free each original block as soon as its qdq replacement exists.
     # MUTATES the caller's params["blocks"] entries to None — opt in only
     # when the FP params are not needed afterwards.
@@ -105,15 +119,11 @@ class QuantizeConfig:
         )
 
 
-# QuantizeConfig options of the JAX package this slice leaves out:
+# QuantizeConfig options of the JAX package the port leaves out:
 # (field, its "off" value, what it is, ROADMAP item)
 _UNPORTED = (
-    ("nblocks", 1, "joint tuning of several blocks", "A5"),
     ("enable_awq", False, "AWQ smoothing", "A12"),
-    ("enable_lfq", False, "last-block LM loss", "A5"),
     ("resume_dir", None, "crash resume", "A12"),
-    ("immediate_save_dir", None, "immediate streaming pack", "A5"),
-    ("offload_params", False, "host offload of the params", "A5"),
 )
 
 
@@ -171,6 +181,75 @@ def _head_fwd(ws, xb):
     return torch.einsum("bsi,oi->bso", xb, ws["head"])
 
 
+def _norm_bias_leaves_for(block: Dict[str, Any]) -> Tuple[str, ...]:
+    """Block paths of the tunable norm gains (1-D leaves whose key holds
+    ``norm``) and biases (keys ending in ``_bias``), sorted."""
+    out = []
+    for k, v in block.items():
+        if not isinstance(v, torch.Tensor):
+            continue
+        if ("norm" in k and v.ndim == 1) or k.endswith("_bias"):
+            out.append(k)
+    return tuple(sorted(out))
+
+
+def _make_lfq_fn(params, model_cfg, ids, mask):
+    """The last block's LM loss: the next token's log-softmax NLL of the
+    fp32 logits of the normed block output against the fp32 head, masked by
+    ``mask[:, 1:]``.  The norm takes no Gemma offset and the logits no
+    softcap, as in the JAX package."""
+    head = params["lm_head"] if params.get("lm_head") is not None \
+        else params["embed_tokens"]
+    norm_g = params["norm"]
+
+    def lfq_fn(pred, idx):
+        h = rms_norm(pred, norm_g, model_cfg.rms_eps)
+        logits = torch.matmul(h.float(), head.float().t())
+        labels = ids.index_select(0, idx)
+        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        nll = -logp.gather(-1, labels[:, 1:, None].long())[..., 0]
+        m = (mask.index_select(0, idx)[:, 1:].float() if mask is not None
+             else torch.ones_like(nll))
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return lfq_fn
+
+
+class _ShardStream:
+    """``immediate_save_dir``: each finished layer packed (int layers that
+    are not 2-D-block: ``autoround`` words, zeros and fp16 scales; every
+    other layer its fp32 qdq) and added to a :class:`ShardWriter` in the
+    JAX package's order; :meth:`finish` adds the non-quantized params and
+    the packed lm_head and writes the index."""
+
+    def __init__(self, out_dir: str, shard_size_bytes: int):
+        from ..export.shard_writer import ShardWriter
+        self.writer = ShardWriter(out_dir, shard_size_bytes=shard_size_bytes)
+
+    def add_layer(self, ql: QuantizedLayer) -> None:
+        from ..export.packing import (codes_from_qdq_torch,
+                                      pack_quantized_torch)
+        s = ql.scheme
+        if s.data_type != "int" or isinstance(s.group_size, tuple):
+            self.writer.add(ql.name, ql.qdq.float())
+            return
+        g = s.group_size if s.group_size > 0 else ql.qdq.shape[1]
+        scale = ql.scale.float()
+        codes = codes_from_qdq_torch(ql.qdq.float(), scale, ql.zp, s.bits, g)
+        payload = pack_quantized_torch(codes, scale, ql.zp, s.bits)
+        del codes
+        self.writer.add_many({f"{ql.name}.{k}": v
+                              for k, v in payload.items()})
+
+    def finish(self, new_params, layers) -> None:
+        from ..export import _flatten_params
+        for k, v in _flatten_params(new_params).items():
+            if k not in layers:
+                self.writer.add(k, v)
+        if "lm_head" in layers:
+            self.add_layer(layers["lm_head"])
+        self.writer.finalize()
+
+
 def quantize_model(
     params: Dict[str, Any],
     model_cfg: LlamaConfig,
@@ -181,10 +260,13 @@ def quantize_model(
 ) -> QuantizeResult:
     """Quantize a model of a registered family block by block.
 
-    input_ids: (nsamples, seqlen) calibration tokens on the params' device.
+    input_ids: (nsamples, seqlen) calibration tokens on the compute device
+    (the card, or the CPU in tests), where the non-block params live too.
     mask: optional (nsamples, seqlen) valid-token mask (pad → 0).
     ``iters == 0`` is the RTN zero-shot path; ``iters > 0`` tunes with
-    SignRound.  Call it under ``torch.no_grad()`` or not, alike.
+    SignRound.  Under ``offload_params`` the blocks may live in host memory
+    and the result's blocks and layer payloads do.  Call it under
+    ``torch.no_grad()`` or not, alike.
     """
     for name, off, what, item in _UNPORTED:
         if getattr(cfg, name) != off:
@@ -208,6 +290,23 @@ def quantize_model(
                 f"quantizing {flat!r} is not ported yet (only blocks.* "
                 f"linears and lm_head)")
     tcfg = cfg.tune_config()
+    if tcfg.enable_alg_ext and tcfg.clip_hi <= 1.0:
+        # tune_block widens the clamp to (0, 2) under alg_ext; the bake in
+        # _finalize_layer must use the same clamp
+        tcfg = dataclasses.replace(tcfg, clip_lo=0.0, clip_hi=2.0)
+    if cfg.nblocks > 1 and cfg.iters > 0:
+        dropped = [n for n, on in (
+            ("enable_lfq", cfg.enable_lfq),
+            ("enable_norm_bias_tuning", cfg.enable_norm_bias_tuning),
+            ("quant_attention", cfg.quant_attention),
+            ("activation quantization in the loss", any(
+                s.effective_act().is_act_quantized
+                for s in layer_schemes.values()))) if on]
+        if dropped:
+            # the JAX package's grouped tuner takes none of these
+            logger.warning("nblocks=%d: %s not applied (the grouped tuner "
+                           "does not take them)", cfg.nblocks,
+                           ", ".join(dropped))
     with torch.no_grad():
         return _quantize_blocks(params, model_cfg, layer_schemes, per_block,
                                 input_ids, cfg, tcfg, mask)
@@ -219,13 +318,14 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     seqlen = input_ids.shape[1]
     x_fp = mfns.embed_fwd(params, input_ids, model_cfg)
     x_q = x_fp if (cfg.enable_quanted_input and cfg.iters > 0) else None
+    dev = x_fp.device
     (cos, sin), (cosl, sinl) = dual_rope_tables(model_cfg, seqlen,
-                                                device=x_fp.device)
+                                                device=dev)
     # a sliding layer takes the local tables and, past the window, the
     # sliding mask: in the FP reference, the stats passes and the tuning
     # loss alike (the JAX orchestrator's guard against tuning a sliding
     # layer toward a full-causal reference)
-    smask = (sliding_mask(model_cfg, seqlen, x_fp.device)
+    smask = (sliding_mask(model_cfg, seqlen, dev)
              if model_cfg.sliding_window is not None
              and seqlen > model_cfg.sliding_window else None)
 
@@ -238,17 +338,95 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
                                   linear_fn=linear_fn)
         return block_fn
 
-    new_blocks = []
+    stream = (_ShardStream(cfg.immediate_save_dir, cfg.shard_size_bytes)
+              if cfg.immediate_save_dir else None)
+    loader = BlockPrefetcher(dev) if cfg.offload_params else None
     layers: Dict[str, QuantizedLayer] = {}
     traces: Dict[int, np.ndarray] = {}
     attention_scales: Dict[int, Dict[str, Any]] = {}
     imatrices: Dict[str, np.ndarray] = {}
-    for bi, block in enumerate(params["blocks"]):
+    grouped = cfg.nblocks > 1 and cfg.iters > 0
+    loop = _quantize_grouped if grouped else _quantize_each
+    new_blocks, x_fp, x_q = loop(
+        params, model_cfg, per_block, x_fp, x_q, block_fn_for, cfg, tcfg,
+        mask, input_ids, layers, traces, attention_scales, imatrices,
+        stream, loader)
+
+    new_params = dict(params)
+    new_params["blocks"] = new_blocks
+    if "lm_head" in layer_schemes:
+        head_name = "lm_head" if params.get("lm_head") is not None \
+            else "embed_tokens"
+        w = params[head_name]
+        scheme = layer_schemes["lm_head"]
+        if cfg.iters > 0 and not grouped:
+            # tuned against the final hidden states; the fp32 reference
+            # logits are computed cache_batch samples at a time.  The JAX
+            # orchestrator norms them without the Gemma offset and tunes
+            # against uncapped logits; the port does the same.  (The
+            # grouped path RTNs the head, as the JAX package's does.)
+            h_src = x_q if x_q is not None else x_fp
+            normed = rms_norm(h_src, params["norm"], model_cfg.rms_eps)
+            wf = w.float()
+            ref = torch.cat([
+                torch.einsum("bsi,oi->bso", normed[s:s + cfg.cache_batch]
+                             .float(), wf).to(normed.dtype)
+                for s in range(0, normed.shape[0], cfg.cache_batch)])
+            del wf
+            best, info = tune_block(_head_fwd, {"head": w}, normed, ref,
+                                    {"head": scheme}, tcfg, mask=mask)
+            del ref
+            logger.info("lm_head: loss iter0 %.6f -> best %.6f",
+                        info["first_loss"], info["best_loss"])
+            ql = _finalize_layer("lm_head", w, scheme, best, tcfg,
+                                 inner_name="head")
+        else:
+            r = rtn_quantize_layer(w, scheme)
+            ql = QuantizedLayer(name="lm_head", scheme=scheme, qdq=r.qdq,
+                                scale=r.scale, zp=r.zp)
+        ql.qdq = ql.qdq.to(w.dtype)
+        new_params[head_name] = ql.qdq
+        layers["lm_head"] = ql
+    if stream is not None:
+        stream.finish(new_params, layers)
+    return QuantizeResult(params=new_params, layers=layers,
+                          loss_traces=traces,
+                          attention_scales=attention_scales,
+                          imatrices=imatrices)
+
+
+def _park(qdq_block, layer_names, layers):
+    """Offload: the qdq block and its layers' payloads to host memory (a
+    qdq leaf and its layer's ``qdq`` share one host tensor)."""
+    memo: Dict[int, Any] = {}
+    host_block = tree_to_host(qdq_block, memo)
+    for name in layer_names:
+        ql = layers[name]
+        ql.qdq, ql.scale, ql.zp = tree_to_host([ql.qdq, ql.scale, ql.zp],
+                                               memo)
+    return host_block
+
+
+def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
+                   cfg, tcfg, mask, input_ids, layers, traces,
+                   attention_scales, imatrices, stream, loader):
+    """``nblocks == 1``: one block at a time.  Returns (new blocks, x_fp,
+    x_q) after the last block."""
+    blocks = params["blocks"]
+    n_blocks = len(blocks)
+    new_blocks = []
+    for bi in range(n_blocks):
         t_block = time.time()
         schemes = per_block.get(bi, {})
         block_fn = block_fn_for(bi)
+        block = blocks[bi]
+        if loader is not None:
+            block = loader.get(bi, block)
         ref_out = _batched_block_apply(block_fn, block, x_fp,
                                        cfg.cache_batch)
+        if loader is not None and bi + 1 < n_blocks:
+            # the next block's upload overlaps this block's window
+            loader.prefetch(bi + 1, blocks[bi + 1])
         qdq_block = block         # set_by_path copies the branches it edits
         if schemes and cfg.quant_attention:
             qkv_amax = collect_output_stats(
@@ -287,8 +465,13 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
                     inner = {k: v for k, v in w.items()
                              if k != "_act_scales"}
                     return block_fn(inner, xb, lf)
+            lfq_fn = (_make_lfq_fn(params, model_cfg, input_ids, mask)
+                      if cfg.enable_lfq and bi == n_blocks - 1 else None)
+            nb_leaves = (_norm_bias_leaves_for(block)
+                         if tcfg.enable_norm_bias_tuning else None)
             best, info = tune_block(tune_fn, tune_weights, tune_in, ref_out,
-                                    schemes, tcfg, mask=mask)
+                                    schemes, tcfg, mask=mask, lfq_fn=lfq_fn,
+                                    norm_bias_leaves=nb_leaves)
             traces[bi] = info["loss_trace"]
             logger.info("block %d: loss iter0 %.6f -> best %.6f (%.1fs)", bi,
                         info["first_loss"], info["best_loss"],
@@ -302,6 +485,11 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
                                           tcfg.clip_hi)
                 act_lf = make_act_quant_linear_fn(schemes, static_scales,
                                                   global_scales)
+            for nname, p in best.get("_nb", {}).items():
+                # bake the tuned norm / bias offsets
+                leaf = get_by_path(block, nname)
+                qdq_block = set_by_path(qdq_block, nname, qdq_asym_wo_round(
+                    leaf, p["v"]).to(leaf.dtype))
             for lname, scheme in schemes.items():
                 w_orig = get_by_path(block, lname)
                 ql = _finalize_layer(f"blocks.{bi}.{lname}", w_orig, scheme,
@@ -325,13 +513,13 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
                 layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
                     name=f"blocks.{bi}.{lname}", scheme=scheme, qdq=qdq,
                     scale=r.scale, zp=r.zp)
+        names = [f"blocks.{bi}.{lname}" for lname in schemes]
         for lname in schemes:
             ql = layers[f"blocks.{bi}.{lname}"]
             ql.act_scale = static_scales.get(lname)
             ql.act_global_scale = global_scales.get(lname)
-        new_blocks.append(qdq_block)
         if cfg.donate_params:
-            params["blocks"][bi] = None   # free the FP block
+            blocks[bi] = None     # free the FP block
         block = None
         # advance the chains: FP through the original block (done above),
         # the quantized one through the qdq block with the activation
@@ -340,42 +528,79 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
         if x_q is not None:
             x_q = _batched_block_apply(block_fn, qdq_block, x_q,
                                        cfg.cache_batch, linear_fn=act_lf)
+        if stream is not None:
+            for name in names:
+                stream.add_layer(layers[name])
+        if loader is not None:
+            qdq_block = _park(qdq_block, names, layers)
+            # drop the device copies now, not at the cyclic collector's
+            # leisure (the JAX package collects once a block too)
+            gc.collect()
+        new_blocks.append(qdq_block)
+    return new_blocks, x_fp, x_q
 
-    new_params = dict(params)
-    new_params["blocks"] = new_blocks
-    if "lm_head" in layer_schemes:
-        head_name = "lm_head" if params.get("lm_head") is not None \
-            else "embed_tokens"
-        w = params[head_name]
-        scheme = layer_schemes["lm_head"]
-        if cfg.iters > 0:
-            # tuned against the final hidden states; the fp32 reference
-            # logits are computed cache_batch samples at a time.  The JAX
-            # orchestrator norms them without the Gemma offset and tunes
-            # against uncapped logits; the port does the same
-            h_src = x_q if x_q is not None else x_fp
-            normed = rms_norm(h_src, params["norm"], model_cfg.rms_eps)
-            wf = w.float()
-            ref = torch.cat([
-                torch.einsum("bsi,oi->bso", normed[s:s + cfg.cache_batch]
-                             .float(), wf).to(normed.dtype)
-                for s in range(0, normed.shape[0], cfg.cache_batch)])
-            del wf
-            best, info = tune_block(_head_fwd, {"head": w}, normed, ref,
-                                    {"head": scheme}, tcfg, mask=mask)
-            del ref
-            logger.info("lm_head: loss iter0 %.6f -> best %.6f",
-                        info["first_loss"], info["best_loss"])
-            ql = _finalize_layer("lm_head", w, scheme, best, tcfg,
-                                 inner_name="head")
-        else:
-            r = rtn_quantize_layer(w, scheme)
-            ql = QuantizedLayer(name="lm_head", scheme=scheme, qdq=r.qdq,
-                                scale=r.scale, zp=r.zp)
-        ql.qdq = ql.qdq.to(w.dtype)
-        new_params[head_name] = ql.qdq
-        layers["lm_head"] = ql
-    return QuantizeResult(params=new_params, layers=layers,
-                          loss_traces=traces,
-                          attention_scales=attention_scales,
-                          imatrices=imatrices)
+
+def _quantize_grouped(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
+                      cfg, tcfg, mask, input_ids, layers, traces,
+                      attention_scales, imatrices, stream, loader):
+    """``nblocks > 1``: tune each group of ``nblocks`` consecutive blocks
+    jointly.  The tuning tree is ``{"blocks": [block, ...]}`` with dotted
+    scheme paths ``blocks.<j>.<linear>``, and one forward chains the group,
+    each member with its own rope tables and sliding mask.  As in the JAX
+    package the group's tuning takes no activation quantization, lm loss or
+    norm / bias tuning, and no attention scales are collected (the caller
+    warns); the blocks are not donated."""
+    blocks = params["blocks"]
+    n = len(blocks)
+    new_blocks = []
+    for gstart in range(0, n, cfg.nblocks):
+        t_group = time.time()
+        group = list(blocks[gstart:gstart + cfg.nblocks])
+        if loader is not None:
+            group = [loader.get(gstart + j, b) for j, b in enumerate(group)]
+        fns = [block_fn_for(gstart + j) for j in range(len(group))]
+        schemes = {f"blocks.{j}.{lname}": s for j in range(len(group))
+                   for lname, s in per_block.get(gstart + j, {}).items()}
+        ref = x_fp
+        for fn, b in zip(fns, group):
+            ref = _batched_block_apply(fn, b, ref, cfg.cache_batch)
+        qdq_group = list(group)
+        if schemes:
+            def group_fwd(weights, xb, _fns=fns):
+                for fn, b in zip(_fns, weights["blocks"]):
+                    xb = fn(b, xb)
+                return xb
+            tune_in = x_q if x_q is not None else x_fp
+            best, info = tune_block(group_fwd, {"blocks": group}, tune_in,
+                                    ref, schemes, tcfg, mask=mask)
+            traces[gstart] = info["loss_trace"]
+            logger.info("blocks %d-%d: loss iter0 %.6f -> best %.6f "
+                        "(%.1fs)", gstart, gstart + len(group) - 1,
+                        info["first_loss"], info["best_loss"],
+                        time.time() - t_group)
+            for path, scheme in schemes.items():
+                j, lname = int(path.split(".")[1]), path.split(".", 2)[2]
+                w_orig = get_by_path(group[j], lname)
+                ql = _finalize_layer(f"blocks.{gstart + j}.{lname}", w_orig,
+                                     scheme, best, tcfg, inner_name=path)
+                qdq_group[j] = set_by_path(qdq_group[j], lname,
+                                           ql.qdq.to(w_orig.dtype))
+                layers[ql.name] = ql
+            del best
+        x_fp = ref
+        if x_q is not None:
+            for fn, b in zip(fns, qdq_group):
+                x_q = _batched_block_apply(fn, b, x_q, cfg.cache_batch)
+        for j in range(len(group)):
+            names = [f"blocks.{gstart + j}.{lname}"
+                     for lname in per_block.get(gstart + j, {})]
+            if stream is not None:
+                for name in names:
+                    stream.add_layer(layers[name])
+            if loader is not None:
+                qdq_group[j] = _park(qdq_group[j], names, layers)
+        group = None
+        if loader is not None:
+            gc.collect()
+        new_blocks.extend(qdq_group)
+    return new_blocks, x_fp, x_q

@@ -44,6 +44,7 @@ returns the same buffers it was given, with one more token written.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -183,11 +184,13 @@ def _stack_experts(packed, kinds, cfg):
     does, because ``_moe_mlp`` takes the grouped route only with the full
     triple and the per-expert route needs every per-expert entry.  A
     projection stacks when every one of the E experts packed as ``w4a16``
-    with identical shapes."""
+    with identical shapes.  ``packed`` and ``kinds`` are updated in place
+    and returned: a block's per-expert words are freed as its stack is
+    made, so the experts are never held twice over the whole model."""
     E = getattr(cfg, "num_experts", 0)
     if not E:
         return packed, kinds
-    out, kinds = dict(packed), dict(kinds)
+    out = packed
     n_stacked = 0
     for bi in range(cfg.num_layers):
         def stackable(wname):
@@ -753,7 +756,11 @@ class QuantizedLlama:
         multiples of 256, K % (16 g) for w2a16, K % 1024 for mxfp4) are its
         TPU tiles'; the kernels here need K % 32 == 0, K % g == 0 and
         g % 32 == 0 (w4a16 and w4a16_asym: g % 16 == 0; mxfp4: g in {16,
-        32}; per channel: g = K) and take any O."""
+        32}; per channel: g = K) and take any O.
+
+        A host-resident result (``offload_params``) is packed one layer at
+        a time: each layer's qdq crosses to ``device`` alone, and only the
+        packed words, the scales and the dense residue stay there."""
         _check_kv_quant(kv_quant)
         dev = resolve_device(device)
         params = dict(result.params)
@@ -836,7 +843,9 @@ class QuantizedLlama:
                         moe_capacity_factor: float = 0.0
                         ) -> "QuantizedLlama":
         """Load an ``autoround``-format export directory (the port's or
-        the JAX package's: the files are the same) onto ``device``.
+        the JAX package's: the files are the same) onto ``device``: one
+        ``model.safetensors``, or the shards its index names (an
+        ``immediate_save_dir`` stream beside a ``quantization_config.json``).
 
         ``cfg`` comes from ``quantization_config.json``'s ``model_config``
         and its dtype from ``embed_tokens``.  Each layer's words are
@@ -854,6 +863,7 @@ class QuantizedLlama:
         from ..export import _unflatten_params
         from ..export.packing import unpack_quantized_torch
         from ..utils.convert import config_from_jax
+        from ..utils.hf_loader import shard_files
         from ..utils.safetensors_io import DTYPE_CODES, SafeOpen
         from .gptq_loader import _dense
 
@@ -864,18 +874,20 @@ class QuantizedLlama:
         cfg = config_from_jax(qcfg["model_config"])
         packed: Dict[str, Tuple[torch.Tensor, ...]] = {}
         kinds: Dict[str, str] = {}
-        with SafeOpen(os.path.join(path, "model.safetensors"),
-                       device=dev) as f:
-            keys = set(f.keys())
-            if "embed_tokens" in keys:
-                cfg = dataclasses.replace(
-                    cfg, dtype=DTYPE_CODES[f.dtype_code("embed_tokens")])
-            flat = {k: f.get_tensor(k) for k in f.keys()
+        with contextlib.ExitStack() as files:
+            opened = [files.enter_context(SafeOpen(os.path.join(path, sf),
+                                                   device=dev))
+                      for sf in shard_files(path)]
+            where = {k: f for f in opened for k in f.keys()}
+            if "embed_tokens" in where:
+                cfg = dataclasses.replace(cfg, dtype=DTYPE_CODES[
+                    where["embed_tokens"].dtype_code("embed_tokens")])
+            flat = {k: f.get_tensor(k) for k, f in where.items()
                     if not k.endswith((".qweight", ".qzeros", ".scales"))}
             for name, meta in qcfg["layers"].items():
-                if f"{name}.qweight" not in keys:
+                if f"{name}.qweight" not in where:
                     continue          # a qdq leaf (fake format) is in flat
-                payload = {s: f.get_tensor(f"{name}.{s}")
+                payload = {s: where[f"{name}.{s}"].get_tensor(f"{name}.{s}")
                            for s in ("qweight", "qzeros", "scales")}
                 bits, g = meta["bits"], meta["group_size"]
                 O = payload["qweight"].shape[1]

@@ -204,7 +204,36 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              block-0 ``o_proj`` is act-order, which must serve dense and
              say so in the log.  The engines of (b) and (c) each hold a
              2-layer copy against the plain versions on the card.
-18. report — the card's name and power limit (nvidia-smi), a JSON line of
+18. options — the SignRound and driver options at full width, each
+             SignRound with iters=20 on 16 x 512 ids at batch 8, every loss
+             trace finite with its best at or below its first, the tuned
+             clip scales inside their clamp, then served (launches equal to
+             the loops', ``generate_scan`` equal to ``generate``, a 2-layer
+             copy against the plain versions on the card): alg_ext on
+             llama3-8b x ``--options-layers`` at W2A16 with ``use_remat``
+             (the outlier mask over 2^24 elements a batch; some clip scale
+             above 1; served through row 10) beside the same run without
+             it; AdamRound with norm / bias tuning and gradient
+             accumulation on qwen2.5-7b (its gains and biases moved; the
+             engine must serve each tuned leaf as the bake of its offset);
+             nblocks = 2 on llama3-8b x ``--nblocks-layers`` with
+             ``dynamic_max_gap`` and ``immediate_save_dir`` (one trace per
+             group; the streamed shards load through ``from_pretrained``
+             with words bit-equal to the ``from_quantize_result`` engine's);
+             and ``enable_lfq`` (the last block's loss the LM cross-entropy
+             over the 128256-entry vocabulary, near ln 128256).
+19. offload — mixtral-8x7b at ``--offload-layers`` (cut to what the host's
+             MemAvailable holds, at least 28): the blocks made on the card
+             one at a time and parked in host memory (pinned where the host
+             allows), ``W4A16_MIXED`` with the lm_head, RTN,
+             ``offload_params`` and ``donate_params``; the device peaks
+             while quantizing and packing, the process's peak RSS and the
+             host <-> card rates printed; the first two blocks bit-equal to
+             an on-device RTN of the same blocks; the host-resident result
+             packed (experts through row 5, attention and the lm_head
+             through row 11, row 4 at 0) and served, its replayed step at
+             batch 8 beside its bound, a 2-layer copy on the card.
+20. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -214,8 +243,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--mxfp4-layers``, ``--nvfp4-layers``, ``--w2-layers``,
 ``--mx-tune-layers``, ``--llama1b-layers``, ``--sage-layers``,
 ``--qwen25-layers``, ``--qwen3-tune-layers``, ``--gemma2-layers``,
-``--gemma3-layers`` and ``--load-layers`` cut the depth of the paths for a
-quicker run.
+``--gemma3-layers``, ``--load-layers``, ``--options-layers``,
+``--nblocks-layers`` and ``--offload-layers`` cut the depth of the paths for
+a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -229,12 +259,14 @@ import dataclasses
 import gc
 import json
 import logging
+import math
 import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3989,6 +4021,511 @@ def mx_tune_path(bw, flops_peak, n_layers):
     return launches
 
 
+# ------------------------------------------------------- the driver options
+#
+# Each tuned path of the options phase runs iters=20 on 16 x 512 ids at
+# batch 8, as the tune path does, holds every loss trace finite with its best
+# at or below its first, and serves the result (generate, generate_scan, the
+# launches its loops imply, a 2-layer copy against the plain versions on the
+# card).
+
+OPT_NS, OPT_ITERS, OPT_CB = 16, 20, 8
+
+
+@contextlib.contextmanager
+def tuned_params_seen():
+    """Inside the block, every ``tune_block`` call of the quantize loop
+    records its best params (the clip scales' least and most, and the
+    norm / bias offsets): a list of dicts, one per call."""
+    from autoround_tpu_torch.quantize import orchestrator
+
+    seen = []
+    inner = orchestrator.tune_block
+
+    def recording(*a, **kw):
+        best, info = inner(*a, **kw)
+        cfg = a[5]        # the orchestrator's TuneConfig, alg_ext widened
+        # the scales the qdq uses: the tuned values under the clamp
+        used = [p[k].clamp(cfg.clip_lo, cfg.clip_hi)
+                for n, p in best.items() if n not in ("_nb", "_act")
+                for k in ("min_scale", "max_scale") if k in p]
+        seen.append({
+            "scale_min": min(float(s.min()) for s in used),
+            "scale_max": max(float(s.max()) for s in used),
+            "nb": {n: p["v"].clone() for n, p in best.get("_nb", {}).items()},
+            "clip": (cfg.clip_lo, cfg.clip_hi)})
+        return best, info
+    orchestrator.tune_block = recording
+    try:
+        yield seen
+    finally:
+        orchestrator.tune_block = inner
+
+
+def _frozen_at(trace, gap):
+    """The first step at which ``dynamic_max_gap`` froze the updates (the
+    tuner's own rule on the loss trace), or None."""
+    best, since = float("inf"), 0
+    for i, loss in enumerate(trace):
+        if loss < best:
+            best, since = loss, 0
+        else:
+            since += 1
+        if since >= gap:
+            return i
+    return None
+
+
+def options_path(bw, flops_peak, label, preset, n_layers, scheme, seed, kw,
+                 kind, fwd_per_step=1, bwd_per_step=1, gains=False,
+                 stream=False):
+    """One tuned path of the options phase; returns (launches, the
+    result's loss traces, the clip-scale records, tune_s)."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import llama
+
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS[preset],
+                              num_layers=n_layers)
+    B, S, NEW, MAX_SEQ = 8, 512, 32, 1024
+    ids_gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (OPT_NS, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    fp_leaves = None
+    if gains:
+        perturb_gains(params, seed)
+        fp_leaves = [{k: t.clone() for k, t in b.items() if t.ndim == 1}
+                     for b in params["blocks"]]
+    root = tempfile.mkdtemp(prefix="opt_stream_") if stream else None
+    if stream:
+        kw = dict(kw, immediate_save_dir=root)
+    t0 = time.time()
+    with tuned_params_seen() as seen:
+        ar = AutoRound((params, cfg), scheme=scheme, iters=OPT_ITERS,
+                       batch_size=B, donate_params=True, cache_batch=OPT_CB,
+                       **kw)
+        del params
+        result = ar.quantize(calib)
+        torch.cuda.synchronize()
+    t_tune = time.time() - t0
+    tune_peak = torch.cuda.max_memory_allocated() / 1e9
+    traces = dict(result.loss_traces)
+    check(all(len(t) == OPT_ITERS and bool((t == t).all())
+              and bool(abs(t).max() < float("inf")) for t in traces.values()),
+          f"{label}: a loss is missing or not finite")
+    check(all(t.min() <= t[0] for t in traces.values()),
+          f"{label}: a best loss is above its first")
+    check(all(r["clip"][0] <= r["scale_min"]
+              and r["scale_max"] <= r["clip"][1] for r in seen),
+          f"{label}: tuned clip scales outside the clamp: "
+          f"{[(r['scale_min'], r['scale_max']) for r in seen]}")
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    check(set(eng.packed_kinds.values()) == {kind},
+          f"{label}: packed kinds {sorted(set(eng.packed_kinds.values()))}")
+    if stream:
+        from autoround_tpu_torch.export import quantization_config
+        with open(os.path.join(root, "quantization_config.json"), "w") as f:
+            json.dump(quantization_config(result, cfg), f)
+        shards = sorted(f for f in os.listdir(root)
+                        if f.endswith(".safetensors"))
+        loaded = QuantizedLlama.from_pretrained(root, max_seq=MAX_SEQ,
+                                                kv_quant="int8")
+        _packed_equal(loaded, eng, f"{label} streamed shards")
+        log(f"{label}: {len(shards)} streamed shards "
+            f"({_dir_bytes(root) / 1e9:.2f} GB) load through "
+            f"from_pretrained; words bit-equal to the from_quantize_result "
+            f"engine's, scales its fp16 scales")
+        del loaded
+        shutil.rmtree(root)
+    del ar, result
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    first = {b: float(t[0]) for b, t in traces.items()}
+    best = {b: float(t.min()) for b, t in traces.items()}
+    shown = {k: v for k, v in kw.items() if k != "immediate_save_dir"}
+    log(f"{label} ({preset} x {n_layers}, {scheme}, {json.dumps(shown)}"
+        f"{', immediate save' if stream else ''}, {OPT_NS} x {S} ids, "
+        f"iters={OPT_ITERS}, batch {B}): "
+        f"tune_s={t_tune:.2f} tune_step_ms="
+        f"{t_tune / max(len(traces), 1) / OPT_ITERS * 1e3:.1f} (the "
+        f"block's chains included) peak_mem_gb={tune_peak:.2f}; losses "
+        f"(first -> best per trace): "
+        + " ".join(f"{b}:{first[b]:.4g}->{best[b]:.4g}" for b in traces)
+        + f"; clip scales (clamped) least / most "
+        f"{min(r['scale_min'] for r in seen):.4f} / "
+        f"{max(r['scale_max'] for r in seen):.4f} in {seen[0]['clip']}")
+    log(f"{label} kernels {json.dumps(launches)}")
+    # per block: the FP chain and the quantized chain (NS / CB forwards
+    # each), fwd_per_step forwards and bwd_per_step backwards a step;
+    # generate's prefill adds one forward per layer
+    want = {"flash_attention": n_layers * (2 * (OPT_NS // OPT_CB)
+                                           + fwd_per_step * OPT_ITERS)
+            + n_layers,
+            "flash_attention_bwd_dq": n_layers * bwd_per_step * OPT_ITERS,
+            "flash_attention_bwd_dkv": n_layers * bwd_per_step * OPT_ITERS,
+            "decode_attention": n_layers * (NEW - 1)}
+    for n, c in want.items():
+        check(launches[n] == c, f"{label}: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    check(launches[{"w4a16": "w4a16_matmul",
+                    "w2a16": "w2a16_matmul"}[kind]] == 4 * n_layers * NEW,
+          f"{label}: the {kind} kernel launched "
+          f"{launches}, the loops imply {4 * n_layers * NEW}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    if gains:
+        # the served engine holds the tuned gains and biases: off the FP
+        # values, and each the bake of its tuned offset
+        from autoround_tpu_torch.dtypes.intq import qdq_asym_wo_round
+        moved = 0
+        for bi, rec in enumerate(seen):
+            for name, v in rec["nb"].items():
+                got = eng.params["blocks"][bi][name]
+                fp = fp_leaves[bi][name]
+                want_leaf = qdq_asym_wo_round(fp, v).to(fp.dtype)
+                check(torch.equal(got, want_leaf),
+                      f"{label}: block {bi} {name} is not its baked value")
+                moved += not torch.equal(got, fp)
+        n_nb = sum(len(r["nb"]) for r in seen)
+        check(n_nb == sum(len(f) for f in fp_leaves) and moved > 0,
+              f"{label}: {n_nb} tuned gains / biases, {moved} moved")
+        log(f"{label}: the engine serves {n_nb} tuned gains and biases "
+            f"({', '.join(sorted(seen[0]['nb']))} per block), each the "
+            f"bake of its best offset; {moved} of them off the FP value")
+    scan_path(eng, prompts, toks, gen_counts, label)
+    check_copy(eng, prompts, "card")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, traces, seen, t_tune
+
+
+def options_phase(bw, flops_peak, n_layers, nb_layers):
+    """The SignRound and driver options at llama3-8b / qwen2.5-7b width:
+    alg_ext (W2A16, the outlier mask over 2^24 elements a batch, use_remat)
+    beside a plain run, AdamRound with norm / bias tuning and gradient
+    accumulation, nblocks = 2 with dynamic_max_gap and the immediate save,
+    and the LM loss on the last block; returns {path: launches}."""
+    out = {}
+    options_step_phase()
+    free_device_memory()
+    # alg_ext, W2A16 g128: the searched init, the clamp at (0, 2), the
+    # outlier-masked loss (bits < 4); use_remat recomputes each step's
+    # forward in its backward
+    out["alg_ext"], traces, seen, _ = options_path(
+        bw, flops_peak, "options alg_ext", "llama3-8b", n_layers, "W2A16",
+        31, dict(enable_alg_ext=True, use_remat=True), "w2a16",
+        fwd_per_step=2)
+    check(max(r["scale_max"] for r in seen) > 1.0,
+          "options alg_ext: no tuned max scale above 1")
+    free_device_memory()
+    _, plain, _, _ = options_path(
+        bw, flops_peak, "options alg_ext's plain twin", "llama3-8b",
+        n_layers, "W2A16", 31, {}, "w2a16")
+    log("options alg_ext: best loss per block, alg_ext / plain (printed, "
+        "not held): " + " ".join(
+            f"{b}:{traces[b].min():.5g}/{plain[b].min():.5g}"
+            for b in traces))
+    free_device_memory()
+    # AdamRound + norm / bias tuning on qwen2.5-7b (q/k/v biases), with
+    # gradient accumulation
+    out["adam_nb"], _, _, _ = options_path(
+        bw, flops_peak, "options adam + norm/bias", "qwen2.5-7b", n_layers,
+        "W4A16", 32, dict(optimizer="adam", enable_norm_bias_tuning=True,
+                          gradient_accumulate_steps=2), "w4a16",
+        fwd_per_step=2, bwd_per_step=2, gains=True)
+    free_device_memory()
+    # nblocks = 2: two groups of two chained blocks, dynamic_max_gap, the
+    # shards streamed as each group finishes
+    gap = 5
+    out["nblocks"], traces, _, _ = options_path(
+        bw, flops_peak, "options nblocks=2", "llama3-8b", nb_layers,
+        "W4A16", 33, dict(nblocks=2, dynamic_max_gap=gap), "w4a16",
+        stream=True)
+    check(sorted(traces) == list(range(0, nb_layers, 2)),
+          f"options nblocks=2: traces {sorted(traces)}, one per group wanted")
+    log("options nblocks=2: dynamic_max_gap=5 froze " + ", ".join(
+        f"group {g} at step {_frozen_at(traces[g], gap)}" for g in traces))
+    free_device_memory()
+    # the LM loss on the last block: fp32 logits over the 128256-entry
+    # vocabulary
+    out["lfq"], traces, _, _ = options_path(
+        bw, flops_peak, "options enable_lfq", "llama3-8b", n_layers,
+        "W4A16", 34, dict(enable_lfq=True), "w4a16")
+    last = traces[n_layers - 1]
+    ln_v = math.log(128256)
+    check(0.8 * ln_v < last[0] < 1.2 * ln_v,
+          f"options enable_lfq: the last block's first loss {last[0]} is "
+          f"not at the scale of ln(128256) = {ln_v:.2f}")
+    log(f"options enable_lfq: the last block's LM loss {last[0]:.4f} -> "
+        f"{last.min():.4f} (ln 128256 = {ln_v:.4f}); the other blocks' MSE "
+        f"x 1000 " + " ".join(f"{traces[b][0]:.4g}" for b in traces
+                              if b != n_layers - 1))
+    free_device_memory()
+    return out
+
+
+def options_step_phase():
+    """The tuning step of each option on full-width blocks, 8 x 512 a batch
+    (16 x 512 cached inputs): ``tune_block``'s seconds at 15 iterations less
+    its seconds at 5, over 10, after a 2-iteration run that warms the path
+    up (its seconds printed: the first ``use_remat`` call pays PyTorch's
+    one-time set-up of non-reentrant checkpointing)."""
+    from autoround_tpu_torch.algorithms.signround import (TuneConfig,
+                                                          tune_block)
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.quantize.orchestrator import (
+        _make_lfq_fn, _norm_bias_leaves_for)
+    from autoround_tpu_torch.schemes import parse_scheme
+
+    B, S, NS = 8, 512, 16
+
+    def setup(preset, n_blocks, seed, gains=False):
+        cfg = dataclasses.replace(llama.CONFIG_PRESETS[preset],
+                                  num_layers=n_blocks)
+        params = llama.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        if gains:
+            perturb_gains(params, seed)
+        ids = torch.randint(0, cfg.vocab_size, (NS, S),
+                            generator=torch.Generator().manual_seed(seed)
+                            ).cuda()
+        cos, sin = llama.rope_tables(cfg, S, device="cuda")
+
+        def fwd(w, xb):
+            for b in w["blocks"]:
+                xb = llama.block_fwd(b, xb, cos, sin, cfg)
+            return xb
+        with torch.no_grad():
+            x = llama.embed_fwd(params, ids, cfg)
+            ref = torch.cat([fwd(params, x[i:i + B])
+                             for i in range(0, NS, B)])
+        return cfg, params, ids, x, ref, fwd
+
+    def step_ms(label, fwd, weights, x, ref, schemes, kw, **tb_kw):
+        def run(iters):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, info = tune_block(fwd, weights, x, ref, schemes,
+                                 TuneConfig(iters=iters, batch_size=B, **kw),
+                                 **tb_kw)
+            torch.cuda.synchronize()
+            check(all(math.isfinite(v) for v in info["loss_trace"].tolist()),
+                  f"options step {label}: a loss is not finite")
+            return time.time() - t0
+        warm = run(2)
+        t5, t15 = run(5), run(15)
+        ms = (t15 - t5) / 10 * 1e3
+        log(f"options step {label}: tune_step_ms={ms:.2f} (warm-up "
+            f"{warm:.2f} s)")
+        return ms
+
+    out = {}
+    cfg, params, ids, x, ref, fwd = setup("llama3-8b", 2, 0)
+    one = {"blocks": params["blocks"][:1]}
+    with torch.no_grad():
+        ref1 = torch.cat([fwd(one, x[i:i + B]) for i in range(0, NS, B)])
+
+    def sch(name, n=1):
+        return {f"blocks.{j}.{k}": parse_scheme(name) for j in range(n)
+                for k in llama.LINEAR_KEYS}
+    out["W4A16"] = step_ms("llama3-8b W4A16 (plain)", fwd, one, x, ref1,
+                           sch("W4A16"), {})
+    out["W2A16"] = step_ms("llama3-8b W2A16 (plain)", fwd, one, x, ref1,
+                           sch("W2A16"), {})
+    out["alg_ext"] = step_ms("llama3-8b W2A16 alg_ext", fwd, one, x, ref1,
+                             sch("W2A16"), dict(enable_alg_ext=True))
+    out["alg_ext_remat"] = step_ms(
+        "llama3-8b W2A16 alg_ext + use_remat", fwd, one, x, ref1,
+        sch("W2A16"), dict(enable_alg_ext=True, use_remat=True))
+    out["nblocks"] = step_ms("llama3-8b W4A16 nblocks=2 (a group of two "
+                             "blocks)", fwd, params, x, ref, sch("W4A16", 2),
+                             {})
+    last = {"blocks": params["blocks"][-1:]}
+    out["lfq"] = step_ms(
+        "llama3-8b W4A16 LM loss (vocab 128256)", fwd, last, x, ref1,
+        sch("W4A16"), {}, lfq_fn=_make_lfq_fn(params, cfg, ids, None))
+    del params, one, last, x, ref, ref1
+    torch.cuda.empty_cache()
+    cfg, params, ids, x, ref, fwd = setup("qwen2.5-7b", 1, 1, gains=True)
+    nb = tuple(f"blocks.0.{k}" for k in _norm_bias_leaves_for(
+        params["blocks"][0]))
+    out["adam_nb"] = step_ms(
+        "qwen2.5-7b W4A16 Adam + norm/bias, accumulation 2", fwd,
+        {"blocks": params["blocks"]}, x, ref, sch("W4A16"),
+        dict(optimizer="adam", enable_norm_bias_tuning=True,
+             gradient_accumulate_steps=2), norm_bias_leaves=nb)
+    out["qwen_W4A16"] = step_ms("qwen2.5-7b W4A16 (plain)", fwd,
+                                {"blocks": params["blocks"]}, x, ref,
+                                sch("W4A16"), {})
+    del params, x, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+
+def _meminfo(key):
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def offload_phase(bw, flops_peak, n_layers):
+    """Mixtral-8x7b quantized through host offload: the blocks made on the
+    card one at a time and parked on the host, W4A16_MIXED with the
+    lm_head, RTN, ``offload_params`` and ``donate_params``; the first two
+    blocks' codes and scales against an on-device RTN of the same blocks;
+    the host-resident result packed and served; returns the launches."""
+    import resource
+
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.models import mixtral
+    from autoround_tpu_torch.utils.offload import tree_to_host
+
+    kernels = _kernel_fns()
+    full = mixtral.CONFIG_PRESETS["mixtral-8x7b"]
+    H, I, E = full.hidden_size, full.intermediate_size, full.num_experts
+    block_bytes = 2 * (H * (full.num_heads + 2 * full.num_kv_heads) * full.hd
+                       + full.num_heads * full.hd * H + E * 3 * H * I
+                       + E * H + 2 * H)
+    avail = _meminfo("MemAvailable")
+    # the parked blocks, one qdq block in flight, and 8 GB for the process
+    fits = int((avail - 8e9) // block_bytes) - 1
+    depth = min(n_layers, fits)
+    log(f"offload: host MemAvailable {avail / 1e9:.2f} GB, a Mixtral block "
+        f"{block_bytes / 1e9:.3f} GB: {fits} blocks fit, depth {depth} of "
+        f"{n_layers} asked")
+    check(depth >= min(n_layers, 28),
+          f"offload: the host holds only {depth} Mixtral blocks (28 wanted)")
+    cfg = dataclasses.replace(full, num_layers=depth)
+    B, S, NEW, MAX_SEQ, NS = 8, 512, 32, 1024, 8
+    ids_gen = torch.Generator().manual_seed(35)
+    calib = torch.randint(0, cfg.vocab_size, (NS, S), generator=ids_gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=ids_gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+
+    t0 = time.time()
+    params = mixtral.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        park=tree_to_host)
+    torch.cuda.synchronize()
+    t_make = time.time() - t0
+    make_peak = torch.cuda.max_memory_allocated() / 1e9
+    leaf = params["blocks"][0]["experts"][0]["w1"]
+    pinned = leaf.is_pinned()
+    # one parked block up and back, timed alone
+    t0 = time.time()
+    up = [t.to("cuda", non_blocking=True) for t in _tensors(
+        params["blocks"][1])]
+    torch.cuda.synchronize()
+    h2d = block_bytes / (time.time() - t0) / 1e9
+    del up
+    gb = depth * block_bytes / 1e9
+    log(f"offload: made and parked {depth} blocks ({gb:.1f} GB, pinned="
+        f"{pinned}) in {t_make:.1f} s ({gb / t_make:.2f} GB/s, the "
+        f"generator and the pinning included), device peak "
+        f"{make_peak:.2f} GB; one block host -> card {h2d:.2f} GB/s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="W4A16_MIXED", iters=0,
+                   quant_lm_head=True, offload_params=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    quant_peak = torch.cuda.max_memory_allocated() / 1e9
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+    check(all(b is None for b in ar.params["blocks"]),
+          "offload: a donated FP block is still held")
+    check(result.params["blocks"][0]["experts"][0]["w1"].device.type
+          == "cpu" and result.layers["blocks.0.q_proj"].qdq.device.type
+          == "cpu", "offload: the result's blocks are not on the host")
+    log(f"offload quantize: {depth} blocks in {t_quant:.1f} s, device peak "
+        f"{quant_peak:.2f} GB, process peak RSS {rss:.1f} GB, "
+        f"{2 * depth * block_bytes / t_quant / 1e9:.2f} GB/s of blocks "
+        f"up and qdq back (the RTN and the FP chain included)")
+
+    # the first two blocks again, made on the card from the same seed (the
+    # other blocks' numbers drawn and dropped), RTN'd there
+    keep = iter(range(depth))
+    with counts_kept():     # a comparison: its launches do not count
+        kept = mixtral.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+            park=lambda b: b if next(keep) < 2 else None)
+        kept["blocks"] = kept["blocks"][:2]
+        ref = AutoRound((kept, dataclasses.replace(cfg, num_layers=2)),
+                        scheme="W4A16_MIXED", iters=0,
+                        donate_params=True).quantize(calib)
+        del kept
+    n_cmp = 0
+    for name, ql in ref.layers.items():
+        got = result.layers[name]
+        check(torch.equal(got.qdq.cuda(), ql.qdq)
+              and torch.equal(got.scale.cuda(), ql.scale),
+              f"offload: {name} differs from the on-device RTN")
+        n_cmp += 1
+    log(f"offload: the first 2 blocks' {n_cmp} layers (qdq, so the codes, "
+        f"and scales) bit-equal to an on-device RTN of the same blocks")
+    del ref
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    torch.cuda.synchronize()
+    t_pack = time.time() - t0
+    pack_peak = torch.cuda.max_memory_allocated() / 1e9
+    del ar, result
+    gc.collect()
+    resident = torch.cuda.memory_allocated() / 1e9
+    kinds = sorted(set(eng.packed_kinds.values()))
+    check(kinds == ["w4a16_grouped", "w8a16"],
+          f"offload: packed kinds {kinds}")
+    log(f"offload: packed the host-resident result in {t_pack:.1f} s, "
+        f"device peak {pack_peak:.2f} GB, resident {resident:.2f} GB")
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    log(f"offload kernels {json.dumps(launches)}")
+    want = _serve_counts(depth, NEW, NEW - 1, per_block=2)
+    want["w8a16_matmul"] = want.pop("matmul")
+    want.update(w4a16_matmul_grouped=3 * depth * NEW, w4a16_matmul=0,
+                flash_attention_bwd_dq=0, flash_attention_bwd_dkv=0)
+    for n, c in want.items():
+        check(launches[n] == c, f"offload: {n} launched {launches[n]} "
+              f"times, the loops imply {c}")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    graph, eager = scan_path(eng, prompts, toks, gen_counts, "offload")
+    _, step_bound = serve_bounds(eng, B, S, bw, flops_peak)
+    log(f"offload mixtral-8x7b x {depth}: replayed step {graph:.4f} ms at "
+        f"batch 8 (eager {eager:.4f}), bound {step_bound:.4f} ms (bytes)")
+    check_copy(eng, prompts, "card", MOE_COPY_ROW_TOL)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the pinned chunks the allocator caches go back to the host
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    return launches
+
+
+def _tensors(tree):
+    out = []
+    from autoround_tpu_torch.utils.pytree import tree_map
+    tree_map(out.append, tree)
+    return out
+
+
 GEMM_SOURCES = ("w4a16_matmul", "w4a16_matmul_grouped", "w4a16_asym_matmul",
                 "w8a16_matmul", "w2a16_matmul", "fp8_matmul", "mxfp4_matmul")
 
@@ -4169,6 +4706,15 @@ def main() -> int:
     ap.add_argument("--gemma3-layers", type=int, default=6,
                     help="depth of the gemma3-12b RTN -> serve path "
                          "(default 6: five sliding layers and one global)")
+    ap.add_argument("--options-layers", type=int, default=2,
+                    help="depth of the alg_ext, Adam + norm/bias and LM-loss "
+                         "paths of the options phase (default 2)")
+    ap.add_argument("--nblocks-layers", type=int, default=4,
+                    help="depth of the nblocks=2 path (default 4: two "
+                         "groups)")
+    ap.add_argument("--offload-layers", type=int, default=32,
+                    help="depth of the Mixtral-8x7b offload path (default "
+                         "32, cut to what the host holds, at least 28)")
     ap.add_argument("--load-layers", type=int, default=4,
                     help="depth of the llama3-8b HF checkpoint of the load "
                          "phase (default 4)")
@@ -4284,6 +4830,12 @@ def main() -> int:
     del l1b_kept
     free_device_memory()
     mark("load")
+    opts = options_phase(bw, fl, args.options_layers, args.nblocks_layers)
+    free_device_memory()
+    mark("options")
+    off_launches = offload_phase(bw, fl, args.offload_layers)
+    free_device_memory()
+    mark("offload")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths
@@ -4315,7 +4867,15 @@ def main() -> int:
                            ("launches_load_llama1b_path",
                             loads["load_llama1b"]),
                            ("launches_load_gptq_path", loads["load_gptq"]),
-                           ("launches_load_awq_path", loads["load_awq"])):
+                           ("launches_load_awq_path", loads["load_awq"]),
+                           ("launches_options_alg_ext_path",
+                            opts["alg_ext"]),
+                           ("launches_options_adam_nb_path",
+                            opts["adam_nb"]),
+                           ("launches_options_nblocks_path",
+                            opts["nblocks"]),
+                           ("launches_options_lfq_path", opts["lfq"]),
+                           ("launches_offload_path", off_launches)):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)

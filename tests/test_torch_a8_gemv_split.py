@@ -40,6 +40,7 @@ from autoround_tpu_torch.ops.qmatmul import pack_w4, unpack_w4
 from autoround_tpu_torch.ops.qmatmul_int8 import (quantize_rows_plain,
                                                   w4a8_matmul_plain,
                                                   w8a8_matmul_plain)
+from _port_threads import one_torch_thread  # noqa: F401
 
 CHUNK = 32                   # columns of one mma
 F32_ROW_TOL = 1e-5

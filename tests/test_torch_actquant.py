@@ -47,6 +47,7 @@ from autoround_tpu_torch.schemes import QuantizationScheme
 from autoround_tpu_torch.utils.convert import (config_from_jax,
                                                params_from_jax,
                                                quantize_result_to_numpy)
+from _port_threads import one_torch_thread  # noqa: F401
 
 JCFG = jl.CONFIG_PRESETS["tiny"]
 STAT_RTOL = 1e-5

@@ -35,6 +35,7 @@ from autoround_tpu_torch import AutoRound, QuantizedLlama, SamplingParams
 from autoround_tpu_torch.models import llama as tl
 from autoround_tpu_torch.serve import ContinuousBatchingEngine, Request
 from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
+from _port_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-4
 GAP_TOL = 1e-3

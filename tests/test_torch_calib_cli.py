@@ -23,6 +23,7 @@ from autoround_tpu_torch import AutoRound, envs
 from autoround_tpu_torch import cli as tcli
 from autoround_tpu_torch.quantize import calib_data as tcd
 from test_calib_data import ChatTokenizer, FakeTokenizer
+from _port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -194,10 +195,7 @@ def test_parser_device_choices(capsys):
                                                    "A14"),
     (["--model-free"], "A12"), (["--avg-bits", "3"], "A12"),
     (["--enable-awq"], "A12"), (["--enable-rotation", "r1"], "A12"),
-    (["--resume-dir", "r"], "A12"), (["--nblocks", "2"], "A5"),
-    (["--enable-lfq"], "A5"), (["--immediate-save-dir", "i"], "A5"),
-    (["--device-map", "offload"], "A5"), (["--enable-alg-ext"], "A3"),
-    (["--optimizer", "adam"], "A3"), (["--enable-norm-bias-tuning"], "A3"),
+    (["--resume-dir", "r"], "A12"),
     (["--format", "gptq"], "A13"), (["--format", "fake,gguf:q4_k_m"],
                                     "A13"),
 ])
@@ -205,6 +203,26 @@ def test_unported_flags_raise_before_work(extra, label):
     # "/nonexistent" would fail to load: the raise comes first
     with pytest.raises(NotImplementedError, match=label):
         tcli.main(["--model", "/nonexistent", "--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("extra,want", [
+    (["--nblocks", "2"], dict(nblocks=2)),
+    (["--enable-lfq"], dict(enable_lfq=True)),
+    (["--immediate-save-dir", "i"],
+     dict(immediate_save_dir="i", shard_size_bytes=4 << 30)),
+    (["--device-map", "offload"], dict(offload_params=True)),
+    (["--enable-alg-ext"], dict(enable_alg_ext=True)),
+    (["--optimizer", "adam"], dict(optimizer="adam")),
+    (["--enable-norm-bias-tuning"], dict(enable_norm_bias_tuning=True)),
+])
+def test_ported_flags_reach_the_quantizer(extra, want):
+    """The flags of the SignRound and driver options run: they pass the
+    check and map to the quantizer's keywords, as the JAX CLI maps them."""
+    args = tcli.build_parser().parse_args(["--model", "m"] + extra)
+    kw = tcli._quantize_kwargs(args)
+    tcli._check_ported(args, kw)
+    for k, v in want.items():
+        assert kw[k] == v, (k, kw)
 
 
 @pytest.mark.parametrize("sub", ["eval", "mllm"])

@@ -27,6 +27,7 @@ import torch
 from autoround_tpu.ops.decode_attention import decode_attention_ref
 from autoround_tpu_torch.ops.decode_attention import (SPLIT_TILE,
                                                       decode_splits)
+from _port_threads import one_torch_thread  # noqa: F401
 
 
 def _split_range(pos, T, window, chunk, S, split, tile=SPLIT_TILE):

@@ -43,6 +43,7 @@ from autoround_tpu_torch.utils.convert import (config_from_jax,
                                                params_from_jax,
                                                quantize_result_to_numpy,
                                                tune_params_from_jax)
+from _port_threads import one_torch_thread  # noqa: F401
 
 JCFG = jl.CONFIG_PRESETS["tiny"]
 FIRST_LOSS_RTOL = 1e-3
@@ -166,17 +167,20 @@ def test_quantize_model_entry_and_unported_options(model):
     assert sorted(res.loss_traces) == [0, 1]
     assert all(not q.qdq.requires_grad for q in res.layers.values())
     assert model["tp"]["blocks"][0] is not None      # nothing donated
-    for kw, item in ((dict(nblocks=2), "A5"), (dict(enable_awq=True), "A12"),
-                     (dict(enable_lfq=True), "A5"),
-                     (dict(resume_dir="x"), "A12"),
-                     (dict(immediate_save_dir="x"), "A5"),
-                     (dict(offload_params=True), "A5"),
-                     (dict(enable_alg_ext=True), "A3"),
-                     (dict(optimizer="adam"), "A3"),
-                     (dict(enable_norm_bias_tuning=True), "A3")):
+    for kw, item in ((dict(enable_awq=True), "A12"),
+                     (dict(resume_dir="x"), "A12")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             quantize_model(model["tp"], model["tcfg"], plan, ids,
                            QuantizeConfig(iters=2, **kw))
+    # ported since (tests/test_torch_driver_opts.py holds them against the
+    # JAX package): each runs and quantizes every layer
+    for kw in (dict(nblocks=2), dict(enable_lfq=True),
+               dict(offload_params=True), dict(enable_alg_ext=True),
+               dict(optimizer="adam"), dict(enable_norm_bias_tuning=True)):
+        res = quantize_model(model["tp"], model["tcfg"], plan, ids,
+                             QuantizeConfig(iters=2, batch_size=2, **kw))
+        assert sorted(res.layers) == sorted(plan), kw
+        assert all(np.isfinite(t).all() for t in res.loss_traces.values())
     # ported since: imatrix collection, static attention scales and a
     # plan that quantizes activations
     res = quantize_model(model["tp"], model["tcfg"], plan, ids,

@@ -37,6 +37,7 @@ from autoround_tpu.models import llama as jl
 from autoround_tpu_torch import AutoRound
 from autoround_tpu_torch.models import llama as tl
 from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
+from _port_threads import one_torch_thread  # noqa: F401
 
 PRESETS = ("tiny-qwen", "tiny-qwen3", "tiny-gemma2", "tiny-gemma3")
 TOL = 1e-4

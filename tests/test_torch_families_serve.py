@@ -42,6 +42,7 @@ from autoround_tpu_torch import AutoRound, QuantizedLlama
 from autoround_tpu_torch.serve import ContinuousBatchingEngine
 from test_torch_batching import SCHEDULE, _run_schedule
 from test_torch_families import family_pair
+from _port_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-4
 INT8_LOGIT_TOL = 1e-3

@@ -30,6 +30,7 @@ from autoround_tpu.ops.flash_attention import flash_attention_ref
 from autoround_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_dkv,
     flash_attention_bwd_dq, flash_attention_bwd_plain, flash_attention_plain)
+from _port_threads import one_torch_thread  # noqa: F401
 
 FP32_ATOL = 1e-5
 BF16_ROW_TOL = 0.5

@@ -49,6 +49,7 @@ from autoround_tpu_torch.dtypes import nvfp as tnv
 from autoround_tpu_torch.dtypes import registry as treg
 from autoround_tpu_torch.dtypes.ste import pow2
 from autoround_tpu_torch.schemes import parse_scheme as t_parse
+from _port_threads import one_torch_thread  # noqa: F401
 
 GRAD_RTOL = 1e-5
 GRAD_FLOOR = 1e-5

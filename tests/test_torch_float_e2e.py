@@ -40,6 +40,7 @@ from autoround_tpu_torch.serve.engine import e2m1_codes_from_qdq, fp8_from_qdq
 from autoround_tpu_torch.utils.convert import (config_from_jax,
                                                params_from_jax,
                                                quantize_result_to_numpy)
+from _port_threads import one_torch_thread  # noqa: F401
 
 JCFG = jl.CONFIG_PRESETS["tiny"]
 ACT_RTOL = 1e-5

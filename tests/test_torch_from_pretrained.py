@@ -46,6 +46,7 @@ from autoround_tpu_torch.utils.convert import (config_from_jax,
                                                unpack_planes)
 from autoround_tpu_torch.utils.hf_loader import _BLOCK_MAP
 from autoround_tpu_torch.utils.safetensors_io import save_file
+from _port_threads import one_torch_thread  # noqa: F401
 
 SAME_FILE_TOL = 1e-4
 FP16_SCALE_TOL = 1e-2

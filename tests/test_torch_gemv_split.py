@@ -31,6 +31,7 @@ import torch
 from autoround_tpu.ops.qmatmul import pack_w4_planes, w4a16_matmul_ref
 from autoround_tpu_torch.ops.qmatmul import (pack_w4, unpack_w4,
                                              w4a16_matmul_plain)
+from _port_threads import one_torch_thread  # noqa: F401
 
 CHUNK = 32           # columns of one lane's chunk (4-bit formats)
 STEP = 4 * CHUNK     # columns of one step

@@ -22,6 +22,7 @@ from autoround_tpu.utils import hf_loader as jh
 from autoround_tpu_torch.utils import hf_loader as th
 from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
 from autoround_tpu_torch.utils.safetensors_io import save_file
+from _port_threads import one_torch_thread  # noqa: F401
 
 _BASE = dict(vocab_size=64, hidden_size=64, intermediate_size=128,
              num_hidden_layers=2, num_attention_heads=4,

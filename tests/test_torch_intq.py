@@ -18,6 +18,7 @@ from autoround_tpu_torch.dtypes import intq as tintq
 from autoround_tpu_torch.dtypes.registry import get_quant_func
 from autoround_tpu_torch.dtypes.ste import round_ste
 from autoround_tpu_torch.schemes import parse_scheme as t_parse
+from _port_threads import one_torch_thread  # noqa: F401
 
 
 def _weights(O, I, seed):

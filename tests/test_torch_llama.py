@@ -17,6 +17,7 @@ from autoround_tpu.models import llama as jl
 from autoround_tpu_torch.models import llama as tl
 from autoround_tpu_torch.ops.flash_attention import flash_attention
 from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
+from _port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -53,6 +53,7 @@ from autoround_tpu_torch.ops.qmatmul import (pack_w4, unpack_w4,
                                              w4a16_matmul_grouped,
                                              w4a16_matmul_grouped_plain)
 from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
+from _port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 LOGIT_TOL = 1e-4

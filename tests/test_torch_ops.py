@@ -26,6 +26,7 @@ from autoround_tpu_torch.ops.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 from autoround_tpu_torch.ops.qmatmul import (pack_w4, unpack_w4, w4a16_matmul,
                                              w4a16_matmul_plain)
+from _port_threads import one_torch_thread  # noqa: F401
 
 _MASK = -0.7 * float(np.finfo(np.float32).max)
 

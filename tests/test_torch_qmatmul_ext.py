@@ -42,6 +42,7 @@ from autoround_tpu_torch.schemes import QuantizationScheme
 from autoround_tpu_torch.serve.engine import (_fuse_packed, _serving_kind,
                                               w4_asym_codes_from_qdq)
 from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
+from _port_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-4
 GAP_TOL = 1e-3

@@ -52,6 +52,7 @@ from autoround_tpu_torch.serve.engine import (_serving_kind,
 from autoround_tpu_torch.utils.convert import (config_from_jax,
                                                packed_from_jax,
                                                params_from_jax, unpack_planes)
+from _port_threads import one_torch_thread  # noqa: F401
 
 PROD_TOL = 1e-4
 BF16_RTOL = 2.0 ** -7

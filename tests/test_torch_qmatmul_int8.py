@@ -72,6 +72,7 @@ from autoround_tpu_torch.utils.convert import (config_from_jax,
                                                packed_from_jax,
                                                params_from_jax,
                                                unpack_w4_bytes)
+from _port_threads import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-4
 A8_LOGIT_REL = 0.04

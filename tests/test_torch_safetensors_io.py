@@ -22,6 +22,7 @@ from autoround_tpu.utils.hf_loader import save_hf_checkpoint as j_save_hf
 from autoround_tpu_torch.utils.hf_loader import load_hf_checkpoint
 from autoround_tpu_torch.utils.safetensors_io import (DTYPE_CODES, load_file,
                                                       SafeOpen, save_file)
+from _port_threads import one_torch_thread  # noqa: F401
 
 # the dtypes the port reads and writes (the format's codes)
 DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.float8_e4m3fn,

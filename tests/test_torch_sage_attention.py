@@ -50,6 +50,7 @@ from autoround_tpu.ops.sage_attention import (_int8_rows, sage_attention,
 from autoround_tpu_torch.ops import sage_attention as ts
 from autoround_tpu_torch.ops.sage_attention import (int8_rows,
                                                     sage_attention_plain)
+from _port_threads import one_torch_thread  # noqa: F401
 
 OUT_RTOL = 1e-5
 # (B, H, Hkv, S, T, D, causal): GQA 1 / 2 / 4 / 8, T > S, T < S (the

@@ -8,6 +8,7 @@ from autoround_tpu import schemes as jschemes
 from autoround_tpu.quantize import layer_config as jlc
 from autoround_tpu_torch import schemes as tschemes
 from autoround_tpu_torch.quantize import layer_config as tlc
+from _port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(jschemes.PRESET_SCHEMES))

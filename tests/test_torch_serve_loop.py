@@ -40,6 +40,7 @@ from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
 # the pair / engines fixtures are shared with test_torch_engine
 from test_torch_engine import (GAP_TOL, INT8_LOGIT_TOL, LOGIT_TOL,  # noqa
                                MAX_SEQ, SEQ, engines, pair)
+from _port_threads import one_torch_thread  # noqa: F401
 
 
 def _close(a, b, tol):
