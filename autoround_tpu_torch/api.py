@@ -13,7 +13,9 @@ import torch
 
 from ._device import resolve_device
 from .models.registry import ALL_PRESETS, get_model_fns
-from .quantize.layer_config import handle_special_scheme, resolve_layer_schemes
+from .quantize.layer_config import (handle_special_scheme,
+                                    prune_missing_layers,
+                                    resolve_layer_schemes)
 from .quantize.orchestrator import QuantizeConfig, QuantizeResult, quantize_model
 from .schemes import QuantizationScheme, parse_scheme
 from .utils.logger import logger
@@ -34,7 +36,7 @@ def _to_device(tree, device):
 
 class AutoRound:
     """AutoRound quantizer for the families of ``models.registry``
-    (Llama, Mixtral-style MoE).
+    (Llama, Mixtral-style MoE, DeepSeek V2 / V3 and GLM-4.6-Lite).
 
     Example::
 
@@ -123,6 +125,9 @@ class AutoRound:
             cfg.num_layers, lnames, self.scheme,
             layer_config=layer_config, ignore_layers=ignore_layers,
             quant_lm_head=quant_lm_head)
+        # heterogeneous blocks (DeepSeek's dense first-k): drop the names a
+        # block lacks
+        self.layer_schemes = prune_missing_layers(self.layer_schemes, params)
         cfg_fields = QuantizeConfig.__dataclass_fields__
         for k in kw:
             if k not in cfg_fields:

@@ -53,6 +53,15 @@ _MODEL_CONFIG_OFF = dict(UNSUPPORTED_FIELDS, r4_block=128)
 # the fields a JAX MixtralConfig adds after them, in its order
 _MOE_CONFIG_KEYS = ("num_experts", "top_k", "shared_expert_intermediate",
                     "shared_expert_gate", "norm_topk_prob")
+# the fields a JAX DeepseekConfig (and GlmMoeLiteConfig) adds, in its order
+_DEEPSEEK_CONFIG_KEYS = (
+    "q_lora_rank", "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+    "v_head_dim", "rope_interleave", "mscale", "yarn_factor",
+    "yarn_beta_fast", "yarn_beta_slow", "yarn_original_max_pos",
+    "yarn_mscale", "yarn_mscale_all_dim", "n_routed_experts",
+    "num_experts_per_tok", "moe_intermediate_size", "n_shared_experts",
+    "first_k_dense", "routed_scaling_factor", "scoring_func", "n_group",
+    "topk_group", "norm_topk_prob")
 
 
 def _flatten_params(params: Dict[str, Any],
@@ -127,9 +136,15 @@ def quantization_config(result, model_cfg, format: str = "autoround"
         "model_config": {
             k: getattr(model_cfg, k) if hasattr(model_cfg, k)
             else _MODEL_CONFIG_OFF[k]
-            for k in _MODEL_CONFIG_KEYS + tuple(
-                m for m in _MOE_CONFIG_KEYS if hasattr(model_cfg, m))},
+            for k in _MODEL_CONFIG_KEYS + _family_keys(model_cfg)},
     }
+
+
+def _family_keys(model_cfg):
+    """The fields the config's family adds after the Llama ones."""
+    if hasattr(model_cfg, "kv_lora_rank"):
+        return _DEEPSEEK_CONFIG_KEYS
+    return tuple(m for m in _MOE_CONFIG_KEYS if hasattr(model_cfg, m))
 
 
 def save_quantized(result, model_cfg, output_dir: str,

@@ -9,7 +9,7 @@ from __future__ import annotations
 from types import SimpleNamespace
 from typing import Any, Dict
 
-from . import llama, mixtral
+from . import deepseek, glm4moe, llama, mixtral
 
 __all__ = ["get_model_fns", "ALL_PRESETS"]
 
@@ -18,7 +18,18 @@ def get_model_fns(cfg) -> SimpleNamespace:
     """The namespace of model functions for a config.  Every family has:
     init_params, block_fwd, embed_fwd, final_fwd, rope_tables, model_fwd,
     block_linear_names."""
-    # MixtralConfig subclasses LlamaConfig: test it first
+    # DeepseekConfig and MixtralConfig subclass LlamaConfig: test them
+    # first (GlmMoeLiteConfig is a DeepseekConfig)
+    if isinstance(cfg, deepseek.DeepseekConfig):
+        return SimpleNamespace(
+            init_params=deepseek.init_params,
+            block_fwd=deepseek.block_fwd,
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=deepseek.rope_tables,
+            model_fwd=deepseek.model_fwd,
+            block_linear_names=deepseek.block_linear_names,
+        )
     if isinstance(cfg, mixtral.MixtralConfig):
         return SimpleNamespace(
             init_params=mixtral.init_params,
@@ -45,3 +56,5 @@ def get_model_fns(cfg) -> SimpleNamespace:
 ALL_PRESETS: Dict[str, Any] = {}
 ALL_PRESETS.update(llama.CONFIG_PRESETS)
 ALL_PRESETS.update(mixtral.CONFIG_PRESETS)
+ALL_PRESETS.update(deepseek.CONFIG_PRESETS)
+ALL_PRESETS.update(glm4moe.CONFIG_PRESETS)

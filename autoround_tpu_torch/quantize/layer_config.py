@@ -14,8 +14,10 @@ import re
 from typing import Dict, Iterable, Optional, Union
 
 from ..schemes import QuantizationScheme, parse_scheme
+from ..utils.pytree import get_by_path
 
-__all__ = ["resolve_layer_schemes", "handle_special_scheme"]
+__all__ = ["resolve_layer_schemes", "handle_special_scheme",
+           "prune_missing_layers"]
 
 
 def handle_special_scheme(scheme, linear_names, quant_lm_head: bool):
@@ -36,6 +38,24 @@ def handle_special_scheme(scheme, linear_names, quant_lm_head: bool):
                      if "experts." in ln and "shared" not in ln}
         return "W8A16", overrides, quant_lm_head
     return None
+
+
+def prune_missing_layers(plan: Dict[str, QuantizationScheme],
+                         params) -> Dict[str, QuantizationScheme]:
+    """Drop the ``blocks.*`` entries whose path is not in the params tree.
+    Models whose blocks differ (DeepSeek: the ``first_k_dense`` blocks have
+    a dense MLP, the rest expert leaves) list the union of their linear
+    names for every block; the entries a block lacks are expected, not
+    errors.  ``lm_head`` stays."""
+    out = {}
+    for n, s in plan.items():
+        if n.startswith("blocks."):
+            try:
+                get_by_path(params, n)
+            except (KeyError, IndexError, TypeError, ValueError):
+                continue
+        out[n] = s
+    return out
 
 
 def _matches(name: str, pattern: str) -> bool:

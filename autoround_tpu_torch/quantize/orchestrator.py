@@ -51,7 +51,7 @@ from ..algorithms.signround import TuneConfig, tune_block
 from ..dtypes.intq import qdq_asym_wo_round
 from ..dtypes.registry import get_quant_func
 from ..models.llama import (LlamaConfig, dual_rope_tables, layer_is_sliding,
-                            rms_norm, sliding_mask)
+                            rms_norm, rope_tables, sliding_mask)
 from ..models.registry import get_model_fns
 from ..schemes import QuantizationScheme
 from ..utils.logger import logger
@@ -319,8 +319,12 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     x_fp = mfns.embed_fwd(params, input_ids, model_cfg)
     x_q = x_fp if (cfg.enable_quanted_input and cfg.iters > 0) else None
     dev = x_fp.device
-    (cos, sin), (cosl, sinl) = dual_rope_tables(model_cfg, seqlen,
-                                                device=dev)
+    if mfns.rope_tables is rope_tables:
+        (cos, sin), (cosl, sinl) = dual_rope_tables(model_cfg, seqlen,
+                                                    device=dev)
+    else:                      # a family's own tables (DeepSeek's rope)
+        cos, sin = cosl, sinl = mfns.rope_tables(model_cfg, seqlen,
+                                                 device=dev)
     # a sliding layer takes the local tables and, past the window, the
     # sliding mask: in the FP reference, the stats passes and the tuning
     # loss alike (the JAX orchestrator's guard against tuning a sliding

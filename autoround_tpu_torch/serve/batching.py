@@ -7,6 +7,9 @@ every decode step advances all active slots, each at its own position.
 
   * fixed ``max_batch`` / ``max_seq``: one static cache, dense in
     ``cfg.dtype`` as in the JAX engine (there is no int8 batcher there);
+    for an MLA config (DeepSeek, GLM-4.6-Lite) it holds the compressed
+    latents, ``k`` (L, B, T, 1, kv_lora_rank) and ``v`` (L, B, T, 1,
+    qk_rope_head_dim), and the steps run the engine's MLA block;
   * per-slot lengths are a (B,) int32 tensor on the device: RoPE
     positions, causal masks and KV appends are vectorized over slots
     through the engine's per-slot ``_block_with_cache``, so an idle slot
@@ -27,9 +30,9 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models import llama
-from .engine import (QuantizedLlama, _block_with_cache, _decode_core,
-                     _final_fwd_packed, _make_linear_fn, _StepReplay)
+from ..models import deepseek, llama
+from .engine import (QuantizedLlama, _block_with_cache, _final_fwd_packed,
+                     _make_linear_fn, _StepReplay, decode_core)
 from .sampling import SamplingParams, sample_token
 
 __all__ = ["ContinuousBatchingEngine", "Request"]
@@ -46,7 +49,7 @@ class Request:
 
 
 class _BatchCache(NamedTuple):
-    k: torch.Tensor           # (L, B, T, n_kv, hd) in cfg.dtype
+    k: torch.Tensor           # (L, B, T, n_kv, hd) in cfg.dtype (MLA: c_kv)
     v: torch.Tensor
     lengths: torch.Tensor     # (B,) int32: where each slot writes next
     last_token: torch.Tensor  # (B,) int32: the token each slot embeds next
@@ -78,10 +81,6 @@ class ContinuousBatchingEngine:
                 f"continuous batching for {type(cfg).__name__} needs "
                 "per-slot conv / recurrent state buffers (the JAX batcher "
                 "refuses it too; the family is ROADMAP A item 5)")
-        if getattr(cfg, "kv_lora_rank", 0):
-            raise NotImplementedError(
-                "continuous batching over an MLA latent cache is not ported "
-                "yet (ROADMAP A item 5)")
         self.m = model
         self.cfg = cfg
         self.B = max_batch
@@ -93,10 +92,17 @@ class ContinuousBatchingEngine:
         self._gen = None
         if sampling is not None and not sampling.is_greedy:
             self._gen = torch.Generator(device=dev).manual_seed(sampling.seed)
-        shape = (cfg.num_layers, self.B, self.T, cfg.num_kv_heads, cfg.hd)
+        self._mla = deepseek.is_mla(cfg)
+        if self._mla:
+            kshape = (cfg.num_layers, self.B, self.T, 1, cfg.kv_lora_rank)
+            vshape = (cfg.num_layers, self.B, self.T, 1,
+                      cfg.qk_rope_head_dim)
+        else:
+            kshape = vshape = (cfg.num_layers, self.B, self.T,
+                               cfg.num_kv_heads, cfg.hd)
         self.cache = _BatchCache(
-            k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            k=torch.zeros(kshape, dtype=cfg.dtype, device=dev),
+            v=torch.zeros(vshape, dtype=cfg.dtype, device=dev),
             lengths=torch.zeros((self.B,), dtype=torch.int32, device=dev),
             last_token=torch.zeros((self.B,), dtype=torch.int32, device=dev))
         self.last_logits = torch.zeros((self.B, cfg.vocab_size),
@@ -118,13 +124,23 @@ class ContinuousBatchingEngine:
         m, cfg = self.m, self.cfg
         bucket = tokens.shape[1]
         x = llama.embed_fwd(m.params, tokens, cfg)
-        tables = llama.dual_rope_tables(cfg, bucket, device=x.device)
+        if self._mla:
+            tables = (deepseek.rope_tables(cfg, bucket, device=x.device),) * 2
+        else:
+            tables = llama.dual_rope_tables(cfg, bucket, device=x.device)
         for i in range(cfg.num_layers):
             cos, sin = tables[llama.layer_is_sliding(cfg, i)]
-            x, k_new, v_new = _block_with_cache(
-                m.params["blocks"][i], x, cos, sin, cfg, None, None,
-                _make_linear_fn(m.packed, m.packed_kinds, i), m.packed,
-                m.packed_kinds, i, m.fused_splits, m.moe_capacity_factor)
+            lf = _make_linear_fn(m.packed, m.packed_kinds, i)
+            if self._mla:
+                x, k_new, v_new = deepseek.block_with_cache(
+                    m.params["blocks"][i], x, cos, sin, cfg, None, None, lf,
+                    m.moe_capacity_factor)
+                k_new = k_new[:, :, None, :]        # (1, bucket, 1, r)
+            else:
+                x, k_new, v_new = _block_with_cache(
+                    m.params["blocks"][i], x, cos, sin, cfg, None, None, lf,
+                    m.packed, m.packed_kinds, i, m.fused_splits,
+                    m.moe_capacity_factor)
             self.cache.k[i, slot, :bucket] = k_new[0].to(cfg.dtype)
             self.cache.v[i, slot, :bucket] = v_new[0].to(cfg.dtype)
         h_last = x[:, true_len - 1:true_len]
@@ -140,7 +156,7 @@ class ContinuousBatchingEngine:
         """One decode step for every slot over the static buffers; the
         inactive slots' lengths and last tokens stay as they are."""
         c = self.cache
-        logits = _decode_core(
+        logits = decode_core(self.cfg)(
             self.m.params, self.m.packed, self.m.packed_kinds,
             self.m.fused_splits, c.last_token, c.k, c.v, c.lengths,
             cfg=self.cfg, kv_quant=None,

@@ -1,6 +1,6 @@
 """Quantized serving engine: packed weights + KV cache + decode loop
-(counterpart of ``autoround_tpu/serve/engine.py``; the Llama and Mixtral
-families, every kind of the JAX engine — ``w4a16``, ``w4a16_asym``,
+(counterpart of ``autoround_tpu/serve/engine.py``; the Llama, Mixtral and
+DeepSeek families, every kind of the JAX engine — ``w4a16``, ``w4a16_asym``,
 ``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``, ``fp8``, ``mxfp4_g32`` and
 ``mxfp4_g16`` — and ``kv_quant`` None, ``"int8"`` or ``"fp8"``).  The float kinds and
 W2A16 serve weight-only with bf16 activations, as the JAX engine does: the
@@ -28,6 +28,19 @@ The fp8 cache (e4m3 storage, per-head scales as for int8) has no kernel, as
 in the JAX engine: a step dequantizes the layer's cache and runs the plain
 masked attention.
 
+A DeepSeek (MLA) config caches the compressed latents instead: ``k`` holds
+``c_kv`` (L, B, T, 1, kv_lora_rank) and ``v`` the roped shared sub-head
+(L, B, T, 1, qk_rope_head_dim), in the model dtype or, with ``kv_quant``,
+as int8 / e4m3 codes with one scalar scale per layer and buffer (the
+prompt's amax with 1.2 headroom, ``_MLA_SCALE_HEADROOM``).  Its decode
+step is the absorbed latent attention of ``models.deepseek.
+block_with_cache`` in plain PyTorch ops, as in the JAX engine (no decode
+kernel; prefill attention is plain too: its heads are 192 / 128 wide and
+its score scale is set, so the flash gate refuses it).  ``kv_b_proj``
+serves dense from its qdq leaf (the absorbed decode reads it per head),
+the other projections pack, the routed experts stack by their gate / up /
+down triple, and nothing fuses (the JAX engine's rule for MLA).
+
 A decode step carries its position as a (B,) int32 tensor on the device,
 one entry per slot, and reads no host value that changes from step to
 step.  ``generate_scan`` (the JAX engine's on-device ``lax.scan`` loop)
@@ -54,7 +67,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..models import llama, mixtral
+from ..models import deepseek, llama, mixtral
 from ..ops._build import COUNTED
 from ..ops.decode_attention import check_decode_shape, decode_attention
 from ..ops.qmatmul import (PLANES, W4_G_MULTIPLE, pack_w4, w4_tileable,
@@ -85,6 +98,10 @@ class KVCache(NamedTuple):
 
 
 _KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+# headroom on the MLA latent-cache scales: they calibrate on the prompt but
+# also quantize every decode token's latents, which would clip at ±qmax past
+# the prompt's max
+_MLA_SCALE_HEADROOM = 1.2
 _KV_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
@@ -98,17 +115,27 @@ def _init_cache(cfg: llama.LlamaConfig, batch: int, max_seq: int,
                 n_layers: int, kv_quant: Optional[str], device) -> KVCache:
     """An empty cache (with scale buffers when quantized).  On the card an
     int8 cache is decoded by the decode kernel alone, so a head shape it
-    does not take raises here, before the prompt pass, naming the shape."""
-    if kv_quant == "int8" and torch.device(device).type == "cuda":
-        check_decode_shape(cfg.hd, cfg.num_heads, cfg.num_kv_heads)
-    shape = (n_layers, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    does not take raises here, before the prompt pass, naming the shape.
+    An MLA config gets the latent buffers (``k`` (L, B, T, 1, r), ``v``
+    (L, B, T, 1, dr)) and per-layer scalar scales (L, 1, 1, 1, 1); no
+    decode kernel runs there, so no shape is checked."""
     store = _KV_DTYPE.get(kv_quant, cfg.dtype)
+    if deepseek.is_mla(cfg):
+        kshape = (n_layers, batch, max_seq, 1, cfg.kv_lora_rank)
+        vshape = (n_layers, batch, max_seq, 1, cfg.qk_rope_head_dim)
+        sshape = (n_layers, 1, 1, 1, 1)
+    else:
+        if kv_quant == "int8" and torch.device(device).type == "cuda":
+            check_decode_shape(cfg.hd, cfg.num_heads, cfg.num_kv_heads)
+        kshape = vshape = (n_layers, batch, max_seq, cfg.num_kv_heads,
+                           cfg.hd)
+        sshape = (n_layers, 1, 1, cfg.num_kv_heads, 1)
     ks = vs = None
     if kv_quant is not None:
-        ks = torch.ones((n_layers, 1, 1, cfg.num_kv_heads, 1), device=device)
+        ks = torch.ones(sshape, device=device)
         vs = torch.ones_like(ks)
-    return KVCache(k=torch.zeros(shape, dtype=store, device=device),
-                   v=torch.zeros(shape, dtype=store, device=device),
+    return KVCache(k=torch.zeros(kshape, dtype=store, device=device),
+                   v=torch.zeros(vshape, dtype=store, device=device),
                    length=0, k_scale=ks, v_scale=vs,
                    pos=torch.zeros((batch,), dtype=torch.int32,
                                    device=device))
@@ -133,6 +160,14 @@ def _kv_dequantize(x: torch.Tensor, scale: torch.Tensor,
 
 _FUSE_GROUPS = (("qkv", ("q_proj", "k_proj", "v_proj")),
                 ("gate_up", ("gate_proj", "up_proj")))
+
+
+def _fuse(packed, cfg, kinds):
+    """:func:`_fuse_packed`, but for an MLA config, whose groups do not
+    fuse (the JAX engine's rule): (packed, {}, kinds)."""
+    if deepseek.is_mla(cfg):
+        return packed, {}, kinds
+    return _fuse_packed(packed, cfg, kinds)
 
 
 def _fuse_packed(packed: Dict[str, Tuple[torch.Tensor, ...]],
@@ -170,6 +205,7 @@ def _fuse_packed(packed: Dict[str, Tuple[torch.Tensor, ...]],
 
 
 _EXPERT_TRIPLE = ("w1", "w2", "w3")
+_DEEPSEEK_TRIPLE = ("gate_proj", "up_proj", "down_proj")
 
 
 def _stack_experts(packed, kinds, cfg):
@@ -178,18 +214,22 @@ def _stack_experts(packed, kinds, cfg):
     (E, O, K/8), scales (E, O, K/g)), kind ``w4a16_grouped``.  The MoE path
     then runs one grouped kernel launch per projection instead of E
     launches.  Per-expert entries of a stacked projection are removed (the
-    weights are held once).
+    weights are held once).  E is ``num_experts`` (Mixtral: the w1 / w2 / w3
+    triple) or ``n_routed_experts`` (DeepSeek: gate / up / down; its dense
+    first-k blocks and shared experts have nothing to stack).
 
-    Stacking is atomic per block: either all of w1 / w2 / w3 stack or none
-    does, because ``_moe_mlp`` takes the grouped route only with the full
-    triple and the per-expert route needs every per-expert entry.  A
+    Stacking is atomic per block: either the whole triple stacks or none
+    of it does, because ``_moe_mlp`` takes the grouped route only with the
+    full triple and the per-expert route needs every per-expert entry.  A
     projection stacks when every one of the E experts packed as ``w4a16``
     with identical shapes.  ``packed`` and ``kinds`` are updated in place
     and returned: a block's per-expert words are freed as its stack is
     made, so the experts are never held twice over the whole model."""
-    E = getattr(cfg, "num_experts", 0)
+    E = getattr(cfg, "num_experts", 0) or getattr(cfg, "n_routed_experts", 0)
     if not E:
         return packed, kinds
+    triple = (_DEEPSEEK_TRIPLE if isinstance(cfg, deepseek.DeepseekConfig)
+              else _EXPERT_TRIPLE)
     out = packed
     n_stacked = 0
     for bi in range(cfg.num_layers):
@@ -200,7 +240,7 @@ def _stack_experts(packed, kinds, cfg):
             shapes = {tuple(t.shape for t in packed[k]) for k in keys}
             return keys if len(shapes) == 1 else None
 
-        plan = {w: stackable(w) for w in _EXPERT_TRIPLE}
+        plan = {w: stackable(w) for w in triple}
         if any(v is None for v in plan.values()):
             if any(v is not None for v in plan.values()):
                 logger.warning(
@@ -615,6 +655,74 @@ def _decode_core(params, packed, kinds, splits, token, k, v, pos, *, cfg,
     return logits[:, 0]
 
 
+def _mla_prefill_core(params, packed, kinds, splits, input_ids, *, cfg,
+                      max_seq, kv_quant, moe_capacity_factor,
+                      a8_prompt=False, cache: Optional[KVCache] = None):
+    """The MLA prompt pass (the JAX engine's ``_mla_prefill_core``): cache
+    each layer's compressed latents, int8 / e4m3 with one scalar scale per
+    layer and buffer when quantized (max(amax over the prompt, 1e-6) * 1.2
+    / qmax: the latents are rms-normed, so one scale a layer is tight, and
+    the headroom keeps later decode tokens from clipping), and return the
+    last position's logits.  ``splits`` is unused (MLA fuses nothing);
+    ``cache`` as in :func:`_prefill_core`."""
+    B, S = input_ids.shape
+    if S > max_seq:
+        raise ValueError(f"prompt length {S} exceeds max_seq {max_seq}")
+    if cache is None:
+        cache = _init_cache(cfg, B, max_seq, cfg.num_layers, kv_quant,
+                            input_ids.device)
+    x = llama.embed_fwd(params, input_ids, cfg)
+    cos, sin = deepseek.rope_tables(cfg, S, device=x.device)
+    for i in range(cfg.num_layers):
+        x, c_kv, k_rope = deepseek.block_with_cache(
+            params["blocks"][i], x, cos, sin, cfg, None, None,
+            _make_linear_fn(packed, kinds, i, a8_prompt), moe_capacity_factor)
+        c_kv = c_kv[:, :, None, :]                    # (B, S, 1, r)
+        if kv_quant is not None:
+            qmax = _KV_QMAX[kv_quant]
+            for t, sc in ((c_kv, cache.k_scale), (k_rope, cache.v_scale)):
+                sc[i] = torch.clamp(t.float().abs().amax(), min=1e-6) * (
+                    _MLA_SCALE_HEADROOM / qmax)
+            c_kv = _kv_quantize(c_kv, cache.k_scale[i], kv_quant)
+            k_rope = _kv_quantize(k_rope, cache.v_scale[i], kv_quant)
+        cache.k[i, :, :S] = c_kv.to(cache.k.dtype)
+        cache.v[i, :, :S] = k_rope.to(cache.v.dtype)
+    cache.pos.fill_(S)
+    cache = cache._replace(length=S)
+    logits = _final_fwd_packed(params, packed, kinds, x[:, -1:], cfg)
+    return logits[:, 0], cache
+
+
+def _mla_decode_core(params, packed, kinds, splits, token, k, v, pos, *,
+                     cfg, kv_quant, moe_capacity_factor, k_scale=None,
+                     v_scale=None):
+    """One MLA decode step (the JAX engine's ``_mla_decode_core``, per-slot
+    positions as in its batcher): the absorbed latent attention of
+    ``deepseek.block_with_cache`` over the compressed cache, each layer's
+    new latents quantized with the layer's scalar scales and written in
+    place at ``pos``.  The signature is :func:`_decode_core`'s; nothing
+    here reads a host value that changes between steps (the rope tables and
+    the ``valid`` mask come from the device positions), so a CUDA graph can
+    capture it."""
+    x = llama.embed_fwd(params, token[:, None], cfg)
+    cos, sin = deepseek.rope_tables(cfg, 1, positions=pos)
+    cos, sin = cos[:, None], sin[:, None]             # (B, 1, dr)
+    for i in range(cfg.num_layers):
+        kv = ((k[i], v[i]) if kv_quant is None else
+              (kv_quant, k[i], v[i], k_scale[i].reshape(()),
+               v_scale[i].reshape(())))
+        x, _, _ = deepseek.block_with_cache(
+            params["blocks"][i], x, cos, sin, cfg, kv, pos,
+            _make_linear_fn(packed, kinds, i), moe_capacity_factor)
+    return _final_fwd_packed(params, packed, kinds, x, cfg)[:, 0]
+
+
+def decode_core(cfg) -> Callable:
+    """The decode step of ``cfg``'s family: :func:`_mla_decode_core` for
+    an MLA config, else :func:`_decode_core`."""
+    return _mla_decode_core if deepseek.is_mla(cfg) else _decode_core
+
+
 class _StepReplay:
     """A step on static buffers, run ``n`` times by :meth:`run`.
 
@@ -768,7 +876,10 @@ class QuantizedLlama:
         packed: Dict[str, Tuple[torch.Tensor, ...]] = {}
         kinds: Dict[str, str] = {}
         dense = 0
+        mla = deepseek.is_mla(cfg)
         for name, ql in result.layers.items():
+            if mla and name.endswith(".kv_b_proj"):
+                continue        # the absorbed decode reads its qdq leaf
             s = ql.scheme
             kind = _serving_kind(s)
             O, K = ql.qdq.shape
@@ -831,7 +942,7 @@ class QuantizedLlama:
                            "dense qdq weights (no packed kernel)", dense)
         params = tree_map(lambda t: t.to(dev), params)
         packed, kinds = _stack_experts(packed, kinds, cfg)
-        fused, splits, kinds = _fuse_packed(packed, cfg, kinds)
+        fused, splits, kinds = _fuse(packed, cfg, kinds)
         return cls(cfg=cfg, params=params, packed=fused, max_seq=max_seq,
                    kv_quant=kv_quant, fused_splits=splits, device=dev,
                    packed_kinds=kinds,
@@ -856,7 +967,10 @@ class QuantizedLlama:
         dense as ``(codes - zp) * scale`` in the model dtype.  The JAX
         engine packs only g >= 128 with K % (8 g) == 0 (its TPU tiles), so
         a g = 32 export packs here and serves dense there (ROADMAP C).  A
-        ``fake`` export's qdq leaves load as they are, dense."""
+        ``fake`` export's qdq leaves load as they are, dense.  A DeepSeek
+        export (its ``model_config`` holds ``kv_lora_rank``) rebuilds a
+        ``DeepseekConfig``; its ``kv_b_proj`` layers serve dense, as
+        :meth:`from_quantize_result` serves them."""
         import json
         import os
 
@@ -896,7 +1010,9 @@ class QuantizedLlama:
                                                            I)
                 del payload
                 if (meta["data_type"] == "int" and bits == 4 and meta["sym"]
-                        and isinstance(g, int) and w4_tileable(I, g)):
+                        and isinstance(g, int) and w4_tileable(I, g)
+                        and not (deepseek.is_mla(cfg)
+                                 and name.endswith(".kv_b_proj"))):
                     packed[name] = (pack_w4(codes), scales)
                     kinds[name] = "w4a16"
                     flat[name] = None
@@ -909,7 +1025,7 @@ class QuantizedLlama:
         logger.info("from_pretrained: %d packed layers, %d total quantized",
                     len(packed), len(qcfg["layers"]))
         packed, kinds = _stack_experts(packed, kinds, cfg)
-        fused, splits, kinds = _fuse_packed(packed, cfg, kinds)
+        fused, splits, kinds = _fuse(packed, cfg, kinds)
         return cls(cfg=cfg, params=params, packed=fused, max_seq=max_seq,
                    kv_quant=kv_quant, fused_splits=splits, device=dev,
                    packed_kinds=kinds,
@@ -939,7 +1055,9 @@ class QuantizedLlama:
 
     def _prefill(self, ids: torch.Tensor, cache: Optional[KVCache] = None
                  ) -> Tuple[torch.Tensor, KVCache]:
-        return _prefill_core(self.params, self.packed, self.packed_kinds,
+        core = (_mla_prefill_core if deepseek.is_mla(self.cfg)
+                else _prefill_core)
+        return core(self.params, self.packed, self.packed_kinds,
                              self.fused_splits, ids, cfg=self.cfg,
                              max_seq=self.max_seq, kv_quant=self.kv_quant,
                              moe_capacity_factor=self.moe_capacity_factor,
@@ -953,7 +1071,7 @@ class QuantizedLlama:
                                              device=self.device).long())
 
     def _decode(self, token: torch.Tensor, cache: KVCache) -> torch.Tensor:
-        return _decode_core(self.params, self.packed, self.packed_kinds,
+        return decode_core(self.cfg)(self.params, self.packed, self.packed_kinds,
                             self.fused_splits, token, cache.k, cache.v,
                             cache.pos, cfg=self.cfg, kv_quant=self.kv_quant,
                             moe_capacity_factor=self.moe_capacity_factor,

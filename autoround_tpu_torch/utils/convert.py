@@ -2,8 +2,8 @@
 
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
-``config_from_jax`` the JAX ``LlamaConfig``'s or ``MixtralConfig``'s fields
-as a dict
+``config_from_jax`` the JAX ``LlamaConfig``'s, ``MixtralConfig``'s,
+``DeepseekConfig``'s or ``GlmMoeLiteConfig``'s fields as a dict
 (``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
 JAX package: both sides then compute on the same weights.
 ``tune_params_from_jax`` carries a tuned state the same way, and
@@ -16,12 +16,14 @@ experts.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.deepseek import DeepseekConfig
+from ..models.glm4moe import GlmMoeLiteConfig
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..models.mixtral import MixtralConfig
 from ..ops.qmatmul import pack_w4
@@ -50,21 +52,29 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+# leaves the JAX package keeps in fp32 whatever the model dtype
+_FP32_LEAVES = ("e_score_correction_bias",)
+
+
 def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
     """Numpy parameter tree (dicts / lists of arrays, as the JAX package
-    lays it out) → the same tree of tensors on ``device``, in ``cfg``'s
-    dtype for floating leaves."""
+    lays it out: a MoE block's per-expert list, DeepSeek's
+    ``shared_experts`` and ``gate``) → the same tree of tensors on
+    ``device``, in ``cfg``'s dtype for floating leaves but the ones the
+    JAX package keeps in fp32 (DeepSeek's ``e_score_correction_bias``)."""
     dev = resolve_device(device)
 
-    def rec(node):
+    def rec(node, key=None):
         if isinstance(node, Mapping):
-            return {k: rec(v) for k, v in node.items()}
+            return {k: rec(v, k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return [rec(v) for v in node]
         if node is None:
             return None
         t = _leaf(node, dev)
-        return t.to(cfg.dtype) if t.is_floating_point() else t
+        if not t.is_floating_point():
+            return t
+        return t.to(torch.float32 if key in _FP32_LEAVES else cfg.dtype)
 
     return rec(tree)
 
@@ -72,15 +82,40 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
 # the ROADMAP item each unported config flag waits for
 _UNPORTED_ITEM = {"chunked_attention": "A11, models/llama4.py",
                   "online_r4": "A12, transforms/hadamard.py"}
+# fields of the JAX package's DeepSeek subclasses the port has not got:
+# GLM-5 DSA's indexer, LongCat's zero experts, DeepSeek-VL's vision tower
+_UNPORTED_DEEPSEEK_FIELDS = ("index_topk", "zero_expert_num", "v_layers")
+_DEEPSEEK_CLASSES = {None: DeepseekConfig, "DeepseekConfig": DeepseekConfig,
+                     "GlmMoeLiteConfig": GlmMoeLiteConfig}
 
 
-def config_from_jax(fields: Mapping[str, Any]) -> LlamaConfig:
-    """JAX config fields → the port's config: a ``MixtralConfig`` when the
-    fields hold ``num_experts``, else a ``LlamaConfig``; ``layer_types``
-    and ``rope_llama3`` come back as tuples.  Raises
-    ``NotImplementedError`` for a config that sets a flag the port does
-    not implement (Llama4's chunked attention, online R4)."""
-    cls = MixtralConfig if "num_experts" in fields else LlamaConfig
+def _config_class(fields: Mapping[str, Any], cls_name: Optional[str]):
+    if "kv_lora_rank" not in fields:
+        return MixtralConfig if "num_experts" in fields else LlamaConfig
+    odd = [f for f in _UNPORTED_DEEPSEEK_FIELDS if f in fields]
+    if (not fields["kv_lora_rank"] or odd
+            or cls_name not in _DEEPSEEK_CLASSES):
+        raise NotImplementedError(
+            f"{cls_name or 'DeepseekConfig'} with kv_lora_rank="
+            f"{fields['kv_lora_rank']!r}{' and ' + ', '.join(odd) if odd else ''}"
+            f" is not ported yet (ROADMAP A11: GLM-4.5's GQA form, GLM-5 "
+            f"DSA, LongCat and DeepSeek-VL wait for their own slices)")
+    return _DEEPSEEK_CLASSES[cls_name]
+
+
+def config_from_jax(fields: Mapping[str, Any],
+                    cls_name: Optional[str] = None) -> LlamaConfig:
+    """JAX config fields → the port's config: a ``DeepseekConfig`` when the
+    fields hold ``kv_lora_rank`` (a ``GlmMoeLiteConfig`` when ``cls_name``
+    says so: the two have the same fields, so an export's ``model_config``
+    comes back as a ``DeepseekConfig``, which serves the same), a
+    ``MixtralConfig`` when they hold ``num_experts``, else a
+    ``LlamaConfig``; ``layer_types`` and ``rope_llama3`` come back as
+    tuples.  Raises ``NotImplementedError`` for a config that sets a flag
+    the port does not implement (Llama4's chunked attention, online R4)
+    and for the DeepSeek subclasses it has not got (GLM-4.5's
+    ``kv_lora_rank = 0``, GLM-5 DSA, LongCat, DeepSeek-VL)."""
+    cls = _config_class(fields, cls_name)
     known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():
         if fields.get(name, off) != off:

@@ -2,7 +2,8 @@
 ``autoround_tpu/utils/hf_loader.py``) for the families the port has:
 ``llama`` (with Llama-3.1 ``rope_scaling``), ``mistral``, ``qwen2``,
 ``qwen3``, ``gemma2``, ``gemma3_text``, ``phi3``, ``mixtral``,
-``qwen2_moe`` and ``qwen3_moe``.
+``qwen2_moe``, ``qwen3_moe``, ``deepseek_v2``, ``deepseek_v3`` and
+``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture).
 
 ``load_hf_checkpoint`` reads a local safetensors checkpoint (one file, or
 shards through ``model.safetensors.index.json``) with the port's own
@@ -11,11 +12,12 @@ tensor at a time: nothing holds a second full copy on the host.
 ``save_hf_checkpoint`` writes one, byte-equal to the JAX package's for the
 same weights.  Weights keep the HF (out, in) layout, which is the port's.
 
-Not ported: the other ``model_type``s the JAX function knows (DeepSeek,
-GLM, Step-3.5, Llama4, Qwen3-Next / 3.5, MiniMax, GPT-OSS) raise naming
-ROADMAP A11, and an FP8-source checkpoint (a ``weight_scale_inv`` /
-``weight_scale`` key, or an F8 weight) raises naming A12
-(``quantize/model_free.py``).
+Not ported: the other ``model_type``s the JAX function knows (GLM-4.5,
+GLM-5 DSA, Step-3.5, Llama4, Qwen3-Next / 3.5, MiniMax, GPT-OSS) raise
+naming ROADMAP A11 (and so do GLM-5's indexer keys in a DeepSeek
+checkpoint), and an FP8-source checkpoint (a ``weight_scale_inv`` /
+``weight_scale`` key, or an F8 weight: DeepSeek-V3's published files)
+raises naming A12 (``quantize/model_free.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from .._device import resolve_device
+import numpy as np
+
+from ..models.deepseek import DeepseekConfig
+from ..models.glm4moe import GlmMoeLiteConfig
 from ..models.llama import LlamaConfig
 from ..models.mixtral import MixtralConfig
 from .logger import logger
@@ -62,8 +68,7 @@ _TOP_MAP = {
 }
 
 # model_types of the JAX loader whose models are not ported yet
-_UNPORTED_TYPES = ("deepseek_v2", "deepseek_v3", "glm4_moe_lite",
-                   "glm_moe_dsa", "step3p5", "glm4_moe", "llama4_text",
+_UNPORTED_TYPES = ("glm_moe_dsa", "step3p5", "glm4_moe", "llama4_text",
                    "qwen3_next", "qwen3_5_moe", "qwen3_5", "minimax",
                    "gpt_oss")
 _FP8_SCALES = (".weight_scale_inv", ".weight_scale")
@@ -71,13 +76,21 @@ _FP8_SCALES = (".weight_scale_inv", ".weight_scale")
 
 def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
     """HF config.json dict → ``LlamaConfig`` (per-family quirks by
-    ``model_type``), or a ``MixtralConfig`` for Mixtral-style
-    (``num_local_experts``) and Qwen2/3-MoE configs."""
+    ``model_type``), a ``MixtralConfig`` for Mixtral-style
+    (``num_local_experts``) and Qwen2/3-MoE configs, a ``DeepseekConfig``
+    for ``deepseek_v2`` / ``deepseek_v3`` and a ``GlmMoeLiteConfig`` for
+    ``glm4_moe_lite``."""
     mt = cfg.get("model_type", "llama")
     if mt in _UNPORTED_TYPES:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported yet (ROADMAP A11: the MoE "
             f"and MLA families)")
+    if mt in ("deepseek_v2", "deepseek_v3"):
+        return _deepseek_config_from_hf(cfg, mt, dtype)
+    if mt == "glm4_moe_lite":
+        # GLM-4.6-Lite: DeepSeek-V2 architecture, V3 routing defaults
+        return _deepseek_config_from_hf(cfg, "deepseek_v3", dtype,
+                                        cls=GlmMoeLiteConfig)
     gemma = mt.startswith("gemma")
     qpas = cfg.get("query_pre_attn_scalar")
     cls = LlamaConfig
@@ -152,6 +165,64 @@ def _llama3_rope(cfg: Dict[str, Any]):
     return (rs.get("factor", 8.0), rs.get("low_freq_factor", 1.0),
             rs.get("high_freq_factor", 4.0),
             rs.get("original_max_position_embeddings", 8192))
+
+
+def _deepseek_config_from_hf(cfg: Dict[str, Any], mt: str, dtype,
+                             cls=DeepseekConfig) -> DeepseekConfig:
+    """DeepSeek V2 / V3 (MLA + DeepSeek-MoE) HF config → ``cls``.  V3
+    routers score with sigmoid and the aux-free bias and group by the top-2
+    sum (``noaux_tc``); V2 with softmax (``greedy`` /
+    ``group_limited_greedy``).  Yarn's ``mscale_all_dim`` folds into the
+    score scale (``mscale``), its frequency interpolation into the yarn
+    fields (``deepseek.rope_tables``)."""
+    v3 = mt == "deepseek_v3"
+    rs = cfg.get("rope_scaling") or {}
+    is_yarn = rs.get("rope_type", rs.get("type")) == "yarn"
+    mscale = 1.0
+    if rs.get("mscale_all_dim") and rs.get("factor", 1.0) > 1.0:
+        mscale = 0.1 * rs["mscale_all_dim"] * float(
+            np.log(rs["factor"])) + 1.0
+    topk_method = cfg.get("topk_method", "noaux_tc" if v3 else "greedy")
+    grouped = topk_method in ("noaux_tc", "group_limited_greedy")
+    return cls(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg.get("num_key_value_heads",
+                             cfg["num_attention_heads"]),
+        rope_theta=cfg.get("rope_theta", 10000.0),
+        rms_eps=cfg.get("rms_norm_eps", 1e-6),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        q_lora_rank=cfg.get("q_lora_rank") or 0,
+        kv_lora_rank=cfg.get("kv_lora_rank", 512),
+        qk_nope_head_dim=cfg.get("qk_nope_head_dim", 128),
+        qk_rope_head_dim=cfg.get("qk_rope_head_dim", 64),
+        v_head_dim=cfg.get("v_head_dim", 128),
+        # V2's complex-pair rope is score-equivalent to the interleaved
+        # permutation (q and k share it)
+        rope_interleave=cfg.get("rope_interleave", True),
+        mscale=mscale,
+        yarn_factor=rs.get("factor", 0.0) if is_yarn else 0.0,
+        yarn_beta_fast=rs.get("beta_fast", 32.0),
+        yarn_beta_slow=rs.get("beta_slow", 1.0),
+        yarn_original_max_pos=rs.get("original_max_position_embeddings",
+                                     4096),
+        yarn_mscale=rs.get("mscale", 1.0),
+        yarn_mscale_all_dim=rs.get("mscale_all_dim", 0.0),
+        n_routed_experts=cfg.get("n_routed_experts") or 0,
+        num_experts_per_tok=cfg.get("num_experts_per_tok", 6),
+        moe_intermediate_size=cfg.get("moe_intermediate_size", 0),
+        n_shared_experts=cfg.get("n_shared_experts") or 0,
+        first_k_dense=cfg.get("first_k_dense_replace", 1),
+        routed_scaling_factor=cfg.get("routed_scaling_factor", 1.0),
+        scoring_func=cfg.get("scoring_func", "sigmoid" if v3 else "softmax"),
+        n_group=cfg.get("n_group", 1) if grouped else 1,
+        topk_group=cfg.get("topk_group", 1) if grouped else 1,
+        norm_topk_prob=cfg.get("norm_topk_prob", v3),
+        dtype=dtype,
+    )
 
 
 def shard_files(path: str) -> List[str]:
@@ -239,6 +310,55 @@ def _map_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,
     return False
 
 
+_DS_MAP = {
+    "self_attn.q_proj.weight": "q_proj",
+    "self_attn.q_a_proj.weight": "q_a_proj",
+    "self_attn.q_a_layernorm.weight": "q_a_layernorm",
+    "self_attn.q_b_proj.weight": "q_b_proj",
+    "self_attn.kv_a_proj_with_mqa.weight": "kv_a_proj_with_mqa",
+    "self_attn.kv_a_layernorm.weight": "kv_a_layernorm",
+    "self_attn.kv_b_proj.weight": "kv_b_proj",
+    "self_attn.o_proj.weight": "o_proj",
+    "input_layernorm.weight": "input_layernorm",
+    "post_attention_layernorm.weight": "post_attention_layernorm",
+    "mlp.gate_proj.weight": "gate_proj",
+    "mlp.up_proj.weight": "up_proj",
+    "mlp.down_proj.weight": "down_proj",
+    "mlp.gate.weight": "gate",
+    "mlp.gate.e_score_correction_bias": "e_score_correction_bias",
+}
+_DS_MLP = ("gate_proj", "up_proj", "down_proj")
+
+
+def _map_deepseek_key(sub: str, block: Dict[str, Any],
+                      arr: torch.Tensor) -> bool:
+    """Put one DeepSeek ``model.layers.<i>.<sub>`` tensor into its block
+    (routed experts into a dict by index, made a list after the load);
+    False when the key has no place in the port's tree.  GLM-5's indexer
+    keys raise: that family is not ported."""
+    if sub in _DS_MAP:
+        block[_DS_MAP[sub]] = arr
+        return True
+    if sub.startswith("self_attn.indexer."):
+        raise NotImplementedError(
+            f"{sub}: GLM-5 DSA's lightning indexer is not ported yet "
+            f"(ROADMAP A11, models/glmdsa.py)")
+    for prefix in ("mlp.experts.", "mlp.shared_experts."):
+        if not sub.startswith(prefix):
+            continue
+        rest = sub[len(prefix):]
+        if prefix == "mlp.experts.":
+            e, rest = rest.split(".", 1)
+            tgt = block.setdefault("experts", {}).setdefault(int(e), {})
+        else:
+            tgt = block.setdefault("shared_experts", {})
+        wname = rest.rsplit(".weight", 1)[0]
+        if wname in _DS_MLP:
+            tgt[wname] = arr
+            return True
+    return False
+
+
 def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
                        ) -> Tuple[Dict[str, Any], LlamaConfig]:
     """Load a local HF checkpoint directory (``config.json`` and
@@ -248,13 +368,16 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
     cfg = config_from_hf(hf_cfg, dtype)
+    deepseek = isinstance(cfg, DeepseekConfig)
     n_experts = getattr(cfg, "num_experts", 0)
     blocks = [({"experts": [dict() for _ in range(n_experts)]}
                if n_experts else dict()) for _ in range(cfg.num_layers)]
     params: Dict[str, Any] = {"blocks": blocks}
     n = 0
     for key, tensor in _iter_shards(path, dev):
-        arr = tensor.to(dtype)
+        # the router's aux-free bias stays fp32, as in the JAX package
+        arr = tensor.to(torch.float32 if key.endswith(
+            ".e_score_correction_bias") else dtype)
         del tensor
         if key in _TOP_MAP:
             params[_TOP_MAP[key]] = arr
@@ -262,13 +385,20 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
             continue
         if key.startswith("model.layers."):
             li, sub = key[len("model.layers."):].split(".", 1)
-            if _map_key(sub, blocks[int(li)], arr, cfg):
+            mapped = (_map_deepseek_key(sub, blocks[int(li)], arr)
+                      if deepseek else
+                      _map_key(sub, blocks[int(li)], arr, cfg))
+            if mapped:
                 n += 1
                 continue
         logger.debug("skipping unmapped tensor %s", key)
     if cfg.tie_embeddings:
         params.pop("lm_head", None)
-    missing = [i for i, b in enumerate(blocks) if "q_proj" not in b]
+    for b in blocks:          # DeepSeek's experts by index → a list
+        if isinstance(b.get("experts"), dict):
+            b["experts"] = [b["experts"][e] for e in sorted(b["experts"])]
+    q_key = ("q_a_proj" if deepseek and cfg.q_lora_rank else "q_proj")
+    missing = [i for i, b in enumerate(blocks) if q_key not in b]
     if missing:
         raise ValueError(f"blocks missing attention weights: {missing}")
     logger.info("loaded %d tensors from %s", n, path)
@@ -279,8 +409,12 @@ def save_hf_checkpoint(params: Dict[str, Any], cfg: LlamaConfig, path: str,
                        hf_extra: Optional[Dict[str, Any]] = None) -> str:
     """Write params as an HF-layout single-file safetensors checkpoint
     (tensors on any device; each crosses to the host alone while the file
-    is written)."""
+    is written).  A DeepSeek config writes ``deepseek_v3`` (sigmoid
+    routing) or ``deepseek_v2`` keys and config; ``hf_extra`` overrides
+    config fields (``{"model_type": "glm4_moe_lite"}`` for GLM-4.6-Lite)."""
     os.makedirs(path, exist_ok=True)
+    if isinstance(cfg, DeepseekConfig):
+        return _save_deepseek_checkpoint(params, cfg, path, hf_extra)
     inv_block = {v: k for k, v in _BLOCK_MAP.items()}
     qwen_moe = bool(getattr(cfg, "shared_expert_intermediate", 0))
     inv_q = {"w1": "gate_proj", "w3": "up_proj", "w2": "down_proj"}
@@ -339,6 +473,71 @@ def save_hf_checkpoint(params: Dict[str, Any], cfg: LlamaConfig, path: str,
     elif n_experts:
         hf_cfg["num_local_experts"] = n_experts
         hf_cfg["num_experts_per_tok"] = getattr(cfg, "top_k", 2)
+    if hf_extra:
+        hf_cfg.update(hf_extra)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=2)
+    return path
+
+
+def _save_deepseek_checkpoint(params: Dict[str, Any], cfg: DeepseekConfig,
+                              path: str,
+                              hf_extra: Optional[Dict[str, Any]] = None
+                              ) -> str:
+    """The DeepSeek writer: the JAX package's keys, their order and its
+    ``config.json`` (``deepseek_v3`` for sigmoid routing, else
+    ``deepseek_v2``)."""
+    inv = {v: k for k, v in _DS_MAP.items()}
+    tensors: Dict[str, torch.Tensor] = {}
+    for hf_key, ours in _TOP_MAP.items():
+        if params.get(ours) is not None:
+            tensors[hf_key] = params[ours]
+    for li, block in enumerate(params["blocks"]):
+        pre = f"model.layers.{li}."
+        for ours, arr in block.items():
+            if ours in inv:
+                tensors[pre + inv[ours]] = arr
+            elif ours == "experts":
+                for e, ew in enumerate(arr):
+                    for wn, wv in ew.items():
+                        tensors[f"{pre}mlp.experts.{e}.{wn}.weight"] = wv
+            elif ours == "shared_experts":
+                for wn, wv in arr.items():
+                    tensors[f"{pre}mlp.shared_experts.{wn}.weight"] = wv
+    save_file(tensors, os.path.join(path, "model.safetensors"))
+    v3 = cfg.scoring_func == "sigmoid"
+    hf_cfg = {
+        "model_type": "deepseek_v3" if v3 else "deepseek_v2",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "moe_intermediate_size": cfg.moe_intermediate_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.rms_eps,
+        "tie_word_embeddings": cfg.tie_embeddings,
+        "q_lora_rank": cfg.q_lora_rank or None,
+        "kv_lora_rank": cfg.kv_lora_rank,
+        "qk_nope_head_dim": cfg.qk_nope_head_dim,
+        "qk_rope_head_dim": cfg.qk_rope_head_dim,
+        "v_head_dim": cfg.v_head_dim,
+        "n_routed_experts": cfg.n_routed_experts or None,
+        "num_experts_per_tok": cfg.num_experts_per_tok,
+        "n_shared_experts": cfg.n_shared_experts or None,
+        "first_k_dense_replace": cfg.first_k_dense,
+        "routed_scaling_factor": cfg.routed_scaling_factor,
+        "scoring_func": cfg.scoring_func,
+        "n_group": cfg.n_group,
+        "topk_group": cfg.topk_group,
+        "norm_topk_prob": cfg.norm_topk_prob,
+        "topk_method": "noaux_tc" if v3 else (
+            "group_limited_greedy" if cfg.n_group > 1 else "greedy"),
+        "torch_dtype": "bfloat16",
+    }
+    if v3:
+        hf_cfg["rope_interleave"] = cfg.rope_interleave
     if hf_extra:
         hf_cfg.update(hf_extra)
     with open(os.path.join(path, "config.json"), "w") as f:

@@ -233,7 +233,28 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              packed (experts through row 5, attention and the lm_head
              through row 11, row 4 at 0) and served, its replayed step at
              batch 8 beside its bound, a 2-layer copy on the card.
-20. report — the card's name and power limit (nvidia-smi), a JSON line of
+20. deepseek — the DeepSeek family (MLA with its latent cache, DeepSeek-MoE
+             routing; attention is plain PyTorch, as in the JAX package):
+             row 5 against its plain version at E = 64 / 256, O or K =
+             1408 and K = 7168; (a) deepseek-v2-lite at full width and
+             ``--deepseek-layers`` of 27 (random weights, gains moved):
+             RTN W4A16 g128 with the lm_head → engine (int8 latent cache,
+             ``max_seq`` 1024, experts stacked) → ``generate`` for 8 x 512
+             prompts, 32 new tokens, rows 4 and 5 launched as the loops
+             imply; timings beside bounds; a 2-layer copy (dense + MoE) on
+             the plain versions; ``generate_scan`` against ``generate``;
+             the replayed step at batch 8 and 1 (profiled: busy share and
+             launches measured per replay); the fp8 latent cache on 4
+             layers against the bf16 one; the batcher at 8 slots against
+             each request alone.  (b) SignRound (iters 20, 16 x 512 ids) on
+             2 V2-Lite blocks (dense + MoE) → serve.  (c) deepseek-v3 at
+             full width, ``--deepseek-v3-layers`` of 61 (256 experts, the
+             sigmoid router's bias from N(0, 0.5), groups 8 / 4): RTN →
+             serve 2 x 128 prompts, a copy of the last dense and first MoE
+             block on the plain versions, the replayed step at batch 8.
+             (d) V2-Lite x 2 as an HF ``deepseek_v2`` directory → the CLI
+             → ``from_pretrained`` against the in-memory engine.
+21. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -244,8 +265,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--mx-tune-layers``, ``--llama1b-layers``, ``--sage-layers``,
 ``--qwen25-layers``, ``--qwen3-tune-layers``, ``--gemma2-layers``,
 ``--gemma3-layers``, ``--load-layers``, ``--options-layers``,
-``--nblocks-layers`` and ``--offload-layers`` cut the depth of the paths for
-a quicker run.
+``--nblocks-layers``, ``--offload-layers``, ``--deepseek-layers`` and
+``--deepseek-v3-layers`` cut the depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -1373,8 +1394,9 @@ def sage_path(n_layers):
     return launches
 
 
-def copy_engine(eng, n_layers, device):
-    """The first ``n_layers`` blocks of an engine, on ``device``."""
+def copy_engine(eng, n_layers, device, first=0):
+    """``n_layers`` blocks of an engine from block ``first`` on (renumbered
+    from 0), on ``device``."""
     import dataclasses
 
     from autoround_tpu_torch import QuantizedLlama
@@ -1387,16 +1409,25 @@ def copy_engine(eng, n_layers, device):
 
     params = tree_map(mv, {k: v for k, v in eng.params.items()
                            if k != "blocks"})
-    params["blocks"] = tree_map(mv, eng.params["blocks"][:n_layers])
-    keep = {f"blocks.{i}." for i in range(n_layers)}
-    packed = {k: tuple(mv(t) for t in e) for k, e in eng.packed.items()
-              if k == "lm_head" or any(k.startswith(p) for p in keep)}
+    params["blocks"] = tree_map(
+        mv, eng.params["blocks"][first:first + n_layers])
+    renum = {f"blocks.{first + i}.": f"blocks.{i}." for i in range(n_layers)}
+    packed = {}
+    for k, e in eng.packed.items():
+        pre = next((p for p in renum if k.startswith(p)), None)
+        if k == "lm_head" or pre is not None:
+            name = k if pre is None else renum[pre] + k[len(pre):]
+            packed[name] = tuple(mv(t) for t in e)
+    kinds = {}
+    for k, v in eng.packed_kinds.items():
+        pre = next((p for p in renum if k.startswith(p)), None)
+        if k == "lm_head" or pre is not None:
+            kinds[k if pre is None else renum[pre] + k[len(pre):]] = v
     return QuantizedLlama(cfg=cfg, params=params, packed=packed,
                           max_seq=eng.max_seq, kv_quant=eng.kv_quant,
                           fused_splits=eng.fused_splits,
                           device=torch.device(device),
-                          packed_kinds={k: eng.packed_kinds[k]
-                                        for k in packed},
+                          packed_kinds=kinds,
                           moe_capacity_factor=eng.moe_capacity_factor,
                           prefill_a8=eng.prefill_a8)
 
@@ -1480,9 +1511,9 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     weights and scales and the dense leaves once, the embedding rows
     used, the int8 cache written (prefill) or read up to pos (decode).
     A sliding layer's attention counts the keys of its window alone
-    (``_attended``)."""
-    from autoround_tpu_torch.utils.pytree import tree_map
-
+    (``_attended``).  An MLA engine takes :func:`_mla_bounds`."""
+    if getattr(eng.cfg, "kv_lora_rank", 0):
+        return _mla_bounds(eng, B, S, bw, flops_peak)
     cfg = eng.cfg
     L, hid, hd, V = cfg.num_layers, cfg.hidden_size, cfg.hd, cfg.vocab_size
     H, Hkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
@@ -1490,14 +1521,7 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     w_block = (hid * (H + 2 * Hkv) * hd + H * hd * hid
                + max(n_exp, 1) * 3 * hid * inter + n_exp * hid)
 
-    def nbytes(t):
-        return 0 if t is None else t.numel() * t.element_size()
-    w_bytes = sum(nbytes(t) for e in eng.packed.values() for t in e)
-    w_bytes += sum(nbytes(t) for k, t in eng.params.items()
-                   if k not in ("blocks", "embed_tokens"))
-    leaves = []
-    tree_map(leaves.append, eng.params["blocks"])
-    w_bytes += sum(nbytes(t) for t in leaves)
+    w_bytes = _weight_bytes(eng)
     row = hid * eng.params["embed_tokens"].element_size()
     kv_key = 2 * B * Hkv * hd                # int8 k and v of one key
     step_keys, pre_keys = _attended(cfg, S)  # summed over the layers
@@ -1510,6 +1534,60 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     step_bytes = w_bytes + B * row + step_keys * kv_key
     return (max(pre_bytes / bw, pre_ops_s) * 1e3,
             max(step_bytes / bw, step_ops_s) * 1e3)
+
+
+def _weight_bytes(eng):
+    """Bytes of every weight an engine holds but the embedding table: the
+    packed entries and the dense leaves (a step reads them all once)."""
+    from autoround_tpu_torch.utils.pytree import tree_map
+
+    def nbytes(t):
+        return 0 if t is None else t.numel() * t.element_size()
+    leaves = []
+    tree_map(leaves.append, eng.params["blocks"])
+    return (sum(nbytes(t) for e in eng.packed.values() for t in e)
+            + sum(nbytes(t) for k, t in eng.params.items()
+                  if k not in ("blocks", "embed_tokens"))
+            + sum(nbytes(t) for t in leaves))
+
+
+def _mla_bounds(eng, B, S, bw, flops_peak):
+    """``serve_bounds`` for an MLA (DeepSeek) engine: (prefill bound ms,
+    decode step bound ms at pos = S).  FLOPs: every linear weight of a
+    block for each token (a MoE block all its routed experts:
+    dense-then-mask, what the engine runs, and the router), the lm_head
+    for the last position; prefill attention decompressed (q·k over
+    qk_head_dim and p·v over v_head_dim, causal), a decode step's absorbed
+    attention (q_nope through W_k, scores over r + dr per key, the context
+    over r per key, through W_v) over the S + 1 keys it needs.  Bytes: the
+    weights once (:func:`_weight_bytes`), the embedding rows used, the
+    latent cache written (prefill) or read for S + 1 keys (decode), in its
+    element size."""
+    cfg = eng.cfg
+    L, hid, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    nh, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_head_dim,
+                      cfg.qk_rope_head_dim, cfg.v_head_dim)
+    r, ql, dq = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.qk_head_dim
+    attn = ((hid * ql + ql * nh * dq) if ql else hid * nh * dq) \
+        + hid * (r + dr) + r * nh * (dn + dv) + nh * dv * hid
+    E, mi = cfg.n_routed_experts, cfg.moe_intermediate_size
+    moe = 3 * hid * mi * (E + cfg.n_shared_experts) + E * hid
+    w_elems = sum(attn + (moe if cfg.layer_is_moe(i)
+                          else 3 * hid * cfg.intermediate_size)
+                  for i in range(L))
+    elt = eng.params["embed_tokens"].element_size()
+    row = hid * elt
+    kv_elt = 1 if eng.kv_quant else elt
+    w_bytes = _weight_bytes(eng)
+    pre_ops = (2 * B * S * w_elems + 2 * B * hid * V
+               + 2 * B * nh * (dq + dv) * (S * (S + 1) // 2) * L)
+    pre_bytes = w_bytes + B * S * row + L * B * S * (r + dr) * kv_elt
+    step_ops = (2 * B * (w_elems + hid * V)
+                + 2 * B * nh * L * (dn * r + (S + 1) * (2 * r + dr) + r * dv))
+    step_bytes = (w_bytes + B * row
+                  + L * B * (S + 1) * (r + dr) * kv_elt)
+    return (max(pre_bytes / bw, pre_ops / flops_peak) * 1e3,
+            max(step_bytes / bw, step_ops / flops_peak) * 1e3)
 
 
 def _kernel_fns():
@@ -1619,7 +1697,8 @@ def time_serving(eng, prompts, n_new, bw, flops_peak, int8_peak=None):
     return prefill_ms, step_ms
 
 
-def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL, attention=True):
+def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL, attention=True,
+               first=0):
     """A 2-layer copy of the engine, 2 prompts, 8 greedy tokens: once through
     the kernels on the card, once through the plain versions — on the CPU
     (``reference="cpu"``) or, where the CPU would take minutes (MoE: every
@@ -1634,12 +1713,13 @@ def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL, attention=True):
     an attention kernel and its plain version flips many codes and moves
     the logits by 0.26 of a row's RMS (measured, W4A8) whatever the
     products do; with the same attention on both sides the check holds the
-    int8 products alone, which are exact."""
+    int8 products alone, which are exact.  ``first``: the copy's blocks
+    start there (a DeepSeek copy that holds a dense and a MoE block)."""
     p2 = prompts[:2]
-    gpu = copy_engine(eng, 2, "cuda")
+    gpu = copy_engine(eng, 2, "cuda", first)
     lg_gpu, _ = gpu.prefill(p2)
     tok_gpu = gpu.generate(p2, max_new_tokens=8).cpu()
-    ref = gpu if reference == "card" else copy_engine(eng, 2, "cpu")
+    ref = gpu if reference == "card" else copy_engine(eng, 2, "cpu", first)
     t0 = time.time()
     with plain_versions(attention) if reference == "card" \
             else contextlib.nullcontext():
@@ -4519,6 +4599,557 @@ def offload_phase(bw, flops_peak, n_layers):
     return launches
 
 
+# ------------------------------------------------------------ the DeepSeek family
+#
+# MLA serves through the latent cache with plain PyTorch attention (no
+# kernel, as in the JAX package); the projections run row 4, the stacked
+# routed experts row 5.
+
+DS_NEW = 32
+# a DeepSeek copy on the plain versions: the router's top-k near-ties of a
+# random model (softmax over 64 experts, top 6) fall either way as for
+# Mixtral, so the MoE copy limit
+DS_COPY_ROW_TOL = MOE_COPY_ROW_TOL
+# the fp8 (e4m3) latent cache against the bf16 one, first decode step's
+# logits over 4 layers: e4m3 keeps 3 mantissa bits (2^-4 relative rounding
+# of each latent), scores and context move by that share of their size
+DS_FP8_ROW_TOL = 0.3
+# (label, E, O, K, token counts) of the grouped kernel at the DeepSeek
+# shapes: V2-Lite's experts (1408 = 11 x 128), V3's (K = 7168, E = 256)
+DS_GROUPED_SHAPES = (("v2-lite gate/up", 64, 1408, 2048, (8, 4096)),
+                     ("v2-lite down", 64, 2048, 1408, (8, 4096)),
+                     ("v3 gate/up", 256, 2048, 7168, (8, 256)),
+                     ("v3 down", 256, 7168, 2048, (8, 256)))
+# (prompt length, new tokens) of the DeepSeek batcher check: 8 requests
+# over the buckets 16..256, all in the batch at once, then 2 late joins
+DS_BATCH_REQUESTS = [(16, 8), (200, 12), (64, 10), (31, 12), (256, 8),
+                     (100, 12), (17, 10), (128, 8), (48, 6), (90, 8)]
+
+
+def ds_grouped_shapes():
+    """Row 5 at the DeepSeek shapes (E = 64 and 256, O or K = 1408, K =
+    7168) against its plain version on the card, the expert slab shared
+    (stride 0) as dense-then-mask routing hands it over; the launches are
+    not counted."""
+    from autoround_tpu_torch.ops.qmatmul import (pack_w4,
+                                                 w4a16_matmul_grouped,
+                                                 w4a16_matmul_grouped_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    tol = ROW_TOL["w4a16_matmul_grouped"]
+    with counts_kept():
+        for label, E, O, K, Ms in DS_GROUPED_SHAPES:
+            codes = torch.randint(0, 16, (E, O, K), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            qw = torch.stack([pack_w4(codes[e]) for e in range(E)])
+            del codes
+            sc = torch.rand((E, O, K // 128), generator=gen,
+                            device="cuda") * 0.01 + 0.005
+            for M in Ms:
+                x = torch.randn((M, K), generator=gen, device="cuda",
+                                dtype=torch.bfloat16).expand(E, M, K)
+                y = w4a16_matmul_grouped(x, qw, sc, 128)
+                yp = w4a16_matmul_grouped_plain(x, qw, sc, 128)
+                torch.cuda.synchronize()
+                err, rel = row_err(y, yp)
+                log(f"deepseek row 5 [{label} E={E} C={M} K={K} O={O}] "
+                    f"max_abs_err={err:.3g} row_err={rel:.4g} (tol {tol})")
+                check(rel <= tol, f"deepseek row 5 {label} C={M}: row err "
+                      f"{rel}")
+            del qw, sc, x, y, yp
+
+
+def _ds_dense(eng, result):
+    """The quantized layers an MLA engine serves dense, by reason:
+    ``kv_b_proj`` (the absorbed decode reads it per head) and any other
+    (a shape the kernel does not take)."""
+    packed = set(eng.packed)
+    kvb, other = [], []
+    for name in result.layers:
+        if name.endswith(".kv_b_proj"):
+            kvb.append(name)
+        elif ".experts." not in name and name not in packed:
+            other.append(name)
+    return kvb, other
+
+
+def _ds_want(eng, n_fwd):
+    """Launches of ``n_fwd`` forwards of an engine: each packed ``w4a16``
+    entry once (row 4), each stacked projection once (row 5), no
+    attention kernel."""
+    kinds = list(eng.packed_kinds.values())
+    return {"w4a16_matmul": kinds.count("w4a16") * n_fwd,
+            "w4a16_matmul_grouped": kinds.count("w4a16_grouped") * n_fwd}
+
+
+def _ds_counts(launches, want, label):
+    for n, c in launches.items():
+        check(c == want.get(n, 0), f"{label}: {n} launched {c} times, the "
+              f"loops imply {want.get(n, 0)}")
+
+
+def _tokens_and_logits(eng, ids, n_new):
+    """Greedy tokens of one request alone and the logits behind each."""
+    logits, cache = eng.prefill(ids)
+    out, lgs = [], []
+    for i in range(n_new):
+        lgs.append(logits[0].float().cpu())
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(int(tok[0]))
+        if i + 1 < n_new:
+            logits, cache = eng.decode_step(tok, cache)
+    return out, lgs
+
+
+def ds_batching(eng, label, seed=62):
+    """``ContinuousBatchingEngine`` over an MLA engine (max_batch 8,
+    max_seq 512, the latent slot cache in bf16): DS_BATCH_REQUESTS, 8 at
+    once and 2 joining as slots free.  Each request's prompt-pass and first
+    step logits within DS_COPY_ROW_TOL of the same prompt alone (the
+    engine at batch 1, bf16 latent cache), and its tokens equal to the
+    request alone step by step; where they first differ the batcher's
+    token must be a near-tie of the lone request's logits (within the same
+    limit of their maximum), and the comparison of that request stops
+    there.  Prints the share of tokens equal."""
+    from autoround_tpu_torch.serve import ContinuousBatchingEngine
+
+    t0 = time.time()
+    single = dataclasses.replace(eng, kv_quant=None)
+    gen = torch.Generator().manual_seed(seed)
+    prompts = [torch.randint(0, eng.cfg.vocab_size, (n,),
+                             generator=gen).tolist()
+               for n, _ in DS_BATCH_REQUESTS]
+    be = ContinuousBatchingEngine(single, max_batch=8, max_seq=512)
+    check(be.cache.k.shape[-1] == eng.cfg.kv_lora_rank
+          and be.cache.v.shape[-1] == eng.cfg.qk_rope_head_dim,
+          f"{label} batching: slot cache {tuple(be.cache.k.shape)}")
+    first, joined, rid_of = {}, {}, {}
+    waiting = list(range(len(DS_BATCH_REQUESTS)))
+    steps = 0
+    while waiting or be.pending():
+        while waiting and be._free:
+            i = waiting.pop(0)
+            rid = be.submit(prompts[i], max_new_tokens=DS_BATCH_REQUESTS[i][1])
+            rid_of[i] = rid
+            joined[rid] = be._requests[rid].slot
+            first[rid] = [be.last_logits[joined[rid]].float().cpu()]
+        be.step()
+        steps += 1
+        for rid, slot in joined.items():
+            first[rid].append(be.last_logits[slot].float().cpu())
+        joined.clear()
+    check(be._decode.graph is not None, f"{label} batching: not captured")
+    worst, agree, total = 0.0, 0, 0
+    for i, (n, n_new) in enumerate(DS_BATCH_REQUESTS):
+        rid = rid_of[i]
+        want, lgs = _tokens_and_logits(single, torch.tensor([prompts[i]]),
+                                       n_new)
+        got = be.result(rid)
+        r0 = row_err(first[rid][0], lgs[0])[1]
+        r1 = row_err(first[rid][1], lgs[1])[1]
+        worst = max(worst, r0, r1)
+        check(r0 <= DS_COPY_ROW_TOL and r1 <= DS_COPY_ROW_TOL,
+              f"{label} batching: request {i} logits row_err {r0:.4g} / "
+              f"{r1:.4g} against the request alone")
+        check(len(got) == n_new, f"{label} batching: request {i} gave "
+              f"{len(got)} tokens")
+        for j, (a, b) in enumerate(zip(got, want)):
+            if a != b:
+                lg = lgs[j]
+                gap = (lg.max() - lg[a]) / lg.pow(2).mean().sqrt()
+                check(gap.item() <= DS_COPY_ROW_TOL,
+                      f"{label} batching: request {i} step {j} token {a} "
+                      f"is {gap.item():.4g} row RMS below the lone "
+                      f"request's maximum ({b})")
+                break
+            agree += 1
+        total += n_new
+    log(f"{label} batching (max_batch 8, max_seq 512, bf16 latent slots): "
+        f"{len(DS_BATCH_REQUESTS)} requests in {steps} steps; prompt-pass "
+        f"and first-step logits against each request alone worst "
+        f"row_err={worst:.4g} (tol {DS_COPY_ROW_TOL}); tokens equal to the "
+        f"request alone up to any near-tie: {agree} of {total}; "
+        f"capture_ms={be._decode.capture_ms:.2f} "
+        f"batching_s={time.time() - t0:.1f}")
+    del be, single
+
+
+def ds_fp8_latents(eng, prompts, n_layers=4):
+    """The fp8 (e4m3) latent cache on the first ``n_layers`` blocks of an
+    MLA engine: ``generate_scan`` equal to ``generate`` (tokens and
+    launches), the cache e4m3 with per-layer scales, and the first decode
+    step's logits within DS_FP8_ROW_TOL of the same copy with the bf16
+    latent cache."""
+    t0 = time.time()
+    bf = dataclasses.replace(copy_engine(eng, n_layers, "cuda"),
+                             kv_quant=None)
+    fp8 = dataclasses.replace(bf, kv_quant="fp8")
+    toks, counts = generate_counted(fp8, prompts, 16)
+    scan_against(fp8, prompts, toks, counts, "deepseek fp8 latents")
+    st = fp8._scan_states[prompts.shape[0]]
+    check(st.cache.k.dtype == torch.float8_e4m3fn
+          and st.cache.k_scale.shape == (n_layers, 1, 1, 1, 1),
+          f"deepseek fp8 latents: cache {st.cache.k.dtype} scales "
+          f"{tuple(st.cache.k_scale.shape)}")
+    with counts_kept():
+        b1, b2, tok = _step_logits(bf, prompts)
+        f1, f2, _ = _step_logits(fp8, prompts, tok)
+    r1, r2 = row_err(f1, b1)[1], row_err(f2, b2)[1]
+    log(f"deepseek fp8 latents ({n_layers} layers): generate_scan tokens "
+        f"and launches equal generate's; against the bf16 latent cache: "
+        f"prefill row_err={r1:.4g} (the cache is written, not read), first "
+        f"decode step row_err={r2:.4g} (tol {DS_FP8_ROW_TOL}); "
+        f"fp8_s={time.time() - t0:.1f}")
+    check(r2 <= DS_FP8_ROW_TOL and r1 <= DS_FP8_ROW_TOL,
+          "deepseek fp8 latents: logits disagree with the bf16 cache")
+    del bf, fp8
+
+
+def _ds_quantize(cfg, calib, seed, label, **kw):
+    """Random weights on the card (the norm gains moved by N(0, 0.1), a
+    sigmoid router's bias drawn from N(0, 0.5)), quantized by AutoRound
+    with the blocks donated; returns (result, seconds by stage)."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.models import deepseek
+
+    t0 = time.time()
+    params = deepseek.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    perturb_gains(params, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for b in params["blocks"]:
+        if "e_score_correction_bias" in b:
+            b["e_score_correction_bias"].normal_(0.0, 0.5, generator=gen)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    t0 = time.time()
+    ar = AutoRound((params, cfg), donate_params=True, **kw)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    log(f"{label}: init_s={t_init:.2f} quantize_s={t_quant:.2f} "
+        f"({len(result.layers)} layers, {json.dumps(kw)})")
+    return result
+
+
+def deepseek_v2lite_path(bw, flops_peak, n_layers):
+    """(a) deepseek-v2-lite at full width, ``n_layers`` of 27 layers: RTN
+    W4A16 g128 with the lm_head → engine (int8 latent cache, max_seq 1024)
+    → ``generate`` for 8 x 512 prompts, 32 new tokens, launches equal to
+    the loops'; timings and bounds; a 2-layer copy (dense + MoE) on the
+    plain versions; ``generate_scan`` against ``generate``; the replayed
+    step at batch 8 and 1; the fp8 latent cache on 4 layers; the batcher
+    at 8 slots.  Returns the launches of ``generate``."""
+    from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.models import deepseek
+
+    t_path = time.time()
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(deepseek.CONFIG_PRESETS["deepseek-v2-lite"],
+                              num_layers=n_layers)
+    B, S, MAX_SEQ = 8, 512, 1024
+    gen = torch.Generator().manual_seed(63)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = _ds_quantize(cfg, calib, 64, f"deepseek-v2-lite x {n_layers}",
+                          scheme="W4A16", iters=0, quant_lm_head=True)
+    E = cfg.n_routed_experts
+    check(len(result.layers) == 4 * n_layers + 3 + (n_layers - 1)
+          * 3 * (E + 1) + 1, f"deepseek-v2-lite: {len(result.layers)} "
+          f"quantized layers")
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=MAX_SEQ,
+                                              kv_quant="int8")
+    torch.cuda.synchronize()
+    t_pack = time.time() - t0
+    kvb, other = _ds_dense(eng, result)
+    del result
+    free_device_memory()
+    for i in range(1, n_layers):
+        stacked = sorted(k for k in eng.packed
+                         if k.startswith(f"blocks.{i}.experts_stack."))
+        check(stacked == [f"blocks.{i}.experts_stack.{w}"
+                          for w in ("down_proj", "gate_proj", "up_proj")],
+              f"deepseek-v2-lite: block {i} stacked {stacked}")
+    # the dense block's MLP is 10944 = 85.5 x 128 wide: its down_proj
+    # (K = 10944) is not tileable at g = 128 and serves dense
+    check(len(kvb) == n_layers and other == ["blocks.0.down_proj"],
+          f"deepseek-v2-lite: dense layers {other}")
+    log(f"deepseek-v2-lite engine: pack_s={t_pack:.2f} {len(eng.packed)} "
+        f"packed entries ({sum(v == 'w4a16_grouped' for v in eng.packed_kinds.values())} "
+        f"expert stacks); dense: {len(kvb)} kv_b_proj (absorbed decode), "
+        f"{other} (K = {cfg.intermediate_size}, not a multiple of 128); "
+        f"resident_gb={torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"quantize_peak_gb={quant_gb:.2f} weight_gb="
+        f"{_weight_bytes(eng) / 1e9:.3f}")
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    toks, gen_counts = generate_counted(eng, prompts, DS_NEW)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    log(f"deepseek-v2-lite kernels {json.dumps(launches)} "
+        f"generate_s={t_gen:.2f}")
+    _ds_counts(launches, _ds_want(eng, DS_NEW), "deepseek-v2-lite")
+    _check_tokens(toks, B, DS_NEW, cfg.vocab_size)
+    prefill_ms, step_ms = time_serving(eng, prompts, DS_NEW, bw, flops_peak)
+    check_copy(eng, prompts, "card", DS_COPY_ROW_TOL)
+    scan_path(eng, prompts, toks, gen_counts, "deepseek-v2-lite", step_ms)
+    s8 = scan_measure(eng, B, S, bw, flops_peak, None, seed=65,
+                      label="deepseek-v2-lite", ran=(prompts, step_ms))
+    s1 = scan_measure(eng, 1, S, bw, flops_peak, None, seed=66,
+                      label="deepseek-v2-lite")
+    ds_fp8_latents(eng, prompts, min(4, n_layers))
+    ds_batching(eng, "deepseek-v2-lite")
+    log(f"deepseek-v2-lite path ({n_layers} of 27 layers): prefill_ms="
+        f"{prefill_ms:.2f} graph step B=8 {s8['step_ms']:.4f} ms (bound "
+        f"{s8['bound_ms']:.4f}, busy {s8['busy']:.3f}), B=1 "
+        f"{s1['step_ms']:.4f} ms (bound {s1['bound_ms']:.4f}, busy "
+        f"{s1['busy']:.3f}); peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} path_s="
+        f"{time.time() - t_path:.1f}")
+    del eng
+    return launches
+
+
+class _BlockLosses(logging.Handler):
+    """Collects each block's (first, best, seconds) from the orchestrator's
+    log records."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.blocks = {}
+
+    def emit(self, record):
+        if str(record.msg).startswith("block %d: loss"):
+            bi, first, best, secs = record.args
+            self.blocks[bi] = (float(first), float(best), float(secs))
+
+
+def deepseek_tune_path(n_layers=2, iters=20):
+    """(b) SignRound (``iters``, 16 x 512 ids, batch 8) on the first
+    ``n_layers`` deepseek-v2-lite blocks (block 0 dense, block 1 MoE:
+    64 experts tuned dense-then-mask), then served (int8 latent cache):
+    ``generate_scan`` equal to ``generate``.  Prints each block's first
+    and best loss and its ms a tuning step."""
+    from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.models import deepseek
+    from autoround_tpu_torch.utils.logger import logger as ar_logger
+
+    t_path = time.time()
+    cfg = dataclasses.replace(deepseek.CONFIG_PRESETS["deepseek-v2-lite"],
+                              num_layers=n_layers)
+    gen = torch.Generator().manual_seed(67)
+    calib = torch.randint(0, cfg.vocab_size, (16, 512), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    h = _BlockLosses()
+    level = ar_logger.level
+    ar_logger.addHandler(h)
+    ar_logger.setLevel(logging.INFO)
+    try:
+        result = _ds_quantize(cfg, calib, 68, f"deepseek-v2-lite tune x "
+                              f"{n_layers}", scheme="W4A16", iters=iters,
+                              batch_size=8)
+    finally:
+        ar_logger.removeHandler(h)
+        ar_logger.setLevel(level)
+    check(sorted(h.blocks) == list(range(n_layers)),
+          f"deepseek tune: losses of blocks {sorted(h.blocks)}")
+    for bi, (first, best, secs) in sorted(h.blocks.items()):
+        trace = result.loss_traces[bi]
+        check(bool(torch.isfinite(torch.as_tensor(trace)).all())
+              and best <= first,
+              f"deepseek tune: block {bi} first {first} best {best}")
+        log(f"deepseek tune block {bi} ({'MoE' if cfg.layer_is_moe(bi) else 'dense'}): "
+            f"loss first {first:.6g} best {best:.6g} "
+            f"tune_step_ms={secs / iters * 1e3:.1f} (block seconds over "
+            f"{iters} steps)")
+    tune_gb = torch.cuda.max_memory_allocated() / 1e9
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=256,
+                                              kv_quant="int8")
+    del result
+    toks, counts = generate_counted(eng, prompts, 8)
+    _check_tokens(toks, 2, 8, cfg.vocab_size)
+    scan_against(eng, prompts, toks, counts, "deepseek tune")
+    log(f"deepseek tune path: served, generate_scan tokens and launches "
+        f"equal generate's; tune_peak_gb={tune_gb:.2f} path_s="
+        f"{time.time() - t_path:.1f}")
+    del eng
+
+
+def deepseek_v3_path(bw, flops_peak, n_layers):
+    """(c) deepseek-v3 at full width, ``n_layers`` of 61 layers (3 dense
+    blocks, then MoE: 256 experts, sigmoid router with its bias from N(0,
+    0.5), groups 8 / 4, q LoRA 1536): RTN W4A16 g128 with the lm_head →
+    engine (int8 latent cache) → ``generate`` for 2 x 128 prompts, 16 new
+    tokens, launches equal to the loops'; ``generate_scan`` against it; a
+    2-layer copy holding the last dense block and the first MoE block on
+    the plain versions; the replayed step at batch 8.  Returns the
+    launches."""
+    from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.models import deepseek
+
+    t_path = time.time()
+    kernels = _kernel_fns()
+    cfg = dataclasses.replace(deepseek.CONFIG_PRESETS["deepseek-v3"],
+                              num_layers=n_layers)
+    B, S, NEW = 2, 128, 16
+    gen = torch.Generator().manual_seed(69)
+    calib = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = _ds_quantize(cfg, calib, 70, f"deepseek-v3 x {n_layers}",
+                          scheme="W4A16", iters=0, quant_lm_head=True)
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=512,
+                                              kv_quant="int8")
+    kvb, other = _ds_dense(eng, result)
+    del result
+    free_device_memory()
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(n_layers))
+    check(not other and len(kvb) == n_layers
+          and sum(v == "w4a16_grouped" for v in eng.packed_kinds.values())
+          == 3 * n_moe, f"deepseek-v3: dense {other}, kinds "
+          f"{sorted(set(eng.packed_kinds.values()))}")
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    log(f"deepseek-v3 ({n_layers} of 61 layers, {n_moe} MoE) kernels "
+        f"{json.dumps(launches)} generate_s={t_gen:.2f} resident_gb="
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} weight_gb="
+        f"{_weight_bytes(eng) / 1e9:.3f}")
+    _ds_counts(launches, _ds_want(eng, NEW), "deepseek-v3")
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    if n_moe:
+        check_copy(eng, prompts, "card", DS_COPY_ROW_TOL,
+                   first=cfg.first_k_dense - 1)
+    _, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
+    scan_path(eng, prompts, toks, gen_counts, "deepseek-v3", step_ms)
+    s8 = scan_measure(eng, 8, S, bw, flops_peak, None, seed=72,
+                      label="deepseek-v3")
+    log(f"deepseek-v3 path: graph step B=8 {s8['step_ms']:.4f} ms (bound "
+        f"{s8['bound_ms']:.4f}, busy {s8['busy']:.3f}) peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} path_s="
+        f"{time.time() - t_path:.1f}")
+    del eng
+    return launches
+
+
+def deepseek_load_path(root, n_layers=2):
+    """(d) deepseek-v2-lite x ``n_layers`` written as an HF ``deepseek_v2``
+    directory, read back (leaves bit-equal, the router's bias fp32), RTN'd
+    by ``python -m autoround_tpu_torch`` in a subprocess (its export equal
+    byte for byte to the in-process one), loaded by ``from_pretrained``
+    (a ``DeepseekConfig``, words bit-equal to the in-memory engine's,
+    ``kv_b_proj`` dense); prefill and first-step logits within the copy
+    limit of the in-memory engine with its scales rounded to fp16 (what
+    the files store), ``generate_scan`` equal to ``generate``."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.export import save_quantized
+    from autoround_tpu_torch.models import deepseek
+    from autoround_tpu_torch.utils.hf_loader import (load_hf_checkpoint,
+                                                     save_hf_checkpoint)
+
+    import numpy as np
+
+    t_path = time.time()
+    cfg = dataclasses.replace(deepseek.CONFIG_PRESETS["deepseek-v2-lite"],
+                              num_layers=n_layers)
+    gen = torch.Generator().manual_seed(73)
+    calib = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+    params = deepseek.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(74), "cuda")
+    perturb_gains(params, 74)
+    hf = root / "ds_hf"
+    save_hf_checkpoint(params, cfg, str(hf))
+    hf_cfg = json.loads((hf / "config.json").read_text())
+    lparams, lcfg = load_hf_checkpoint(str(hf))
+    want, got = _flat(params), _flat(lparams)
+    check(hf_cfg["model_type"] == "deepseek_v2" and lcfg == cfg
+          and sorted(want) == sorted(got)
+          and all(torch.equal(want[k], got[k]) for k in want),
+          "deepseek load: the loaded checkpoint differs from the written one")
+    del params, want, got
+    np.save(root / "ds_ids.npy", calib.numpy())
+    cli_out = root / "ds_cli"
+    cmd = [sys.executable, "-m", "autoround_tpu_torch", "--model", str(hf),
+           "--scheme", "W4A16", "--iters", "0", "--quant-lm-head",
+           "--dataset", str(root / "ds_ids.npy"), "--nsamples", "4",
+           "--seqlen", "256", "--format", "autoround", "--output",
+           str(cli_out)]
+    t0 = time.time()
+    # the machine has no network: the CLI's tokenizer lookup stays local
+    proc = subprocess.run(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(HERE),
+                                   HF_HUB_OFFLINE="1",
+                                   TRANSFORMERS_OFFLINE="1"),
+                          timeout=600)
+    t_cli = time.time() - t0
+    check(proc.returncode == 0, f"deepseek load: the CLI exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]}")
+    result = AutoRound((lparams, lcfg), scheme="W4A16", iters=0,
+                       quant_lm_head=True).quantize(
+        calib, mask=torch.ones(calib.shape))
+    del lparams
+    mem_out = root / "ds_mem"
+    save_quantized(result, lcfg, str(mem_out), "autoround")
+    _same_files(cli_out, mem_out, "deepseek load: the CLI's export against "
+                "the in-process one")
+    shutil.rmtree(hf)
+    shutil.rmtree(mem_out)
+    mem = QuantizedLlama.from_quantize_result(result, lcfg, max_seq=512,
+                                              kv_quant="int8")
+    del result
+    disk = QuantizedLlama.from_pretrained(str(cli_out), max_seq=512,
+                                          kv_quant="int8")
+    check(type(disk.cfg) is deepseek.DeepseekConfig
+          and disk.cfg == lcfg
+          and not any("kv_b_proj" in k for k in disk.packed),
+          f"deepseek load: from_pretrained config {disk.cfg}")
+    _packed_equal(disk, mem, "deepseek load: from_pretrained")
+    _logits_against(disk, mem, prompts, "deepseek load: from_pretrained")
+    toks, counts = generate_counted(disk, prompts, 8)
+    scan_against(disk, prompts, toks, counts, "deepseek load")
+    log(f"deepseek load path (v2-lite x {n_layers}, HF deepseek_v2 dir): "
+        f"CLI exit 0 in {t_cli:.2f} s, export equal to the in-process one, "
+        f"from_pretrained a DeepseekConfig with {len(disk.packed)} packed "
+        f"entries, generate_scan equal to generate; path_s="
+        f"{time.time() - t_path:.1f}")
+    shutil.rmtree(cli_out)
+    del disk, mem
+
+
+def deepseek_phase(bw, flops_peak, n_layers, v3_layers):
+    """The DeepSeek family: row 5 at its shapes, then paths (a)-(d)
+    (deepseek_v2lite_path, deepseek_tune_path, deepseek_v3_path,
+    deepseek_load_path); returns {"v2lite": launches, "v3": launches}."""
+    t0 = time.time()
+    ds_grouped_shapes()
+    out = {"v2lite": deepseek_v2lite_path(bw, flops_peak, n_layers)}
+    free_device_memory()
+    deepseek_tune_path()
+    free_device_memory()
+    out["v3"] = deepseek_v3_path(bw, flops_peak, v3_layers)
+    free_device_memory()
+    root = Path(tempfile.mkdtemp(prefix="ds_load_"))
+    try:
+        deepseek_load_path(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory()
+    log(f"deepseek phase: deepseek_s={time.time() - t0:.1f}")
+    return out
+
+
 def _tensors(tree):
     out = []
     from autoround_tpu_torch.utils.pytree import tree_map
@@ -4718,6 +5349,13 @@ def main() -> int:
     ap.add_argument("--load-layers", type=int, default=4,
                     help="depth of the llama3-8b HF checkpoint of the load "
                          "phase (default 4)")
+    ap.add_argument("--deepseek-layers", type=int, default=27,
+                    help="depth of the deepseek-v2-lite RTN -> serve path "
+                         "(default 27, all of them; at least 2)")
+    ap.add_argument("--deepseek-v3-layers", type=int, default=4,
+                    help="depth of the deepseek-v3 RTN -> serve path "
+                         "(default 4 of 61: the 3 dense blocks and the "
+                         "first MoE block)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4836,6 +5474,9 @@ def main() -> int:
     off_launches = offload_phase(bw, fl, args.offload_layers)
     free_device_memory()
     mark("offload")
+    ds = deepseek_phase(bw, fl, args.deepseek_layers,
+                        args.deepseek_v3_layers)
+    mark("deepseek")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths
@@ -4875,7 +5516,9 @@ def main() -> int:
                            ("launches_options_nblocks_path",
                             opts["nblocks"]),
                            ("launches_options_lfq_path", opts["lfq"]),
-                           ("launches_offload_path", off_launches)):
+                           ("launches_offload_path", off_launches),
+                           ("launches_deepseek_v2_lite_path", ds["v2lite"]),
+                           ("launches_deepseek_v3_path", ds["v3"])):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)

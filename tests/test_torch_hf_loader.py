@@ -4,7 +4,8 @@ config per family, checkpoints written by either side read by the other
 with equal leaves (exact), the port's files byte-equal to the JAX
 package's for the same weights, Phi-3's fused projections split, Mixtral
 and Qwen2-MoE round trips, tied embeddings, and the unported
-``model_type``s and FP8 sources raising by their ROADMAP item.
+``model_type``s and FP8 sources raising by their ROADMAP item.  (The
+DeepSeek family's round trips are in ``tests/test_torch_deepseek.py``.)
 """
 
 import dataclasses
@@ -63,6 +64,41 @@ HF_CONFIGS = {
     "qwen3_moe": dict(_BASE, model_type="qwen3_moe", num_experts=4,
                       num_experts_per_tok=2, moe_intermediate_size=96,
                       head_dim=32),
+    # DeepSeek-V2-Lite's published fields, yarn rope scaling included
+    "deepseek_v2": dict(_BASE, model_type="deepseek_v2",
+                        num_key_value_heads=4, q_lora_rank=None,
+                        kv_lora_rank=32, qk_nope_head_dim=16,
+                        qk_rope_head_dim=8, v_head_dim=16,
+                        n_routed_experts=8, num_experts_per_tok=6,
+                        moe_intermediate_size=48, n_shared_experts=2,
+                        first_k_dense_replace=1, routed_scaling_factor=1.0,
+                        topk_method="greedy", norm_topk_prob=False,
+                        rms_norm_eps=1e-6,
+                        rope_scaling={"type": "yarn", "factor": 40,
+                                      "beta_fast": 32, "beta_slow": 1,
+                                      "mscale": 0.707,
+                                      "mscale_all_dim": 0.707,
+                                      "original_max_position_embeddings":
+                                          4096}),
+    "deepseek_v3": dict(_BASE, model_type="deepseek_v3",
+                        num_key_value_heads=4, q_lora_rank=48,
+                        kv_lora_rank=32, qk_nope_head_dim=16,
+                        qk_rope_head_dim=8, v_head_dim=16,
+                        n_routed_experts=16, num_experts_per_tok=4,
+                        moe_intermediate_size=32, n_shared_experts=1,
+                        first_k_dense_replace=2, routed_scaling_factor=2.5,
+                        n_group=4, topk_group=2, topk_method="noaux_tc",
+                        scoring_func="sigmoid", norm_topk_prob=True,
+                        rope_interleave=True),
+    "glm4_moe_lite": dict(_BASE, model_type="glm4_moe_lite",
+                          num_key_value_heads=4, q_lora_rank=48,
+                          kv_lora_rank=32, qk_nope_head_dim=16,
+                          qk_rope_head_dim=8, v_head_dim=16,
+                          n_routed_experts=8, num_experts_per_tok=2,
+                          moe_intermediate_size=32, n_shared_experts=1,
+                          first_k_dense_replace=1,
+                          routed_scaling_factor=1.8, n_group=1,
+                          topk_group=1, norm_topk_prob=True),
 }
 
 
