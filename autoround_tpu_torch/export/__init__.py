@@ -15,6 +15,7 @@ GPTQ / AWQ layer packers their loaders read.  Files are written and read by
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any, Dict
@@ -22,7 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..models.llama import UNSUPPORTED_FIELDS
+from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..utils.logger import logger
 from ..utils.safetensors_io import load_file, save_file
 from .packing import (codes_from_qdq_torch, pack_quantized,
@@ -36,10 +37,10 @@ _UNPORTED_FORMATS = ("gptq", "awq", "llm_compressor", "mlx")
 
 # "model_config" of quantization_config.json: the JAX LlamaConfig's fields
 # in its order, so a reader finds the same keys whichever package wrote the
-# checkpoint (``layer_types`` and ``rope_llama3`` as JSON lists, as the JAX
-# package writes its tuples).  A field the port's config lacks
-# (``chunked_attention``, ``online_r4``, ``r4_block``) is written at the
-# value the port's model implements (its "off" value).
+# checkpoint (tuples as JSON lists, as the JAX package writes them).  A
+# field the port's config lacks (``online_r4``, ``r4_block``) is written at
+# the value the port's model implements (its "off" value).  A family's own
+# fields follow, in its config's order (:func:`_family_keys`).
 _MODEL_CONFIG_KEYS = (
     "vocab_size", "hidden_size", "intermediate_size", "num_layers",
     "num_heads", "num_kv_heads", "head_dim", "rope_theta", "rms_eps",
@@ -50,18 +51,6 @@ _MODEL_CONFIG_KEYS = (
     "rope_scaling_factor", "rope_llama3", "attn_scale", "online_r4",
     "r4_block", "partial_rotary_factor")
 _MODEL_CONFIG_OFF = dict(UNSUPPORTED_FIELDS, r4_block=128)
-# the fields a JAX MixtralConfig adds after them, in its order
-_MOE_CONFIG_KEYS = ("num_experts", "top_k", "shared_expert_intermediate",
-                    "shared_expert_gate", "norm_topk_prob")
-# the fields a JAX DeepseekConfig (and GlmMoeLiteConfig) adds, in its order
-_DEEPSEEK_CONFIG_KEYS = (
-    "q_lora_rank", "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
-    "v_head_dim", "rope_interleave", "mscale", "yarn_factor",
-    "yarn_beta_fast", "yarn_beta_slow", "yarn_original_max_pos",
-    "yarn_mscale", "yarn_mscale_all_dim", "n_routed_experts",
-    "num_experts_per_tok", "moe_intermediate_size", "n_shared_experts",
-    "first_k_dense", "routed_scaling_factor", "scoring_func", "n_group",
-    "topk_group", "norm_topk_prob")
 
 
 def _flatten_params(params: Dict[str, Any],
@@ -141,10 +130,12 @@ def quantization_config(result, model_cfg, format: str = "autoround"
 
 
 def _family_keys(model_cfg):
-    """The fields the config's family adds after the Llama ones."""
-    if hasattr(model_cfg, "kv_lora_rank"):
-        return _DEEPSEEK_CONFIG_KEYS
-    return tuple(m for m in _MOE_CONFIG_KEYS if hasattr(model_cfg, m))
+    """The fields the config's family adds after the Llama ones, in its
+    dataclass's order (the port's family configs declare the JAX fields in
+    the JAX order)."""
+    base = {f.name for f in dataclasses.fields(LlamaConfig)}
+    return tuple(f.name for f in dataclasses.fields(model_cfg)
+                 if f.name not in base)
 
 
 def save_quantized(result, model_cfg, output_dir: str,

@@ -14,10 +14,11 @@ Llama 2/3 (GQA, head_dim, tied embeddings, Llama-3.1 rope scaling),
 Qwen2.5 (q/k/v biases), Qwen3 (per-head q/k RMSNorm), Gemma2 / Gemma3 (the
 ``(offset + g)`` norm weight, GeGLU, the embedding normalizer, sandwich
 norms, attention and final logit softcaps, a score divisor, sliding-window
-layers, local rope tables) and partial or linear-scaled rope.  Two JAX
-flags are not ported, Llama4's ``chunked_attention`` and QuaRot's
+layers, local rope tables), Llama4's chunked attention (``chunked_attention``:
+the sliding layers attend within ``sliding_window``-sized chunks) and
+partial or linear-scaled rope.  One JAX flag is not ported, QuaRot's
 ``online_r4``: ``utils.convert.config_from_jax`` raises
-``NotImplementedError`` for a config that sets one.
+``NotImplementedError`` for a config that sets it.
 """
 
 from __future__ import annotations
@@ -65,6 +66,9 @@ class LlamaConfig:
     # or the pattern of layer_types ("sliding_attention" / "full_attention")
     sliding_window: Optional[int] = None
     layer_types: Optional[Tuple[str, ...]] = None
+    # Llama4: the sliding layers attend block-diagonally within
+    # sliding_window-sized chunks (causal inside a chunk), not a window
+    chunked_attention: bool = False
     # Gemma3 dual rope: sliding layers use a local base frequency and no
     # scaling; global layers use rope_theta / linear rope_scaling_factor
     rope_local_theta: float = 0.0
@@ -165,7 +169,7 @@ LINEAR_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj",
                "gate_proj", "up_proj", "down_proj")
 
 # JAX LlamaConfig fields the port does not implement, with their "off" value
-UNSUPPORTED_FIELDS = {"chunked_attention": False, "online_r4": False}
+UNSUPPORTED_FIELDS = {"online_r4": False}
 
 
 def block_linear_names(cfg: LlamaConfig) -> Tuple[str, ...]:
@@ -480,10 +484,15 @@ def layer_is_sliding(cfg: LlamaConfig, layer_idx: int) -> bool:
 
 def sliding_mask(cfg: LlamaConfig, S: int, device=None) -> torch.Tensor:
     """(1, 1, S, S) fp32 additive bias: causal and within the rolling
-    window (0 where a key is seen, -1e30 elsewhere)."""
+    window, or within the same chunk under ``chunked_attention`` (0 where a
+    key is seen, -1e30 elsewhere)."""
     rows = torch.arange(S, device=device)[:, None]
     cols = torch.arange(S, device=device)[None, :]
-    ok = (cols <= rows) & (cols > rows - cfg.sliding_window)
+    w = cfg.sliding_window
+    if cfg.chunked_attention:
+        ok = (cols <= rows) & (rows // w == cols // w)
+    else:
+        ok = (cols <= rows) & (cols > rows - w)
     return torch.where(ok, 0.0, -1e30)[None, None]
 
 

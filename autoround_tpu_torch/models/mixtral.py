@@ -27,10 +27,9 @@ one combine (``_combine_slots``), so where the grouped kernel gives a token's
 row the same bits whatever slab it sits in, and nothing drops, they give
 the same bits.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP item):
-expert parallelism (``expert_offset`` / ``local_experts`` /
-``expert_combine`` on the linear interceptor: A15) and Llama4's
-``scale_input`` routing (A11).
+Not ported: expert parallelism (``expert_offset`` / ``local_experts`` /
+``expert_combine`` on the linear interceptor) raises
+``NotImplementedError`` naming ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -184,15 +183,13 @@ def capacity_dispatch(h: torch.Tensor, topi: torch.Tensor,
     routed output (B, S, H) in fp32: each token's k contributions, weighted
     by ``topv`` (0 for a dropped slot), summed in slot order (the JAX
     package scatter-adds them; for k = 2 the two sums are the same
-    number)."""
+    number).  ``scale_input=True`` (Llama4 routing) multiplies each slot's
+    input row by its ``topv`` in fp32 instead, and the combine weights the
+    kept slots by 1."""
     if expert_offset or n_global_experts not in (0, E):
         raise NotImplementedError(
             "capacity_dispatch: expert parallelism (expert_offset / "
             "n_global_experts) is not ported yet (ROADMAP A15)")
-    if scale_input:
-        raise NotImplementedError(
-            "capacity_dispatch: scale_input (Llama4 routing) is not ported "
-            "yet (ROADMAP A11)")
     B, S, H = h.shape
     k = topi.shape[-1]
     N = B * S
@@ -200,13 +197,17 @@ def capacity_dispatch(h: torch.Tensor, topi: torch.Tensor,
     e_idx = topi.reshape(N * k)
     keep, pos_c = capacity_slots(topi, E, C)
     n_idx = torch.arange(N, device=h.device).repeat_interleave(k)
+    w_slot = topv.reshape(N * k).float()
+    vals = h.reshape(N, H)[n_idx]
+    if scale_input:
+        vals = (vals.float() * w_slot[:, None]).to(h.dtype)
     buf = h.new_zeros((E, C + 1, H))                 # row C: the spill row
-    buf[e_idx, pos_c] = h.reshape(N, H)[n_idx]
+    buf[e_idx, pos_c] = vals
     if grouped_apply is not None:
         ys = grouped_apply(buf[:, :C])
     else:
         ys = torch.stack([apply_expert(e, buf[e, :C]) for e in range(E)])
-    w_comb = topv.reshape(N * k).float() * keep.float()
+    w_comb = keep.float() if scale_input else w_slot * keep.float()
     return _combine_slots(ys[e_idx, pos_c.clamp(0, C - 1)].float(), w_comb,
                           k).reshape(B, S, H)
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 from types import SimpleNamespace
 from typing import Any, Dict
 
-from . import deepseek, glm4moe, llama, mixtral
+from . import deepseek, glm4moe, gptoss, llama, llama4, mixtral
 
 __all__ = ["get_model_fns", "ALL_PRESETS"]
 
@@ -17,7 +17,9 @@ __all__ = ["get_model_fns", "ALL_PRESETS"]
 def get_model_fns(cfg) -> SimpleNamespace:
     """The namespace of model functions for a config.  Every family has:
     init_params, block_fwd, embed_fwd, final_fwd, rope_tables, model_fwd,
-    block_linear_names."""
+    block_linear_names; a family whose layers differ in kind (Llama 4's
+    rope and NoPE layers) adds ``block_fwd_for(cfg, li)``, the layer's own
+    forward."""
     # DeepseekConfig and MixtralConfig subclass LlamaConfig: test them
     # first (GlmMoeLiteConfig is a DeepseekConfig)
     if isinstance(cfg, deepseek.DeepseekConfig):
@@ -40,6 +42,28 @@ def get_model_fns(cfg) -> SimpleNamespace:
             model_fwd=mixtral.model_fwd,
             block_linear_names=mixtral.block_linear_names,
         )
+    # GPT-OSS and Llama 4 subclass LlamaConfig: test them before it
+    if isinstance(cfg, llama4.Llama4Config):
+        return SimpleNamespace(
+            init_params=llama4.init_params,
+            block_fwd=llama4.block_fwd,
+            block_fwd_for=llama4.block_fwd_for,   # rope vs NoPE layers
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=llama.rope_tables,
+            model_fwd=llama4.model_fwd,
+            block_linear_names=llama4.block_linear_names,
+        )
+    if isinstance(cfg, gptoss.GptOssConfig):
+        return SimpleNamespace(
+            init_params=gptoss.init_params,
+            block_fwd=gptoss.block_fwd,
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=gptoss.rope_tables,
+            model_fwd=gptoss.model_fwd,
+            block_linear_names=gptoss.block_linear_names,
+        )
     if isinstance(cfg, llama.LlamaConfig):
         return SimpleNamespace(
             init_params=llama.init_params,
@@ -58,3 +82,5 @@ ALL_PRESETS.update(llama.CONFIG_PRESETS)
 ALL_PRESETS.update(mixtral.CONFIG_PRESETS)
 ALL_PRESETS.update(deepseek.CONFIG_PRESETS)
 ALL_PRESETS.update(glm4moe.CONFIG_PRESETS)
+ALL_PRESETS.update(gptoss.CONFIG_PRESETS)
+ALL_PRESETS.update(llama4.CONFIG_PRESETS)

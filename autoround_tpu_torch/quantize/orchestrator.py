@@ -322,24 +322,29 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     if mfns.rope_tables is rope_tables:
         (cos, sin), (cosl, sinl) = dual_rope_tables(model_cfg, seqlen,
                                                     device=dev)
-    else:                      # a family's own tables (DeepSeek's rope)
+    else:                      # a family's own tables (DeepSeek, GPT-OSS)
         cos, sin = cosl, sinl = mfns.rope_tables(model_cfg, seqlen,
                                                  device=dev)
     # a sliding layer takes the local tables and, past the window, the
-    # sliding mask: in the FP reference, the stats passes and the tuning
-    # loss alike (the JAX orchestrator's guard against tuning a sliding
-    # layer toward a full-causal reference)
+    # sliding mask (Llama 4's rope layers: the chunked mask past the
+    # chunk): in the FP reference, the stats passes and the tuning loss
+    # alike (the JAX orchestrator's guard against tuning a sliding layer
+    # toward a full-causal reference)
     smask = (sliding_mask(model_cfg, seqlen, dev)
              if model_cfg.sliding_window is not None
              and seqlen > model_cfg.sliding_window else None)
 
+    # a family whose layers differ in kind (Llama 4's rope and NoPE
+    # layers) gives each layer its own forward
+    fwd_for = getattr(mfns, "block_fwd_for", None)
+
     def block_fn_for(bi: int):
         c, s, m = ((cosl, sinl, smask) if layer_is_sliding(model_cfg, bi)
                    else (cos, sin, None))
+        fwd = fwd_for(model_cfg, bi) if fwd_for else mfns.block_fwd
 
         def block_fn(w, xb, linear_fn=None):
-            return mfns.block_fwd(w, xb, c, s, model_cfg, mask=m,
-                                  linear_fn=linear_fn)
+            return fwd(w, xb, c, s, model_cfg, mask=m, linear_fn=linear_fn)
         return block_fn
 
     stream = (_ShardStream(cfg.immediate_save_dir, cfg.shard_size_bytes)

@@ -11,9 +11,10 @@ every decode step advances all active slots, each at its own position.
     latents, ``k`` (L, B, T, 1, kv_lora_rank) and ``v`` (L, B, T, 1,
     qk_rope_head_dim), and the steps run the engine's MLA block;
   * per-slot lengths are a (B,) int32 tensor on the device: RoPE
-    positions, causal masks and KV appends are vectorized over slots
-    through the engine's per-slot ``_block_with_cache``, so an idle slot
-    costs a masked lane, not a branch;
+    positions, causal, window and chunk masks, GPT-OSS's sinks, Llama 4's
+    NoPE temperature and KV appends are vectorized over slots through the
+    engine's per-slot ``_block_with_cache``, so an idle slot costs a
+    masked lane, not a branch;
   * prompts pad to buckets (powers of two by default), as in JAX;
   * on the card the decode step runs over static buffers (the cache, the
     lengths, the last tokens, the active mask) and is captured once per
@@ -32,7 +33,7 @@ import torch
 
 from ..models import deepseek, llama
 from .engine import (QuantizedLlama, _block_with_cache, _final_fwd_packed,
-                     _make_linear_fn, _StepReplay, decode_core)
+                     _make_linear_fn, _StepReplay, decode_core, rope_pair)
 from .sampling import SamplingParams, sample_token
 
 __all__ = ["ContinuousBatchingEngine", "Request"]
@@ -124,10 +125,7 @@ class ContinuousBatchingEngine:
         m, cfg = self.m, self.cfg
         bucket = tokens.shape[1]
         x = llama.embed_fwd(m.params, tokens, cfg)
-        if self._mla:
-            tables = (deepseek.rope_tables(cfg, bucket, device=x.device),) * 2
-        else:
-            tables = llama.dual_rope_tables(cfg, bucket, device=x.device)
+        tables = rope_pair(cfg, bucket, device=x.device)
         for i in range(cfg.num_layers):
             cos, sin = tables[llama.layer_is_sliding(cfg, i)]
             lf = _make_linear_fn(m.packed, m.packed_kinds, i)

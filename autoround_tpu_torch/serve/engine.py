@@ -1,14 +1,16 @@
 """Quantized serving engine: packed weights + KV cache + decode loop
-(counterpart of ``autoround_tpu/serve/engine.py``; the Llama, Mixtral and
-DeepSeek families, every kind of the JAX engine — ``w4a16``, ``w4a16_asym``,
-``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``, ``fp8``, ``mxfp4_g32`` and
-``mxfp4_g16`` — and ``kv_quant`` None, ``"int8"`` or ``"fp8"``).  The float kinds and
+(counterpart of ``autoround_tpu/serve/engine.py``; the Llama, Mixtral,
+DeepSeek, GPT-OSS and Llama 4 families, every kind of the JAX engine —
+``w4a16``, ``w4a16_asym``, ``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``,
+``fp8``, ``mxfp4_g32`` and ``mxfp4_g16`` — and ``kv_quant`` None,
+``"int8"`` or ``"fp8"``).  The float kinds and
 W2A16 serve weight-only with bf16 activations, as the JAX engine does: the
 act fields of their schemes shape calibration and tuning only.  The Llama
 family's flags (Qwen2.5's q/k/v biases, qk-norm, Gemma's norm offset,
 sandwich norms, GeGLU, embedding scale and softcaps, sliding windows and
-local rope) ride the one block of ``_block_with_cache``, as in the JAX
-engine.
+local rope), GPT-OSS's sinks, yarn tables and biased experts, and Llama
+4's chunked rope layers and temperature-scaled NoPE layers ride the one
+block of ``_block_with_cache``, as in the JAX engine.
 
 Packed weights stay resident on the card and every packed projection
 runs its kind's kernel (``ops/qmatmul``, ``ops/qmatmul_ext``,
@@ -67,7 +69,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..models import deepseek, llama, mixtral
+from ..models import deepseek, gptoss, llama, llama4, mixtral
+from ..models.registry import get_model_fns
 from ..ops._build import COUNTED
 from ..ops.decode_attention import check_decode_shape, decode_attention
 from ..ops.qmatmul import (PLANES, W4_G_MULTIPLE, pack_w4, w4_tileable,
@@ -204,8 +207,8 @@ def _fuse_packed(packed: Dict[str, Tuple[torch.Tensor, ...]],
     return out, splits, kinds
 
 
-_EXPERT_TRIPLE = ("w1", "w2", "w3")
-_DEEPSEEK_TRIPLE = ("gate_proj", "up_proj", "down_proj")
+# the projection triples the MoE functions take the grouped route on
+_EXPERT_TRIPLES = (("w1", "w2", "w3"), ("gate_proj", "up_proj", "down_proj"))
 
 
 def _stack_experts(packed, kinds, cfg):
@@ -214,9 +217,11 @@ def _stack_experts(packed, kinds, cfg):
     (E, O, K/8), scales (E, O, K/g)), kind ``w4a16_grouped``.  The MoE path
     then runs one grouped kernel launch per projection instead of E
     launches.  Per-expert entries of a stacked projection are removed (the
-    weights are held once).  E is ``num_experts`` (Mixtral: the w1 / w2 / w3
-    triple) or ``n_routed_experts`` (DeepSeek: gate / up / down; its dense
-    first-k blocks and shared experts have nothing to stack).
+    weights are held once).  E is ``num_experts`` or ``n_routed_experts``;
+    the triple is the one a block's expert entries name (Mixtral's w1 / w2
+    / w3, or gate / up / down: DeepSeek, GPT-OSS, Llama 4), as in the JAX
+    engine; a block without expert entries (DeepSeek's first-k, Llama 4's
+    dense layers) and the shared experts have nothing to stack.
 
     Stacking is atomic per block: either the whole triple stacks or none
     of it does, because ``_moe_mlp`` takes the grouped route only with the
@@ -228,11 +233,16 @@ def _stack_experts(packed, kinds, cfg):
     E = getattr(cfg, "num_experts", 0) or getattr(cfg, "n_routed_experts", 0)
     if not E:
         return packed, kinds
-    triple = (_DEEPSEEK_TRIPLE if isinstance(cfg, deepseek.DeepseekConfig)
-              else _EXPERT_TRIPLE)
     out = packed
     n_stacked = 0
     for bi in range(cfg.num_layers):
+        prefix = f"blocks.{bi}.experts."
+        names = {k[len(prefix):].split(".", 1)[1] for k in packed
+                 if k.startswith(prefix)}
+        triple = next((t for t in _EXPERT_TRIPLES if names & set(t)), None)
+        if triple is None:
+            continue
+
         def stackable(wname):
             keys = [f"blocks.{bi}.experts.{e}.{wname}" for e in range(E)]
             if not all(kinds.get(k) == "w4a16" for k in keys):
@@ -479,12 +489,19 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
                       block_idx, splits, moe_capacity_factor: float = 0.0,
                       a8_prompt: bool = False):
     """Decoder block returning (out, k_new, v_new), the JAX engine's
-    ``_block_with_cache`` (``engine.py:1179-1385``) for the Llama and
-    Mixtral families: q/k/v biases after the fused qkv product, qk-norm,
-    sandwich norms, the MLP's activation, and on a sliding layer the
-    window (the sliding mask at prefill, the decode kernel's ``window`` or
-    the dense cache's mask at decode).  A block that holds ``experts``
-    runs the Mixtral routed MLP through ``lf``.
+    ``_block_with_cache`` (``engine.py:1179-1385``) for the Llama,
+    Mixtral, GPT-OSS and Llama 4 families: q/k/v biases after the fused qkv
+    product, qk-norm, sandwich norms, the MLP's activation, and on a
+    sliding layer the window, or the chunk under ``chunked_attention``
+    (the sliding mask at prefill, the decode kernel's ``window`` /
+    ``chunk`` or the dense cache's mask at decode).  GPT-OSS's ``sinks``
+    join every softmax (``gptoss.sink_attention`` at prefill and over the
+    dense caches, the decode kernel's ``sinks`` over the int8 cache).
+    Llama 4's rope layers interleave, rope and L2-norm q / k; its NoPE
+    layers skip rope and scale q by the temperature at the device
+    positions (``llama4.attention_inputs``).  A block that holds
+    ``experts`` runs its family's routed MLP through ``lf`` (Llama 4's,
+    GPT-OSS's by its ``router_bias``, else Mixtral's).
 
     ``kv`` None: prompt pass (causal attention over the prompt; ``pos``
     None).  At decode ``pos`` is the (B,) int32 position vector on the
@@ -516,19 +533,32 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     q = q.reshape(B, S, cfg.num_heads, hd)
     k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
-    if cfg.qk_norm:
-        q = llama.rms_norm(q, weights["q_norm"], cfg.rms_eps, off)
-        k = llama.rms_norm(k, weights["k_norm"], cfg.rms_eps, off)
-    q = llama.apply_rope(q, cos, sin)
-    k = llama.apply_rope(k, cos, sin)
+    l4 = isinstance(cfg, llama4.Llama4Config)
+    if l4:
+        q, k = llama4.attention_inputs(
+            q, k, cfg, llama4.layer_uses_rope(cfg, block_idx), cos, sin, pos)
+    else:
+        if cfg.qk_norm:
+            q = llama.rms_norm(q, weights["q_norm"], cfg.rms_eps, off)
+            k = llama.rms_norm(k, weights["k_norm"], cfg.rms_eps, off)
+        q = llama.apply_rope(q, cos, sin)
+        k = llama.apply_rope(k, cos, sin)
 
-    # a Python constant per layer: a captured step bakes in no tensor
+    # Python constants per layer: a captured step bakes in no tensor
     window = (cfg.sliding_window if llama.layer_is_sliding(cfg, block_idx)
               else None)
+    chunk = window if cfg.chunked_attention else None
+    sinks = weights.get("sinks")
+
+    def attend(q, k, v, mask):
+        if sinks is not None:
+            return gptoss.sink_attention(q, k, v, mask, sinks, cfg)
+        return llama.attention(q, k, v, mask, cfg)
+
     if kv is None:
         mask = (llama.sliding_mask(cfg, S, x.device)
                 if window is not None and S > window else None)
-        attn = llama.attention(q, k, v, mask, cfg)
+        attn = attend(q, k, v, mask)
     elif isinstance(kv[0], str):               # the "int8_cache" tuple
         _, k_all, v_all, ks, vs = kv           # int8 (B, T, n_kv, hd)
         slots = torch.arange(B, device=x.device)
@@ -539,7 +569,8 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
         attn = decode_attention(q[:, 0].contiguous(), k_all, v_all, pos,
                                 ks.reshape(-1), vs.reshape(-1), sm,
                                 softcap=cfg.attn_logit_softcap or 0.0,
-                                window=window)[:, None]
+                                window=None if chunk else window,
+                                chunk=chunk, sinks=sinks)[:, None]
     else:
         k_all, v_all = kv                      # (B, T, n_kv, hd)
         slots = torch.arange(B, device=x.device)
@@ -547,16 +578,21 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
         v_all[slots, pos] = v[:, 0].to(v_all.dtype)
         idx = torch.arange(k_all.shape[1], device=x.device)
         valid = idx[None, :] <= pos[:, None]
-        if window is not None:
+        if chunk is not None:
+            valid = valid & (idx[None, :] >= torch.div(
+                pos[:, None], chunk, rounding_mode="floor") * chunk)
+        elif window is not None:
             valid = valid & (idx[None, :] > pos[:, None] - window)
         bias = torch.where(valid, 0.0, -1e30)[:, None, None, :]
-        attn = llama.attention(q, k_all, v_all, bias, cfg)
+        attn = attend(q, k_all, v_all, bias)
     attn_out = lf("o_proj", attn.reshape(B, S, -1), weights["o_proj"],
                   weights.get("o_bias"))
     x, h = llama._post_attention(weights, x, attn_out, cfg)
     if "experts" in weights:
-        mlp_out = mixtral._moe_mlp(weights, h, cfg, lf,
-                                   capacity_factor=moe_capacity_factor)
+        moe = (llama4._moe_mlp if l4 else gptoss._moe_mlp
+               if "router_bias" in weights else mixtral._moe_mlp)
+        mlp_out = moe(weights, h, cfg, lf,
+                      capacity_factor=moe_capacity_factor)
     else:
         act = llama._act(cfg.hidden_act)
         fused_gu = _fused_call(packed, kinds, splits, block_idx, "gate_up",
@@ -568,6 +604,19 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
             up = lf("up_proj", h, weights["up_proj"])
         mlp_out = lf("down_proj", gate * up, weights["down_proj"])
     return llama._residual_mlp(weights, x, mlp_out, cfg), k, v
+
+
+def rope_pair(cfg, S: int, positions: Optional[torch.Tensor] = None,
+              device=None):
+    """(global, local) (cos, sin) pairs from the family's ``rope_tables``
+    (the JAX engine's ``get_model_fns(cfg).rope_tables``): Gemma3's
+    local tables where the config has them, else one pair twice
+    (GPT-OSS's and DeepSeek's own yarn tables among them)."""
+    fn = get_model_fns(cfg).rope_tables
+    if fn is llama.rope_tables:
+        return llama.dual_rope_tables(cfg, S, positions, device)
+    pair = fn(cfg, S, positions=positions, device=device)
+    return pair, pair
 
 
 def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
@@ -586,7 +635,7 @@ def _prefill_core(params, packed, kinds, splits, input_ids, *, cfg, max_seq,
         cache = _init_cache(cfg, B, max_seq, cfg.num_layers, kv_quant,
                             input_ids.device)
     x = llama.embed_fwd(params, input_ids, cfg)
-    tables = llama.dual_rope_tables(cfg, S, device=x.device)
+    tables = rope_pair(cfg, S, device=x.device)
     k_scales, v_scales = [], []
     for i in range(cfg.num_layers):
         cos, sin = tables[llama.layer_is_sliding(cfg, i)]
@@ -633,7 +682,7 @@ def _decode_core(params, packed, kinds, splits, token, k, v, pos, *, cfg,
     x = llama.embed_fwd(params, token[:, None], cfg)
     # both table pairs from the device positions: (B, 1, rd), a row a slot
     tables = [(c[:, None], s[:, None])
-              for c, s in llama.dual_rope_tables(cfg, 1, positions=pos)]
+              for c, s in rope_pair(cfg, 1, positions=pos)]
     slots = torch.arange(x.shape[0], device=x.device)
     for i in range(cfg.num_layers):
         cos, sin = tables[llama.layer_is_sliding(cfg, i)]
@@ -875,7 +924,7 @@ class QuantizedLlama:
         params["blocks"] = list(result.params["blocks"])
         packed: Dict[str, Tuple[torch.Tensor, ...]] = {}
         kinds: Dict[str, str] = {}
-        dense = 0
+        dense: Dict[str, int] = {}           # layers served dense, by reason
         mla = deepseek.is_mla(cfg)
         for name, ql in result.layers.items():
             if mla and name.endswith(".kv_b_proj"):
@@ -896,7 +945,12 @@ class QuantizedLlama:
                     else 32)
             if (kind is None or not tileable
                     or (kind == "w4a16_asym" and ql.zp is None)):
-                dense += 1
+                why = (f"no packed kernel for scheme {s.data_type}{s.bits}"
+                       f"g{s.group_size}" if kind is None else
+                       f"{kind}: no zero point" if tileable else
+                       f"{kind}: shape ({O},{K}) not kernel-tileable at "
+                       f"g={g}")
+                dense[why] = dense.get(why, 0) + 1
                 continue
             scale = ql.scale.to(device=dev, dtype=torch.float32).contiguous()
             if kind == "w4a16_asym":
@@ -938,8 +992,13 @@ class QuantizedLlama:
             elif name == "lm_head" and params.get("lm_head") is not None:
                 params["lm_head"] = None
         if dense:
+            # named by reason, as the JAX engine's warning: a user who asked
+            # for a packed engine learns which layers stay dense, and why
             logger.warning("serving engine: %d quantized layer(s) serve as "
-                           "dense qdq weights (no packed kernel)", dense)
+                           "dense qdq weights (no packed kernel): %s",
+                           sum(dense.values()),
+                           "; ".join(f"{n}x {why}"
+                                     for why, n in sorted(dense.items())))
         params = tree_map(lambda t: t.to(dev), params)
         packed, kinds = _stack_experts(packed, kinds, cfg)
         fused, splits, kinds = _fuse(packed, cfg, kinds)

@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
 ``config_from_jax`` the JAX ``LlamaConfig``'s, ``MixtralConfig``'s,
-``DeepseekConfig``'s or ``GlmMoeLiteConfig``'s fields as a dict
+``DeepseekConfig``'s, ``GlmMoeLiteConfig``'s, ``GptOssConfig``'s or
+``Llama4Config``'s fields as a dict
 (``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
 JAX package: both sides then compute on the same weights.
 ``tune_params_from_jax`` carries a tuned state the same way, and
@@ -24,7 +25,9 @@ import torch
 from .._device import resolve_device
 from ..models.deepseek import DeepseekConfig
 from ..models.glm4moe import GlmMoeLiteConfig
+from ..models.gptoss import GptOssConfig
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
+from ..models.llama4 import Llama4Config
 from ..models.mixtral import MixtralConfig
 from ..ops.qmatmul import pack_w4
 from ..ops.qmatmul_ext import pack_w2
@@ -53,7 +56,7 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 # leaves the JAX package keeps in fp32 whatever the model dtype
-_FP32_LEAVES = ("e_score_correction_bias",)
+_FP32_LEAVES = ("e_score_correction_bias", "sinks", "router_bias")
 
 
 def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
@@ -61,7 +64,8 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
     lays it out: a MoE block's per-expert list, DeepSeek's
     ``shared_experts`` and ``gate``) → the same tree of tensors on
     ``device``, in ``cfg``'s dtype for floating leaves but the ones the
-    JAX package keeps in fp32 (DeepSeek's ``e_score_correction_bias``)."""
+    JAX package keeps in fp32 (DeepSeek's ``e_score_correction_bias``,
+    GPT-OSS's ``sinks`` and ``router_bias``)."""
     dev = resolve_device(device)
 
     def rec(node, key=None):
@@ -80,8 +84,7 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
 
 
 # the ROADMAP item each unported config flag waits for
-_UNPORTED_ITEM = {"chunked_attention": "A11, models/llama4.py",
-                  "online_r4": "A12, transforms/hadamard.py"}
+_UNPORTED_ITEM = {"online_r4": "A12, transforms/hadamard.py"}
 # fields of the JAX package's DeepSeek subclasses the port has not got:
 # GLM-5 DSA's indexer, LongCat's zero experts, DeepSeek-VL's vision tower
 _UNPORTED_DEEPSEEK_FIELDS = ("index_topk", "zero_expert_num", "v_layers")
@@ -91,6 +94,10 @@ _DEEPSEEK_CLASSES = {None: DeepseekConfig, "DeepseekConfig": DeepseekConfig,
 
 def _config_class(fields: Mapping[str, Any], cls_name: Optional[str]):
     if "kv_lora_rank" not in fields:
+        if "swiglu_limit" in fields:
+            return GptOssConfig
+        if "no_rope_layers" in fields:
+            return Llama4Config
         return MixtralConfig if "num_experts" in fields else LlamaConfig
     odd = [f for f in _UNPORTED_DEEPSEEK_FIELDS if f in fields]
     if (not fields["kv_lora_rank"] or odd
@@ -109,12 +116,13 @@ def config_from_jax(fields: Mapping[str, Any],
     fields hold ``kv_lora_rank`` (a ``GlmMoeLiteConfig`` when ``cls_name``
     says so: the two have the same fields, so an export's ``model_config``
     comes back as a ``DeepseekConfig``, which serves the same), a
-    ``MixtralConfig`` when they hold ``num_experts``, else a
-    ``LlamaConfig``; ``layer_types`` and ``rope_llama3`` come back as
+    ``GptOssConfig`` when they hold ``swiglu_limit``, a ``Llama4Config``
+    when they hold ``no_rope_layers``, a ``MixtralConfig`` when they hold
+    ``num_experts``, else a ``LlamaConfig``; the tuple fields come back as
     tuples.  Raises ``NotImplementedError`` for a config that sets a flag
-    the port does not implement (Llama4's chunked attention, online R4)
-    and for the DeepSeek subclasses it has not got (GLM-4.5's
-    ``kv_lora_rank = 0``, GLM-5 DSA, LongCat, DeepSeek-VL)."""
+    the port does not implement (online R4) and for the DeepSeek
+    subclasses it has not got (GLM-4.5's ``kv_lora_rank = 0``, GLM-5 DSA,
+    LongCat, DeepSeek-VL)."""
     cls = _config_class(fields, cls_name)
     known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():
@@ -124,7 +132,8 @@ def config_from_jax(fields: Mapping[str, Any],
                 f"(ROADMAP {_UNPORTED_ITEM[name]})")
     kw: Dict[str, Any] = {k: v for k, v in fields.items()
                           if k in known and k != "dtype"}
-    for name in ("rope_llama3", "layer_types"):
+    for name in ("rope_llama3", "layer_types", "moe_layers",
+                 "no_rope_layers"):
         if kw.get(name) is not None:
             kw[name] = tuple(kw[name])
     if "dtype" in fields:

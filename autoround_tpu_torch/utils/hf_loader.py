@@ -2,8 +2,12 @@
 ``autoround_tpu/utils/hf_loader.py``) for the families the port has:
 ``llama`` (with Llama-3.1 ``rope_scaling``), ``mistral``, ``qwen2``,
 ``qwen3``, ``gemma2``, ``gemma3_text``, ``phi3``, ``mixtral``,
-``qwen2_moe``, ``qwen3_moe``, ``deepseek_v2``, ``deepseek_v3`` and
-``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture).
+``qwen2_moe``, ``qwen3_moe``, ``deepseek_v2``, ``deepseek_v3``,
+``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture), ``gpt_oss``
+and ``llama4_text``.  The last two store their experts fused (``gate_up_proj``
+(E, H, 2I), ``down_proj`` (E, I, H)); they split into per-expert (O, I)
+leaves at load (GPT-OSS's gate / up columns interleaved, Llama 4's in
+halves), so each expert quantizes alone.
 
 ``load_hf_checkpoint`` reads a local safetensors checkpoint (one file, or
 shards through ``model.safetensors.index.json``) with the port's own
@@ -13,11 +17,15 @@ tensor at a time: nothing holds a second full copy on the host.
 same weights.  Weights keep the HF (out, in) layout, which is the port's.
 
 Not ported: the other ``model_type``s the JAX function knows (GLM-4.5,
-GLM-5 DSA, Step-3.5, Llama4, Qwen3-Next / 3.5, MiniMax, GPT-OSS) raise
-naming ROADMAP A11 (and so do GLM-5's indexer keys in a DeepSeek
-checkpoint), and an FP8-source checkpoint (a ``weight_scale_inv`` /
-``weight_scale`` key, or an F8 weight: DeepSeek-V3's published files)
-raises naming A12 (``quantize/model_free.py``).
+GLM-5 DSA, Step-3.5, Qwen3-Next / 3.5, MiniMax) raise naming ROADMAP A11
+(and so do GLM-5's indexer keys in a DeepSeek checkpoint), and an
+FP8-source checkpoint (a ``weight_scale_inv`` / ``weight_scale`` key, or an
+F8 weight: DeepSeek-V3's published files) raises naming A12
+(``quantize/model_free.py``).  The JAX package has no HF writer for GPT-OSS
+or Llama 4 (its ``save_hf_checkpoint`` writes their trees with Llama /
+Mixtral keys and drops the sinks and biases); :func:`save_hf_checkpoint`
+refuses them, and GPT-OSS's native MXFP4 expert tensors (``*_blocks`` /
+``*_scales``) are not read, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ import numpy as np
 
 from ..models.deepseek import DeepseekConfig
 from ..models.glm4moe import GlmMoeLiteConfig
+from ..models.gptoss import GptOssConfig
 from ..models.llama import LlamaConfig
+from ..models.llama4 import Llama4Config
 from ..models.mixtral import MixtralConfig
 from .logger import logger
 from .safetensors_io import SafeOpen, save_file
@@ -68,9 +78,8 @@ _TOP_MAP = {
 }
 
 # model_types of the JAX loader whose models are not ported yet
-_UNPORTED_TYPES = ("glm_moe_dsa", "step3p5", "glm4_moe", "llama4_text",
-                   "qwen3_next", "qwen3_5_moe", "qwen3_5", "minimax",
-                   "gpt_oss")
+_UNPORTED_TYPES = ("glm_moe_dsa", "step3p5", "glm4_moe", "qwen3_next",
+                   "qwen3_5_moe", "qwen3_5", "minimax")
 _FP8_SCALES = (".weight_scale_inv", ".weight_scale")
 
 
@@ -78,8 +87,9 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
     """HF config.json dict → ``LlamaConfig`` (per-family quirks by
     ``model_type``), a ``MixtralConfig`` for Mixtral-style
     (``num_local_experts``) and Qwen2/3-MoE configs, a ``DeepseekConfig``
-    for ``deepseek_v2`` / ``deepseek_v3`` and a ``GlmMoeLiteConfig`` for
-    ``glm4_moe_lite``."""
+    for ``deepseek_v2`` / ``deepseek_v3``, a ``GlmMoeLiteConfig`` for
+    ``glm4_moe_lite``, a ``Llama4Config`` for ``llama4_text`` and a
+    ``GptOssConfig`` for ``gpt_oss``."""
     mt = cfg.get("model_type", "llama")
     if mt in _UNPORTED_TYPES:
         raise NotImplementedError(
@@ -91,6 +101,10 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
         # GLM-4.6-Lite: DeepSeek-V2 architecture, V3 routing defaults
         return _deepseek_config_from_hf(cfg, "deepseek_v3", dtype,
                                         cls=GlmMoeLiteConfig)
+    if mt == "llama4_text":
+        return _llama4_config_from_hf(cfg, dtype)
+    if mt == "gpt_oss":
+        return _gptoss_config_from_hf(cfg, dtype)
     gemma = mt.startswith("gemma")
     qpas = cfg.get("query_pre_attn_scalar")
     cls = LlamaConfig
@@ -165,6 +179,81 @@ def _llama3_rope(cfg: Dict[str, Any]):
     return (rs.get("factor", 8.0), rs.get("low_freq_factor", 1.0),
             rs.get("high_freq_factor", 4.0),
             rs.get("original_max_position_embeddings", 8192))
+
+
+def _llama4_config_from_hf(cfg: Dict[str, Any], dtype) -> Llama4Config:
+    """Llama 4 text HF config → ``Llama4Config``: the chunk size rides on
+    ``sliding_window`` with ``chunked_attention`` (the default), HF's
+    ``chunked_attention`` layer type maps to ``sliding_attention``, and
+    ``moe_layers`` defaults to every ``interleave_moe_layer_step``-th
+    layer."""
+    lt = cfg.get("layer_types")
+    step = cfg.get("interleave_moe_layer_step", 1)
+    return Llama4Config(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        intermediate_size_mlp=cfg.get("intermediate_size_mlp",
+                                      cfg["intermediate_size"]),
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg.get("num_key_value_heads",
+                             cfg["num_attention_heads"]),
+        head_dim=cfg.get("head_dim"),
+        rope_theta=cfg.get("rope_theta", 500000.0),
+        rms_eps=cfg.get("rms_norm_eps", 1e-5),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        attn_bias=cfg.get("attention_bias", False),
+        num_experts=cfg.get("num_local_experts", 16),
+        top_k=cfg.get("num_experts_per_tok", 1),
+        moe_layers=tuple(cfg.get("moe_layers")
+                         or range(step - 1, cfg["num_hidden_layers"], step)),
+        no_rope_layers=tuple(cfg.get("no_rope_layers") or ()),
+        sliding_window=cfg.get("attention_chunk_size", 8192),
+        layer_types=(tuple("sliding_attention" if t == "chunked_attention"
+                           else t for t in lt) if lt else None),
+        use_qk_norm=cfg.get("use_qk_norm", True),
+        attn_temperature_tuning=bool(cfg.get("attn_temperature_tuning",
+                                             True)),
+        floor_scale=cfg.get("floor_scale", 8192.0),
+        temp_attn_scale=cfg.get("attn_scale", 0.1),
+        rope_llama3=_llama3_rope(cfg),
+        dtype=dtype,
+    )
+
+
+def _gptoss_config_from_hf(cfg: Dict[str, Any], dtype) -> GptOssConfig:
+    """GPT-OSS HF config → ``GptOssConfig`` (YaRN from ``rope_scaling``;
+    ``layer_types`` is not read: the even layers slide, as in the JAX
+    loader)."""
+    rs = cfg.get("rope_scaling") or {}
+    return GptOssConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg.get("num_key_value_heads",
+                             cfg["num_attention_heads"]),
+        head_dim=cfg.get("head_dim"),
+        rope_theta=cfg.get("rope_theta", 150000.0),
+        rms_eps=cfg.get("rms_norm_eps", 1e-5),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        attn_bias=cfg.get("attention_bias", True),
+        sliding_window=cfg.get("sliding_window"),
+        num_experts=cfg.get("num_local_experts", 32),
+        top_k=cfg.get("num_experts_per_tok", 4),
+        yarn_factor=(rs.get("factor", 0.0)
+                     if rs.get("rope_type") == "yarn" else 0.0),
+        yarn_beta_fast=rs.get("beta_fast", 32.0),
+        yarn_beta_slow=rs.get("beta_slow", 1.0),
+        yarn_original_max_pos=rs.get(
+            "original_max_position_embeddings",
+            cfg.get("max_position_embeddings", 4096)),
+        yarn_truncate=rs.get("truncate", True),
+        yarn_attention_factor=rs.get("attention_factor") or 0.0,
+        dtype=dtype,
+    )
 
 
 def _deepseek_config_from_hf(cfg: Dict[str, Any], mt: str, dtype,
@@ -359,6 +448,82 @@ def _map_deepseek_key(sub: str, block: Dict[str, Any],
     return False
 
 
+def _map_llama4_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,
+                    n_experts: int) -> bool:
+    """Llama 4 ``feed_forward`` keys; the fused expert tensors split into
+    per-expert (O, I) leaves (``gate_up_proj`` (E, H, 2I) in gate / up
+    halves, ``down_proj`` (E, I, H): HF ``Llama4TextExperts``)."""
+    simple = {"feed_forward.gate_proj.weight": "gate_proj",
+              "feed_forward.up_proj.weight": "up_proj",
+              "feed_forward.down_proj.weight": "down_proj",
+              "feed_forward.router.weight": "router"}
+    if sub in simple:
+        block[simple[sub]] = arr
+        return True
+    if sub.startswith("feed_forward.shared_expert."):
+        wname = sub.split(".")[2]
+        if wname in ("gate_proj", "up_proj", "down_proj"):
+            block.setdefault("shared_expert", {})[wname] = arr
+            return True
+        return False
+    if not sub.startswith("feed_forward.experts."):
+        return False
+    exps = block.setdefault("experts", [dict() for _ in range(n_experts)])
+    name = sub[len("feed_forward.experts."):]
+    if name == "gate_up_proj":                 # (E, H, 2I) in halves
+        I = arr.shape[2] // 2
+        for e in range(n_experts):
+            exps[e]["gate_proj"] = arr[e, :, :I].t().contiguous()
+            exps[e]["up_proj"] = arr[e, :, I:].t().contiguous()
+    elif name == "down_proj":                  # (E, I, H)
+        for e in range(n_experts):
+            exps[e]["down_proj"] = arr[e].t().contiguous()
+    else:
+        return False
+    return True
+
+
+def _map_gptoss_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,
+                    n_experts: int) -> bool:
+    """GPT-OSS's own keys: the sinks, the router and its bias, o_proj's
+    bias, and the fused experts split into per-expert leaves
+    (``gate_up_proj`` (E, H, 2I) with gate / up columns interleaved, gate
+    even and up odd, HF ``GptOssExperts``; their biases likewise)."""
+    simple = {"self_attn.sinks": "sinks",
+              "mlp.router.weight": "router",
+              "mlp.router.bias": "router_bias",
+              "self_attn.o_proj.bias": "o_bias"}
+    if sub in simple:
+        block[simple[sub]] = arr
+        return True
+    if not sub.startswith("mlp.experts."):
+        return False
+    exps = block.setdefault("experts", [dict() for _ in range(n_experts)])
+    name = sub[len("mlp.experts."):]
+    if name == "gate_up_proj":                 # (E, H, 2I)
+        for e in range(n_experts):
+            exps[e]["gate_proj"] = arr[e, :, 0::2].t().contiguous()
+            exps[e]["up_proj"] = arr[e, :, 1::2].t().contiguous()
+    elif name == "gate_up_proj_bias":          # (E, 2I)
+        for e in range(n_experts):
+            exps[e]["gate_bias"] = arr[e, 0::2].contiguous()
+            exps[e]["up_bias"] = arr[e, 1::2].contiguous()
+    elif name == "down_proj":                  # (E, I, H)
+        for e in range(n_experts):
+            exps[e]["down_proj"] = arr[e].t().contiguous()
+    elif name == "down_proj_bias":             # (E, H)
+        for e in range(n_experts):
+            exps[e]["down_bias"] = arr[e].clone()
+    else:
+        return False
+    return True
+
+
+# the fp32 leaves of each family (loaded in fp32 whatever ``dtype``)
+_FP32_KEYS = (".e_score_correction_bias", ".self_attn.sinks",
+              ".mlp.router.bias")
+
+
 def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
                        ) -> Tuple[Dict[str, Any], LlamaConfig]:
     """Load a local HF checkpoint directory (``config.json`` and
@@ -369,15 +534,19 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
         hf_cfg = json.load(f)
     cfg = config_from_hf(hf_cfg, dtype)
     deepseek = isinstance(cfg, DeepseekConfig)
+    family_map = (_map_gptoss_key if isinstance(cfg, GptOssConfig)
+                  else _map_llama4_key if isinstance(cfg, Llama4Config)
+                  else None)
     n_experts = getattr(cfg, "num_experts", 0)
     blocks = [({"experts": [dict() for _ in range(n_experts)]}
                if n_experts else dict()) for _ in range(cfg.num_layers)]
     params: Dict[str, Any] = {"blocks": blocks}
     n = 0
     for key, tensor in _iter_shards(path, dev):
-        # the router's aux-free bias stays fp32, as in the JAX package
-        arr = tensor.to(torch.float32 if key.endswith(
-            ".e_score_correction_bias") else dtype)
+        # DeepSeek's aux-free bias, GPT-OSS's sinks and router bias stay
+        # fp32, as in the JAX package
+        arr = tensor.to(torch.float32 if key.endswith(_FP32_KEYS)
+                        else dtype)
         del tensor
         if key in _TOP_MAP:
             params[_TOP_MAP[key]] = arr
@@ -385,18 +554,22 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
             continue
         if key.startswith("model.layers."):
             li, sub = key[len("model.layers."):].split(".", 1)
-            mapped = (_map_deepseek_key(sub, blocks[int(li)], arr)
-                      if deepseek else
-                      _map_key(sub, blocks[int(li)], arr, cfg))
+            block = blocks[int(li)]
+            mapped = (_map_deepseek_key(sub, block, arr) if deepseek else
+                      (family_map is not None
+                       and family_map(sub, block, arr, n_experts))
+                      or _map_key(sub, block, arr, cfg))
             if mapped:
                 n += 1
                 continue
         logger.debug("skipping unmapped tensor %s", key)
     if cfg.tie_embeddings:
         params.pop("lm_head", None)
-    for b in blocks:          # DeepSeek's experts by index → a list
-        if isinstance(b.get("experts"), dict):
+    for b in blocks:
+        if isinstance(b.get("experts"), dict):  # DeepSeek's, by index
             b["experts"] = [b["experts"][e] for e in sorted(b["experts"])]
+        elif isinstance(cfg, Llama4Config) and not any(b.get("experts", ())):
+            b.pop("experts", None)      # a dense layer's empty expert list
     q_key = ("q_a_proj" if deepseek and cfg.q_lora_rank else "q_proj")
     missing = [i for i, b in enumerate(blocks) if q_key not in b]
     if missing:
@@ -412,6 +585,11 @@ def save_hf_checkpoint(params: Dict[str, Any], cfg: LlamaConfig, path: str,
     is written).  A DeepSeek config writes ``deepseek_v3`` (sigmoid
     routing) or ``deepseek_v2`` keys and config; ``hf_extra`` overrides
     config fields (``{"model_type": "glm4_moe_lite"}`` for GLM-4.6-Lite)."""
+    if isinstance(cfg, (GptOssConfig, Llama4Config)):
+        raise NotImplementedError(
+            f"save_hf_checkpoint: no HF writer for {type(cfg).__name__} (the "
+            f"JAX package has none either: its writer drops the sinks and "
+            f"biases and fuses nothing)")
     os.makedirs(path, exist_ok=True)
     if isinstance(cfg, DeepseekConfig):
         return _save_deepseek_checkpoint(params, cfg, path, hf_extra)

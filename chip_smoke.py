@@ -160,8 +160,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 16. family  — the Llama-family flags at full width (random weights, every
              norm gain and bias moved off its initial value; W4A16 g128,
              lm_head quantized, int8 KV, 32 new tokens, greedy):
-             ``qwen2.5-7b`` RTN at all 28 layers (8 x 512 prompts: q/k/v
-             biases, G = 7 through flash and decode; timed, and its
+             ``qwen2.5-7b`` RTN at ``--qwen25-layers`` of 28 (8 x 512
+             prompts: q/k/v biases, G = 7 through flash and decode;
+             timed, and its
              replayed step measured at batch 1 and 8), ``qwen3-4b``
              SignRound (``iters=20``, 16 x 512 ids) on 2 blocks (qk-norm
              inside the tuning loss through flash forward and backward),
@@ -254,7 +255,27 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              block on the plain versions, the replayed step at batch 8.
              (d) V2-Lite x 2 as an HF ``deepseek_v2`` directory → the CLI
              → ``from_pretrained`` against the in-memory engine.
-21. report — the card's name and power limit (nvidia-smi), a JSON line of
+21. gpt-oss / llama4 — GPT-OSS and Llama 4 (random weights moved off their
+             initial values: gains, attention and expert biases, the sinks
+             from N(0, 1), the router bias).  (a) gpt-oss-20b at full
+             width, ``--gptoss-layers`` of 24: RTN W4A16 g32 (K = 2880 is
+             22.5 x 128) with the lm_head → engine (int8 KV: row 6 with the
+             sinks and the 128 window on the even layers; experts stacked
+             for row 5) → ``generate`` 8 x 512, 32 new, launches as the
+             loops imply; timings beside bounds; a 2-layer copy on the
+             plain versions; ``generate_scan``; the replayed step at batch
+             8 and 1; the fp8 cache on 4 layers; the batcher.  (b)
+             gpt-oss-120b x ``--gptoss120-layers`` (row 5 at E = 128), the
+             replayed step at batch 8.  (c) SignRound on 2 gpt-oss-20b
+             blocks.  (d) llama4-scout at full width, ``--llama4-layers``
+             of 48 (NoPE layers 3, 7, ...): RTN W4A16 g128, served as (a)
+             (rows 1, 4, 5, 6).  (e) its first 4 blocks past the 8192
+             chunk: one 8320-token prompt, 32 new tokens (row 6 with
+             ``chunk``), the prefill's device peak, a copy on the plain
+             versions.  (f) SignRound on Scout's blocks 0-3 (rows 1-3,
+             both layer variants).  (g) each family x 2 as an HF directory
+             with fused experts → the CLI → ``from_pretrained``.
+22. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -265,8 +286,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--mx-tune-layers``, ``--llama1b-layers``, ``--sage-layers``,
 ``--qwen25-layers``, ``--qwen3-tune-layers``, ``--gemma2-layers``,
 ``--gemma3-layers``, ``--load-layers``, ``--options-layers``,
-``--nblocks-layers``, ``--offload-layers``, ``--deepseek-layers`` and
-``--deepseek-v3-layers`` cut the depth of the paths for a quicker run.
+``--nblocks-layers``, ``--offload-layers``, ``--deepseek-layers``,
+``--deepseek-v3-layers``, ``--gptoss-layers``, ``--gptoss120-layers`` and
+``--llama4-layers`` cut the depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -708,17 +730,24 @@ def kernel_phase(timer, bw, flops_peak):
     # mask routing hands all experts one shared slab (expert stride 0), and
     # for w2 (14336, 4096) on contiguous slabs; one ragged case (C = 5, O
     # not a multiple of any tile, the first C rows of a taller buffer, as
-    # capacity dispatch hands it over)
-    E = 8
-    for (C, K, O, name, layout) in [
-            (8, 4096, 14336, "w1", "shared"),
-            (8, 14336, 4096, "w2", "contiguous"),
-            (4096, 4096, 14336, "w1", "shared"),
-            (4096, 14336, 4096, "w2", "contiguous"),
-            (5, 4096, 1000, "ragged", "slice")]:
+    # capacity dispatch hands it over); then gpt-oss-20b's experts (E = 32,
+    # 2880 x 2880 at g = 32: K is 22.5 x 128) and llama4-scout's (E = 16,
+    # gate / up 8192 x 5120 on the shared slab, down 5120 x 8192)
+    for (E, C, K, O, name, layout, gs) in [
+            (8, 8, 4096, 14336, "w1", "shared", 128),
+            (8, 8, 14336, 4096, "w2", "contiguous", 128),
+            (8, 4096, 4096, 14336, "w1", "shared", 128),
+            (8, 4096, 14336, 4096, "w2", "contiguous", 128),
+            (8, 5, 4096, 1000, "ragged", "slice", 128),
+            (32, 8, 2880, 2880, "gpt-oss gate/up", "shared", 32),
+            (32, 4096, 2880, 2880, "gpt-oss gate/up", "shared", 32),
+            (16, 8, 5120, 8192, "scout gate/up", "shared", 128),
+            (16, 8, 8192, 5120, "scout down", "contiguous", 128),
+            (16, 4096, 5120, 8192, "scout gate/up", "shared", 128),
+            (16, 4096, 8192, 5120, "scout down", "contiguous", 128)]:
         qw = torch.stack([pack_w4(torch.randint(
             0, 16, (O, K), generator=g, device=dev)) for _ in range(E)])
-        sc = (torch.rand(E, O, K // 128, generator=g, device=dev) - 0.5) * 0.02
+        sc = (torch.rand(E, O, K // gs, generator=g, device=dev) - 0.5) * 0.02
         if layout == "shared":
             x = torch.randn(C, K, generator=g, device=dev).bfloat16() \
                 .expand(E, C, K)
@@ -727,38 +756,38 @@ def kernel_phase(timer, bw, flops_peak):
                             device=dev).bfloat16()[:, :C]
         else:
             x = torch.randn(E, C, K, generator=g, device=dev).bfloat16()
-        y = w4a16_matmul_grouped(x, qw, sc, 128)
-        yp = w4a16_matmul_grouped_plain(x, qw, sc, 128)
+        y = w4a16_matmul_grouped(x, qw, sc, gs)
+        yp = w4a16_matmul_grouped_plain(x, qw, sc, gs)
         torch.cuda.synchronize()
         err, rel = row_err(y, yp)
         del yp
         tol = ROW_TOL["w4a16_matmul_grouped"]
-        check(rel <= tol, f"grouped C={C} O={O} K={K}: row err {rel}")
-        ms = timer(lambda: w4a16_matmul_grouped(x, qw, sc, 128))
-        plain_ms = timer(lambda: w4a16_matmul_grouped_plain(x, qw, sc, 128))
+        check(rel <= tol, f"grouped E={E} C={C} O={O} K={K}: row err {rel}")
+        ms = timer(lambda: w4a16_matmul_grouped(x, qw, sc, gs))
+        plain_ms = timer(lambda: w4a16_matmul_grouped_plain(x, qw, sc, gs))
         w_bf16 = torch.stack([
             ((unpack_w4(qw[e]) - 8).float()
-             * sc[e].repeat_interleave(128, dim=1)).bfloat16()
+             * sc[e].repeat_interleave(gs, dim=1)).bfloat16()
             for e in range(E)])
         lib_ms = timer(lambda: torch.bmm(x, w_bf16.transpose(1, 2)))
         dev_txt = ""
         if C == 8:
             dev_ms, lib_dev_ms, dev_txt = device_pair(
-                timer, lambda: w4a16_matmul_grouped(x, qw, sc, 128),
+                timer, lambda: w4a16_matmul_grouped(x, qw, sc, gs),
                 lambda: torch.bmm(x, w_bf16.transpose(1, 2)))
         del w_bf16
         x_slabs = 1 if layout == "shared" else E
         nbytes = (2 * x_slabs * C * K + E * O * K // 2 + 4 * sc.numel()
                   + 2 * E * C * O)
         b_ms, b_by = bound(nbytes, 2 * E * C * O * K)
-        shape = f"{name} E={E} C={C} O={O} K={K} g=128 x {layout}"
+        shape = f"{name} E={E} C={C} O={O} K={K} g={gs} x {layout}"
         log(f"kernel w4a16_matmul_grouped [{shape}] max_abs_err={err:.3g} "
             f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f}{dev_txt} "
             f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by}) "
             f"{tflops(2 * E * C * O * K, ms)} library "
             f"{tflops(2 * E * C * O * K, lib_ms)}")
-        if C == 8 and name == "w1":
+        if E == 8 and C == 8 and name == "w1":
             rows["w4a16_matmul_grouped"] = dict(
                 name="w4a16_matmul_grouped", route="cuda",
                 source="autoround_tpu_torch/csrc/w4a16_matmul_grouped.cu",
@@ -826,11 +855,14 @@ def kernel_phase(timer, bw, flops_peak):
 
 def decode_kernel_phase(timer, bw, flops_peak):
     """Row 6, the int8-KV decode attention: B=8, T=1024; llama3-8b's heads
-    (hd 128, G = 4), llama3.2-1b's (hd 64), hd 256 (Gemma) and G = 7
-    (qwen2.5-7b's 28 / 4).  Library: SDPA on the dequantized bf16 cache up
-    to pos, with the window as a boolean mask where there is one (no single
-    call adds the sinks: that yardstick leaves them out and is checked
-    against the plain version without sinks).  Event times include the
+    (hd 128, G = 4; also with Llama 4's chunk, 256 here), llama3.2-1b's (hd
+    64), hd 256 (Gemma), G = 7 (qwen2.5-7b's 28 / 4) and gpt-oss's (hd 64,
+    G = 8, its 128 window and the sinks).  Library: SDPA on the
+    dequantized bf16 cache up to pos, with the window or the chunk as a
+    boolean mask where there is one; no single call adds the sinks, so at
+    gpt-oss's shape there is no library time, and at the other sink cases
+    the yardstick leaves them out and is checked against the plain version
+    without sinks.  Event times include the
     wrapper's Python; device times (`device_ms`) are the kernels' own, split
     plus combine, and the comparison with SDPA and the bound is made on
     them."""
@@ -848,12 +880,14 @@ def decode_kernel_phase(timer, bw, flops_peak):
         return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
     B, T = 8, 1024
+    # (pos, window, chunk, sinks) per head shape
     for (hd, nkv, G, cases) in [
-            (128, 8, 4, [(511, None, False), (700, None, False),
-                         (700, 256, True)]),
-            (64, 8, 4, [(511, None, False), (700, 256, True)]),
-            (256, 8, 4, [(511, None, False), (700, 256, True)]),
-            (128, 4, 7, [(511, None, False)])]:
+            (128, 8, 4, [(511, None, None, False), (700, None, None, False),
+                         (700, 256, None, True), (700, None, 256, False)]),
+            (64, 8, 4, [(511, None, None, False), (700, 256, None, True)]),
+            (256, 8, 4, [(511, None, None, False), (700, 256, None, True)]),
+            (128, 4, 7, [(511, None, None, False)]),
+            (64, 8, 8, [(511, 128, None, True)])]:
         nh = nkv * G
         q = torch.randn(B, nh, hd, generator=g, device=dev).bfloat16()
         kc = torch.randint(-127, 128, (B, T, nkv, hd), generator=g,
@@ -864,58 +898,70 @@ def decode_kernel_phase(timer, bw, flops_peak):
         vs = torch.rand(nkv, generator=g, device=dev) * 0.02 + 0.01
         sinks = torch.randn(nh, generator=g, device=dev)
         sm = hd ** -0.5
-        for pos, window, use_sinks in cases:
+        for pos, window, chunk, use_sinks in cases:
             sk = sinks if use_sinks else None
             pv = torch.full((B,), pos, dtype=torch.int32, device=dev)
-            o = decode_attention(q, kc, vc, pv, ks, vs, sm, window=window,
-                                 sinks=sk)
-            op = decode_attention_plain(q, kc, vc, pv, ks, vs, sm,
-                                        window=window, sinks=sk)
+            kw = dict(window=window, chunk=chunk, sinks=sk)
+            o = decode_attention(q, kc, vc, pv, ks, vs, sm, **kw)
+            op = decode_attention_plain(q, kc, vc, pv, ks, vs, sm, **kw)
             torch.cuda.synchronize()
             err, rel = row_err(o, op)
             tol = ROW_TOL["decode_attention"]
             check(rel <= tol, f"decode hd={hd} G={G} pos={pos}: row err "
                   f"{rel}")
             ms = timer(lambda: decode_attention(q, kc, vc, pv, ks, vs, sm,
-                                                window=window, sinks=sk))
+                                                **kw))
             plain_ms = timer(lambda: decode_attention_plain(
-                q, kc, vc, pv, ks, vs, sm, window=window, sinks=sk))
-            kd = (kc[:, :pos + 1].float() * ks.view(1, 1, nkv, 1)) \
-                .bfloat16().transpose(1, 2).contiguous()
-            vd = (vc[:, :pos + 1].float() * vs.view(1, 1, nkv, 1)) \
-                .bfloat16().transpose(1, 2).contiguous()
-            q4 = q[:, :, None]
-            mask = None
-            if window is not None:
-                idx = torch.arange(pos + 1, device=dev)
-                mask = (idx > pos - window)[None, None, None, :]
-
-            def lib():
-                return F.scaled_dot_product_attention(
-                    q4, kd, vd, attn_mask=mask, scale=sm, enable_gqa=True)
-            _, lib_rel = row_err(lib()[:, :, 0], decode_attention_plain(
-                q, kc, vc, pv, ks, vs, sm, window=window))
-            check(lib_rel <= LIB_ROW_TOL,
-                  f"decode hd={hd} pos={pos}: library call computes another "
-                  f"function (row err {lib_rel})")
-            lib_ms = timer(lib)
+                q, kc, vc, pv, ks, vs, sm, **kw))
+            # the keys attended: the window's, or the chunk's from its start
+            start = (pos - window + 1 if window is not None
+                     else pos // chunk * chunk if chunk is not None else 0)
+            n_tok = pos + 1 - max(start, 0)
             dev_ms, how = timer.device(lambda: decode_attention(
-                q, kc, vc, pv, ks, vs, sm, window=window, sinks=sk))
-            lib_dev_ms, _ = timer.device(lib)
-            del kd, vd
-            n_tok = min(pos + 1, window or pos + 1)
+                q, kc, vc, pv, ks, vs, sm, **kw))
+            # no single PyTorch call adds the sinks: at gpt-oss's shape the
+            # library cell is empty
+            no_lib = use_sinks and G == 8
+            lib_ms = lib_dev_ms = lib_rel = None
+            if not no_lib:
+                kd = (kc[:, :pos + 1].float() * ks.view(1, 1, nkv, 1)) \
+                    .bfloat16().transpose(1, 2).contiguous()
+                vd = (vc[:, :pos + 1].float() * vs.view(1, 1, nkv, 1)) \
+                    .bfloat16().transpose(1, 2).contiguous()
+                q4 = q[:, :, None]
+                mask = None
+                if window is not None or chunk is not None:
+                    idx = torch.arange(pos + 1, device=dev)
+                    mask = (idx >= start)[None, None, None, :]
+
+                def lib():
+                    return F.scaled_dot_product_attention(
+                        q4, kd, vd, attn_mask=mask, scale=sm,
+                        enable_gqa=True)
+                _, lib_rel = row_err(lib()[:, :, 0], decode_attention_plain(
+                    q, kc, vc, pv, ks, vs, sm, window=window, chunk=chunk))
+                check(lib_rel <= LIB_ROW_TOL,
+                      f"decode hd={hd} pos={pos}: library call computes "
+                      f"another function (row err {lib_rel})")
+                lib_ms = timer(lib)
+                lib_dev_ms, _ = timer.device(lib)
+                del kd, vd
             nbytes = 2 * q.numel() * 2 + 2 * B * n_tok * nkv * hd + 8 * nkv
             b_ms, b_by = bound(nbytes, 4 * B * nh * n_tok * hd)
             shape = (f"B={B} T={T} nh={nh} nkv={nkv} hd={hd} pos={pos}"
-                     + (f" window={window} sinks" if window else ""))
+                     + (f" window={window}" if window else "")
+                     + (f" chunk={chunk}" if chunk else "")
+                     + (" sinks" if use_sinks else ""))
+            lib_txt = ("library_ms=- (no single PyTorch call takes the "
+                       "sinks)" if no_lib else
+                       f"library_row_err={lib_rel:.3g}"
+                       f"{' (no sinks)' if use_sinks else ''} library_ms="
+                       f"{lib_ms:.4f} library_device_ms={lib_dev_ms:.4f}")
             log(f"kernel decode_attention [{shape} splits="
                 f"{decode_splits(B, nkv, T)}] max_abs_err={err:.3g} "
-                f"row_err={rel:.3g} (tol {tol}) library_row_err="
-                f"{lib_rel:.3g}{' (no sinks)' if use_sinks else ''} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"library_ms={lib_ms:.4f} device_ms={dev_ms:.4f} ({how}) "
-                f"library_device_ms={lib_dev_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({b_by})")
+                f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
+                f"plain_ms={plain_ms:.4f} {lib_txt} device_ms={dev_ms:.4f} "
+                f"({how}) bound_ms={b_ms:.4f} ({b_by}) keys={n_tok}")
             if hd == 128 and G == 4 and pos == 511:
                 rows["decode_attention"] = dict(
                     name="decode_attention", route="cuda",
@@ -1510,30 +1556,47 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     the engine runs by default) and the router.  Bytes: the packed
     weights and scales and the dense leaves once, the embedding rows
     used, the int8 cache written (prefill) or read up to pos (decode).
-    A sliding layer's attention counts the keys of its window alone
-    (``_attended``).  An MLA engine takes :func:`_mla_bounds`."""
+    A sliding layer's attention counts the keys of its window alone, a
+    chunked one those of its chunk (``_attended``); a block's weights are
+    its own (``_block_weights``: Llama 4's dense and MoE blocks differ).
+    An MLA engine takes :func:`_mla_bounds`."""
     if getattr(eng.cfg, "kv_lora_rank", 0):
         return _mla_bounds(eng, B, S, bw, flops_peak)
     cfg = eng.cfg
     L, hid, hd, V = cfg.num_layers, cfg.hidden_size, cfg.hd, cfg.vocab_size
-    H, Hkv, inter = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
-    n_exp = getattr(cfg, "num_experts", 0)
-    w_block = (hid * (H + 2 * Hkv) * hd + H * hd * hid
-               + max(n_exp, 1) * 3 * hid * inter + n_exp * hid)
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    w_layers = sum(_block_weights(cfg, i) for i in range(L))
 
     w_bytes = _weight_bytes(eng)
     row = hid * eng.params["embed_tokens"].element_size()
     kv_key = 2 * B * Hkv * hd                # int8 k and v of one key
     step_keys, pre_keys = _attended(cfg, S)  # summed over the layers
     lin_peak = int8_peak or flops_peak
-    pre_ops_s = ((2 * B * S * w_block * L + 2 * B * hid * V) / lin_peak
+    pre_ops_s = ((2 * B * S * w_layers + 2 * B * hid * V) / lin_peak
                  + 4 * B * H * hd * pre_keys / flops_peak)
     pre_bytes = w_bytes + B * S * row + S * L * kv_key
-    step_ops_s = (2 * B * (w_block * L + hid * V) / lin_peak
+    step_ops_s = (2 * B * (w_layers + hid * V) / lin_peak
                   + 4 * B * H * hd * step_keys / flops_peak)
     step_bytes = w_bytes + B * row + step_keys * kv_key
     return (max(pre_bytes / bw, pre_ops_s) * 1e3,
             max(step_bytes / bw, step_ops_s) * 1e3)
+
+
+def _block_weights(cfg, li):
+    """Weights of block ``li`` that each token multiplies: attention, and
+    the MLP, every routed expert of a MoE block (dense-then-mask, what the
+    engines run), its router and a shared expert (Llama 4's, of the routed
+    width), or a dense MLP (Llama 4's dense blocks: intermediate_size_mlp)."""
+    hid, hd, inter = cfg.hidden_size, cfg.hd, cfg.intermediate_size
+    attn = hid * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd \
+        + cfg.num_heads * hd * hid
+    n_exp = getattr(cfg, "num_experts", 0)
+    moe_layers = getattr(cfg, "moe_layers", None)
+    if moe_layers is not None:                     # Llama 4
+        if li not in moe_layers:
+            return attn + 3 * hid * cfg.intermediate_size_mlp
+        return attn + (n_exp + 1) * 3 * hid * inter + n_exp * hid
+    return attn + max(n_exp, 1) * 3 * hid * inter + n_exp * hid
 
 
 def _weight_bytes(eng):
@@ -3115,7 +3178,8 @@ def perturb_gains(params, seed):
 
 def _attended(cfg, S):
     """Keys each decode query at position S sees, summed over the layers
-    (a sliding layer sees at most its window), and the same summed over
+    (a sliding layer sees at most its window; a chunked layer the keys of
+    its chunk so far, position r sees r % w + 1), and the same summed over
     a causal prefill of S rows."""
     from autoround_tpu_torch.models import llama
 
@@ -3123,6 +3187,11 @@ def _attended(cfg, S):
     for i in range(cfg.num_layers):
         w = (cfg.sliding_window if llama.layer_is_sliding(cfg, i)
              else None) or S + 1
+        if cfg.chunked_attention and w <= S:
+            step += S % w + 1
+            full, part = divmod(S, w)
+            prefill += full * w * (w + 1) // 2 + part * (part + 1) // 2
+            continue
         step += min(S + 1, w)
         n = min(S, w)                    # rows r < w see r + 1 keys
         prefill += n * (n + 1) // 2 + (S - n) * w
@@ -4614,6 +4683,12 @@ DS_COPY_ROW_TOL = MOE_COPY_ROW_TOL
 # logits over 4 layers: e4m3 keeps 3 mantissa bits (2^-4 relative rounding
 # of each latent), scores and context move by that share of their size
 DS_FP8_ROW_TOL = 0.3
+# a GQA decode step over the e4m3 cache against the same step over a bf16
+# cache that holds its dequantized values: the engine dequantizes into such
+# a bf16 copy itself, so the two are the same computation (0 measured on an
+# H100, gpt-oss-20b and llama4-scout); the limit leaves room for the last
+# bits of a reordered sum
+FP8_READ_ROW_TOL = 0.02
 # (label, E, O, K, token counts) of the grouped kernel at the DeepSeek
 # shapes: V2-Lite's experts (1408 = 11 x 128), V3's (K = 7168, E = 256)
 DS_GROUPED_SHAPES = (("v2-lite gate/up", 64, 1408, 2048, (8, 4096)),
@@ -4701,13 +4776,14 @@ def _tokens_and_logits(eng, ids, n_new):
     return out, lgs
 
 
-def ds_batching(eng, label, seed=62):
-    """``ContinuousBatchingEngine`` over an MLA engine (max_batch 8,
-    max_seq 512, the latent slot cache in bf16): DS_BATCH_REQUESTS, 8 at
-    once and 2 joining as slots free.  Each request's prompt-pass and first
-    step logits within DS_COPY_ROW_TOL of the same prompt alone (the
-    engine at batch 1, bf16 latent cache), and its tokens equal to the
-    request alone step by step; where they first differ the batcher's
+def moe_batching(eng, label, seed=62):
+    """``ContinuousBatchingEngine`` over a MoE engine (max_batch 8, max_seq
+    512, the slot cache in bf16: an MLA engine's holds the latents):
+    DS_BATCH_REQUESTS, 8 at once and 2 joining as slots free.  Each
+    request's prompt-pass and first step logits within DS_COPY_ROW_TOL of
+    the same prompt alone (the engine at batch 1, bf16 cache; the first
+    step fed the batcher's token on both sides), and its tokens equal to
+    the request alone step by step; where they first differ the batcher's
     token must be a near-tie of the lone request's logits (within the same
     limit of their maximum), and the comparison of that request stops
     there.  Prints the share of tokens equal."""
@@ -4720,9 +4796,10 @@ def ds_batching(eng, label, seed=62):
                              generator=gen).tolist()
                for n, _ in DS_BATCH_REQUESTS]
     be = ContinuousBatchingEngine(single, max_batch=8, max_seq=512)
-    check(be.cache.k.shape[-1] == eng.cfg.kv_lora_rank
-          and be.cache.v.shape[-1] == eng.cfg.qk_rope_head_dim,
-          f"{label} batching: slot cache {tuple(be.cache.k.shape)}")
+    if getattr(eng.cfg, "kv_lora_rank", 0):
+        check(be.cache.k.shape[-1] == eng.cfg.kv_lora_rank
+              and be.cache.v.shape[-1] == eng.cfg.qk_rope_head_dim,
+              f"{label} batching: slot cache {tuple(be.cache.k.shape)}")
     first, joined, rid_of = {}, {}, {}
     waiting = list(range(len(DS_BATCH_REQUESTS)))
     steps = 0
@@ -4739,14 +4816,23 @@ def ds_batching(eng, label, seed=62):
             first[rid].append(be.last_logits[slot].float().cpu())
         joined.clear()
     check(be._decode.graph is not None, f"{label} batching: not captured")
-    worst, agree, total = 0.0, 0, 0
+    worst, agree, total, fed = 0.0, 0, 0, 0
     for i, (n, n_new) in enumerate(DS_BATCH_REQUESTS):
         rid = rid_of[i]
-        want, lgs = _tokens_and_logits(single, torch.tensor([prompts[i]]),
-                                       n_new)
+        ids = torch.tensor([prompts[i]])
+        want, lgs = _tokens_and_logits(single, ids, n_new)
         got = be.result(rid)
         r0 = row_err(first[rid][0], lgs[0])[1]
-        r1 = row_err(first[rid][1], lgs[1])[1]
+        if got[0] != want[0]:
+            # a near-tie of the prompt pass (held below) fed the batcher's
+            # first step another token: hold that step against the
+            # request alone fed the same token
+            fed += 1
+            lgs1 = _step_logits(single, ids, torch.tensor(
+                [got[0]], dtype=torch.int32))[1][0]
+        else:
+            lgs1 = lgs[1]
+        r1 = row_err(first[rid][1], lgs1)[1]
         worst = max(worst, r0, r1)
         check(r0 <= DS_COPY_ROW_TOL and r1 <= DS_COPY_ROW_TOL,
               f"{label} batching: request {i} logits row_err {r0:.4g} / "
@@ -4764,62 +4850,128 @@ def ds_batching(eng, label, seed=62):
                 break
             agree += 1
         total += n_new
-    log(f"{label} batching (max_batch 8, max_seq 512, bf16 latent slots): "
+    log(f"{label} batching (max_batch 8, max_seq 512, bf16 slots): "
         f"{len(DS_BATCH_REQUESTS)} requests in {steps} steps; prompt-pass "
         f"and first-step logits against each request alone worst "
-        f"row_err={worst:.4g} (tol {DS_COPY_ROW_TOL}); tokens equal to the "
-        f"request alone up to any near-tie: {agree} of {total}; "
+        f"row_err={worst:.4g} (tol {DS_COPY_ROW_TOL}; {fed} first steps fed "
+        f"the batcher's own near-tie token on both sides); tokens equal to "
+        f"the request alone up to any near-tie: {agree} of {total}; "
         f"capture_ms={be._decode.capture_ms:.2f} "
         f"batching_s={time.time() - t0:.1f}")
     del be, single
 
 
-def ds_fp8_latents(eng, prompts, n_layers=4):
-    """The fp8 (e4m3) latent cache on the first ``n_layers`` blocks of an
-    MLA engine: ``generate_scan`` equal to ``generate`` (tokens and
-    launches), the cache e4m3 with per-layer scales, and the first decode
-    step's logits within DS_FP8_ROW_TOL of the same copy with the bf16
-    latent cache."""
+def moe_fp8_cache(eng, prompts, n_layers=4, label="deepseek fp8 latents"):
+    """The fp8 (e4m3) cache on the first ``n_layers`` blocks of a MoE
+    engine (an MLA engine's latents, or the K / V heads): ``generate_scan``
+    equal to ``generate`` (tokens and launches); the cache e4m3 with a
+    scale per layer (per layer and KV head for K / V); what the prompt
+    pass stores within half an e4m3 step of the bf16 cache; and the first
+    decode step.  An MLA engine's step quantizes its own token's latents
+    before it attends (the JAX block's order): its logits are held within
+    DS_FP8_ROW_TOL of the same copy with the bf16 cache.  A GQA engine's
+    step dequantizes the cache into a bf16 copy and writes its own token
+    unquantized there (the JAX engine's order): its logits are held within
+    FP8_READ_ROW_TOL of the same copy decoding over a bf16 cache that holds
+    the dequantized e4m3 values, and their distance to the plain bf16 cache
+    is printed: GQA heads at full width move it by a share that the random
+    weights set, not the code (measured on an H100: llama4-scout 0.37-0.44
+    of a row's RMS, and whole rows where a top-1 router's near-tie fell the
+    other way)."""
+    from autoround_tpu_torch.models import deepseek
+
     t0 = time.time()
     bf = dataclasses.replace(copy_engine(eng, n_layers, "cuda"),
                              kv_quant=None)
     fp8 = dataclasses.replace(bf, kv_quant="fp8")
     toks, counts = generate_counted(fp8, prompts, 16)
-    scan_against(fp8, prompts, toks, counts, "deepseek fp8 latents")
+    scan_against(fp8, prompts, toks, counts, label)
     st = fp8._scan_states[prompts.shape[0]]
+    heads = 1 if getattr(eng.cfg, "kv_lora_rank", 0) else eng.cfg.num_kv_heads
     check(st.cache.k.dtype == torch.float8_e4m3fn
-          and st.cache.k_scale.shape == (n_layers, 1, 1, 1, 1),
-          f"deepseek fp8 latents: cache {st.cache.k.dtype} scales "
+          and st.cache.k_scale.shape == (n_layers, 1, 1, heads, 1),
+          f"{label}: cache {st.cache.k.dtype} scales "
           f"{tuple(st.cache.k_scale.shape)}")
+    S = prompts.shape[1]
     with counts_kept():
-        b1, b2, tok = _step_logits(bf, prompts)
-        f1, f2, _ = _step_logits(fp8, prompts, tok)
-    r1, r2 = row_err(f1, b1)[1], row_err(f2, b2)[1]
-    log(f"deepseek fp8 latents ({n_layers} layers): generate_scan tokens "
-        f"and launches equal generate's; against the bf16 latent cache: "
-        f"prefill row_err={r1:.4g} (the cache is written, not read), first "
-        f"decode step row_err={r2:.4g} (tol {DS_FP8_ROW_TOL}); "
+        b1, cb = bf.prefill(prompts)
+        f1, cf = fp8.prefill(prompts)
+        tok = b1.argmax(-1).to(torch.int32)
+        # the prompt's cache: e4m3 codes times their scale within half an
+        # e4m3 step of the bf16 cache (2^-4 of a normal value, 2^-10 of
+        # the scale below the normals)
+        cache_ok = all(
+            bool(((q[:, :, :S].float() * sc - ref[:, :, :S].float()).abs()
+                  <= ref[:, :, :S].float().abs() / 16 + sc / 1024
+                  + 1e-6).all())
+            for q, sc, ref in ((cf.k, cf.k_scale, cb.k),
+                               (cf.v, cf.v_scale, cb.v)))
+        b2 = bf.decode_step(tok, cb)[0].cpu()
+        # the same bf16 copy, its cache holding the dequantized e4m3 values
+        _, cd = bf.prefill(prompts)
+        for q, sc, ref in ((cf.k, cf.k_scale, cd.k), (cf.v, cf.v_scale,
+                                                       cd.v)):
+            ref[:, :, :S] = (q[:, :, :S].float() * sc).to(ref.dtype)
+        d2 = bf.decode_step(tok, cd)[0].cpu()
+        f2 = fp8.decode_step(tok, cf)[0].cpu()
+    del cb, cf, cd
+    r1 = row_err(f1.cpu(), b1.cpu())[1]
+    r_read = row_err(f2, d2)[1]
+    d = (f2.float() - b2.float()).abs().amax(-1)
+    rows = d / b2.float().pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    mla = deepseek.is_mla(eng.cfg)
+    log(f"{label} ({n_layers} layers): generate_scan tokens "
+        f"and launches equal generate's; prompt cache within half an e4m3 "
+        f"step of the bf16 cache: {cache_ok}; first decode step against the "
+        f"bf16 cache holding the dequantized codes row_err={r_read:.4g} "
+        f"({'printed: the step quantizes its own token' if mla else 'tol %g' % FP8_READ_ROW_TOL}); "
+        f"against the plain bf16 cache: prefill "
+        f"row_err={r1:.4g} (the cache is written, not read), first decode "
+        f"step row_err={rows.max().item():.4g} "
+        f"({'tol %g' % DS_FP8_ROW_TOL if mla else 'printed'}; rows "
+        f"{[round(r, 4) for r in rows.tolist()]}); "
         f"fp8_s={time.time() - t0:.1f}")
-    check(r2 <= DS_FP8_ROW_TOL and r1 <= DS_FP8_ROW_TOL,
-          "deepseek fp8 latents: logits disagree with the bf16 cache")
+    check(cache_ok, f"{label}: the e4m3 cache is not the bf16 cache rounded")
+    check(r1 <= FP8_READ_ROW_TOL and (mla or r_read <= FP8_READ_ROW_TOL),
+          f"{label}: the step does not read the e4m3 cache as stored")
+    check(not mla or rows.max().item() <= DS_FP8_ROW_TOL,
+          f"{label}: logits disagree with the bf16 cache")
     del bf, fp8
 
 
-def _ds_quantize(cfg, calib, seed, label, **kw):
-    """Random weights on the card (the norm gains moved by N(0, 0.1), a
-    sigmoid router's bias drawn from N(0, 0.5)), quantized by AutoRound
-    with the blocks donated; returns (result, seconds by stage)."""
-    from autoround_tpu_torch import AutoRound
-    from autoround_tpu_torch.models import deepseek
-
-    t0 = time.time()
-    params = deepseek.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+def perturb_moe(params, seed):
+    """A MoE family's random weights moved off their initial values:
+    ``perturb_gains`` (every 1-D block leaf by N(0, 0.1)), then a router's
+    bias drawn from N(0, 0.5) (DeepSeek's ``e_score_correction_bias``,
+    GPT-OSS's ``router_bias``), GPT-OSS's sinks from N(0, 1), so that the
+    sink column changes the softmax, and each expert's biases moved by
+    N(0, 0.1)."""
     perturb_gains(params, seed)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     for b in params["blocks"]:
-        if "e_score_correction_bias" in b:
-            b["e_score_correction_bias"].normal_(0.0, 0.5, generator=gen)
+        for k, std in (("e_score_correction_bias", 0.5),
+                       ("router_bias", 0.5), ("sinks", 1.0)):
+            if k in b:
+                b[k].normal_(0.0, std, generator=gen)
+        for ew in b.get("experts", ()):
+            for k, t in ew.items():
+                if k.endswith("_bias"):
+                    t.add_(torch.randn(t.shape, generator=gen,
+                                       device=t.device, dtype=t.dtype),
+                           alpha=0.1)
+
+
+def _moe_quantize(cfg, calib, seed, label, **kw):
+    """Random weights of ``cfg``'s family on the card, moved by
+    ``perturb_moe``, quantized by AutoRound with the blocks donated;
+    returns the result."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.models.registry import get_model_fns
+
+    t0 = time.time()
+    params = get_model_fns(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    perturb_moe(params, seed)
     torch.cuda.synchronize()
     t_init = time.time() - t0
     t0 = time.time()
@@ -4854,7 +5006,7 @@ def deepseek_v2lite_path(bw, flops_peak, n_layers):
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    result = _ds_quantize(cfg, calib, 64, f"deepseek-v2-lite x {n_layers}",
+    result = _moe_quantize(cfg, calib, 64, f"deepseek-v2-lite x {n_layers}",
                           scheme="W4A16", iters=0, quant_lm_head=True)
     E = cfg.n_routed_experts
     check(len(result.layers) == 4 * n_layers + 3 + (n_layers - 1)
@@ -4903,8 +5055,8 @@ def deepseek_v2lite_path(bw, flops_peak, n_layers):
                       label="deepseek-v2-lite", ran=(prompts, step_ms))
     s1 = scan_measure(eng, 1, S, bw, flops_peak, None, seed=66,
                       label="deepseek-v2-lite")
-    ds_fp8_latents(eng, prompts, min(4, n_layers))
-    ds_batching(eng, "deepseek-v2-lite")
+    moe_fp8_cache(eng, prompts, min(4, n_layers))
+    moe_batching(eng, "deepseek-v2-lite")
     log(f"deepseek-v2-lite path ({n_layers} of 27 layers): prefill_ms="
         f"{prefill_ms:.2f} graph step B=8 {s8['step_ms']:.4f} ms (bound "
         f"{s8['bound_ms']:.4f}, busy {s8['busy']:.3f}), B=1 "
@@ -4952,7 +5104,7 @@ def deepseek_tune_path(n_layers=2, iters=20):
     ar_logger.addHandler(h)
     ar_logger.setLevel(logging.INFO)
     try:
-        result = _ds_quantize(cfg, calib, 68, f"deepseek-v2-lite tune x "
+        result = _moe_quantize(cfg, calib, 68, f"deepseek-v2-lite tune x "
                               f"{n_layers}", scheme="W4A16", iters=iters,
                               batch_size=8)
     finally:
@@ -5004,7 +5156,7 @@ def deepseek_v3_path(bw, flops_peak, n_layers):
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    result = _ds_quantize(cfg, calib, 70, f"deepseek-v3 x {n_layers}",
+    result = _moe_quantize(cfg, calib, 70, f"deepseek-v3 x {n_layers}",
                           scheme="W4A16", iters=0, quant_lm_head=True)
     eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=512,
                                               kv_quant="int8")
@@ -5150,6 +5302,513 @@ def deepseek_phase(bw, flops_peak, n_layers, v3_layers):
     return out
 
 
+# ------------------------------------------------------ GPT-OSS and Llama 4
+#
+# The seventeenth slice's families at their published widths (random
+# weights from a seed, moved off their initial values by ``perturb_moe``):
+# gpt-oss-20b (sinks in every softmax, the 128 window on the even layers,
+# 32 biased clamped-SwiGLU experts, YaRN) at W4A16 g32 (2880 is 22.5 x
+# 128: no g128 group packs), gpt-oss-120b's 128 experts, llama4-scout (16
+# input-scaled experts and a shared one, chunked rope layers and NoPE
+# layers 3, 7, ...) at W4A16 g128, Scout past its 8192 chunk, SignRound on
+# both, and both loaded from HF directories with fused expert tensors.
+
+OSS_NEW = 32
+# (prompt length, new tokens) of the 8192-chunk path: the prompt crosses
+# the chunk at prefill, the decode positions sit in the second chunk
+CHUNK_PROMPT, CHUNK_MAX_SEQ = 8320, 8448
+
+
+def _fam_want(eng, S, n_new):
+    """Launches of ``generate`` (one prompt pass of S tokens, ``n_new`` - 1
+    decode steps over the int8 cache) on a GPT-OSS or Llama 4 engine: each
+    packed ``w4a16`` entry and each expert stack once a forward, the decode
+    kernel once a layer a step, and the flash kernel once a layer at
+    prefill where its gate takes the prompt (Llama 4 below the chunk;
+    never GPT-OSS: its sinks take the plain attention)."""
+    cfg = eng.cfg
+    flash = (not hasattr(cfg, "swiglu_limit") and cfg.hd % 128 == 0
+             and S >= 512 and S % 256 == 0 and S <= cfg.sliding_window)
+    return dict(_ds_want(eng, n_new),
+                decode_attention=cfg.num_layers * (n_new - 1),
+                flash_attention=cfg.num_layers if flash else 0)
+
+
+def _experts_stacked(eng, label):
+    """Every MoE block's gate / up / down triple stacked for row 5, no
+    expert served per expert by row 4 or dense."""
+    cfg = eng.cfg
+    moe = [i for i, b in enumerate(eng.params["blocks"]) if "experts" in b]
+    for i in moe:
+        stacked = sorted(k for k in eng.packed
+                         if k.startswith(f"blocks.{i}.experts_stack."))
+        check(stacked == [f"blocks.{i}.experts_stack.{w}"
+                          for w in ("down_proj", "gate_proj", "up_proj")],
+              f"{label}: block {i} stacked {stacked}")
+        check(all(ew.get(w) is None for ew in eng.params["blocks"][i][
+            "experts"] for w in ("gate_proj", "up_proj", "down_proj")),
+              f"{label}: block {i} holds a dense expert")
+    check(not any(".experts." in k for k in eng.packed),
+          f"{label}: an expert is packed alone (row 4)")
+    check(not any(eng.params["blocks"][i].get(n) is not None
+                  for i in range(cfg.num_layers)
+                  for n in ("q_proj", "o_proj", "gate_proj"))
+          and eng.params.get("lm_head") is None,
+          f"{label}: a projection serves dense")
+    return moe
+
+
+def _moe_serve_path(bw, flops_peak, cfg, label, seed, scheme, B, S, new,
+                    max_seq, copy_first=0, full=True, keep=False):
+    """RTN ``scheme`` with the lm_head → the int8-KV engine → ``generate``
+    (B x S prompts, ``new`` tokens) with launches equal to ``_fam_want``;
+    timings and bounds; a 2-layer copy from block ``copy_first`` on the
+    plain versions on the card; ``generate_scan`` against ``generate``;
+    the replayed step at batch 8 (and, with ``full``, at batch 1 with a
+    second call of new prompts, the fp8 cache on 4 layers and the batcher).
+    Returns (launches, summary[, engine with ``keep``])."""
+    from autoround_tpu_torch import QuantizedLlama
+
+    t_path = time.time()
+    kernels = _kernel_fns()
+    gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = _moe_quantize(cfg, calib, seed + 1, label, scheme=scheme,
+                           iters=0, quant_lm_head=True)
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=max_seq,
+                                              kv_quant="int8")
+    torch.cuda.synchronize()
+    t_pack, pack_gb = time.time() - t0, torch.cuda.max_memory_allocated() / 1e9
+    n_layers = len(result.layers)
+    del result
+    free_device_memory()
+    moe = _experts_stacked(eng, label)
+    log(f"{label} engine: {n_layers} quantized layers, pack_s={t_pack:.2f} "
+        f"{len(eng.packed)} packed entries "
+        f"({sum(v == 'w4a16_grouped' for v in eng.packed_kinds.values())} "
+        f"expert stacks, MoE blocks {moe}); resident_gb="
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} quantize_peak_gb="
+        f"{quant_gb:.2f} pack_peak_gb={pack_gb:.2f} weight_gb="
+        f"{_weight_bytes(eng) / 1e9:.3f}")
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    toks, gen_counts = generate_counted(eng, prompts, new)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    log(f"{label} kernels {json.dumps(launches)} generate_s={t_gen:.2f}")
+    _ds_counts(launches, _fam_want(eng, S, new), label)
+    _check_tokens(toks, B, new, cfg.vocab_size)
+    prefill_ms, step_ms = time_serving(eng, prompts, new, bw, flops_peak)
+    check_copy(eng, prompts, "card", MOE_COPY_ROW_TOL, first=copy_first)
+    scan_path(eng, prompts, toks, gen_counts, label, step_ms)
+    summary = dict(prefill_ms=prefill_ms)
+    summary["B8"] = scan_measure(eng, 8, S, bw, flops_peak, None,
+                                 seed=seed + 2, label=label,
+                                 ran=(prompts, step_ms) if B == 8 else None)
+    if full:
+        summary["B1"] = scan_measure(eng, 1, S, bw, flops_peak, None,
+                                     seed=seed + 3, label=label, second=True)
+        moe_fp8_cache(eng, prompts, min(4, cfg.num_layers),
+                       label=f"{label} fp8 kv")
+        moe_batching(eng, label)
+    log(f"{label} path: prefill_ms={prefill_ms:.2f} graph step B=8 "
+        + "; ".join(f"{b}: {m['step_ms']:.4f} ms (bound {m['bound_ms']:.4f}"
+                    f", busy {m['busy']:.3f})"
+                    for b, m in summary.items() if b != "prefill_ms")
+        + f"; peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"path_s={time.time() - t_path:.1f}")
+    if keep:
+        return launches, summary, eng
+    del eng
+    return launches, summary
+
+
+def gptoss_path(bw, flops_peak, n_layers):
+    """(a) gpt-oss-20b at full width, ``n_layers`` of 24: RTN W4A16 g32
+    with the lm_head, 8 x 512 prompts (the 128 window bites on the even
+    layers), 32 new tokens, int8 KV (row 6 with the sinks and the window),
+    max_seq 1024; everything of ``_moe_serve_path``."""
+    from autoround_tpu_torch.models import gptoss
+
+    cfg = dataclasses.replace(gptoss.CONFIG_PRESETS["gpt-oss-20b"],
+                              num_layers=n_layers)
+    return _moe_serve_path(bw, flops_peak, cfg, f"gpt-oss-20b x {n_layers}",
+                           81, "W4A16G32", 8, 512, OSS_NEW, 1024)
+
+
+def gptoss120_path(bw, flops_peak, n_layers):
+    """(b) gpt-oss-120b at full width, ``n_layers`` of 36 (row 5 at E =
+    128): 2 x 128 prompts, 16 new tokens; the replayed step at batch 8."""
+    from autoround_tpu_torch.models import gptoss
+
+    cfg = dataclasses.replace(gptoss.CONFIG_PRESETS["gpt-oss-120b"],
+                              num_layers=n_layers)
+    return _moe_serve_path(bw, flops_peak, cfg,
+                           f"gpt-oss-120b x {n_layers}", 85, "W4A16G32", 2,
+                           128, 16, 512, full=False)[0]
+
+
+def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20):
+    """SignRound (``iters``, 16 x 512 ids, ``batch`` a step) on the first
+    ``n_layers`` blocks, then served (int8 KV): ``generate_scan`` equal to
+    ``generate``.  Prints each block's first and best loss and its ms a
+    tuning step; returns the launches of the tuning."""
+    from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.utils.logger import logger as ar_logger
+
+    t_path = time.time()
+    kernels = _kernel_fns()
+    gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (16, 512), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    h = _BlockLosses()
+    level = ar_logger.level
+    ar_logger.addHandler(h)
+    ar_logger.setLevel(logging.INFO)
+    try:
+        result = _moe_quantize(cfg, calib, seed + 1, label, scheme=scheme,
+                               iters=iters, batch_size=batch)
+    finally:
+        ar_logger.removeHandler(h)
+        ar_logger.setLevel(level)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    check(sorted(h.blocks) == list(range(n_layers)),
+          f"{label}: losses of blocks {sorted(h.blocks)}")
+    for bi, (first, best, secs) in sorted(h.blocks.items()):
+        trace = result.loss_traces[bi]
+        check(bool(torch.isfinite(torch.as_tensor(trace)).all())
+              and best <= first, f"{label}: block {bi} first {first} best "
+              f"{best}")
+        kind = ("rope" if getattr(cfg, "no_rope_layers", None) is None
+                or cfg.no_rope_layers[bi] else "NoPE")
+        log(f"{label} block {bi} ({kind}): loss first {first:.6g} best "
+            f"{best:.6g} tune_step_ms={secs / iters * 1e3:.1f} (block "
+            f"seconds over {iters} steps)")
+    tune_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{label} tuning kernels {json.dumps(launches)}")
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=256,
+                                              kv_quant="int8")
+    del result
+    toks, counts = generate_counted(eng, prompts, 8)
+    _check_tokens(toks, 2, 8, cfg.vocab_size)
+    scan_against(eng, prompts, toks, counts, label)
+    log(f"{label} path: served, generate_scan tokens and launches equal "
+        f"generate's; tune_peak_gb={tune_gb:.2f} path_s="
+        f"{time.time() - t_path:.1f}")
+    del eng
+    return launches
+
+
+def gptoss_tune_path(n_layers=2):
+    """(c) SignRound W4A16 g32 on the first ``n_layers`` gpt-oss-20b blocks
+    (32 experts tuned dense-then-mask each)."""
+    from autoround_tpu_torch.models import gptoss
+
+    cfg = dataclasses.replace(gptoss.CONFIG_PRESETS["gpt-oss-20b"],
+                              num_layers=n_layers)
+    return _moe_tune_path(cfg, f"gpt-oss tune x {n_layers}", 87,
+                          "W4A16G32", n_layers, 8)
+
+
+def _scout(n_layers):
+    """llama4-scout-16e cut to ``n_layers`` (its per-layer tuples cut
+    with it)."""
+    from autoround_tpu_torch.models import llama4
+
+    full = llama4.CONFIG_PRESETS["llama4-scout-16e"]
+    return dataclasses.replace(
+        full, num_layers=n_layers,
+        no_rope_layers=full.no_rope_layers[:n_layers],
+        layer_types=full.layer_types[:n_layers],
+        moe_layers=tuple(i for i in full.moe_layers if i < n_layers))
+
+
+def scout_path(bw, flops_peak, n_layers):
+    """(d) llama4-scout at full width, ``n_layers`` of 48 (layers 3, 7, ...
+    NoPE): RTN W4A16 g128 with the lm_head, served as (a), the 2-layer
+    copy holding blocks 2-3 (a rope and a NoPE layer).  Returns
+    (launches, summary, engine) for the chunk path."""
+    return _moe_serve_path(bw, flops_peak, _scout(n_layers),
+                           f"llama4-scout x {n_layers}", 91, "W4A16", 8, 512,
+                           OSS_NEW, 1024, copy_first=2, keep=True)
+
+
+def llama4_chunk_path(eng):
+    """(e) The first 4 blocks of the Scout engine (3 chunked rope layers,
+    NoPE layer 3) past the 8192 chunk: one prompt of 8320 tokens (the
+    chunked mask at prefill, plain attention: 8320 is not a multiple of
+    256), max_seq 8448, 32 new tokens over the int8 cache (row 6 with
+    ``chunk``: positions 8320.. see the keys from 8192 on); launches as
+    the loops imply; the prefill's device peak; the 2-layer copy of blocks
+    2-3 (the NoPE temperature above 1 from position 8191) on the plain
+    versions on the card.  Returns the launches."""
+    t_path = time.time()
+    kernels = _kernel_fns()
+    ce = dataclasses.replace(copy_engine(eng, 4, "cuda"),
+                             max_seq=CHUNK_MAX_SEQ)
+    gen = torch.Generator().manual_seed(95)
+    prompt = torch.randint(0, ce.cfg.vocab_size, (1, CHUNK_PROMPT),
+                           generator=gen)
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with counts_kept():
+        logits, cache = ce.prefill(prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.time() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(logits).all()), "llama4 chunk: prefill logits")
+    del logits, cache
+    for fn in kernels.values():
+        fn.launches = 0
+    toks, _ = generate_counted(ce, prompt, OSS_NEW)
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    _ds_counts(launches, _fam_want(ce, CHUNK_PROMPT, OSS_NEW), "llama4 chunk")
+    _check_tokens(toks, 1, OSS_NEW, ce.cfg.vocab_size)
+    log(f"llama4 chunk (scout x 4, 1 x {CHUNK_PROMPT} prompt, chunk "
+        f"{ce.cfg.sliding_window}, max_seq {CHUNK_MAX_SEQ}, int8 KV): "
+        f"prefill_ms={prefill_ms:.2f} prefill device peak_gb={peak_gb:.2f} "
+        f"(resident before {base_gb:.2f}); kernels {json.dumps(launches)}; "
+        f"decode positions {CHUNK_PROMPT}..{CHUNK_PROMPT + OSS_NEW - 2} "
+        f"attend the keys from {CHUNK_PROMPT // ce.cfg.sliding_window * ce.cfg.sliding_window}")
+    check_copy(ce, prompt, "card", MOE_COPY_ROW_TOL, first=2)
+    log(f"llama4 chunk path: path_s={time.time() - t_path:.1f}")
+    del ce
+    return launches
+
+
+def llama4_tune_path(n_layers=4):
+    """(f) SignRound W4A16 g128 on Scout's blocks 0-3 (three rope layers
+    and NoPE layer 3: both ``block_fwd_for`` variants; rows 1-3 in the
+    tuning loss), 4 sequences a step: at 8 a step the tuning peaked at
+    78.86 of the card's 85.9 GB (measured on an H100; a block's 2.2 B
+    weights carry their fp32 tuning state)."""
+    return _moe_tune_path(_scout(n_layers), f"llama4 tune x {n_layers}", 97,
+                          "W4A16", n_layers, 4)
+
+
+def write_hf_fused(params, cfg, path):
+    """An HF ``gpt_oss`` or ``llama4_text`` directory of a port parameter
+    tree (on any device), the experts fused as the published checkpoints
+    store them: ``gate_up_proj`` (E, H, 2I), GPT-OSS's gate / up columns
+    interleaved (gate even) with its biases likewise, Llama 4's in halves;
+    ``down_proj`` (E, I, H).  Written with the port's safetensors writer;
+    the JAX package has no writer for either family."""
+    from autoround_tpu_torch.utils.safetensors_io import save_file
+
+    oss = hasattr(cfg, "swiglu_limit")
+    t = {"model.embed_tokens.weight": params["embed_tokens"],
+         "model.norm.weight": params["norm"],
+         "lm_head.weight": params["lm_head"]}
+    for li, b in enumerate(params["blocks"]):
+        p = f"model.layers.{li}."
+        for n in ("q", "k", "v", "o"):
+            t[f"{p}self_attn.{n}_proj.weight"] = b[f"{n}_proj"]
+            if oss:
+                t[f"{p}self_attn.{n}_proj.bias"] = b[f"{n}_bias"]
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            t[f"{p}{n}.weight"] = b[n]
+        ex = b.get("experts")
+        if oss:
+            t[p + "self_attn.sinks"] = b["sinks"]
+            t[p + "mlp.router.weight"] = b["router"]
+            t[p + "mlp.router.bias"] = b["router_bias"]
+            t[p + "mlp.experts.gate_up_proj"] = torch.stack([torch.stack(
+                [e["gate_proj"].t(), e["up_proj"].t()], dim=-1).flatten(1)
+                for e in ex])
+            t[p + "mlp.experts.gate_up_proj_bias"] = torch.stack([
+                torch.stack([e["gate_bias"], e["up_bias"]], -1).flatten()
+                for e in ex])
+            t[p + "mlp.experts.down_proj"] = torch.stack(
+                [e["down_proj"].t() for e in ex])
+            t[p + "mlp.experts.down_proj_bias"] = torch.stack(
+                [e["down_bias"] for e in ex])
+        elif ex is None:
+            for n in ("gate_proj", "up_proj", "down_proj"):
+                t[f"{p}feed_forward.{n}.weight"] = b[n]
+        else:
+            t[p + "feed_forward.router.weight"] = b["router"]
+            t[p + "feed_forward.experts.gate_up_proj"] = torch.stack([
+                torch.cat([e["gate_proj"].t(), e["up_proj"].t()], dim=1)
+                for e in ex])
+            t[p + "feed_forward.experts.down_proj"] = torch.stack(
+                [e["down_proj"].t() for e in ex])
+            for n in ("gate_proj", "up_proj", "down_proj"):
+                t[f"{p}feed_forward.shared_expert.{n}.weight"] = \
+                    b["shared_expert"][n]
+    path.mkdir(parents=True, exist_ok=True)
+    save_file({k: v.contiguous() for k, v in t.items()},
+              str(path / "model.safetensors"))
+    hf = dict(vocab_size=cfg.vocab_size, hidden_size=cfg.hidden_size,
+              intermediate_size=cfg.intermediate_size,
+              num_hidden_layers=cfg.num_layers,
+              num_attention_heads=cfg.num_heads,
+              num_key_value_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+              rope_theta=cfg.rope_theta, rms_norm_eps=cfg.rms_eps,
+              num_local_experts=cfg.num_experts,
+              num_experts_per_tok=cfg.top_k, tie_word_embeddings=False,
+              torch_dtype="bfloat16")
+    if oss:
+        hf.update(model_type="gpt_oss", sliding_window=cfg.sliding_window,
+                  rope_scaling=dict(
+                      rope_type="yarn", factor=cfg.yarn_factor,
+                      beta_fast=cfg.yarn_beta_fast,
+                      beta_slow=cfg.yarn_beta_slow,
+                      truncate=cfg.yarn_truncate,
+                      original_max_position_embeddings=
+                          cfg.yarn_original_max_pos))
+    else:
+        hf.update(model_type="llama4_text",
+                  intermediate_size_mlp=cfg.intermediate_size_mlp,
+                  moe_layers=list(cfg.moe_layers),
+                  no_rope_layers=list(cfg.no_rope_layers),
+                  attention_chunk_size=cfg.sliding_window,
+                  layer_types=["chunked_attention"
+                               if x == "sliding_attention" else x
+                               for x in cfg.layer_types],
+                  floor_scale=cfg.floor_scale,
+                  attn_scale=cfg.temp_attn_scale)
+    (path / "config.json").write_text(json.dumps(hf, indent=2))
+
+
+def oss_llama4_load_path(root, cfg, label, seed, group_size):
+    """(g) ``cfg`` (2 layers) written as an HF directory with fused experts
+    (``write_hf_fused``), read back (leaves bit-equal, the sinks and the
+    router bias fp32), RTN'd by ``python -m autoround_tpu_torch`` in a
+    subprocess (its export equal byte for byte to the in-process one),
+    loaded by ``from_pretrained`` (the family's config class, words
+    bit-equal to the in-memory engine's); prefill and first-step logits
+    within the copy limit of the in-memory engine with fp16 scales,
+    ``generate_scan`` equal to ``generate``."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+    from autoround_tpu_torch.export import save_quantized
+    from autoround_tpu_torch.models.registry import get_model_fns
+    from autoround_tpu_torch.utils.hf_loader import load_hf_checkpoint
+
+    import numpy as np
+
+    t_path = time.time()
+    gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
+    params = get_model_fns(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    perturb_moe(params, seed)
+    hf = root / f"{label}_hf"
+    write_hf_fused(params, cfg, hf)
+    lparams, lcfg = load_hf_checkpoint(str(hf))
+    want, got = _flat(params), _flat(lparams)
+    check(type(lcfg) is type(cfg) and lcfg == cfg
+          and sorted(want) == sorted(got)
+          and all(torch.equal(want[k], got[k]) for k in want),
+          f"{label} load: the loaded checkpoint differs from the written "
+          f"one ({lcfg})")
+    check(all(got[k].dtype == torch.float32 for k in got
+              if k.endswith(("sinks", "router_bias"))),
+          f"{label} load: a sink or router bias is not fp32")
+    del params, want, got
+    np.save(root / f"{label}_ids.npy", calib.numpy())
+    cli_out = root / f"{label}_cli"
+    cmd = [sys.executable, "-m", "autoround_tpu_torch", "--model", str(hf),
+           "--iters", "0", "--quant-lm-head", "--dataset",
+           str(root / f"{label}_ids.npy"), "--nsamples", "4", "--seqlen",
+           "256", "--format", "autoround", "--output", str(cli_out),
+           "--scheme", "W4A16", "--group-size", str(group_size)]
+    t0 = time.time()
+    # the machine has no network: the CLI's tokenizer lookup stays local
+    proc = subprocess.run(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(HERE),
+                                   HF_HUB_OFFLINE="1",
+                                   TRANSFORMERS_OFFLINE="1"),
+                          timeout=600)
+    t_cli = time.time() - t0
+    check(proc.returncode == 0, f"{label} load: the CLI exited "
+          f"{proc.returncode}: {proc.stdout[-2000:]}")
+    result = AutoRound((lparams, lcfg), scheme={128: "W4A16",
+                                                32: "W4A16G32"}[group_size],
+                       iters=0, quant_lm_head=True).quantize(
+        calib, mask=torch.ones(calib.shape))
+    del lparams
+    mem_out = root / f"{label}_mem"
+    save_quantized(result, lcfg, str(mem_out), "autoround")
+    _same_files(cli_out, mem_out, f"{label} load: the CLI's export against "
+                "the in-process one")
+    shutil.rmtree(hf)
+    shutil.rmtree(mem_out)
+    mem = QuantizedLlama.from_quantize_result(result, lcfg, max_seq=512,
+                                              kv_quant="int8")
+    del result
+    disk = QuantizedLlama.from_pretrained(str(cli_out), max_seq=512,
+                                          kv_quant="int8")
+    check(type(disk.cfg) is type(cfg) and disk.cfg == lcfg,
+          f"{label} load: from_pretrained config {disk.cfg}")
+    _experts_stacked(disk, f"{label} load")
+    _packed_equal(disk, mem, f"{label} load: from_pretrained")
+    _logits_against(disk, mem, prompts, f"{label} load: from_pretrained")
+    toks, counts = generate_counted(disk, prompts, 8)
+    scan_against(disk, prompts, toks, counts, f"{label} load")
+    log(f"{label} load path (x {cfg.num_layers}, HF, {cfg.num_experts} "
+        f"experts fused): "
+        f"CLI exit 0 in {t_cli:.2f} s, export equal to the in-process one, "
+        f"from_pretrained a {type(disk.cfg).__name__} with "
+        f"{len(disk.packed)} packed entries, generate_scan equal to "
+        f"generate; path_s={time.time() - t_path:.1f}")
+    shutil.rmtree(cli_out)
+    del disk, mem
+
+
+def oss_llama4_phase(bw, flops_peak, oss_layers, oss120_layers, l4_layers):
+    """GPT-OSS and Llama 4: paths (a)-(g) (gptoss_path, gptoss120_path,
+    gptoss_tune_path, scout_path, llama4_chunk_path, llama4_tune_path, and
+    oss_llama4_load_path for each family); returns their launches."""
+    from autoround_tpu_torch.models import gptoss
+
+    t0 = time.time()
+    out = {}
+    out["gpt_oss_20b"], s_oss = gptoss_path(bw, flops_peak, oss_layers)
+    free_device_memory()
+    out["gpt_oss_120b"] = gptoss120_path(bw, flops_peak, oss120_layers)
+    free_device_memory()
+    out["gpt_oss_tune"] = gptoss_tune_path()
+    free_device_memory()
+    out["llama4_scout"], s_l4, eng = scout_path(bw, flops_peak, l4_layers)
+    out["llama4_chunk"] = llama4_chunk_path(eng)
+    del eng
+    free_device_memory()
+    out["llama4_tune"] = llama4_tune_path()
+    free_device_memory()
+    root = Path(tempfile.mkdtemp(prefix="oss_l4_load_"))
+    try:
+        oss2 = dataclasses.replace(gptoss.CONFIG_PRESETS["gpt-oss-20b"],
+                                   num_layers=2)
+        oss_llama4_load_path(root, oss2, "gpt-oss", 99, 32)
+        free_device_memory()
+        oss_llama4_load_path(root, _scout(2), "llama4", 100, 128)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory()
+    log(f"gpt-oss / llama4 phase: gpt-oss-20b prefill_ms="
+        f"{s_oss['prefill_ms']:.2f} B=8 {s_oss['B8']['step_ms']:.4f} ms "
+        f"(bound {s_oss['B8']['bound_ms']:.4f}) B=1 "
+        f"{s_oss['B1']['step_ms']:.4f} ms (bound {s_oss['B1']['bound_ms']:.4f}"
+        f"); llama4-scout prefill_ms={s_l4['prefill_ms']:.2f} B=8 "
+        f"{s_l4['B8']['step_ms']:.4f} ms (bound {s_l4['B8']['bound_ms']:.4f})"
+        f" B=1 {s_l4['B1']['step_ms']:.4f} ms (bound "
+        f"{s_l4['B1']['bound_ms']:.4f}); oss_llama4_s={time.time() - t0:.1f}")
+    return out
+
+
 def _tensors(tree):
     out = []
     from autoround_tpu_torch.utils.pytree import tree_map
@@ -5285,21 +5944,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rtn-layers", type=int, default=32,
                     help="depth of the RTN -> serve path (default 32)")
-    ap.add_argument("--tune-layers", type=int, default=32,
-                    help="depth of the SignRound -> serve path (default 32)")
-    ap.add_argument("--moe-layers", type=int, default=16,
+    # the run's time limit is 1200 s: the defaults below 32 layers of the
+    # tune, moe, W4A8, W8A8, FP8, MXFP4, qwen2.5-7b and deepseek-v2-lite
+    # paths were cut for time when the whole run reached 936-1065 s on an
+    # H100 (the rtn path keeps the main path's full depth)
+    ap.add_argument("--tune-layers", type=int, default=8,
+                    help="depth of the SignRound -> serve path (default 8)")
+    ap.add_argument("--moe-layers", type=int, default=8,
                     help="depth of the Mixtral RTN -> serve path (default "
-                         "16 of 32: the bf16 blocks must fit the card "
-                         "beside their packed copies)")
+                         "8 of 32; at most 17: the bf16 blocks must fit the "
+                         "card beside their packed copies)")
     ap.add_argument("--moe-tune-layers", type=int, default=2,
                     help="depth of the Mixtral SignRound -> serve path "
                          "(default 2)")
     ap.add_argument("--asym-layers", type=int, default=4,
                     help="depth of the int4 asym -> serve path (default 4)")
-    ap.add_argument("--a8-layers", type=int, default=32,
-                    help="depth of the W4A8 -> serve path (default 32)")
-    ap.add_argument("--w8a8-layers", type=int, default=32,
-                    help="depth of the W8A8 -> serve path (default 32)")
+    ap.add_argument("--a8-layers", type=int, default=8,
+                    help="depth of the W4A8 -> serve path (default 8)")
+    ap.add_argument("--w8a8-layers", type=int, default=8,
+                    help="depth of the W8A8 -> serve path (default 8)")
     ap.add_argument("--w8a16-layers", type=int, default=4,
                     help="depth of the W8A16 -> serve path (default 4)")
     ap.add_argument("--a8-modes-layers", type=int, default=4,
@@ -5308,10 +5971,10 @@ def main() -> int:
     ap.add_argument("--a8-tune-layers", type=int, default=2,
                     help="depth of the W4A8 SignRound -> serve path "
                          "(default 2)")
-    ap.add_argument("--fp8-layers", type=int, default=32,
-                    help="depth of the FP8_STATIC -> serve path (default 32)")
-    ap.add_argument("--mxfp4-layers", type=int, default=32,
-                    help="depth of the MXFP4 -> serve path (default 32)")
+    ap.add_argument("--fp8-layers", type=int, default=8,
+                    help="depth of the FP8_STATIC -> serve path (default 8)")
+    ap.add_argument("--mxfp4-layers", type=int, default=8,
+                    help="depth of the MXFP4 -> serve path (default 8)")
     ap.add_argument("--nvfp4-layers", type=int, default=4,
                     help="depth of the NVFP4 -> serve path (default 4)")
     ap.add_argument("--w2-layers", type=int, default=4,
@@ -5325,9 +5988,9 @@ def main() -> int:
     ap.add_argument("--sage-layers", type=int, default=32,
                     help="layers of prefill attention on the int8-QK path "
                          "(default 32)")
-    ap.add_argument("--qwen25-layers", type=int, default=28,
+    ap.add_argument("--qwen25-layers", type=int, default=8,
                     help="depth of the qwen2.5-7b RTN -> serve path "
-                         "(default 28, all of them)")
+                         "(default 8 of 28)")
     ap.add_argument("--qwen3-tune-layers", type=int, default=2,
                     help="depth of the qwen3-4b SignRound -> serve path "
                          "(default 2)")
@@ -5349,13 +6012,23 @@ def main() -> int:
     ap.add_argument("--load-layers", type=int, default=4,
                     help="depth of the llama3-8b HF checkpoint of the load "
                          "phase (default 4)")
-    ap.add_argument("--deepseek-layers", type=int, default=27,
+    ap.add_argument("--deepseek-layers", type=int, default=9,
                     help="depth of the deepseek-v2-lite RTN -> serve path "
-                         "(default 27, all of them; at least 2)")
+                         "(default 9 of 27; at least 2)")
     ap.add_argument("--deepseek-v3-layers", type=int, default=4,
                     help="depth of the deepseek-v3 RTN -> serve path "
                          "(default 4 of 61: the 3 dense blocks and the "
                          "first MoE block)")
+    ap.add_argument("--gptoss-layers", type=int, default=24,
+                    help="depth of the gpt-oss-20b RTN -> serve path "
+                         "(default 24, all of them)")
+    ap.add_argument("--gptoss120-layers", type=int, default=4,
+                    help="depth of the gpt-oss-120b RTN -> serve path "
+                         "(default 4 of 36)")
+    ap.add_argument("--llama4-layers", type=int, default=8,
+                    help="depth of the llama4-scout RTN -> serve path "
+                         "(default 8 of 48: two NoPE layers; at least 4, "
+                         "the chunk path's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5477,6 +6150,9 @@ def main() -> int:
     ds = deepseek_phase(bw, fl, args.deepseek_layers,
                         args.deepseek_v3_layers)
     mark("deepseek")
+    oss = oss_llama4_phase(bw, fl, args.gptoss_layers, args.gptoss120_layers,
+                           args.llama4_layers)
+    mark("gpt-oss / llama4")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths
@@ -5518,7 +6194,8 @@ def main() -> int:
                            ("launches_options_lfq_path", opts["lfq"]),
                            ("launches_offload_path", off_launches),
                            ("launches_deepseek_v2_lite_path", ds["v2lite"]),
-                           ("launches_deepseek_v3_path", ds["v3"])):
+                           ("launches_deepseek_v3_path", ds["v3"])) + tuple(
+                (f"launches_{k}_path", v) for k, v in oss.items()):
             if other[n] and other[n] != row["launches"]:
                 row[key] = other[n]
     log(smi)

@@ -56,7 +56,10 @@ kernel at every head dim (64, 128, 256) and G (1 to 8) it takes, with the
 window and sinks, the softcap and the chunk; the int8-QK attention against
 its plain version on the same mean key (D 128 and 256, causal or not, T
 > S, GQA 1 / 4 / 8; limit 0.1 as flash: the same codes and scores, P
-rounded to bf16 after an online softmax), and its refusals.
+rounded to bf16 after an online softmax), and its refusals.  Rows 5 and 6
+at the shapes GPT-OSS and Llama 4 give them (the 32 experts of 2880 x
+2880 at g = 32, Scout's 16 of 8192 x 5120; a chunk of 256, the 64 / 8
+heads with the 128 window and the sinks).
 
 The GEMV body (M <= 32: weights as the A of mma.sync, K split over a
 thread-block cluster) at one output row, K of a single chunk, K whose
@@ -190,6 +193,28 @@ def test_grouped_all_regimes(gen, layout, C, E, O, K, g):
     _check(w4a16_matmul_grouped(x, qw, sc, g),
            w4a16_matmul_grouped_plain(x, qw, sc, g), "w4a16")
     assert w4a16_matmul_grouped.launches == before + 1
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "shared"])
+@pytest.mark.parametrize("C", [1, 8, 130, 4096])
+@pytest.mark.parametrize("E,O,K,g", [(32, 2880, 2880, 32),
+                                     (16, 8192, 5120, 128),
+                                     (16, 5120, 8192, 128)])
+def test_grouped_gptoss_and_llama4_shapes(gen, layout, C, E, O, K, g):
+    """Row 5 at the experts of gpt-oss-20b (E = 32, 2880 x 2880: K =
+    22.5 x 128, so g = 32) and llama4-scout (E = 16, gate / up 8192 x 5120,
+    down 5120 x 8192, g = 128), decode and prefill token counts."""
+    codes = torch.randint(0, 16, (O, K), generator=gen, device="cuda")
+    qw = torch.stack([pack_w4(codes.roll(e, dims=1)) for e in range(E)])
+    del codes
+    sc = (torch.rand(E, O, K // g, generator=gen, device="cuda") - 0.5) * 0.02
+    if layout == "shared":
+        x = torch.randn(C, K, generator=gen, device="cuda").bfloat16() \
+            .expand(E, C, K)
+    else:
+        x = torch.randn(E, C, K, generator=gen, device="cuda").bfloat16()
+    _check(w4a16_matmul_grouped(x, qw, sc, g),
+           w4a16_matmul_grouped_plain(x, qw, sc, g), "w4a16")
 
 
 @pytest.mark.parametrize("zp_kind", ["integral", "fractional"])
@@ -624,6 +649,38 @@ def test_decode_masks_and_groups(gen, G, case):
            decode_attention_plain(q, kc, vc, pos, ks, vs, 0.088,
                                   kw["softcap"], kw["window"], kw["sinks"],
                                   chunk=kw["chunk"]), "decode")
+
+
+@pytest.mark.parametrize("shape", ["llama4_chunk", "gptoss_sinks"])
+def test_decode_gptoss_and_llama4_shapes(gen, shape):
+    """Row 6 where the two families drive it: chunk 256 at llama3-8b's
+    heads (B 8, T 1024, nh 32, nkv 8, hd 128, every slot at pos 700), and
+    gpt-oss's heads (nh 64, nkv 8, hd 64) at pos 511 with the 128 window
+    and the sinks; slots at their own positions beside them."""
+    B, T = 8, 1024
+    nh, nkv, hd = (32, 8, 128) if shape == "llama4_chunk" else (64, 8, 64)
+    q = torch.randn(B, nh, hd, generator=gen, device="cuda").bfloat16()
+    kc = torch.randint(-127, 128, (B, T, nkv, hd), generator=gen,
+                       device="cuda").to(torch.int8)
+    vc = torch.randint(-127, 128, (B, T, nkv, hd), generator=gen,
+                       device="cuda").to(torch.int8)
+    ks = torch.rand(nkv, generator=gen, device="cuda") * 0.02 + 0.01
+    vs = torch.rand(nkv, generator=gen, device="cuda") * 0.02 + 0.01
+    if shape == "llama4_chunk":
+        kw = dict(chunk=256)
+        pos0 = 700
+    else:
+        kw = dict(window=128, sinks=torch.randn(nh, generator=gen,
+                                                device="cuda"))
+        pos0 = 511
+    for pos in (torch.full((B,), pos0, dtype=torch.int32, device="cuda"),
+                torch.tensor([0, 127, 128, 255, 256, 511, 700, T - 1],
+                             dtype=torch.int32, device="cuda")):
+        _check(decode_attention(q, kc, vc, pos, ks, vs, hd ** -0.5, **kw),
+               decode_attention_plain(q, kc, vc, pos, ks, vs, hd ** -0.5,
+                                      window=kw.get("window"),
+                                      sinks=kw.get("sinks"),
+                                      chunk=kw.get("chunk")), "decode")
 
 
 @pytest.mark.parametrize("hd", [384, 512])

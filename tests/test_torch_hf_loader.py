@@ -99,6 +99,24 @@ HF_CONFIGS = {
                           first_k_dense_replace=1,
                           routed_scaling_factor=1.8, n_group=1,
                           topk_group=1, norm_topk_prob=True),
+    "gpt_oss": dict(_BASE, model_type="gpt_oss", head_dim=16,
+                    intermediate_size=64, sliding_window=8,
+                    num_local_experts=4, num_experts_per_tok=2,
+                    rope_theta=150000.0,
+                    rope_scaling={"rope_type": "yarn", "factor": 32.0,
+                                  "beta_fast": 32.0, "beta_slow": 1.0,
+                                  "truncate": False,
+                                  "original_max_position_embeddings": 4096}),
+    "llama4_text": dict(_BASE, model_type="llama4_text", head_dim=16,
+                        intermediate_size_mlp=256, num_local_experts=4,
+                        num_experts_per_tok=1, interleave_moe_layer_step=2,
+                        no_rope_layers=[1, 0], attention_chunk_size=8,
+                        layer_types=["chunked_attention", "full_attention"],
+                        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                                      "low_freq_factor": 1.0,
+                                      "high_freq_factor": 4.0,
+                                      "original_max_position_embeddings":
+                                          8192}),
 }
 
 

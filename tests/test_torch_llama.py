@@ -99,15 +99,17 @@ _FAMILY_PRESETS = ["tiny-qwen", "tiny-qwen3", "tiny-gemma2", "tiny-gemma3",
 @pytest.mark.parametrize("name", ["tiny-qwen", "tiny-qwen3", "tiny-gemma2",
                                   "tiny-gemma3"])
 def test_config_from_jax_rejects_unported_flags(name):
-    """The family flags map now (``test_config_from_jax_llama_presets``);
-    on the same preset, Llama4's chunked attention and online R4 still
-    raise, naming their ROADMAP item."""
+    """The family flags map now (``test_config_from_jax_llama_presets``),
+    Llama4's chunked attention too (``tests/test_torch_llama4.py``); on the
+    same preset, online R4 still raises, naming its ROADMAP item."""
     jcfg = jl.CONFIG_PRESETS[name]
-    for flag, item in (("chunked_attention", "A11"), ("online_r4", "A12")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{flag}=True .*ROADMAP {item}"):
-            config_from_jax(dataclasses.asdict(
-                dataclasses.replace(jcfg, **{flag: True})))
+    with pytest.raises(NotImplementedError,
+                       match="online_r4=True .*ROADMAP A12"):
+        config_from_jax(dataclasses.asdict(
+            dataclasses.replace(jcfg, online_r4=True)))
+    chunked = config_from_jax(dataclasses.asdict(
+        dataclasses.replace(jcfg, chunked_attention=True)))
+    assert chunked.chunked_attention
 
 
 @pytest.mark.parametrize("name", ["tiny", "llama3.2-1b", "llama3-8b"]

@@ -167,8 +167,7 @@ def test_capacity_dispatch_unported_options_raise():
     topi = torch.zeros((1, 2, 1), dtype=torch.long)
     topv = torch.ones((1, 2, 1))
     for kw, item in ((dict(expert_offset=2), "A15"),
-                     (dict(n_global_experts=8), "A15"),
-                     (dict(scale_input=True), "A11")):
+                     (dict(n_global_experts=8), "A15")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tm.capacity_dispatch(h, topi, topv, 2, 1.0, lambda e, x: x, **kw)
 
