@@ -10,7 +10,10 @@ defaults and choices, ``RECIPES`` included; only ``--device`` differs: its
 choices are ``cuda`` and ``cpu``, and its default (None) means the CUDA
 card, which the run needs unless ``--device cpu`` is given.  ``main``
 runs the LLM path: a preset (random weights from ``--seed``) or a local
-HF directory, a tokenizer if ``transformers`` loads one, a ``.npy`` /
+HF directory, a tokenizer if ``transformers`` loads one (a local
+directory that holds nothing but the model's own files is not offered to
+it: importing ``AutoTokenizer`` costs tens of seconds on a GPU host, and
+such a directory has no tokenizer to load), a ``.npy`` /
 ``synthetic`` / ``local:`` dataset, the scheme overrides, the layer
 selection, the ported quantizer options, ``save_quantized`` and one JSON
 report line.  Options whose feature is not ported raise
@@ -35,6 +38,23 @@ RECIPES = {
     "opt-rtn": dict(iters=0, nsamples=64, seqlen=2048, batch_size=8,
                     imatrix=True),
 }
+
+
+# the files of a weights-only HF directory: one holding nothing else has
+# no tokenizer for ``AutoTokenizer`` to find
+_MODEL_ONLY_FILES = ("config.json", "generation_config.json",
+                     "model.safetensors.index.json")
+
+
+def _may_hold_tokenizer(path: str) -> bool:
+    """False for a local directory whose files are all the model's own
+    (``config.json``, ``generation_config.json``, safetensors and their
+    index); True for anything else (another file, or a name that is not a
+    local directory)."""
+    if not os.path.isdir(path):
+        return True
+    return any(not (f in _MODEL_ONLY_FILES or f.endswith(".safetensors"))
+               for f in os.listdir(path))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -328,6 +348,8 @@ def main(argv=None) -> int:
             args.model, device="cpu" if offload else device)
         tok_path = args.tokenizer or args.model
         try:
+            if not _may_hold_tokenizer(tok_path):
+                raise FileNotFoundError(tok_path)
             from transformers import AutoTokenizer
             tokenizer = AutoTokenizer.from_pretrained(tok_path)
         except Exception:

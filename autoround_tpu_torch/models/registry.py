@@ -9,7 +9,7 @@ from __future__ import annotations
 from types import SimpleNamespace
 from typing import Any, Dict
 
-from . import deepseek, glm4moe, gptoss, llama, llama4, mixtral
+from . import deepseek, glm4moe, gptoss, llama, llama4, mixtral, qwen3next
 
 __all__ = ["get_model_fns", "ALL_PRESETS"]
 
@@ -18,8 +18,9 @@ def get_model_fns(cfg) -> SimpleNamespace:
     """The namespace of model functions for a config.  Every family has:
     init_params, block_fwd, embed_fwd, final_fwd, rope_tables, model_fwd,
     block_linear_names; a family whose layers differ in kind (Llama 4's
-    rope and NoPE layers) adds ``block_fwd_for(cfg, li)``, the layer's own
-    forward."""
+    rope and NoPE layers, Qwen3-Next's DeltaNet and full attention) adds
+    ``block_fwd_for(cfg, li)``, the layer's own forward; a hybrid family
+    (Qwen3-Next) adds ``block_with_cache``, its serving block."""
     # DeepseekConfig and MixtralConfig subclass LlamaConfig: test them
     # first (GlmMoeLiteConfig is a DeepseekConfig)
     if isinstance(cfg, deepseek.DeepseekConfig):
@@ -31,6 +32,19 @@ def get_model_fns(cfg) -> SimpleNamespace:
             rope_tables=deepseek.rope_tables,
             model_fwd=deepseek.model_fwd,
             block_linear_names=deepseek.block_linear_names,
+        )
+    # Qwen3NextConfig (and Qwen35MoeConfig) subclass MixtralConfig
+    if isinstance(cfg, qwen3next.Qwen3NextConfig):
+        return SimpleNamespace(
+            init_params=qwen3next.init_params,
+            block_fwd=qwen3next.block_fwd,
+            block_fwd_for=qwen3next.block_fwd_for,  # DeltaNet vs full attn
+            block_with_cache=qwen3next.block_with_cache,  # hybrid serving
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=llama.rope_tables,
+            model_fwd=qwen3next.model_fwd,
+            block_linear_names=qwen3next.block_linear_names,
         )
     if isinstance(cfg, mixtral.MixtralConfig):
         return SimpleNamespace(
@@ -84,3 +98,4 @@ ALL_PRESETS.update(deepseek.CONFIG_PRESETS)
 ALL_PRESETS.update(glm4moe.CONFIG_PRESETS)
 ALL_PRESETS.update(gptoss.CONFIG_PRESETS)
 ALL_PRESETS.update(llama4.CONFIG_PRESETS)
+ALL_PRESETS.update(qwen3next.CONFIG_PRESETS)

@@ -22,6 +22,10 @@ every decode step advances all active slots, each at its own position.
 
 Sampling draws from one ``torch.Generator`` seeded from ``sampling.seed``
 (the JAX batcher splits a key per call: other numbers, same distribution).
+
+A hybrid config (Qwen3-Next, Qwen3.5-MoE) raises ``NotImplementedError``
+with the JAX batcher's wording: its conv tails and recurrent states would
+need per-slot buffers.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models import deepseek, llama
+from ..models import deepseek, llama, qwen3next
 from .engine import (QuantizedLlama, _block_with_cache, _final_fwd_packed,
                      _make_linear_fn, _StepReplay, decode_core, rope_pair)
 from .sampling import SamplingParams, sample_token
@@ -77,11 +81,13 @@ class ContinuousBatchingEngine:
                  eos_token: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None):
         cfg = model.cfg
-        if type(cfg).__name__ in ("Qwen3NextConfig", "MiniMaxConfig"):
+        if (isinstance(cfg, qwen3next.Qwen3NextConfig)
+                or type(cfg).__name__ in ("Qwen3NextConfig", "MiniMaxConfig")):
             raise NotImplementedError(
                 f"continuous batching for {type(cfg).__name__} needs "
-                "per-slot conv / recurrent state buffers (the JAX batcher "
-                "refuses it too; the family is ROADMAP A item 5)")
+                "per-slot conv/recurrent state buffers — use the "
+                "single-batch engine (QuantizedLlama.generate); per-slot "
+                "hybrid state is ROADMAP A item 5")
         self.m = model
         self.cfg = cfg
         self.B = max_batch

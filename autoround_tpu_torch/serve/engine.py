@@ -1,6 +1,7 @@
 """Quantized serving engine: packed weights + KV cache + decode loop
 (counterpart of ``autoround_tpu/serve/engine.py``; the Llama, Mixtral,
-DeepSeek, GPT-OSS and Llama 4 families, every kind of the JAX engine —
+DeepSeek, GPT-OSS, Llama 4 and Qwen3-Next families, every kind of the JAX
+engine —
 ``w4a16``, ``w4a16_asym``, ``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``,
 ``fp8``, ``mxfp4_g32`` and ``mxfp4_g16`` — and ``kv_quant`` None,
 ``"int8"`` or ``"fp8"``).  The float kinds and
@@ -53,14 +54,31 @@ kept per (batch, kv_quant, sampling, prefill_a8) and replayed by later
 calls.  A failed capture or replay raises; there is no eager fallback.  A
 CPU engine runs the same static-buffer step eagerly.
 
+A Qwen3-Next / Qwen3.5-MoE config (``models.qwen3next``) keeps a
+``HybridCache`` (the JAX engine's, ``engine.py:50-60``): K / V (L_full, B,
+T, n_kv, hd) for its full-attention layers, and for its DeltaNet layers the
+conv tails (L_lin, B, K − 1, conv_dim) in the model dtype and the recurrent
+states (L_lin, B, nv, dk, dv) in fp32, with the per-slot ``pos``.  Its
+prompt and decode cores (``_hybrid_prefill_core``, ``_hybrid_decode_core``:
+the JAX ``_q3n_prefill_core`` / ``_q3n_decode_core``) run
+``qwen3next.block_with_cache``: the O(1) recurrent step on a linear layer,
+the dense-cache attention (token written at ``pos[b]``, mask ``idx <=
+pos[b]``) on a full one.  Its fused q(+gate) / k / v and a dense layer's
+gate / up run through the fused entries (the JAX hybrid core asks for the
+members by name, misses the fused entry and multiplies the qdq leaf
+dense).  The hybrid cache takes no ``kv_quant``, as in the JAX engine: an
+engine asked for one warns and keeps ``kv_quant=None``.
+
 Unlike the JAX package, the cache is updated in place: ``decode_step``
-returns the same buffers it was given, with one more token written.
+returns the same buffers it was given, with one more token written (the
+hybrid's conv tails and states too).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import time
 from dataclasses import dataclass, field
@@ -69,7 +87,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..models import deepseek, gptoss, llama, llama4, mixtral
+from ..models import deepseek, gptoss, llama, llama4, mixtral, qwen3next
 from ..models.registry import get_model_fns
 from ..ops._build import COUNTED
 from ..ops.decode_attention import check_decode_shape, decode_attention
@@ -83,7 +101,7 @@ from ..utils.logger import logger
 from ..utils.pytree import set_by_path, tree_map
 from .sampling import SamplingParams, sample_token
 
-__all__ = ["KVCache", "QuantizedLlama"]
+__all__ = ["KVCache", "HybridCache", "QuantizedLlama"]
 
 
 class KVCache(NamedTuple):
@@ -98,6 +116,25 @@ class KVCache(NamedTuple):
     # (B,) int32 on the device: the position each slot's next token takes
     # (zeros from ``_init_cache``, the prompt length after the prefill)
     pos: Optional[torch.Tensor] = None
+
+
+class HybridCache(NamedTuple):
+    """The Qwen3-Next hybrid cache: K / V for the full-attention layers,
+    the depthwise conv tails and the recurrent delta-rule states for the
+    linear-attention layers (O(1) a decode step)."""
+
+    k: torch.Tensor      # (L_full, B, T, n_kv, hd) — cfg dtype
+    v: torch.Tensor
+    conv: torch.Tensor   # (L_lin, B, K - 1, conv_dim) — cfg dtype
+    state: torch.Tensor  # (L_lin, B, nv, dk, dv) — fp32
+    length: int
+    pos: Optional[torch.Tensor] = None   # (B,) int32, as ``KVCache.pos``
+    k_scale: Optional[torch.Tensor] = None   # always None: no kv_quant
+    v_scale: Optional[torch.Tensor] = None
+
+
+def _is_hybrid(cfg) -> bool:
+    return isinstance(cfg, qwen3next.Qwen3NextConfig)
 
 
 _KV_QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -121,7 +158,23 @@ def _init_cache(cfg: llama.LlamaConfig, batch: int, max_seq: int,
     does not take raises here, before the prompt pass, naming the shape.
     An MLA config gets the latent buffers (``k`` (L, B, T, 1, r), ``v``
     (L, B, T, 1, dr)) and per-layer scalar scales (L, 1, 1, 1, 1); no
-    decode kernel runs there, so no shape is checked."""
+    decode kernel runs there, so no shape is checked.  A hybrid config
+    gets a :class:`HybridCache` in the model dtype (``kv_quant`` is not
+    read)."""
+    if _is_hybrid(cfg):
+        n_full = sum(not qwen3next.is_linear_layer(cfg, i)
+                     for i in range(n_layers))
+        nk, nv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
+        dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
+        kshape = (n_full, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+        z = functools.partial(torch.zeros, device=device)
+        return HybridCache(
+            k=z(kshape, dtype=cfg.dtype), v=z(kshape, dtype=cfg.dtype),
+            conv=z((n_layers - n_full, batch, cfg.linear_conv_kernel_dim - 1,
+                    2 * nk * dk + nv * dv), dtype=cfg.dtype),
+            state=z((n_layers - n_full, batch, nv, dk, dv),
+                    dtype=torch.float32),
+            length=0, pos=z((batch,), dtype=torch.int32))
     store = _KV_DTYPE.get(kv_quant, cfg.dtype)
     if deepseek.is_mla(cfg):
         kshape = (n_layers, batch, max_seq, 1, cfg.kv_lora_rank)
@@ -766,9 +819,92 @@ def _mla_decode_core(params, packed, kinds, splits, token, k, v, pos, *,
     return _final_fwd_packed(params, packed, kinds, x, cfg)[:, 0]
 
 
+def _fuser(packed, kinds, splits, block_idx: int, a8_prompt: bool = False):
+    """``fused(name, h)`` of ``qwen3next.block_with_cache``: the members of
+    block ``block_idx``'s fused group ``name`` (:func:`_fused_call`)."""
+    def fused(name, h):
+        return _fused_call(packed, kinds, splits, block_idx, name, h,
+                           a8_prompt)
+    return fused
+
+
+def _hybrid_prefill_core(params, packed, kinds, splits, input_ids, *, cfg,
+                         max_seq, kv_quant, moe_capacity_factor,
+                         a8_prompt=False, cache: Optional[HybridCache] = None):
+    """The hybrid prompt pass (the JAX engine's ``_q3n_prefill_core``):
+    each full layer's K / V into the cache, each linear layer's conv tail
+    and final recurrent state copied into its buffers, and the last
+    position's logits.  ``kv_quant`` is not read; ``cache`` as in
+    :func:`_prefill_core`: its conv tails and states are overwritten whole
+    and its K / V up to S (a later prompt starts from its own state; the
+    keys past S are masked)."""
+    B, S = input_ids.shape
+    if S > max_seq:
+        raise ValueError(f"prompt length {S} exceeds max_seq {max_seq}")
+    if cache is None:
+        cache = _init_cache(cfg, B, max_seq, cfg.num_layers, None,
+                            input_ids.device)
+    x = llama.embed_fwd(params, input_ids, cfg)
+    cos, sin = llama.rope_tables(cfg, S, device=x.device)
+    jf = jl = 0
+    for i in range(cfg.num_layers):
+        x, pieces = qwen3next.block_with_cache(
+            params["blocks"][i], x, cos, sin, cfg, None, None,
+            _make_linear_fn(packed, kinds, i, a8_prompt),
+            _fuser(packed, kinds, splits, i, a8_prompt), moe_capacity_factor)
+        if pieces[0] == "lin":
+            cache.conv[jl].copy_(pieces[1])
+            cache.state[jl].copy_(pieces[2])
+            jl += 1
+        else:
+            cache.k[jf, :, :S] = pieces[1].to(cache.k.dtype)
+            cache.v[jf, :, :S] = pieces[2].to(cache.v.dtype)
+            jf += 1
+    cache.pos.fill_(S)
+    cache = cache._replace(length=S)
+    logits = _final_fwd_packed(params, packed, kinds, x[:, -1:], cfg)
+    return logits[:, 0], cache
+
+
+def _hybrid_decode_core(params, packed, kinds, splits, token, k, v, pos, *,
+                        cfg, kv_quant, moe_capacity_factor, k_scale=None,
+                        v_scale=None, conv=None, state=None):
+    """One hybrid decode step (the JAX engine's ``_q3n_decode_core``, with
+    per-slot positions): on a linear layer the O(1) recurrent update, its
+    new conv tail and state copied into ``conv`` / ``state`` in place (so
+    each replay of a captured step advances them); on a full layer the
+    token written at ``pos[b]`` and the dense-cache attention.  The
+    signature is :func:`_decode_core`'s with the two hybrid buffers; the
+    rope tables come from the device positions, so a CUDA graph can
+    capture it."""
+    x = llama.embed_fwd(params, token[:, None], cfg)
+    cos, sin = llama.rope_tables(cfg, 1, positions=pos)
+    cos, sin = cos[:, None], sin[:, None]              # (B, 1, rd)
+    jf = jl = 0
+    for i in range(cfg.num_layers):
+        lin = qwen3next.is_linear_layer(cfg, i)
+        cin = (("lin", conv[jl], state[jl]) if lin
+               else ("full", k[jf], v[jf]))
+        x, pieces = qwen3next.block_with_cache(
+            params["blocks"][i], x, cos, sin, cfg, cin, pos,
+            _make_linear_fn(packed, kinds, i), _fuser(packed, kinds, splits,
+                                                      i),
+            moe_capacity_factor)
+        if lin:
+            conv[jl].copy_(pieces[1])
+            state[jl].copy_(pieces[2])
+            jl += 1
+        else:
+            jf += 1
+    return _final_fwd_packed(params, packed, kinds, x, cfg)[:, 0]
+
+
 def decode_core(cfg) -> Callable:
     """The decode step of ``cfg``'s family: :func:`_mla_decode_core` for
-    an MLA config, else :func:`_decode_core`."""
+    an MLA config, :func:`_hybrid_decode_core` for a hybrid one, else
+    :func:`_decode_core`."""
+    if _is_hybrid(cfg):
+        return _hybrid_decode_core
     return _mla_decode_core if deepseek.is_mla(cfg) else _decode_core
 
 
@@ -886,6 +1022,13 @@ class QuantizedLlama:
 
     def __post_init__(self):
         _check_kv_quant(self.kv_quant)
+        if _is_hybrid(self.cfg) and self.kv_quant is not None:
+            logger.warning(
+                "serving engine: kv_quant=%r has no effect on %s: the hybrid "
+                "cache keeps its full-attention layers' K / V in %s (the JAX "
+                "engine's hybrid cores take no kv_quant)", self.kv_quant,
+                type(self.cfg).__name__, self.cfg.dtype)
+            self.kv_quant = None
         if self.packed_kinds is None:
             self.packed_kinds = {k: "w4a16" for k in self.packed}
 
@@ -1029,7 +1172,9 @@ class QuantizedLlama:
         ``fake`` export's qdq leaves load as they are, dense.  A DeepSeek
         export (its ``model_config`` holds ``kv_lora_rank``) rebuilds a
         ``DeepseekConfig``; its ``kv_b_proj`` layers serve dense, as
-        :meth:`from_quantize_result` serves them."""
+        :meth:`from_quantize_result` serves them.  A Qwen3-Next export
+        (``linear_num_key_heads``) rebuilds a ``Qwen3NextConfig``, its fp32
+        ``A_log`` / ``dt_bias`` as stored."""
         import json
         import os
 
@@ -1114,7 +1259,8 @@ class QuantizedLlama:
 
     def _prefill(self, ids: torch.Tensor, cache: Optional[KVCache] = None
                  ) -> Tuple[torch.Tensor, KVCache]:
-        core = (_mla_prefill_core if deepseek.is_mla(self.cfg)
+        core = (_hybrid_prefill_core if _is_hybrid(self.cfg)
+                else _mla_prefill_core if deepseek.is_mla(self.cfg)
                 else _prefill_core)
         return core(self.params, self.packed, self.packed_kinds,
                              self.fused_splits, ids, cfg=self.cfg,
@@ -1130,11 +1276,14 @@ class QuantizedLlama:
                                              device=self.device).long())
 
     def _decode(self, token: torch.Tensor, cache: KVCache) -> torch.Tensor:
+        hybrid = (dict(conv=cache.conv, state=cache.state)
+                  if isinstance(cache, HybridCache) else {})
         return decode_core(self.cfg)(self.params, self.packed, self.packed_kinds,
                             self.fused_splits, token, cache.k, cache.v,
                             cache.pos, cfg=self.cfg, kv_quant=self.kv_quant,
                             moe_capacity_factor=self.moe_capacity_factor,
-                            k_scale=cache.k_scale, v_scale=cache.v_scale)
+                            k_scale=cache.k_scale, v_scale=cache.v_scale,
+                            **hybrid)
 
     @torch.no_grad()
     def decode_step(self, token: torch.Tensor, cache: KVCache

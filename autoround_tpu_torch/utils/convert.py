@@ -3,8 +3,9 @@
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
 ``config_from_jax`` the JAX ``LlamaConfig``'s, ``MixtralConfig``'s,
-``DeepseekConfig``'s, ``GlmMoeLiteConfig``'s, ``GptOssConfig``'s or
-``Llama4Config``'s fields as a dict
+``DeepseekConfig``'s, ``GlmMoeLiteConfig``'s, ``GptOssConfig``'s,
+``Llama4Config``'s, ``Qwen3NextConfig``'s or ``Qwen35MoeConfig``'s fields
+as a dict
 (``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
 JAX package: both sides then compute on the same weights.
 ``tune_params_from_jax`` carries a tuned state the same way, and
@@ -29,6 +30,7 @@ from ..models.gptoss import GptOssConfig
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..models.llama4 import Llama4Config
 from ..models.mixtral import MixtralConfig
+from ..models.qwen3next import Qwen35MoeConfig, Qwen3NextConfig
 from ..ops.qmatmul import pack_w4
 from ..ops.qmatmul_ext import pack_w2
 
@@ -56,7 +58,8 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 # leaves the JAX package keeps in fp32 whatever the model dtype
-_FP32_LEAVES = ("e_score_correction_bias", "sinks", "router_bias")
+_FP32_LEAVES = ("e_score_correction_bias", "sinks", "router_bias", "A_log",
+                "dt_bias")
 
 
 def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
@@ -65,7 +68,8 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
     ``shared_experts`` and ``gate``) → the same tree of tensors on
     ``device``, in ``cfg``'s dtype for floating leaves but the ones the
     JAX package keeps in fp32 (DeepSeek's ``e_score_correction_bias``,
-    GPT-OSS's ``sinks`` and ``router_bias``)."""
+    GPT-OSS's ``sinks`` and ``router_bias``, Qwen3-Next's ``A_log`` and
+    ``dt_bias``)."""
     dev = resolve_device(device)
 
     def rec(node, key=None):
@@ -90,10 +94,20 @@ _UNPORTED_ITEM = {"online_r4": "A12, transforms/hadamard.py"}
 _UNPORTED_DEEPSEEK_FIELDS = ("index_topk", "zero_expert_num", "v_layers")
 _DEEPSEEK_CLASSES = {None: DeepseekConfig, "DeepseekConfig": DeepseekConfig,
                      "GlmMoeLiteConfig": GlmMoeLiteConfig}
+# a field of the JAX MiniMaxConfig (a MixtralConfig subclass the port has
+# not got), which would otherwise load as a plain MixtralConfig
+_MINIMAX_FIELD = "full_attn_alpha_factor"
 
 
 def _config_class(fields: Mapping[str, Any], cls_name: Optional[str]):
     if "kv_lora_rank" not in fields:
+        if _MINIMAX_FIELD in fields:
+            raise NotImplementedError(
+                f"{cls_name or 'MiniMaxConfig'} is not ported yet (ROADMAP "
+                f"A11: MiniMax waits for its own slice)")
+        if "linear_num_key_heads" in fields:
+            return (Qwen35MoeConfig if cls_name == "Qwen35MoeConfig"
+                    else Qwen3NextConfig)
         if "swiglu_limit" in fields:
             return GptOssConfig
         if "no_rope_layers" in fields:
@@ -117,12 +131,15 @@ def config_from_jax(fields: Mapping[str, Any],
     says so: the two have the same fields, so an export's ``model_config``
     comes back as a ``DeepseekConfig``, which serves the same), a
     ``GptOssConfig`` when they hold ``swiglu_limit``, a ``Llama4Config``
-    when they hold ``no_rope_layers``, a ``MixtralConfig`` when they hold
+    when they hold ``no_rope_layers``, a ``Qwen3NextConfig`` when they hold
+    ``linear_num_key_heads`` (a ``Qwen35MoeConfig`` when ``cls_name`` says
+    so; an export's ``model_config`` comes back as a ``Qwen3NextConfig``,
+    which serves the same), a ``MixtralConfig`` when they hold
     ``num_experts``, else a ``LlamaConfig``; the tuple fields come back as
     tuples.  Raises ``NotImplementedError`` for a config that sets a flag
-    the port does not implement (online R4) and for the DeepSeek
-    subclasses it has not got (GLM-4.5's ``kv_lora_rank = 0``, GLM-5 DSA,
-    LongCat, DeepSeek-VL)."""
+    the port does not implement (online R4), for the DeepSeek subclasses
+    it has not got (GLM-4.5's ``kv_lora_rank = 0``, GLM-5 DSA, LongCat,
+    DeepSeek-VL) and for MiniMax."""
     cls = _config_class(fields, cls_name)
     known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():
@@ -133,7 +150,7 @@ def config_from_jax(fields: Mapping[str, Any],
     kw: Dict[str, Any] = {k: v for k, v in fields.items()
                           if k in known and k != "dtype"}
     for name in ("rope_llama3", "layer_types", "moe_layers",
-                 "no_rope_layers"):
+                 "no_rope_layers", "mlp_only_layers"):
         if kw.get(name) is not None:
             kw[name] = tuple(kw[name])
     if "dtype" in fields:

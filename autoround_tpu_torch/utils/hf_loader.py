@@ -3,11 +3,15 @@
 ``llama`` (with Llama-3.1 ``rope_scaling``), ``mistral``, ``qwen2``,
 ``qwen3``, ``gemma2``, ``gemma3_text``, ``phi3``, ``mixtral``,
 ``qwen2_moe``, ``qwen3_moe``, ``deepseek_v2``, ``deepseek_v3``,
-``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture), ``gpt_oss``
-and ``llama4_text``.  The last two store their experts fused (``gate_up_proj``
-(E, H, 2I), ``down_proj`` (E, I, H)); they split into per-expert (O, I)
-leaves at load (GPT-OSS's gate / up columns interleaved, Llama 4's in
-halves), so each expert quantizes alone.
+``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture), ``gpt_oss``,
+``llama4_text``, ``qwen3_next``, ``qwen3_5_moe`` and ``qwen3_5``.  GPT-OSS
+and Llama 4 store their experts fused (``gate_up_proj`` (E, H, 2I),
+``down_proj`` (E, I, H)), Qwen3.5 as (E, 2I, H) / (E, H, I) stacks; they
+split into per-expert (O, I) leaves at load (GPT-OSS's gate / up columns
+interleaved, the others' in halves), so each expert quantizes alone.
+Qwen3-Next's ``linear_attn.*`` keys become the DeltaNet leaves (the
+depthwise conv (conv_dim, 1, K) as (conv_dim, K); ``dt_bias`` and ``A_log``
+in fp32), and Qwen3.5's ``mtp.*`` draft tensors are skipped.
 
 ``load_hf_checkpoint`` reads a local safetensors checkpoint (one file, or
 shards through ``model.safetensors.index.json``) with the port's own
@@ -17,15 +21,16 @@ tensor at a time: nothing holds a second full copy on the host.
 same weights.  Weights keep the HF (out, in) layout, which is the port's.
 
 Not ported: the other ``model_type``s the JAX function knows (GLM-4.5,
-GLM-5 DSA, Step-3.5, Qwen3-Next / 3.5, MiniMax) raise naming ROADMAP A11
+GLM-5 DSA, Step-3.5, MiniMax) raise naming their family and ROADMAP A11
 (and so do GLM-5's indexer keys in a DeepSeek checkpoint), and an
 FP8-source checkpoint (a ``weight_scale_inv`` / ``weight_scale`` key, or an
 F8 weight: DeepSeek-V3's published files) raises naming A12
-(``quantize/model_free.py``).  The JAX package has no HF writer for GPT-OSS
-or Llama 4 (its ``save_hf_checkpoint`` writes their trees with Llama /
-Mixtral keys and drops the sinks and biases); :func:`save_hf_checkpoint`
-refuses them, and GPT-OSS's native MXFP4 expert tensors (``*_blocks`` /
-``*_scales``) are not read, as in the JAX package.
+(``quantize/model_free.py``).  The JAX package has no HF writer for
+GPT-OSS, Llama 4 or Qwen3-Next (its ``save_hf_checkpoint`` writes their
+trees with Llama / Mixtral / Qwen2-MoE keys and drops the sinks, the
+biases and the DeltaNet leaves); :func:`save_hf_checkpoint` refuses them,
+and GPT-OSS's native MXFP4 expert tensors (``*_blocks`` / ``*_scales``)
+are not read, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..models.gptoss import GptOssConfig
 from ..models.llama import LlamaConfig
 from ..models.llama4 import Llama4Config
 from ..models.mixtral import MixtralConfig
+from ..models.qwen3next import Qwen35MoeConfig, Qwen3NextConfig
 from .logger import logger
 from .safetensors_io import SafeOpen, save_file
 
@@ -77,9 +83,12 @@ _TOP_MAP = {
     "lm_head.weight": "lm_head",
 }
 
-# model_types of the JAX loader whose models are not ported yet
-_UNPORTED_TYPES = ("glm_moe_dsa", "step3p5", "glm4_moe", "qwen3_next",
-                   "qwen3_5_moe", "qwen3_5", "minimax")
+# model_types of the JAX loader whose models are not ported yet, and their
+# families
+_UNPORTED_TYPES = ("glm_moe_dsa", "step3p5", "glm4_moe", "minimax")
+_UNPORTED_FAMILIES = {"glm_moe_dsa": "GLM-5 DSA", "step3p5": "Step-3.5",
+                      "glm4_moe": "GLM-4.5", "minimax": "MiniMax"}
+_QWEN3NEXT_TYPES = ("qwen3_next", "qwen3_5_moe", "qwen3_5")
 _FP8_SCALES = (".weight_scale_inv", ".weight_scale")
 
 
@@ -88,13 +97,18 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
     ``model_type``), a ``MixtralConfig`` for Mixtral-style
     (``num_local_experts``) and Qwen2/3-MoE configs, a ``DeepseekConfig``
     for ``deepseek_v2`` / ``deepseek_v3``, a ``GlmMoeLiteConfig`` for
-    ``glm4_moe_lite``, a ``Llama4Config`` for ``llama4_text`` and a
-    ``GptOssConfig`` for ``gpt_oss``."""
+    ``glm4_moe_lite``, a ``Llama4Config`` for ``llama4_text``, a
+    ``GptOssConfig`` for ``gpt_oss``, a ``Qwen3NextConfig`` for
+    ``qwen3_next`` and a ``Qwen35MoeConfig`` for ``qwen3_5_moe`` /
+    ``qwen3_5``."""
     mt = cfg.get("model_type", "llama")
     if mt in _UNPORTED_TYPES:
         raise NotImplementedError(
-            f"model_type {mt!r} is not ported yet (ROADMAP A11: the MoE "
-            f"and MLA families)")
+            f"model_type {mt!r} ({_UNPORTED_FAMILIES[mt]}) is not ported "
+            f"yet (ROADMAP A11)")
+    # before the Qwen-MoE branch: these configs hold num_experts too
+    if mt in _QWEN3NEXT_TYPES:
+        return _qwen3next_config_from_hf(cfg, mt, dtype)
     if mt in ("deepseek_v2", "deepseek_v3"):
         return _deepseek_config_from_hf(cfg, mt, dtype)
     if mt == "glm4_moe_lite":
@@ -218,6 +232,59 @@ def _llama4_config_from_hf(cfg: Dict[str, Any], dtype) -> Llama4Config:
         floor_scale=cfg.get("floor_scale", 8192.0),
         temp_attn_scale=cfg.get("attn_scale", 0.1),
         rope_llama3=_llama3_rope(cfg),
+        dtype=dtype,
+    )
+
+
+def _qwen3next_config_from_hf(cfg: Dict[str, Any], mt: str,
+                              dtype) -> Qwen3NextConfig:
+    """Qwen3-Next / Qwen3.5(-MoE) HF config → ``Qwen3NextConfig`` /
+    ``Qwen35MoeConfig``: every norm zero-centred (offset 1), partial rotary
+    (0.25 by default), the layer kinds from ``layer_types`` (the JAX loader
+    reads no ``full_attention_interval``; a config without
+    ``layer_types`` raises here, where the JAX loader fails later with an
+    ``IndexError``), and ``decoder_sparse_step`` > 1 adds every layer
+    whose (index + 1) it does not divide to ``mlp_only_layers``.
+    Text-only positions collapse Qwen3.5's interleaved MRoPE to standard
+    rope."""
+    if not cfg.get("layer_types"):
+        raise ValueError(
+            f"model_type {mt!r}: config.json has no layer_types (the "
+            f"linear_attention / full_attention kind of each layer)")
+    cls = Qwen3NextConfig if mt == "qwen3_next" else Qwen35MoeConfig
+    step = cfg.get("decoder_sparse_step", 1)
+    mlp_only = set(cfg.get("mlp_only_layers") or ())
+    if cfg.get("num_experts", 0) and step > 1:
+        mlp_only |= {li for li in range(cfg["num_hidden_layers"])
+                     if (li + 1) % step != 0}
+    shared = cfg.get("shared_expert_intermediate_size", 0) or 0
+    return cls(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        moe_intermediate_size=cfg.get("moe_intermediate_size", 0),
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg.get("num_key_value_heads",
+                             cfg["num_attention_heads"]),
+        head_dim=cfg.get("head_dim"),
+        rope_theta=cfg.get("rope_theta", 10000.0),
+        rms_eps=cfg.get("rms_norm_eps", 1e-6),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        norm_offset=1.0,
+        partial_rotary_factor=cfg.get("partial_rotary_factor", 0.25),
+        layer_types=tuple(cfg["layer_types"]),
+        linear_num_key_heads=cfg.get("linear_num_key_heads", 16),
+        linear_num_value_heads=cfg.get("linear_num_value_heads", 32),
+        linear_key_head_dim=cfg.get("linear_key_head_dim", 128),
+        linear_value_head_dim=cfg.get("linear_value_head_dim", 128),
+        linear_conv_kernel_dim=cfg.get("linear_conv_kernel_dim", 4),
+        num_experts=cfg.get("num_experts", 0),
+        top_k=cfg.get("num_experts_per_tok", 2),
+        shared_expert_intermediate=shared,
+        shared_expert_gate=shared > 0,
+        norm_topk_prob=cfg.get("norm_topk_prob", True),
+        mlp_only_layers=tuple(sorted(mlp_only)),
         dtype=dtype,
     )
 
@@ -519,9 +586,46 @@ def _map_gptoss_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,
     return True
 
 
+_Q3N_MAP = {"linear_attn.in_proj_qkvz.weight": "in_proj_qkvz",
+            "linear_attn.in_proj_ba.weight": "in_proj_ba",
+            "linear_attn.out_proj.weight": "out_proj",
+            "linear_attn.norm.weight": "linear_norm",
+            "linear_attn.dt_bias": "dt_bias",
+            "linear_attn.A_log": "A_log"}
+
+
+def _map_qwen3next_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,
+                       n_experts: int) -> bool:
+    """Qwen3-Next's own keys: the DeltaNet's ``linear_attn.*`` (the
+    depthwise conv (conv_dim, 1, K) → (conv_dim, K)) and Qwen3.5's fused
+    expert stacks (``gate_up_proj`` (E, 2I, H): w1 the first half, w3 the
+    second; ``down_proj`` (E, H, I) → w2).  Everything else is
+    :func:`_map_key`'s."""
+    if sub in _Q3N_MAP:
+        block[_Q3N_MAP[sub]] = arr
+        return True
+    if sub == "linear_attn.conv1d.weight":
+        block["conv1d"] = arr[:, 0, :].contiguous()
+        return True
+    if sub in ("mlp.experts.gate_up_proj", "mlp.experts.down_proj") \
+            and arr.ndim == 3:
+        exps = block["experts"]
+        if sub.endswith("gate_up_proj"):
+            half = arr.shape[1] // 2
+            for e in range(arr.shape[0]):
+                exps[e]["w1"] = arr[e, :half]
+                exps[e]["w3"] = arr[e, half:]
+        else:
+            for e in range(arr.shape[0]):
+                exps[e]["w2"] = arr[e]
+        return True
+    return False
+
+
 # the fp32 leaves of each family (loaded in fp32 whatever ``dtype``)
 _FP32_KEYS = (".e_score_correction_bias", ".self_attn.sinks",
-              ".mlp.router.bias")
+              ".mlp.router.bias", ".linear_attn.dt_bias",
+              ".linear_attn.A_log")
 
 
 def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
@@ -534,17 +638,18 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
         hf_cfg = json.load(f)
     cfg = config_from_hf(hf_cfg, dtype)
     deepseek = isinstance(cfg, DeepseekConfig)
+    q3n = isinstance(cfg, Qwen3NextConfig)
     family_map = (_map_gptoss_key if isinstance(cfg, GptOssConfig)
                   else _map_llama4_key if isinstance(cfg, Llama4Config)
-                  else None)
+                  else _map_qwen3next_key if q3n else None)
     n_experts = getattr(cfg, "num_experts", 0)
     blocks = [({"experts": [dict() for _ in range(n_experts)]}
                if n_experts else dict()) for _ in range(cfg.num_layers)]
     params: Dict[str, Any] = {"blocks": blocks}
     n = 0
     for key, tensor in _iter_shards(path, dev):
-        # DeepSeek's aux-free bias, GPT-OSS's sinks and router bias stay
-        # fp32, as in the JAX package
+        # DeepSeek's aux-free bias, GPT-OSS's sinks and router bias,
+        # Qwen3-Next's dt_bias and A_log stay fp32, as in the JAX package
         arr = tensor.to(torch.float32 if key.endswith(_FP32_KEYS)
                         else dtype)
         del tensor
@@ -568,10 +673,12 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
     for b in blocks:
         if isinstance(b.get("experts"), dict):  # DeepSeek's, by index
             b["experts"] = [b["experts"][e] for e in sorted(b["experts"])]
-        elif isinstance(cfg, Llama4Config) and not any(b.get("experts", ())):
+        elif (isinstance(cfg, (Llama4Config, Qwen3NextConfig))
+              and not any(b.get("experts", ()))):
             b.pop("experts", None)      # a dense layer's empty expert list
     q_key = ("q_a_proj" if deepseek and cfg.q_lora_rank else "q_proj")
-    missing = [i for i, b in enumerate(blocks) if q_key not in b]
+    missing = [i for i, b in enumerate(blocks)
+               if q_key not in b and not (q3n and "in_proj_qkvz" in b)]
     if missing:
         raise ValueError(f"blocks missing attention weights: {missing}")
     logger.info("loaded %d tensors from %s", n, path)
@@ -585,11 +692,11 @@ def save_hf_checkpoint(params: Dict[str, Any], cfg: LlamaConfig, path: str,
     is written).  A DeepSeek config writes ``deepseek_v3`` (sigmoid
     routing) or ``deepseek_v2`` keys and config; ``hf_extra`` overrides
     config fields (``{"model_type": "glm4_moe_lite"}`` for GLM-4.6-Lite)."""
-    if isinstance(cfg, (GptOssConfig, Llama4Config)):
+    if isinstance(cfg, (GptOssConfig, Llama4Config, Qwen3NextConfig)):
         raise NotImplementedError(
             f"save_hf_checkpoint: no HF writer for {type(cfg).__name__} (the "
-            f"JAX package has none either: its writer drops the sinks and "
-            f"biases and fuses nothing)")
+            f"JAX package has none either: its writer drops the sinks, the "
+            f"biases and the DeltaNet leaves and fuses nothing)")
     os.makedirs(path, exist_ok=True)
     if isinstance(cfg, DeepseekConfig):
         return _save_deepseek_checkpoint(params, cfg, path, hf_extra)

@@ -21,8 +21,10 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              backward dQ and dK/dV, W4A16 matmul, grouped W4A16 matmul, asym
              W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
              FP8 and MXFP4 / NVFP4 matmul, int8-QK attention) at the
-             main paths' shapes (flash also at D = 256; W4A16 and asym
-             also at g = 16; decode
+             main paths' shapes (flash also at D = 256 and at
+             Qwen3-Next's 16 heads over 2 of D = 256; W4A16 and asym
+             also at g = 16, W4A16 also at Qwen3-Next's in_proj_qkvz;
+             grouped W4A16 also at E = 512; decode
              also at head dims 64 and 256 and G = 7; int8-QK at row 1's
              shapes and at S = T = 2048, beside row 1's time in the same
              call) against its plain PyTorch version on the
@@ -196,7 +198,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              the loops', ``generate_scan``
              equal to ``generate``, the replayed step at batch 8 in turns
              with the in-memory engine's, beside its bound, and the 2-layer
-             copy on the card against the plain versions on the CPU.  (b)
+             copy against the plain versions on the card (the rtn path
+             holds the kernels against the CPU's).  (b)
              phase 14's llama3.2-1b g128 result (16 layers, tied) exported
              and served the same way.  (c) the results of (a), W4A16 and
              W4A16 asym, packed by ``gptq_pack_layer`` / ``awq_pack_layer``
@@ -258,7 +261,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 21. gpt-oss / llama4 — GPT-OSS and Llama 4 (random weights moved off their
              initial values: gains, attention and expert biases, the sinks
              from N(0, 1), the router bias).  (a) gpt-oss-20b at full
-             width, ``--gptoss-layers`` of 24: RTN W4A16 g32 (K = 2880 is
+             width, ``--gptoss-layers`` of 24 (8 by default): RTN W4A16
+             g32 (K = 2880 is
              22.5 x 128) with the lm_head → engine (int8 KV: row 6 with the
              sinks and the 128 window on the even layers; experts stacked
              for row 5) → ``generate`` 8 x 512, 32 new, launches as the
@@ -273,9 +277,29 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              chunk: one 8320-token prompt, 32 new tokens (row 6 with
              ``chunk``), the prefill's device peak, a copy on the plain
              versions.  (f) SignRound on Scout's blocks 0-3 (rows 1-3,
-             both layer variants).  (g) each family x 2 as an HF directory
+             both layer variants).  (g) each family x 1 as an HF directory
              with fused experts → the CLI → ``from_pretrained``.
-22. report — the card's name and power limit (nvidia-smi), a JSON line of
+22. qwen3-next — Qwen3-Next and Qwen3.5-MoE at the published widths of
+             Qwen3-Next-80B-A3B (``QWEN3_NEXT_HF``: hidden 2048, 16 heads
+             over 2 KV heads of 256, partial rotary 0.25; DeltaNet 16 k-
+             and 32 v-heads of 128, conv 4; 512 experts of 512, top 10, a
+             gated shared expert; one full layer in 4; random weights,
+             gains moved).  (a) ``--qwen3next-layers`` of 48: RTN W4A16
+             g128 with the lm_head → engine (the hybrid cache; experts
+             stacked for row 5 at E = 512, q(+gate) / k / v fused for row
+             4) → ``generate`` 8 x 512, 32 new, launches as the loops imply
+             (row 1 at prefill on the full layers); timings beside bounds;
+             prefill and 3 decode steps against ``model_fwd`` on the qdq
+             weights; layer 0's state after the prompt against 512
+             recurrent steps from zero; a 2-layer copy (a DeltaNet and a
+             full layer) on the plain versions; ``generate_scan``; the
+             replayed step at batch 8 and 1, each with a second call of
+             new prompts.  (b) SignRound (iters 4, 2 x 512 a step) on
+             blocks 0-3 (rows 1-3 in the loss) → serve.  (c) a
+             ``qwen3_5_moe`` HF directory x ``--qwen35-load-layers`` (fused
+             expert stacks, an ``mtp.*`` tensor) → the CLI →
+             ``from_pretrained``, logits equal to the in-memory engine's.
+23. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -287,8 +311,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--qwen25-layers``, ``--qwen3-tune-layers``, ``--gemma2-layers``,
 ``--gemma3-layers``, ``--load-layers``, ``--options-layers``,
 ``--nblocks-layers``, ``--offload-layers``, ``--deepseek-layers``,
-``--deepseek-v3-layers``, ``--gptoss-layers``, ``--gptoss120-layers`` and
-``--llama4-layers`` cut the depth of the paths for a quicker run.
+``--deepseek-v3-layers``, ``--gptoss-layers``, ``--gptoss120-layers``,
+``--llama4-layers``, ``--qwen3next-layers`` and ``--qwen35-load-layers``
+cut the depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -521,10 +546,12 @@ def kernel_phase(timer, bw, flops_peak):
         return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
     # K1 flash attention, forward then backward: calibration / tuning /
-    # prefill shapes, and D = 256 (Gemma's heads)
+    # prefill shapes, D = 256 (Gemma's heads), and Qwen3-Next's full
+    # attention (D = 256, 16 query heads over 2 KV heads: G = 8)
     for (B, H, Hkv, S, T, D, rep_row) in [(8, 32, 8, 512, 512, 128, True),
                                           (8, 32, 8, 256, 512, 128, False),
-                                          (8, 32, 8, 512, 512, 256, False)]:
+                                          (8, 32, 8, 512, 512, 256, False),
+                                          (8, 16, 2, 512, 512, 256, False)]:
         q = torch.randn(B, H, S, D, generator=g, device=dev).bfloat16()
         k = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
         v = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
@@ -673,7 +700,8 @@ def kernel_phase(timer, bw, flops_peak):
 
     # K2 W4A16: fused qkv, down_proj, lm_head at decode and prefill M, at
     # g = 128 and g = 16 (the GEMV reads a second scale half way through a
-    # 32-column chunk)
+    # 32-column chunk); then Qwen3-Next's DeltaNet input projection
+    # in_proj_qkvz (O = 12288, K = 2048) at g = 128
     for (M, O, K, name, G) in [(M, O, K, name, G) for G in (128, 16)
                                for (M, O, K, name) in [
                                    (8, 6144, 4096, "qkv"),
@@ -681,7 +709,9 @@ def kernel_phase(timer, bw, flops_peak):
                                    (8, 128256, 4096, "lm_head"),
                                    (4096, 6144, 4096, "qkv"),
                                    (4096, 4096, 14336, "down_proj"),
-                                   (4096, 128256, 4096, "lm_head")]]:
+                                   (4096, 128256, 4096, "lm_head")]] + [
+            (8, 12288, 2048, "qwen3-next in_proj_qkvz", 128),
+            (4096, 12288, 2048, "qwen3-next in_proj_qkvz", 128)]:
         codes = torch.randint(0, 16, (O, K), generator=g, device=dev)
         sc = (torch.rand(O, K // G, generator=g, device=dev) - 0.5) * 0.02
         qw = pack_w4(codes)
@@ -732,7 +762,10 @@ def kernel_phase(timer, bw, flops_peak):
     # not a multiple of any tile, the first C rows of a taller buffer, as
     # capacity dispatch hands it over); then gpt-oss-20b's experts (E = 32,
     # 2880 x 2880 at g = 32: K is 22.5 x 128) and llama4-scout's (E = 16,
-    # gate / up 8192 x 5120 on the shared slab, down 5120 x 8192)
+    # gate / up 8192 x 5120 on the shared slab, down 5120 x 8192); then
+    # Qwen3-Next's (E = 512: w1 / w3 512 x 2048 on the shared slab, w2
+    # 2048 x 512; C = 4096 is 8 x 512 tokens of dense-then-mask prefill,
+    # a 8.6 GB w2 output slab)
     for (E, C, K, O, name, layout, gs) in [
             (8, 8, 4096, 14336, "w1", "shared", 128),
             (8, 8, 14336, 4096, "w2", "contiguous", 128),
@@ -744,7 +777,11 @@ def kernel_phase(timer, bw, flops_peak):
             (16, 8, 5120, 8192, "scout gate/up", "shared", 128),
             (16, 8, 8192, 5120, "scout down", "contiguous", 128),
             (16, 4096, 5120, 8192, "scout gate/up", "shared", 128),
-            (16, 4096, 8192, 5120, "scout down", "contiguous", 128)]:
+            (16, 4096, 8192, 5120, "scout down", "contiguous", 128),
+            (512, 8, 2048, 512, "qwen3-next w1/w3", "shared", 128),
+            (512, 8, 512, 2048, "qwen3-next w2", "contiguous", 128),
+            (512, 4096, 2048, 512, "qwen3-next w1/w3", "shared", 128),
+            (512, 4096, 512, 2048, "qwen3-next w2", "contiguous", 128)]:
         qw = torch.stack([pack_w4(torch.randint(
             0, 16, (O, K), generator=g, device=dev)) for _ in range(E)])
         sc = (torch.rand(E, O, K // gs, generator=g, device=dev) - 0.5) * 0.02
@@ -1442,13 +1479,22 @@ def sage_path(n_layers):
 
 def copy_engine(eng, n_layers, device, first=0):
     """``n_layers`` blocks of an engine from block ``first`` on (renumbered
-    from 0), on ``device``."""
+    from 0, the config's per-layer tuples with them), on ``device``."""
     import dataclasses
 
     from autoround_tpu_torch import QuantizedLlama
     from autoround_tpu_torch.utils.pytree import tree_map
 
-    cfg = dataclasses.replace(eng.cfg, num_layers=n_layers)
+    # the per-layer tuples of the config follow the copied blocks
+    kw = dict(num_layers=n_layers)
+    for f in ("layer_types", "no_rope_layers"):
+        if getattr(eng.cfg, f, None):
+            kw[f] = tuple(getattr(eng.cfg, f)[first:first + n_layers])
+    for f in ("moe_layers", "mlp_only_layers"):
+        if getattr(eng.cfg, f, None):
+            kw[f] = tuple(i - first for i in getattr(eng.cfg, f)
+                          if first <= i < first + n_layers)
+    cfg = dataclasses.replace(eng.cfg, **kw)
 
     def mv(t):
         return t.to(device)
@@ -1469,9 +1515,14 @@ def copy_engine(eng, n_layers, device, first=0):
         pre = next((p for p in renum if k.startswith(p)), None)
         if k == "lm_head" or pre is not None:
             kinds[k if pre is None else renum[pre] + k[len(pre):]] = v
+    splits = {}
+    for k, v in (eng.fused_splits or {}).items():
+        pre = next((p for p in renum if k.startswith(p)), None)
+        if pre is not None:
+            splits[renum[pre] + k[len(pre):]] = v
     return QuantizedLlama(cfg=cfg, params=params, packed=packed,
                           max_seq=eng.max_seq, kv_quant=eng.kv_quant,
-                          fused_splits=eng.fused_splits,
+                          fused_splits=splits,
                           device=torch.device(device),
                           packed_kinds=kinds,
                           moe_capacity_factor=eng.moe_capacity_factor,
@@ -1559,9 +1610,12 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     A sliding layer's attention counts the keys of its window alone, a
     chunked one those of its chunk (``_attended``); a block's weights are
     its own (``_block_weights``: Llama 4's dense and MoE blocks differ).
-    An MLA engine takes :func:`_mla_bounds`."""
+    An MLA engine takes :func:`_mla_bounds`, a hybrid (Qwen3-Next) one
+    :func:`_hybrid_bounds`."""
     if getattr(eng.cfg, "kv_lora_rank", 0):
         return _mla_bounds(eng, B, S, bw, flops_peak)
+    if getattr(eng.cfg, "linear_num_key_heads", 0):
+        return _hybrid_bounds(eng, B, S, bw, flops_peak)
     cfg = eng.cfg
     L, hid, hd, V = cfg.num_layers, cfg.hidden_size, cfg.hd, cfg.vocab_size
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
@@ -1649,6 +1703,64 @@ def _mla_bounds(eng, B, S, bw, flops_peak):
                 + 2 * B * nh * L * (dn * r + (S + 1) * (2 * r + dr) + r * dv))
     step_bytes = (w_bytes + B * row
                   + L * B * (S + 1) * (r + dr) * kv_elt)
+    return (max(pre_bytes / bw, pre_ops / flops_peak) * 1e3,
+            max(step_bytes / bw, step_ops / flops_peak) * 1e3)
+
+
+def _hybrid_bounds(eng, B, S, bw, flops_peak):
+    """``serve_bounds`` for a hybrid (Qwen3-Next) engine: (prefill bound
+    ms, decode step bound ms at pos = S).  FLOPs: every linear weight of a
+    block for each token (a MoE block all its routed experts:
+    dense-then-mask, what the engine runs, its router, the shared expert
+    and its gate; a DeltaNet layer ``in_proj_qkvz``, ``in_proj_ba``,
+    ``out_proj`` and the conv taps), the lm_head for the last position;
+    a full layer's causal attention over the prompt or over the S + 1 keys
+    of the step; a DeltaNet layer's delta rule (a step: the decay, the
+    key's read, the update and the query's read, 2 dk dv a head each; the
+    prompt in chunks of C: Q Kᵀ, A, the solve, T V, T K, P V over the
+    chunk and the state's read and update).  Bytes: the weights once
+    (:func:`_weight_bytes`), the embedding rows used, the full layers' K /
+    V written (prefill) or read for S + 1 keys (decode) in the model
+    dtype, and each DeltaNet layer's recurrent state (fp32) and conv tail
+    read and written once a step (written once by the prompt pass)."""
+    from autoround_tpu_torch.models import qwen3next
+
+    cfg = eng.cfg
+    L, hid, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    nk, nv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
+    dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
+    Kc, C = cfg.linear_conv_kernel_dim, cfg.delta_chunk
+    conv_dim = 2 * nk * dk + nv * dv
+    lin = [qwen3next.is_linear_layer(cfg, i) for i in range(L)]
+    L_lin = sum(lin)
+    L_full = L - L_lin
+    w_lin = hid * (2 * nk * dk + 2 * nv * dv) + hid * 2 * nv \
+        + nv * dv * hid + conv_dim * Kc
+    w_full = hid * (2 * H + 2 * Hkv) * hd + H * hd * hid
+    E, mi = cfg.num_experts, cfg.moe_intermediate_size
+    w_moe = 3 * hid * mi * E + E * hid + 3 * hid * \
+        cfg.shared_expert_intermediate + hid
+    w_elems = sum((w_lin if lin[i] else w_full)
+                  + (3 * hid * cfg.intermediate_size
+                     if i in cfg.mlp_only_layers else w_moe)
+                  for i in range(L))
+    elt = eng.params["embed_tokens"].element_size()
+    row = hid * elt
+    kv_tok = 2 * Hkv * hd * elt
+    rec = nv * dk * dv * 4 + (Kc - 1) * conv_dim * elt   # state + tail
+    w_bytes = _weight_bytes(eng)
+    chunk_ops = 2 * nv * (3 * C * dk + 2 * C * dv + C * C + 3 * dk * dv)
+    pre_ops = (2 * B * S * w_elems + 2 * B * hid * V
+               + 4 * B * H * hd * (S * (S + 1) // 2) * L_full
+               + B * S * chunk_ops * L_lin)
+    pre_bytes = (w_bytes + B * S * row + L_full * B * S * kv_tok
+                 + L_lin * B * rec)
+    step_ops = (2 * B * (w_elems + hid * V)
+                + 4 * B * H * hd * (S + 1) * L_full
+                + 8 * B * nv * dk * dv * L_lin)
+    step_bytes = (w_bytes + B * row + L_full * B * (S + 1) * kv_tok
+                  + 2 * L_lin * B * rec)
     return (max(pre_bytes / bw, pre_ops / flops_peak) * 1e3,
             max(step_bytes / bw, step_ops / flops_peak) * 1e3)
 
@@ -3636,7 +3748,7 @@ def load_path(bw, flops_peak, n_layers, root, seed=41):
         f"({statistics.median(d1):.4f} / {statistics.median(d2):.4f}), "
         f"in-memory {mmed:.4f} ms ({statistics.median(m1):.4f} / "
         f"{statistics.median(m2):.4f}), step_bound_ms={bound:.4f}")
-    check_copy(disk, prompts, "cpu")
+    check_copy(disk, prompts, "card")
     del disk
     shutil.rmtree(cli_out)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -5454,9 +5566,11 @@ def gptoss120_path(bw, flops_peak, n_layers):
                            128, 16, 512, full=False)[0]
 
 
-def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20):
-    """SignRound (``iters``, 16 x 512 ids, ``batch`` a step) on the first
-    ``n_layers`` blocks, then served (int8 KV): ``generate_scan`` equal to
+def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20,
+                   nsamples=16):
+    """SignRound (``iters``, ``nsamples`` x 512 ids, ``batch`` a step) on
+    the first ``n_layers`` blocks, then served (int8 KV; a hybrid engine
+    warns and keeps its dense cache): ``generate_scan`` equal to
     ``generate``.  Prints each block's first and best loss and its ms a
     tuning step; returns the launches of the tuning."""
     from autoround_tpu_torch import QuantizedLlama
@@ -5465,7 +5579,7 @@ def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20):
     t_path = time.time()
     kernels = _kernel_fns()
     gen = torch.Generator().manual_seed(seed)
-    calib = torch.randint(0, cfg.vocab_size, (16, 512), generator=gen)
+    calib = torch.randint(0, cfg.vocab_size, (nsamples, 512), generator=gen)
     prompts = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen)
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
@@ -5488,7 +5602,10 @@ def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20):
         check(bool(torch.isfinite(torch.as_tensor(trace)).all())
               and best <= first, f"{label}: block {bi} first {first} best "
               f"{best}")
-        kind = ("rope" if getattr(cfg, "no_rope_layers", None) is None
+        kind = ({"linear_attention": "DeltaNet",
+                 "full_attention": "full"}[cfg.layer_types[bi]]
+                if getattr(cfg, "linear_num_key_heads", 0) else
+                "rope" if getattr(cfg, "no_rope_layers", None) is None
                 or cfg.no_rope_layers[bi] else "NoPE")
         log(f"{label} block {bi} ({kind}): loss first {first:.6g} best "
             f"{best:.6g} tune_step_ms={secs / iters * 1e3:.1f} (block "
@@ -5598,19 +5715,31 @@ def llama4_tune_path(n_layers=4):
                           "W4A16", n_layers, 4)
 
 
-def write_hf_fused(params, cfg, path):
-    """An HF ``gpt_oss`` or ``llama4_text`` directory of a port parameter
-    tree (on any device), the experts fused as the published checkpoints
-    store them: ``gate_up_proj`` (E, H, 2I), GPT-OSS's gate / up columns
-    interleaved (gate even) with its biases likewise, Llama 4's in halves;
-    ``down_proj`` (E, I, H).  Written with the port's safetensors writer;
-    the JAX package has no writer for either family."""
+def write_hf_fused(params, cfg, path, hf_config=None):
+    """An HF ``gpt_oss``, ``llama4_text`` or ``qwen3_5_moe`` directory of a
+    port parameter tree (on any device), the experts fused as the
+    published checkpoints store them: ``gate_up_proj`` (E, H, 2I),
+    GPT-OSS's gate / up columns interleaved (gate even) with its biases
+    likewise, Llama 4's in halves, ``down_proj`` (E, I, H); Qwen3.5's
+    ``gate_up_proj`` (E, 2I, H) in halves and ``down_proj`` (E, H, I), its
+    DeltaNet leaves under ``linear_attn.*`` (the conv (conv_dim, 1, K),
+    ``dt_bias`` / ``A_log`` fp32) and one ``mtp.*`` draft tensor that the
+    loader skips; its ``config.json`` is ``hf_config``.  Written with the
+    port's safetensors writer; the JAX package has no writer for these
+    families."""
     from autoround_tpu_torch.utils.safetensors_io import save_file
 
     oss = hasattr(cfg, "swiglu_limit")
     t = {"model.embed_tokens.weight": params["embed_tokens"],
          "model.norm.weight": params["norm"],
          "lm_head.weight": params["lm_head"]}
+    if hf_config is not None:
+        _qwen35_tensors(params, t)
+        path.mkdir(parents=True, exist_ok=True)
+        save_file({k: v.contiguous() for k, v in t.items()},
+                  str(path / "model.safetensors"))
+        (path / "config.json").write_text(json.dumps(hf_config, indent=2))
+        return
     for li, b in enumerate(params["blocks"]):
         p = f"model.layers.{li}."
         for n in ("q", "k", "v", "o"):
@@ -5682,15 +5811,52 @@ def write_hf_fused(params, cfg, path):
     (path / "config.json").write_text(json.dumps(hf, indent=2))
 
 
-def oss_llama4_load_path(root, cfg, label, seed, group_size):
-    """(g) ``cfg`` (2 layers) written as an HF directory with fused experts
-    (``write_hf_fused``), read back (leaves bit-equal, the sinks and the
-    router bias fp32), RTN'd by ``python -m autoround_tpu_torch`` in a
+def _qwen35_tensors(params, t):
+    """The HF ``qwen3_5_moe`` keys of a Qwen3-Next parameter tree, into
+    ``t`` (see :func:`write_hf_fused`)."""
+    t["mtp.layers.0.mlp.gate_proj.weight"] = torch.ones(
+        (64, 64), dtype=params["norm"].dtype, device=params["norm"].device)
+    for li, b in enumerate(params["blocks"]):
+        p = f"model.layers.{li}."
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            t[f"{p}{n}.weight"] = b[n]
+        if "in_proj_qkvz" in b:
+            la = p + "linear_attn."
+            for n in ("in_proj_qkvz", "in_proj_ba", "out_proj"):
+                t[f"{la}{n}.weight"] = b[n]
+            t[la + "conv1d.weight"] = b["conv1d"][:, None, :]
+            t[la + "norm.weight"] = b["linear_norm"]
+            t[la + "dt_bias"] = b["dt_bias"]
+            t[la + "A_log"] = b["A_log"]
+        else:
+            for n in ("q_proj", "k_proj", "v_proj", "o_proj", "q_norm",
+                      "k_norm"):
+                t[f"{p}self_attn.{n}.weight"] = b[n]
+        if "experts" not in b:
+            for n in ("gate_proj", "up_proj", "down_proj"):
+                t[f"{p}mlp.{n}.weight"] = b[n]
+            continue
+        ex = b["experts"]
+        t[p + "mlp.gate.weight"] = b["router"]
+        t[p + "mlp.experts.gate_up_proj"] = torch.stack(
+            [torch.cat([e["w1"], e["w3"]]) for e in ex])
+        t[p + "mlp.experts.down_proj"] = torch.stack([e["w2"] for e in ex])
+        for w, n in (("w1", "gate_proj"), ("w3", "up_proj"),
+                     ("w2", "down_proj")):
+            t[f"{p}mlp.shared_expert.{n}.weight"] = b["shared_expert"][w]
+        t[p + "mlp.shared_expert_gate.weight"] = b["shared_expert_gate"]
+
+
+def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None):
+    """(g) ``cfg`` written as an HF directory with fused experts
+    (``write_hf_fused``; ``hf_config``: a Qwen3.5 ``config.json``), read
+    back (leaves bit-equal, the sinks, the router bias, ``A_log`` and
+    ``dt_bias`` fp32), RTN'd by ``python -m autoround_tpu_torch`` in a
     subprocess (its export equal byte for byte to the in-process one),
-    loaded by ``from_pretrained`` (the family's config class, words
-    bit-equal to the in-memory engine's); prefill and first-step logits
-    within the copy limit of the in-memory engine with fp16 scales,
-    ``generate_scan`` equal to ``generate``."""
+    loaded by ``from_pretrained`` (the family's config, words bit-equal to
+    the in-memory engine's); prefill and first-step logits within the copy
+    limit of the in-memory engine with fp16 scales (a Qwen3.5 export's
+    equal to them), ``generate_scan`` equal to ``generate``."""
     from autoround_tpu_torch import AutoRound, QuantizedLlama
     from autoround_tpu_torch.export import save_quantized
     from autoround_tpu_torch.models.registry import get_model_fns
@@ -5706,7 +5872,9 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size):
         cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
     perturb_moe(params, seed)
     hf = root / f"{label}_hf"
-    write_hf_fused(params, cfg, hf)
+    t0 = time.time()
+    write_hf_fused(params, cfg, hf, hf_config)
+    t_write = time.time() - t0
     lparams, lcfg = load_hf_checkpoint(str(hf))
     want, got = _flat(params), _flat(lparams)
     check(type(lcfg) is type(cfg) and lcfg == cfg
@@ -5715,8 +5883,8 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size):
           f"{label} load: the loaded checkpoint differs from the written "
           f"one ({lcfg})")
     check(all(got[k].dtype == torch.float32 for k in got
-              if k.endswith(("sinks", "router_bias"))),
-          f"{label} load: a sink or router bias is not fp32")
+              if k.endswith(("sinks", "router_bias", "A_log", "dt_bias"))),
+          f"{label} load: a sink, router bias, A_log or dt_bias is not fp32")
     del params, want, got
     np.save(root / f"{label}_ids.npy", calib.numpy())
     cli_out = root / f"{label}_cli"
@@ -5726,22 +5894,29 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size):
            "256", "--format", "autoround", "--output", str(cli_out),
            "--scheme", "W4A16", "--group-size", str(group_size)]
     t0 = time.time()
-    # the machine has no network: the CLI's tokenizer lookup stays local
-    proc = subprocess.run(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True,
-                          env=dict(os.environ, PYTHONPATH=str(HERE),
-                                   HF_HUB_OFFLINE="1",
-                                   TRANSFORMERS_OFFLINE="1"),
-                          timeout=600)
+    # the machine has no network: the CLI's tokenizer lookup stays local;
+    # the CLI runs while this process makes its own export of the same
+    # directory (both are bound by the host's Python, not by the card)
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(HERE),
+                                     HF_HUB_OFFLINE="1",
+                                     TRANSFORMERS_OFFLINE="1"))
+    try:
+        result = AutoRound((lparams, lcfg),
+                           scheme={128: "W4A16", 32: "W4A16G32"}[group_size],
+                           iters=0, quant_lm_head=True).quantize(
+            calib, mask=torch.ones(calib.shape))
+        del lparams
+        mem_out = root / f"{label}_mem"
+        save_quantized(result, lcfg, str(mem_out), "autoround")
+        cli_stdout, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     t_cli = time.time() - t0
     check(proc.returncode == 0, f"{label} load: the CLI exited "
-          f"{proc.returncode}: {proc.stdout[-2000:]}")
-    result = AutoRound((lparams, lcfg), scheme={128: "W4A16",
-                                                32: "W4A16G32"}[group_size],
-                       iters=0, quant_lm_head=True).quantize(
-        calib, mask=torch.ones(calib.shape))
-    del lparams
-    mem_out = root / f"{label}_mem"
-    save_quantized(result, lcfg, str(mem_out), "autoround")
+          f"{proc.returncode}: {cli_stdout[-2000:]}")
     _same_files(cli_out, mem_out, f"{label} load: the CLI's export against "
                 "the in-process one")
     shutil.rmtree(hf)
@@ -5751,16 +5926,34 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size):
     del result
     disk = QuantizedLlama.from_pretrained(str(cli_out), max_seq=512,
                                           kv_quant="int8")
-    check(type(disk.cfg) is type(cfg) and disk.cfg == lcfg,
+    # an export's model_config names no class: Qwen3.5 comes back as the
+    # Qwen3-Next class it subclasses, with the same fields
+    check(isinstance(lcfg, type(disk.cfg))
+          and dataclasses.asdict(disk.cfg) == dataclasses.asdict(lcfg),
           f"{label} load: from_pretrained config {disk.cfg}")
-    _experts_stacked(disk, f"{label} load")
+    if hf_config is None:
+        _experts_stacked(disk, f"{label} load")
+    else:
+        _q3n_structure(disk, f"{label} load")
     _packed_equal(disk, mem, f"{label} load: from_pretrained")
     _logits_against(disk, mem, prompts, f"{label} load: from_pretrained")
+    if hf_config is not None:
+        # the same words, fp16 scales and leaves through the same kernels
+        same = [torch.equal(a, b) for a, b in zip(
+            _step_logits(disk, prompts), _step_logits(_fp16_scales(mem),
+                                                      prompts))]
+        check(all(same), f"{label} load: logits not equal to the in-memory "
+              f"engine's with fp16 scales (prefill, first step, token: "
+              f"{same})")
+        log(f"{label} load: prefill and first-step logits equal to the "
+            f"in-memory engine's with fp16 scales, bit for bit; "
+            f"hf_write_s={t_write:.2f}")
     toks, counts = generate_counted(disk, prompts, 8)
     scan_against(disk, prompts, toks, counts, f"{label} load")
     log(f"{label} load path (x {cfg.num_layers}, HF, {cfg.num_experts} "
         f"experts fused): "
-        f"CLI exit 0 in {t_cli:.2f} s, export equal to the in-process one, "
+        f"CLI exit 0 in {t_cli:.2f} s (beside the in-process export), "
+        f"export equal to the in-process one, "
         f"from_pretrained a {type(disk.cfg).__name__} with "
         f"{len(disk.packed)} packed entries, generate_scan equal to "
         f"generate; path_s={time.time() - t_path:.1f}")
@@ -5790,11 +5983,11 @@ def oss_llama4_phase(bw, flops_peak, oss_layers, oss120_layers, l4_layers):
     free_device_memory()
     root = Path(tempfile.mkdtemp(prefix="oss_l4_load_"))
     try:
-        oss2 = dataclasses.replace(gptoss.CONFIG_PRESETS["gpt-oss-20b"],
-                                   num_layers=2)
-        oss_llama4_load_path(root, oss2, "gpt-oss", 99, 32)
+        oss1 = dataclasses.replace(gptoss.CONFIG_PRESETS["gpt-oss-20b"],
+                                   num_layers=1)
+        oss_llama4_load_path(root, oss1, "gpt-oss", 99, 32)
         free_device_memory()
-        oss_llama4_load_path(root, _scout(2), "llama4", 100, 128)
+        oss_llama4_load_path(root, _scout(1), "llama4", 100, 128)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free_device_memory()
@@ -5806,6 +5999,360 @@ def oss_llama4_phase(bw, flops_peak, oss_layers, oss120_layers, l4_layers):
         f"{s_l4['B8']['step_ms']:.4f} ms (bound {s_l4['B8']['bound_ms']:.4f})"
         f" B=1 {s_l4['B1']['step_ms']:.4f} ms (bound "
         f"{s_l4['B1']['bound_ms']:.4f}); oss_llama4_s={time.time() - t0:.1f}")
+    return out
+
+
+# Qwen/Qwen3-Next-80B-A3B-Instruct's config.json (the published widths; 48
+# layers, one full-attention layer in every 4: full_attention_interval 4).
+# The file gives the pattern by full_attention_interval, which neither the
+# JAX loader nor the port's reads (both take layer_types, and refuse or
+# fail without it), so the layer_types written here are what transformers'
+# Qwen3NextConfig derives from the interval and writes on save.
+QWEN3_NEXT_HF = dict(
+    model_type="qwen3_next", vocab_size=151936, hidden_size=2048,
+    intermediate_size=5120, num_hidden_layers=48, num_attention_heads=16,
+    num_key_value_heads=2, head_dim=256, partial_rotary_factor=0.25,
+    rope_theta=10000000.0, rms_norm_eps=1e-6, tie_word_embeddings=False,
+    hidden_act="silu", attention_bias=False, full_attention_interval=4,
+    layer_types=["full_attention" if (i + 1) % 4 == 0 else "linear_attention"
+                 for i in range(48)],
+    linear_num_key_heads=16, linear_num_value_heads=32,
+    linear_key_head_dim=128, linear_value_head_dim=128,
+    linear_conv_kernel_dim=4, num_experts=512, num_experts_per_tok=10,
+    moe_intermediate_size=512, shared_expert_intermediate_size=512,
+    norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+    torch_dtype="bfloat16")
+Q3N_NEW = 32
+# prompts of the qwen3-next path (8 x 512; the dense-then-mask prefill's
+# (E, N, H) bf16 slab of the 512 experts' w2 is 512 x 4096 x 2048 x 2 B)
+Q3N_BATCH, Q3N_SEQ = 8, 512
+# layer 0's recurrent state after the prompt pass (the chunked delta rule)
+# against ``gated_delta_step`` token by token from zero, fed the prompt
+# pass's own projections: both fp32, so they differ by the order of fp32
+# sums alone (measured on an H100: 8e-5 of a head's state at worst);
+# relative Frobenius error per head.  Fed the steps' own projections (the
+# GEMV at M = 8 where the prompt ran the GEMM at M = 4096, bf16 outputs
+# that differ in the last bit) the whole state moves by 1.3e-4 relative
+# (measured), held to Q3N_STATE_OWN_TOL.
+Q3N_STATE_TOL = 1e-3
+Q3N_STATE_OWN_TOL = 0.01
+
+
+def _qwen3next(n_layers, model_type="qwen3_next", first=0):
+    """The published Qwen3-Next config (``QWEN3_NEXT_HF``) through the
+    port's HF config reader, cut to ``n_layers`` from layer ``first`` on
+    (``layer_types`` cut with it), and the HF dict of that cut."""
+    from autoround_tpu_torch.utils.hf_loader import config_from_hf
+
+    hf = dict(QWEN3_NEXT_HF, model_type=model_type,
+              num_hidden_layers=n_layers,
+              layer_types=QWEN3_NEXT_HF["layer_types"][first:first
+                                                        + n_layers])
+    return config_from_hf(hf), hf
+
+
+def _q3n_structure(eng, label):
+    """The hybrid engine's packing: each MoE block's w1 / w2 / w3 stacked
+    for row 5 (no expert packed alone for row 4, none dense), each full
+    layer's q(+gate) / k / v fused into one row-4 entry split 2·nh·hd /
+    nkv·hd / nkv·hd, the DeltaNet projections and the shared experts
+    packed but ``in_proj_ba`` (dense, as the router), the lm_head
+    packed."""
+    from autoround_tpu_torch.models import qwen3next
+
+    cfg = eng.cfg
+    q = (2 * cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd,
+         cfg.num_kv_heads * cfg.hd)
+    for i, b in enumerate(eng.params["blocks"]):
+        stacked = sorted(k for k in eng.packed
+                         if k.startswith(f"blocks.{i}.experts_stack."))
+        check(stacked == [f"blocks.{i}.experts_stack.{w}"
+                          for w in ("w1", "w2", "w3")]
+              and all(v is None for ew in b["experts"] for v in ew.values()),
+              f"{label}: block {i} experts {stacked}")
+        if qwen3next.is_linear_layer(cfg, i):
+            names = ("in_proj_qkvz", "out_proj")
+            check(b["in_proj_ba"] is not None, f"{label}: block {i} "
+                  f"in_proj_ba is not dense")
+        else:
+            names = ("qkv", "o_proj")
+            check(eng.fused_splits.get(f"blocks.{i}.qkv") == q,
+                  f"{label}: block {i} q(+gate) / k / v not fused as {q}")
+        names += tuple(f"shared_expert.{w}" for w in ("w1", "w2", "w3"))
+        check(all(f"blocks.{i}.{n}" in eng.packed for n in names),
+              f"{label}: block {i} lacks a packed entry of {names}")
+    check(not any(".experts." in k for k in eng.packed)
+          and "lm_head" in eng.packed,
+          f"{label}: an expert packed alone, or the lm_head dense")
+
+
+def _q3n_state_check(eng, prompts, label):
+    """Layer 0's conv tail and recurrent state after the prompt pass
+    against ``gated_delta_step`` token by token from zero on the same
+    engine, once fed the prompt pass's own projections (the tail must be
+    bit-equal, each head's state within Q3N_STATE_TOL) and once computing
+    its own (Q3N_STATE_OWN_TOL on the whole state); the counts kept."""
+    from autoround_tpu_torch.models import llama, qwen3next
+    from autoround_tpu_torch.serve.engine import _make_linear_fn
+
+    cfg = eng.cfg
+    S = prompts.shape[1]
+    with counts_kept(), torch.no_grad():
+        _, cache = eng.prefill(prompts)
+        blk = eng.params["blocks"][0]
+        x = llama.embed_fwd(eng.params, prompts.cuda(), cfg)
+        h = llama.rms_norm(x, blk["input_layernorm"], cfg.rms_eps,
+                           cfg.norm_offset)
+        lf = _make_linear_fn(eng.packed, eng.packed_kinds, 0)
+        pre = {n: lf(n, h, blk[n]) for n in ("in_proj_qkvz", "in_proj_ba")}
+        got = {}
+        t0 = time.time()
+        for mode in ("replayed", "own"):
+            tail = torch.zeros_like(cache.conv[0])
+            state = torch.zeros_like(cache.state[0])
+            for s in range(S):
+                def lf_s(name, xs, w, b=None, _s=s):
+                    if mode == "replayed" and name in pre:
+                        return pre[name][:, _s:_s + 1]
+                    return lf(name, xs, w, b)
+                _, tail, state = qwen3next.gated_delta_step(
+                    blk, h[:, s:s + 1], cfg, lf_s, tail, state)
+            got[mode] = (tail, state)
+        torch.cuda.synchronize()
+        t_steps = time.time() - t0
+    ref = cache.state[0]
+
+    def rel(st):
+        d = (st - ref).flatten(2).norm(dim=-1)
+        return (d / ref.flatten(2).norm(dim=-1)).max().item(), \
+            ((st - ref).norm() / ref.norm()).item()
+    (rt, rs), (ot, os_) = got["replayed"], got["own"]
+    r_head, r_all = rel(rs)
+    o_head, o_all = rel(os_)
+    log(f"{label}: layer 0 after the {S}-token prompt pass against {S} "
+        f"recurrent steps from zero: fed the prompt pass's projections, "
+        f"tail bit-equal {torch.equal(rt, cache.conv[0])}, state relative "
+        f"error worst head {r_head:.4g} whole {r_all:.4g} (tol "
+        f"{Q3N_STATE_TOL} a head); computing their own, tail row_err "
+        f"{row_err(ot, cache.conv[0])[1]:.4g}, state worst head "
+        f"{o_head:.4g} whole {o_all:.4g} (tol {Q3N_STATE_OWN_TOL} whole); "
+        f"state rms {ref.pow(2).mean().sqrt().item():.4g}; steps_s="
+        f"{t_steps:.2f}")
+    check(torch.equal(rt, cache.conv[0]) and r_head <= Q3N_STATE_TOL
+          and o_all <= Q3N_STATE_OWN_TOL,
+          f"{label}: the prompt pass's state disagrees with the steps'")
+
+
+def _q3n_params(params, first, n):
+    """A parameter tree of ``n`` blocks from block ``first`` on (the
+    embedding, the final norm and the head shared)."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    out["blocks"] = params["blocks"][first:first + n]
+    return out
+
+
+def _q3n_model_check(eng, params, prompts, label):
+    """The engine against the port's ``model_fwd`` on the same qdq weights
+    (dense products; the flash kernel where its gate takes the prompt):
+    (1) each block on the model's own input (teacher forced: the engine's
+    block, packed and fused, against ``block_fwd``), within
+    MOE_COPY_ROW_TOL; (2) the prefill logits of all layers, within
+    MOE_COPY_ROW_TOL; (3) a 2-layer copy (blocks 2-3, a DeltaNet and a
+    full layer): its prefill and 3 decode steps against ``model_fwd`` of
+    the extended sequence (the JAX test's form), within MOE_COPY_ROW_TOL;
+    (4) the same 3 decode steps of all layers, held to the larger of that
+    limit and what a one-ulp change of the model's input does: random
+    weights make the stack amplify last-bit differences layer by layer
+    (a bf16 ulp on 16% of the embedding entries moved model_fwd's
+    logits by a row error of 1.318 on an H100), so the engine's distance
+    from the model at depth is printed beside that floor.  The counts are
+    kept."""
+    from autoround_tpu_torch.models import llama, qwen3next
+    from autoround_tpu_torch.serve.engine import _fuser, _make_linear_fn
+
+    cfg = eng.cfg
+    seq = prompts.cuda()
+    t0 = time.time()
+    blk_errs = []
+    with counts_kept(), torch.no_grad():
+        x = llama.embed_fwd(params, seq, cfg)
+        cos, sin = llama.rope_tables(cfg, seq.shape[1], device=x.device)
+        for i in range(cfg.num_layers):
+            ye, _ = qwen3next.block_with_cache(
+                eng.params["blocks"][i], x, cos, sin, cfg, None, None,
+                _make_linear_fn(eng.packed, eng.packed_kinds, i),
+                _fuser(eng.packed, eng.packed_kinds, eng.fused_splits, i))
+            x = qwen3next.block_fwd_for(cfg, i)(params["blocks"][i], x, cos,
+                                                sin, cfg)
+            blk_errs.append(row_err(ye, x)[1])
+
+        def steps(e, p, c):
+            """(prefill row error, decode steps' row errors) of engine e
+            against model_fwd(p, ., c)."""
+            sq = seq
+            logits, cache = e.prefill(prompts)
+            errs = [row_err(logits, qwen3next.model_fwd(p, sq, c)[:, -1])]
+            for _ in range(3):
+                tok = logits.argmax(-1).to(torch.int32)
+                logits, cache = e.decode_step(tok, cache)
+                sq = torch.cat([sq, tok[:, None].long()], dim=1)
+                errs.append(row_err(logits, qwen3next.model_fwd(
+                    p, sq, c)[:, -1]))
+            return [r for _, r in errs]
+        deep = steps(eng, params, cfg)
+        ce = copy_engine(eng, 2, "cuda", first=2)
+        two = steps(ce, _q3n_params(params, 2, 2), ce.cfg)
+        del ce
+        # the noise floor: model_fwd with a one-ulp change of the input
+        gen = torch.Generator(device="cuda").manual_seed(117)
+        emb = params["embed_tokens"]
+        noisy = dict(params, embed_tokens=(emb.float() * (1 + 2.0 ** -9 * (
+            torch.randn(emb.shape, generator=gen, device=emb.device)))
+        ).to(emb.dtype))
+        floor = row_err(qwen3next.model_fwd(noisy, seq, cfg)[:, -1],
+                        qwen3next.model_fwd(params, seq, cfg)[:, -1])[1]
+        changed = (noisy["embed_tokens"] != emb).float().mean().item()
+        del noisy
+        torch.cuda.synchronize()
+    fmt = lambda v: " / ".join(f"{r:.4g}" for r in v)
+    log(f"{label}: engine against model_fwd on the qdq weights: each block "
+        f"teacher forced row_err {fmt(blk_errs)}; blocks 2-3 copy prefill "
+        f"and 3 decode steps {fmt(two)}; all {cfg.num_layers} layers "
+        f"prefill and 3 decode steps {fmt(deep)} (tol {MOE_COPY_ROW_TOL}; "
+        f"the decode steps of all layers beside the noise floor {floor:.4g}"
+        f": one bf16 ulp on {changed:.3g} of the embedding entries); "
+        f"check_s={time.time() - t0:.1f}")
+    check(all(r <= MOE_COPY_ROW_TOL for r in blk_errs + two + deep[:1]),
+          f"{label}: the engine's logits disagree with model_fwd's")
+    check(all(r <= max(MOE_COPY_ROW_TOL, floor) for r in deep[1:]),
+          f"{label}: the engine's decode steps leave model_fwd by more than "
+          f"a one-ulp change of the input does")
+
+
+def qwen3next_path(bw, flops_peak, n_layers):
+    """(a) Qwen3-Next-80B-A3B at full width, ``n_layers`` of 48 (layers 3,
+    7, ... full attention, the rest DeltaNet): RTN W4A16 g128 with the
+    lm_head (blocks donated) → engine (the hybrid cache: K / V of the full
+    layers, conv tails and fp32 states of the DeltaNet layers; experts
+    stacked for row 5, q(+gate) / k / v fused for row 4) → ``generate``
+    for 8 x 512 prompts, 32 new tokens, launches as the loops imply
+    (row 1 at prefill on the full layers); timings beside bounds; the
+    engine against ``model_fwd`` on the qdq weights (prefill and 3 decode
+    steps); layer 0's state against token-by-token steps; a 2-layer copy
+    (blocks 2-3: a DeltaNet and a full layer) on the plain versions on
+    the card; ``generate_scan``; the replayed step at batch 8 and 1, each
+    with a second call of new prompts.  Returns (launches, summary)."""
+    from autoround_tpu_torch import QuantizedLlama
+
+    t_path = time.time()
+    cfg, _ = _qwen3next(n_layers)
+    label = f"qwen3-next x {n_layers}"
+    kernels = _kernel_fns()
+    gen = torch.Generator().manual_seed(111)
+    B, S = Q3N_BATCH, Q3N_SEQ
+    calib = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = _moe_quantize(cfg, calib, 112, label, scheme="W4A16", iters=0,
+                           quant_lm_head=True)
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=1024)
+    torch.cuda.synchronize()
+    t_pack, pack_gb = time.time() - t0, torch.cuda.max_memory_allocated() / 1e9
+    _q3n_structure(eng, label)
+    log(f"{label} engine: {len(result.layers)} quantized layers, pack_s="
+        f"{t_pack:.2f} {len(eng.packed)} packed entries "
+        f"({sum(v == 'w4a16_grouped' for v in eng.packed_kinds.values())} "
+        f"expert stacks of {cfg.num_experts}); resident_gb="
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} quantize_peak_gb="
+        f"{quant_gb:.2f} pack_peak_gb={pack_gb:.2f} weight_gb="
+        f"{_weight_bytes(eng) / 1e9:.3f}")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    toks, gen_counts = generate_counted(eng, prompts, Q3N_NEW)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    gen_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_full = sum(t == "full_attention" for t in cfg.layer_types)
+    want = dict(_ds_want(eng, Q3N_NEW),
+                flash_attention=n_full if S >= 512 and S % 256 == 0 else 0)
+    log(f"{label} kernels {json.dumps(launches)} generate_s={t_gen:.2f} "
+        f"generate device peak_gb={gen_gb:.2f}")
+    _ds_counts(launches, want, label)
+    check(all(launches[n] > 0 for n in ("w4a16_matmul",
+                                        "w4a16_matmul_grouped",
+                                        "flash_attention")),
+          f"{label}: rows 1, 4 and 5 must all launch")
+    _check_tokens(toks, B, Q3N_NEW, cfg.vocab_size)
+    prefill_ms, step_ms = time_serving(eng, prompts, Q3N_NEW, bw, flops_peak)
+    _q3n_model_check(eng, result.params, prompts, label)
+    del result
+    free_device_memory()
+    _q3n_state_check(eng, prompts, label)
+    check_copy(eng, prompts, "card", MOE_COPY_ROW_TOL, first=2)
+    scan_path(eng, prompts, toks, gen_counts, label, step_ms)
+    summary = dict(prefill_ms=prefill_ms)
+    summary["B8"] = scan_measure(eng, 8, S, bw, flops_peak, None,
+                                 seed=113, label=label,
+                                 ran=(prompts, step_ms), second=True)
+    summary["B1"] = scan_measure(eng, 1, S, bw, flops_peak, None, seed=114,
+                                 label=label, second=True)
+    log(f"{label} path: prefill_ms={prefill_ms:.2f} graph step "
+        + "; ".join(f"{b}: {m['step_ms']:.4f} ms (bound {m['bound_ms']:.4f}"
+                    f", busy {m['busy']:.3f})"
+                    for b, m in summary.items() if b != "prefill_ms")
+        + f"; peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"path_s={time.time() - t_path:.1f}")
+    del eng
+    return launches, summary
+
+
+def qwen3next_tune_path():
+    """(b) SignRound W4A16 (``iters`` 4, 2 x 512 ids, 2 sequences a step)
+    on Qwen3-Next's blocks 0-3 (three DeltaNet layers and a full one: rows
+    1-3 in its tuning loss; 512 experts dense-then-mask each), then served:
+    ``generate_scan`` equal to ``generate``.  Returns the tuning's
+    launches."""
+    cfg, _ = _qwen3next(4)
+    launches = _moe_tune_path(cfg, "qwen3-next tune x 4", 115, "W4A16", 4,
+                              2, iters=4, nsamples=2)
+    check(all(launches[n] > 0 for n in ("flash_attention",
+                                        "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")),
+          f"qwen3-next tune: rows 1-3 must launch ({launches})")
+    return launches
+
+
+def qwen3next_phase(bw, flops_peak, n_layers, load_layers):
+    """Qwen3-Next and Qwen3.5-MoE: paths (a) ``qwen3next_path``, (b)
+    ``qwen3next_tune_path`` and (c) a ``qwen3_5_moe`` HF directory at the
+    same widths x ``load_layers`` (the published layers up to the first
+    full one; fused expert stacks, an ``mtp.*`` tensor) → the CLI →
+    ``from_pretrained``; returns their launches."""
+    t0 = time.time()
+    out = {}
+    out["qwen3_next"], summ = qwen3next_path(bw, flops_peak, n_layers)
+    free_device_memory()
+    out["qwen3_next_tune"] = qwen3next_tune_path()
+    free_device_memory()
+    root = Path(tempfile.mkdtemp(prefix="qwen35_load_"))
+    try:
+        # the published layers ending at the first full one (2-3 at the
+        # default depth: a DeltaNet and a full layer)
+        cfg, hf = _qwen3next(load_layers, "qwen3_5_moe",
+                             first=max(0, 4 - load_layers))
+        oss_llama4_load_path(root, cfg, "qwen3.5", 116, 128, hf_config=hf)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory()
+    log(f"qwen3-next phase: prefill_ms={summ['prefill_ms']:.2f} B=8 "
+        f"{summ['B8']['step_ms']:.4f} ms (bound {summ['B8']['bound_ms']:.4f}"
+        f") B=1 {summ['B1']['step_ms']:.4f} ms (bound "
+        f"{summ['B1']['bound_ms']:.4f}); qwen3next_s={time.time() - t0:.1f}")
     return out
 
 
@@ -5947,7 +6494,9 @@ def main() -> int:
     # the run's time limit is 1200 s: the defaults below 32 layers of the
     # tune, moe, W4A8, W8A8, FP8, MXFP4, qwen2.5-7b and deepseek-v2-lite
     # paths were cut for time when the whole run reached 936-1065 s on an
-    # H100 (the rtn path keeps the main path's full depth)
+    # H100, and those of the load, deepseek-v2-lite, gpt-oss-20b,
+    # llama4-scout and qwen3.5 load paths when the qwen3-next phase (267
+    # s) came (the rtn path keeps the main path's full depth)
     ap.add_argument("--tune-layers", type=int, default=8,
                     help="depth of the SignRound -> serve path (default 8)")
     ap.add_argument("--moe-layers", type=int, default=8,
@@ -6009,26 +6558,34 @@ def main() -> int:
     ap.add_argument("--offload-layers", type=int, default=32,
                     help="depth of the Mixtral-8x7b offload path (default "
                          "32, cut to what the host holds, at least 28)")
-    ap.add_argument("--load-layers", type=int, default=4,
+    ap.add_argument("--load-layers", type=int, default=2,
                     help="depth of the llama3-8b HF checkpoint of the load "
-                         "phase (default 4)")
-    ap.add_argument("--deepseek-layers", type=int, default=9,
+                         "phase (default 2)")
+    ap.add_argument("--deepseek-layers", type=int, default=4,
                     help="depth of the deepseek-v2-lite RTN -> serve path "
-                         "(default 9 of 27; at least 2)")
+                         "(default 4 of 27; at least 2)")
     ap.add_argument("--deepseek-v3-layers", type=int, default=4,
                     help="depth of the deepseek-v3 RTN -> serve path "
                          "(default 4 of 61: the 3 dense blocks and the "
                          "first MoE block)")
-    ap.add_argument("--gptoss-layers", type=int, default=24,
+    ap.add_argument("--gptoss-layers", type=int, default=8,
                     help="depth of the gpt-oss-20b RTN -> serve path "
-                         "(default 24, all of them)")
+                         "(default 8 of 24)")
     ap.add_argument("--gptoss120-layers", type=int, default=4,
                     help="depth of the gpt-oss-120b RTN -> serve path "
                          "(default 4 of 36)")
-    ap.add_argument("--llama4-layers", type=int, default=8,
+    ap.add_argument("--llama4-layers", type=int, default=4,
                     help="depth of the llama4-scout RTN -> serve path "
-                         "(default 8 of 48: two NoPE layers; at least 4, "
+                         "(default 4 of 48: NoPE layer 3; at least 4, "
                          "the chunk path's)")
+    ap.add_argument("--qwen3next-layers", type=int, default=8,
+                    help="depth of the qwen3-next RTN -> serve path "
+                         "(default 8 of 48: layers 3 and 7 full attention; "
+                         "at least 4, the copy holds layers 2-3)")
+    ap.add_argument("--qwen35-load-layers", type=int, default=2,
+                    help="depth of the qwen3_5_moe HF directory of the "
+                         "load path (default 2: the published layers 2-3, "
+                         "a DeltaNet and a full one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6153,6 +6710,9 @@ def main() -> int:
     oss = oss_llama4_phase(bw, fl, args.gptoss_layers, args.gptoss120_layers,
                            args.llama4_layers)
     mark("gpt-oss / llama4")
+    oss.update(qwen3next_phase(bw, fl, args.qwen3next_layers,
+                               args.qwen35_load_layers))
+    mark("qwen3-next")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths

@@ -131,10 +131,31 @@ def test_config_from_hf_equals_jax(name):
     assert t.dtype == torch.float32
 
 
-@pytest.mark.parametrize("model_type", th._UNPORTED_TYPES)
+# ported since these cases were written (Qwen3-Next / 3.5): their cases
+# now hold what the loader does with the same base config
+_NOW_PORTED = ("qwen3_next", "qwen3_5_moe", "qwen3_5")
+
+
+@pytest.mark.parametrize("model_type", th._UNPORTED_TYPES + _NOW_PORTED)
 def test_unported_model_types_raise(model_type):
-    with pytest.raises(NotImplementedError, match="A11"):
+    if model_type not in _NOW_PORTED:
+        with pytest.raises(NotImplementedError, match="A11"):
+            th.config_from_hf(dict(_BASE, model_type=model_type))
+        return
+    # a hybrid config needs its layer kinds; with them it builds the
+    # JAX loader's config
+    with pytest.raises(ValueError, match="layer_types"):
         th.config_from_hf(dict(_BASE, model_type=model_type))
+    hf = dict(_BASE, model_type=model_type, num_experts=4,
+              layer_types=["linear_attention", "full_attention"])
+    t = th.config_from_hf(hf, torch.float32)
+    j = jh.config_from_hf(hf, jnp.float32)
+    assert type(t).__name__ == type(j).__name__ == (
+        "Qwen3NextConfig" if model_type == "qwen3_next"
+        else "Qwen35MoeConfig")
+    for f in dataclasses.fields(t):
+        if f.name != "dtype":
+            assert getattr(t, f.name) == getattr(j, f.name), f.name
 
 
 @pytest.mark.parametrize("marker", ["weight_scale_inv", "f8_weight"])
