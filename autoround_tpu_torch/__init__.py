@@ -7,7 +7,9 @@ quantize-then-serve path on an NVIDIA H100, with hand-written CUDA kernels
 the JAX package.
 
 Ported so far: SignRound (``iters > 0``) and RTN (``iters=0``) quantization
-of Llama-family and Mixtral models with the int and float (FP8, MX, NVFP4)
+of Llama-family, Mixtral, DeepSeek (with GLM-4.6-Lite), GPT-OSS, Llama 4,
+Qwen3-Next, GLM-4.5 and GLM-5 DSA models (``models.registry.ALL_PRESETS``)
+with the int and float (FP8, MX, NVFP4)
 data types and their activation quantization, the serving engine for every
 packed kind of the JAX engine with an int8 or fp8 KV cache, its decode loop
 as a replayed CUDA graph (``generate_scan``) and continuous batching

@@ -8,7 +8,7 @@
 //
 // What bounds it on an H100: each (sequence, kv head) reads its int8 K and
 // V rows up to `pos` (2 * hd bytes per token) and does ~4 * G * hd
-// operations per token with G <= 8 query heads: at most 16 operations a
+// operations per token with G <= 16 query heads: at most 32 operations a
 // byte, so the cache stream from memory bounds it.  At decode batch sizes
 // there are few (sequence, kv head) pairs (64 at B = 8, nkv = 8; 32 at
 // G = 7) against 132 SMs, and one block each would wait on memory latency
@@ -31,15 +31,18 @@
 //    tiles' bytes are in flight while this one's scores, softmax and P.V
 //    run.  Two block-wide barriers a tile: one when a tile has landed, one
 //    between the softmax and P.V.
-//  * scores and softmax: warp g takes query head g, one token a lane (two
-//    per tile), the whole K row against the fp32 query row in shared
-//    memory; the K scale folds into the score scale (sm_scale * k_scale),
-//    then the optional Gemma-style softcap; the warp updates its head's
-//    running max and sum by shuffles.  P.V: each thread owns 4 output
-//    columns for all G heads and one token slice of the tile (V read 4
-//    bytes a lane, conflict-free); the slices meet in shared memory at the
-//    end.  Scores and P.V stay on the CUDA cores: 16 operations a byte is
-//    far below the tensor cores' line.
+//  * scores and softmax: warp w takes query heads w, w + 8 (G > 8: GLM-4.5
+//    has G = 12), one token a lane (two per tile), the whole K row against
+//    the fp32 query row in shared memory; the K scale folds into the score
+//    scale (sm_scale * k_scale), then the optional Gemma-style softcap; the
+//    warp updates each of its heads' running max and sum by shuffles.
+//    P.V: each thread owns 4 output columns for all G heads and one token
+//    slice of the tile (V read 4 bytes a lane, conflict-free); the slices
+//    meet in shared memory at the end.  Scores and P.V stay on the CUDA
+//    cores: 32 operations a byte is far below the tensor cores' line.  A
+//    thread holds 4 * G fp32 sums: above G = 12 the split kernel asks for
+//    one block an SM (up to 255 registers a thread) instead of two, so
+//    they do not spill.
 //  * the block writes, for each of its G heads, a partial (m, l, acc[hd])
 //    in fp32 to scratch the wrapper allocates; a split with no token (a
 //    window or chunk shorter than the splits, or pos before its start)
@@ -53,7 +56,7 @@
 // bit-equal to a kernel that walks all tokens in one block; it stays within
 // row 6's tolerance of the plain version.  The combine adds the splits in
 // index order with no atomics: two launches give the same bits.
-// One instance per (hd, G): hd in {64, 128, 256}, G in 1..8, so no query
+// One instance per (hd, G): hd in {64, 128, 256}, G in 1..16, so no query
 // head is padded.  The masked value is -0.7 * FLT_MAX, as in the JAX kernel.
 
 #include <cuda_bf16.h>
@@ -67,7 +70,7 @@ namespace {
 
 using namespace ptx;
 
-constexpr int GMAX = 8;
+constexpr int GMAX = 16;
 constexpr int TILE = 64;
 constexpr int NWARP = 8;
 constexpr int NTHREADS = NWARP * 32;
@@ -149,10 +152,13 @@ __device__ __forceinline__ void load_tile(unsigned char* smem,
   }
 }
 
-// (at least two blocks an SM: with that bound ptxas gives the G = 8
-// instances the registers they need instead of spilling a few bytes)
+// (at least two blocks an SM up to G = 12: with that bound ptxas gives the
+// G = 8 instances the registers they need instead of spilling a few bytes;
+// one above it, where the 4 * G sums a thread holds need more)
+constexpr int min_blocks(int g) { return g > 12 ? 1 : 2; }
+
 template <int HD, int G>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, min_blocks(G))
 split_kernel(const __nv_bfloat16* __restrict__ q,
              const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
              const int* __restrict__ pos_v, const float* __restrict__ ks,
@@ -208,7 +214,14 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int g = 0; g < G; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;   // head `warp`'s state (warp < G)
+  // the running softmax state of the heads warp w scores: w + NWARP * hh
+  constexpr int HPW = (G + NWARP - 1) / NWARP;
+  float m_run[HPW], l_run[HPW];
+#pragma unroll
+  for (int hh = 0; hh < HPW; ++hh) {
+    m_run[hh] = -INFINITY;
+    l_run[hh] = 0.f;
+  }
 
   for (int it = 0; it < ntiles; ++it) {
     const int t0 = s_lo + it * TILE;
@@ -221,10 +234,13 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
     const unsigned char* ksl = smem + (it % L::STAGES) * 2 * L::TILE_BYTES;
     const unsigned char* vsl = ksl + L::TILE_BYTES;
 
-    // scores and online softmax: warp g for head g, tokens lane, lane + 32
+    // scores and online softmax: warp w for heads w + NWARP * hh, tokens
+    // lane, lane + 32
     static_assert(TILE == 64, "two tokens a lane");
-    if (warp < G) {
-      const int g = warp;
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh) {
+      const int g = warp + NWARP * hh;
+      if (g >= G) break;
       const float* qg = qs + g * HD;
       // tokens lane and lane + 32: each query chunk is read once for both
       const unsigned char* kr0 = ksl + lane * ROW;
@@ -262,7 +278,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int off = 16; off > 0; off /= 2)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run, mx);
+      const float m_new = fmaxf(m_run[hh], mx);
       const float p0 = expf(s[0] - m_new), p1 = expf(s[1] - m_new);
       ps[g * TILE + lane] = p0;
       ps[g * TILE + lane + 32] = p1;
@@ -270,9 +286,9 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int off = 16; off > 0; off /= 2)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m_run - m_new);
-      l_run = alpha * l_run + sum;
-      m_run = m_new;
+      const float alpha = expf(m_run[hh] - m_new);
+      l_run[hh] = alpha * l_run[hh] + sum;
+      m_run[hh] = m_new;
       if (lane == 0) alpha_s[g] = alpha;
     }
     __syncthreads();
@@ -298,9 +314,15 @@ split_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   cp_wait<0>();
-  if (warp < G && lane == 0) {
-    ml_s[2 * warp] = m_run;
-    ml_s[2 * warp + 1] = l_run;
+  if (lane == 0) {
+#pragma unroll
+    for (int hh = 0; hh < HPW; ++hh) {
+      const int g = warp + NWARP * hh;
+      if (g < G) {
+        ml_s[2 * g] = m_run[hh];
+        ml_s[2 * g + 1] = l_run[hh];
+      }
+    }
   }
   __syncthreads();          // the ring is drained: `red` may reuse it
 #pragma unroll
@@ -395,6 +417,8 @@ int launch_g(int G, const void* q, const void* k, const void* v,
   switch (G) {
     DECODE_G(1); DECODE_G(2); DECODE_G(3); DECODE_G(4);
     DECODE_G(5); DECODE_G(6); DECODE_G(7); DECODE_G(8);
+    DECODE_G(9); DECODE_G(10); DECODE_G(11); DECODE_G(12);
+    DECODE_G(13); DECODE_G(14); DECODE_G(15); DECODE_G(16);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DECODE_G
@@ -430,7 +454,7 @@ int info_of(int* info) {
 
 // q (B, nh, hd) bf16; k/v cache (B, T, nkv, hd) int8; pos (B,) int32;
 // k/v_scale (nkv,) fp32; sinks (nh,) fp32 or NULL; out (B, nh, hd) bf16.
-// hd in {64, 128, 256}, G = nh / nkv in 1..8; window / chunk <= 0 mean
+// hd in {64, 128, 256}, G = nh / nkv in 1..16; window / chunk <= 0 mean
 // "none".  `splits` >= 1 pieces of the token axis; `partial` is fp32
 // scratch of B * nh * splits * (hd + 2) values.  Returns the cudaError_t
 // of the launches (0 on success).
@@ -462,14 +486,27 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// Resources of the split kernel and the combine kernel at (hd, G): info =
-// {registers a thread, spill bytes a thread, dynamic shared bytes, blocks
-// per SM} of the split kernel, then the same four of the combine kernel.
+template <int HD>
+int info_g(int G, int* info) {
+#define INFO_G(N) \
+  case N: return info_of<HD, N>(info)
+  switch (G) {
+    INFO_G(1); INFO_G(2); INFO_G(3); INFO_G(4);
+    INFO_G(5); INFO_G(6); INFO_G(7); INFO_G(8);
+    INFO_G(9); INFO_G(10); INFO_G(11); INFO_G(12);
+    INFO_G(13); INFO_G(14); INFO_G(15); INFO_G(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef INFO_G
+}
+
+// Resources of the split kernel and the combine kernel at (hd, G), any
+// instance: info = {registers a thread, spill bytes a thread, dynamic
+// shared bytes, blocks per SM} of the split kernel, then the same four of
+// the combine kernel.
 extern "C" int decode_attention_info(int hd, int G, int* info) {
-  if (hd == 128 && G == 4) return info_of<128, 4>(info);
-  if (hd == 128 && G == 7) return info_of<128, 7>(info);
-  if (hd == 64 && G == 4) return info_of<64, 4>(info);
-  if (hd == 256 && G == 4) return info_of<256, 4>(info);
-  if (hd == 256 && G == 8) return info_of<256, 8>(info);
+  if (hd == 64) return info_g<64>(G, info);
+  if (hd == 128) return info_g<128>(G, info);
+  if (hd == 256) return info_g<256>(G, info);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,7 +9,8 @@ from __future__ import annotations
 from types import SimpleNamespace
 from typing import Any, Dict
 
-from . import deepseek, glm4moe, gptoss, llama, llama4, mixtral, qwen3next
+from . import (deepseek, glm4moe, glmdsa, gptoss, llama, llama4, mixtral,
+               qwen3next)
 
 __all__ = ["get_model_fns", "ALL_PRESETS"]
 
@@ -22,7 +23,28 @@ def get_model_fns(cfg) -> SimpleNamespace:
     ``block_fwd_for(cfg, li)``, the layer's own forward; a hybrid family
     (Qwen3-Next) adds ``block_with_cache``, its serving block."""
     # DeepseekConfig and MixtralConfig subclass LlamaConfig: test them
-    # first (GlmMoeLiteConfig is a DeepseekConfig)
+    # first, and the DeepSeek subclasses before DeepseekConfig (GLM-4.5's
+    # GQA form, GLM-5 DSA; GlmMoeLiteConfig is DeepSeek's own)
+    if isinstance(cfg, glm4moe.Glm4MoeConfig):
+        return SimpleNamespace(
+            init_params=glm4moe.init_params,
+            block_fwd=glm4moe.block_fwd,
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=llama.rope_tables,       # partial rotary
+            model_fwd=glm4moe.model_fwd,
+            block_linear_names=glm4moe.block_linear_names,
+        )
+    if isinstance(cfg, glmdsa.GlmMoeDsaConfig):
+        return SimpleNamespace(
+            init_params=glmdsa.init_params,
+            block_fwd=glmdsa.block_fwd,
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=deepseek.rope_tables,
+            model_fwd=glmdsa.model_fwd,
+            block_linear_names=glmdsa.block_linear_names,
+        )
     if isinstance(cfg, deepseek.DeepseekConfig):
         return SimpleNamespace(
             init_params=deepseek.init_params,
@@ -96,6 +118,7 @@ ALL_PRESETS.update(llama.CONFIG_PRESETS)
 ALL_PRESETS.update(mixtral.CONFIG_PRESETS)
 ALL_PRESETS.update(deepseek.CONFIG_PRESETS)
 ALL_PRESETS.update(glm4moe.CONFIG_PRESETS)
+ALL_PRESETS.update(glmdsa.CONFIG_PRESETS)
 ALL_PRESETS.update(gptoss.CONFIG_PRESETS)
 ALL_PRESETS.update(llama4.CONFIG_PRESETS)
 ALL_PRESETS.update(qwen3next.CONFIG_PRESETS)

@@ -27,9 +27,10 @@ __all__ = ["decode_attention", "decode_attention_plain",
 
 _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 # head dims the kernel is instantiated for, and the most query heads per kv
-# head (every G from 1 to it)
+# head (every G from 1 to it: GLM-4.5 / 4.5-Air has 12, 64 query heads over
+# 4 kv heads 16)
 KERNEL_HEAD_DIMS = (64, 128, 256)
-KERNEL_MAX_GROUP = 8
+KERNEL_MAX_GROUP = 16
 # the split kernel's token tile, and the blocks it aims for: about two
 # waves over an H100's 132 SMs
 SPLIT_TILE = 64
@@ -54,7 +55,8 @@ def decode_splits(B: int, nkv: int, T: int) -> int:
 
 def check_decode_shape(hd: int, nh: int, nkv: int) -> None:
     """Raise ``ValueError`` naming the shape unless the decode kernel takes
-    it: hd in (64, 128, 256) and G = nh / n_kv a whole number from 1 to 8.
+    it: hd in (64, 128, 256) and G = nh / n_kv a whole number from 1 to
+    16.
     (The JAX op gives other shapes to its plain reference; here a CUDA
     tensor of such a shape has no kernel and raises.)"""
     if (hd not in KERNEL_HEAD_DIMS or nkv <= 0 or nh % nkv
@@ -138,7 +140,7 @@ def decode_attention(q, k_cache, v_cache, pos, k_scale, v_scale,
     q (B, nh, hd); k/v_cache (B, T, n_kv, hd) int8; pos (B,) int32 or a
     scalar; k/v_scale (n_kv,) fp32; sinks (nh,) fp32 or None.
 
-    CUDA: q bf16, hd in {64, 128, 256}, nh / n_kv in 1..8, contiguous
+    CUDA: q bf16, hd in {64, 128, 256}, nh / n_kv in 1..16, contiguous
     tensors; window and chunk positive when given.  Anything else raises
     (:func:`check_decode_shape` names the shape).
     """

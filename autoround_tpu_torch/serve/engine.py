@@ -1,7 +1,7 @@
 """Quantized serving engine: packed weights + KV cache + decode loop
 (counterpart of ``autoround_tpu/serve/engine.py``; the Llama, Mixtral,
-DeepSeek, GPT-OSS, Llama 4 and Qwen3-Next families, every kind of the JAX
-engine —
+DeepSeek, GLM-4.5, GLM-5, GPT-OSS, Llama 4 and Qwen3-Next families, every
+kind of the JAX engine —
 ``w4a16``, ``w4a16_asym``, ``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``,
 ``fp8``, ``mxfp4_g32`` and ``mxfp4_g16`` — and ``kv_quant`` None,
 ``"int8"`` or ``"fp8"``).  The float kinds and
@@ -42,7 +42,15 @@ kernel; prefill attention is plain too: its heads are 192 / 128 wide and
 its score scale is set, so the flash gate refuses it).  ``kv_b_proj``
 serves dense from its qdq leaf (the absorbed decode reads it per head),
 the other projections pack, the routed experts stack by their gate / up /
-down triple, and nothing fuses (the JAX engine's rule for MLA).
+down triple, and nothing fuses (the JAX engine's rule for MLA).  GLM-5
+(``GlmMoeDsaConfig``) serves through the same MLA path with dense
+attention, not its lightning indexer's subset, and warns so, as the JAX
+engine does; its indexer's ``q_proj`` / ``k_proj`` pack like any
+quantized layer and are never read (the JAX engine keeps them too).
+GLM-4.5 (``Glm4MoeConfig``, ``kv_lora_rank = 0``) is a GQA model: the
+ordinary K / V cache, fused q / k / v with the biases added after the
+fused product, the DeepSeek router over its stacked experts, and the int8
+cache's decode kernel at G = 12.
 
 A decode step carries its position as a (B,) int32 tensor on the device,
 one entry per slot, and reads no host value that changes from step to
@@ -87,7 +95,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..models import deepseek, gptoss, llama, llama4, mixtral, qwen3next
+from ..models import (deepseek, glmdsa, gptoss, llama, llama4, mixtral,
+                      qwen3next)
 from ..models.registry import get_model_fns
 from ..ops._build import COUNTED
 from ..ops.decode_attention import check_decode_shape, decode_attention
@@ -326,6 +335,17 @@ def _stack_experts(packed, kinds, cfg):
     return out, kinds
 
 
+def _warn_dense_dsa(cfg) -> None:
+    """The JAX engine's warning for a GLM-5 DSA engine: it serves dense MLA
+    attention, not the lightning indexer's subset."""
+    if isinstance(cfg, glmdsa.GlmMoeDsaConfig):
+        logger.warning(
+            "GLM-5 DSA engine: serving runs DENSE MLA attention over the "
+            "latent cache (a superset of the lightning-indexer top-%d "
+            "subset): numerics differ from the model's sparse attention, as "
+            "in the JAX engine", cfg.index_topk)
+
+
 def _serving_kind(s) -> Optional[str]:
     """Map a quantization scheme to a packed serving-kernel kind, as the
     JAX engine's ``_serving_kind`` does: ``w4a16`` (sym int codes of at
@@ -543,7 +563,8 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
                       a8_prompt: bool = False):
     """Decoder block returning (out, k_new, v_new), the JAX engine's
     ``_block_with_cache`` (``engine.py:1179-1385``) for the Llama,
-    Mixtral, GPT-OSS and Llama 4 families: q/k/v biases after the fused qkv
+    Mixtral, GPT-OSS, Llama 4 and GLM-4.5 families: q/k/v biases after the
+    fused qkv
     product, qk-norm, sandwich norms, the MLP's activation, and on a
     sliding layer the window, or the chunk under ``chunked_attention``
     (the sliding mask at prefill, the decode kernel's ``window`` /
@@ -554,7 +575,8 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     layers skip rope and scale q by the temperature at the device
     positions (``llama4.attention_inputs``).  A block that holds
     ``experts`` runs its family's routed MLP through ``lf`` (Llama 4's,
-    GPT-OSS's by its ``router_bias``, else Mixtral's).
+    GPT-OSS's by its ``router_bias``, the DeepSeek router's by its ``gate``:
+    GLM-4.5, else Mixtral's).
 
     ``kv`` None: prompt pass (causal attention over the prompt; ``pos``
     None).  At decode ``pos`` is the (B,) int32 position vector on the
@@ -643,7 +665,8 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     x, h = llama._post_attention(weights, x, attn_out, cfg)
     if "experts" in weights:
         moe = (llama4._moe_mlp if l4 else gptoss._moe_mlp
-               if "router_bias" in weights else mixtral._moe_mlp)
+               if "router_bias" in weights else deepseek._moe_mlp
+               if "gate" in weights else mixtral._moe_mlp)
         mlp_out = moe(weights, h, cfg, lf,
                       capacity_factor=moe_capacity_factor)
     else:
@@ -1062,6 +1085,7 @@ class QuantizedLlama:
         a time: each layer's qdq crosses to ``device`` alone, and only the
         packed words, the scales and the dense residue stay there."""
         _check_kv_quant(kv_quant)
+        _warn_dense_dsa(cfg)
         dev = resolve_device(device)
         params = dict(result.params)
         params["blocks"] = list(result.params["blocks"])
@@ -1171,9 +1195,12 @@ class QuantizedLlama:
         a g = 32 export packs here and serves dense there (ROADMAP C).  A
         ``fake`` export's qdq leaves load as they are, dense.  A DeepSeek
         export (its ``model_config`` holds ``kv_lora_rank``) rebuilds a
-        ``DeepseekConfig``; its ``kv_b_proj`` layers serve dense, as
-        :meth:`from_quantize_result` serves them.  A Qwen3-Next export
-        (``linear_num_key_heads``) rebuilds a ``Qwen3NextConfig``, its fp32
+        ``DeepseekConfig`` (a GLM-5 one, ``index_topk``, a
+        ``GlmMoeDsaConfig``, with the dense-MLA warning; a GLM-4.5 one,
+        ``kv_lora_rank = 0``, a ``Glm4MoeConfig``); its ``kv_b_proj``
+        layers serve dense, as :meth:`from_quantize_result` serves them.
+        A Qwen3-Next export (``linear_num_key_heads``) rebuilds a
+        ``Qwen3NextConfig``, its fp32
         ``A_log`` / ``dt_bias`` as stored."""
         import json
         import os
@@ -1190,6 +1217,7 @@ class QuantizedLlama:
         with open(os.path.join(path, "quantization_config.json")) as f:
             qcfg = json.load(f)
         cfg = config_from_jax(qcfg["model_config"])
+        _warn_dense_dsa(cfg)
         packed: Dict[str, Tuple[torch.Tensor, ...]] = {}
         kinds: Dict[str, str] = {}
         with contextlib.ExitStack() as files:

@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
 ``config_from_jax`` the JAX ``LlamaConfig``'s, ``MixtralConfig``'s,
-``DeepseekConfig``'s, ``GlmMoeLiteConfig``'s, ``GptOssConfig``'s,
+``DeepseekConfig``'s, ``GlmMoeLiteConfig``'s, ``Glm4MoeConfig``'s,
+``GlmMoeDsaConfig``'s, ``GptOssConfig``'s,
 ``Llama4Config``'s, ``Qwen3NextConfig``'s or ``Qwen35MoeConfig``'s fields
 as a dict
 (``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
@@ -25,7 +26,8 @@ import torch
 
 from .._device import resolve_device
 from ..models.deepseek import DeepseekConfig
-from ..models.glm4moe import GlmMoeLiteConfig
+from ..models.glm4moe import Glm4MoeConfig, GlmMoeLiteConfig
+from ..models.glmdsa import GlmMoeDsaConfig
 from ..models.gptoss import GptOssConfig
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..models.llama4 import Llama4Config
@@ -90,10 +92,12 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
 # the ROADMAP item each unported config flag waits for
 _UNPORTED_ITEM = {"online_r4": "A12, transforms/hadamard.py"}
 # fields of the JAX package's DeepSeek subclasses the port has not got:
-# GLM-5 DSA's indexer, LongCat's zero experts, DeepSeek-VL's vision tower
-_UNPORTED_DEEPSEEK_FIELDS = ("index_topk", "zero_expert_num", "v_layers")
+# LongCat's zero experts, DeepSeek-VL's vision tower
+_UNPORTED_DEEPSEEK_FIELDS = ("zero_expert_num", "v_layers")
 _DEEPSEEK_CLASSES = {None: DeepseekConfig, "DeepseekConfig": DeepseekConfig,
-                     "GlmMoeLiteConfig": GlmMoeLiteConfig}
+                     "GlmMoeLiteConfig": GlmMoeLiteConfig,
+                     "Glm4MoeConfig": Glm4MoeConfig,
+                     "GlmMoeDsaConfig": GlmMoeDsaConfig}
 # a field of the JAX MiniMaxConfig (a MixtralConfig subclass the port has
 # not got), which would otherwise load as a plain MixtralConfig
 _MINIMAX_FIELD = "full_attn_alpha_factor"
@@ -114,22 +118,30 @@ def _config_class(fields: Mapping[str, Any], cls_name: Optional[str]):
             return Llama4Config
         return MixtralConfig if "num_experts" in fields else LlamaConfig
     odd = [f for f in _UNPORTED_DEEPSEEK_FIELDS if f in fields]
-    if (not fields["kv_lora_rank"] or odd
-            or cls_name not in _DEEPSEEK_CLASSES):
+    if odd or cls_name not in _DEEPSEEK_CLASSES:
+        what = ", ".join(odd) or "its fields"
         raise NotImplementedError(
-            f"{cls_name or 'DeepseekConfig'} with kv_lora_rank="
-            f"{fields['kv_lora_rank']!r}{' and ' + ', '.join(odd) if odd else ''}"
-            f" is not ported yet (ROADMAP A11: GLM-4.5's GQA form, GLM-5 "
-            f"DSA, LongCat and DeepSeek-VL wait for their own slices)")
+            f"{cls_name or 'DeepseekConfig'} with {what} is not ported yet "
+            f"(ROADMAP A11: LongCat and DeepSeek-VL wait for their own "
+            f"slices)")
+    if cls_name is None:
+        # an export's model_config: GLM-5's indexer fields, or GLM-4.5's
+        # kv_lora_rank = 0 (no MLA), name the class
+        if "index_topk" in fields:
+            return GlmMoeDsaConfig
+        if not fields["kv_lora_rank"]:
+            return Glm4MoeConfig
     return _DEEPSEEK_CLASSES[cls_name]
 
 
 def config_from_jax(fields: Mapping[str, Any],
                     cls_name: Optional[str] = None) -> LlamaConfig:
     """JAX config fields → the port's config: a ``DeepseekConfig`` when the
-    fields hold ``kv_lora_rank`` (a ``GlmMoeLiteConfig`` when ``cls_name``
-    says so: the two have the same fields, so an export's ``model_config``
-    comes back as a ``DeepseekConfig``, which serves the same), a
+    fields hold ``kv_lora_rank`` (the subclass ``cls_name`` names:
+    ``GlmMoeLiteConfig``, ``Glm4MoeConfig``, ``GlmMoeDsaConfig``; without a
+    name, an export's ``model_config``, a ``GlmMoeDsaConfig`` when the
+    fields hold ``index_topk``, a ``Glm4MoeConfig`` when ``kv_lora_rank``
+    is 0, else a ``DeepseekConfig``, which serves GLM-4.6-Lite the same), a
     ``GptOssConfig`` when they hold ``swiglu_limit``, a ``Llama4Config``
     when they hold ``no_rope_layers``, a ``Qwen3NextConfig`` when they hold
     ``linear_num_key_heads`` (a ``Qwen35MoeConfig`` when ``cls_name`` says
@@ -138,8 +150,7 @@ def config_from_jax(fields: Mapping[str, Any],
     ``num_experts``, else a ``LlamaConfig``; the tuple fields come back as
     tuples.  Raises ``NotImplementedError`` for a config that sets a flag
     the port does not implement (online R4), for the DeepSeek subclasses
-    it has not got (GLM-4.5's ``kv_lora_rank = 0``, GLM-5 DSA, LongCat,
-    DeepSeek-VL) and for MiniMax."""
+    it has not got (LongCat, DeepSeek-VL) and for MiniMax."""
     cls = _config_class(fields, cls_name)
     known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():
@@ -150,7 +161,7 @@ def config_from_jax(fields: Mapping[str, Any],
     kw: Dict[str, Any] = {k: v for k, v in fields.items()
                           if k in known and k != "dtype"}
     for name in ("rope_llama3", "layer_types", "moe_layers",
-                 "no_rope_layers", "mlp_only_layers"):
+                 "no_rope_layers", "mlp_only_layers", "index_layers"):
         if kw.get(name) is not None:
             kw[name] = tuple(kw[name])
     if "dtype" in fields:

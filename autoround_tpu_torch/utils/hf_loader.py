@@ -3,7 +3,9 @@
 ``llama`` (with Llama-3.1 ``rope_scaling``), ``mistral``, ``qwen2``,
 ``qwen3``, ``gemma2``, ``gemma3_text``, ``phi3``, ``mixtral``,
 ``qwen2_moe``, ``qwen3_moe``, ``deepseek_v2``, ``deepseek_v3``,
-``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture), ``gpt_oss``,
+``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture), ``glm4_moe``
+(GLM-4.5: GQA with partial rotary and the DeepSeek router), ``glm_moe_dsa``
+(GLM-5: DeepSeek MLA + MoE with the DSA lightning indexer), ``gpt_oss``,
 ``llama4_text``, ``qwen3_next``, ``qwen3_5_moe`` and ``qwen3_5``.  GPT-OSS
 and Llama 4 store their experts fused (``gate_up_proj`` (E, H, 2I),
 ``down_proj`` (E, I, H)), Qwen3.5 as (E, 2I, H) / (E, H, I) stacks; they
@@ -11,7 +13,10 @@ split into per-expert (O, I) leaves at load (GPT-OSS's gate / up columns
 interleaved, the others' in halves), so each expert quantizes alone.
 Qwen3-Next's ``linear_attn.*`` keys become the DeltaNet leaves (the
 depthwise conv (conv_dim, 1, K) as (conv_dim, K); ``dt_bias`` and ``A_log``
-in fp32), and Qwen3.5's ``mtp.*`` draft tensors are skipped.
+in fp32), and Qwen3.5's ``mtp.*`` draft tensors are skipped.  A DeepSeek
+checkpoint's ``self_attn.indexer.{q_proj,k_proj,weights_proj}`` go into the
+block's ``indexer`` dict (the JAX loader's rule, for any DeepSeek config);
+a GLM-5 layer without one takes a copy of its governing layer's.
 
 ``load_hf_checkpoint`` reads a local safetensors checkpoint (one file, or
 shards through ``model.safetensors.index.json``) with the port's own
@@ -20,15 +25,20 @@ tensor at a time: nothing holds a second full copy on the host.
 ``save_hf_checkpoint`` writes one, byte-equal to the JAX package's for the
 same weights.  Weights keep the HF (out, in) layout, which is the port's.
 
-Not ported: the other ``model_type``s the JAX function knows (GLM-4.5,
-GLM-5 DSA, Step-3.5, MiniMax) raise naming their family and ROADMAP A11
-(and so do GLM-5's indexer keys in a DeepSeek checkpoint), and an
+A published GLM-4.5 or DeepSeek-V3 checkpoint also holds its draft layer
+(``num_nextn_predict_layers``) as ``model.layers.<num_hidden_layers>.*``;
+the JAX loader stops there with an ``IndexError``, and this one raises a
+``ValueError`` naming the key (ROADMAP C).
+
+Not ported: the other ``model_type``s the JAX function knows (Step-3.5,
+MiniMax) raise naming their family and ROADMAP A11, and an
 FP8-source checkpoint (a ``weight_scale_inv`` / ``weight_scale`` key, or an
 F8 weight: DeepSeek-V3's published files) raises naming A12
 (``quantize/model_free.py``).  The JAX package has no HF writer for
 GPT-OSS, Llama 4 or Qwen3-Next (its ``save_hf_checkpoint`` writes their
 trees with Llama / Mixtral / Qwen2-MoE keys and drops the sinks, the
-biases and the DeltaNet leaves); :func:`save_hf_checkpoint` refuses them,
+biases and the DeltaNet leaves), and for GLM-5 it writes ``deepseek_v3``
+and drops the indexer; :func:`save_hf_checkpoint` refuses all four,
 and GPT-OSS's native MXFP4 expert tensors (``*_blocks`` / ``*_scales``)
 are not read, as in the JAX package.
 """
@@ -45,7 +55,8 @@ from .._device import resolve_device
 import numpy as np
 
 from ..models.deepseek import DeepseekConfig
-from ..models.glm4moe import GlmMoeLiteConfig
+from ..models.glm4moe import Glm4MoeConfig, GlmMoeLiteConfig
+from ..models.glmdsa import GlmMoeDsaConfig
 from ..models.gptoss import GptOssConfig
 from ..models.llama import LlamaConfig
 from ..models.llama4 import Llama4Config
@@ -85,9 +96,8 @@ _TOP_MAP = {
 
 # model_types of the JAX loader whose models are not ported yet, and their
 # families
-_UNPORTED_TYPES = ("glm_moe_dsa", "step3p5", "glm4_moe", "minimax")
-_UNPORTED_FAMILIES = {"glm_moe_dsa": "GLM-5 DSA", "step3p5": "Step-3.5",
-                      "glm4_moe": "GLM-4.5", "minimax": "MiniMax"}
+_UNPORTED_TYPES = ("step3p5", "minimax")
+_UNPORTED_FAMILIES = {"step3p5": "Step-3.5", "minimax": "MiniMax"}
 _QWEN3NEXT_TYPES = ("qwen3_next", "qwen3_5_moe", "qwen3_5")
 _FP8_SCALES = (".weight_scale_inv", ".weight_scale")
 
@@ -97,7 +107,10 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
     ``model_type``), a ``MixtralConfig`` for Mixtral-style
     (``num_local_experts``) and Qwen2/3-MoE configs, a ``DeepseekConfig``
     for ``deepseek_v2`` / ``deepseek_v3``, a ``GlmMoeLiteConfig`` for
-    ``glm4_moe_lite``, a ``Llama4Config`` for ``llama4_text``, a
+    ``glm4_moe_lite``, a ``Glm4MoeConfig`` for ``glm4_moe``, a
+    ``GlmMoeDsaConfig`` for ``glm_moe_dsa`` (the indexer's defaults are
+    DeepSeek-V3.2's: 64 heads of 128, top 2048, every layer its own), a
+    ``Llama4Config`` for ``llama4_text``, a
     ``GptOssConfig`` for ``gpt_oss``, a ``Qwen3NextConfig`` for
     ``qwen3_next`` and a ``Qwen35MoeConfig`` for ``qwen3_5_moe`` /
     ``qwen3_5``."""
@@ -115,6 +128,15 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
         # GLM-4.6-Lite: DeepSeek-V2 architecture, V3 routing defaults
         return _deepseek_config_from_hf(cfg, "deepseek_v3", dtype,
                                         cls=GlmMoeLiteConfig)
+    if mt == "glm_moe_dsa":
+        return _deepseek_config_from_hf(
+            cfg, "deepseek_v3", dtype, cls=GlmMoeDsaConfig,
+            extra=dict(index_n_heads=cfg.get("index_n_heads", 64),
+                       index_head_dim=cfg.get("index_head_dim", 128),
+                       index_topk=cfg.get("index_topk", 2048),
+                       index_layers=tuple(cfg.get("index_layers") or ())))
+    if mt == "glm4_moe":
+        return _glm4moe_config_from_hf(cfg, dtype)
     if mt == "llama4_text":
         return _llama4_config_from_hf(cfg, dtype)
     if mt == "gpt_oss":
@@ -323,14 +345,50 @@ def _gptoss_config_from_hf(cfg: Dict[str, Any], dtype) -> GptOssConfig:
     )
 
 
+def _glm4moe_config_from_hf(cfg: Dict[str, Any], dtype) -> Glm4MoeConfig:
+    """GLM-4.5 HF config → ``Glm4MoeConfig``: GQA (``head_dim``, biases,
+    ``use_qk_norm``, ``partial_rotary_factor`` 0.5 by default) and the
+    DeepSeek-V3 router (sigmoid, group limiting)."""
+    return Glm4MoeConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg.get("num_key_value_heads",
+                             cfg["num_attention_heads"]),
+        head_dim=cfg.get("head_dim"),
+        rope_theta=cfg.get("rope_theta", 10000.0),
+        rms_eps=cfg.get("rms_norm_eps", 1e-5),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        attn_bias=cfg.get("attention_bias", False),
+        qk_norm=cfg.get("use_qk_norm", False),
+        partial_rotary_factor=cfg.get("partial_rotary_factor", 0.5),
+        n_routed_experts=cfg.get("n_routed_experts") or 0,
+        num_experts_per_tok=cfg.get("num_experts_per_tok", 8),
+        moe_intermediate_size=cfg.get("moe_intermediate_size", 0),
+        n_shared_experts=cfg.get("n_shared_experts") or 0,
+        first_k_dense=cfg.get("first_k_dense_replace", 1),
+        routed_scaling_factor=cfg.get("routed_scaling_factor", 1.0),
+        scoring_func="sigmoid",
+        n_group=cfg.get("n_group", 1),
+        topk_group=cfg.get("topk_group", 1),
+        norm_topk_prob=cfg.get("norm_topk_prob", True),
+        dtype=dtype,
+    )
+
+
 def _deepseek_config_from_hf(cfg: Dict[str, Any], mt: str, dtype,
-                             cls=DeepseekConfig) -> DeepseekConfig:
+                             cls=DeepseekConfig,
+                             extra: Optional[Dict[str, Any]] = None
+                             ) -> DeepseekConfig:
     """DeepSeek V2 / V3 (MLA + DeepSeek-MoE) HF config → ``cls``.  V3
     routers score with sigmoid and the aux-free bias and group by the top-2
     sum (``noaux_tc``); V2 with softmax (``greedy`` /
     ``group_limited_greedy``).  Yarn's ``mscale_all_dim`` folds into the
     score scale (``mscale``), its frequency interpolation into the yarn
-    fields (``deepseek.rope_tables``)."""
+    fields (``deepseek.rope_tables``).  ``extra`` holds a subclass's own
+    fields (GLM-5's indexer)."""
     v3 = mt == "deepseek_v3"
     rs = cfg.get("rope_scaling") or {}
     is_yarn = rs.get("rope_type", rs.get("type")) == "yarn"
@@ -341,6 +399,7 @@ def _deepseek_config_from_hf(cfg: Dict[str, Any], mt: str, dtype,
     topk_method = cfg.get("topk_method", "noaux_tc" if v3 else "greedy")
     grouped = topk_method in ("noaux_tc", "group_limited_greedy")
     return cls(
+        **(extra or {}),
         vocab_size=cfg["vocab_size"],
         hidden_size=cfg["hidden_size"],
         intermediate_size=cfg["intermediate_size"],
@@ -486,19 +545,29 @@ _DS_MAP = {
 _DS_MLP = ("gate_proj", "up_proj", "down_proj")
 
 
+_INDEXER = ("q_proj", "k_proj", "weights_proj")
+
+
 def _map_deepseek_key(sub: str, block: Dict[str, Any],
                       arr: torch.Tensor) -> bool:
     """Put one DeepSeek ``model.layers.<i>.<sub>`` tensor into its block
-    (routed experts into a dict by index, made a list after the load);
-    False when the key has no place in the port's tree.  GLM-5's indexer
-    keys raise: that family is not ported."""
+    (routed experts into a dict by index, made a list after the load; the
+    lightning indexer's q / k / weights into ``indexer``); then GLM-4.5's
+    Llama-style keys (k / v projections, biases, q / k norms), as the JAX
+    loader falls through to them.  False when the key has no place in the
+    port's tree."""
     if sub in _DS_MAP:
         block[_DS_MAP[sub]] = arr
         return True
     if sub.startswith("self_attn.indexer."):
-        raise NotImplementedError(
-            f"{sub}: GLM-5 DSA's lightning indexer is not ported yet "
-            f"(ROADMAP A11, models/glmdsa.py)")
+        wname = sub[len("self_attn.indexer."):].rsplit(".weight", 1)[0]
+        if wname in _INDEXER:
+            block.setdefault("indexer", {})[wname] = arr
+            return True
+        return False
+    if sub in _BLOCK_MAP:
+        block[_BLOCK_MAP[sub]] = arr
+        return True
     for prefix in ("mlp.experts.", "mlp.shared_experts."):
         if not sub.startswith(prefix):
             continue
@@ -659,6 +728,14 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
             continue
         if key.startswith("model.layers."):
             li, sub = key[len("model.layers."):].split(".", 1)
+            if int(li) >= cfg.num_layers:
+                raise ValueError(
+                    f"{key}: layer {li} is past num_hidden_layers = "
+                    f"{cfg.num_layers} (a draft layer, "
+                    f"num_nextn_predict_layers = "
+                    f"{hf_cfg.get('num_nextn_predict_layers', 0)}); neither "
+                    f"package loads it: drop its tensors from the "
+                    f"checkpoint (ROADMAP C)")
             block = blocks[int(li)]
             mapped = (_map_deepseek_key(sub, block, arr) if deepseek else
                       (family_map is not None
@@ -676,6 +753,15 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
         elif (isinstance(cfg, (Llama4Config, Qwen3NextConfig))
               and not any(b.get("experts", ()))):
             b.pop("experts", None)      # a dense layer's empty expert list
+    if isinstance(cfg, GlmMoeDsaConfig):
+        # a shared-indexer layer carries a copy of its governing layer's
+        # indexer, so block-wise calibration stays self-contained
+        governing = None
+        for b in blocks:
+            if "indexer" in b:
+                governing = b["indexer"]
+            elif governing is not None:
+                b["indexer"] = dict(governing)
     q_key = ("q_a_proj" if deepseek and cfg.q_lora_rank else "q_proj")
     missing = [i for i, b in enumerate(blocks)
                if q_key not in b and not (q3n and "in_proj_qkvz" in b)]
@@ -690,13 +776,17 @@ def save_hf_checkpoint(params: Dict[str, Any], cfg: LlamaConfig, path: str,
     """Write params as an HF-layout single-file safetensors checkpoint
     (tensors on any device; each crosses to the host alone while the file
     is written).  A DeepSeek config writes ``deepseek_v3`` (sigmoid
-    routing) or ``deepseek_v2`` keys and config; ``hf_extra`` overrides
+    routing) or ``deepseek_v2`` keys and config, a ``Glm4MoeConfig``
+    ``glm4_moe`` (its q / k / v biases and norms among the keys, the GQA
+    fields in the config); ``hf_extra`` overrides
     config fields (``{"model_type": "glm4_moe_lite"}`` for GLM-4.6-Lite)."""
-    if isinstance(cfg, (GptOssConfig, Llama4Config, Qwen3NextConfig)):
+    if isinstance(cfg, (GptOssConfig, Llama4Config, Qwen3NextConfig,
+                        GlmMoeDsaConfig)):
         raise NotImplementedError(
             f"save_hf_checkpoint: no HF writer for {type(cfg).__name__} (the "
             f"JAX package has none either: its writer drops the sinks, the "
-            f"biases and the DeltaNet leaves and fuses nothing)")
+            f"biases, the DeltaNet leaves and GLM-5's indexer, fuses nothing "
+            f"and names GLM-5 deepseek_v3)")
     os.makedirs(path, exist_ok=True)
     if isinstance(cfg, DeepseekConfig):
         return _save_deepseek_checkpoint(params, cfg, path, hf_extra)
@@ -770,9 +860,11 @@ def _save_deepseek_checkpoint(params: Dict[str, Any], cfg: DeepseekConfig,
                               hf_extra: Optional[Dict[str, Any]] = None
                               ) -> str:
     """The DeepSeek writer: the JAX package's keys, their order and its
-    ``config.json`` (``deepseek_v3`` for sigmoid routing, else
-    ``deepseek_v2``)."""
+    ``config.json`` (``glm4_moe`` for GLM-4.5, ``deepseek_v3`` for sigmoid
+    routing, else ``deepseek_v2``)."""
     inv = {v: k for k, v in _DS_MAP.items()}
+    # GLM-4.5's blocks hold Llama-style leaves too (q / k / v biases, norms)
+    inv.update({v: k for k, v in _BLOCK_MAP.items() if v not in inv})
     tensors: Dict[str, torch.Tensor] = {}
     for hf_key, ours in _TOP_MAP.items():
         if params.get(ours) is not None:
@@ -790,9 +882,11 @@ def _save_deepseek_checkpoint(params: Dict[str, Any], cfg: DeepseekConfig,
                 for wn, wv in arr.items():
                     tensors[f"{pre}mlp.shared_experts.{wn}.weight"] = wv
     save_file(tensors, os.path.join(path, "model.safetensors"))
+    glm = isinstance(cfg, Glm4MoeConfig)
     v3 = cfg.scoring_func == "sigmoid"
     hf_cfg = {
-        "model_type": "deepseek_v3" if v3 else "deepseek_v2",
+        "model_type": ("glm4_moe" if glm
+                       else "deepseek_v3" if v3 else "deepseek_v2"),
         "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.hidden_size,
         "intermediate_size": cfg.intermediate_size,
@@ -821,7 +915,16 @@ def _save_deepseek_checkpoint(params: Dict[str, Any], cfg: DeepseekConfig,
             "group_limited_greedy" if cfg.n_group > 1 else "greedy"),
         "torch_dtype": "bfloat16",
     }
-    if v3:
+    if glm:
+        hf_cfg.update(
+            head_dim=cfg.head_dim, attention_bias=cfg.attn_bias,
+            use_qk_norm=cfg.qk_norm,
+            partial_rotary_factor=cfg.partial_rotary_factor)
+        for k in ("q_lora_rank", "kv_lora_rank", "qk_nope_head_dim",
+                  "qk_rope_head_dim", "v_head_dim", "topk_method",
+                  "scoring_func"):
+            hf_cfg.pop(k, None)
+    elif v3:
         hf_cfg["rope_interleave"] = cfg.rope_interleave
     if hf_extra:
         hf_cfg.update(hf_extra)

@@ -22,10 +22,13 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
              FP8 and MXFP4 / NVFP4 matmul, int8-QK attention) at the
              main paths' shapes (flash also at D = 256 and at
-             Qwen3-Next's 16 heads over 2 of D = 256; W4A16 and asym
-             also at g = 16, W4A16 also at Qwen3-Next's in_proj_qkvz;
-             grouped W4A16 also at E = 512; decode
-             also at head dims 64 and 256 and G = 7; int8-QK at row 1's
+             Qwen3-Next's 16 heads over 2 of D = 256 and GLM-4.5-Air's
+             96 over 8; W4A16 and asym
+             also at g = 16, W4A16 also at Qwen3-Next's in_proj_qkvz and
+             GLM-4.5-Air's q / k / v and o_proj;
+             grouped W4A16 also at E = 512 and E = 128; decode
+             also at head dims 64 and 256, G = 7, GLM-4.5-Air's G = 12
+             and every G from 9 to 16; int8-QK at row 1's
              shapes and at S = T = 2048, beside row 1's time in the same
              call) against its plain PyTorch version on the
              card (bf16), check the stated tolerance (and, for the
@@ -55,9 +58,10 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              prompts of 512 tokens, 32 new tokens.  Kernel launch counts
              are zeroed just before and read just after; each must be > 0.
              Then prefill and decode steps are timed, and a 2-layer copy of
-             the same engine runs once on the card (kernels) and once on
-             the CPU (plain versions): step-1 logits must agree within the
-             stated tolerance and greedy tokens must match.
+             the same engine runs once through the kernels and once through
+             their plain versions, both on the card: step-1 logits must
+             agree within the stated tolerance and greedy tokens must
+             match.
              Every serving path below (and this one) then runs
              ``generate_scan`` on the same engine and prompts: its tokens
              must equal ``generate``'s and its launches ``generate``'s
@@ -295,11 +299,36 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              full layer) on the plain versions; ``generate_scan``; the
              replayed step at batch 8 and 1, each with a second call of
              new prompts.  (b) SignRound (iters 4, 2 x 512 a step) on
-             blocks 0-3 (rows 1-3 in the loss) → serve.  (c) a
+             the published layers 2-3 (a DeltaNet and a full layer: rows
+             1-3 in the loss) → serve.  (c) a
              ``qwen3_5_moe`` HF directory x ``--qwen35-load-layers`` (fused
              expert stacks, an ``mtp.*`` tensor) → the CLI →
              ``from_pretrained``, logits equal to the in-memory engine's.
-23. report — the card's name and power limit (nvidia-smi), a JSON line of
+23. glm     — GLM-4.5-Air and GLM-5 DSA (random weights, gains, q / k / v
+             biases and router biases moved).  (a) glm-4.5-air at full
+             width (hidden 4096, 96 heads over 8 KV heads of 128: row 6 at
+             G = 12; partial rotary 0.5, qk norm; a dense layer 0, then
+             128 experts of 1408 under the DeepSeek router) x
+             ``--glm45-layers`` of 46: RTN W4A16 g128 with the lm_head →
+             the int8-KV engine (q / k / v fused with the biases after the
+             product, experts stacked) → ``generate`` 8 x 512, 32 new,
+             launches as the loops imply (rows 1, 4, 5, 6); each block
+             teacher forced and the prefill against ``model_fwd`` on the
+             qdq weights; a 2-layer copy on the plain versions;
+             ``generate_scan``; the replayed step at batch 8 and 1; the
+             fp8 cache; the batcher.  (b) SignRound (iters 4, 2 x 512) on
+             blocks 0-1 (rows 1-3 at G = 12) → serve.  (c) a ``glm4_moe``
+             HF directory x 2 → the CLI → ``from_pretrained``.  (d) GLM-5
+             DSA at the deepseek-v3 widths with DeepSeek-V3.2's indexer
+             (64 heads of 128, top 2048) x ``--glm5-layers`` of 61: RTN
+             (the indexer's q / k quantized, ``weights_proj`` bf16); block
+             0 at 1 x 4096 tokens, where the DSA mask bites, against an
+             index top-k reference; the MLA engine with its dense-MLA
+             warning, its logits and tokens equal to a DeepSeek engine's
+             on the same weights; a 2-layer copy; ``generate_scan``; the
+             replayed step at batch 8.  (e) a ``glm_moe_dsa`` HF
+             directory x 2 → the CLI → ``from_pretrained``.
+24. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -312,8 +341,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--gemma3-layers``, ``--load-layers``, ``--options-layers``,
 ``--nblocks-layers``, ``--offload-layers``, ``--deepseek-layers``,
 ``--deepseek-v3-layers``, ``--gptoss-layers``, ``--gptoss120-layers``,
-``--llama4-layers``, ``--qwen3next-layers`` and ``--qwen35-load-layers``
-cut the depth of the paths for a quicker run.
+``--llama4-layers``, ``--qwen3next-layers``, ``--qwen35-load-layers``,
+``--glm45-layers`` and ``--glm5-layers`` cut the depth of the paths for a
+quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -546,12 +576,15 @@ def kernel_phase(timer, bw, flops_peak):
         return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
     # K1 flash attention, forward then backward: calibration / tuning /
-    # prefill shapes, D = 256 (Gemma's heads), and Qwen3-Next's full
-    # attention (D = 256, 16 query heads over 2 KV heads: G = 8)
+    # prefill shapes, D = 256 (Gemma's heads), Qwen3-Next's full
+    # attention (D = 256, 16 query heads over 2 KV heads: G = 8) and
+    # GLM-4.5-Air's (96 query heads over 8 KV heads: G = 12, the dK / dV
+    # group sum over 12 heads)
     for (B, H, Hkv, S, T, D, rep_row) in [(8, 32, 8, 512, 512, 128, True),
                                           (8, 32, 8, 256, 512, 128, False),
                                           (8, 32, 8, 512, 512, 256, False),
-                                          (8, 16, 2, 512, 512, 256, False)]:
+                                          (8, 16, 2, 512, 512, 256, False),
+                                          (8, 96, 8, 512, 512, 128, False)]:
         q = torch.randn(B, H, S, D, generator=g, device=dev).bfloat16()
         k = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
         v = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
@@ -701,7 +734,8 @@ def kernel_phase(timer, bw, flops_peak):
     # K2 W4A16: fused qkv, down_proj, lm_head at decode and prefill M, at
     # g = 128 and g = 16 (the GEMV reads a second scale half way through a
     # 32-column chunk); then Qwen3-Next's DeltaNet input projection
-    # in_proj_qkvz (O = 12288, K = 2048) at g = 128
+    # in_proj_qkvz (O = 12288, K = 2048) and GLM-4.5-Air's fused q / k / v
+    # (O = 14336, K = 4096) and o_proj (O = 4096, K = 12288) at g = 128
     for (M, O, K, name, G) in [(M, O, K, name, G) for G in (128, 16)
                                for (M, O, K, name) in [
                                    (8, 6144, 4096, "qkv"),
@@ -711,7 +745,11 @@ def kernel_phase(timer, bw, flops_peak):
                                    (4096, 4096, 14336, "down_proj"),
                                    (4096, 128256, 4096, "lm_head")]] + [
             (8, 12288, 2048, "qwen3-next in_proj_qkvz", 128),
-            (4096, 12288, 2048, "qwen3-next in_proj_qkvz", 128)]:
+            (4096, 12288, 2048, "qwen3-next in_proj_qkvz", 128),
+            (8, 14336, 4096, "glm-4.5-air qkv", 128),
+            (4096, 14336, 4096, "glm-4.5-air qkv", 128),
+            (8, 4096, 12288, "glm-4.5-air o_proj", 128),
+            (4096, 4096, 12288, "glm-4.5-air o_proj", 128)]:
         codes = torch.randint(0, 16, (O, K), generator=g, device=dev)
         sc = (torch.rand(O, K // G, generator=g, device=dev) - 0.5) * 0.02
         qw = pack_w4(codes)
@@ -765,7 +803,8 @@ def kernel_phase(timer, bw, flops_peak):
     # gate / up 8192 x 5120 on the shared slab, down 5120 x 8192); then
     # Qwen3-Next's (E = 512: w1 / w3 512 x 2048 on the shared slab, w2
     # 2048 x 512; C = 4096 is 8 x 512 tokens of dense-then-mask prefill,
-    # a 8.6 GB w2 output slab)
+    # a 8.6 GB w2 output slab); then GLM-4.5-Air's (E = 128: gate / up
+    # 1408 x 4096 on the shared slab, down 4096 x 1408, 11 groups of 128)
     for (E, C, K, O, name, layout, gs) in [
             (8, 8, 4096, 14336, "w1", "shared", 128),
             (8, 8, 14336, 4096, "w2", "contiguous", 128),
@@ -781,7 +820,12 @@ def kernel_phase(timer, bw, flops_peak):
             (512, 8, 2048, 512, "qwen3-next w1/w3", "shared", 128),
             (512, 8, 512, 2048, "qwen3-next w2", "contiguous", 128),
             (512, 4096, 2048, 512, "qwen3-next w1/w3", "shared", 128),
-            (512, 4096, 512, 2048, "qwen3-next w2", "contiguous", 128)]:
+            (512, 4096, 512, 2048, "qwen3-next w2", "contiguous", 128),
+            (128, 8, 4096, 1408, "glm-4.5-air gate/up", "shared", 128),
+            (128, 8, 1408, 4096, "glm-4.5-air down", "contiguous", 128),
+            (128, 4096, 4096, 1408, "glm-4.5-air gate/up", "shared", 128),
+            (128, 4096, 1408, 4096, "glm-4.5-air down", "contiguous",
+             128)]:
         qw = torch.stack([pack_w4(torch.randint(
             0, 16, (O, K), generator=g, device=dev)) for _ in range(E)])
         sc = (torch.rand(E, O, K // gs, generator=g, device=dev) - 0.5) * 0.02
@@ -893,8 +937,11 @@ def kernel_phase(timer, bw, flops_peak):
 def decode_kernel_phase(timer, bw, flops_peak):
     """Row 6, the int8-KV decode attention: B=8, T=1024; llama3-8b's heads
     (hd 128, G = 4; also with Llama 4's chunk, 256 here), llama3.2-1b's (hd
-    64), hd 256 (Gemma), G = 7 (qwen2.5-7b's 28 / 4) and gpt-oss's (hd 64,
-    G = 8, its 128 window and the sinks).  Library: SDPA on the
+    64), hd 256 (Gemma), G = 7 (qwen2.5-7b's 28 / 4), gpt-oss's (hd 64,
+    G = 8, its 128 window and the sinks), GLM-4.5-Air's (hd 128, G = 12:
+    96 query heads over 8 KV heads; pos 511, 700, and a 256 window with
+    sinks) and every G from 9 to 16 at hd 64 / 128 / 256 (pos 511; the
+    instances above G = 8).  Library: SDPA on the
     dequantized bf16 cache up to pos, with the window or the chunk as a
     boolean mask where there is one; no single call adds the sinks, so at
     gpt-oss's shape there is no library time, and at the other sink cases
@@ -924,7 +971,11 @@ def decode_kernel_phase(timer, bw, flops_peak):
             (64, 8, 4, [(511, None, None, False), (700, 256, None, True)]),
             (256, 8, 4, [(511, None, None, False), (700, 256, None, True)]),
             (128, 4, 7, [(511, None, None, False)]),
-            (64, 8, 8, [(511, 128, None, True)])]:
+            (64, 8, 8, [(511, 128, None, True)]),
+            (128, 8, 12, [(511, None, None, False), (700, None, None, False),
+                          (700, 256, None, True)])] + [
+            (hd, 8, G, [(511, None, None, False)]) for G in range(9, 17)
+            for hd in (64, 128, 256) if (hd, G) != (128, 12)]:
         nh = nkv * G
         q = torch.randn(B, nh, hd, generator=g, device=dev).bfloat16()
         kc = torch.randint(-127, 128, (B, T, nkv, hd), generator=g,
@@ -999,6 +1050,12 @@ def decode_kernel_phase(timer, bw, flops_peak):
                 f"row_err={rel:.3g} (tol {tol}) kernel_ms={ms:.4f} "
                 f"plain_ms={plain_ms:.4f} {lib_txt} device_ms={dev_ms:.4f} "
                 f"({how}) bound_ms={b_ms:.4f} ({b_by}) keys={n_tok}")
+            if hd == 128 and G == 12 and pos == 511:
+                glm_row = dict(shape=shape, max_abs_err=err, ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms,
+                               device_ms=dev_ms,
+                               library_device_ms=lib_dev_ms)
             if hd == 128 and G == 4 and pos == 511:
                 rows["decode_attention"] = dict(
                     name="decode_attention", route="cuda",
@@ -1009,6 +1066,8 @@ def decode_kernel_phase(timer, bw, flops_peak):
                     device_ms=dev_ms, library_device_ms=lib_dev_ms)
         del q, kc, vc
         torch.cuda.empty_cache()
+    # GLM-4.5-Air's shape (G = 12) beside the row's own
+    rows["decode_attention"]["glm45_g12"] = glm_row
     return rows
 
 
@@ -1640,12 +1699,20 @@ def _block_weights(cfg, li):
     """Weights of block ``li`` that each token multiplies: attention, and
     the MLP, every routed expert of a MoE block (dense-then-mask, what the
     engines run), its router and a shared expert (Llama 4's, of the routed
-    width), or a dense MLP (Llama 4's dense blocks: intermediate_size_mlp)."""
+    width; GLM-4.5's, n_shared_experts of the routed width), or a dense
+    MLP (Llama 4's dense blocks: intermediate_size_mlp; GLM-4.5's first-k
+    blocks: intermediate_size)."""
     hid, hd, inter = cfg.hidden_size, cfg.hd, cfg.intermediate_size
     attn = hid * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd \
         + cfg.num_heads * hd * hid
     n_exp = getattr(cfg, "num_experts", 0)
     moe_layers = getattr(cfg, "moe_layers", None)
+    routed = getattr(cfg, "n_routed_experts", 0)
+    if routed:                                     # GLM-4.5
+        if not cfg.layer_is_moe(li):
+            return attn + 3 * hid * inter
+        return (attn + (routed + cfg.n_shared_experts) * 3 * hid
+                * cfg.moe_intermediate_size + routed * hid)
     if moe_layers is not None:                     # Llama 4
         if li not in moe_layers:
             return attn + 3 * hid * cfg.intermediate_size_mlp
@@ -1654,15 +1721,19 @@ def _block_weights(cfg, li):
 
 
 def _weight_bytes(eng):
-    """Bytes of every weight an engine holds but the embedding table: the
-    packed entries and the dense leaves (a step reads them all once)."""
+    """Bytes of every weight an engine holds but the embedding table and
+    GLM-5's indexer: the packed entries and the dense leaves (a step reads
+    them all once)."""
     from autoround_tpu_torch.utils.pytree import tree_map
 
     def nbytes(t):
         return 0 if t is None else t.numel() * t.element_size()
+    # GLM-5's lightning indexer is held but never read by a serving step
     leaves = []
-    tree_map(leaves.append, eng.params["blocks"])
-    return (sum(nbytes(t) for e in eng.packed.values() for t in e)
+    tree_map(leaves.append, [{k: v for k, v in b.items() if k != "indexer"}
+                             for b in eng.params["blocks"]])
+    return (sum(nbytes(t) for k, e in eng.packed.items()
+                if ".indexer." not in k for t in e)
             + sum(nbytes(t) for k, t in eng.params.items()
                   if k not in ("blocks", "embed_tokens"))
             + sum(nbytes(t) for t in leaves))
@@ -2473,7 +2544,9 @@ def rtn_path(bw, flops_peak, n_layers):
           "tokens out of range")
 
     prefill_ms, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
-    check_copy(eng, prompts, "cpu")
+    # the plain versions on the card (on the CPU until the GLM phase came:
+    # 45-70 s of the run's 1200 s limit)
+    check_copy(eng, prompts, "card")
     scan_path(eng, prompts, toks, gen_counts, "rtn path", step_ms)
     # the scan phase: bench.py's configuration (batch 32, W4A16 g128, int8
     # KV) beside batch 1 and 8
@@ -5433,14 +5506,17 @@ CHUNK_PROMPT, CHUNK_MAX_SEQ = 8320, 8448
 
 def _fam_want(eng, S, n_new):
     """Launches of ``generate`` (one prompt pass of S tokens, ``n_new`` - 1
-    decode steps over the int8 cache) on a GPT-OSS or Llama 4 engine: each
+    decode steps over the int8 cache) on a GPT-OSS, Llama 4 or GLM-4.5
+    engine: each
     packed ``w4a16`` entry and each expert stack once a forward, the decode
     kernel once a layer a step, and the flash kernel once a layer at
-    prefill where its gate takes the prompt (Llama 4 below the chunk;
-    never GPT-OSS: its sinks take the plain attention)."""
+    prefill where its gate takes the prompt (Llama 4 below the chunk,
+    GLM-4.5 from 512 tokens; never GPT-OSS: its sinks take the plain
+    attention)."""
     cfg = eng.cfg
     flash = (not hasattr(cfg, "swiglu_limit") and cfg.hd % 128 == 0
-             and S >= 512 and S % 256 == 0 and S <= cfg.sliding_window)
+             and S >= 512 and S % 256 == 0
+             and (cfg.sliding_window is None or S <= cfg.sliding_window))
     return dict(_ds_want(eng, n_new),
                 decode_attention=cfg.num_layers * (n_new - 1),
                 flash_attention=cfg.num_layers if flash else 0)
@@ -5471,12 +5547,15 @@ def _experts_stacked(eng, label):
 
 
 def _moe_serve_path(bw, flops_peak, cfg, label, seed, scheme, B, S, new,
-                    max_seq, copy_first=0, full=True, keep=False):
+                    max_seq, copy_first=0, full=True, keep=False,
+                    model_check=None):
     """RTN ``scheme`` with the lm_head → the int8-KV engine → ``generate``
     (B x S prompts, ``new`` tokens) with launches equal to ``_fam_want``;
-    timings and bounds; a 2-layer copy from block ``copy_first`` on the
-    plain versions on the card; ``generate_scan`` against ``generate``;
-    the replayed step at batch 8 (and, with ``full``, at batch 1 with a
+    timings and bounds; ``model_check(eng, qdq params, prompts, label)``
+    where given; a 2-layer copy from block ``copy_first`` on the plain
+    versions on the card; ``generate_scan`` against ``generate`` (its
+    launches, the replayed step's, in ``summary["scan_launches"]``); the
+    replayed step at batch 8 (and, with ``full``, at batch 1 with a
     second call of new prompts, the fp8 cache on 4 layers and the batcher).
     Returns (launches, summary[, engine with ``keep``])."""
     from autoround_tpu_torch import QuantizedLlama
@@ -5497,6 +5576,7 @@ def _moe_serve_path(bw, flops_peak, cfg, label, seed, scheme, B, S, new,
     torch.cuda.synchronize()
     t_pack, pack_gb = time.time() - t0, torch.cuda.max_memory_allocated() / 1e9
     n_layers = len(result.layers)
+    qdq_params = result.params if model_check is not None else None
     del result
     free_device_memory()
     moe = _experts_stacked(eng, label)
@@ -5517,9 +5597,16 @@ def _moe_serve_path(bw, flops_peak, cfg, label, seed, scheme, B, S, new,
     _ds_counts(launches, _fam_want(eng, S, new), label)
     _check_tokens(toks, B, new, cfg.vocab_size)
     prefill_ms, step_ms = time_serving(eng, prompts, new, bw, flops_peak)
+    if model_check is not None:
+        model_check(eng, qdq_params, prompts, label)
+        del qdq_params
+        free_device_memory()
     check_copy(eng, prompts, "card", MOE_COPY_ROW_TOL, first=copy_first)
+    c0 = launch_counts()
     scan_path(eng, prompts, toks, gen_counts, label, step_ms)
+    c1 = launch_counts()
     summary = dict(prefill_ms=prefill_ms)
+    scan_launches = {n: c1[n] - c0[n] for n in launches}
     summary["B8"] = scan_measure(eng, 8, S, bw, flops_peak, None,
                                  seed=seed + 2, label=label,
                                  ran=(prompts, step_ms) if B == 8 else None)
@@ -5535,6 +5622,7 @@ def _moe_serve_path(bw, flops_peak, cfg, label, seed, scheme, B, S, new,
                     for b, m in summary.items() if b != "prefill_ms")
         + f"; peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
         f"path_s={time.time() - t_path:.1f}")
+    summary["scan_launches"] = scan_launches
     if keep:
         return launches, summary, eng
     del eng
@@ -5605,6 +5693,8 @@ def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20,
         kind = ({"linear_attention": "DeltaNet",
                  "full_attention": "full"}[cfg.layer_types[bi]]
                 if getattr(cfg, "linear_num_key_heads", 0) else
+                ("MoE" if cfg.layer_is_moe(bi) else "dense")
+                if hasattr(cfg, "layer_is_moe") else
                 "rope" if getattr(cfg, "no_rope_layers", None) is None
                 or cfg.no_rope_layers[bi] else "NoPE")
         log(f"{label} block {bi} ({kind}): loss first {first:.6g} best "
@@ -5847,7 +5937,8 @@ def _qwen35_tensors(params, t):
         t[p + "mlp.shared_expert_gate.weight"] = b["shared_expert_gate"]
 
 
-def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None):
+def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None,
+                         write=None):
     """(g) ``cfg`` written as an HF directory with fused experts
     (``write_hf_fused``; ``hf_config``: a Qwen3.5 ``config.json``), read
     back (leaves bit-equal, the sinks, the router bias, ``A_log`` and
@@ -5856,7 +5947,9 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None):
     loaded by ``from_pretrained`` (the family's config, words bit-equal to
     the in-memory engine's); prefill and first-step logits within the copy
     limit of the in-memory engine with fp16 scales (a Qwen3.5 export's
-    equal to them), ``generate_scan`` equal to ``generate``."""
+    equal to them), ``generate_scan`` equal to ``generate``.  ``write(params,
+    cfg, path, hf_config)`` writes the directory instead where given (GLM-4.5
+    through ``save_hf_checkpoint``, GLM-5 through ``write_hf_dsa``)."""
     from autoround_tpu_torch import AutoRound, QuantizedLlama
     from autoround_tpu_torch.export import save_quantized
     from autoround_tpu_torch.models.registry import get_model_fns
@@ -5873,7 +5966,7 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None):
     perturb_moe(params, seed)
     hf = root / f"{label}_hf"
     t0 = time.time()
-    write_hf_fused(params, cfg, hf, hf_config)
+    (write or write_hf_fused)(params, cfg, hf, hf_config)
     t_write = time.time() - t0
     lparams, lcfg = load_hf_checkpoint(str(hf))
     want, got = _flat(params), _flat(lparams)
@@ -5883,7 +5976,8 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None):
           f"{label} load: the loaded checkpoint differs from the written "
           f"one ({lcfg})")
     check(all(got[k].dtype == torch.float32 for k in got
-              if k.endswith(("sinks", "router_bias", "A_log", "dt_bias"))),
+              if k.endswith(("sinks", "router_bias", "A_log", "dt_bias",
+                             "e_score_correction_bias"))),
           f"{label} load: a sink, router bias, A_log or dt_bias is not fp32")
     del params, want, got
     np.save(root / f"{label}_ids.npy", calib.numpy())
@@ -5950,8 +6044,10 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None):
             f"hf_write_s={t_write:.2f}")
     toks, counts = generate_counted(disk, prompts, 8)
     scan_against(disk, prompts, toks, counts, f"{label} load")
-    log(f"{label} load path (x {cfg.num_layers}, HF, {cfg.num_experts} "
-        f"experts fused): "
+    n_exp = getattr(cfg, "num_experts", 0) or getattr(cfg,
+                                                      "n_routed_experts", 0)
+    log(f"{label} load path (x {cfg.num_layers}, HF, {n_exp} experts"
+        f"{' fused' if write is None else ''}): "
         f"CLI exit 0 in {t_cli:.2f} s (beside the in-process export), "
         f"export equal to the in-process one, "
         f"from_pretrained a {type(disk.cfg).__name__} with "
@@ -6313,12 +6409,12 @@ def qwen3next_path(bw, flops_peak, n_layers):
 
 def qwen3next_tune_path():
     """(b) SignRound W4A16 (``iters`` 4, 2 x 512 ids, 2 sequences a step)
-    on Qwen3-Next's blocks 0-3 (three DeltaNet layers and a full one: rows
-    1-3 in its tuning loss; 512 experts dense-then-mask each), then served:
-    ``generate_scan`` equal to ``generate``.  Returns the tuning's
-    launches."""
-    cfg, _ = _qwen3next(4)
-    launches = _moe_tune_path(cfg, "qwen3-next tune x 4", 115, "W4A16", 4,
+    on Qwen3-Next's published layers 2-3 (a DeltaNet layer and a full one:
+    rows 1-3 in its tuning loss; 512 experts dense-then-mask each; blocks
+    0-3 until the glm phase came, ~90 s), then served: ``generate_scan``
+    equal to ``generate``.  Returns the tuning's launches."""
+    cfg, _ = _qwen3next(2, first=2)
+    launches = _moe_tune_path(cfg, "qwen3-next tune x 2", 115, "W4A16", 2,
                               2, iters=4, nsamples=2)
     check(all(launches[n] > 0 for n in ("flash_attention",
                                         "flash_attention_bwd_dq",
@@ -6353,6 +6449,408 @@ def qwen3next_phase(bw, flops_peak, n_layers, load_layers):
         f"{summ['B8']['step_ms']:.4f} ms (bound {summ['B8']['bound_ms']:.4f}"
         f") B=1 {summ['B1']['step_ms']:.4f} ms (bound "
         f"{summ['B1']['bound_ms']:.4f}); qwen3next_s={time.time() - t0:.1f}")
+    return out
+
+
+# ------------------------------------------------------------- the GLM family
+#
+# The GLM family at published widths (random weights from a seed, moved
+# off their initial values by ``perturb_moe``): glm-4.5-air (96
+# query heads over 8 KV heads, so the int8 cache decodes through row 6 at
+# G = 12; partial rotary 0.5, per-head q / k norm, q / k / v biases; a dense
+# layer 0 of 10944, then 128 experts of 1408 and a shared one under the
+# DeepSeek router) at W4A16 g128, SignRound on its first two blocks, an HF
+# ``glm4_moe`` directory through the CLI; and GLM-5 DSA at the deepseek-v3
+# preset's widths with DeepSeek-V3.2's published indexer (the HF loader's
+# defaults: 64 heads of 128, top 2048, every layer its own), served by the
+# MLA engine with dense attention as the JAX engine serves it, its mask held
+# at 4096 tokens where it bites, and an HF ``glm_moe_dsa`` directory through
+# the CLI.
+
+GLM_NEW = 32
+GLM5_INDEXER = dict(index_n_heads=64, index_head_dim=128, index_topk=2048)
+# the mask check's one block runs 1 x DSA_SEQ tokens: past token 2048 a
+# query keeps fewer keys than the causal ones
+DSA_SEQ = 4096
+# a block on the DSA mask against the same block on the reference mask (the
+# index top-k's keys and the diagonal), on the queries whose masks agree
+# (all but those with a tie at the k-th score): the same keys, so the same
+# sums (0 expected)
+DSA_BLOCK_TOL = 1e-6
+
+
+def _glm45(n_layers):
+    from autoround_tpu_torch.models import glm4moe
+
+    return dataclasses.replace(glm4moe.CONFIG_PRESETS["glm-4.5-air"],
+                               num_layers=n_layers)
+
+
+def _glm5(n_layers):
+    """GLM-5 DSA at the port's deepseek-v3 preset widths with the HF
+    loader's indexer defaults, ``n_layers`` deep (every layer its own
+    indexer)."""
+    from autoround_tpu_torch.models import deepseek, glmdsa
+
+    v3 = deepseek.CONFIG_PRESETS["deepseek-v3"]
+    kw = {f.name: getattr(v3, f.name) for f in dataclasses.fields(v3)}
+    kw.update(GLM5_INDEXER, num_layers=n_layers)
+    return glmdsa.GlmMoeDsaConfig(**kw)
+
+
+def _glm45_model_check(eng, params, prompts, label):
+    """The GLM-4.5 engine's layout (q / k / v fused as nh·hd / nkv·hd /
+    nkv·hd with the biases left dense, the dense block's gate / up fused,
+    each MoE block's experts stacked) and the engine against the port's
+    ``model_fwd`` on the qdq weights (dense products; the flash kernel where
+    its gate takes the prompt): each block on the model's own input
+    (teacher forced: the engine's ``_block_with_cache``, packed and fused,
+    against ``glm4moe.block_fwd``) and the prefill logits of all layers,
+    within MOE_COPY_ROW_TOL (the router's near-ties).  The counts are
+    kept."""
+    from autoround_tpu_torch.models import glm4moe, llama
+    from autoround_tpu_torch.serve.engine import (_block_with_cache,
+                                                  _make_linear_fn)
+
+    cfg = eng.cfg
+    qkv = (cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd,
+           cfg.num_kv_heads * cfg.hd)
+    for i, b in enumerate(eng.params["blocks"]):
+        check(eng.fused_splits.get(f"blocks.{i}.qkv") == qkv
+              and b["q_bias"] is not None and b["k_norm"] is not None,
+              f"{label}: block {i} q / k / v not fused as {qkv}")
+    check(eng.fused_splits.get("blocks.0.gate_up") == (
+        cfg.intermediate_size,) * 2, f"{label}: block 0 gate / up not fused")
+    seq = prompts.to("cuda")
+    t0 = time.time()
+    errs = []
+    with counts_kept(), torch.no_grad():
+        x = llama.embed_fwd(params, seq, cfg)
+        cos, sin = llama.rope_tables(cfg, seq.shape[1], device=x.device)
+        for i in range(cfg.num_layers):
+            ye, _, _ = _block_with_cache(
+                eng.params["blocks"][i], x, cos, sin, cfg, None, None,
+                _make_linear_fn(eng.packed, eng.packed_kinds, i), eng.packed,
+                eng.packed_kinds, i, eng.fused_splits)
+            x = glm4moe.block_fwd(params["blocks"][i], x, cos, sin, cfg)
+            errs.append(row_err(ye, x)[1])
+            del ye
+        del x
+        logits, _ = eng.prefill(prompts)
+        deep = row_err(logits, glm4moe.model_fwd(params, seq, cfg)[:, -1])[1]
+        torch.cuda.synchronize()
+    log(f"{label}: engine against model_fwd on the qdq weights: each block "
+        f"teacher forced row_err "
+        f"{' / '.join(f'{r:.4g}' for r in errs)}; all {cfg.num_layers} "
+        f"layers prefill logits row_err={deep:.4g} (tol {MOE_COPY_ROW_TOL});"
+        f" check_s={time.time() - t0:.1f}")
+    check(all(r <= MOE_COPY_ROW_TOL for r in errs + [deep]),
+          f"{label}: the engine disagrees with model_fwd")
+
+
+def glm45_path(bw, flops_peak, n_layers):
+    """(a) glm-4.5-air at full width, ``n_layers`` of 46 (layer 0 dense,
+    the rest MoE): RTN W4A16 g128 with the lm_head (gains, q / k / v
+    biases and the router's bias moved), the int8-KV engine (row 6 at
+    G = 12; block 0's down_proj, K = 10944 = 85.5 x 128, serves dense),
+    8 x 512 prompts, 32 new tokens, launches equal to the loops' (row 1 at
+    prefill, row 6 every decode step of every layer); timings; each block
+    teacher forced against ``model_fwd`` on the qdq weights; a 2-layer copy
+    (dense + MoE) on the plain versions; ``generate_scan``; the replayed
+    step at batch 8 and 1; the fp8 cache; the batcher."""
+    cfg = _glm45(n_layers)
+    return _moe_serve_path(bw, flops_peak, cfg, f"glm-4.5-air x {n_layers}",
+                           121, "W4A16", 8, 512, GLM_NEW, 1024,
+                           model_check=_glm45_model_check)
+
+
+def glm45_tune_path():
+    """(b) SignRound W4A16 (iters 4, 2 x 512 ids, 2 sequences a step) on
+    glm-4.5-air's blocks 0-1 (the dense block and a 128-expert block: rows
+    1-3 at G = 12 in the tuning loss), then served."""
+    launches = _moe_tune_path(_glm45(2), "glm-4.5-air tune x 2", 124,
+                              "W4A16", 2, 2, iters=4, nsamples=2)
+    check(all(launches[n] > 0 for n in ("flash_attention",
+                                        "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")),
+          f"glm-4.5-air tune: rows 1-3 must launch ({launches})")
+    return launches
+
+
+def _glm45_write_hf(params, cfg, path, hf_config=None):
+    from autoround_tpu_torch.utils.hf_loader import save_hf_checkpoint
+
+    save_hf_checkpoint(params, cfg, str(path))
+    check(json.loads((path / "config.json").read_text())["model_type"]
+          == "glm4_moe", "glm-4.5 load: the writer's model_type")
+
+
+def write_hf_dsa(params, cfg, path, hf_config=None):
+    """An HF ``glm_moe_dsa`` directory (neither package has a writer for
+    GLM-5): the DeepSeek keys, ``self_attn.indexer.{q_proj,k_proj,
+    weights_proj}`` for the layers that own an indexer, the indexer fields
+    in ``config.json``."""
+    from autoround_tpu_torch.utils.hf_loader import _DS_MAP
+    from autoround_tpu_torch.utils.safetensors_io import save_file
+
+    inv = {v: k for k, v in _DS_MAP.items()}
+    t = {"model.embed_tokens.weight": params["embed_tokens"],
+         "model.norm.weight": params["norm"],
+         "lm_head.weight": params["lm_head"]}
+    for li, b in enumerate(params["blocks"]):
+        pre = f"model.layers.{li}."
+        for ours, arr in b.items():
+            if ours == "indexer":
+                if cfg.layer_has_indexer(li):
+                    for n, w in arr.items():
+                        t[f"{pre}self_attn.indexer.{n}.weight"] = w
+            elif ours == "experts":
+                for e, ew in enumerate(arr):
+                    for n, w in ew.items():
+                        t[f"{pre}mlp.experts.{e}.{n}.weight"] = w
+            elif ours == "shared_experts":
+                for n, w in arr.items():
+                    t[f"{pre}mlp.shared_experts.{n}.weight"] = w
+            else:
+                t[pre + inv[ours]] = arr
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(t, str(path / "model.safetensors"))
+    hf = {"model_type": "glm_moe_dsa", "vocab_size": cfg.vocab_size,
+          "hidden_size": cfg.hidden_size,
+          "intermediate_size": cfg.intermediate_size,
+          "num_hidden_layers": cfg.num_layers,
+          "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.num_kv_heads,
+          "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+          "q_lora_rank": cfg.q_lora_rank, "kv_lora_rank": cfg.kv_lora_rank,
+          "qk_nope_head_dim": cfg.qk_nope_head_dim,
+          "qk_rope_head_dim": cfg.qk_rope_head_dim,
+          "v_head_dim": cfg.v_head_dim,
+          "n_routed_experts": cfg.n_routed_experts,
+          "num_experts_per_tok": cfg.num_experts_per_tok,
+          "moe_intermediate_size": cfg.moe_intermediate_size,
+          "n_shared_experts": cfg.n_shared_experts,
+          "first_k_dense_replace": cfg.first_k_dense,
+          "routed_scaling_factor": cfg.routed_scaling_factor,
+          "n_group": cfg.n_group, "topk_group": cfg.topk_group,
+          "norm_topk_prob": cfg.norm_topk_prob,
+          "index_n_heads": cfg.index_n_heads,
+          "index_head_dim": cfg.index_head_dim,
+          "index_topk": cfg.index_topk,
+          "index_layers": list(cfg.index_layers) or None}
+    (path / "config.json").write_text(json.dumps(hf, indent=2))
+
+
+def _dsa_mask_check(params, cfg, label):
+    """One block (block 0) at 1 x DSA_SEQ tokens, where the mask bites: its
+    DSA mask against a reference built another way (the index top-k of the
+    causal scores, ``torch.topk``'s indices scattered, and the diagonal),
+    equal but at ties with the k-th score (the threshold keeps every tied
+    key); every query up to index_topk keeps all its causal keys and every
+    later one fewer (index_topk, or index_topk + 1 with the diagonal);
+    ``block_fwd`` on its own mask against the same block on the reference
+    mask (DSA_BLOCK_TOL) and against the dense DeepSeek block (printed:
+    the rows past index_topk move).  Returns the kept-key counts."""
+    from autoround_tpu_torch.models import deepseek, glmdsa, llama
+
+    t0 = time.time()
+    S, k = DSA_SEQ, cfg.index_topk
+    blk = params["blocks"][0]
+    gen = torch.Generator(device="cuda").manual_seed(127)
+    ids = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                        device="cuda")
+    with counts_kept(), torch.no_grad():
+        x = llama.embed_fwd(params, ids, cfg)
+        cos, sin = deepseek.rope_tables(cfg, S, device="cuda")
+        h = llama.rms_norm(x, blk["input_layernorm"], cfg.rms_eps)
+        sc = glmdsa.indexer_scores(blk, h, cos, sin, cfg,
+                                   llama._plain_linear)[0]
+        keep = glmdsa.dsa_mask(sc[None], k)[0, 0] == 0.0
+        rows = torch.arange(S, device="cuda")
+        causal = rows[None, :] <= rows[:, None]
+        s = torch.where(causal, sc, torch.full_like(sc, float("-inf")))
+        top = torch.topk(s, k, dim=-1)
+        ref = torch.zeros_like(keep).scatter_(1, top.indices, True) & causal
+        ref |= torch.eye(S, dtype=torch.bool, device="cuda")
+        diff = keep != ref
+        kth = top.values[:, -1:].expand(S, S)
+        n_diff = int(diff.sum())
+        ties_only = bool((s[diff] == kth[diff]).all()) if n_diff else True
+        kept = keep.sum(-1)
+        n_causal = rows + 1
+        early_all = bool((kept[:k] == n_causal[:k]).all())
+        late = kept[k:]
+        # at least the k keys; more than k + 1 (the diagonal) only through
+        # a tie, which ``ties_only`` holds
+        late_ok = bool((late >= k).all() and (late < n_causal[k:]).all())
+        n_wide = int((late > k + 1).sum())
+        same = ~diff.any(-1)                   # queries whose masks agree
+        del s, top, kth, sc, h
+        y = glmdsa.block_fwd(blk, x, cos, sin, cfg)
+        yr = glmdsa.block_fwd(blk, x, cos, sin, cfg, idx_mask=torch.where(
+            ref, 0.0, -1e30)[None, None])
+        r_ref = row_err(y[:, same], yr[:, same])[1]
+        del yr
+        yd = deepseek.block_fwd(blk, x, cos, sin, cfg)
+        r_dense_early = row_err(y[:, :k], yd[:, :k])[1]
+        r_dense_late = row_err(y[:, k:], yd[:, k:])[1]
+        del y, yd, x
+        torch.cuda.synchronize()
+    log(f"{label} DSA mask (block 0, 1 x {S} tokens, top {k}): keys kept "
+        f"per query: all causal up to query {k - 1} ({early_all}), then "
+        f"{int(late.min())}..{int(late.max())} of {k + 1}..{S} causal "
+        f"({late_ok}; {n_wide} queries keep more than {k + 1}: a tie at "
+        f"the k-th score); mask against the index top-k reference: {n_diff} "
+        f"keys differ (ties with the k-th score only: {ties_only}); "
+        f"block_fwd on its mask against the reference mask, the "
+        f"{int(same.sum())} queries whose masks agree, row_err="
+        f"{r_ref:.4g} (tol {DSA_BLOCK_TOL}); against the dense DeepSeek "
+        f"block: queries < {k} row_err={r_dense_early:.4g}, later "
+        f"{r_dense_late:.4g}; mask_check_s={time.time() - t0:.1f}")
+    check(early_all and late_ok and ties_only,
+          f"{label}: the DSA mask keeps the wrong keys")
+    check(r_ref <= DSA_BLOCK_TOL,
+          f"{label}: block_fwd disagrees with the reference mask's block")
+    check(r_dense_late > 0.0, f"{label}: the sparse path did not change "
+          f"the attention past token {k}")
+    return kept
+
+
+def glm5_path(bw, flops_peak, n_layers):
+    """(d) GLM-5 DSA at the deepseek-v3 widths with DeepSeek-V3.2's indexer,
+    ``n_layers`` of 61 (3 dense blocks, then 256 experts): RTN W4A16 g128
+    with the lm_head, the indexer's q / k quantized and ``weights_proj``
+    left bf16; the DSA mask at 4096 tokens (``_dsa_mask_check``); the MLA
+    engine (int8 latents) with its dense-MLA warning; ``generate`` for
+    2 x 128 prompts, 16 new tokens, launches equal to the loops' (the
+    indexer's packed q / k never launch); its logits and tokens equal to a
+    DeepSeek engine on the same packed weights (the dense path it takes);
+    a 2-layer copy (the last dense block and the first MoE block) on the
+    plain versions; ``generate_scan``; the replayed step at batch 8.
+    Returns the launches."""
+    from autoround_tpu_torch import QuantizedLlama
+    from autoround_tpu_torch.models import deepseek
+    from autoround_tpu_torch.utils.logger import logger as ar_logger
+
+    t_path = time.time()
+    kernels = _kernel_fns()
+    cfg = _glm5(n_layers)
+    label = f"glm5-dsa x {n_layers}"
+    B, S, NEW = 2, 128, 16
+    gen = torch.Generator().manual_seed(125)
+    calib = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = _moe_quantize(cfg, calib, 126, label, scheme="W4A16", iters=0,
+                           quant_lm_head=True)
+    idx = [n for n in result.layers if ".indexer." in n]
+    check(sorted(idx) == sorted(f"blocks.{i}.indexer.{w}"
+                                for i in range(n_layers)
+                                for w in ("k_proj", "q_proj"))
+          and all(b["indexer"]["weights_proj"].dtype == cfg.dtype
+                  for b in result.params["blocks"]),
+          f"{label}: indexer layers quantized {idx}")
+    kept = _dsa_mask_check(result.params, cfg, label)
+    h = _LogLines()
+    ar_logger.addHandler(h)
+    try:
+        eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=512,
+                                                  kv_quant="int8")
+    finally:
+        ar_logger.removeHandler(h)
+    warned = [m for m in h.lines if "DENSE MLA" in m]
+    check(len(warned) == 1, f"{label}: the dense-MLA warning {h.lines}")
+    kvb, other = _ds_dense(eng, result)
+    del result
+    free_device_memory()
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(n_layers))
+    check(not other and len(kvb) == n_layers
+          and sum(v == "w4a16_grouped" for v in eng.packed_kinds.values())
+          == 3 * n_moe, f"{label}: dense {other}")
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    toks, gen_counts = generate_counted(eng, prompts, NEW)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    n_idx = sum(".indexer." in k for k in eng.packed)
+    want = _ds_want(eng, NEW)
+    want["w4a16_matmul"] -= n_idx * NEW
+    log(f"{label} ({n_moe} MoE) kernels {json.dumps(launches)} "
+        f"generate_s={t_gen:.2f} ({n_idx} indexer entries packed, never "
+        f"launched) resident_gb={torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"weight_gb={_weight_bytes(eng) / 1e9:.3f}; warning: {warned[0]}")
+    _ds_counts(launches, want, label)
+    _check_tokens(toks, B, NEW, cfg.vocab_size)
+    # the same packed weights served as DeepSeek: the dense path, exactly
+    ds_cfg = deepseek.DeepseekConfig(**{
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(deepseek.DeepseekConfig)})
+    ds = dataclasses.replace(eng, cfg=ds_cfg)
+    with counts_kept():
+        same = [torch.equal(a, b) for a, b in zip(
+            _step_logits(eng, prompts), _step_logits(ds, prompts))]
+        ds_toks = ds.generate(prompts, max_new_tokens=NEW)
+    check(all(same) and torch.equal(ds_toks, toks),
+          f"{label}: not the DeepSeek engine's logits / tokens ({same})")
+    del ds
+    check_copy(eng, prompts, "card", DS_COPY_ROW_TOL,
+               first=cfg.first_k_dense - 1)
+    _, step_ms = time_serving(eng, prompts, NEW, bw, flops_peak)
+    c0 = launch_counts()
+    scan_path(eng, prompts, toks, gen_counts, label, step_ms)
+    c1 = launch_counts()
+    s8 = scan_measure(eng, 8, S, bw, flops_peak, None, seed=128,
+                      label=label)
+    log(f"{label} path: logits and tokens equal to the DeepSeek engine's "
+        f"on the same weights; graph step B=8 {s8['step_ms']:.4f} ms (bound "
+        f"{s8['bound_ms']:.4f}, busy {s8['busy']:.3f}); peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} path_s="
+        f"{time.time() - t_path:.1f}")
+    del eng
+    return launches, {n: c1[n] - c0[n] for n in launches}, kept
+
+
+def glm_phase(bw, flops_peak, glm45_layers, glm5_layers):
+    """GLM-4.5 and GLM-5: paths (a) ``glm45_path``, (b) ``glm45_tune_path``,
+    (c) an HF ``glm4_moe`` directory of 2 layers (dense + MoE) → the CLI →
+    ``from_pretrained``, (d) ``glm5_path`` and (e) an HF ``glm_moe_dsa``
+    directory of 2 layers (the first two deepseek-v3 blocks, dense, each
+    with its indexer) → the CLI → ``from_pretrained``; returns their
+    launches."""
+    t0 = time.time()
+    out = {}
+    t1 = time.time()
+    out["glm4.5-air"], summ = glm45_path(bw, flops_peak, glm45_layers)
+    out["glm4.5-air_scan"] = summ["scan_launches"]
+    free_device_memory()
+    out["glm4.5-air_tune"] = glm45_tune_path()
+    free_device_memory()
+    root = Path(tempfile.mkdtemp(prefix="glm_load_"))
+    try:
+        oss_llama4_load_path(root, _glm45(2), "glm-4.5-air", 129, 128,
+                             write=_glm45_write_hf)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory()
+    t_glm45 = time.time() - t1
+    t1 = time.time()
+    out["glm5-dsa"], out["glm5-dsa_scan"], _ = glm5_path(bw, flops_peak,
+                                                         glm5_layers)
+    free_device_memory()
+    root = Path(tempfile.mkdtemp(prefix="glm5_load_"))
+    try:
+        oss_llama4_load_path(root, _glm5(2), "glm5-dsa", 130, 128,
+                             write=write_hf_dsa)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory()
+    log(f"glm phase: glm-4.5-air prefill_ms={summ['prefill_ms']:.2f} B=8 "
+        f"{summ['B8']['step_ms']:.4f} ms (bound {summ['B8']['bound_ms']:.4f}"
+        f") B=1 {summ['B1']['step_ms']:.4f} ms (bound "
+        f"{summ['B1']['bound_ms']:.4f}); glm45_s={t_glm45:.1f} glm5_s="
+        f"{time.time() - t1:.1f} glm_s={time.time() - t0:.1f}")
     return out
 
 
@@ -6470,7 +6968,9 @@ def build_report(build):
                 f"dynamic shared memory, {info[3]} blocks per SM")
     fn = build.load("decode_attention").decode_attention_info
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    for hd, G in ((128, 4), (128, 7), (64, 4), (256, 4), (256, 8)):
+    for hd, G in ((128, 4), (128, 7), (64, 4), (256, 4), (256, 8),
+                  (64, 12), (128, 12), (256, 12), (64, 16), (128, 16),
+                  (256, 16)):
         build.check(fn(hd, G, info), "decode_attention_info")
         for what, i in (("split", 0), ("combine", 4)):
             log(f"  resources decode_attention {what} hd={hd} G={G}: "
@@ -6494,9 +6994,11 @@ def main() -> int:
     # the run's time limit is 1200 s: the defaults below 32 layers of the
     # tune, moe, W4A8, W8A8, FP8, MXFP4, qwen2.5-7b and deepseek-v2-lite
     # paths were cut for time when the whole run reached 936-1065 s on an
-    # H100, and those of the load, deepseek-v2-lite, gpt-oss-20b,
+    # H100, those of the load, deepseek-v2-lite, gpt-oss-20b,
     # llama4-scout and qwen3.5 load paths when the qwen3-next phase (267
-    # s) came (the rtn path keeps the main path's full depth)
+    # s) came, and those of the sage (32 -> 8) and qwen3-next (8 -> 4)
+    # paths when the glm phase (113 s) came (the rtn path keeps the main
+    # path's full depth)
     ap.add_argument("--tune-layers", type=int, default=8,
                     help="depth of the SignRound -> serve path (default 8)")
     ap.add_argument("--moe-layers", type=int, default=8,
@@ -6534,9 +7036,9 @@ def main() -> int:
     ap.add_argument("--llama1b-layers", type=int, default=16,
                     help="depth of the two llama3.2-1b paths (W4A16 g128 "
                          "and g16; default 16, all of them)")
-    ap.add_argument("--sage-layers", type=int, default=32,
+    ap.add_argument("--sage-layers", type=int, default=8,
                     help="layers of prefill attention on the int8-QK path "
-                         "(default 32)")
+                         "(default 8)")
     ap.add_argument("--qwen25-layers", type=int, default=8,
                     help="depth of the qwen2.5-7b RTN -> serve path "
                          "(default 8 of 28)")
@@ -6578,10 +7080,18 @@ def main() -> int:
                     help="depth of the llama4-scout RTN -> serve path "
                          "(default 4 of 48: NoPE layer 3; at least 4, "
                          "the chunk path's)")
-    ap.add_argument("--qwen3next-layers", type=int, default=8,
+    ap.add_argument("--qwen3next-layers", type=int, default=4,
                     help="depth of the qwen3-next RTN -> serve path "
-                         "(default 8 of 48: layers 3 and 7 full attention; "
-                         "at least 4, the copy holds layers 2-3)")
+                         "(default 4 of 48: layer 3 full attention; at "
+                         "least 4, the copy holds layers 2-3)")
+    ap.add_argument("--glm45-layers", type=int, default=4,
+                    help="depth of the glm-4.5-air RTN -> serve path "
+                         "(default 4 of 46: the dense layer 0 and three "
+                         "128-expert layers; at least 2)")
+    ap.add_argument("--glm5-layers", type=int, default=4,
+                    help="depth of the GLM-5 DSA RTN -> serve path at the "
+                         "deepseek-v3 widths (default 4 of 61: the 3 dense "
+                         "blocks and the first MoE block)")
     ap.add_argument("--qwen35-load-layers", type=int, default=2,
                     help="depth of the qwen3_5_moe HF directory of the "
                          "load path (default 2: the published layers 2-3, "
@@ -6713,6 +7223,8 @@ def main() -> int:
     oss.update(qwen3next_phase(bw, fl, args.qwen3next_layers,
                                args.qwen35_load_layers))
     mark("qwen3-next")
+    oss.update(glm_phase(bw, fl, args.glm45_layers, args.glm5_layers))
+    mark("glm")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths

@@ -626,7 +626,7 @@ def test_wgmma_register_a_transposed_b(gen, nbox, box0):
                                rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 12, 16])
 @pytest.mark.parametrize("case", ["plain", "window", "chunk", "softcap",
                                   "sinks"])
 def test_decode_masks_and_groups(gen, G, case):
@@ -651,14 +651,18 @@ def test_decode_masks_and_groups(gen, G, case):
                                   chunk=kw["chunk"]), "decode")
 
 
-@pytest.mark.parametrize("shape", ["llama4_chunk", "gptoss_sinks"])
+@pytest.mark.parametrize("shape", ["llama4_chunk", "gptoss_sinks",
+                                   "glm45_plain", "glm45_window_sinks"])
 def test_decode_gptoss_and_llama4_shapes(gen, shape):
-    """Row 6 where the two families drive it: chunk 256 at llama3-8b's
-    heads (B 8, T 1024, nh 32, nkv 8, hd 128, every slot at pos 700), and
-    gpt-oss's heads (nh 64, nkv 8, hd 64) at pos 511 with the 128 window
-    and the sinks; slots at their own positions beside them."""
+    """Row 6 where the families drive it: chunk 256 at llama3-8b's heads
+    (B 8, T 1024, nh 32, nkv 8, hd 128, every slot at pos 700), gpt-oss's
+    heads (nh 64, nkv 8, hd 64) at pos 511 with the 128 window and the
+    sinks, and GLM-4.5-Air's G = 12 (nh 96, nkv 8, hd 128) plain at pos 700
+    and with a 256 window and sinks at pos 511; slots at their own
+    positions beside them."""
     B, T = 8, 1024
-    nh, nkv, hd = (32, 8, 128) if shape == "llama4_chunk" else (64, 8, 64)
+    nh, nkv, hd = {"llama4_chunk": (32, 8, 128), "gptoss_sinks": (64, 8, 64)
+                   }.get(shape, (96, 8, 128))
     q = torch.randn(B, nh, hd, generator=gen, device="cuda").bfloat16()
     kc = torch.randint(-127, 128, (B, T, nkv, hd), generator=gen,
                        device="cuda").to(torch.int8)
@@ -669,9 +673,12 @@ def test_decode_gptoss_and_llama4_shapes(gen, shape):
     if shape == "llama4_chunk":
         kw = dict(chunk=256)
         pos0 = 700
+    elif shape == "glm45_plain":
+        kw = {}
+        pos0 = 700
     else:
-        kw = dict(window=128, sinks=torch.randn(nh, generator=gen,
-                                                device="cuda"))
+        kw = dict(window=128 if shape == "gptoss_sinks" else 256,
+                  sinks=torch.randn(nh, generator=gen, device="cuda"))
         pos0 = 511
     for pos in (torch.full((B,), pos0, dtype=torch.int32, device="cuda"),
                 torch.tensor([0, 127, 128, 255, 256, 511, 700, T - 1],
@@ -806,7 +813,7 @@ def test_int4_small_groups(gen, kind, M, O, K, g):
 
 
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("G", range(1, 17))
 @pytest.mark.parametrize("case", ["plain", "window_sinks", "softcap",
                                   "chunk"])
 def test_decode_head_dims_and_groups(gen, hd, G, case):
@@ -1042,7 +1049,8 @@ def _decode_operands(gen, B, T, nkv, G, hd):
 
 
 @pytest.mark.parametrize("B", [1, 16])
-@pytest.mark.parametrize("hd,G", [(64, 4), (128, 7), (256, 8), (128, 1)])
+@pytest.mark.parametrize("hd,G", [(64, 4), (128, 7), (256, 8), (128, 1),
+                                  (128, 12), (256, 16)])
 @pytest.mark.parametrize("case", list(SPLIT_CASES))
 def test_decode_split_positions(gen, B, hd, G, case):
     from autoround_tpu_torch.ops.decode_attention import decode_splits

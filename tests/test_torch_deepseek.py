@@ -148,11 +148,15 @@ def test_config_from_jax_classes():
     # an export's model_config has no class name: a DeepseekConfig
     fields = dataclasses.asdict(JPRESETS["tiny-glmlite"])
     assert type(config_from_jax(fields)) is td.DeepseekConfig
+    # GLM-4.5's GQA form and GLM-5 DSA are ported since: their classes
     glm45 = dataclasses.asdict(jg.CONFIG_PRESETS["tiny-glm4moe"])
+    assert type(config_from_jax(glm45, "Glm4MoeConfig")).__name__ == \
+        "Glm4MoeConfig"
+    assert type(config_from_jax(dict(fields, index_topk=64))).__name__ == \
+        "GlmMoeDsaConfig"
+    # LongCat's zero experts are not
     with pytest.raises(NotImplementedError, match="A11"):
-        config_from_jax(glm45, "Glm4MoeConfig")
-    with pytest.raises(NotImplementedError, match="A11"):
-        config_from_jax(dict(fields, index_topk=64))
+        config_from_jax(dict(fields, zero_expert_num=2))
 
 
 # ------------------------------------------------------------------- rope
@@ -481,10 +485,14 @@ def test_hf_loader_refusals(pairs, tmp_path):
     th.save_hf_checkpoint(tp, tcfg, str(tmp_path))
     from autoround_tpu_torch.utils.safetensors_io import load_file, save_file
     flat = load_file(str(tmp_path / "model.safetensors"))
+    # an indexer key in a DeepSeek checkpoint goes into the block's
+    # ``indexer`` dict, as the JAX loader puts it (GLM-5 DSA is ported)
     flat["model.layers.0.self_attn.indexer.k_proj.weight"] = torch.zeros(4, 4)
     save_file(flat, str(tmp_path / "model.safetensors"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        th.load_hf_checkpoint(str(tmp_path), device="cpu")
+    tp2, _ = th.load_hf_checkpoint(str(tmp_path), device="cpu")
+    jp2, _ = jh.load_hf_checkpoint(str(tmp_path))
+    assert tuple(tp2["blocks"][0]["indexer"]["k_proj"].shape) == \
+        jp2["blocks"][0]["indexer"]["k_proj"].shape == (4, 4)
     flat.pop("model.layers.0.self_attn.indexer.k_proj.weight")
     flat["model.layers.0.self_attn.o_proj.weight_scale_inv"] = \
         torch.ones(1, 1)

@@ -381,10 +381,10 @@ def test_int8_decode_head_shapes_match_jax(shape):
                                   got[:, :first_close])
 
 
-@pytest.mark.parametrize("hd,nh,nkv", [(96, 8, 2), (128, 32, 2), (64, 6, 4),
+@pytest.mark.parametrize("hd,nh,nkv", [(96, 8, 2), (128, 48, 2), (64, 6, 4),
                                        (32, 4, 4)])
 def test_decode_gate_names_the_shape(hd, nh, nkv):
-    """hd 96 / 32, G = 16 and a G that is not whole raise by name, both in
+    """hd 96 / 32, G = 24 and a G that is not whole raise by name, both in
     the gate and where the engine builds an int8 cache on the card (before
     any tensor is made, so no card is needed to see it)."""
     from autoround_tpu_torch.ops.decode_attention import check_decode_shape
@@ -400,7 +400,7 @@ def test_decode_gate_names_the_shape(hd, nh, nkv):
 
 
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("G", range(1, 9))
+@pytest.mark.parametrize("G", range(1, 17))
 def test_decode_gate_takes_every_kernel_shape(hd, G):
     from autoround_tpu_torch.ops.decode_attention import check_decode_shape
 

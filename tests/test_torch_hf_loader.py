@@ -131,9 +131,10 @@ def test_config_from_hf_equals_jax(name):
     assert t.dtype == torch.float32
 
 
-# ported since these cases were written (Qwen3-Next / 3.5): their cases
-# now hold what the loader does with the same base config
-_NOW_PORTED = ("qwen3_next", "qwen3_5_moe", "qwen3_5")
+# ported since these cases were written (Qwen3-Next / 3.5, GLM-4.5, GLM-5
+# DSA): their cases now hold what the loader does with the same base config
+_NOW_PORTED = ("qwen3_next", "qwen3_5_moe", "qwen3_5", "glm4_moe",
+               "glm_moe_dsa")
 
 
 @pytest.mark.parametrize("model_type", th._UNPORTED_TYPES + _NOW_PORTED)
@@ -141,6 +142,18 @@ def test_unported_model_types_raise(model_type):
     if model_type not in _NOW_PORTED:
         with pytest.raises(NotImplementedError, match="A11"):
             th.config_from_hf(dict(_BASE, model_type=model_type))
+        return
+    if model_type in ("glm4_moe", "glm_moe_dsa"):
+        # the JAX loader's config, field by field
+        hf = dict(_BASE, model_type=model_type)
+        t = th.config_from_hf(hf, torch.float32)
+        j = jh.config_from_hf(hf, jnp.float32)
+        assert type(t).__name__ == type(j).__name__ == (
+            "Glm4MoeConfig" if model_type == "glm4_moe"
+            else "GlmMoeDsaConfig")
+        for f in dataclasses.fields(t):
+            if f.name != "dtype":
+                assert getattr(t, f.name) == getattr(j, f.name), f.name
         return
     # a hybrid config needs its layer kinds; with them it builds the
     # JAX loader's config
