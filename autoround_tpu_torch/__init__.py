@@ -8,7 +8,8 @@ the JAX package.
 
 Ported so far: SignRound (``iters > 0``) and RTN (``iters=0``) quantization
 of Llama-family, Mixtral, DeepSeek (with GLM-4.6-Lite), GPT-OSS, Llama 4,
-Qwen3-Next, GLM-4.5 and GLM-5 DSA models (``models.registry.ALL_PRESETS``)
+Qwen3-Next, GLM-4.5, GLM-5 DSA and MiniMax models
+(``models.registry.ALL_PRESETS``)
 with the int and float (FP8, MX, NVFP4)
 data types and their activation quantization, the serving engine for every
 packed kind of the JAX engine with an int8 or fp8 KV cache, its decode loop

@@ -51,7 +51,7 @@ __all__ = ["Qwen3NextConfig", "Qwen35MoeConfig", "CONFIG_PRESETS",
            "init_params", "block_fwd", "block_fwd_for", "model_fwd",
            "block_linear_names", "chunk_gated_delta_rule",
            "gated_delta_step", "full_attention_with_cache",
-           "block_with_cache", "is_linear_layer"]
+           "block_with_cache", "is_linear_layer", "linear_cache_shapes"]
 
 
 @dataclass(frozen=True)
@@ -109,6 +109,15 @@ _DENSE = {"w1": "gate_proj", "w3": "up_proj", "w2": "down_proj"}
 
 def is_linear_layer(cfg: Qwen3NextConfig, li: int) -> bool:
     return (cfg.layer_types or ())[li] == "linear_attention"
+
+
+def linear_cache_shapes(cfg: Qwen3NextConfig):
+    """Per-slot shapes of a DeltaNet layer's serving cache: the conv tail
+    (K - 1, conv_dim) and the fp32 recurrent state (nv, dk, dv)."""
+    nk, nv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
+    dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
+    return ((cfg.linear_conv_kernel_dim - 1, 2 * nk * dk + nv * dv),
+            (nv, dk, dv))
 
 
 def _is_moe_layer(cfg: Qwen3NextConfig, li: int) -> bool:

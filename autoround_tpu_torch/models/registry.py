@@ -9,8 +9,8 @@ from __future__ import annotations
 from types import SimpleNamespace
 from typing import Any, Dict
 
-from . import (deepseek, glm4moe, glmdsa, gptoss, llama, llama4, mixtral,
-               qwen3next)
+from . import (deepseek, glm4moe, glmdsa, gptoss, llama, llama4, minimax,
+               mixtral, qwen3next)
 
 __all__ = ["get_model_fns", "ALL_PRESETS"]
 
@@ -19,9 +19,11 @@ def get_model_fns(cfg) -> SimpleNamespace:
     """The namespace of model functions for a config.  Every family has:
     init_params, block_fwd, embed_fwd, final_fwd, rope_tables, model_fwd,
     block_linear_names; a family whose layers differ in kind (Llama 4's
-    rope and NoPE layers, Qwen3-Next's DeltaNet and full attention) adds
+    rope and NoPE layers, the hybrids' linear and full attention) adds
     ``block_fwd_for(cfg, li)``, the layer's own forward; a hybrid family
-    (Qwen3-Next) adds ``block_with_cache``, its serving block."""
+    (Qwen3-Next, MiniMax) adds ``block_with_cache``, its serving block,
+    ``layer_is_linear(cfg, li)`` and ``linear_cache_shapes(cfg)``, the
+    per-slot shapes of a linear layer's conv tail and state."""
     # DeepseekConfig and MixtralConfig subclass LlamaConfig: test them
     # first, and the DeepSeek subclasses before DeepseekConfig (GLM-4.5's
     # GQA form, GLM-5 DSA; GlmMoeLiteConfig is DeepSeek's own)
@@ -62,11 +64,28 @@ def get_model_fns(cfg) -> SimpleNamespace:
             block_fwd=qwen3next.block_fwd,
             block_fwd_for=qwen3next.block_fwd_for,  # DeltaNet vs full attn
             block_with_cache=qwen3next.block_with_cache,  # hybrid serving
+            layer_is_linear=qwen3next.is_linear_layer,
+            linear_cache_shapes=qwen3next.linear_cache_shapes,
             embed_fwd=llama.embed_fwd,
             final_fwd=llama.final_fwd,
             rope_tables=llama.rope_tables,
             model_fwd=qwen3next.model_fwd,
             block_linear_names=qwen3next.block_linear_names,
+        )
+    # MiniMaxConfig subclasses MixtralConfig
+    if isinstance(cfg, minimax.MiniMaxConfig):
+        return SimpleNamespace(
+            init_params=minimax.init_params,
+            block_fwd=minimax.block_fwd,
+            block_fwd_for=minimax.block_fwd_for,  # lightning vs full attn
+            block_with_cache=minimax.block_with_cache,  # hybrid serving
+            layer_is_linear=minimax.layer_is_linear,
+            linear_cache_shapes=minimax.linear_cache_shapes,
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=llama.rope_tables,
+            model_fwd=minimax.model_fwd,
+            block_linear_names=minimax.block_linear_names,
         )
     if isinstance(cfg, mixtral.MixtralConfig):
         return SimpleNamespace(
@@ -122,3 +141,4 @@ ALL_PRESETS.update(glmdsa.CONFIG_PRESETS)
 ALL_PRESETS.update(gptoss.CONFIG_PRESETS)
 ALL_PRESETS.update(llama4.CONFIG_PRESETS)
 ALL_PRESETS.update(qwen3next.CONFIG_PRESETS)
+ALL_PRESETS.update(minimax.CONFIG_PRESETS)

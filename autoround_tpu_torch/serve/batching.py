@@ -23,9 +23,9 @@ every decode step advances all active slots, each at its own position.
 Sampling draws from one ``torch.Generator`` seeded from ``sampling.seed``
 (the JAX batcher splits a key per call: other numbers, same distribution).
 
-A hybrid config (Qwen3-Next, Qwen3.5-MoE) raises ``NotImplementedError``
-with the JAX batcher's wording: its conv tails and recurrent states would
-need per-slot buffers.
+A hybrid config (Qwen3-Next, Qwen3.5-MoE, MiniMax) raises
+``NotImplementedError`` with the JAX batcher's wording: its conv tails and
+recurrent states would need per-slot buffers.
 """
 
 from __future__ import annotations
@@ -35,9 +35,10 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models import deepseek, llama, qwen3next
+from ..models import deepseek, llama
 from .engine import (QuantizedLlama, _block_with_cache, _final_fwd_packed,
-                     _make_linear_fn, _StepReplay, decode_core, rope_pair)
+                     _is_hybrid, _make_linear_fn, _StepReplay, decode_core,
+                     rope_pair)
 from .sampling import SamplingParams, sample_token
 
 __all__ = ["ContinuousBatchingEngine", "Request"]
@@ -81,8 +82,9 @@ class ContinuousBatchingEngine:
                  eos_token: Optional[int] = None,
                  sampling: Optional[SamplingParams] = None):
         cfg = model.cfg
-        if (isinstance(cfg, qwen3next.Qwen3NextConfig)
-                or type(cfg).__name__ in ("Qwen3NextConfig", "MiniMaxConfig")):
+        # the JAX batcher's rule is by class name (JAX serve/batching.py:80)
+        if _is_hybrid(cfg) or type(cfg).__name__ in ("Qwen3NextConfig",
+                                                     "MiniMaxConfig"):
             raise NotImplementedError(
                 f"continuous batching for {type(cfg).__name__} needs "
                 "per-slot conv/recurrent state buffers — use the "

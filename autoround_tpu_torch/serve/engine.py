@@ -1,7 +1,7 @@
 """Quantized serving engine: packed weights + KV cache + decode loop
 (counterpart of ``autoround_tpu/serve/engine.py``; the Llama, Mixtral,
-DeepSeek, GLM-4.5, GLM-5, GPT-OSS, Llama 4 and Qwen3-Next families, every
-kind of the JAX engine —
+DeepSeek, GLM-4.5, GLM-5, GPT-OSS, Llama 4, Qwen3-Next and MiniMax
+families, every kind of the JAX engine —
 ``w4a16``, ``w4a16_asym``, ``w4a8``, ``w8a8``, ``w8a16``, ``w2a16``,
 ``fp8``, ``mxfp4_g32`` and ``mxfp4_g16`` — and ``kv_quant`` None,
 ``"int8"`` or ``"fp8"``).  The float kinds and
@@ -62,20 +62,23 @@ kept per (batch, kv_quant, sampling, prefill_a8) and replayed by later
 calls.  A failed capture or replay raises; there is no eager fallback.  A
 CPU engine runs the same static-buffer step eagerly.
 
-A Qwen3-Next / Qwen3.5-MoE config (``models.qwen3next``) keeps a
-``HybridCache`` (the JAX engine's, ``engine.py:50-60``): K / V (L_full, B,
-T, n_kv, hd) for its full-attention layers, and for its DeltaNet layers the
-conv tails (L_lin, B, K − 1, conv_dim) in the model dtype and the recurrent
-states (L_lin, B, nv, dk, dv) in fp32, with the per-slot ``pos``.  Its
-prompt and decode cores (``_hybrid_prefill_core``, ``_hybrid_decode_core``:
-the JAX ``_q3n_prefill_core`` / ``_q3n_decode_core``) run
-``qwen3next.block_with_cache``: the O(1) recurrent step on a linear layer,
-the dense-cache attention (token written at ``pos[b]``, mask ``idx <=
-pos[b]``) on a full one.  Its fused q(+gate) / k / v and a dense layer's
-gate / up run through the fused entries (the JAX hybrid core asks for the
-members by name, misses the fused entry and multiplies the qdq leaf
-dense).  The hybrid cache takes no ``kv_quant``, as in the JAX engine: an
-engine asked for one warns and keeps ``kv_quant=None``.
+A hybrid config, Qwen3-Next / Qwen3.5-MoE (``models.qwen3next``) or
+MiniMax (``models.minimax``), keeps a ``HybridCache`` (the JAX engine's,
+``engine.py:50-60``): K / V (L_full, B, T, n_kv, hd) for its full-attention
+layers, and for its linear layers the conv tails in the model dtype
+(Qwen3-Next's (L_lin, B, K − 1, conv_dim); MiniMax's zero-width (L_lin, B,
+0, 0)) and the recurrent states in fp32 (Qwen3-Next's (L_lin, B, nv, dk,
+dv); MiniMax's lightning states (L_lin, B, nh, hd, hd)), with the per-slot
+``pos``.  Its prompt and decode cores (``_hybrid_prefill_core``,
+``_hybrid_decode_core``: the JAX ``_q3n_prefill_core`` /
+``_q3n_decode_core``) run the family's ``block_with_cache`` through the
+registry: the O(1) recurrent step on a linear layer, the dense-cache
+attention (token written at ``pos[b]``, mask ``idx <= pos[b]``) on a full
+one.  The fused q(+gate) / k / v of a full layer and a dense layer's gate /
+up run through the fused entries (the JAX hybrid core asks for the members
+by name, misses the fused entry and multiplies the qdq leaf dense).  The
+hybrid cache takes no ``kv_quant``, as in the JAX engine: an engine asked
+for one warns and keeps ``kv_quant=None``.
 
 Unlike the JAX package, the cache is updated in place: ``decode_step``
 returns the same buffers it was given, with one more token written (the
@@ -95,8 +98,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .._device import resolve_device
-from ..models import (deepseek, glmdsa, gptoss, llama, llama4, mixtral,
-                      qwen3next)
+from ..models import (deepseek, glmdsa, gptoss, llama, llama4, minimax,
+                      mixtral, qwen3next)
 from ..models.registry import get_model_fns
 from ..ops._build import COUNTED
 from ..ops.decode_attention import check_decode_shape, decode_attention
@@ -128,14 +131,16 @@ class KVCache(NamedTuple):
 
 
 class HybridCache(NamedTuple):
-    """The Qwen3-Next hybrid cache: K / V for the full-attention layers,
-    the depthwise conv tails and the recurrent delta-rule states for the
+    """The hybrid cache (Qwen3-Next, MiniMax): K / V for the
+    full-attention layers, the conv tails and the recurrent states for the
     linear-attention layers (O(1) a decode step)."""
 
     k: torch.Tensor      # (L_full, B, T, n_kv, hd) — cfg dtype
     v: torch.Tensor
-    conv: torch.Tensor   # (L_lin, B, K - 1, conv_dim) — cfg dtype
-    state: torch.Tensor  # (L_lin, B, nv, dk, dv) — fp32
+    # (L_lin, B, K - 1, conv_dim) — cfg dtype; MiniMax's (L_lin, B, 0, 0)
+    conv: torch.Tensor
+    # (L_lin, B, nv, dk, dv) — fp32; MiniMax's (L_lin, B, nh, hd, hd)
+    state: torch.Tensor
     length: int
     pos: Optional[torch.Tensor] = None   # (B,) int32, as ``KVCache.pos``
     k_scale: Optional[torch.Tensor] = None   # always None: no kv_quant
@@ -143,7 +148,8 @@ class HybridCache(NamedTuple):
 
 
 def _is_hybrid(cfg) -> bool:
-    return isinstance(cfg, qwen3next.Qwen3NextConfig)
+    return isinstance(cfg, (qwen3next.Qwen3NextConfig,
+                            minimax.MiniMaxConfig))
 
 
 _KV_QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -171,18 +177,15 @@ def _init_cache(cfg: llama.LlamaConfig, batch: int, max_seq: int,
     gets a :class:`HybridCache` in the model dtype (``kv_quant`` is not
     read)."""
     if _is_hybrid(cfg):
-        n_full = sum(not qwen3next.is_linear_layer(cfg, i)
-                     for i in range(n_layers))
-        nk, nv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
-        dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
-        kshape = (n_full, batch, max_seq, cfg.num_kv_heads, cfg.hd)
+        fns = get_model_fns(cfg)
+        n_lin = sum(fns.layer_is_linear(cfg, i) for i in range(n_layers))
+        tail, state = fns.linear_cache_shapes(cfg)
+        kshape = (n_layers - n_lin, batch, max_seq, cfg.num_kv_heads, cfg.hd)
         z = functools.partial(torch.zeros, device=device)
         return HybridCache(
             k=z(kshape, dtype=cfg.dtype), v=z(kshape, dtype=cfg.dtype),
-            conv=z((n_layers - n_full, batch, cfg.linear_conv_kernel_dim - 1,
-                    2 * nk * dk + nv * dv), dtype=cfg.dtype),
-            state=z((n_layers - n_full, batch, nv, dk, dv),
-                    dtype=torch.float32),
+            conv=z((n_lin, batch) + tail, dtype=cfg.dtype),
+            state=z((n_lin, batch) + state, dtype=torch.float32),
             length=0, pos=z((batch,), dtype=torch.int32))
     store = _KV_DTYPE.get(kv_quant, cfg.dtype)
     if deepseek.is_mla(cfg):
@@ -843,7 +846,7 @@ def _mla_decode_core(params, packed, kinds, splits, token, k, v, pos, *,
 
 
 def _fuser(packed, kinds, splits, block_idx: int, a8_prompt: bool = False):
-    """``fused(name, h)`` of ``qwen3next.block_with_cache``: the members of
+    """``fused(name, h)`` of a hybrid ``block_with_cache``: the members of
     block ``block_idx``'s fused group ``name`` (:func:`_fused_call`)."""
     def fused(name, h):
         return _fused_call(packed, kinds, splits, block_idx, name, h,
@@ -854,9 +857,10 @@ def _fuser(packed, kinds, splits, block_idx: int, a8_prompt: bool = False):
 def _hybrid_prefill_core(params, packed, kinds, splits, input_ids, *, cfg,
                          max_seq, kv_quant, moe_capacity_factor,
                          a8_prompt=False, cache: Optional[HybridCache] = None):
-    """The hybrid prompt pass (the JAX engine's ``_q3n_prefill_core``):
-    each full layer's K / V into the cache, each linear layer's conv tail
-    and final recurrent state copied into its buffers, and the last
+    """The hybrid prompt pass (the JAX engine's ``_q3n_prefill_core``)
+    through the family's ``block_with_cache``: each full layer's K / V
+    into the cache, each linear layer's conv tail and final recurrent
+    state copied into its buffers, and the last
     position's logits.  ``kv_quant`` is not read; ``cache`` as in
     :func:`_prefill_core`: its conv tails and states are overwritten whole
     and its K / V up to S (a later prompt starts from its own state; the
@@ -869,9 +873,10 @@ def _hybrid_prefill_core(params, packed, kinds, splits, input_ids, *, cfg,
                             input_ids.device)
     x = llama.embed_fwd(params, input_ids, cfg)
     cos, sin = llama.rope_tables(cfg, S, device=x.device)
+    block_with_cache = get_model_fns(cfg).block_with_cache
     jf = jl = 0
     for i in range(cfg.num_layers):
-        x, pieces = qwen3next.block_with_cache(
+        x, pieces = block_with_cache(
             params["blocks"][i], x, cos, sin, cfg, None, None,
             _make_linear_fn(packed, kinds, i, a8_prompt),
             _fuser(packed, kinds, splits, i, a8_prompt), moe_capacity_factor)
@@ -903,12 +908,13 @@ def _hybrid_decode_core(params, packed, kinds, splits, token, k, v, pos, *,
     x = llama.embed_fwd(params, token[:, None], cfg)
     cos, sin = llama.rope_tables(cfg, 1, positions=pos)
     cos, sin = cos[:, None], sin[:, None]              # (B, 1, rd)
+    fns = get_model_fns(cfg)
     jf = jl = 0
     for i in range(cfg.num_layers):
-        lin = qwen3next.is_linear_layer(cfg, i)
+        lin = fns.layer_is_linear(cfg, i)
         cin = (("lin", conv[jl], state[jl]) if lin
                else ("full", k[jf], v[jf]))
-        x, pieces = qwen3next.block_with_cache(
+        x, pieces = fns.block_with_cache(
             params["blocks"][i], x, cos, sin, cfg, cin, pos,
             _make_linear_fn(packed, kinds, i), _fuser(packed, kinds, splits,
                                                       i),
@@ -1201,7 +1207,9 @@ class QuantizedLlama:
         layers serve dense, as :meth:`from_quantize_result` serves them.
         A Qwen3-Next export (``linear_num_key_heads``) rebuilds a
         ``Qwen3NextConfig``, its fp32
-        ``A_log`` / ``dt_bias`` as stored."""
+        ``A_log`` / ``dt_bias`` as stored; a MiniMax one
+        (``full_attn_alpha_factor``) a ``MiniMaxConfig``, its fp32
+        ``slope_rate`` as stored."""
         import json
         import os
 

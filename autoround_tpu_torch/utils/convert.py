@@ -5,8 +5,8 @@ converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
 ``config_from_jax`` the JAX ``LlamaConfig``'s, ``MixtralConfig``'s,
 ``DeepseekConfig``'s, ``GlmMoeLiteConfig``'s, ``Glm4MoeConfig``'s,
 ``GlmMoeDsaConfig``'s, ``GptOssConfig``'s,
-``Llama4Config``'s, ``Qwen3NextConfig``'s or ``Qwen35MoeConfig``'s fields
-as a dict
+``Llama4Config``'s, ``Qwen3NextConfig``'s, ``Qwen35MoeConfig``'s or
+``MiniMaxConfig``'s fields as a dict
 (``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
 JAX package: both sides then compute on the same weights.
 ``tune_params_from_jax`` carries a tuned state the same way, and
@@ -31,6 +31,7 @@ from ..models.glmdsa import GlmMoeDsaConfig
 from ..models.gptoss import GptOssConfig
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..models.llama4 import Llama4Config
+from ..models.minimax import MiniMaxConfig
 from ..models.mixtral import MixtralConfig
 from ..models.qwen3next import Qwen35MoeConfig, Qwen3NextConfig
 from ..ops.qmatmul import pack_w4
@@ -61,7 +62,7 @@ def _leaf(a, device) -> torch.Tensor:
 
 # leaves the JAX package keeps in fp32 whatever the model dtype
 _FP32_LEAVES = ("e_score_correction_bias", "sinks", "router_bias", "A_log",
-                "dt_bias")
+                "dt_bias", "slope_rate", "attn_norm")
 
 
 def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
@@ -71,7 +72,7 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
     ``device``, in ``cfg``'s dtype for floating leaves but the ones the
     JAX package keeps in fp32 (DeepSeek's ``e_score_correction_bias``,
     GPT-OSS's ``sinks`` and ``router_bias``, Qwen3-Next's ``A_log`` and
-    ``dt_bias``)."""
+    ``dt_bias``, MiniMax's ``slope_rate`` and ``attn_norm``)."""
     dev = resolve_device(device)
 
     def rec(node, key=None):
@@ -98,17 +99,14 @@ _DEEPSEEK_CLASSES = {None: DeepseekConfig, "DeepseekConfig": DeepseekConfig,
                      "GlmMoeLiteConfig": GlmMoeLiteConfig,
                      "Glm4MoeConfig": Glm4MoeConfig,
                      "GlmMoeDsaConfig": GlmMoeDsaConfig}
-# a field of the JAX MiniMaxConfig (a MixtralConfig subclass the port has
-# not got), which would otherwise load as a plain MixtralConfig
+# a field of MiniMaxConfig alone (a MixtralConfig subclass)
 _MINIMAX_FIELD = "full_attn_alpha_factor"
 
 
 def _config_class(fields: Mapping[str, Any], cls_name: Optional[str]):
     if "kv_lora_rank" not in fields:
         if _MINIMAX_FIELD in fields:
-            raise NotImplementedError(
-                f"{cls_name or 'MiniMaxConfig'} is not ported yet (ROADMAP "
-                f"A11: MiniMax waits for its own slice)")
+            return MiniMaxConfig
         if "linear_num_key_heads" in fields:
             return (Qwen35MoeConfig if cls_name == "Qwen35MoeConfig"
                     else Qwen3NextConfig)
@@ -146,11 +144,12 @@ def config_from_jax(fields: Mapping[str, Any],
     when they hold ``no_rope_layers``, a ``Qwen3NextConfig`` when they hold
     ``linear_num_key_heads`` (a ``Qwen35MoeConfig`` when ``cls_name`` says
     so; an export's ``model_config`` comes back as a ``Qwen3NextConfig``,
-    which serves the same), a ``MixtralConfig`` when they hold
+    which serves the same), a ``MiniMaxConfig`` when they hold
+    ``full_attn_alpha_factor``, a ``MixtralConfig`` when they hold
     ``num_experts``, else a ``LlamaConfig``; the tuple fields come back as
     tuples.  Raises ``NotImplementedError`` for a config that sets a flag
-    the port does not implement (online R4), for the DeepSeek subclasses
-    it has not got (LongCat, DeepSeek-VL) and for MiniMax."""
+    the port does not implement (online R4) and for the DeepSeek
+    subclasses it has not got (LongCat, DeepSeek-VL)."""
     cls = _config_class(fields, cls_name)
     known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():

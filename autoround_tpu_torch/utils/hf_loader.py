@@ -6,7 +6,8 @@
 ``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture), ``glm4_moe``
 (GLM-4.5: GQA with partial rotary and the DeepSeek router), ``glm_moe_dsa``
 (GLM-5: DeepSeek MLA + MoE with the DSA lightning indexer), ``gpt_oss``,
-``llama4_text``, ``qwen3_next``, ``qwen3_5_moe`` and ``qwen3_5``.  GPT-OSS
+``llama4_text``, ``qwen3_next``, ``qwen3_5_moe``, ``qwen3_5`` and
+``minimax``.  GPT-OSS
 and Llama 4 store their experts fused (``gate_up_proj`` (E, H, 2I),
 ``down_proj`` (E, I, H)), Qwen3.5 as (E, 2I, H) / (E, H, I) stacks; they
 split into per-expert (O, I) leaves at load (GPT-OSS's gate / up columns
@@ -17,6 +18,10 @@ in fp32), and Qwen3.5's ``mtp.*`` draft tensors are skipped.  A DeepSeek
 checkpoint's ``self_attn.indexer.{q_proj,k_proj,weights_proj}`` go into the
 block's ``indexer`` dict (the JAX loader's rule, for any DeepSeek config);
 a GLM-5 layer without one takes a copy of its governing layer's.
+MiniMax's lightning layers keep ``self_attn.qkv_proj`` fused (it is not
+Phi-3's split), ``out_proj``, ``output_gate`` and ``self_attn.norm`` (as
+``attn_norm``); its decay buffers are skipped and each linear block's
+``slope_rate`` is computed from the config after the load, in fp32.
 
 ``load_hf_checkpoint`` reads a local safetensors checkpoint (one file, or
 shards through ``model.safetensors.index.json``) with the port's own
@@ -30,15 +35,16 @@ A published GLM-4.5 or DeepSeek-V3 checkpoint also holds its draft layer
 the JAX loader stops there with an ``IndexError``, and this one raises a
 ``ValueError`` naming the key (ROADMAP C).
 
-Not ported: the other ``model_type``s the JAX function knows (Step-3.5,
-MiniMax) raise naming their family and ROADMAP A11, and an
+Not ported: the other ``model_type`` the JAX function knows (Step-3.5)
+raises naming its family and ROADMAP A11, and an
 FP8-source checkpoint (a ``weight_scale_inv`` / ``weight_scale`` key, or an
 F8 weight: DeepSeek-V3's published files) raises naming A12
 (``quantize/model_free.py``).  The JAX package has no HF writer for
 GPT-OSS, Llama 4 or Qwen3-Next (its ``save_hf_checkpoint`` writes their
 trees with Llama / Mixtral / Qwen2-MoE keys and drops the sinks, the
-biases and the DeltaNet leaves), and for GLM-5 it writes ``deepseek_v3``
-and drops the indexer; :func:`save_hf_checkpoint` refuses all four,
+biases and the DeltaNet leaves), for GLM-5 it writes ``deepseek_v3``
+and drops the indexer, and for MiniMax it writes ``mixtral`` and drops the
+lightning leaves; :func:`save_hf_checkpoint` refuses all five,
 and GPT-OSS's native MXFP4 expert tensors (``*_blocks`` / ``*_scales``)
 are not read, as in the JAX package.
 """
@@ -60,6 +66,7 @@ from ..models.glmdsa import GlmMoeDsaConfig
 from ..models.gptoss import GptOssConfig
 from ..models.llama import LlamaConfig
 from ..models.llama4 import Llama4Config
+from ..models.minimax import MiniMaxConfig, layer_is_linear, slope_rate
 from ..models.mixtral import MixtralConfig
 from ..models.qwen3next import Qwen35MoeConfig, Qwen3NextConfig
 from .logger import logger
@@ -96,8 +103,8 @@ _TOP_MAP = {
 
 # model_types of the JAX loader whose models are not ported yet, and their
 # families
-_UNPORTED_TYPES = ("step3p5", "minimax")
-_UNPORTED_FAMILIES = {"step3p5": "Step-3.5", "minimax": "MiniMax"}
+_UNPORTED_TYPES = ("step3p5",)
+_UNPORTED_FAMILIES = {"step3p5": "Step-3.5"}
 _QWEN3NEXT_TYPES = ("qwen3_next", "qwen3_5_moe", "qwen3_5")
 _FP8_SCALES = (".weight_scale_inv", ".weight_scale")
 
@@ -112,8 +119,8 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
     DeepSeek-V3.2's: 64 heads of 128, top 2048, every layer its own), a
     ``Llama4Config`` for ``llama4_text``, a
     ``GptOssConfig`` for ``gpt_oss``, a ``Qwen3NextConfig`` for
-    ``qwen3_next`` and a ``Qwen35MoeConfig`` for ``qwen3_5_moe`` /
-    ``qwen3_5``."""
+    ``qwen3_next``, a ``Qwen35MoeConfig`` for ``qwen3_5_moe`` /
+    ``qwen3_5`` and a ``MiniMaxConfig`` for ``minimax``."""
     mt = cfg.get("model_type", "llama")
     if mt in _UNPORTED_TYPES:
         raise NotImplementedError(
@@ -122,6 +129,8 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
     # before the Qwen-MoE branch: these configs hold num_experts too
     if mt in _QWEN3NEXT_TYPES:
         return _qwen3next_config_from_hf(cfg, mt, dtype)
+    if mt == "minimax":
+        return _minimax_config_from_hf(cfg, dtype)
     if mt in ("deepseek_v2", "deepseek_v3"):
         return _deepseek_config_from_hf(cfg, mt, dtype)
     if mt == "glm4_moe_lite":
@@ -307,6 +316,44 @@ def _qwen3next_config_from_hf(cfg: Dict[str, Any], mt: str,
         shared_expert_gate=shared > 0,
         norm_topk_prob=cfg.get("norm_topk_prob", True),
         mlp_only_layers=tuple(sorted(mlp_only)),
+        dtype=dtype,
+    )
+
+
+# MiniMaxDecoderLayer's residual scales (1.0 where the config has none)
+_MINIMAX_FACTORS = ("full_attn_alpha_factor", "full_attn_beta_factor",
+                    "linear_attn_alpha_factor", "linear_attn_beta_factor",
+                    "mlp_alpha_factor", "mlp_beta_factor")
+
+
+def _minimax_config_from_hf(cfg: Dict[str, Any], dtype) -> MiniMaxConfig:
+    """MiniMax HF config → ``MiniMaxConfig``: the layer kinds from
+    ``layer_types`` (a config without it raises here; the JAX loader then
+    builds an all-full model, which fails later on a missing ``q_proj``),
+    the scaled-residual factors, the router's top-k renormalized
+    (``MiniMaxSparseMoeBlock``)."""
+    if not cfg.get("layer_types"):
+        raise ValueError(
+            "model_type 'minimax': config.json has no layer_types (the "
+            "linear_attention / full_attention kind of each layer)")
+    return MiniMaxConfig(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=cfg["num_hidden_layers"],
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg.get("num_key_value_heads",
+                             cfg["num_attention_heads"]),
+        head_dim=cfg.get("head_dim"),
+        rope_theta=cfg.get("rope_theta", 1e7),
+        rms_eps=cfg.get("rms_norm_eps", 1e-5),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        num_experts=cfg.get("num_local_experts", 8),
+        top_k=cfg.get("num_experts_per_tok", 2),
+        norm_topk_prob=True,
+        layer_types=tuple(cfg["layer_types"]),
+        block_size=cfg.get("block_size", 256),
+        **{f: cfg.get(f, 1.0) for f in _MINIMAX_FACTORS},
         dtype=dtype,
     )
 
@@ -691,6 +738,25 @@ def _map_qwen3next_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,
     return False
 
 
+_MINIMAX_MAP = {"self_attn.qkv_proj.weight": "qkv_proj",
+                "self_attn.out_proj.weight": "out_proj",
+                "self_attn.output_gate.weight": "output_gate",
+                "self_attn.norm.weight": "attn_norm"}
+_MINIMAX_DECAYS = ("slope_rate", "query_decay", "key_decay",
+                   "diagonal_decay")
+
+
+def _map_minimax_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,
+                     n_experts: int) -> bool:
+    """MiniMax's lightning keys (``qkv_proj`` fused); its decay buffers
+    are taken and dropped (``slope_rate`` is computed after the load).
+    Everything else is :func:`_map_key`'s."""
+    if sub in _MINIMAX_MAP:
+        block[_MINIMAX_MAP[sub]] = arr
+        return True
+    return sub.startswith("self_attn.") and sub.endswith(_MINIMAX_DECAYS)
+
+
 # the fp32 leaves of each family (loaded in fp32 whatever ``dtype``)
 _FP32_KEYS = (".e_score_correction_bias", ".self_attn.sinks",
               ".mlp.router.bias", ".linear_attn.dt_bias",
@@ -708,9 +774,11 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
     cfg = config_from_hf(hf_cfg, dtype)
     deepseek = isinstance(cfg, DeepseekConfig)
     q3n = isinstance(cfg, Qwen3NextConfig)
+    mm = isinstance(cfg, MiniMaxConfig)
     family_map = (_map_gptoss_key if isinstance(cfg, GptOssConfig)
                   else _map_llama4_key if isinstance(cfg, Llama4Config)
-                  else _map_qwen3next_key if q3n else None)
+                  else _map_qwen3next_key if q3n
+                  else _map_minimax_key if mm else None)
     n_experts = getattr(cfg, "num_experts", 0)
     blocks = [({"experts": [dict() for _ in range(n_experts)]}
                if n_experts else dict()) for _ in range(cfg.num_layers)]
@@ -762,9 +830,14 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
                 governing = b["indexer"]
             elif governing is not None:
                 b["indexer"] = dict(governing)
+    if mm:
+        for li, b in enumerate(blocks):
+            if layer_is_linear(cfg, li):
+                b["slope_rate"] = slope_rate(cfg, li).to(dev)
     q_key = ("q_a_proj" if deepseek and cfg.q_lora_rank else "q_proj")
     missing = [i for i, b in enumerate(blocks)
-               if q_key not in b and not (q3n and "in_proj_qkvz" in b)]
+               if q_key not in b and not (q3n and "in_proj_qkvz" in b)
+               and not (mm and "qkv_proj" in b)]
     if missing:
         raise ValueError(f"blocks missing attention weights: {missing}")
     logger.info("loaded %d tensors from %s", n, path)
@@ -781,12 +854,13 @@ def save_hf_checkpoint(params: Dict[str, Any], cfg: LlamaConfig, path: str,
     fields in the config); ``hf_extra`` overrides
     config fields (``{"model_type": "glm4_moe_lite"}`` for GLM-4.6-Lite)."""
     if isinstance(cfg, (GptOssConfig, Llama4Config, Qwen3NextConfig,
-                        GlmMoeDsaConfig)):
+                        GlmMoeDsaConfig, MiniMaxConfig)):
         raise NotImplementedError(
             f"save_hf_checkpoint: no HF writer for {type(cfg).__name__} (the "
             f"JAX package has none either: its writer drops the sinks, the "
-            f"biases, the DeltaNet leaves and GLM-5's indexer, fuses nothing "
-            f"and names GLM-5 deepseek_v3)")
+            f"biases, the DeltaNet leaves, GLM-5's indexer and MiniMax's "
+            f"lightning leaves, fuses nothing and names GLM-5 deepseek_v3 "
+            f"and MiniMax mixtral)")
     os.makedirs(path, exist_ok=True)
     if isinstance(cfg, DeepseekConfig):
         return _save_deepseek_checkpoint(params, cfg, path, hf_extra)

@@ -22,11 +22,12 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              W4A16 matmul, int8-KV decode attention, W4A8, W8A8, W8A16, W2A16,
              FP8 and MXFP4 / NVFP4 matmul, int8-QK attention) at the
              main paths' shapes (flash also at D = 256 and at
-             Qwen3-Next's 16 heads over 2 of D = 256 and GLM-4.5-Air's
-             96 over 8; W4A16 and asym
-             also at g = 16, W4A16 also at Qwen3-Next's in_proj_qkvz and
-             GLM-4.5-Air's q / k / v and o_proj;
-             grouped W4A16 also at E = 512 and E = 128; decode
+             Qwen3-Next's 16 heads over 2 of D = 256, GLM-4.5-Air's
+             96 over 8 and MiniMax's 64 over 8; W4A16 and asym
+             also at g = 16, W4A16 also at Qwen3-Next's in_proj_qkvz,
+             GLM-4.5-Air's q / k / v and o_proj and MiniMax's qkv_proj;
+             grouped W4A16 also at E = 512, E = 128 and MiniMax's E = 32;
+             decode
              also at head dims 64 and 256, G = 7, GLM-4.5-Air's G = 12
              and every G from 9 to 16; int8-QK at row 1's
              shapes and at S = T = 2048, beside row 1's time in the same
@@ -328,7 +329,30 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              on the same weights; a 2-layer copy; ``generate_scan``; the
              replayed step at batch 8.  (e) a ``glm_moe_dsa`` HF
              directory x 2 → the CLI → ``from_pretrained``.
-24. report — the card's name and power limit (nvidia-smi), a JSON line of
+24. minimax — MiniMax-Text-01 at its published widths (``MINIMAX_HF``:
+             hidden 6144, 64 heads over 8 KV heads of 128; lightning
+             attention on 7 layers of 8, chunk 256; the residual alphas
+             3.557; 32 experts of 9216, top 2; random weights, gains
+             moved, each block's decay rates the published layer's).  (a)
+             ``--minimax-layers`` of 80 from the published layer 4 on: the
+             blocks made on the card and parked on the host, RTN W4A16
+             g128 with the lm_head through ``offload_params`` and
+             ``donate_params`` (device peak, process RSS) → engine (the
+             hybrid cache: zero-width tails, fp32 (64, 128, 128) states;
+             experts stacked for row 5 at E = 32, every projection on row
+             4, the full layer's q / k / v fused) → ``generate`` 8 x 512,
+             32 new, launches as the loops imply (row 1 at prefill on the
+             full layer); timings beside bounds; each block teacher forced
+             against ``block_fwd`` on the qdq weights; layer 0's state
+             after the prompt against ``lightning_attention`` and 512
+             steps; a 2-layer copy (lightning and full) on the plain
+             versions; ``generate_scan``; the replayed step at batch 8 and
+             1, each with a second call of new prompts.  (b) SignRound
+             (iters 4, 2 x 512) on the published layers 6-7 with 8 of the
+             32 experts (rows 1-3 in the loss) → serve.  (c) a ``minimax``
+             HF directory x 2 (layers 6-7, 4 experts) → the CLI →
+             ``from_pretrained``, logits equal to the in-memory engine's.
+25. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -342,8 +366,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--nblocks-layers``, ``--offload-layers``, ``--deepseek-layers``,
 ``--deepseek-v3-layers``, ``--gptoss-layers``, ``--gptoss120-layers``,
 ``--llama4-layers``, ``--qwen3next-layers``, ``--qwen35-load-layers``,
-``--glm45-layers`` and ``--glm5-layers`` cut the depth of the paths for a
-quicker run.
+``--glm45-layers``, ``--glm5-layers`` and ``--minimax-layers`` cut the
+depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -577,14 +601,15 @@ def kernel_phase(timer, bw, flops_peak):
 
     # K1 flash attention, forward then backward: calibration / tuning /
     # prefill shapes, D = 256 (Gemma's heads), Qwen3-Next's full
-    # attention (D = 256, 16 query heads over 2 KV heads: G = 8) and
+    # attention (D = 256, 16 query heads over 2 KV heads: G = 8),
     # GLM-4.5-Air's (96 query heads over 8 KV heads: G = 12, the dK / dV
-    # group sum over 12 heads)
+    # group sum over 12 heads) and MiniMax-Text-01's (64 over 8 of D = 128)
     for (B, H, Hkv, S, T, D, rep_row) in [(8, 32, 8, 512, 512, 128, True),
                                           (8, 32, 8, 256, 512, 128, False),
                                           (8, 32, 8, 512, 512, 256, False),
                                           (8, 16, 2, 512, 512, 256, False),
-                                          (8, 96, 8, 512, 512, 128, False)]:
+                                          (8, 96, 8, 512, 512, 128, False),
+                                          (8, 64, 8, 512, 512, 128, False)]:
         q = torch.randn(B, H, S, D, generator=g, device=dev).bfloat16()
         k = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
         v = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
@@ -734,8 +759,9 @@ def kernel_phase(timer, bw, flops_peak):
     # K2 W4A16: fused qkv, down_proj, lm_head at decode and prefill M, at
     # g = 128 and g = 16 (the GEMV reads a second scale half way through a
     # 32-column chunk); then Qwen3-Next's DeltaNet input projection
-    # in_proj_qkvz (O = 12288, K = 2048) and GLM-4.5-Air's fused q / k / v
-    # (O = 14336, K = 4096) and o_proj (O = 4096, K = 12288) at g = 128
+    # in_proj_qkvz (O = 12288, K = 2048), GLM-4.5-Air's fused q / k / v
+    # (O = 14336, K = 4096) and o_proj (O = 4096, K = 12288) and
+    # MiniMax-Text-01's lightning qkv_proj (O = 24576, K = 6144) at g = 128
     for (M, O, K, name, G) in [(M, O, K, name, G) for G in (128, 16)
                                for (M, O, K, name) in [
                                    (8, 6144, 4096, "qkv"),
@@ -749,7 +775,9 @@ def kernel_phase(timer, bw, flops_peak):
             (8, 14336, 4096, "glm-4.5-air qkv", 128),
             (4096, 14336, 4096, "glm-4.5-air qkv", 128),
             (8, 4096, 12288, "glm-4.5-air o_proj", 128),
-            (4096, 4096, 12288, "glm-4.5-air o_proj", 128)]:
+            (4096, 4096, 12288, "glm-4.5-air o_proj", 128),
+            (8, 24576, 6144, "minimax qkv_proj", 128),
+            (4096, 24576, 6144, "minimax qkv_proj", 128)]:
         codes = torch.randint(0, 16, (O, K), generator=g, device=dev)
         sc = (torch.rand(O, K // G, generator=g, device=dev) - 0.5) * 0.02
         qw = pack_w4(codes)
@@ -804,7 +832,9 @@ def kernel_phase(timer, bw, flops_peak):
     # Qwen3-Next's (E = 512: w1 / w3 512 x 2048 on the shared slab, w2
     # 2048 x 512; C = 4096 is 8 x 512 tokens of dense-then-mask prefill,
     # a 8.6 GB w2 output slab); then GLM-4.5-Air's (E = 128: gate / up
-    # 1408 x 4096 on the shared slab, down 4096 x 1408, 11 groups of 128)
+    # 1408 x 4096 on the shared slab, down 4096 x 1408, 11 groups of 128);
+    # then MiniMax-Text-01's (E = 32: w1 / w3 9216 x 6144 on the shared
+    # slab, w2 6144 x 9216)
     for (E, C, K, O, name, layout, gs) in [
             (8, 8, 4096, 14336, "w1", "shared", 128),
             (8, 8, 14336, 4096, "w2", "contiguous", 128),
@@ -825,7 +855,11 @@ def kernel_phase(timer, bw, flops_peak):
             (128, 8, 1408, 4096, "glm-4.5-air down", "contiguous", 128),
             (128, 4096, 4096, 1408, "glm-4.5-air gate/up", "shared", 128),
             (128, 4096, 1408, 4096, "glm-4.5-air down", "contiguous",
-             128)]:
+             128),
+            (32, 8, 6144, 9216, "minimax w1/w3", "shared", 128),
+            (32, 8, 9216, 6144, "minimax w2", "contiguous", 128),
+            (32, 4096, 6144, 9216, "minimax w1/w3", "shared", 128),
+            (32, 4096, 9216, 6144, "minimax w2", "contiguous", 128)]:
         qw = torch.stack([pack_w4(torch.randint(
             0, 16, (O, K), generator=g, device=dev)) for _ in range(E)])
         sc = (torch.rand(E, O, K // gs, generator=g, device=dev) - 0.5) * 0.02
@@ -1669,11 +1703,12 @@ def serve_bounds(eng, B, S, bw, flops_peak, int8_peak=None):
     A sliding layer's attention counts the keys of its window alone, a
     chunked one those of its chunk (``_attended``); a block's weights are
     its own (``_block_weights``: Llama 4's dense and MoE blocks differ).
-    An MLA engine takes :func:`_mla_bounds`, a hybrid (Qwen3-Next) one
-    :func:`_hybrid_bounds`."""
+    An MLA engine takes :func:`_mla_bounds`, a hybrid (Qwen3-Next,
+    MiniMax) one :func:`_hybrid_bounds`."""
     if getattr(eng.cfg, "kv_lora_rank", 0):
         return _mla_bounds(eng, B, S, bw, flops_peak)
-    if getattr(eng.cfg, "linear_num_key_heads", 0):
+    if (getattr(eng.cfg, "linear_num_key_heads", 0)
+            or hasattr(eng.cfg, "full_attn_alpha_factor")):
         return _hybrid_bounds(eng, B, S, bw, flops_peak)
     cfg = eng.cfg
     L, hid, hd, V = cfg.num_layers, cfg.hidden_size, cfg.hd, cfg.vocab_size
@@ -1779,57 +1814,73 @@ def _mla_bounds(eng, B, S, bw, flops_peak):
 
 
 def _hybrid_bounds(eng, B, S, bw, flops_peak):
-    """``serve_bounds`` for a hybrid (Qwen3-Next) engine: (prefill bound
-    ms, decode step bound ms at pos = S).  FLOPs: every linear weight of a
-    block for each token (a MoE block all its routed experts:
-    dense-then-mask, what the engine runs, its router, the shared expert
-    and its gate; a DeltaNet layer ``in_proj_qkvz``, ``in_proj_ba``,
-    ``out_proj`` and the conv taps), the lm_head for the last position;
-    a full layer's causal attention over the prompt or over the S + 1 keys
-    of the step; a DeltaNet layer's delta rule (a step: the decay, the
-    key's read, the update and the query's read, 2 dk dv a head each; the
-    prompt in chunks of C: Q Kᵀ, A, the solve, T V, T K, P V over the
-    chunk and the state's read and update).  Bytes: the weights once
+    """``serve_bounds`` for a hybrid (Qwen3-Next, MiniMax) engine:
+    (prefill bound ms, decode step bound ms at pos = S).  FLOPs: every
+    linear weight of a block for each token (a MoE block all its routed
+    experts: dense-then-mask, what the engine runs, its router, a shared
+    expert and its gate; a DeltaNet layer ``in_proj_qkvz``,
+    ``in_proj_ba``, ``out_proj`` and the conv taps; a lightning layer
+    ``qkv_proj``, ``output_gate`` and ``out_proj``), the lm_head for the
+    last position; a full layer's causal attention over the prompt or over
+    the S + 1 keys of the step; a linear layer's recurrence (DeltaNet: a
+    step's decay, key read, update and query read, 2 dk dv a head each;
+    the prompt in chunks of C: Q Kᵀ, A, the solve, T V, T K, P V over the
+    chunk and the state's read and update.  Lightning: a step's decay and
+    kᵀ v update and the query's read, 4 hd² a head; the prompt in chunks of
+    C as the engine computes them, whole: Q Kᵀ and S V over the C x C
+    block, the query's read of the state and the state's update, 4 C hd +
+    4 hd² a token and head).  Bytes: the weights once
     (:func:`_weight_bytes`), the embedding rows used, the full layers' K /
     V written (prefill) or read for S + 1 keys (decode) in the model
-    dtype, and each DeltaNet layer's recurrent state (fp32) and conv tail
-    read and written once a step (written once by the prompt pass)."""
-    from autoround_tpu_torch.models import qwen3next
+    dtype, and each linear layer's recurrent state (fp32: DeltaNet's nv
+    dk dv, lightning's nh hd hd, B · nh · hd · hd · 4 bytes) and conv tail
+    (DeltaNet's; lightning has none) read and written once a step
+    (written once by the prompt pass)."""
+    from autoround_tpu_torch.models.registry import get_model_fns
 
     cfg = eng.cfg
     L, hid, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    nk, nv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
-    dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
-    Kc, C = cfg.linear_conv_kernel_dim, cfg.delta_chunk
-    conv_dim = 2 * nk * dk + nv * dv
-    lin = [qwen3next.is_linear_layer(cfg, i) for i in range(L)]
+    lin = [get_model_fns(cfg).layer_is_linear(cfg, i) for i in range(L)]
     L_lin = sum(lin)
     L_full = L - L_lin
-    w_lin = hid * (2 * nk * dk + 2 * nv * dv) + hid * 2 * nv \
-        + nv * dv * hid + conv_dim * Kc
-    w_full = hid * (2 * H + 2 * Hkv) * hd + H * hd * hid
-    E, mi = cfg.num_experts, cfg.moe_intermediate_size
-    w_moe = 3 * hid * mi * E + E * hid + 3 * hid * \
-        cfg.shared_expert_intermediate + hid
-    w_elems = sum((w_lin if lin[i] else w_full)
-                  + (3 * hid * cfg.intermediate_size
-                     if i in cfg.mlp_only_layers else w_moe)
-                  for i in range(L))
     elt = eng.params["embed_tokens"].element_size()
+    w_full = hid * (H + 2 * Hkv) * hd + H * hd * hid
+    E = cfg.num_experts
+    if hasattr(cfg, "linear_num_key_heads"):          # Qwen3-Next
+        nk, nv = cfg.linear_num_key_heads, cfg.linear_num_value_heads
+        dk, dv = cfg.linear_key_head_dim, cfg.linear_value_head_dim
+        Kc, C = cfg.linear_conv_kernel_dim, cfg.delta_chunk
+        conv_dim = 2 * nk * dk + nv * dv
+        w_lin = hid * (2 * nk * dk + 2 * nv * dv) + hid * 2 * nv \
+            + nv * dv * hid + conv_dim * Kc
+        mi = cfg.moe_intermediate_size
+        w_moe = 3 * hid * mi * E + E * hid + 3 * hid * \
+            cfg.shared_expert_intermediate + hid
+        w_mlp = [3 * hid * cfg.intermediate_size
+                 if i in cfg.mlp_only_layers else w_moe for i in range(L)]
+        rec = nv * dk * dv * 4 + (Kc - 1) * conv_dim * elt   # state + tail
+        tok_ops = 2 * nv * (3 * C * dk + 2 * C * dv + C * C + 3 * dk * dv)
+        step_rec_ops = 8 * nv * dk * dv
+    else:                                             # MiniMax
+        C = cfg.block_size
+        w_lin = hid * 3 * H * hd + 2 * H * hd * hid
+        w_mlp = [3 * hid * cfg.intermediate_size * E + E * hid] * L
+        rec = H * hd * hd * 4                        # the state, no tail
+        tok_ops = H * (4 * min(C, S) * hd + 4 * hd * hd)
+        step_rec_ops = 4 * H * hd * hd
+    w_elems = sum((w_lin if lin[i] else w_full) + w_mlp[i] for i in range(L))
     row = hid * elt
     kv_tok = 2 * Hkv * hd * elt
-    rec = nv * dk * dv * 4 + (Kc - 1) * conv_dim * elt   # state + tail
     w_bytes = _weight_bytes(eng)
-    chunk_ops = 2 * nv * (3 * C * dk + 2 * C * dv + C * C + 3 * dk * dv)
     pre_ops = (2 * B * S * w_elems + 2 * B * hid * V
                + 4 * B * H * hd * (S * (S + 1) // 2) * L_full
-               + B * S * chunk_ops * L_lin)
+               + B * S * tok_ops * L_lin)
     pre_bytes = (w_bytes + B * S * row + L_full * B * S * kv_tok
                  + L_lin * B * rec)
     step_ops = (2 * B * (w_elems + hid * V)
                 + 4 * B * H * hd * (S + 1) * L_full
-                + 8 * B * nv * dk * dv * L_lin)
+                + B * step_rec_ops * L_lin)
     step_bytes = (w_bytes + B * row + L_full * B * (S + 1) * kv_tok
                   + 2 * L_lin * B * rec)
     return (max(pre_bytes / bw, pre_ops / flops_peak) * 1e3,
@@ -3347,7 +3398,8 @@ FAMILY_NEW = 32
 def perturb_gains(params, seed):
     """Move every 1-D leaf (norm gains, q/k norms, biases) of the blocks
     and the final norm by N(0, 0.1), from a seeded generator on the card,
-    so each of them counts in the run."""
+    so each of them counts in the run; MiniMax's ``slope_rate`` is a decay
+    rate, not a gain, and stays."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def move(t):
@@ -3356,8 +3408,9 @@ def perturb_gains(params, seed):
 
     move(params["norm"])
     for b in params["blocks"]:
-        for t in b.values():
-            if isinstance(t, torch.Tensor) and t.ndim == 1:
+        for k, t in b.items():
+            if (isinstance(t, torch.Tensor) and t.ndim == 1
+                    and k != "slope_rate"):
                 move(t)
 
 
@@ -5690,9 +5743,10 @@ def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20,
         check(bool(torch.isfinite(torch.as_tensor(trace)).all())
               and best <= first, f"{label}: block {bi} first {first} best "
               f"{best}")
-        kind = ({"linear_attention": "DeltaNet",
+        kind = ({"linear_attention": "DeltaNet" if hasattr(
+                    cfg, "linear_num_key_heads") else "lightning",
                  "full_attention": "full"}[cfg.layer_types[bi]]
-                if getattr(cfg, "linear_num_key_heads", 0) else
+                if "linear_attention" in (cfg.layer_types or ()) else
                 ("MoE" if cfg.layer_is_moe(bi) else "dense")
                 if hasattr(cfg, "layer_is_moe") else
                 "rope" if getattr(cfg, "no_rope_layers", None) is None
@@ -5949,7 +6003,9 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None,
     limit of the in-memory engine with fp16 scales (a Qwen3.5 export's
     equal to them), ``generate_scan`` equal to ``generate``.  ``write(params,
     cfg, path, hf_config)`` writes the directory instead where given (GLM-4.5
-    through ``save_hf_checkpoint``, GLM-5 through ``write_hf_dsa``)."""
+    through ``save_hf_checkpoint``, GLM-5 through ``write_hf_dsa``, MiniMax
+    through ``write_hf_minimax``, whose export's logits are held equal as
+    Qwen3.5's)."""
     from autoround_tpu_torch import AutoRound, QuantizedLlama
     from autoround_tpu_torch.export import save_quantized
     from autoround_tpu_torch.models.registry import get_model_fns
@@ -5977,8 +6033,9 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None,
           f"one ({lcfg})")
     check(all(got[k].dtype == torch.float32 for k in got
               if k.endswith(("sinks", "router_bias", "A_log", "dt_bias",
-                             "e_score_correction_bias"))),
-          f"{label} load: a sink, router bias, A_log or dt_bias is not fp32")
+                             "e_score_correction_bias", "slope_rate"))),
+          f"{label} load: a sink, router bias, A_log, dt_bias or slope "
+          f"rate is not fp32")
     del params, want, got
     np.save(root / f"{label}_ids.npy", calib.numpy())
     cli_out = root / f"{label}_cli"
@@ -6025,7 +6082,9 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None,
     check(isinstance(lcfg, type(disk.cfg))
           and dataclasses.asdict(disk.cfg) == dataclasses.asdict(lcfg),
           f"{label} load: from_pretrained config {disk.cfg}")
-    if hf_config is None:
+    if hasattr(cfg, "full_attn_alpha_factor"):         # MiniMax
+        _mm_structure(disk, f"{label} load")
+    elif hf_config is None:
         _experts_stacked(disk, f"{label} load")
     else:
         _q3n_structure(disk, f"{label} load")
@@ -6854,6 +6913,451 @@ def glm_phase(bw, flops_peak, glm45_layers, glm5_layers):
     return out
 
 
+# ------------------------------------------------------------ MiniMax
+#
+# MiniMax-Text-01 at its published widths (random weights from a seed):
+# lightning attention with its per-head decay state on 7 layers of 8, the
+# scaled residuals, 32 experts of 9216 under a top-2 router.  The whole
+# model is 456B parameters, ~11.4 GB of bf16 a layer: it is quantized
+# through host offload (``offload_params``, ``donate_params``), as a user
+# with one card must.
+
+# MiniMax-Text-01's config.json in the transformers ``minimax`` layout (the
+# published widths; 80 layers, every 8th full attention; the residual
+# alphas (2 · 80)^(1/4) of the DeepNorm rule, the betas 1).  No published
+# config.json is in the repository: these are its fields, written here.
+MINIMAX_HF = dict(
+    model_type="minimax", vocab_size=200064, hidden_size=6144,
+    intermediate_size=9216, num_hidden_layers=80, num_attention_heads=64,
+    num_key_value_heads=8, head_dim=128, rope_theta=10000000.0,
+    rms_norm_eps=1e-5, tie_word_embeddings=False, hidden_act="silu",
+    num_local_experts=32, num_experts_per_tok=2, block_size=256,
+    layer_types=["full_attention" if (i + 1) % 8 == 0 else "linear_attention"
+                 for i in range(80)],
+    full_attn_alpha_factor=3.5565588200778455, full_attn_beta_factor=1.0,
+    linear_attn_alpha_factor=3.5565588200778455,
+    linear_attn_beta_factor=1.0, mlp_alpha_factor=3.5565588200778455,
+    mlp_beta_factor=1.0, torch_dtype="bfloat16")
+MM_NEW = 32
+MM_BATCH, MM_SEQ = 8, 512
+# the published layers the serving path keeps: the 7 : 1 pattern's last
+# four before its first full layer (lightning x 3, full)
+MM_FIRST = 4
+# experts of the tuning copy: V and its gradient are fp32, 2 x 4 B a
+# weight, so a whole published block (5.69e9 weights, 45.5 GB of them)
+# does not fit the card beside the bf16 block and the qdq graph; 8 of 32
+# do (the widths kept)
+MM_TUNE_EXPERTS = 8
+# experts of the HF directory of the load path (its size on disk; widths
+# kept)
+MM_LOAD_EXPERTS = 4
+# layer 0's lightning state after the prompt pass against ``lightning_step``
+# token by token from zero on the same projections: both fp32, they differ
+# by the order of fp32 sums alone; relative Frobenius error per (slot,
+# head)
+MM_STATE_TOL = 1e-3
+
+
+def _minimax(n_layers, first=0, experts=None):
+    """The published MiniMax config (``MINIMAX_HF``) through the port's HF
+    config reader, cut to ``n_layers`` from layer ``first`` on
+    (``layer_types`` cut with it; ``experts`` of 32 where given), and the
+    HF dict of that cut."""
+    from autoround_tpu_torch.utils.hf_loader import config_from_hf
+
+    hf = dict(MINIMAX_HF, num_hidden_layers=n_layers,
+              layer_types=MINIMAX_HF["layer_types"][first:first + n_layers])
+    if experts is not None:
+        hf["num_local_experts"] = experts
+    return config_from_hf(hf), hf
+
+
+def _mm_published_rates(n_layers, first):
+    """The decay rates of the published layers ``first`` ..
+    ``first + n_layers - 1`` of 80 (a depth cut changes them: they depend
+    on ``num_hidden_layers``)."""
+    from autoround_tpu_torch.models import minimax
+
+    full, _ = _minimax(80)
+    return [minimax.slope_rate(full, first + i) for i in range(n_layers)]
+
+
+def _mm_structure(eng, label):
+    """The MiniMax engine's packing: each block's w1 / w2 / w3 stacked for
+    row 5 (no expert packed alone, none dense); a lightning layer's
+    ``qkv_proj``, ``output_gate`` and ``out_proj`` packed for row 4; a full
+    layer's q / k / v fused into one row-4 entry split nh·hd / nkv·hd /
+    nkv·hd and its ``o_proj`` packed; the lm_head packed; no quantized
+    layer left dense; ``slope_rate`` fp32."""
+    from autoround_tpu_torch.models import minimax
+
+    cfg = eng.cfg
+    q = (cfg.num_heads * cfg.hd, cfg.num_kv_heads * cfg.hd,
+         cfg.num_kv_heads * cfg.hd)
+    for i, b in enumerate(eng.params["blocks"]):
+        stacked = sorted(k for k in eng.packed
+                         if k.startswith(f"blocks.{i}.experts_stack."))
+        check(stacked == [f"blocks.{i}.experts_stack.{w}"
+                          for w in ("w1", "w2", "w3")]
+              and all(v is None for ew in b["experts"] for v in ew.values()),
+              f"{label}: block {i} experts {stacked}")
+        if minimax.layer_is_linear(cfg, i):
+            names = ("qkv_proj", "output_gate", "out_proj")
+            check(b["slope_rate"].dtype == torch.float32,
+                  f"{label}: block {i} slope_rate is not fp32")
+        else:
+            names = ("qkv", "o_proj")
+            check(eng.fused_splits.get(f"blocks.{i}.qkv") == q,
+                  f"{label}: block {i} q / k / v not fused as {q}")
+        check(all(f"blocks.{i}.{n}" in eng.packed for n in names)
+              and all(b.get(n) is None for n in (
+                  "qkv_proj", "output_gate", "out_proj", "q_proj", "k_proj",
+                  "v_proj", "o_proj")),
+              f"{label}: block {i} lacks a packed entry of {names} or "
+              f"serves a projection dense")
+    check(not any(".experts." in k for k in eng.packed)
+          and "lm_head" in eng.packed and eng.params.get("lm_head") is None
+          and set(eng.packed_kinds.values()) == {"w4a16", "w4a16_grouped"},
+          f"{label}: an expert packed alone, the lm_head dense, or kinds "
+          f"{sorted(set(eng.packed_kinds.values()))}")
+
+
+def _mm_block_check(eng, qdq, prompts, label):
+    """Each block teacher forced on the model's own input: the engine's
+    block (packed, fused, stacked) against ``block_fwd`` on the qdq
+    weights, both from the same input, the qdq block brought up from the
+    host alone; within MOE_COPY_ROW_TOL.  The prefill logits of the
+    chain's end against the engine's are printed, not held: random weights
+    under a top-2 router at a 3.56 alpha make the stack amplify last-bit
+    differences.  The counts are kept."""
+    from autoround_tpu_torch.models import llama, minimax
+    from autoround_tpu_torch.serve.engine import _fuser, _make_linear_fn
+    from autoround_tpu_torch.utils.pytree import tree_map
+
+    cfg = eng.cfg
+    seq = prompts.cuda()
+    t0 = time.time()
+    errs, seen = [], []
+    with counts_kept(), torch.no_grad():
+        x = llama.embed_fwd(eng.params, seq, cfg)
+        cos, sin = llama.rope_tables(cfg, seq.shape[1], device=x.device)
+        for i in range(cfg.num_layers):
+            ye, _ = minimax.block_with_cache(
+                eng.params["blocks"][i], x, cos, sin, cfg, None, None,
+                _make_linear_fn(eng.packed, eng.packed_kinds, i),
+                _fuser(eng.packed, eng.packed_kinds, eng.fused_splits, i))
+            blk = tree_map(lambda t: t.cuda(), qdq["blocks"][i])
+            x = minimax.block_fwd_for(cfg, i)(blk, x, cos, sin, cfg)
+            del blk
+            errs.append(row_err(ye, x)[1])
+            seen.append(f"{(ye != x).float().mean().item():.3g} of "
+                        f"entries differ, max {row_err(ye, x)[0]:.3g}, "
+                        f"rms {x.float().pow(2).mean().sqrt().item():.4g}")
+            del ye
+        head = {"norm": qdq["norm"].cuda(), "lm_head": qdq["lm_head"].cuda()}
+        want = llama.final_fwd(head, x[:, -1:], cfg)[:, 0]
+        del head, x
+        got, _ = eng.prefill(prompts)
+        e2e = row_err(got, want)[1]
+        torch.cuda.synchronize()
+    log(f"{label}: engine against block_fwd on the qdq weights, each block "
+        f"teacher forced row_err "
+        f"{' / '.join(f'{r:.4g}' for r in errs)} (tol {MOE_COPY_ROW_TOL}; "
+        f"{' / '.join(seen)}); "
+        f"prefill logits of the chain against the engine's row_err "
+        f"{e2e:.4g} (printed, not held); check_s={time.time() - t0:.1f}")
+    check(all(r <= MOE_COPY_ROW_TOL for r in errs),
+          f"{label}: a block of the engine disagrees with block_fwd")
+
+
+def _mm_state_check(eng, prompts, label):
+    """Layer 0's lightning state after the prompt pass: equal bit for bit
+    to ``lightning_attention``'s ``return_state`` on the same engine's
+    projections, and within MM_STATE_TOL (a head) of ``lightning_step``
+    token by token from zero; the counts kept."""
+    from autoround_tpu_torch.models import llama, minimax
+    from autoround_tpu_torch.serve.engine import _make_linear_fn
+
+    cfg = eng.cfg
+    S = prompts.shape[1]
+    with counts_kept(), torch.no_grad():
+        _, cache = eng.prefill(prompts)
+        blk = eng.params["blocks"][0]
+        x = llama.embed_fwd(eng.params, prompts.cuda(), cfg)
+        h = llama.rms_norm(x, blk["input_layernorm"], cfg.rms_eps)
+        lf = _make_linear_fn(eng.packed, eng.packed_kinds, 0)
+        q, k, v = minimax._lightning_qkv(blk, h, cfg, lf)
+        rate = blk["slope_rate"]
+        _, chunked = minimax.lightning_attention(q, k, v, rate,
+                                                 cfg.block_size,
+                                                 return_state=True)
+        t0 = time.time()
+        st = torch.zeros_like(chunked)
+        for t in range(S):
+            _, st = minimax.lightning_step(q[:, t:t + 1], k[:, t:t + 1],
+                                           v[:, t:t + 1], rate, st)
+        torch.cuda.synchronize()
+        t_steps = time.time() - t0
+    ref = cache.state[0]
+    d = (st - ref).flatten(2).norm(dim=-1) / ref.flatten(2).norm(dim=-1)
+    same = torch.equal(chunked, ref)
+    log(f"{label}: layer 0's state after the {S}-token prompt pass equal to "
+        f"lightning_attention's return_state bit for bit {same}; against "
+        f"{S} lightning steps from zero worst (slot, head) relative error "
+        f"{d.max().item():.4g} (tol {MM_STATE_TOL}), state rms "
+        f"{ref.pow(2).mean().sqrt().item():.4g}, rates "
+        f"{rate.min().item():.4g}..{rate.max().item():.4g}; steps_s="
+        f"{t_steps:.2f}")
+    check(same and d.max().item() <= MM_STATE_TOL,
+          f"{label}: the prompt pass's lightning state disagrees")
+
+
+def _mm_params(cfg, seed, rates):
+    """Random MiniMax weights made on the card from ``seed``, each block
+    parked on the host as it is made: the 1-D gains moved by N(0, 0.1),
+    ``slope_rate`` set to the published layer's (``rates``); the final
+    norm moved on the card.  Returns the tree."""
+    from autoround_tpu_torch.models import minimax
+    from autoround_tpu_torch.utils.offload import tree_to_host
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    li = iter(range(cfg.num_layers))
+
+    def park(b):
+        i = next(li)
+        perturb_gains({"norm": torch.zeros(1, device="cuda"),
+                       "blocks": [b]}, seed + 2 + i)
+        if "slope_rate" in b:
+            b["slope_rate"] = rates[i].cuda()
+        return tree_to_host(b)
+
+    params = minimax.init_params(cfg, gen, "cuda", park=park)
+    params["norm"].add_(torch.randn(params["norm"].shape, generator=gen,
+                                    device="cuda"), alpha=0.1)
+    return params
+
+
+def _rss_gb():
+    """(resident GB of this process now (``VmRSS``), its lifetime peak
+    (``ru_maxrss``))."""
+    import resource
+
+    rss = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                rss = int(line.split()[1]) * 1024 / 1e9
+    return rss, resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def minimax_path(bw, flops_peak, n_layers):
+    """(a) MiniMax-Text-01 at full width, ``n_layers`` of 80 from the
+    published layer 4 on (lightning, lightning, lightning, full at the
+    default 4), each block's ``slope_rate`` the published layer's, the
+    alphas 3.557: random weights made on the card and parked on the host →
+    RTN W4A16 g128 with the lm_head through ``offload_params`` and
+    ``donate_params`` (device peak, resident and peak RSS) → the engine
+    (the hybrid cache: K / V of the full layer, fp32 (nh, hd, hd) states
+    of the lightning layers; experts stacked for row 5, every projection
+    on row 4, the full layer's q / k / v fused) → ``generate`` 8 x 512, 32
+    new, launches as the loops imply (row 1 at prefill on the full layer);
+    timings beside bounds; each block teacher forced against ``block_fwd``
+    on the qdq weights; layer 0's state after the prompt; a 2-layer copy
+    (blocks 2-3: lightning and full) on the plain versions on the card;
+    ``generate_scan``; the replayed step at batch 8 and 1, each with a
+    second call of new prompts.  Returns (launches, summary)."""
+    from autoround_tpu_torch import AutoRound, QuantizedLlama
+
+    t_path = time.time()
+    cfg, _ = _minimax(n_layers, first=MM_FIRST)
+    label = f"minimax-text-01 x {n_layers}"
+    kernels = _kernel_fns()
+    gen = torch.Generator().manual_seed(141)
+    B, S = MM_BATCH, MM_SEQ
+    calib = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = _mm_params(cfg, 142, _mm_published_rates(n_layers, MM_FIRST))
+    torch.cuda.synchronize()
+    t_make = time.time() - t0
+    make_gb = torch.cuda.max_memory_allocated() / 1e9
+    block_gb = sum(t.numel() * t.element_size()
+                   for b in params["blocks"] for t in _tensors(b)) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=0,
+                   quant_lm_head=True, offload_params=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    rss, hwm = _rss_gb()
+    check(all(b is None for b in ar.params["blocks"])
+          and result.layers["blocks.0.qkv_proj"].qdq.device.type == "cpu",
+          f"{label}: a donated block is held, or the result is not on the "
+          f"host")
+    del ar
+    log(f"{label} quantize: {n_layers} blocks of {block_gb / n_layers:.2f} "
+        f"GB bf16 ({block_gb:.1f} GB) made and parked in {t_make:.1f} s "
+        f"(device peak {make_gb:.2f} GB), RTN through offload in "
+        f"{t_quant:.1f} s ({len(result.layers)} layers), device peak "
+        f"{quant_gb:.2f} GB, process resident {rss:.1f} GB after it "
+        f"(lifetime peak {hwm:.1f} GB)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=1024)
+    torch.cuda.synchronize()
+    t_pack, pack_gb = time.time() - t0, torch.cuda.max_memory_allocated() / 1e9
+    _mm_structure(eng, label)
+    log(f"{label} engine: pack_s={t_pack:.2f} {len(eng.packed)} packed "
+        f"entries ({sum(v == 'w4a16_grouped' for v in eng.packed_kinds.values())}"
+        f" expert stacks of {cfg.num_experts}); resident_gb="
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} pack_peak_gb="
+        f"{pack_gb:.2f} weight_gb={_weight_bytes(eng) / 1e9:.3f}")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    toks, gen_counts = generate_counted(eng, prompts, MM_NEW)
+    t_gen = time.time() - t0
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    gen_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_full = sum(t == "full_attention" for t in cfg.layer_types)
+    want = dict(_ds_want(eng, MM_NEW), flash_attention=n_full)
+    log(f"{label} kernels {json.dumps(launches)} generate_s={t_gen:.2f} "
+        f"generate device peak_gb={gen_gb:.2f}")
+    _ds_counts(launches, want, label)
+    check(all(launches[n] > 0 for n in ("w4a16_matmul",
+                                        "w4a16_matmul_grouped",
+                                        "flash_attention")),
+          f"{label}: rows 1, 4 and 5 must all launch")
+    _check_tokens(toks, B, MM_NEW, cfg.vocab_size)
+    prefill_ms, step_ms = time_serving(eng, prompts, MM_NEW, bw, flops_peak)
+    _mm_block_check(eng, result.params, prompts, label)
+    del result
+    gc.collect()
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    free_device_memory()
+    _mm_state_check(eng, prompts, label)
+    check_copy(eng, prompts, "card", MOE_COPY_ROW_TOL, first=2)
+    scan_path(eng, prompts, toks, gen_counts, label, step_ms)
+    summary = dict(prefill_ms=prefill_ms, quantize_s=t_quant,
+                   quant_gb=quant_gb, rss_gb=rss)
+    summary["B8"] = scan_measure(eng, 8, S, bw, flops_peak, None,
+                                 seed=143, label=label,
+                                 ran=(prompts, step_ms), second=True)
+    summary["B1"] = scan_measure(eng, 1, S, bw, flops_peak, None, seed=144,
+                                 label=label, second=True)
+    log(f"{label} path: prefill_ms={prefill_ms:.2f} graph step "
+        + "; ".join(f"{b}: {summary[b]['step_ms']:.4f} ms (bound "
+                    f"{summary[b]['bound_ms']:.4f}, busy "
+                    f"{summary[b]['busy']:.3f})" for b in ("B8", "B1"))
+        + f"; peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        f"path_s={time.time() - t_path:.1f}")
+    del eng
+    return launches, summary
+
+
+def minimax_tune_path():
+    """(b) SignRound W4A16 (``iters`` 4, 2 x 512 ids, 2 sequences a step)
+    on the published layers 6-7 (a lightning layer and the full one: rows
+    1-3 in the full layer's loss) at full width with MM_TUNE_EXPERTS of
+    the 32 experts, then served: ``generate_scan`` equal to ``generate``.
+    Returns the tuning's launches."""
+    cfg, _ = _minimax(2, first=6, experts=MM_TUNE_EXPERTS)
+    launches = _moe_tune_path(cfg, f"minimax tune x 2 ({MM_TUNE_EXPERTS} "
+                              f"experts)", 145, "W4A16", 2, 2, iters=4,
+                              nsamples=2)
+    check(all(launches[n] > 0 for n in ("flash_attention",
+                                        "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv")),
+          f"minimax tune: rows 1-3 must launch ({launches})")
+    return launches
+
+
+def write_hf_minimax(params, cfg, path, hf_config):
+    """An HF ``minimax`` directory of a port parameter tree (on any
+    device): the lightning layers' fused ``self_attn.qkv_proj``,
+    ``out_proj``, ``output_gate`` and ``norm`` with the four decay buffers
+    the loaders skip, the full layers' q / k / v / o, Mixtral's
+    ``block_sparse_moe`` keys, every leaf in the model dtype as a
+    published checkpoint stores it (the tree's fp32 gains are cast in
+    place, so the tree is what a load gives back; ``slope_rate`` is not
+    written: the loader computes it); its ``config.json`` is
+    ``hf_config``.  The JAX package has no writer for the family."""
+    from autoround_tpu_torch.utils.safetensors_io import save_file
+
+    for b in [params] + params["blocks"]:
+        for k, t in b.items():
+            if (isinstance(t, torch.Tensor) and t.ndim == 1
+                    and k != "slope_rate"):
+                b[k] = t.to(cfg.dtype)
+    t = {"model.embed_tokens.weight": params["embed_tokens"],
+         "model.norm.weight": params["norm"],
+         "lm_head.weight": params["lm_head"]}
+    for li, b in enumerate(params["blocks"]):
+        p = f"model.layers.{li}."
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            t[f"{p}{n}.weight"] = b[n]
+        if "qkv_proj" in b:
+            for n in ("qkv_proj", "out_proj", "output_gate"):
+                t[f"{p}self_attn.{n}.weight"] = b[n]
+            t[p + "self_attn.norm.weight"] = b["attn_norm"]
+            for n in ("slope_rate", "query_decay", "key_decay",
+                      "diagonal_decay"):
+                t[f"{p}self_attn.{n}"] = torch.ones(
+                    (cfg.num_heads, 1, 1), device=b["attn_norm"].device)
+        else:
+            for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                t[f"{p}self_attn.{n}.weight"] = b[n]
+        t[p + "block_sparse_moe.gate.weight"] = b["router"]
+        for e, ew in enumerate(b["experts"]):
+            for wn in ("w1", "w2", "w3"):
+                t[f"{p}block_sparse_moe.experts.{e}.{wn}.weight"] = ew[wn]
+    path.mkdir(parents=True, exist_ok=True)
+    save_file({k: v.contiguous() for k, v in t.items()},
+              str(path / "model.safetensors"))
+    (path / "config.json").write_text(json.dumps(hf_config, indent=2))
+
+
+def minimax_phase(bw, flops_peak, n_layers):
+    """MiniMax-Text-01: paths (a) ``minimax_path``, (b)
+    ``minimax_tune_path`` and (c) a ``minimax`` HF directory at the
+    published widths x 2 (layers 6-7: lightning and full;
+    MM_LOAD_EXPERTS experts) → the CLI → ``from_pretrained``, logits equal
+    to the in-memory engine's; returns their launches."""
+    t0 = time.time()
+    out = {}
+    out["minimax"], summ = minimax_path(bw, flops_peak, n_layers)
+    free_device_memory()
+    t1 = time.time()
+    out["minimax_tune"] = minimax_tune_path()
+    free_device_memory()
+    t_tune = time.time() - t1
+    t1 = time.time()
+    root = Path(tempfile.mkdtemp(prefix="minimax_load_"))
+    try:
+        cfg, hf = _minimax(2, first=6, experts=MM_LOAD_EXPERTS)
+        oss_llama4_load_path(root, cfg, "minimax", 146, 128, hf_config=hf,
+                             write=write_hf_minimax)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free_device_memory()
+    log(f"minimax phase: quantize_s={summ['quantize_s']:.1f} (device peak "
+        f"{summ['quant_gb']:.2f} GB, resident {summ['rss_gb']:.1f} GB) "
+        f"prefill_ms={summ['prefill_ms']:.2f} B=8 "
+        f"{summ['B8']['step_ms']:.4f} ms (bound {summ['B8']['bound_ms']:.4f}"
+        f") B=1 {summ['B1']['step_ms']:.4f} ms (bound "
+        f"{summ['B1']['bound_ms']:.4f}); tune_s={t_tune:.1f} load_s="
+        f"{time.time() - t1:.1f} minimax_s={time.time() - t0:.1f}")
+    return out
+
+
 def _tensors(tree):
     out = []
     from autoround_tpu_torch.utils.pytree import tree_map
@@ -7092,6 +7596,11 @@ def main() -> int:
                     help="depth of the GLM-5 DSA RTN -> serve path at the "
                          "deepseek-v3 widths (default 4 of 61: the 3 dense "
                          "blocks and the first MoE block)")
+    ap.add_argument("--minimax-layers", type=int, default=4,
+                    help="depth of the minimax-text-01 RTN (host offload) "
+                         "-> serve path (default 4 of 80: the published "
+                         "layers 4-7, three lightning and the first full "
+                         "one; at least 4, the copy holds layers 2-3)")
     ap.add_argument("--qwen35-load-layers", type=int, default=2,
                     help="depth of the qwen3_5_moe HF directory of the "
                          "load path (default 2: the published layers 2-3, "
@@ -7225,6 +7734,8 @@ def main() -> int:
     mark("qwen3-next")
     oss.update(glm_phase(bw, fl, args.glm45_layers, args.glm5_layers))
     mark("glm")
+    oss.update(minimax_phase(bw, fl, args.minimax_layers))
+    mark("minimax")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths

@@ -132,9 +132,10 @@ def test_config_from_hf_equals_jax(name):
 
 
 # ported since these cases were written (Qwen3-Next / 3.5, GLM-4.5, GLM-5
-# DSA): their cases now hold what the loader does with the same base config
+# DSA, MiniMax): their cases now hold what the loader does with the same
+# base config
 _NOW_PORTED = ("qwen3_next", "qwen3_5_moe", "qwen3_5", "glm4_moe",
-               "glm_moe_dsa")
+               "glm_moe_dsa", "minimax")
 
 
 @pytest.mark.parametrize("model_type", th._UNPORTED_TYPES + _NOW_PORTED)
@@ -165,6 +166,7 @@ def test_unported_model_types_raise(model_type):
     j = jh.config_from_hf(hf, jnp.float32)
     assert type(t).__name__ == type(j).__name__ == (
         "Qwen3NextConfig" if model_type == "qwen3_next"
+        else "MiniMaxConfig" if model_type == "minimax"
         else "Qwen35MoeConfig")
     for f in dataclasses.fields(t):
         if f.name != "dtype":

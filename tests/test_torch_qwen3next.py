@@ -137,15 +137,21 @@ def test_registry_presets_and_init_params():
 
 
 def test_config_from_jax_refuses_minimax():
-    """MiniMax (a MixtralConfig subclass in the JAX package, not ported)
-    raises naming A11 instead of loading as a plain MixtralConfig."""
+    """MiniMax (a MixtralConfig subclass in the JAX package) was refused
+    until the port had it; its fields now build a ``MiniMaxConfig``, never
+    a plain MixtralConfig or a Qwen3-Next one, with or without the class
+    name."""
     from autoround_tpu.models import minimax as jmm
+    from autoround_tpu_torch.models import minimax as tmm
 
     jcfg = jmm.MiniMaxConfig(vocab_size=256, hidden_size=64,
                              intermediate_size=128, num_layers=2,
-                             num_heads=4, num_kv_heads=2)
-    with pytest.raises(NotImplementedError, match="A11: MiniMax"):
-        config_from_jax(dataclasses.asdict(jcfg))
+                             num_heads=4, num_kv_heads=2,
+                             mlp_beta_factor=0.5)
+    for name in (None, "MiniMaxConfig"):
+        cfg = config_from_jax(dataclasses.asdict(jcfg), name)
+        assert type(cfg) is tmm.MiniMaxConfig
+        assert cfg.mlp_beta_factor == 0.5 and cfg.num_experts == 8
 
 
 def test_mlp_only_layers_init_and_convert():
