@@ -9,8 +9,8 @@ from __future__ import annotations
 from types import SimpleNamespace
 from typing import Any, Dict
 
-from . import (deepseek, glm4moe, glmdsa, gptoss, llama, llama4, minimax,
-               mixtral, qwen3next)
+from . import (deepseek, ernie45, glm4moe, glmdsa, gptoss, llama, llama4,
+               longcat, minimax, mixtral, qwen3next, step35)
 
 __all__ = ["get_model_fns", "ALL_PRESETS"]
 
@@ -26,7 +26,7 @@ def get_model_fns(cfg) -> SimpleNamespace:
     per-slot shapes of a linear layer's conv tail and state."""
     # DeepseekConfig and MixtralConfig subclass LlamaConfig: test them
     # first, and the DeepSeek subclasses before DeepseekConfig (GLM-4.5's
-    # GQA form, GLM-5 DSA; GlmMoeLiteConfig is DeepSeek's own)
+    # GQA form, GLM-5 DSA, LongCat; GlmMoeLiteConfig is DeepSeek's own)
     if isinstance(cfg, glm4moe.Glm4MoeConfig):
         return SimpleNamespace(
             init_params=glm4moe.init_params,
@@ -46,6 +46,16 @@ def get_model_fns(cfg) -> SimpleNamespace:
             rope_tables=deepseek.rope_tables,
             model_fwd=glmdsa.model_fwd,
             block_linear_names=glmdsa.block_linear_names,
+        )
+    if isinstance(cfg, longcat.LongcatConfig):
+        return SimpleNamespace(
+            init_params=longcat.init_params,
+            block_fwd=longcat.block_fwd,
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=deepseek.rope_tables,
+            model_fwd=longcat.model_fwd,
+            block_linear_names=longcat.block_linear_names,
         )
     if isinstance(cfg, deepseek.DeepseekConfig):
         return SimpleNamespace(
@@ -97,7 +107,29 @@ def get_model_fns(cfg) -> SimpleNamespace:
             model_fwd=mixtral.model_fwd,
             block_linear_names=mixtral.block_linear_names,
         )
-    # GPT-OSS and Llama 4 subclass LlamaConfig: test them before it
+    # GPT-OSS, Llama 4, Step-3.5 and ERNIE-4.5 subclass LlamaConfig: test
+    # them before it
+    if isinstance(cfg, step35.Step35Config):
+        return SimpleNamespace(
+            init_params=step35.init_params,
+            block_fwd=step35.block_fwd,
+            block_fwd_for=step35.block_fwd_for,   # full vs sliding heads
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=llama.rope_tables,
+            model_fwd=step35.model_fwd,
+            block_linear_names=step35.block_linear_names,
+        )
+    if isinstance(cfg, ernie45.Ernie45Config):
+        return SimpleNamespace(
+            init_params=ernie45.init_params,
+            block_fwd=ernie45.block_fwd,
+            embed_fwd=llama.embed_fwd,
+            final_fwd=llama.final_fwd,
+            rope_tables=llama.rope_tables,
+            model_fwd=ernie45.model_fwd,
+            block_linear_names=ernie45.block_linear_names,
+        )
     if isinstance(cfg, llama4.Llama4Config):
         return SimpleNamespace(
             init_params=llama4.init_params,
@@ -142,3 +174,6 @@ ALL_PRESETS.update(gptoss.CONFIG_PRESETS)
 ALL_PRESETS.update(llama4.CONFIG_PRESETS)
 ALL_PRESETS.update(qwen3next.CONFIG_PRESETS)
 ALL_PRESETS.update(minimax.CONFIG_PRESETS)
+ALL_PRESETS.update(ernie45.CONFIG_PRESETS)
+ALL_PRESETS.update(longcat.CONFIG_PRESETS)
+ALL_PRESETS.update(step35.CONFIG_PRESETS)

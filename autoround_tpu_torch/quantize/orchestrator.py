@@ -25,7 +25,9 @@ jointly (:func:`_quantize_grouped`); ``immediate_save_dir`` streams each
 block's packed layers to sharded safetensors as it finishes;
 ``offload_params`` keeps the FP blocks in host memory, brings one block
 (and, on a side stream, the next) to the card for its window and parks its
-qdq replacement back on the host (``utils/offload.py``).
+qdq replacement back on the host (``utils/offload.py``); under RTN each
+qdq layer goes to the host as it is made, so a block as large as half the
+card (LongCat-Flash's 40 GB) still quantizes.
 
 Everything but the tuning step runs without autograd; ``tune_block``
 switches gradients on for its own loss.
@@ -431,6 +433,11 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
         block = blocks[bi]
         if loader is not None:
             block = loader.get(bi, block)
+        if cfg.donate_params:
+            # free the FP block: under offload its host copy goes as soon
+            # as the card holds the block, so the host holds one copy of a
+            # block, not the block and its qdq replacement
+            blocks[bi] = None
         ref_out = _batched_block_apply(block_fn, block, x_fp,
                                        cfg.cache_batch)
         if loader is not None and bi + 1 < n_blocks:
@@ -517,18 +524,21 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
             for lname, scheme in schemes.items():
                 w_orig = get_by_path(block, lname)
                 r = rtn_quantize_layer(w_orig, scheme, imatrix=im.get(lname))
-                qdq = r.qdq.to(w_orig.dtype)
+                qdq, scale, zp = r.qdq.to(w_orig.dtype), r.scale, r.zp
+                if loader is not None and x_q is None:
+                    # offload with no quantized chain to advance: each qdq
+                    # goes to the host as it is made, so the card holds one
+                    # block, not the block and its replacement
+                    qdq, scale, zp = tree_to_host([qdq, scale, zp])
                 qdq_block = set_by_path(qdq_block, lname, qdq)
                 layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
                     name=f"blocks.{bi}.{lname}", scheme=scheme, qdq=qdq,
-                    scale=r.scale, zp=r.zp)
+                    scale=scale, zp=zp)
         names = [f"blocks.{bi}.{lname}" for lname in schemes]
         for lname in schemes:
             ql = layers[f"blocks.{bi}.{lname}"]
             ql.act_scale = static_scales.get(lname)
             ql.act_global_scale = global_scales.get(lname)
-        if cfg.donate_params:
-            blocks[bi] = None     # free the FP block
         block = None
         # advance the chains: FP through the original block (done above),
         # the quantized one through the qdq block with the activation

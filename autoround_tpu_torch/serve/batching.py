@@ -25,7 +25,9 @@ Sampling draws from one ``torch.Generator`` seeded from ``sampling.seed``
 
 A hybrid config (Qwen3-Next, Qwen3.5-MoE, MiniMax) raises
 ``NotImplementedError`` with the JAX batcher's wording: its conv tails and
-recurrent states would need per-slot buffers.
+recurrent states would need per-slot buffers.  No batcher takes an
+ERNIE-4.5, LongCat or Step-3.5 model: its ``QuantizedLlama`` refuses them
+at construction (the JAX engine serves none of them).
 """
 
 from __future__ import annotations

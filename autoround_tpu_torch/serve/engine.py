@@ -11,7 +11,9 @@ family's flags (Qwen2.5's q/k/v biases, qk-norm, Gemma's norm offset,
 sandwich norms, GeGLU, embedding scale and softcaps, sliding windows and
 local rope), GPT-OSS's sinks, yarn tables and biased experts, and Llama
 4's chunked rope layers and temperature-scaled NoPE layers ride the one
-block of ``_block_with_cache``, as in the JAX engine.
+block of ``_block_with_cache``, as in the JAX engine.  ERNIE-4.5, LongCat
+and Step-3.5, which the port quantizes and exports, are refused by name
+(:func:`refuse_unserved`): the JAX engine serves none of them.
 
 Packed weights stay resident on the card and every packed projection
 runs its kind's kernel (``ops/qmatmul``, ``ops/qmatmul_ext``,
@@ -150,6 +152,25 @@ class HybridCache(NamedTuple):
 def _is_hybrid(cfg) -> bool:
     return isinstance(cfg, (qwen3next.Qwen3NextConfig,
                             minimax.MiniMaxConfig))
+
+
+# the families the port quantizes and exports but does not serve: the JAX
+# engine serves none of them (its from_pretrained builds a LlamaConfig from
+# any export and stops at their expert leaves), so serving them would be a
+# feature the reference lacks
+_UNSERVED = ("Ernie45Config", "LongcatConfig", "Step35Config")
+
+
+def refuse_unserved(cfg, who: str) -> None:
+    """Raise ``NotImplementedError`` naming ``cfg``'s class if the port
+    does not serve its family (ERNIE-4.5, LongCat, Step-3.5)."""
+    name = type(cfg).__name__
+    if name in _UNSERVED:
+        raise NotImplementedError(
+            f"{who}: {name} is quantized and exported, not served: the JAX "
+            f"engine serves none of ERNIE-4.5, LongCat and Step-3.5 (its "
+            f"from_pretrained builds a LlamaConfig and stops at their "
+            f"expert leaves)")
 
 
 _KV_QMAX = {"int8": 127.0, "fp8": 448.0}
@@ -1050,6 +1071,7 @@ class QuantizedLlama:
         init=False, repr=False, default_factory=dict)
 
     def __post_init__(self):
+        refuse_unserved(self.cfg, "QuantizedLlama")
         _check_kv_quant(self.kv_quant)
         if _is_hybrid(self.cfg) and self.kv_quant is not None:
             logger.warning(
@@ -1090,6 +1112,7 @@ class QuantizedLlama:
         A host-resident result (``offload_params``) is packed one layer at
         a time: each layer's qdq crosses to ``device`` alone, and only the
         packed words, the scales and the dense residue stay there."""
+        refuse_unserved(cfg, "QuantizedLlama.from_quantize_result")
         _check_kv_quant(kv_quant)
         _warn_dense_dsa(cfg)
         dev = resolve_device(device)
@@ -1209,7 +1232,9 @@ class QuantizedLlama:
         ``Qwen3NextConfig``, its fp32
         ``A_log`` / ``dt_bias`` as stored; a MiniMax one
         (``full_attn_alpha_factor``) a ``MiniMaxConfig``, its fp32
-        ``slope_rate`` as stored."""
+        ``slope_rate`` as stored.  An ERNIE-4.5, LongCat or Step-3.5
+        export raises ``NotImplementedError`` naming its class (the JAX
+        engine serves none of them)."""
         import json
         import os
 
@@ -1225,6 +1250,7 @@ class QuantizedLlama:
         with open(os.path.join(path, "quantization_config.json")) as f:
             qcfg = json.load(f)
         cfg = config_from_jax(qcfg["model_config"])
+        refuse_unserved(cfg, "QuantizedLlama.from_pretrained")
         _warn_dense_dsa(cfg)
         packed: Dict[str, Tuple[torch.Tensor, ...]] = {}
         kinds: Dict[str, str] = {}

@@ -2,16 +2,12 @@
 
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 converted to numpy arrays (``jax.tree.map(np.asarray, params)``) and
-``config_from_jax`` the JAX ``LlamaConfig``'s, ``MixtralConfig``'s,
-``DeepseekConfig``'s, ``GlmMoeLiteConfig``'s, ``Glm4MoeConfig``'s,
-``GlmMoeDsaConfig``'s, ``GptOssConfig``'s,
-``Llama4Config``'s, ``Qwen3NextConfig``'s, ``Qwen35MoeConfig``'s or
-``MiniMaxConfig``'s fields as a dict
-(``dataclasses.asdict(cfg)``), so this module needs neither JAX nor the
-JAX package: both sides then compute on the same weights.
-``tune_params_from_jax`` carries a tuned state the same way, and
-``quantize_result_to_numpy`` goes the other way: a port result as the numpy
-tree the JAX package's results can be compared with.
+``config_from_jax`` the fields of a JAX config of a text family
+(``dataclasses.asdict(cfg)``, or an export's ``model_config``), so this
+module needs neither JAX nor the JAX package: both sides then compute
+on the same weights.  ``tune_params_from_jax`` carries a tuned state the
+same way, and ``quantize_result_to_numpy`` goes the other way: a port
+result as the numpy tree the JAX package's results can be compared with.
 ``packed_from_jax`` turns one packed payload of the JAX serving engine
 (numpy) into the port's, for every kind of the JAX engine but the stacked
 experts.
@@ -26,14 +22,17 @@ import torch
 
 from .._device import resolve_device
 from ..models.deepseek import DeepseekConfig
+from ..models.ernie45 import Ernie45Config
 from ..models.glm4moe import Glm4MoeConfig, GlmMoeLiteConfig
 from ..models.glmdsa import GlmMoeDsaConfig
 from ..models.gptoss import GptOssConfig
 from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
 from ..models.llama4 import Llama4Config
+from ..models.longcat import LongcatConfig
 from ..models.minimax import MiniMaxConfig
 from ..models.mixtral import MixtralConfig
 from ..models.qwen3next import Qwen35MoeConfig, Qwen3NextConfig
+from ..models.step35 import Step35Config
 from ..ops.qmatmul import pack_w4
 from ..ops.qmatmul_ext import pack_w2
 
@@ -68,12 +67,18 @@ _FP32_LEAVES = ("e_score_correction_bias", "sinks", "router_bias", "A_log",
 def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
     """Numpy parameter tree (dicts / lists of arrays, as the JAX package
     lays it out: a MoE block's per-expert list, DeepSeek's
-    ``shared_experts`` and ``gate``) → the same tree of tensors on
-    ``device``, in ``cfg``'s dtype for floating leaves but the ones the
-    JAX package keeps in fp32 (DeepSeek's ``e_score_correction_bias``,
-    GPT-OSS's ``sinks`` and ``router_bias``, Qwen3-Next's ``A_log`` and
-    ``dt_bias``, MiniMax's ``slope_rate`` and ``attn_norm``)."""
+    ``shared_experts`` and ``gate``, LongCat's ``_0`` / ``_1`` leaves) →
+    the same tree of tensors on ``device``, in ``cfg``'s dtype for
+    floating leaves but the ones the JAX package keeps in fp32 (the
+    ``e_score_correction_bias`` of DeepSeek, ERNIE-4.5 and LongCat,
+    GPT-OSS's ``sinks``, the ``router_bias`` of GPT-OSS and Step-3.5,
+    Qwen3-Next's ``A_log`` and ``dt_bias``, MiniMax's ``slope_rate`` and
+    ``attn_norm``, and the ``router`` of ERNIE-4.5 and LongCat, whose JAX
+    ``init_params`` make it fp32 where every other family's router is in
+    the model dtype)."""
     dev = resolve_device(device)
+    fp32 = _FP32_LEAVES + (("router",) if isinstance(
+        cfg, (Ernie45Config, LongcatConfig)) else ())
 
     def rec(node, key=None):
         if isinstance(node, Mapping):
@@ -85,71 +90,84 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
         t = _leaf(node, dev)
         if not t.is_floating_point():
             return t
-        return t.to(torch.float32 if key in _FP32_LEAVES else cfg.dtype)
+        return t.to(torch.float32 if key in fp32 else cfg.dtype)
 
     return rec(tree)
 
 
 # the ROADMAP item each unported config flag waits for
 _UNPORTED_ITEM = {"online_r4": "A12, transforms/hadamard.py"}
-# fields of the JAX package's DeepSeek subclasses the port has not got:
-# LongCat's zero experts, DeepSeek-VL's vision tower
-_UNPORTED_DEEPSEEK_FIELDS = ("zero_expert_num", "v_layers")
-_DEEPSEEK_CLASSES = {None: DeepseekConfig, "DeepseekConfig": DeepseekConfig,
-                     "GlmMoeLiteConfig": GlmMoeLiteConfig,
-                     "Glm4MoeConfig": Glm4MoeConfig,
-                     "GlmMoeDsaConfig": GlmMoeDsaConfig}
-# a field of MiniMaxConfig alone (a MixtralConfig subclass)
-_MINIMAX_FIELD = "full_attn_alpha_factor"
+# fields taken aside: ``dtype`` (converted below) and the Hadamard block
+# ``r4_block``, unused while ``UNSUPPORTED_FIELDS`` holds online R4 off
+_IGNORED_FIELDS = ("r4_block", "dtype")
+# the port's config classes, by the JAX class each one rebuilds
+_PORT_CLASSES = {c.__name__: c for c in (
+    LlamaConfig, MixtralConfig, DeepseekConfig, GlmMoeLiteConfig,
+    Glm4MoeConfig, GlmMoeDsaConfig, LongcatConfig, GptOssConfig,
+    Llama4Config, Qwen3NextConfig, Qwen35MoeConfig, MiniMaxConfig,
+    Ernie45Config, Step35Config)}
+# every VLM, omni and diffusion class of the JAX package (ROADMAP A14)
+# holds ``patch_size``, which no text family has
+_A14_FIELD = "patch_size"
+# an export's model_config names no class: a field that only one family
+# holds names it, tested in this order (a subclass before its base)
+_DISTINCTIVE = (
+    ("zero_expert_num", LongcatConfig),
+    ("index_topk", GlmMoeDsaConfig),
+    ("kv_lora_rank", DeepseekConfig),      # GLM-4.5's is 0: see below
+    ("moe_layer_interval", Ernie45Config),
+    ("swa_num_heads", Step35Config),
+    ("full_attn_alpha_factor", MiniMaxConfig),
+    ("linear_num_key_heads", Qwen3NextConfig),
+    ("no_rope_layers", Llama4Config),
+    ("swiglu_alpha", GptOssConfig),
+    ("num_experts", MixtralConfig),
+)
 
 
 def _config_class(fields: Mapping[str, Any], cls_name: Optional[str]):
-    if "kv_lora_rank" not in fields:
-        if _MINIMAX_FIELD in fields:
-            return MiniMaxConfig
-        if "linear_num_key_heads" in fields:
-            return (Qwen35MoeConfig if cls_name == "Qwen35MoeConfig"
-                    else Qwen3NextConfig)
-        if "swiglu_limit" in fields:
-            return GptOssConfig
-        if "no_rope_layers" in fields:
-            return Llama4Config
-        return MixtralConfig if "num_experts" in fields else LlamaConfig
-    odd = [f for f in _UNPORTED_DEEPSEEK_FIELDS if f in fields]
-    if odd or cls_name not in _DEEPSEEK_CLASSES:
-        what = ", ".join(odd) or "its fields"
-        raise NotImplementedError(
-            f"{cls_name or 'DeepseekConfig'} with {what} is not ported yet "
-            f"(ROADMAP A11: LongCat and DeepSeek-VL wait for their own "
-            f"slices)")
-    if cls_name is None:
-        # an export's model_config: GLM-5's indexer fields, or GLM-4.5's
-        # kv_lora_rank = 0 (no MLA), name the class
-        if "index_topk" in fields:
-            return GlmMoeDsaConfig
-        if not fields["kv_lora_rank"]:
-            return Glm4MoeConfig
-    return _DEEPSEEK_CLASSES[cls_name]
+    """The port's class for a JAX config: the one of the same name, or,
+    for an export's ``model_config`` (no name), the one its distinctive
+    fields imply."""
+    if cls_name is not None:
+        if cls_name not in _PORT_CLASSES:
+            raise NotImplementedError(
+                f"{cls_name} is not a config class of the JAX package's "
+                f"text families the port has (ROADMAP A14 holds the rest)")
+        return _PORT_CLASSES[cls_name]
+    for field, cls in _DISTINCTIVE:
+        if field in fields:
+            if cls is DeepseekConfig and not fields["kv_lora_rank"]:
+                return Glm4MoeConfig       # no MLA: GLM-4.5's GQA form
+            return cls
+    return LlamaConfig
 
 
 def config_from_jax(fields: Mapping[str, Any],
                     cls_name: Optional[str] = None) -> LlamaConfig:
-    """JAX config fields → the port's config: a ``DeepseekConfig`` when the
-    fields hold ``kv_lora_rank`` (the subclass ``cls_name`` names:
-    ``GlmMoeLiteConfig``, ``Glm4MoeConfig``, ``GlmMoeDsaConfig``; without a
-    name, an export's ``model_config``, a ``GlmMoeDsaConfig`` when the
-    fields hold ``index_topk``, a ``Glm4MoeConfig`` when ``kv_lora_rank``
-    is 0, else a ``DeepseekConfig``, which serves GLM-4.6-Lite the same), a
-    ``GptOssConfig`` when they hold ``swiglu_limit``, a ``Llama4Config``
-    when they hold ``no_rope_layers``, a ``Qwen3NextConfig`` when they hold
-    ``linear_num_key_heads`` (a ``Qwen35MoeConfig`` when ``cls_name`` says
-    so; an export's ``model_config`` comes back as a ``Qwen3NextConfig``,
-    which serves the same), a ``MiniMaxConfig`` when they hold
-    ``full_attn_alpha_factor``, a ``MixtralConfig`` when they hold
-    ``num_experts``, else a ``LlamaConfig``; the tuple fields come back as
-    tuples.  Raises ``NotImplementedError`` for a config that sets a flag
-    the port does not implement (online R4) and for the DeepSeek
-    subclasses it has not got (LongCat, DeepSeek-VL)."""
+    """JAX config fields (``dataclasses.asdict(cfg)``, or an export's
+    ``model_config``) → the port's config of the same class.  ``cls_name``
+    (the JAX class's name) names the class; without it the fields do: a
+    ``LongcatConfig`` for ``zero_expert_num``, a ``GlmMoeDsaConfig`` for
+    ``index_topk``, a ``DeepseekConfig`` for ``kv_lora_rank`` (a
+    ``Glm4MoeConfig`` when it is 0; GLM-4.6-Lite's export comes back as a
+    ``DeepseekConfig``, which serves it the same), an ``Ernie45Config``
+    for ``moe_layer_interval``, a ``Step35Config`` for ``swa_num_heads``, a
+    ``MiniMaxConfig`` for ``full_attn_alpha_factor``, a
+    ``Qwen3NextConfig`` for ``linear_num_key_heads`` (Qwen3.5-MoE's export
+    too), a ``Llama4Config`` for ``no_rope_layers``, a ``GptOssConfig`` for
+    ``swiglu_alpha``, a ``MixtralConfig`` for ``num_experts``, else a
+    ``LlamaConfig``; the tuple fields come back as tuples.
+
+    No field is dropped: one the chosen class lacks raises
+    ``NotImplementedError``, as do a flag the port does not implement
+    (online R4, ROADMAP A12) and the VLM, omni and diffusion classes
+    (ROADMAP A14)."""
+    if _A14_FIELD in fields:
+        raise NotImplementedError(
+            f"{cls_name or 'a config'} with {_A14_FIELD!r} is a vision / "
+            f"omni / diffusion model, not ported yet (ROADMAP A14: the VLM, "
+            f"omni and DiT / MMDiT models)")
     cls = _config_class(fields, cls_name)
     known = cls.__dataclass_fields__
     for name, off in UNSUPPORTED_FIELDS.items():
@@ -157,6 +175,13 @@ def config_from_jax(fields: Mapping[str, Any],
             raise NotImplementedError(
                 f"{cls.__name__}.{name}={fields[name]!r} is not ported yet "
                 f"(ROADMAP {_UNPORTED_ITEM[name]})")
+    odd = sorted(k for k in fields if k not in known
+                 and k not in _IGNORED_FIELDS and k not in UNSUPPORTED_FIELDS)
+    if odd:
+        raise NotImplementedError(
+            f"{cls_name or 'a config'}: fields {odd} have no place in the "
+            f"port's {cls.__name__}; a family that holds them is not ported "
+            f"(ROADMAP A14 holds the models left)")
     kw: Dict[str, Any] = {k: v for k, v in fields.items()
                           if k in known and k != "dtype"}
     for name in ("rope_llama3", "layer_types", "moe_layers",

@@ -6,8 +6,8 @@
 ``glm4_moe_lite`` (GLM-4.6-Lite, a DeepSeek-V2 architecture), ``glm4_moe``
 (GLM-4.5: GQA with partial rotary and the DeepSeek router), ``glm_moe_dsa``
 (GLM-5: DeepSeek MLA + MoE with the DSA lightning indexer), ``gpt_oss``,
-``llama4_text``, ``qwen3_next``, ``qwen3_5_moe``, ``qwen3_5`` and
-``minimax``.  GPT-OSS
+``llama4_text``, ``qwen3_next``, ``qwen3_5_moe``, ``qwen3_5``,
+``minimax`` and, for the config alone, ``step3p5``.  GPT-OSS
 and Llama 4 store their experts fused (``gate_up_proj`` (E, H, 2I),
 ``down_proj`` (E, I, H)), Qwen3.5 as (E, 2I, H) / (E, H, I) stacks; they
 split into per-expert (O, I) leaves at load (GPT-OSS's gate / up columns
@@ -35,18 +35,25 @@ A published GLM-4.5 or DeepSeek-V3 checkpoint also holds its draft layer
 the JAX loader stops there with an ``IndexError``, and this one raises a
 ``ValueError`` naming the key (ROADMAP C).
 
-Not ported: the other ``model_type`` the JAX function knows (Step-3.5)
-raises naming its family and ROADMAP A11, and an
-FP8-source checkpoint (a ``weight_scale_inv`` / ``weight_scale`` key, or an
-F8 weight: DeepSeek-V3's published files) raises naming A12
-(``quantize/model_free.py``).  The JAX package has no HF writer for
-GPT-OSS, Llama 4 or Qwen3-Next (its ``save_hf_checkpoint`` writes their
-trees with Llama / Mixtral / Qwen2-MoE keys and drops the sinks, the
-biases and the DeltaNet leaves), for GLM-5 it writes ``deepseek_v3``
-and drops the indexer, and for MiniMax it writes ``mixtral`` and drops the
-lightning leaves; :func:`save_hf_checkpoint` refuses all five,
-and GPT-OSS's native MXFP4 expert tensors (``*_blocks`` / ``*_scales``)
-are not read, as in the JAX package.
+Step-3.5 (``step3p5``) has its config read, field by field as the JAX
+loader's (``num_attention_groups``, the ``[theta, theta_local]`` pair,
+``moe_layers_enum``, the first nonzero ``swiglu_limits[_shared]``, the
+sliding layers' ``attention_other_setting``; the MTP layers are not
+counted).  Its weights are not read: the JAX loader maps none of its
+own leaves (it drops ``g_proj`` and every ``moe.*`` / ``share_expert.*``
+tensor without a word, and stops with an ``IndexError`` at the first MTP
+layer), so :func:`load_hf_checkpoint` raises ``NotImplementedError``
+naming the family (ROADMAP A, item 5).  An FP8-source checkpoint (a
+``weight_scale_inv`` / ``weight_scale`` key, or an F8 weight: DeepSeek-V3's
+published files) raises naming A12 (``quantize/model_free.py``). The JAX
+package has no HF writer for GPT-OSS, Llama 4 or Qwen3-Next (its
+``save_hf_checkpoint`` writes their trees with Llama / Mixtral / Qwen2-MoE
+keys and drops the sinks, the biases and the DeltaNet leaves), for GLM-5
+it writes ``deepseek_v3`` and drops the indexer, and for MiniMax it writes
+``mixtral`` and drops the lightning leaves; :func:`save_hf_checkpoint`
+refuses all five, and ERNIE-4.5, LongCat and Step-3.5, which have no HF
+layout in either package, and GPT-OSS's native MXFP4 expert tensors
+(``*_blocks`` / ``*_scales``) are not read, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -61,14 +68,17 @@ from .._device import resolve_device
 import numpy as np
 
 from ..models.deepseek import DeepseekConfig
+from ..models.ernie45 import Ernie45Config
 from ..models.glm4moe import Glm4MoeConfig, GlmMoeLiteConfig
 from ..models.glmdsa import GlmMoeDsaConfig
 from ..models.gptoss import GptOssConfig
 from ..models.llama import LlamaConfig
 from ..models.llama4 import Llama4Config
+from ..models.longcat import LongcatConfig
 from ..models.minimax import MiniMaxConfig, layer_is_linear, slope_rate
 from ..models.mixtral import MixtralConfig
 from ..models.qwen3next import Qwen35MoeConfig, Qwen3NextConfig
+from ..models.step35 import Step35Config
 from .logger import logger
 from .safetensors_io import SafeOpen, save_file
 
@@ -101,10 +111,6 @@ _TOP_MAP = {
     "lm_head.weight": "lm_head",
 }
 
-# model_types of the JAX loader whose models are not ported yet, and their
-# families
-_UNPORTED_TYPES = ("step3p5",)
-_UNPORTED_FAMILIES = {"step3p5": "Step-3.5"}
 _QWEN3NEXT_TYPES = ("qwen3_next", "qwen3_5_moe", "qwen3_5")
 _FP8_SCALES = (".weight_scale_inv", ".weight_scale")
 
@@ -120,17 +126,16 @@ def config_from_hf(cfg: Dict[str, Any], dtype=torch.bfloat16) -> LlamaConfig:
     ``Llama4Config`` for ``llama4_text``, a
     ``GptOssConfig`` for ``gpt_oss``, a ``Qwen3NextConfig`` for
     ``qwen3_next``, a ``Qwen35MoeConfig`` for ``qwen3_5_moe`` /
-    ``qwen3_5`` and a ``MiniMaxConfig`` for ``minimax``."""
+    ``qwen3_5``, a ``MiniMaxConfig`` for ``minimax`` and a
+    ``Step35Config`` for ``step3p5``."""
     mt = cfg.get("model_type", "llama")
-    if mt in _UNPORTED_TYPES:
-        raise NotImplementedError(
-            f"model_type {mt!r} ({_UNPORTED_FAMILIES[mt]}) is not ported "
-            f"yet (ROADMAP A11)")
     # before the Qwen-MoE branch: these configs hold num_experts too
     if mt in _QWEN3NEXT_TYPES:
         return _qwen3next_config_from_hf(cfg, mt, dtype)
     if mt == "minimax":
         return _minimax_config_from_hf(cfg, dtype)
+    if mt == "step3p5":
+        return _step35_config_from_hf(cfg, dtype)
     if mt in ("deepseek_v2", "deepseek_v3"):
         return _deepseek_config_from_hf(cfg, mt, dtype)
     if mt == "glm4_moe_lite":
@@ -354,6 +359,62 @@ def _minimax_config_from_hf(cfg: Dict[str, Any], dtype) -> MiniMaxConfig:
         layer_types=tuple(cfg["layer_types"]),
         block_size=cfg.get("block_size", 256),
         **{f: cfg.get(f, 1.0) for f in _MINIMAX_FACTORS},
+        dtype=dtype,
+    )
+
+
+def _step35_config_from_hf(cfg: Dict[str, Any], dtype) -> Step35Config:
+    """Step-3.5 HF config → ``Step35Config``, as the JAX loader reads it:
+    ``num_attention_groups`` KV heads, ``rope_theta`` a ``[theta,
+    theta_local]`` pair (or one value), the MoE layers from the
+    comma-separated ``moe_layers_enum``, each clamp the first nonzero
+    entry of ``swiglu_limits`` / ``swiglu_limits_shared``, the sliding
+    layers' head counts from ``attention_other_setting``, the (1 + w) norm
+    and the rotated fractions 0.5 (full) / 1.0 (sliding) fixed;
+    ``layer_types`` cut to ``num_hidden_layers`` (the MTP layers' entries
+    dropped)."""
+    other = cfg.get("attention_other_setting") or {}
+    theta = cfg.get("rope_theta", 10000.0)
+    theta_local = 0.0
+    if isinstance(theta, list):
+        theta, theta_local = float(theta[0]), float(theta[1])
+    moe_layers: Tuple[int, ...] = ()
+    enum = cfg.get("moe_layers_enum")
+    if isinstance(enum, str) and enum.strip():
+        moe_layers = tuple(sorted(int(i) for i in enum.strip().split(",")))
+    limits = [v for v in (cfg.get("swiglu_limits") or []) if v]
+    limits_sh = [v for v in (cfg.get("swiglu_limits_shared") or []) if v]
+    n = cfg["num_hidden_layers"]
+    return Step35Config(
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["hidden_size"],
+        intermediate_size=cfg["intermediate_size"],
+        num_layers=n,
+        num_heads=cfg["num_attention_heads"],
+        num_kv_heads=cfg.get("num_attention_groups",
+                             cfg.get("num_key_value_heads",
+                                     cfg["num_attention_heads"])),
+        head_dim=cfg.get("head_dim"),
+        rope_theta=theta, rope_local_theta=theta_local,
+        rms_eps=cfg.get("rms_norm_eps", 1e-5),
+        tie_embeddings=cfg.get("tie_word_embeddings", False),
+        norm_offset=1.0,
+        partial_rotary_factor=0.5,
+        partial_rotary_factor_local=1.0,
+        sliding_window=cfg.get("sliding_window"),
+        layer_types=tuple(cfg.get("layer_types") or ())[:n] or None,
+        swa_num_heads=other.get("num_attention_heads", 0),
+        swa_num_kv_heads=other.get("num_attention_groups", 0),
+        moe_layers=moe_layers,
+        moe_num_experts=cfg.get("moe_num_experts", 0),
+        moe_top_k=cfg.get("moe_top_k", 1),
+        moe_intermediate_size=cfg.get("moe_intermediate_size", 0),
+        share_expert_dim=cfg.get("share_expert_dim", 0),
+        moe_router_scaling_factor=cfg.get("moe_router_scaling_factor", 1.0),
+        norm_expert_weight=cfg.get("norm_expert_weight", True),
+        use_moe_router_bias=cfg.get("use_moe_router_bias", False),
+        swiglu_limit=float(limits[0]) if limits else 0.0,
+        swiglu_limit_shared=float(limits_sh[0]) if limits_sh else 0.0,
         dtype=dtype,
     )
 
@@ -772,6 +833,13 @@ def load_hf_checkpoint(path: str, dtype=torch.bfloat16, device=None
     with open(os.path.join(path, "config.json")) as f:
         hf_cfg = json.load(f)
     cfg = config_from_hf(hf_cfg, dtype)
+    if isinstance(cfg, Step35Config):
+        raise NotImplementedError(
+            f"{path}: the weights of a step3p5 (Step-3.5) checkpoint are not "
+            f"read: the JAX loader maps none of its own leaves (it drops "
+            f"g_proj and the moe.* / share_expert.* tensors, and stops at "
+            f"the first MTP layer), so no reference tree exists; its config "
+            f"reads through config_from_hf")
     deepseek = isinstance(cfg, DeepseekConfig)
     q3n = isinstance(cfg, Qwen3NextConfig)
     mm = isinstance(cfg, MiniMaxConfig)
@@ -854,13 +922,15 @@ def save_hf_checkpoint(params: Dict[str, Any], cfg: LlamaConfig, path: str,
     fields in the config); ``hf_extra`` overrides
     config fields (``{"model_type": "glm4_moe_lite"}`` for GLM-4.6-Lite)."""
     if isinstance(cfg, (GptOssConfig, Llama4Config, Qwen3NextConfig,
-                        GlmMoeDsaConfig, MiniMaxConfig)):
+                        GlmMoeDsaConfig, MiniMaxConfig, Ernie45Config,
+                        LongcatConfig, Step35Config)):
         raise NotImplementedError(
             f"save_hf_checkpoint: no HF writer for {type(cfg).__name__} (the "
             f"JAX package has none either: its writer drops the sinks, the "
             f"biases, the DeltaNet leaves, GLM-5's indexer and MiniMax's "
             f"lightning leaves, fuses nothing and names GLM-5 deepseek_v3 "
-            f"and MiniMax mixtral)")
+            f"and MiniMax mixtral; ERNIE-4.5, LongCat and Step-3.5 have no "
+            f"HF layout in either package)")
     os.makedirs(path, exist_ok=True)
     if isinstance(cfg, DeepseekConfig):
         return _save_deepseek_checkpoint(params, cfg, path, hf_extra)

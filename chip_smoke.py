@@ -23,7 +23,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              FP8 and MXFP4 / NVFP4 matmul, int8-QK attention) at the
              main paths' shapes (flash also at D = 256 and at
              Qwen3-Next's 16 heads over 2 of D = 256, GLM-4.5-Air's
-             96 over 8 and MiniMax's 64 over 8; W4A16 and asym
+             96 over 8, MiniMax's 64 over 8 and ERNIE-4.5's 20 over 4
+             (G = 5); W4A16 and asym
              also at g = 16, W4A16 also at Qwen3-Next's in_proj_qkvz,
              GLM-4.5-Air's q / k / v and o_proj and MiniMax's qkv_proj;
              grouped W4A16 also at E = 512, E = 128 and MiniMax's E = 32;
@@ -231,8 +232,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              with words bit-equal to the ``from_quantize_result`` engine's);
              and ``enable_lfq`` (the last block's loss the LM cross-entropy
              over the 128256-entry vocabulary, near ln 128256).
-19. offload — mixtral-8x7b at ``--offload-layers`` (cut to what the host's
-             MemAvailable holds, at least 28): the blocks made on the card
+19. offload — mixtral-8x7b at ``--offload-layers`` (8 by default; cut to
+             what the host's MemAvailable holds, failing where it holds
+             fewer than asked or 28): the blocks made on the card
              one at a time and parked in host memory (pinned where the host
              allows), ``W4A16_MIXED`` with the lm_head, RTN,
              ``offload_params`` and ``donate_params``; the device peaks
@@ -255,18 +257,19 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              the replayed step at batch 8 and 1 (profiled: busy share and
              launches measured per replay); the fp8 latent cache on 4
              layers against the bf16 one; the batcher at 8 slots against
-             each request alone.  (b) SignRound (iters 20, 16 x 512 ids) on
+             each request alone.  (b) SignRound (iters 10, 16 x 512 ids) on
              2 V2-Lite blocks (dense + MoE) → serve.  (c) deepseek-v3 at
              full width, ``--deepseek-v3-layers`` of 61 (256 experts, the
              sigmoid router's bias from N(0, 0.5), groups 8 / 4): RTN →
              serve 2 x 128 prompts, a copy of the last dense and first MoE
              block on the plain versions, the replayed step at batch 8.
              (d) V2-Lite x 2 as an HF ``deepseek_v2`` directory → the CLI
+             (in process)
              → ``from_pretrained`` against the in-memory engine.
 21. gpt-oss / llama4 — GPT-OSS and Llama 4 (random weights moved off their
              initial values: gains, attention and expert biases, the sinks
              from N(0, 1), the router bias).  (a) gpt-oss-20b at full
-             width, ``--gptoss-layers`` of 24 (8 by default): RTN W4A16
+             width, ``--gptoss-layers`` of 24 (4 by default): RTN W4A16
              g32 (K = 2880 is
              22.5 x 128) with the lm_head → engine (int8 KV: row 6 with the
              sinks and the 128 window on the even layers; experts stacked
@@ -275,15 +278,17 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              plain versions; ``generate_scan``; the replayed step at batch
              8 and 1; the fp8 cache on 4 layers; the batcher.  (b)
              gpt-oss-120b x ``--gptoss120-layers`` (row 5 at E = 128), the
-             replayed step at batch 8.  (c) SignRound on 2 gpt-oss-20b
-             blocks.  (d) llama4-scout at full width, ``--llama4-layers``
-             of 48 (NoPE layers 3, 7, ...): RTN W4A16 g128, served as (a)
-             (rows 1, 4, 5, 6).  (e) its first 4 blocks past the 8192
-             chunk: one 8320-token prompt, 32 new tokens (row 6 with
-             ``chunk``), the prefill's device peak, a copy on the plain
-             versions.  (f) SignRound on Scout's blocks 0-3 (rows 1-3,
-             both layer variants).  (g) each family x 1 as an HF directory
-             with fused experts → the CLI → ``from_pretrained``.
+             replayed step at batch 8.  (c) SignRound (iters 10) on 1
+             gpt-oss-20b block.  (d) llama4-scout at full width,
+             ``--llama4-layers`` of 48 (NoPE layers 3, 7, ...): RTN W4A16
+             g128, served as (a) (rows 1, 4, 5, 6).  (e) its first 4 blocks
+             past the 8192 chunk: one 8320-token prompt, 32 new tokens (row
+             6 with ``chunk``), the prefill's device peak, a copy on the
+             plain versions.  (f) SignRound (iters 10) on Scout's blocks
+             2-3 (rows 1-3, both layer variants).  (g) each family x 1 as
+             an HF directory
+             with fused experts → the CLI (in process) →
+             ``from_pretrained``.
 22. qwen3-next — Qwen3-Next and Qwen3.5-MoE at the published widths of
              Qwen3-Next-80B-A3B (``QWEN3_NEXT_HF``: hidden 2048, 16 heads
              over 2 KV heads of 256, partial rotary 0.25; DeltaNet 16 k-
@@ -299,11 +304,12 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              recurrent steps from zero; a 2-layer copy (a DeltaNet and a
              full layer) on the plain versions; ``generate_scan``; the
              replayed step at batch 8 and 1, each with a second call of
-             new prompts.  (b) SignRound (iters 4, 2 x 512 a step) on
-             the published layers 2-3 (a DeltaNet and a full layer: rows
-             1-3 in the loss) → serve.  (c) a
+             new prompts.  (b) SignRound (iters 2, 2 x 512 a step) on
+             the published layers 2-3 (a DeltaNet layer, the chunked delta
+             rule's backward in its loss, and the first full layer, rows
+             1-3 in its loss) → serve.  (c) a
              ``qwen3_5_moe`` HF directory x ``--qwen35-load-layers`` (fused
-             expert stacks, an ``mtp.*`` tensor) → the CLI →
+             expert stacks, an ``mtp.*`` tensor) → the CLI (in process) →
              ``from_pretrained``, logits equal to the in-memory engine's.
 23. glm     — GLM-4.5-Air and GLM-5 DSA (random weights, gains, q / k / v
              biases and router biases moved).  (a) glm-4.5-air at full
@@ -317,9 +323,10 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              teacher forced and the prefill against ``model_fwd`` on the
              qdq weights; a 2-layer copy on the plain versions;
              ``generate_scan``; the replayed step at batch 8 and 1; the
-             fp8 cache; the batcher.  (b) SignRound (iters 4, 2 x 512) on
+             fp8 cache; the batcher.  (b) SignRound (iters 2, 2 x 512) on
              blocks 0-1 (rows 1-3 at G = 12) → serve.  (c) a ``glm4_moe``
-             HF directory x 2 → the CLI → ``from_pretrained``.  (d) GLM-5
+             HF directory x 2 → the CLI (in process) →
+             ``from_pretrained``.  (d) GLM-5
              DSA at the deepseek-v3 widths with DeepSeek-V3.2's indexer
              (64 heads of 128, top 2048) x ``--glm5-layers`` of 61: RTN
              (the indexer's q / k quantized, ``weights_proj`` bf16); block
@@ -328,7 +335,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              warning, its logits and tokens equal to a DeepSeek engine's
              on the same weights; a 2-layer copy; ``generate_scan``; the
              replayed step at batch 8.  (e) a ``glm_moe_dsa`` HF
-             directory x 2 → the CLI → ``from_pretrained``.
+             directory x 2 → the CLI (in process) →
+             ``from_pretrained``.
 24. minimax — MiniMax-Text-01 at its published widths (``MINIMAX_HF``:
              hidden 6144, 64 heads over 8 KV heads of 128; lightning
              attention on 7 layers of 8, chunk 256; the residual alphas
@@ -350,9 +358,35 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              1, each with a second call of new prompts.  (b) SignRound
              (iters 4, 2 x 512) on the published layers 6-7 with 8 of the
              32 experts (rows 1-3 in the loss) → serve.  (c) a ``minimax``
-             HF directory x 2 (layers 6-7, 4 experts) → the CLI →
+             HF directory x 2 (layers 6-7, 4 experts) → the CLI (in
+             process) →
              ``from_pretrained``, logits equal to the in-memory engine's.
-25. report — the card's name and power limit (nvidia-smi), a JSON line of
+25. ernie / longcat / step35 — three families the port quantizes and
+             exports and no engine serves (as in the JAX package), random
+             weights, gains moved, router biases drawn.  (a)
+             ERNIE-4.5-21B-A3B at full width (20 query heads over 4 KV
+             heads of 128: G = 5), ``--ernie-layers`` of 28 (the dense
+             layer 0, then 64 experts of 1536 and 2 shared): RTN W4A16
+             g128 with the tied lm_head, launches as the chain implies,
+             blocks 0-1 teacher forced on the qdq weights (kernels
+             against the plain versions), an ``autoround`` export read
+             back (``model_config`` through ``config_from_jax``, words /
+             zeros / scales against the result); (b) SignRound (iters 4,
+             2 x 512) on layers 0-1: rows 1-3 at G = 5 in the loss.  (c)
+             LongCat-Flash at its published widths (``LONGCAT_FLASH``:
+             hidden 6144, 512 experts of 2048 + 256 zero experts, 40 GB
+             of bf16 a layer), ``--longcat-layers`` of 28 through
+             ``offload_params`` and ``donate_params`` (device peak, RSS),
+             block 0 on the qdq weights against the FP block's output
+             (MLA keeps the plain attention: no kernel runs), and on W8
+             g128 weights, the rounding's share of that distance; a copy
+             with 8 of the 512 routed experts exported and read back.
+             (d) Step-3.5-Flash at its published widths (``STEP35_HF``
+             through ``config_from_hf``: full layers 64 / 8 heads,
+             sliding 96 / 8 with a 512 window, 288 experts of 1280),
+             ``--step35-layers`` of 45: RTN W4A16 g128 (row 1 at both
+             head counts), every block teacher forced, export read back.
+26. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -366,7 +400,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--nblocks-layers``, ``--offload-layers``, ``--deepseek-layers``,
 ``--deepseek-v3-layers``, ``--gptoss-layers``, ``--gptoss120-layers``,
 ``--llama4-layers``, ``--qwen3next-layers``, ``--qwen35-load-layers``,
-``--glm45-layers``, ``--glm5-layers`` and ``--minimax-layers`` cut the
+``--glm45-layers``, ``--glm5-layers``, ``--minimax-layers``,
+``--ernie-layers``, ``--longcat-layers`` and ``--step35-layers`` cut the
 depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
@@ -603,13 +638,16 @@ def kernel_phase(timer, bw, flops_peak):
     # prefill shapes, D = 256 (Gemma's heads), Qwen3-Next's full
     # attention (D = 256, 16 query heads over 2 KV heads: G = 8),
     # GLM-4.5-Air's (96 query heads over 8 KV heads: G = 12, the dK / dV
-    # group sum over 12 heads) and MiniMax-Text-01's (64 over 8 of D = 128)
+    # group sum over 12 heads), MiniMax-Text-01's (64 over 8 of D = 128;
+    # these two are also Step-3.5-Flash's sliding and full layers) and
+    # ERNIE-4.5-21B-A3B's (20 over 4: G = 5, an odd group)
     for (B, H, Hkv, S, T, D, rep_row) in [(8, 32, 8, 512, 512, 128, True),
                                           (8, 32, 8, 256, 512, 128, False),
                                           (8, 32, 8, 512, 512, 256, False),
                                           (8, 16, 2, 512, 512, 256, False),
                                           (8, 96, 8, 512, 512, 128, False),
-                                          (8, 64, 8, 512, 512, 128, False)]:
+                                          (8, 64, 8, 512, 512, 128, False),
+                                          (8, 20, 4, 512, 512, 128, False)]:
         q = torch.randn(B, H, S, D, generator=g, device=dev).bfloat16()
         k = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
         v = torch.randn(B, Hkv, T, D, generator=g, device=dev).bfloat16()
@@ -2399,7 +2437,7 @@ def scan_measure(eng, B, S, bw, flops_peak, int8_peak, seed, label,
                 eager_step_ms=eager_med, bound_ms=bound, busy=prof["busy"])
 
 
-FP8_COPY_SEQ = 128     # prompt tokens of the fp8 copy's CPU reference
+FP8_COPY_SEQ = 128     # prompt tokens of the fp8 copy's reference
 
 
 def fp8_kv_phase(eng, prompts, n_layers=4):
@@ -2407,7 +2445,9 @@ def fp8_kv_phase(eng, prompts, n_layers=4):
     ``kv_quant="fp8"`` (sharing its packed weights): ``generate`` and
     ``generate_scan`` give equal tokens and launches, the cache is e4m3,
     and a 2-layer copy on the card holds its prefill and first decode
-    step logits within ``COPY_ROW_TOL`` of the same copy on the CPU."""
+    step logits within ``COPY_ROW_TOL`` of the same copy on the plain
+    versions on the card (on the CPU until the ernie / longcat / step35
+    phase came: 14-17 s)."""
     t_phase = time.time()
     fp8 = dataclasses.replace(copy_engine(eng, n_layers, "cuda"),
                               kv_quant="fp8")
@@ -2425,27 +2465,28 @@ def fp8_kv_phase(eng, prompts, n_layers=4):
                                n=2)
     p2 = prompts[:2, :FP8_COPY_SEQ]
     gpu = copy_engine(fp8, 2, "cuda")
-    cpu = copy_engine(fp8, 2, "cpu")
     lg_gpu, c_gpu = gpu.prefill(p2)
     tok = lg_gpu.argmax(-1).to(torch.int32)
     step_gpu, _ = gpu.decode_step(tok, c_gpu)
     t0 = time.time()
-    lg_cpu, c_cpu = cpu.prefill(p2)
-    step_cpu, _ = cpu.decode_step(tok.cpu(), c_cpu)
-    _, rel_pre = row_err(lg_gpu.cpu(), lg_cpu)
-    _, rel_step = row_err(step_gpu.cpu(), step_cpu)
+    with plain_versions():
+        lg_ref, c_ref = gpu.prefill(p2)
+        step_ref, _ = gpu.decode_step(tok, c_ref)
+    _, rel_pre = row_err(lg_gpu, lg_ref)
+    _, rel_step = row_err(step_gpu, step_ref)
     log(f"fp8 kv llama3-8b W4A16 ({n_layers} layers, kv_quant fp8, e4m3 "
         f"cache): tokens and launches of generate_scan equal generate's "
         f"({prompts.shape[0]}x{NEW}), replayed launches measured per step "
         f"{json.dumps(prof['launches'])}; graph_step_ms={graph:.4f} "
-        f"eager_step_ms={eager:.4f}; 2-layer copy card vs CPU: prefill "
+        f"eager_step_ms={eager:.4f}; 2-layer copy against the plain "
+        f"versions on the card: prefill "
         f"row_err={rel_pre:.4g} decode step row_err={rel_step:.4g} (2 x "
         f"{FP8_COPY_SEQ} prompt tokens; tol "
         f"{COPY_ROW_TOL}, reference_s={time.time() - t0:.1f}); "
         f"fp8_kv_s={time.time() - t_phase:.1f}")
     check(rel_pre <= COPY_ROW_TOL and rel_step <= COPY_ROW_TOL,
-          "fp8 kv: the 2-layer copy disagrees with the CPU")
-    del fp8, gpu, cpu
+          "fp8 kv: the 2-layer copy disagrees with its plain versions")
+    del fp8, gpu
 
 
 # (prompt length, new tokens) of the batching phase: 12 requests over the
@@ -5320,7 +5361,7 @@ class _BlockLosses(logging.Handler):
             self.blocks[bi] = (float(first), float(best), float(secs))
 
 
-def deepseek_tune_path(n_layers=2, iters=20):
+def deepseek_tune_path(n_layers=2, iters=10):
     """(b) SignRound (``iters``, 16 x 512 ids, batch 8) on the first
     ``n_layers`` deepseek-v2-lite blocks (block 0 dense, block 1 MoE:
     64 experts tuned dense-then-mask), then served (int8 latent cache):
@@ -5436,8 +5477,8 @@ def deepseek_v3_path(bw, flops_peak, n_layers):
 def deepseek_load_path(root, n_layers=2):
     """(d) deepseek-v2-lite x ``n_layers`` written as an HF ``deepseek_v2``
     directory, read back (leaves bit-equal, the router's bias fp32), RTN'd
-    by ``python -m autoround_tpu_torch`` in a subprocess (its export equal
-    byte for byte to the in-process one), loaded by ``from_pretrained``
+    by the CLI (``_cli_in_process``; its export equal byte for byte to the
+    one of ``AutoRound``), loaded by ``from_pretrained``
     (a ``DeepseekConfig``, words bit-equal to the in-memory engine's,
     ``kv_b_proj`` dense); prefill and first-step logits within the copy
     limit of the in-memory engine with its scales rounded to fp16 (what
@@ -5471,21 +5512,15 @@ def deepseek_load_path(root, n_layers=2):
     del params, want, got
     np.save(root / "ds_ids.npy", calib.numpy())
     cli_out = root / "ds_cli"
-    cmd = [sys.executable, "-m", "autoround_tpu_torch", "--model", str(hf),
-           "--scheme", "W4A16", "--iters", "0", "--quant-lm-head",
-           "--dataset", str(root / "ds_ids.npy"), "--nsamples", "4",
-           "--seqlen", "256", "--format", "autoround", "--output",
-           str(cli_out)]
     t0 = time.time()
-    # the machine has no network: the CLI's tokenizer lookup stays local
-    proc = subprocess.run(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True,
-                          env=dict(os.environ, PYTHONPATH=str(HERE),
-                                   HF_HUB_OFFLINE="1",
-                                   TRANSFORMERS_OFFLINE="1"),
-                          timeout=600)
+    rc, cli_stdout = _cli_in_process([
+        "--model", str(hf), "--scheme", "W4A16", "--iters", "0",
+        "--quant-lm-head", "--dataset", str(root / "ds_ids.npy"),
+        "--nsamples", "4", "--seqlen", "256", "--format", "autoround",
+        "--output", str(cli_out)])
     t_cli = time.time() - t0
-    check(proc.returncode == 0, f"deepseek load: the CLI exited "
-          f"{proc.returncode}: {proc.stdout[-2000:]}")
+    check(rc == 0, f"deepseek load: the CLI exited {rc}: "
+          f"{cli_stdout[-2000:]}")
     result = AutoRound((lparams, lcfg), scheme="W4A16", iters=0,
                        quant_lm_head=True).quantize(
         calib, mask=torch.ones(calib.shape))
@@ -5510,7 +5545,8 @@ def deepseek_load_path(root, n_layers=2):
     toks, counts = generate_counted(disk, prompts, 8)
     scan_against(disk, prompts, toks, counts, "deepseek load")
     log(f"deepseek load path (v2-lite x {n_layers}, HF deepseek_v2 dir): "
-        f"CLI exit 0 in {t_cli:.2f} s, export equal to the in-process one, "
+        f"CLI (in process) exit 0 in {t_cli:.2f} s, export equal to the "
+        f"in-process one, "
         f"from_pretrained a DeepseekConfig with {len(disk.packed)} packed "
         f"entries, generate_scan equal to generate; path_s="
         f"{time.time() - t_path:.1f}")
@@ -5769,28 +5805,30 @@ def _moe_tune_path(cfg, label, seed, scheme, n_layers, batch, iters=20,
     return launches
 
 
-def gptoss_tune_path(n_layers=2):
-    """(c) SignRound W4A16 g32 on the first ``n_layers`` gpt-oss-20b blocks
-    (32 experts tuned dense-then-mask each)."""
+def gptoss_tune_path(n_layers=1):
+    """(c) SignRound W4A16 g32 (iters 10) on the first ``n_layers``
+    gpt-oss-20b blocks (32 experts tuned dense-then-mask each)."""
     from autoround_tpu_torch.models import gptoss
 
     cfg = dataclasses.replace(gptoss.CONFIG_PRESETS["gpt-oss-20b"],
                               num_layers=n_layers)
     return _moe_tune_path(cfg, f"gpt-oss tune x {n_layers}", 87,
-                          "W4A16G32", n_layers, 8)
+                          "W4A16G32", n_layers, 8, iters=10)
 
 
-def _scout(n_layers):
-    """llama4-scout-16e cut to ``n_layers`` (its per-layer tuples cut
-    with it)."""
+def _scout(n_layers, first=0):
+    """llama4-scout-16e cut to ``n_layers`` from layer ``first`` on (its
+    per-layer tuples cut with it)."""
     from autoround_tpu_torch.models import llama4
 
     full = llama4.CONFIG_PRESETS["llama4-scout-16e"]
+    end = first + n_layers
     return dataclasses.replace(
         full, num_layers=n_layers,
-        no_rope_layers=full.no_rope_layers[:n_layers],
-        layer_types=full.layer_types[:n_layers],
-        moe_layers=tuple(i for i in full.moe_layers if i < n_layers))
+        no_rope_layers=full.no_rope_layers[first:end],
+        layer_types=full.layer_types[first:end],
+        moe_layers=tuple(i - first for i in full.moe_layers
+                         if first <= i < end))
 
 
 def scout_path(bw, flops_peak, n_layers):
@@ -5849,14 +5887,16 @@ def llama4_chunk_path(eng):
     return launches
 
 
-def llama4_tune_path(n_layers=4):
-    """(f) SignRound W4A16 g128 on Scout's blocks 0-3 (three rope layers
-    and NoPE layer 3: both ``block_fwd_for`` variants; rows 1-3 in the
-    tuning loss), 4 sequences a step: at 8 a step the tuning peaked at
-    78.86 of the card's 85.9 GB (measured on an H100; a block's 2.2 B
+def llama4_tune_path(n_layers=2):
+    """(f) SignRound W4A16 g128 (iters 10) on Scout's blocks 2-3 (a rope
+    layer and NoPE layer 3: both ``block_fwd_for`` variants; rows 1-3 in
+    the tuning loss; blocks 0-3 and iters 20 until the ernie / longcat /
+    step35 phase came), 4 sequences a step: at 8 a step the tuning peaked
+    at 78.86 of the card's 85.9 GB (measured on an H100; a block's 2.2 B
     weights carry their fp32 tuning state)."""
-    return _moe_tune_path(_scout(n_layers), f"llama4 tune x {n_layers}", 97,
-                          "W4A16", n_layers, 4)
+    return _moe_tune_path(_scout(n_layers, first=4 - n_layers),
+                          f"llama4 tune x {n_layers}", 97, "W4A16", n_layers,
+                          4, iters=10)
 
 
 def write_hf_fused(params, cfg, path, hf_config=None):
@@ -5991,13 +6031,37 @@ def _qwen35_tensors(params, t):
         t[p + "mlp.shared_expert_gate.weight"] = b["shared_expert_gate"]
 
 
+def _cli_in_process(argv):
+    """``autoround_tpu_torch.cli.main(argv)`` in this process: (exit code,
+    its standard output).  The family load paths run the CLI so (the load
+    phase runs ``python -m autoround_tpu_torch`` in a subprocess; a second
+    interpreter, its torch import and its CUDA context took 10-15 s a
+    path); the logger's handlers and level come back as they were."""
+    import io
+
+    from autoround_tpu_torch import cli
+    from autoround_tpu_torch.utils.logger import logger as ar_logger
+
+    handlers, level = list(ar_logger.handlers), ar_logger.level
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+    finally:
+        for h in list(ar_logger.handlers):
+            if h not in handlers:
+                ar_logger.removeHandler(h)
+        ar_logger.setLevel(level)
+    return rc, out.getvalue()
+
+
 def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None,
                          write=None):
     """(g) ``cfg`` written as an HF directory with fused experts
     (``write_hf_fused``; ``hf_config``: a Qwen3.5 ``config.json``), read
     back (leaves bit-equal, the sinks, the router bias, ``A_log`` and
-    ``dt_bias`` fp32), RTN'd by ``python -m autoround_tpu_torch`` in a
-    subprocess (its export equal byte for byte to the in-process one),
+    ``dt_bias`` fp32), RTN'd by the CLI (``_cli_in_process``; its export
+    equal byte for byte to the one of ``AutoRound``),
     loaded by ``from_pretrained`` (the family's config, words bit-equal to
     the in-memory engine's); prefill and first-step logits within the copy
     limit of the in-memory engine with fp16 scales (a Qwen3.5 export's
@@ -6039,35 +6103,23 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None,
     del params, want, got
     np.save(root / f"{label}_ids.npy", calib.numpy())
     cli_out = root / f"{label}_cli"
-    cmd = [sys.executable, "-m", "autoround_tpu_torch", "--model", str(hf),
-           "--iters", "0", "--quant-lm-head", "--dataset",
-           str(root / f"{label}_ids.npy"), "--nsamples", "4", "--seqlen",
-           "256", "--format", "autoround", "--output", str(cli_out),
-           "--scheme", "W4A16", "--group-size", str(group_size)]
+    argv = ["--model", str(hf), "--iters", "0", "--quant-lm-head",
+            "--dataset", str(root / f"{label}_ids.npy"), "--nsamples", "4",
+            "--seqlen", "256", "--format", "autoround", "--output",
+            str(cli_out), "--scheme", "W4A16", "--group-size",
+            str(group_size)]
+    result = AutoRound((lparams, lcfg),
+                       scheme={128: "W4A16", 32: "W4A16G32"}[group_size],
+                       iters=0, quant_lm_head=True).quantize(
+        calib, mask=torch.ones(calib.shape))
+    del lparams
+    mem_out = root / f"{label}_mem"
+    save_quantized(result, lcfg, str(mem_out), "autoround")
     t0 = time.time()
-    # the machine has no network: the CLI's tokenizer lookup stays local;
-    # the CLI runs while this process makes its own export of the same
-    # directory (both are bound by the host's Python, not by the card)
-    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, text=True,
-                            env=dict(os.environ, PYTHONPATH=str(HERE),
-                                     HF_HUB_OFFLINE="1",
-                                     TRANSFORMERS_OFFLINE="1"))
-    try:
-        result = AutoRound((lparams, lcfg),
-                           scheme={128: "W4A16", 32: "W4A16G32"}[group_size],
-                           iters=0, quant_lm_head=True).quantize(
-            calib, mask=torch.ones(calib.shape))
-        del lparams
-        mem_out = root / f"{label}_mem"
-        save_quantized(result, lcfg, str(mem_out), "autoround")
-        cli_stdout, _ = proc.communicate(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    rc, cli_stdout = _cli_in_process(argv)
     t_cli = time.time() - t0
-    check(proc.returncode == 0, f"{label} load: the CLI exited "
-          f"{proc.returncode}: {cli_stdout[-2000:]}")
+    check(rc == 0, f"{label} load: the CLI exited {rc}: "
+          f"{cli_stdout[-2000:]}")
     _same_files(cli_out, mem_out, f"{label} load: the CLI's export against "
                 "the in-process one")
     shutil.rmtree(hf)
@@ -6107,7 +6159,7 @@ def oss_llama4_load_path(root, cfg, label, seed, group_size, hf_config=None,
                                                       "n_routed_experts", 0)
     log(f"{label} load path (x {cfg.num_layers}, HF, {n_exp} experts"
         f"{' fused' if write is None else ''}): "
-        f"CLI exit 0 in {t_cli:.2f} s (beside the in-process export), "
+        f"CLI (in process) exit 0 in {t_cli:.2f} s, "
         f"export equal to the in-process one, "
         f"from_pretrained a {type(disk.cfg).__name__} with "
         f"{len(disk.packed)} packed entries, generate_scan equal to "
@@ -6467,14 +6519,16 @@ def qwen3next_path(bw, flops_peak, n_layers):
 
 
 def qwen3next_tune_path():
-    """(b) SignRound W4A16 (``iters`` 4, 2 x 512 ids, 2 sequences a step)
-    on Qwen3-Next's published layers 2-3 (a DeltaNet layer and a full one:
-    rows 1-3 in its tuning loss; 512 experts dense-then-mask each; blocks
-    0-3 until the glm phase came, ~90 s), then served: ``generate_scan``
-    equal to ``generate``.  Returns the tuning's launches."""
+    """(b) SignRound W4A16 (``iters`` 2, 2 x 512 ids, 2 sequences a step)
+    on Qwen3-Next's published layers 2-3 (a DeltaNet layer, whose tuning
+    loss runs the chunked delta rule's backward, and the first
+    full-attention layer, rows 1-3 in its loss; 512 experts
+    dense-then-mask; blocks 0-3 until the glm phase came, ~90 s), then
+    served: ``generate_scan`` equal to ``generate``.  Returns the tuning's
+    launches."""
     cfg, _ = _qwen3next(2, first=2)
     launches = _moe_tune_path(cfg, "qwen3-next tune x 2", 115, "W4A16", 2,
-                              2, iters=4, nsamples=2)
+                              2, iters=2, nsamples=2)
     check(all(launches[n] > 0 for n in ("flash_attention",
                                         "flash_attention_bwd_dq",
                                         "flash_attention_bwd_dkv")),
@@ -6624,11 +6678,11 @@ def glm45_path(bw, flops_peak, n_layers):
 
 
 def glm45_tune_path():
-    """(b) SignRound W4A16 (iters 4, 2 x 512 ids, 2 sequences a step) on
+    """(b) SignRound W4A16 (iters 2, 2 x 512 ids, 2 sequences a step) on
     glm-4.5-air's blocks 0-1 (the dense block and a 128-expert block: rows
     1-3 at G = 12 in the tuning loss), then served."""
     launches = _moe_tune_path(_glm45(2), "glm-4.5-air tune x 2", 124,
-                              "W4A16", 2, 2, iters=4, nsamples=2)
+                              "W4A16", 2, 2, iters=2, nsamples=2)
     check(all(launches[n] > 0 for n in ("flash_attention",
                                         "flash_attention_bwd_dq",
                                         "flash_attention_bwd_dkv")),
@@ -7358,6 +7412,617 @@ def minimax_phase(bw, flops_peak, n_layers):
     return out
 
 
+# ------------------------------------------------ ERNIE-4.5, LongCat, Step-3.5
+#
+# Three families the port quantizes and exports but does not serve (the JAX
+# engine serves none of them), at full width with random weights from a
+# seed: ERNIE-4.5-21B-A3B (20 query heads over 4 KV heads of 128: rows 1-3
+# at G = 5 in its tuning loss), LongCat-Flash (one 40 GB layer, through
+# host offload) and Step-3.5-Flash (full and sliding layers at their own
+# head counts).
+
+EL_BATCH, EL_SEQ = 8, 512
+# LongCat-Flash-Chat's published widths (meituan-longcat/LongCat-Flash-Chat
+# config.json): hidden 6144, 64 heads, q / kv LoRA ranks 1536 / 512, qk
+# 128 + 64, v 128, dense FFN 12288, 512 experts of 2048 plus 256 zero
+# experts, top 12, routed_scaling_factor 6.0, vocab 131072, 28 layers.  No
+# published config.json is in the repository: these are its fields,
+# written here.
+LONGCAT_FLASH = dict(
+    vocab_size=131072, hidden_size=6144, intermediate_size=12288,
+    num_layers=28, num_heads=64, num_kv_heads=64, rope_theta=10000000.0,
+    rms_eps=1e-5, q_lora_rank=1536, kv_lora_rank=512, qk_nope_head_dim=128,
+    qk_rope_head_dim=64, v_head_dim=128, n_routed_experts=512,
+    zero_expert_num=256, num_experts_per_tok=12, moe_intermediate_size=2048,
+    n_shared_experts=0, first_k_dense=0, routed_scaling_factor=6.0,
+    scoring_func="softmax", norm_topk_prob=False, rope_interleave=True)
+# block 0 of LongCat-Flash on the W4A16 g128 RTN weights against the FP
+# block, the FP run's experts pinned: the distance of the two updates over
+# the FP update's norm (Frobenius).  A block that computed another function
+# of the same size gives ~1.4; this one reads 0.686-0.689 on an H100
+LC_UPDATE_TOL = 0.8
+# the same distance with every linear of the block RTN'd at W8 g128
+# instead: int8's step is ~18x finer than int4's, so where the W4 distance
+# is rounding the W8 one is about that much smaller (0.0583 on an H100,
+# 11.8x: the W4 error is past the linear range of the attention's softmax)
+LC_W8_TOL = 0.08
+# the layers of the offloaded LongCat result held bit-equal to an
+# on-device RTN of the same weights
+LC_HELD = ("blocks.0.q_a_proj_0", "blocks.0.q_b_proj_1",
+           "blocks.0.kv_b_proj_0", "blocks.0.o_proj_1",
+           "blocks.0.down_proj_0", "blocks.0.experts.0.gate_proj",
+           "blocks.0.experts.511.down_proj", "lm_head")
+# routed experts of the LongCat copy that is exported (its size on disk;
+# the widths and the 256 zero experts kept)
+LC_EXPORT_EXPERTS = 8
+# Step-3.5-Flash in the ``step3p5`` config layout, after the published
+# stepfun-ai/Step-3.5-Flash config.json but not checked against it (no
+# copy of the file is in the repository; PERF.md §7 lists every field as
+# unverified): hidden 4096, 45 layers and one MTP layer,
+# full attention every 4th layer at 64 query heads over 8 groups, the
+# sliding layers (window 512) at 96 over 8, rope theta 5e6 full / 1e4
+# sliding, MoE from layer 3 on: 288 experts of 1280, top 8, a shared
+# expert of 1280, the sigmoid router with its bias, scaling 3.0; the
+# clamps set on the last layers.
+STEP35_HF = dict(
+    model_type="step3p5", vocab_size=128896, hidden_size=4096,
+    intermediate_size=11264, num_hidden_layers=45, num_attention_heads=64,
+    num_attention_groups=8, head_dim=128, rope_theta=[5000000.0, 10000.0],
+    rms_norm_eps=1e-5, tie_word_embeddings=False, sliding_window=512,
+    layer_types=["full_attention" if i % 4 == 0 else "sliding_attention"
+                 for i in range(46)],
+    attention_other_setting={"num_attention_heads": 96,
+                             "num_attention_groups": 8},
+    moe_layers_enum=",".join(str(i) for i in range(3, 45)),
+    moe_num_experts=288, moe_top_k=8, moe_intermediate_size=1280,
+    share_expert_dim=1280, moe_router_scaling_factor=3.0,
+    norm_expert_weight=True, use_moe_router_bias=True,
+    swiglu_limits=[0.0] * 43 + [7.0, 7.0],
+    swiglu_limits_shared=[0.0] * 43 + [16.0, 16.0],
+    num_nextn_predict_layers=1, torch_dtype="bfloat16")
+
+
+def _step35(n_layers):
+    """The published Step-3.5 config (``STEP35_HF``) through the port's HF
+    config reader, cut to its first ``n_layers`` (``layer_types`` and the
+    MoE layers cut with it)."""
+    from autoround_tpu_torch.utils.hf_loader import config_from_hf
+
+    cfg = config_from_hf(STEP35_HF)
+    check(cfg.num_layers == 45 and cfg.heads_for(0) == (64, 8)
+          and cfg.heads_for(1) == (96, 8) and cfg.moe_layers[0] == 3
+          and (cfg.rope_theta, cfg.rope_local_theta) == (5e6, 1e4)
+          and (cfg.swiglu_limit, cfg.swiglu_limit_shared) == (7.0, 16.0)
+          and len(cfg.layer_types) == 45,
+          f"step3p5 config read wrongly: {cfg}")
+    return dataclasses.replace(
+        cfg, num_layers=n_layers, layer_types=cfg.layer_types[:n_layers],
+        moe_layers=tuple(i for i in cfg.moe_layers if i < n_layers))
+
+
+# the router of each family of the phase: its module's ``_route`` (which
+# returns (top-k ids, weights) per token) and the selection-bias leaf that
+# ``_route`` adds to the scores before its top-k
+_ROUTERS = {"Ernie45Config": ("ernie45", "e_score_correction_bias"),
+            "LongcatConfig": ("longcat", "e_score_correction_bias"),
+            "Step35Config": ("step35", "router_bias")}
+
+
+@contextlib.contextmanager
+def _recorded_routes(cfg, into):
+    """Inside the block, each call of the family's ``_route`` appends its
+    top-k ids to ``into``."""
+    import importlib
+
+    mod = importlib.import_module("autoround_tpu_torch.models."
+                                  + _ROUTERS[type(cfg).__name__][0])
+    orig = mod._route
+
+    def spy(*a, **k):
+        out = orig(*a, **k)
+        into.append(out[0])
+        return out
+    mod._route = spy
+    try:
+        yield
+    finally:
+        mod._route = orig
+
+
+def _pinned(blk, cfg, topi):
+    """``blk`` with its selection bias made per token: 1e4 on the experts
+    ``topi`` (B, S, k) chose, so the router selects them whatever its
+    scores, while its weights stay this run's scores at those experts."""
+    leaf = _ROUTERS[type(cfg).__name__][1]
+    bias = blk[leaf].float()
+    pin = torch.zeros(topi.shape[:-1] + bias.shape, device=bias.device)
+    pin.scatter_(-1, topi, 1e4)
+    return dict(blk, **{leaf: bias + pin})
+
+
+def _flipped(a, b):
+    """(B, S) bool: the tokens whose top-k sets differ."""
+    return (a.sort(-1).values != b.sort(-1).values).any(-1)
+
+
+def _held_blocks(params, cfg, prompts, label, n_blocks, tol):
+    """The first ``n_blocks`` blocks on the qdq weights (brought up from
+    the host one at a time where they live there), teacher forced: each
+    block through the kernels as the quantizer runs it against
+    ``block_fwd`` on the plain versions, on the same input, within ``tol``
+    (row error); the counts kept.  A MoE block's router may take another
+    expert for a token whose k-th and (k+1)-th choices are a last-bit
+    near-tie, which moves that token's row as a whole: its kernel run is
+    held with the plain run's selections pinned (``_pinned``), and the
+    tokens whose free selection flipped are counted and printed.  Returns
+    the row errors."""
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.models.registry import get_model_fns
+    from autoround_tpu_torch.utils.pytree import tree_map
+
+    fns = get_model_fns(cfg)
+    fwd_for = getattr(fns, "block_fwd_for", lambda c, i: fns.block_fwd)
+    seq = prompts.cuda()
+    S = seq.shape[1]
+    errs, notes = [], []
+    with counts_kept(), torch.no_grad():
+        x = fns.embed_fwd({"embed_tokens": params["embed_tokens"].cuda()},
+                          seq, cfg)
+        # the orchestrator's tables and mask
+        if fns.rope_tables is llama.rope_tables:
+            glob, loc = llama.dual_rope_tables(cfg, S, device="cuda")
+        else:
+            glob = loc = fns.rope_tables(cfg, S, device="cuda")
+        smask = (llama.sliding_mask(cfg, S, "cuda")
+                 if cfg.sliding_window is not None
+                 and S > cfg.sliding_window else None)
+        for i in range(n_blocks):
+            blk = tree_map(lambda t: t.cuda(), params["blocks"][i])
+            sl = llama.layer_is_sliding(cfg, i)
+            cos, sin = loc if sl else glob
+            m = smask if sl else None
+            fwd = fwd_for(cfg, i)
+            moe = "experts" in blk
+            ref_routes, routes = [], []
+            with plain_versions(), (_recorded_routes(cfg, ref_routes) if moe
+                                    else contextlib.nullcontext()):
+                ref = fwd(blk, x, cos, sin, cfg, mask=m)
+            with (_recorded_routes(cfg, routes) if moe
+                  else contextlib.nullcontext()):
+                y = fwd(blk, x, cos, sin, cfg, mask=m)
+            check(bool(torch.isfinite(y).all()) and y.shape == x.shape,
+                  f"{label}: block {i} output not finite or misshapen")
+            note = f"{row_err(y, ref)[1]:.4g}"
+            if moe:
+                flips = _flipped(routes[0], ref_routes[0])
+                y = fwd(_pinned(blk, cfg, ref_routes[0]), x, cos, sin, cfg,
+                        mask=m)
+                note += (f" free, {int(flips.sum())} of {flips.numel()} "
+                         f"tokens' experts flipped, pinned")
+            errs.append(row_err(y, ref)[1])
+            notes.append(f"{note} {errs[-1]:.4g}" if moe else note)
+            x = ref
+            del blk, y, ref
+        torch.cuda.synchronize()
+    log(f"{label}: blocks 0-{n_blocks - 1} on the qdq weights teacher "
+        f"forced, kernels against block_fwd on the plain versions row_err "
+        f"{' / '.join(notes)} (tol {tol})")
+    check(all(r <= tol for r in errs),
+          f"{label}: a block through the kernels disagrees with block_fwd "
+          f"on the plain versions")
+    return errs
+
+
+def _el_params(cfg, seed, park=None):
+    """Random weights of ``cfg``'s family made on the card from ``seed``
+    (each block given to ``park`` as it is made, where given), moved by
+    ``perturb_moe``; a softmax router's ``e_score_correction_bias`` (ERNIE,
+    LongCat) then scaled to N(0, 0.5 / E), the size of its probabilities,
+    so that both the scores and the bias steer the selection."""
+    from autoround_tpu_torch.models.registry import get_model_fns
+
+    def moved(b):
+        perturb_moe({"norm": torch.zeros(1, device="cuda"), "blocks": [b]},
+                    seed + len(made))
+        if "e_score_correction_bias" in b:
+            bias = b["e_score_correction_bias"]
+            bias.mul_(1.0 / bias.numel())
+        made.append(None)
+        return b if park is None else park(b)
+
+    made = []
+    params = get_model_fns(cfg).init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda",
+        park=moved)
+    params["norm"].add_(torch.randn(
+        params["norm"].shape, device="cuda", dtype=params["norm"].dtype,
+        generator=torch.Generator(device="cuda").manual_seed(seed)),
+        alpha=0.1)
+    return params
+
+
+def _export_readback(result, cfg, label, names):
+    """An ``autoround`` export of ``result`` into a temporary directory,
+    read back: ``model_config`` through ``config_from_jax`` to ``cfg``'s
+    class and fields, and each of ``names``' packed words, zeros and fp16
+    scales unpacked equal to the codes of its qdq weight and its scales.
+    Returns the seconds of the export."""
+    from autoround_tpu_torch.export import save_quantized
+    from autoround_tpu_torch.export.packing import (codes_from_qdq_torch,
+                                                    unpack_quantized_torch)
+    from autoround_tpu_torch.utils.convert import config_from_jax
+    from autoround_tpu_torch.utils.safetensors_io import SafeOpen
+
+    root = Path(tempfile.mkdtemp(prefix="export_"))
+    try:
+        t0 = time.time()
+        save_quantized(result, cfg, str(root), "autoround")
+        t_save = time.time() - t0
+        size = sum(p.stat().st_size for p in root.iterdir()) / 1e9
+        qcfg = json.loads((root / "quantization_config.json").read_text())
+        back = config_from_jax(qcfg["model_config"])
+        check(type(back) is type(cfg)
+              and back == dataclasses.replace(cfg, dtype=back.dtype),
+              f"{label}: the export's model_config reads back as {back}")
+        with SafeOpen(str(root / "model.safetensors"), device="cuda") as f:
+            for name in names:
+                ql = result.layers[name]
+                O, I = ql.qdq.shape
+                payload = {s: f.get_tensor(f"{name}.{s}")
+                           for s in ("qweight", "qzeros", "scales")}
+                codes, scales, zp = unpack_quantized_torch(payload, 4, O, I)
+                want = codes_from_qdq_torch(ql.qdq.cuda(), ql.scale.cuda(),
+                                            None, 4, ql.scheme.group_size)
+                check(torch.equal(codes, want)
+                      and torch.equal(scales,
+                                      ql.scale.cuda().half().float())
+                      and bool((zp == 8).all()),
+                      f"{label}: {name} read back from the export differs")
+        log(f"{label} export: autoround, {len(result.layers)} layers, "
+            f"{size:.2f} GB in {t_save:.1f} s; model_config read back as a "
+            f"{type(back).__name__} equal to the run's; {len(names)} "
+            f"layers' words, zeros and scales equal to the result's")
+        return t_save
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ernie_path(n_layers):
+    """(a) ERNIE-4.5-21B-A3B at full width, ``n_layers`` of 28 (layer 0
+    dense, the others MoE at E = 64): random weights made on the card,
+    gains moved, the router biases drawn → RTN W4A16 g128 with the tied
+    lm_head (``embed_tokens``) → blocks 0-1 teacher forced on the qdq
+    weights (kernels against the plain versions: row 1 at G = 5) → an
+    ``autoround`` export read back.  (b) SignRound (iters 4, 2 x 512, 2 a
+    step) on layers 0-1: rows 1-3 at G = 5 in the loss.  Returns the
+    launches of the RTN and of the tuning."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.models import ernie45
+    from autoround_tpu_torch.utils.logger import logger as ar_logger
+
+    t_path = time.time()
+    cfg = dataclasses.replace(ernie45.CONFIG_PRESETS["ernie4.5-21b-a3b"],
+                              num_layers=n_layers)
+    label = f"ernie4.5-21b-a3b x {n_layers}"
+    kernels = _kernel_fns()
+    gen = torch.Generator().manual_seed(151)
+    calib = torch.randint(0, cfg.vocab_size, (EL_BATCH, EL_SEQ),
+                          generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, EL_SEQ), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    params = _el_params(cfg, 152)
+    gb = sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=0,
+                   quant_lm_head=True, donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    rtn = {n: fn.launches for n, fn in kernels.items()}
+    check(rtn["flash_attention"] == n_layers,
+          f"{label}: the RTN chain launched row 1 {rtn['flash_attention']} "
+          f"times, one a block implied (its FP pass over 8 x 512)")
+    n_moe = sum(ernie45.layer_is_moe(cfg, i) for i in range(n_layers))
+    want = 4 * n_layers + 3 * (n_layers - n_moe) + 3 * 65 * n_moe + 1
+    check(len(result.layers) == want
+          and result.params["embed_tokens"] is result.layers["lm_head"].qdq,
+          f"{label}: {len(result.layers)} layers ({want} implied) or the "
+          f"tied head not quantized in embed_tokens")
+    log(f"{label} quantize: {gb:.2f} GB of bf16 made and RTN'd in "
+        f"{t_quant:.1f} s ({len(result.layers)} layers, {n_moe} MoE blocks "
+        f"of 64 experts), device peak {quant_gb:.2f} GB; RTN kernels "
+        f"{json.dumps(rtn)}")
+    _held_blocks(result.params, cfg, prompts, label, 2, COPY_ROW_TOL)
+    _export_readback(result, cfg, label, [
+        "blocks.0.q_proj", "blocks.0.down_proj", "blocks.1.experts.63.up_proj",
+        "blocks.1.shared_experts.down_proj", "lm_head"])
+    del ar, result
+    free_device_memory()
+
+    t1 = time.time()
+    tcfg = dataclasses.replace(cfg, num_layers=2)
+    for fn in kernels.values():
+        fn.launches = 0
+    h = _BlockLosses()
+    level = ar_logger.level
+    ar_logger.addHandler(h)
+    ar_logger.setLevel(logging.INFO)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        params = _el_params(tcfg, 153)
+        res = AutoRound((params, tcfg), scheme="W4A16", iters=4,
+                        batch_size=2, donate_params=True).quantize(calib[:2])
+        del params
+    finally:
+        ar_logger.removeHandler(h)
+        ar_logger.setLevel(level)
+    tune = {n: fn.launches for n, fn in kernels.items()}
+    check(sorted(h.blocks) == [0, 1]
+          and all(best <= first for first, best, _ in h.blocks.values())
+          and all(bool(torch.isfinite(torch.as_tensor(t)).all())
+                  for t in res.loss_traces.values()),
+          f"ernie tune: losses {h.blocks}")
+    check(all(tune[n] > 0 for n in ("flash_attention",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")),
+          f"ernie tune: rows 1-3 must launch at G = 5 ({tune})")
+    log(f"ernie tune x 2 (dense, MoE E=64; G = 5): "
+        + "; ".join(f"block {bi} loss first {f:.6g} best {b:.6g} "
+                    f"tune_step_ms={s / 4 * 1e3:.1f}"
+                    for bi, (f, b, s) in sorted(h.blocks.items()))
+        + f"; kernels {json.dumps(tune)} tune_peak_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} tune_s="
+        f"{time.time() - t1:.1f}")
+    del res
+    log(f"{label} path: path_s={time.time() - t_path:.1f}")
+    return rtn, tune
+
+
+def _longcat(n_layers, experts=None):
+    from autoround_tpu_torch.models.longcat import LongcatConfig
+
+    cfg = LongcatConfig(**dict(LONGCAT_FLASH, num_layers=n_layers))
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, n_routed_experts=experts)
+    return cfg
+
+
+def longcat_path(n_layers):
+    """(c) LongCat-Flash at its published widths, ``n_layers`` of 28 (one
+    block is 40 GB of bf16): the blocks made on the card and parked on the
+    host, the output of block 0 on the FP weights kept → RTN W4A16 g128
+    with the lm_head through ``offload_params`` and ``donate_params``
+    (device peak, process RSS) → block 0 on the qdq weights teacher forced
+    against the FP block's output with the FP run's experts pinned (MLA
+    keeps the plain attention, so no kernel runs), and the same block on
+    W8 g128 weights (each linear qdq'd in place on the card) against it
+    too, which shows how much of the W4 distance is rounding → LC_HELD layers
+    bit-equal to an on-device RTN of their FP weights (kept on the card as
+    the block was made) → a copy with
+    LC_EXPORT_EXPERTS of the 512 routed experts (widths and zero experts
+    kept) RTN'd on the card, exported and read back.  Returns no
+    launches (none is expected)."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.algorithms.rtn import rtn_quantize_layer
+    from autoround_tpu_torch.models import longcat
+    from autoround_tpu_torch.models.deepseek import rope_tables
+    from autoround_tpu_torch.models.llama import embed_fwd
+    from autoround_tpu_torch.schemes import parse_scheme
+    from autoround_tpu_torch.utils.offload import tree_to_host
+    from autoround_tpu_torch.utils.pytree import get_by_path, tree_map
+
+    t_path = time.time()
+    cfg = _longcat(n_layers)
+    label = f"longcat-flash x {n_layers}"
+    kernels = _kernel_fns()
+    gen = torch.Generator().manual_seed(161)
+    calib = torch.randint(0, cfg.vocab_size, (EL_BATCH, EL_SEQ),
+                          generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, EL_SEQ), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    # the held layers' FP weights, kept on the card as the blocks are made
+    held = {}
+
+    def park(b):
+        for name in LC_HELD:
+            if name.startswith("blocks.0."):
+                held[name] = get_by_path(b, name[len("blocks.0."):]).clone()
+        return tree_to_host(b)
+    params = _el_params(cfg, 162, park=park)
+    held["lm_head"] = params["lm_head"].clone()
+    torch.cuda.synchronize()
+    t_make = time.time() - t0
+    block_gb = sum(t.numel() * t.element_size()
+                   for b in params["blocks"] for t in _tensors(b)) / 1e9
+    with torch.no_grad():
+        x0 = embed_fwd(params, prompts.cuda(), cfg)
+        cos, sin = rope_tables(cfg, EL_SEQ, device="cuda")
+        blk = tree_map(lambda t: t.cuda(), params["blocks"][0])
+        fp_routes = []
+        with _recorded_routes(cfg, fp_routes):
+            y_fp = longcat.block_fwd(blk, x0, cos, sin, cfg)
+        # the rounding's share: each linear of the card's copy qdq'd in
+        # place at W8 g128, the FP run's experts pinned
+        w8 = parse_scheme("W8A16")
+        for name in longcat.block_linear_names(cfg):
+            w = get_by_path(blk, name)
+            w.copy_(rtn_quantize_layer(w, w8).qdq)
+        y_w8 = longcat.block_fwd(_pinned(blk, cfg, fp_routes[0]), x0, cos,
+                                 sin, cfg)
+        del blk
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=0,
+                   quant_lm_head=True, offload_params=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    rss, hwm = _rss_gb()
+    launches = {n: fn.launches for n, fn in kernels.items()}
+    check(all(b is None for b in ar.params["blocks"])
+          and result.layers["blocks.0.experts.511.up_proj"].qdq.device.type
+          == "cpu" and not any(launches.values()),
+          f"{label}: a donated block held, the result not on the host, or "
+          f"a kernel launched ({launches})")
+    del ar
+    log(f"{label} quantize: {n_layers} block(s) of {block_gb / n_layers:.2f}"
+        f" GB bf16 made and parked in {t_make:.1f} s, RTN through offload "
+        f"in {t_quant:.1f} s ({len(result.layers)} layers), device peak "
+        f"{quant_gb:.2f} GB, process resident {rss:.1f} GB (lifetime peak "
+        f"{hwm:.1f} GB)")
+    with torch.no_grad():
+        blk = tree_map(lambda t: t.cuda(), result.params["blocks"][0])
+        q_routes = []
+        with _recorded_routes(cfg, q_routes):
+            y_free = longcat.block_fwd(blk, x0, cos, sin, cfg)
+        y_q = longcat.block_fwd(_pinned(blk, cfg, fp_routes[0]), x0, cos,
+                                sin, cfg)
+        del blk
+        d_fp = (y_fp - x0).float()
+        rel = ((y_q - y_fp).float().norm() / d_fp.norm()).item()
+        rel_w8 = ((y_w8 - y_fp).float().norm() / d_fp.norm()).item()
+        rel_free = ((y_free - y_fp).float().norm() / d_fp.norm()).item()
+        flips = _flipped(q_routes[0], fp_routes[0])
+    check(bool(torch.isfinite(y_q).all()) and y_q.shape == x0.shape
+          and rel <= LC_UPDATE_TOL and rel_w8 <= LC_W8_TOL,
+          f"{label}: block 0 on the qdq weights not finite, or its update "
+          f"{rel} (W8 g128: {rel_w8}) of the FP block's from it")
+    log(f"{label}: block 0 teacher forced on the qdq weights against the FP "
+        f"block, the FP run's experts pinned: its update moves by {rel:.4g} "
+        f"of its norm (tol {LC_UPDATE_TOL}), on W8 g128 weights by "
+        f"{rel_w8:.4g} (tol {LC_W8_TOL}; W4 / W8 {rel / rel_w8:.3g}); free "
+        f"routing {rel_free:.4g}, {int(flips.sum())} of {flips.numel()} "
+        f"tokens' top-12 flipped")
+    # the held layers RTN'd on the card from their FP weights: the
+    # offloaded result's must be bit-equal
+    for name, w in held.items():
+        ql = result.layers[name]
+        r = rtn_quantize_layer(w, ql.scheme)
+        check(torch.equal(ql.qdq.cuda(), r.qdq.to(ql.qdq.dtype))
+              and torch.equal(ql.scale.cuda(), r.scale),
+              f"{label}: {name} differs from an on-device RTN")
+    del result, x0, y_fp, y_q, y_w8, y_free, d_fp, held
+    log(f"{label}: {len(LC_HELD)} layers of the offloaded result (qdq, so "
+        f"the codes, and scales) bit-equal to an on-device RTN of the same "
+        f"weights: {', '.join(LC_HELD)}")
+    gc.collect()
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    free_device_memory()
+
+    ecfg = _longcat(1, LC_EXPORT_EXPERTS)
+    t0 = time.time()
+    params = _el_params(ecfg, 163)
+    res = AutoRound((params, ecfg), scheme="W4A16", iters=0,
+                    quant_lm_head=True, donate_params=True).quantize(calib)
+    del params
+    t_rtn = time.time() - t0
+    _export_readback(res, ecfg, f"longcat-flash x 1 ({LC_EXPORT_EXPERTS} "
+                     f"experts)", ["blocks.0.q_b_proj_0",
+                                   "blocks.0.kv_b_proj_1",
+                                   "blocks.0.experts.7.down_proj", "lm_head"])
+    del res
+    free_device_memory()
+    log(f"{label} path: copy RTN s={t_rtn:.1f} path_s="
+        f"{time.time() - t_path:.1f}")
+    return launches
+
+
+def step35_path(n_layers):
+    """(d) Step-3.5-Flash at its published widths (``STEP35_HF`` through
+    ``config_from_hf``), its first ``n_layers`` of 45 (full layer 0 at 64
+    heads over 8, sliding layers 1-3 at 96 over 8 with a 512 window, MoE
+    layer 3 with 288 experts): random weights, gains moved, router biases
+    drawn → RTN W4A16 g128 with the lm_head (the 512-token calibration
+    sits at the window: no mask, so row 1 runs at both head counts) →
+    blocks 0-3 teacher forced on the qdq weights, kernels against the
+    plain versions → an ``autoround`` export read back.  Returns the
+    launches of the RTN."""
+    from autoround_tpu_torch import AutoRound
+
+    t_path = time.time()
+    cfg = _step35(n_layers)
+    label = f"step-3.5-flash x {n_layers}"
+    kernels = _kernel_fns()
+    gen = torch.Generator().manual_seed(171)
+    calib = torch.randint(0, cfg.vocab_size, (EL_BATCH, EL_SEQ),
+                          generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, EL_SEQ), generator=gen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.time()
+    params = _el_params(cfg, 172)
+    gb = sum(t.numel() * t.element_size() for t in _tensors(params)) / 1e9
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=0,
+                   quant_lm_head=True, donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    quant_gb = torch.cuda.max_memory_allocated() / 1e9
+    rtn = {n: fn.launches for n, fn in kernels.items()}
+    check(rtn["flash_attention"] == n_layers,
+          f"{label}: the RTN chain launched row 1 {rtn['flash_attention']} "
+          f"times, one a block implied (full and sliding layers alike)")
+    n_moe = len(cfg.moe_layers)
+    want = (4 * n_layers + 3 * (n_layers - n_moe)
+            + 3 * (cfg.moe_num_experts + 1) * n_moe + 1)
+    check(len(result.layers) == want
+          and not any("g_proj" in n for n in result.layers),
+          f"{label}: {len(result.layers)} layers ({want} implied)")
+    log(f"{label} quantize: {gb:.2f} GB of bf16 made and RTN'd in "
+        f"{t_quant:.1f} s ({len(result.layers)} layers; heads "
+        f"{[cfg.heads_for(i) for i in range(n_layers)]}, MoE layers "
+        f"{cfg.moe_layers} of {cfg.moe_num_experts} experts), device peak "
+        f"{quant_gb:.2f} GB; RTN kernels {json.dumps(rtn)}")
+    _held_blocks(result.params, cfg, prompts, label, n_layers,
+                 COPY_ROW_TOL)
+    last = n_layers - 1
+    _export_readback(result, cfg, label, [
+        "blocks.0.q_proj", "blocks.1.q_proj", "blocks.0.down_proj",
+        f"blocks.{last}.experts.287.gate_proj",
+        f"blocks.{last}.shared_expert.down_proj", "lm_head"])
+    del ar, result
+    free_device_memory()
+    log(f"{label} path: path_s={time.time() - t_path:.1f}")
+    return rtn
+
+
+def ernie_longcat_step35_phase(ernie_layers, longcat_layers, step35_layers):
+    """ERNIE-4.5, LongCat-Flash and Step-3.5: paths (a)-(b)
+    ``ernie_path``, (c) ``longcat_path``, (d) ``step35_path``; returns
+    their launches."""
+    t0 = time.time()
+    out = {}
+    out["ernie"], out["ernie_tune"] = ernie_path(ernie_layers)
+    free_device_memory()
+    t1 = time.time()
+    out["longcat"] = longcat_path(longcat_layers)
+    free_device_memory()
+    t_lc = time.time() - t1
+    t1 = time.time()
+    out["step35"] = step35_path(step35_layers)
+    free_device_memory()
+    log(f"ernie / longcat / step35 phase: longcat_s={t_lc:.1f} step35_s="
+        f"{time.time() - t1:.1f} device peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (the last path's)"
+        f" phase_s={time.time() - t0:.1f}")
+    return out
+
+
 def _tensors(tree):
     out = []
     from autoround_tpu_torch.utils.pytree import tree_map
@@ -7501,8 +8166,12 @@ def main() -> int:
     # H100, those of the load, deepseek-v2-lite, gpt-oss-20b,
     # llama4-scout and qwen3.5 load paths when the qwen3-next phase (267
     # s) came, and those of the sage (32 -> 8) and qwen3-next (8 -> 4)
-    # paths when the glm phase (113 s) came (the rtn path keeps the main
-    # path's full depth)
+    # paths when the glm phase (113 s) came, and those of the offload (32
+    # -> 8; MiniMax and LongCat hold offload at 45 and 40 GB) and
+    # gpt-oss-20b (8 -> 4) paths when the ernie / longcat / step35 phase
+    # came, and those of the gpt-oss-120b and glm-4.5-air paths (4 -> 2)
+    # when the qwen3-next tune took its DeltaNet layer back (the rtn path
+    # keeps the main path's full depth)
     ap.add_argument("--tune-layers", type=int, default=8,
                     help="depth of the SignRound -> serve path (default 8)")
     ap.add_argument("--moe-layers", type=int, default=8,
@@ -7561,9 +8230,10 @@ def main() -> int:
     ap.add_argument("--nblocks-layers", type=int, default=4,
                     help="depth of the nblocks=2 path (default 4: two "
                          "groups)")
-    ap.add_argument("--offload-layers", type=int, default=32,
+    ap.add_argument("--offload-layers", type=int, default=8,
                     help="depth of the Mixtral-8x7b offload path (default "
-                         "32, cut to what the host holds, at least 28)")
+                         "8; a larger depth is cut to what the host holds, "
+                         "at least 28)")
     ap.add_argument("--load-layers", type=int, default=2,
                     help="depth of the llama3-8b HF checkpoint of the load "
                          "phase (default 2)")
@@ -7574,12 +8244,12 @@ def main() -> int:
                     help="depth of the deepseek-v3 RTN -> serve path "
                          "(default 4 of 61: the 3 dense blocks and the "
                          "first MoE block)")
-    ap.add_argument("--gptoss-layers", type=int, default=8,
+    ap.add_argument("--gptoss-layers", type=int, default=4,
                     help="depth of the gpt-oss-20b RTN -> serve path "
-                         "(default 8 of 24)")
-    ap.add_argument("--gptoss120-layers", type=int, default=4,
+                         "(default 4 of 24)")
+    ap.add_argument("--gptoss120-layers", type=int, default=2,
                     help="depth of the gpt-oss-120b RTN -> serve path "
-                         "(default 4 of 36)")
+                         "(default 2 of 36: a sliding and a full layer)")
     ap.add_argument("--llama4-layers", type=int, default=4,
                     help="depth of the llama4-scout RTN -> serve path "
                          "(default 4 of 48: NoPE layer 3; at least 4, "
@@ -7588,10 +8258,10 @@ def main() -> int:
                     help="depth of the qwen3-next RTN -> serve path "
                          "(default 4 of 48: layer 3 full attention; at "
                          "least 4, the copy holds layers 2-3)")
-    ap.add_argument("--glm45-layers", type=int, default=4,
+    ap.add_argument("--glm45-layers", type=int, default=2,
                     help="depth of the glm-4.5-air RTN -> serve path "
-                         "(default 4 of 46: the dense layer 0 and three "
-                         "128-expert layers; at least 2)")
+                         "(default 2 of 46: the dense layer 0 and a "
+                         "128-expert layer; at least 2)")
     ap.add_argument("--glm5-layers", type=int, default=4,
                     help="depth of the GLM-5 DSA RTN -> serve path at the "
                          "deepseek-v3 widths (default 4 of 61: the 3 dense "
@@ -7601,6 +8271,17 @@ def main() -> int:
                          "-> serve path (default 4 of 80: the published "
                          "layers 4-7, three lightning and the first full "
                          "one; at least 4, the copy holds layers 2-3)")
+    ap.add_argument("--ernie-layers", type=int, default=4,
+                    help="depth of the ernie4.5-21b-a3b RTN -> export path "
+                         "(default 4 of 28: the dense layer 0 and three "
+                         "64-expert layers; at least 2)")
+    ap.add_argument("--longcat-layers", type=int, default=1,
+                    help="depth of the longcat-flash RTN (host offload) "
+                         "path (default 1 of 28: 40 GB of bf16 a layer)")
+    ap.add_argument("--step35-layers", type=int, default=4,
+                    help="depth of the step-3.5-flash RTN -> export path "
+                         "(default 4 of 45: full layer 0, sliding layers "
+                         "1-3, the MoE layer 3; at least 4)")
     ap.add_argument("--qwen35-load-layers", type=int, default=2,
                     help="depth of the qwen3_5_moe HF directory of the "
                          "load path (default 2: the published layers 2-3, "
@@ -7736,6 +8417,10 @@ def main() -> int:
     mark("glm")
     oss.update(minimax_phase(bw, fl, args.minimax_layers))
     mark("minimax")
+    oss.update(ernie_longcat_step35_phase(args.ernie_layers,
+                                          args.longcat_layers,
+                                          args.step35_layers))
+    mark("ernie / longcat / step35")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths

@@ -132,26 +132,22 @@ def test_config_from_hf_equals_jax(name):
 
 
 # ported since these cases were written (Qwen3-Next / 3.5, GLM-4.5, GLM-5
-# DSA, MiniMax): their cases now hold what the loader does with the same
-# base config
+# DSA, MiniMax, Step-3.5's config): their cases now hold what the loader
+# does with the same base config
 _NOW_PORTED = ("qwen3_next", "qwen3_5_moe", "qwen3_5", "glm4_moe",
-               "glm_moe_dsa", "minimax")
+               "glm_moe_dsa", "minimax", "step3p5")
 
 
-@pytest.mark.parametrize("model_type", th._UNPORTED_TYPES + _NOW_PORTED)
+@pytest.mark.parametrize("model_type", _NOW_PORTED)
 def test_unported_model_types_raise(model_type):
-    if model_type not in _NOW_PORTED:
-        with pytest.raises(NotImplementedError, match="A11"):
-            th.config_from_hf(dict(_BASE, model_type=model_type))
-        return
-    if model_type in ("glm4_moe", "glm_moe_dsa"):
+    if model_type in ("glm4_moe", "glm_moe_dsa", "step3p5"):
         # the JAX loader's config, field by field
         hf = dict(_BASE, model_type=model_type)
         t = th.config_from_hf(hf, torch.float32)
         j = jh.config_from_hf(hf, jnp.float32)
-        assert type(t).__name__ == type(j).__name__ == (
-            "Glm4MoeConfig" if model_type == "glm4_moe"
-            else "GlmMoeDsaConfig")
+        assert type(t).__name__ == type(j).__name__ == {
+            "glm4_moe": "Glm4MoeConfig", "glm_moe_dsa": "GlmMoeDsaConfig",
+            "step3p5": "Step35Config"}[model_type]
         for f in dataclasses.fields(t):
             if f.name != "dtype":
                 assert getattr(t, f.name) == getattr(j, f.name), f.name
