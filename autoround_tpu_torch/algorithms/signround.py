@@ -13,18 +13,19 @@ weights, runs the caller's pure ``block_fwd(weights, inputs)`` on a batch,
 takes MSE(pred, fp_ref) x ``loss_scale`` (or the caller's ``lfq_fn``) and
 moves the state by sign-SGD or, with ``optimizer="adam"``, by Adam
 (``adam.py``).  ``enable_alg_ext`` seeds the clip scales from a per-group
-search, widens their clamp to (0, 2) and, for schemes under 4 bits (or
-with activations at 4 bits or fewer), drops the largest
-``outlier_mask_frac`` of the squared errors from the loss.  The step loop
-is a Python loop (the JAX package scans); it never reads a loss back to
-the host: the best-loss snapshot is kept on the device with
+search (but for the GGUF double-quant schemes, whose clip scales start at
+1.0 on the frozen grid the caller passes in ``extras``), widens their
+clamp to (0, 2) and, for schemes under 4 bits (or with activations at 4
+bits or fewer), drops the largest ``outlier_mask_frac`` of the squared
+errors from the loss.  ``init_scales`` (AWQ's clip search) seeds the clip
+scales of the layers it names.  ``extras`` holds per-layer statics passed
+to each layer's qdq as keywords; the registry's double-quant entries take
+the JAX package's set of them, which leaves a frozen grid out.  The step
+loop is a Python loop (the JAX package scans); it never reads a loss back
+to the host: the best-loss snapshot is kept on the device with
 ``torch.where``, ``dynamic_max_gap`` is a device flag that freezes further
 updates, and the loss trace is fetched once at the end.  The tuned tensors
 are updated in place.
-
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``extras``, ``init_scales`` and the GGUF double-quant schemes
-(``int_dq``).
 """
 
 from __future__ import annotations
@@ -87,23 +88,6 @@ class TuneConfig:
         return self.minmax_lr if self.minmax_lr is not None else self.resolved_lr()
 
 
-def _check_ported(schemes, extras=None, init_scales=None) -> None:
-    """Raise for every option of the JAX ``tune_block`` this slice leaves
-    out."""
-    unported = [
-        (any(s.data_type == "int_dq" for s in schemes.values()),
-         "GGUF double-quant schemes (int_dq; under enable_alg_ext their "
-         "frozen searched grid)", "A9"),
-        (extras is not None, "extras (per-layer statics: imatrix, frozen "
-         "double-quant grids)", "A9"),
-        (init_scales is not None, "init_scales (AWQ clip search)", "A12"),
-    ]
-    for on, what, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"tune_block: {what} is not ported yet (ROADMAP {item})")
-
-
 def _search_init_max_scale(w: torch.Tensor, scheme: QuantizationScheme
                            ) -> torch.Tensor:
     """alg_ext's searched init: the per-group ``max_scale`` with the least
@@ -126,12 +110,15 @@ def _search_init_max_scale(w: torch.Tensor, scheme: QuantizationScheme
     gg = I if (not isinstance(g, int) or g in (-1, 0)) else min(g, I)
     pad = (-I) % gg
     wf = w.float()
+    kw = ({} if scheme.super_bits is None else dict(
+        super_bits=scheme.super_bits,
+        super_group_size=scheme.super_group_size))
     errs = []
     for c in cands:                    # one candidate at a time
         ms = torch.full((O, -(-I // gg)), float(c), dtype=torch.float32,
                         device=dev)
         qdq = fn(w, bits=scheme.bits, group_size=g, max_scale=ms,
-                 clip_lo=0.0, clip_hi=2.0, recip=True).qdq
+                 clip_lo=0.0, clip_hi=2.0, recip=True, **kw).qdq
         d = (qdq.float() - wf) ** 2
         if pad:
             d = torch.nn.functional.pad(d, (0, pad))
@@ -143,11 +130,13 @@ def init_tune_params(
     weights: Dict[str, Any],
     schemes: Dict[str, QuantizationScheme],
     cfg: TuneConfig,
+    init_scales: Optional[Dict[str, torch.Tensor]] = None,
     norm_bias_leaves: Optional[Tuple[str, ...]] = None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """V = 0 (shape of W), min/max_scale = 1.0 per group, (O, groups) in the
     weight's row layout (under ``enable_alg_ext`` both start at the
-    searched scale).  fp32 tensors on the weight's device."""
+    searched scale, but for the double-quant schemes; ``init_scales``
+    names a layer's start).  fp32 tensors on the weight's device."""
     params = {}
     for name, scheme in schemes.items():
         w = get_by_path(weights, name)
@@ -160,12 +149,18 @@ def init_tune_params(
             layer["v"] = torch.zeros((O, I), dtype=torch.float32,
                                      device=w.device)
         if cfg.enable_minmax_tuning:
-            if cfg.enable_alg_ext and not isinstance(g, tuple):
+            if (cfg.enable_alg_ext and not isinstance(g, tuple)
+                    and not (scheme.super_bits is not None
+                             and scheme.data_type == "int_dq")):
                 init = _search_init_max_scale(w, scheme).reshape(
                     groups_shape).float()
             else:
                 init = torch.ones(groups_shape, dtype=torch.float32,
                                   device=w.device)
+            if init_scales and name in init_scales:
+                init = init_scales[name].to(
+                    device=w.device, dtype=torch.float32).reshape(
+                        groups_shape)
             layer["min_scale"] = init
             layer["max_scale"] = init.clone()   # tuned in place apart
         params[name] = layer
@@ -194,12 +189,13 @@ def make_qdq_weights(
     tune_params: Dict[str, Dict[str, torch.Tensor]],
     schemes: Dict[str, QuantizationScheme],
     cfg: TuneConfig,
+    extras: Optional[Dict[str, Dict[str, Any]]] = None,
 ) -> Dict[str, Any]:
     """Substitute qdq'd weights for every tuned layer; pass the rest
-    through.  Layer names may be dotted paths into nested structures.
-    This is the tuning loss's qdq, which the JAX package runs under
-    ``jit``: the float types divide by their constants as XLA compiles it
-    (``recip``)."""
+    through.  Layer names may be dotted paths into nested structures;
+    ``extras[name]`` are keywords for that layer's qdq.  This is the
+    tuning loss's qdq, which the JAX package runs under ``jit``: the types
+    divide by their constants as XLA compiles it (``recip``)."""
     out = weights
     if ("_act" in tune_params and isinstance(weights, dict)
             and "_act_scales" in weights):
@@ -218,10 +214,14 @@ def make_qdq_weights(
     for name, scheme in schemes.items():
         fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym)
         p = tune_params.get(name, {})
+        kw = dict(extras.get(name, {})) if extras else {}
+        if scheme.super_bits is not None:
+            kw.setdefault("super_bits", scheme.super_bits)
+            kw.setdefault("super_group_size", scheme.super_group_size)
         r = fn(get_by_path(weights, name), bits=scheme.bits,
                group_size=scheme.group_size, v=p.get("v"),
                min_scale=p.get("min_scale"), max_scale=p.get("max_scale"),
-               clip_lo=cfg.clip_lo, clip_hi=cfg.clip_hi, recip=True)
+               clip_lo=cfg.clip_lo, clip_hi=cfg.clip_hi, recip=True, **kw)
         out = set_by_path(out, name, r.qdq)
     return out
 
@@ -317,9 +317,9 @@ def tune_block(
     schemes: Dict[str, QuantizationScheme],
     cfg: TuneConfig,
     mask: Optional[torch.Tensor] = None,
-    extras=None,
+    extras: Optional[Dict[str, Dict[str, Any]]] = None,
     lfq_fn: Optional[Callable] = None,
-    init_scales=None,
+    init_scales: Optional[Dict[str, torch.Tensor]] = None,
     norm_bias_leaves: Optional[Tuple[str, ...]] = None,
 ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Dict[str, Any]]:
     """Tune one block's rounding params.  Returns (best_params, info).
@@ -329,12 +329,12 @@ def tune_block(
     mask: optional (nsamples, seqlen) validity mask.  lfq_fn: optional
     ``(block_output, idx) -> scalar`` that replaces the MSE loss (the last
     block's LM loss).  norm_bias_leaves: block paths of the norm gains and
-    biases ``enable_norm_bias_tuning`` tunes.  ``info`` holds
+    biases ``enable_norm_bias_tuning`` tunes.  extras: per-layer keywords
+    for the qdq; init_scales: per-layer clip-scale starts (O, groups).  ``info`` holds
     ``loss_trace`` (numpy, one loss per iteration), ``first_loss`` and
     ``best_loss``.  Gradients are taken here under ``torch.enable_grad()``
     whatever the caller's mode; the returned tensors carry no graph.
     """
-    _check_ported(schemes, extras, init_scales)
     if cfg.enable_alg_ext and cfg.clip_hi <= 1.0:
         cfg = dataclasses.replace(cfg, clip_lo=0.0, clip_hi=2.0)
     mask_outliers = cfg.enable_alg_ext and any(
@@ -351,6 +351,7 @@ def tune_block(
     accum = cfg.gradient_accumulate_steps
 
     params = init_tune_params(weights, schemes, cfg,
+                              init_scales=init_scales,
                               norm_bias_leaves=norm_bias_leaves)
     leaves = _leaves(params)
     if cfg.optimizer == "adam":
@@ -364,7 +365,7 @@ def tune_block(
     opt_state = opt_init(params)
 
     def loss_fn(idx):
-        qweights = make_qdq_weights(weights, params, schemes, cfg)
+        qweights = make_qdq_weights(weights, params, schemes, cfg, extras)
         batch_in = tree_map(lambda a: a.index_select(0, idx), inputs)
         out = fwd(qweights, batch_in)
         if lfq_fn is not None:

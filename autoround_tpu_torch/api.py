@@ -13,7 +13,8 @@ import torch
 
 from ._device import resolve_device
 from .models.registry import ALL_PRESETS, get_model_fns
-from .quantize.layer_config import (handle_special_scheme,
+from .quantize.layer_config import (apply_gguf_cascade,
+                                    handle_special_scheme,
                                     prune_missing_layers,
                                     resolve_layer_schemes)
 from .quantize.orchestrator import QuantizeConfig, QuantizeResult, quantize_model
@@ -34,9 +35,45 @@ def _to_device(tree, device):
     return tree
 
 
+def _rotate(params, cfg, enable_rotation, scheme, seed):
+    """``enable_rotation`` as the JAX package parses and applies it:
+    SpinQuant's trained R1 (``spin``) and R2 (``r2``) first, then the
+    Hadamard R1 (refused beside ``spin``: both rotate the residual
+    stream) and the online R4; unknown modes raise after that."""
+    from .transforms.hadamard import apply_r1_rotation, apply_r4_rotation
+    modes = (("r1",) if enable_rotation is True
+             else tuple(m.strip() for m in
+                        str(enable_rotation).lower().split(",")))
+    if "spin" in modes or "r2" in modes:
+        from .transforms.spinquant import (apply_trained_r2,
+                                           apply_trained_rotation,
+                                           train_r1_rotation,
+                                           train_r2_rotations)
+        sq_scheme = parse_scheme(
+            scheme if isinstance(scheme, (str, QuantizationScheme))
+            else "W4A16")
+        if "spin" in modes:
+            R = train_r1_rotation(params, cfg, sq_scheme, seed=seed)
+            params = apply_trained_rotation(params, cfg, R)
+        if "r2" in modes:
+            R2s = train_r2_rotations(params, cfg, sq_scheme, seed=seed)
+            params = apply_trained_r2(params, cfg, R2s)
+    if "r1" in modes:
+        if "spin" in modes:
+            raise ValueError("rotation modes r1 and spin both rotate the "
+                             "residual stream; pick one")
+        params = apply_r1_rotation(params, cfg, seed=seed)
+    if "r4" in modes:
+        params, cfg = apply_r4_rotation(params, cfg)
+    unknown = set(modes) - {"r1", "r2", "r4", "spin"}
+    if unknown:
+        raise ValueError(f"unknown rotation modes {sorted(unknown)}; "
+                         f"supported: r1, r2, r4, spin")
+    return params, cfg
+
+
 class AutoRound:
-    """AutoRound quantizer for the families of ``models.registry``
-    (Llama, Mixtral-style MoE, DeepSeek V2 / V3 and GLM-4.6-Lite).
+    """AutoRound quantizer for the families of ``models.registry``.
 
     Example::
 
@@ -55,15 +92,23 @@ class AutoRound:
     get_calib_batch``).  Extra keyword arguments naming ``QuantizeConfig``
     fields pass through (e.g. ``cache_batch``, ``use_remat``,
     ``enable_act_minmax_tuning``, ``nblocks``, ``enable_lfq``,
-    ``optimizer``); an option the port leaves out raises
-    ``NotImplementedError`` when ``quantize`` runs, ``enable_rotation``
-    at once.  ``offload_params=True`` keeps the blocks in host memory
+    ``optimizer``, ``enable_alg_ext``, ``use_imatrix``, ``enable_awq``); an
+    option the port leaves out raises ``NotImplementedError`` when
+    ``quantize`` runs.  ``enable_rotation`` rotates the model first, as
+    the JAX package parses it: ``True`` is ``"r1"``, or a comma-separated
+    list of ``r1`` (Hadamard R1), ``r4`` (online block Hadamard before
+    down_proj), ``spin`` (a trained R1) and ``r2`` (trained value / output
+    head rotations).  ``offload_params=True`` keeps the blocks in host memory
     (pinned where the host allows it): a preset is then made block by
     block, each block parked on the host as it is made, and the blocks of
     a given model move there; the other params go to the device.
     ``scheme="W4A16_MIXED"`` quantizes the routed experts W4A16 and the
-    rest W8A16 (``quantize.layer_config.handle_special_scheme``; an
-    explicit ``layer_config`` entry wins over the recipe).
+    rest W8A16, ``"GGUF:Q2_K_MIXED"`` the routed experts Q2_K, the rest
+    Q4_K_S and the lm_head and embedding Q8_0
+    (``quantize.layer_config.handle_special_scheme``; an explicit
+    ``layer_config`` entry wins over the recipe).  A ``GGUF:`` scheme goes
+    through the export's per-layer type cascade and quantizes the token
+    embedding (``quantize.layer_config.apply_gguf_cascade``).
     """
 
     def __init__(
@@ -93,11 +138,6 @@ class AutoRound:
         device=None,
         **kw,
     ):
-        if enable_rotation:
-            raise NotImplementedError(
-                f"enable_rotation={enable_rotation!r} (Hadamard / SpinQuant "
-                f"rotations) is not ported yet (ROADMAP A12, "
-                f"transforms/hadamard.py, transforms/spinquant.py)")
         self.device = resolve_device(device)
         offload = bool(kw.get("offload_params", False))
         if isinstance(model, str):
@@ -112,13 +152,17 @@ class AutoRound:
                                  if k != "blocks"}, self.device)
             params["blocks"] = ([tree_to_host(b) for b in blocks] if offload
                                 else _to_device(blocks, self.device))
+        if enable_rotation:
+            params, cfg = _rotate(params, cfg, enable_rotation, scheme, seed)
         self.params = params
         self.model_cfg = cfg
         lnames = get_model_fns(cfg).block_linear_names(cfg)
         special = handle_special_scheme(scheme, lnames, quant_lm_head)
+        pinned = ()
         if special is not None:
             # the recipe's overrides lose to an explicit layer_config
-            scheme, overrides, quant_lm_head = special
+            scheme, overrides, quant_lm_head, _ = special
+            pinned = tuple(overrides)
             layer_config = {**overrides, **(layer_config or {})}
         self.scheme = parse_scheme(scheme)
         self.layer_schemes = resolve_layer_schemes(
@@ -128,6 +172,15 @@ class AutoRound:
         # heterogeneous blocks (DeepSeek's dense first-k): drop the names a
         # block lacks
         self.layer_schemes = prune_missing_layers(self.layer_schemes, params)
+        if isinstance(scheme, str) and scheme.upper().startswith("GGUF:"):
+            # each layer tunes on the grid the GGUF writer will store
+            self.layer_schemes = apply_gguf_cascade(
+                self.layer_schemes, params, cfg.num_layers, scheme,
+                quant_lm_head=quant_lm_head, pinned=pinned, model_cfg=cfg)
+            if special is not None and "embed_tokens" in self.layer_schemes:
+                # Q2_K_MIXED pins the embedding at Q8_0
+                self.layer_schemes["embed_tokens"] = parse_scheme(
+                    "GGUF:Q8_0")
         cfg_fields = QuantizeConfig.__dataclass_fields__
         for k in kw:
             if k not in cfg_fields:

@@ -172,17 +172,18 @@ def build_parser() -> argparse.ArgumentParser:
                            "quantized chain")
     tune.add_argument("--disable-minmax-tuning", action="store_true")
     tune.add_argument("--enable-alg-ext", action="store_true",
-                      help="sign_roundv2 extensions (not ported yet)")
+                      help="sign_roundv2 extensions (widened clip, GGUF "
+                           "grid search)")
     tune.add_argument("--enable-awq", action="store_true",
-                      help="AWQ smoothing + clip search before tuning (not "
-                           "ported yet)")
+                      help="AWQ smoothing + clip search before tuning")
     tune.add_argument("--enable-norm-bias-tuning", action="store_true")
     tune.add_argument("--enable-lfq", action="store_true",
                       help="last-block LM cross-entropy loss")
     tune.add_argument("--quant-attention", action="store_true",
                       help="collect static q/k/v FP8 attention scales")
     tune.add_argument("--enable-rotation", default=None,
-                      help="pre-quantization rotations (not ported yet)")
+                      help="pre-quantization rotations: r1 | r4 | spin | "
+                           "r2 (comma-combinable, e.g. 'spin,r2,r4')")
     tune.add_argument("--model-free", action="store_true",
                       help="streaming shard RTN without model "
                            "instantiation (not ported yet)")
@@ -241,8 +242,6 @@ def _unported_flags(args):
          args.eval_ppl or args.eval_greedy_acc, "A14"),
         ("--model-free", args.model_free, "A12"),
         ("--avg-bits (AutoScheme)", args.avg_bits is not None, "A12"),
-        ("--enable-awq", args.enable_awq, "A12"),
-        ("--enable-rotation", bool(args.enable_rotation), "A12"),
         ("--resume-dir", args.resume_dir is not None, "A12"),
     )
 
@@ -275,8 +274,8 @@ def _quantize_kwargs(args) -> dict:
         kw["use_best_params"] = False
     if args.nblocks != 1:
         kw["nblocks"] = args.nblocks
-    for flag in ("enable_alg_ext", "enable_norm_bias_tuning", "enable_lfq",
-                 "quant_attention"):
+    for flag in ("enable_alg_ext", "enable_awq", "enable_norm_bias_tuning",
+                 "enable_lfq", "quant_attention"):
         if getattr(args, flag):
             kw[flag] = True
     if args.disable_quanted_input:
@@ -401,6 +400,7 @@ def main(argv=None) -> int:
                    minmax_lr=args.minmax_lr,
                    quant_lm_head=args.quant_lm_head,
                    ignore_layers=ignore or None, layer_config=layer_config,
+                   enable_rotation=args.enable_rotation or False,
                    seed=args.seed, device=device, **kw)
     del params
     result = ar.quantize(ids, mask=mask)

@@ -38,11 +38,14 @@ _EPS = 1e-8
 
 class QdqResult(NamedTuple):
     """qdq weight (original shape) + per-group scale/zp in row layout
-    ``(O, n_groups_per_row)``; zp is None for dtypes without a zero point."""
+    ``(O, n_groups_per_row)``; zp is None for dtypes without a zero point.
+    ``extras`` carries a format's export payload (the GGUF double-quant
+    supers and sub-scales, ``dtypes.gguf``)."""
 
     qdq: torch.Tensor
     scale: torch.Tensor
     zp: Optional[torch.Tensor]
+    extras: Optional[dict] = None
 
 
 def _compute_dtype(w: torch.Tensor) -> torch.dtype:

@@ -1,8 +1,8 @@
 """Fake-quant function registry (counterpart of
-``autoround_tpu/dtypes/registry.py``): the int, MX, NVFP4, fp4_v2 and FP8
-entries in the ``tuned``, ``rtn`` and ``opt_rtn`` modes, under the JAX
-package's names.  The GGUF double-quant types (``int_dq``) are not ported
-yet.
+``autoround_tpu/dtypes/registry.py``): the int, GGUF double-quant
+(``int_dq``), MX, NVFP4, fp4_v2, FP8, W4FP8 and float-zero-point entries
+in the ``tuned``, ``rtn`` and ``opt_rtn`` modes, under the JAX package's
+names.  :func:`register_dtype` adds one.
 
 Every registered function has the uniform signature::
 
@@ -17,9 +17,9 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from . import fp8, intq, mxfp, nvfp
+from . import extra, fp8, gguf, intq, mxfp, nvfp
 
-__all__ = ["QUANT_FUNCS", "get_quant_func"]
+__all__ = ["QUANT_FUNCS", "register_dtype", "get_quant_func"]
 
 QUANT_FUNCS: Dict[str, Callable] = {
     "int_sym": lambda w, bits, group_size, **kw: intq.qdq_int_sym(
@@ -43,6 +43,14 @@ QUANT_FUNCS: Dict[str, Callable] = {
 
 def _reg(name: str, fn: Callable) -> None:
     QUANT_FUNCS[name] = fn
+
+
+def register_dtype(name: str):
+    """Decorator: register ``fn`` under ``name``."""
+    def deco(fn):
+        QUANT_FUNCS[name] = fn
+        return fn
+    return deco
 
 
 # --- mx ---
@@ -138,6 +146,51 @@ _reg("fp8_e5m2", lambda w, bits, group_size, **kw: fp8.qdq_fp8_sym(
 _reg("block_fp8", lambda w, bits, group_size, **kw: fp8.qdq_fp8_block(
     w, block=group_size if isinstance(group_size, tuple) else (128, 128),
     recip=kw.get("recip", False)))
+
+
+# --- gguf double-quant (k-quants) ---
+def _dq_kw(kw):
+    """The keywords the JAX package's double-quant entries pass on (a
+    frozen grid among the extras is not one of them), and ``recip``."""
+    return {k: v for k, v in kw.items()
+            if k in ("v", "min_scale", "max_scale", "super_bits",
+                     "super_group_size", "imatrix", "clip_lo", "clip_hi",
+                     "recip")
+            and v is not None}
+
+
+_reg("int_sym_dq", lambda w, bits, group_size, **kw: gguf.qdq_int_dq_sym(
+    w, bits, group_size, **_dq_kw(kw)))
+_reg("int_asym_dq", lambda w, bits, group_size, **kw: gguf.qdq_int_dq_asym(
+    w, bits, group_size, **_dq_kw(kw)))
+_reg("rtn_int_sym_dq", lambda w, bits, group_size, **kw: gguf.rtn_int_dq_sym(
+    w, bits, group_size, **_dq_kw(kw)))
+_reg("rtn_int_asym_dq", lambda w, bits, group_size, **kw: gguf.rtn_int_dq_asym(
+    w, bits, group_size, **_dq_kw(kw)))
+_reg("opt_rtn_int_sym_dq", QUANT_FUNCS["rtn_int_sym_dq"])
+_reg("opt_rtn_int_asym_dq", QUANT_FUNCS["rtn_int_asym_dq"])
+# aliases for the resolver's "{data_type}_{sym}" probe of data_type "int_dq"
+_reg("int_dq_sym", QUANT_FUNCS["int_sym_dq"])
+_reg("int_dq_asym", QUANT_FUNCS["int_asym_dq"])
+_reg("rtn_int_dq_sym", QUANT_FUNCS["rtn_int_sym_dq"])
+_reg("rtn_int_dq_asym", QUANT_FUNCS["rtn_int_asym_dq"])
+_reg("opt_rtn_int_dq_sym", QUANT_FUNCS["rtn_int_sym_dq"])
+_reg("opt_rtn_int_dq_asym", QUANT_FUNCS["rtn_int_asym_dq"])
+
+# --- w4fp8 and the float zero point ---
+_reg("w4fp8", lambda w, bits, group_size, **kw: extra.qdq_w4fp8(
+    w, bits, group_size, v=kw.get("v"), min_scale=kw.get("min_scale"),
+    max_scale=kw.get("max_scale"), recip=kw.get("recip", False)))
+_reg("rtn_w4fp8", lambda w, bits, group_size, **kw: extra.qdq_w4fp8(
+    w, bits, group_size, recip=kw.get("recip", False)))
+_reg("int_asym_float_zp", lambda w, bits, group_size, **kw:
+     extra.qdq_int_asym_float_zp(
+         w, bits, group_size, v=kw.get("v"), min_scale=kw.get("min_scale"),
+         max_scale=kw.get("max_scale"), clip_lo=kw.get("clip_lo", 0.0),
+         clip_hi=kw.get("clip_hi", 1.0), recip=kw.get("recip", False)))
+_reg("rtn_int_asym_float_zp", lambda w, bits, group_size, **kw:
+     extra.qdq_int_asym_float_zp(w, bits, group_size,
+                                 recip=kw.get("recip", False)))
 
 
 def get_quant_func(data_type: str, bits: int, sym: bool, mode: str = "tuned"):

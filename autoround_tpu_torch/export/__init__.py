@@ -23,7 +23,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
+from ..models.llama import LlamaConfig
 from ..utils.logger import logger
 from ..utils.safetensors_io import load_file, save_file
 from .packing import (codes_from_qdq_torch, pack_quantized,
@@ -38,9 +38,7 @@ _UNPORTED_FORMATS = ("gptq", "awq", "llm_compressor", "mlx")
 # "model_config" of quantization_config.json: the JAX LlamaConfig's fields
 # in its order, so a reader finds the same keys whichever package wrote the
 # checkpoint (tuples as JSON lists, as the JAX package writes them).  A
-# field the port's config lacks (``online_r4``, ``r4_block``) is written at
-# the value the port's model implements (its "off" value).  A family's own
-# fields follow, in its config's order (:func:`_family_keys`).
+# family's own fields follow, in its config's order (:func:`_family_keys`).
 _MODEL_CONFIG_KEYS = (
     "vocab_size", "hidden_size", "intermediate_size", "num_layers",
     "num_heads", "num_kv_heads", "head_dim", "rope_theta", "rms_eps",
@@ -50,7 +48,6 @@ _MODEL_CONFIG_KEYS = (
     "chunked_attention", "rope_local_theta", "partial_rotary_factor_local",
     "rope_scaling_factor", "rope_llama3", "attn_scale", "online_r4",
     "r4_block", "partial_rotary_factor")
-_MODEL_CONFIG_OFF = dict(UNSUPPORTED_FIELDS, r4_block=128)
 
 
 def _flatten_params(params: Dict[str, Any],
@@ -123,8 +120,7 @@ def quantization_config(result, model_cfg, format: str = "autoround"
             for name, ql in result.layers.items()
         },
         "model_config": {
-            k: getattr(model_cfg, k) if hasattr(model_cfg, k)
-            else _MODEL_CONFIG_OFF[k]
+            k: getattr(model_cfg, k)
             for k in _MODEL_CONFIG_KEYS + _family_keys(model_cfg)},
     }
 

@@ -15,10 +15,10 @@ Qwen2.5 (q/k/v biases), Qwen3 (per-head q/k RMSNorm), Gemma2 / Gemma3 (the
 ``(offset + g)`` norm weight, GeGLU, the embedding normalizer, sandwich
 norms, attention and final logit softcaps, a score divisor, sliding-window
 layers, local rope tables), Llama4's chunked attention (``chunked_attention``:
-the sliding layers attend within ``sliding_window``-sized chunks) and
-partial or linear-scaled rope.  One JAX flag is not ported, QuaRot's
-``online_r4``: ``utils.convert.config_from_jax`` raises
-``NotImplementedError`` for a config that sets it.
+the sliding layers attend within ``sliding_window``-sized chunks),
+partial or linear-scaled rope, and QuaRot's ``online_r4``: a
+block-diagonal Hadamard on the down_proj input (:func:`r4_rotate`; the
+weights pre-rotated by ``transforms.hadamard.apply_r4_rotation``).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ __all__ = ["LlamaConfig", "CONFIG_PRESETS", "init_params", "rms_norm",
            "rope_tables", "dual_rope_tables", "apply_rope", "attention",
            "block_fwd", "embed_fwd", "final_fwd", "model_fwd",
            "layer_is_sliding", "sliding_mask", "block_linear_names",
-           "LINEAR_KEYS"]
+           "LINEAR_KEYS", "r4_rotate", "hadamard_block"]
 
 
 @dataclass(frozen=True)
@@ -80,6 +80,10 @@ class LlamaConfig:
     rope_llama3: Optional[Tuple[float, float, float, int]] = None
     attn_scale: Optional[float] = None  # score divisor (Gemma2:
     #                                      query_pre_attn_scalar ** 0.5)
+    # QuaRot online R4: rotate the down_proj input with an r4_block-wide
+    # block-diagonal Hadamard (the weights pre-rotated to match)
+    online_r4: bool = False
+    r4_block: int = 128
     # only the leading hd * factor dims of each head rotate
     partial_rotary_factor: float = 1.0
     dtype: torch.dtype = torch.bfloat16
@@ -167,10 +171,6 @@ CONFIG_PRESETS: Dict[str, LlamaConfig] = {
 # The 2-D linear weights inside one decoder block, in (O, I) layout.
 LINEAR_KEYS = ("q_proj", "k_proj", "v_proj", "o_proj",
                "gate_proj", "up_proj", "down_proj")
-
-# JAX LlamaConfig fields the port does not implement, with their "off" value
-UNSUPPORTED_FIELDS = {"online_r4": False}
-
 
 def block_linear_names(cfg: LlamaConfig) -> Tuple[str, ...]:
     return LINEAR_KEYS
@@ -422,8 +422,47 @@ def block_fwd(weights: Dict[str, torch.Tensor], x: torch.Tensor,
     x, h = _post_attention(weights, x, attn_out, cfg)
     gate = _act(cfg.hidden_act)(lf("gate_proj", h, weights["gate_proj"]))
     up = lf("up_proj", h, weights["up_proj"])
-    return _residual_mlp(weights, x, lf("down_proj", gate * up,
+    mlp_in = gate * up
+    if cfg.online_r4:
+        mlp_in = r4_rotate(mlp_in, cfg.r4_block)
+    return _residual_mlp(weights, x, lf("down_proj", mlp_in,
                                         weights["down_proj"]), cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _hadamard_np(n: int) -> np.ndarray:
+    h = np.ones((1, 1), np.float32)
+    while h.shape[0] < n:
+        h = np.block([[h, h], [h, -h]])
+    if h.shape[0] != n:
+        raise ValueError(f"r4_block={n} must be a power of 2")
+    return h / np.sqrt(n)
+
+
+_HADAMARD: Dict[Tuple[int, str, torch.dtype], torch.Tensor] = {}
+
+
+def hadamard_block(n: int, device, dtype: torch.dtype) -> torch.Tensor:
+    """The scaled (n, n) Sylvester Hadamard in ``dtype`` on ``device``,
+    made once and kept: a captured decode step reads this device tensor
+    (it is made by the eager step before the capture), never a host
+    value."""
+    key = (n, str(torch.device(device)), dtype)
+    h = _HADAMARD.get(key)
+    if h is None:
+        h = torch.tensor(_hadamard_np(n), dtype=torch.float32).to(
+            device=device, dtype=dtype)
+        _HADAMARD[key] = h
+    return h
+
+
+def r4_rotate(x: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """Online block-diagonal Hadamard rotation of the trailing axis, a
+    product in ``x``'s dtype (the JAX package's ``r4_rotate``)."""
+    shp = x.shape
+    h = hadamard_block(block, x.device, x.dtype)
+    y = x.reshape(*shp[:-1], shp[-1] // block, block) @ h
+    return y.reshape(shp)
 
 
 def _post_attention(weights, x, attn_out, cfg: LlamaConfig):

@@ -18,8 +18,19 @@ it, and a ``linear_fn`` that qdq's those layers' inputs in the tuning loss
 and on the quantized chain.  ``enable_act_minmax_tuning`` also tunes a
 shrink factor on each static scale.
 
-The driver options: ``enable_norm_bias_tuning`` tunes and bakes each
-block's norm gains and biases; ``enable_lfq`` tunes the last block against
+A GGUF plan (``quantize.layer_config.apply_gguf_cascade``) may hold
+``embed_tokens``: the embedding is RTN-quantized up front and the quantized
+chain restarts from the qdq embedding, while the FP chain keeps the FP
+one.  A double-quant layer's payload carries its supers and sub-scales in
+``QuantizedLayer.extras``.
+
+The driver options: ``enable_awq`` smooths each block's activation
+outliers into its weights and seeds the clip scales from a clip search
+(``transforms/awq.py``) before the block tunes; ``enable_alg_ext`` runs
+the double-quant grid search before a block with GGUF layers tunes
+(imatrix-weighted under ``use_imatrix``);
+``enable_norm_bias_tuning`` tunes and bakes each block's norm gains and
+biases; ``enable_lfq`` tunes the last block against
 the LM loss of the next token; ``nblocks > 1`` tunes groups of blocks
 jointly (:func:`_quantize_grouped`); ``immediate_save_dir`` streams each
 block's packed layers to sharded safetensors as it finishes;
@@ -50,12 +61,14 @@ from ..algorithms.actquant import (build_static_act_scales,
                                    make_act_quant_linear_fn)
 from ..algorithms.rtn import rtn_quantize_layer
 from ..algorithms.signround import TuneConfig, tune_block
+from ..dtypes.gguf import search_dq_grid
 from ..dtypes.intq import qdq_asym_wo_round
 from ..dtypes.registry import get_quant_func
 from ..models.llama import (LlamaConfig, dual_rope_tables, layer_is_sliding,
                             rms_norm, rope_tables, sliding_mask)
 from ..models.registry import get_model_fns
 from ..schemes import QuantizationScheme
+from ..transforms.awq import awq_clip_search, awq_smooth_block
 from ..utils.logger import logger
 from ..utils.offload import BlockPrefetcher, tree_to_host
 from ..utils.pytree import get_by_path, set_by_path
@@ -124,7 +137,6 @@ class QuantizeConfig:
 # QuantizeConfig options of the JAX package the port leaves out:
 # (field, its "off" value, what it is, ROADMAP item)
 _UNPORTED = (
-    ("enable_awq", False, "AWQ smoothing", "A12"),
     ("resume_dir", None, "crash resume", "A12"),
 )
 
@@ -132,7 +144,8 @@ _UNPORTED = (
 @dataclass
 class QuantizedLayer:
     """Export payload for one layer: qdq weight + scale/zp + scheme, plus
-    the static activation scales when the scheme quantizes activations."""
+    the static activation scales when the scheme quantizes activations and
+    a double-quant scheme's supers and sub-scales (``extras``)."""
 
     name: str
     scheme: QuantizationScheme
@@ -141,6 +154,7 @@ class QuantizedLayer:
     zp: Optional[torch.Tensor]
     act_scale: Optional[torch.Tensor] = None         # static act scale
     act_global_scale: Optional[torch.Tensor] = None  # NVFP4 global scale
+    extras: Optional[Dict[str, Any]] = None          # GGUF dq payload
 
 
 @dataclass
@@ -166,17 +180,30 @@ def _batched_block_apply(block_fn, block_weights, x, batch: int,
 
 def _finalize_layer(name: str, w: torch.Tensor, scheme: QuantizationScheme,
                     tune_params, tcfg: TuneConfig,
-                    inner_name: Optional[str] = None) -> QuantizedLayer:
-    """Re-run the qdq once with the best params to harvest scale/zp."""
+                    inner_name: Optional[str] = None,
+                    extra_kw=None) -> QuantizedLayer:
+    """Re-run the qdq once with the best params to harvest scale/zp;
+    ``extra_kw`` are the per-layer statics the tuning loss's qdq saw."""
     fn = get_quant_func(scheme.data_type, scheme.bits, scheme.sym)
     key = inner_name if inner_name is not None else name.split(".")[-1]
     p = tune_params.get(key, {}) if tune_params else {}
+    kw = dict(extra_kw or {})
+    if scheme.super_bits is not None:
+        kw.update(super_bits=scheme.super_bits,
+                  super_group_size=scheme.super_group_size)
     r = fn(w, bits=scheme.bits, group_size=scheme.group_size,
            v=p.get("v"), min_scale=p.get("min_scale"),
            max_scale=p.get("max_scale"),
-           clip_lo=tcfg.clip_lo, clip_hi=tcfg.clip_hi)
-    return QuantizedLayer(name=name, scheme=scheme, qdq=r.qdq, scale=r.scale,
-                          zp=r.zp)
+           clip_lo=tcfg.clip_lo, clip_hi=tcfg.clip_hi, **kw)
+    return _layer(name, scheme, r)
+
+
+def _layer(name: str, scheme: QuantizationScheme, r, qdq=None
+           ) -> QuantizedLayer:
+    """A QdqResult's payload (``qdq`` replaces its weight when given)."""
+    return QuantizedLayer(name=name, scheme=scheme,
+                          qdq=r.qdq if qdq is None else qdq, scale=r.scale,
+                          zp=r.zp, extras=r.extras)
 
 
 def _head_fwd(ws, xb):
@@ -282,21 +309,28 @@ def quantize_model(
         except KeyError:
             raise NotImplementedError(
                 f"{flat}: weight data type {scheme.data_type!r} is not ported "
-                f"yet (ROADMAP A9); the port quantizes the int, MX, NVFP4, "
-                f"fp4_v2 and FP8 data types") from None
+                f"yet (ROADMAP A9); the port quantizes the int, GGUF "
+                f"double-quant, MX, NVFP4, fp4_v2, FP8, W4FP8 and "
+                f"float-zero-point data types") from None
         parts = flat.split(".", 2)
         if parts[0] == "blocks":
             per_block.setdefault(int(parts[1]), {})[parts[2]] = scheme
-        elif flat != "lm_head":
+        elif flat not in ("lm_head", "embed_tokens"):
             raise NotImplementedError(
                 f"quantizing {flat!r} is not ported yet (only blocks.* "
-                f"linears and lm_head)")
+                f"linears, lm_head and embed_tokens)")
     tcfg = cfg.tune_config()
     if tcfg.enable_alg_ext and tcfg.clip_hi <= 1.0:
         # tune_block widens the clamp to (0, 2) under alg_ext; the bake in
         # _finalize_layer must use the same clamp
         tcfg = dataclasses.replace(tcfg, clip_lo=0.0, clip_hi=2.0)
     if cfg.nblocks > 1 and cfg.iters > 0:
+        if cfg.enable_awq:
+            # the smoothing statistics of a group's later blocks would move
+            # as its earlier blocks tune
+            raise ValueError("enable_awq is not supported with nblocks>1; "
+                             "use nblocks=1 (reference tunes AWQ per "
+                             "block too)")
         dropped = [n for n, on in (
             ("enable_lfq", cfg.enable_lfq),
             ("enable_norm_bias_tuning", cfg.enable_norm_bias_tuning),
@@ -349,10 +383,25 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
             return fwd(w, xb, c, s, model_cfg, mask=m, linear_fn=linear_fn)
         return block_fn
 
+    layers: Dict[str, QuantizedLayer] = {}
+    if "embed_tokens" in layer_schemes:
+        # GGUF: the embedding RTN'd up front; the quantized chain restarts
+        # from the qdq embedding, the FP chain keeps the FP one
+        w_emb = params["embed_tokens"]
+        r = rtn_quantize_layer(w_emb, layer_schemes["embed_tokens"])
+        layers["embed_tokens"] = _layer("embed_tokens",
+                                        layer_schemes["embed_tokens"], r)
+        params = dict(params)
+        params["embed_tokens"] = r.qdq.to(w_emb.dtype)
+        del r
+        if x_q is not None:
+            x_q = mfns.embed_fwd(params, input_ids, model_cfg)
+        logger.info("embed_tokens quantized (%s); q-chain re-cached",
+                    layer_schemes["embed_tokens"].key())
+
     stream = (_ShardStream(cfg.immediate_save_dir, cfg.shard_size_bytes)
               if cfg.immediate_save_dir else None)
     loader = BlockPrefetcher(dev) if cfg.offload_params else None
-    layers: Dict[str, QuantizedLayer] = {}
     traces: Dict[int, np.ndarray] = {}
     attention_scales: Dict[int, Dict[str, Any]] = {}
     imatrices: Dict[str, np.ndarray] = {}
@@ -365,9 +414,10 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
 
     new_params = dict(params)
     new_params["blocks"] = new_blocks
-    if "lm_head" in layer_schemes:
-        head_name = "lm_head" if params.get("lm_head") is not None \
-            else "embed_tokens"
+    tied = params.get("lm_head") is None
+    # a tied head whose embedding is quantized already reuses it
+    if "lm_head" in layer_schemes and not (tied and "embed_tokens" in layers):
+        head_name = "embed_tokens" if tied else "lm_head"
         w = params[head_name]
         scheme = layer_schemes["lm_head"]
         if cfg.iters > 0 and not grouped:
@@ -392,9 +442,7 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
             ql = _finalize_layer("lm_head", w, scheme, best, tcfg,
                                  inner_name="head")
         else:
-            r = rtn_quantize_layer(w, scheme)
-            ql = QuantizedLayer(name="lm_head", scheme=scheme, qdq=r.qdq,
-                                scale=r.scale, zp=r.zp)
+            ql = _layer("lm_head", scheme, rtn_quantize_layer(w, scheme))
         ql.qdq = ql.qdq.to(w.dtype)
         new_params[head_name] = ql.qdq
         layers["lm_head"] = ql
@@ -415,6 +463,10 @@ def _park(qdq_block, layer_names, layers):
         ql = layers[name]
         ql.qdq, ql.scale, ql.zp = tree_to_host([ql.qdq, ql.scale, ql.zp],
                                                memo)
+        if ql.extras is not None:
+            ql.extras = {k: tree_to_host(v, memo)
+                         if isinstance(v, torch.Tensor) else v
+                         for k, v in ql.extras.items()}
     return host_block
 
 
@@ -449,6 +501,17 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
                 block_fn, block, x_fp[:cfg.cache_batch],
                 ("q_proj", "k_proj", "v_proj"))
             attention_scales[bi] = {k: v / 448.0 for k, v in qkv_amax.items()}
+
+        init_scales = None
+        if schemes and cfg.enable_awq:
+            # AWQ: smooth before tuning (an exact reparameterization of the
+            # FP block); its clip search seeds the clip scales
+            block, _ = awq_smooth_block(block, block_fn,
+                                        x_fp[:cfg.cache_batch], schemes)
+            qdq_block = block
+            im_clip = collect_imatrix(block_fn, block,
+                                      x_fp[:cfg.cache_batch], set(schemes))
+            init_scales = awq_clip_search(block, schemes, im_clip)
 
         # activation quantization: per-layer amax on the FP pass, static
         # and global scales from it, and the interceptor
@@ -485,9 +548,14 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
                       if cfg.enable_lfq and bi == n_blocks - 1 else None)
             nb_leaves = (_norm_bias_leaves_for(block)
                          if tcfg.enable_norm_bias_tuning else None)
+            tune_extras = (_dq_grids(block_fn, block, x_fp, schemes, cfg,
+                                     bi, imatrices)
+                           if tcfg.enable_alg_ext else None)
             best, info = tune_block(tune_fn, tune_weights, tune_in, ref_out,
                                     schemes, tcfg, mask=mask, lfq_fn=lfq_fn,
-                                    norm_bias_leaves=nb_leaves)
+                                    init_scales=init_scales,
+                                    norm_bias_leaves=nb_leaves,
+                                    extras=tune_extras)
             traces[bi] = info["loss_trace"]
             logger.info("block %d: loss iter0 %.6f -> best %.6f (%.1fs)", bi,
                         info["first_loss"], info["best_loss"],
@@ -509,11 +577,12 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
             for lname, scheme in schemes.items():
                 w_orig = get_by_path(block, lname)
                 ql = _finalize_layer(f"blocks.{bi}.{lname}", w_orig, scheme,
-                                     best, tcfg, inner_name=lname)
+                                     best, tcfg, inner_name=lname,
+                                     extra_kw=(tune_extras or {}).get(lname))
                 qdq_block = set_by_path(qdq_block, lname,
                                         ql.qdq.to(w_orig.dtype))
                 layers[ql.name] = ql
-            del best
+            del best, tune_extras
         else:
             im: Dict[str, torch.Tensor] = {}
             if schemes and cfg.use_imatrix:
@@ -524,16 +593,17 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
             for lname, scheme in schemes.items():
                 w_orig = get_by_path(block, lname)
                 r = rtn_quantize_layer(w_orig, scheme, imatrix=im.get(lname))
-                qdq, scale, zp = r.qdq.to(w_orig.dtype), r.scale, r.zp
+                ql = _layer(f"blocks.{bi}.{lname}", scheme, r,
+                            qdq=r.qdq.to(w_orig.dtype))
+                del r
                 if loader is not None and x_q is None:
                     # offload with no quantized chain to advance: each qdq
                     # goes to the host as it is made, so the card holds one
                     # block, not the block and its replacement
-                    qdq, scale, zp = tree_to_host([qdq, scale, zp])
-                qdq_block = set_by_path(qdq_block, lname, qdq)
-                layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
-                    name=f"blocks.{bi}.{lname}", scheme=scheme, qdq=qdq,
-                    scale=scale, zp=zp)
+                    ql.qdq, ql.scale, ql.zp = tree_to_host(
+                        [ql.qdq, ql.scale, ql.zp])
+                qdq_block = set_by_path(qdq_block, lname, ql.qdq)
+                layers[ql.name] = ql
         names = [f"blocks.{bi}.{lname}" for lname in schemes]
         for lname in schemes:
             ql = layers[f"blocks.{bi}.{lname}"]
@@ -557,6 +627,27 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
             gc.collect()
         new_blocks.append(qdq_block)
     return new_blocks, x_fp, x_q
+
+
+def _dq_grids(block_fn, block, x_fp, schemes, cfg, bi, imatrices):
+    """alg_ext: each double-quant layer's searched grid (imatrix-weighted
+    under ``use_imatrix``, the imatrices kept in ``imatrices``), as the
+    tuning run's per-layer extras, or None without such a layer."""
+    dq_names = {ln for ln, s in schemes.items()
+                if s.super_bits is not None and s.data_type == "int_dq"}
+    im: Dict[str, torch.Tensor] = {}
+    if dq_names and cfg.use_imatrix:
+        im = collect_imatrix(block_fn, block, x_fp[:cfg.cache_batch],
+                             dq_names)
+        for ln, v in im.items():
+            imatrices[f"blocks.{bi}.{ln}"] = v.cpu().numpy()
+    ex = {}
+    for ln in dq_names:
+        s = schemes[ln]
+        ex[ln] = search_dq_grid(get_by_path(block, ln), s.bits, s.group_size,
+                                s.super_bits, s.super_group_size, s.sym,
+                                imatrix=im.get(ln))
+    return ex or None
 
 
 def _quantize_grouped(params, model_cfg, per_block, x_fp, x_q, block_fn_for,

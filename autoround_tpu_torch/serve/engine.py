@@ -597,7 +597,9 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
     dense caches, the decode kernel's ``sinks`` over the int8 cache).
     Llama 4's rope layers interleave, rope and L2-norm q / k; its NoPE
     layers skip rope and scale q by the temperature at the device
-    positions (``llama4.attention_inputs``).  A block that holds
+    positions (``llama4.attention_inputs``).  Under ``online_r4`` the
+    dense MLP's down_proj input goes through ``llama.r4_rotate``.  A
+    block that holds
     ``experts`` runs its family's routed MLP through ``lf`` (Llama 4's,
     GPT-OSS's by its ``router_bias``, the DeepSeek router's by its ``gate``:
     GLM-4.5, else Mixtral's).
@@ -702,7 +704,12 @@ def _block_with_cache(weights, x, cos, sin, cfg, kv, pos, lf, packed, kinds,
         else:
             gate = act(lf("gate_proj", h, weights["gate_proj"]))
             up = lf("up_proj", h, weights["up_proj"])
-        mlp_out = lf("down_proj", gate * up, weights["down_proj"])
+        mlp_in = gate * up
+        if cfg.online_r4:
+            # QuaRot R4: the model's bf16 block Hadamard, a device tensor
+            # made by the eager step before any capture
+            mlp_in = llama.r4_rotate(mlp_in, cfg.r4_block)
+        mlp_out = lf("down_proj", mlp_in, weights["down_proj"])
     return llama._residual_mlp(weights, x, mlp_out, cfg), k, v
 
 

@@ -26,7 +26,7 @@ from ..models.ernie45 import Ernie45Config
 from ..models.glm4moe import Glm4MoeConfig, GlmMoeLiteConfig
 from ..models.glmdsa import GlmMoeDsaConfig
 from ..models.gptoss import GptOssConfig
-from ..models.llama import UNSUPPORTED_FIELDS, LlamaConfig
+from ..models.llama import LlamaConfig
 from ..models.llama4 import Llama4Config
 from ..models.longcat import LongcatConfig
 from ..models.minimax import MiniMaxConfig
@@ -95,11 +95,6 @@ def params_from_jax(tree: Any, cfg: LlamaConfig, device=None) -> Any:
     return rec(tree)
 
 
-# the ROADMAP item each unported config flag waits for
-_UNPORTED_ITEM = {"online_r4": "A12, transforms/hadamard.py"}
-# fields taken aside: ``dtype`` (converted below) and the Hadamard block
-# ``r4_block``, unused while ``UNSUPPORTED_FIELDS`` holds online R4 off
-_IGNORED_FIELDS = ("r4_block", "dtype")
 # the port's config classes, by the JAX class each one rebuilds
 _PORT_CLASSES = {c.__name__: c for c in (
     LlamaConfig, MixtralConfig, DeepseekConfig, GlmMoeLiteConfig,
@@ -160,8 +155,7 @@ def config_from_jax(fields: Mapping[str, Any],
     ``LlamaConfig``; the tuple fields come back as tuples.
 
     No field is dropped: one the chosen class lacks raises
-    ``NotImplementedError``, as do a flag the port does not implement
-    (online R4, ROADMAP A12) and the VLM, omni and diffusion classes
+    ``NotImplementedError``, as do the VLM, omni and diffusion classes
     (ROADMAP A14)."""
     if _A14_FIELD in fields:
         raise NotImplementedError(
@@ -170,13 +164,7 @@ def config_from_jax(fields: Mapping[str, Any],
             f"omni and DiT / MMDiT models)")
     cls = _config_class(fields, cls_name)
     known = cls.__dataclass_fields__
-    for name, off in UNSUPPORTED_FIELDS.items():
-        if fields.get(name, off) != off:
-            raise NotImplementedError(
-                f"{cls.__name__}.{name}={fields[name]!r} is not ported yet "
-                f"(ROADMAP {_UNPORTED_ITEM[name]})")
-    odd = sorted(k for k in fields if k not in known
-                 and k not in _IGNORED_FIELDS and k not in UNSUPPORTED_FIELDS)
+    odd = sorted(k for k in fields if k not in known and k != "dtype")
     if odd:
         raise NotImplementedError(
             f"{cls_name or 'a config'}: fields {odd} have no place in the "

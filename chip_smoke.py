@@ -386,7 +386,28 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              sliding 96 / 8 with a 512 window, 288 experts of 1280),
              ``--step35-layers`` of 45: RTN W4A16 g128 (row 1 at both
              head counts), every block teacher forced, export read back.
-26. report — the card's name and power limit (nvidia-smi), a JSON line of
+26. gguf / rotation — the GGUF data types and the rotations, at
+             ``llama3-8b`` width unless named: (a) ``GGUF:Q4_K_M`` RTN with
+             ``use_imatrix`` and the lm_head on ``--gguf-layers`` (the
+             embedding's and the head's dq search on the card, its device
+             peak printed; Q4_K layers through the asym kernel at g32 with
+             the fractional zero point, Q6_K ones dense; the cascade's
+             count follows the depth) → serve at batch 8; (b)
+             ``GGUF:Q4_K_S`` SignRound with ``enable_alg_ext`` and
+             ``use_imatrix`` on ``--gguf-tune-layers`` (the flash kernels
+             in the loss; ``tune_s`` and the step ms); (c) ``GGUF:Q3_K_S``
+             (W4A16 kernel, signed 3-bit codes at g16) and ``GGUF:Q2_K_S``
+             (asym kernel at g16) on ``--gguf-small-layers``, 32 tokens
+             each; (d) mixtral-8x7b ``GGUF:Q2_K_MIXED`` on
+             ``--gguf-moe-layers`` (experts one by one through the asym
+             kernel, the Q8_0 head through W8A16 at g32); (e) W4A16 g128
+             with ``enable_rotation="r1,r4"`` and ``enable_awq`` on
+             ``--rotation-layers`` (fp32 logits rotated vs not held, bf16
+             printed; the online block Hadamard inside the captured step);
+             (f) SpinQuant's trained R1 (3 steps) on the same depth.  Every
+             engine runs ``generate``, a copy on the plain versions on the
+             card and ``generate_scan``.
+27. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -401,8 +422,10 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--deepseek-v3-layers``, ``--gptoss-layers``, ``--gptoss120-layers``,
 ``--llama4-layers``, ``--qwen3next-layers``, ``--qwen35-load-layers``,
 ``--glm45-layers``, ``--glm5-layers``, ``--minimax-layers``,
-``--ernie-layers``, ``--longcat-layers`` and ``--step35-layers`` cut the
-depth of the paths for a quicker run.
+``--ernie-layers``, ``--longcat-layers``, ``--step35-layers``,
+``--gguf-layers``, ``--gguf-tune-layers``, ``--gguf-small-layers``,
+``--gguf-moe-layers`` and ``--rotation-layers`` cut the depth of the paths
+for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -2033,7 +2056,7 @@ def time_serving(eng, prompts, n_new, bw, flops_peak, int8_peak=None):
 
 
 def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL, attention=True,
-               first=0):
+               first=0, layers=2):
     """A 2-layer copy of the engine, 2 prompts, 8 greedy tokens: once through
     the kernels on the card, once through the plain versions — on the CPU
     (``reference="cpu"``) or, where the CPU would take minutes (MoE: every
@@ -2049,12 +2072,14 @@ def check_copy(eng, prompts, reference, tol=COPY_ROW_TOL, attention=True,
     the logits by 0.26 of a row's RMS (measured, W4A8) whatever the
     products do; with the same attention on both sides the check holds the
     int8 products alone, which are exact.  ``first``: the copy's blocks
-    start there (a DeepSeek copy that holds a dense and a MoE block)."""
+    start there (a DeepSeek copy that holds a dense and a MoE block);
+    ``layers``: the copy's depth (1 for a one-layer engine)."""
     p2 = prompts[:2]
-    gpu = copy_engine(eng, 2, "cuda", first)
+    gpu = copy_engine(eng, layers, "cuda", first)
     lg_gpu, _ = gpu.prefill(p2)
     tok_gpu = gpu.generate(p2, max_new_tokens=8).cpu()
-    ref = gpu if reference == "card" else copy_engine(eng, 2, "cpu", first)
+    ref = gpu if reference == "card" else copy_engine(eng, layers, "cpu",
+                                                      first)
     t0 = time.time()
     with plain_versions(attention) if reference == "card" \
             else contextlib.nullcontext():
@@ -8022,6 +8047,319 @@ def ernie_longcat_step35_phase(ernie_layers, longcat_layers, step35_layers):
         f" phase_s={time.time() - t0:.1f}")
     return out
 
+# --------------------------------------------------------- GGUF / rotation
+
+def _llama8b(n_layers, seed):
+    """llama3-8b at full width, ``n_layers`` deep, random weights made on
+    the card from ``seed``."""
+    from autoround_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.CONFIG_PRESETS["llama3-8b"],
+                              num_layers=n_layers)
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    return cfg, params
+
+
+def _gguf_serve(label, cfg, result, prompts, new, want, copy_layers):
+    """The int8-KV engine of a GGUF (or rotated) result → ``generate`` with
+    every kernel of ``want`` launched → a ``copy_layers``-deep copy on the
+    plain versions on the card → ``generate_scan`` (tokens and launches
+    equal, the replayed step's launches measured).  Logs the packed layers
+    by kind and the dense ones; returns generate's launches."""
+    from autoround_tpu_torch import QuantizedLlama
+
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=1024,
+                                              kv_quant="int8")
+    kinds = {}
+    for k in eng.packed_kinds.values():
+        kinds[k] = kinds.get(k, 0) + 1
+    dense = _dense_linears(eng)
+    toks, counts = generate_counted(eng, prompts, new)
+    _check_tokens(toks, prompts.shape[0], new, cfg.vocab_size)
+    for n in want:
+        check(counts[n] > 0, f"{label}: {n} not launched ({counts})")
+    log(f"{label}: packed entries by kind {json.dumps(kinds)} (q/k/v and "
+        f"gate/up fused where all are packed), dense linears {len(dense)} "
+        f"{dense[:6]}; generate kernels {json.dumps(counts)}")
+    check_copy(eng, prompts, "card", layers=copy_layers)
+    scan_path(eng, prompts, toks, counts, label)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gguf_q4km_path(n_layers):
+    """(a) llama3-8b × ``n_layers``, ``GGUF:Q4_K_M`` RTN with
+    ``use_imatrix`` and the lm_head: the cascade (Q6_K head and embedding,
+    Q6_K attn_v / ffn_down on the more-bits blocks of this depth), the
+    128256 x 4096 embedding's and the head's dq search on the card at a
+    device peak far below a materialised search's 33 GB → serve at batch
+    8.  Returns the launches."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.dtypes import gguf
+
+    B, S, NEW = 8, 512, 32
+    torch.cuda.empty_cache()
+    cfg, params = _llama8b(n_layers, 70)
+    gen = torch.Generator().manual_seed(71)
+    calib = torch.randint(0, cfg.vocab_size, (8, S), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="GGUF:Q4_K_M", iters=0,
+                   use_imatrix=True, quant_lm_head=True, donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    t_quant = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    plan = {k: v.key() for k, v in ar.layer_schemes.items()}
+    q6 = sorted(k for k, v in plan.items() if v.startswith("w6"))
+    check(plan["embed_tokens"] == plan["lm_head"] == "w6_g16_sym_int_dq",
+          f"gguf q4km: embedding / head plan {plan.get('embed_tokens')} "
+          f"{plan.get('lm_head')}")
+    emb = result.layers["embed_tokens"]
+    check(emb.extras is not None
+          and emb.qdq.shape == (cfg.vocab_size, cfg.hidden_size)
+          and bool(torch.isfinite(emb.extras["d_hat"]).all()),
+          "gguf q4km: the embedding's payload")
+    check(peak - base_gb < 20.0, f"gguf q4km: quantize peak {peak:.2f} GB "
+          f"over {base_gb:.2f} GB of weights")
+    log(f"gguf q4km llama3-8b ({n_layers} layers, random weights, "
+        f"use_imatrix): quantize_s={t_quant:.2f} device peak {peak:.2f} GB "
+        f"(weights {base_gb:.2f} GB: the dq search of the 128256 x 4096 "
+        f"embedding and head walks {gguf.CHUNK_ELEMS // 4096}-row chunks, "
+        f"a materialised 16-ratio search would hold ~33 GB); Q6_K layers "
+        f"at this depth (the cascade follows it) {q6}")
+    del ar
+    counts = _gguf_serve("gguf q4km path", cfg, result, prompts, NEW,
+                         ("w4a16_asym_matmul", "flash_attention",
+                          "decode_attention"), 2)
+    del result
+    return counts
+
+
+def gguf_tune_path(n_layers, iters=4):
+    """(b) llama3-8b × ``n_layers``, ``GGUF:Q4_K_S`` SignRound with
+    ``enable_alg_ext`` and ``use_imatrix`` (the dq grid searched before
+    each block tunes): rows 1-3 in the loss.  Returns the launches."""
+    from autoround_tpu_torch import AutoRound
+
+    kernels = _kernel_fns()
+    cfg, params = _llama8b(n_layers, 72)
+    calib = torch.randint(0, cfg.vocab_size, (8, 512),
+                          generator=torch.Generator().manual_seed(73))
+    c0 = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="GGUF:Q4_K_S", iters=iters,
+                   batch_size=8, lr=5e-3, enable_alg_ext=True,
+                   use_imatrix=True, donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    tune_s = time.time() - t0
+    c1 = launch_counts()
+    counts = {n: c1[n] - c0[n] for n in kernels}
+    for n in ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        check(counts[n] > 0, f"gguf tune: {n} not launched")
+    for bi, tr in result.loss_traces.items():
+        check(all(math.isfinite(float(x)) for x in tr),
+              f"gguf tune: block {bi} losses")
+    check(len(result.imatrices) == 7 * n_layers,
+          f"gguf tune: {len(result.imatrices)} imatrices")
+    log(f"gguf tune llama3-8b ({n_layers} layers, Q4_K_S, alg_ext + "
+        f"imatrix, {iters} iters at lr 5e-3, 8 x 512): tune_s={tune_s:.2f} "
+        f"step_ms={tune_s / (iters * n_layers) * 1e3:.1f} (the embedding's "
+        f"RTN and the dq searches included) losses "
+        f"{json.dumps({b: [round(float(x), 5) for x in t] for b, t in result.loss_traces.items()})}; "
+        f"kernels {json.dumps(counts)}")
+    del ar, result
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gguf_small_path(scheme, n_layers, seed):
+    """(c) llama3-8b × ``n_layers``, RTN with the lm_head: ``GGUF:Q3_K_S``
+    serves through row 4 with signed 3-bit codes at g16, ``GGUF:Q2_K_S``
+    through row 9 at g16 with the fractional zero point m̂ / d̂.  Returns
+    the launches."""
+    from autoround_tpu_torch import AutoRound
+
+    cfg, params = _llama8b(n_layers, seed)
+    gen = torch.Generator().manual_seed(seed)
+    calib = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme=scheme, iters=0, quant_lm_head=True,
+                   donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    log(f"{scheme} llama3-8b ({n_layers} layer): quantize_s="
+        f"{time.time() - t0:.2f}")
+    kernel = ("w4a16_matmul" if scheme == "GGUF:Q3_K_S"
+              else "w4a16_asym_matmul")
+    del ar
+    counts = _gguf_serve(f"{scheme} path", cfg, result, prompts, 32,
+                         (kernel, "flash_attention", "decode_attention"),
+                         n_layers)
+    del result
+    return counts
+
+
+def gguf_mixed_moe_path(n_layers):
+    """(d) mixtral-8x7b × ``n_layers``, ``GGUF:Q2_K_MIXED`` RTN: the
+    experts Q2_K, one by one through row 9 (asym experts stack no
+    weights), the Q8_0 head through row 11 at g32.  Returns the
+    launches."""
+    from autoround_tpu_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.CONFIG_PRESETS["mixtral-8x7b"],
+                              num_layers=n_layers)
+    gen = torch.Generator().manual_seed(75)
+    calib = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    result = _moe_quantize(cfg, calib, 76, "gguf q2_k_mixed mixtral",
+                           scheme="GGUF:Q2_K_MIXED", iters=0)
+    check(result.layers["blocks.0.experts.0.w1"].scheme.bits == 2
+          and result.layers["lm_head"].scheme.bits == 8
+          and result.layers["embed_tokens"].scheme.bits == 8,
+          "gguf q2_k_mixed: the recipe's types")
+    counts = _gguf_serve("gguf q2_k_mixed mixtral path", cfg, result,
+                         prompts, 8, ("w4a16_asym_matmul", "w8a16_matmul",
+                                      "flash_attention", "decode_attention"),
+                         n_layers)
+    del result
+    return counts
+
+
+def rotation_path(n_layers, iters=4):
+    """(e) llama3-8b × ``n_layers``, W4A16 g128 with
+    ``enable_rotation="r1,r4"`` and ``enable_awq``, SignRound: the FP
+    logits before and after the rotation on the card (in fp32, where the
+    rotation is exact to rounding, held to 1e-3 of a row's RMS; the bf16
+    model's, whose rotated weights round to bf16 again, printed), then the
+    engine whose down_proj input goes through the online block Hadamard,
+    its decode step captured and replayed (``profile_replays`` counts the
+    replayed launches).  Returns the launches."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.transforms import hadamard
+    from autoround_tpu_torch.utils.pytree import tree_map
+
+    cfg, params = _llama8b(n_layers, 78)
+    gen = torch.Generator().manual_seed(77)
+    calib = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    perturb_gains(params, 79)
+    x = prompts[:2, :128].cuda()
+    with torch.no_grad():
+        before = llama.model_fwd(params, x, cfg)
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        p32 = tree_map(lambda t: t.float(), params)
+        l0 = llama.model_fwd(p32, x, c32)
+        p32, c32 = hadamard.apply_r4_rotation(
+            hadamard.apply_r1_rotation(p32, c32, seed=42), c32)
+        _, rel32 = row_err(llama.model_fwd(p32, x, c32), l0)
+        del p32, l0
+    check(rel32 < 1e-3, f"rotation: fp32 logits moved by {rel32:.2e} of a "
+          f"row's RMS")
+    t0 = time.time()
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=iters, batch_size=8,
+                   enable_rotation="r1,r4", enable_awq=True)
+    t_rot = time.time() - t0
+    del params
+    check(ar.model_cfg.online_r4, "rotation: online_r4 not set")
+    with torch.no_grad():
+        after = llama.model_fwd(ar.params, x, ar.model_cfg)
+    abs_err, rel = row_err(after, before)
+    check(rel < 0.5, f"rotation: bf16 logits moved by {rel:.4f} of a "
+          f"row's RMS")
+    del before, after
+    t0 = time.time()
+    result = ar.quantize(calib)
+    torch.cuda.synchronize()
+    log(f"rotation llama3-8b ({n_layers} layers, r1 + r4, AWQ, W4A16 g128, "
+        f"{iters} iters): rotate_s={t_rot:.2f} FP logits rotated vs not: "
+        f"fp32 row_err={rel32:.2e}, bf16 max_abs={abs_err:.4f} row_err="
+        f"{rel:.5f}; tune_s="
+        f"{time.time() - t0:.2f}")
+    cfg = ar.model_cfg
+    del ar
+    counts = _gguf_serve("rotation path", cfg, result, prompts, 32,
+                         ("w4a16_matmul", "flash_attention",
+                          "decode_attention"), 2)
+    del result
+    return counts
+
+
+def spinquant_path(n_layers, steps=3):
+    """(f) SpinQuant's trained R1 (``"spin"``'s weight-space objective) on
+    llama3-8b × ``n_layers`` with its steps cut: seconds a step, R
+    orthogonal, the FP logits kept."""
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.schemes import parse_scheme
+    from autoround_tpu_torch.transforms import spinquant
+
+    cfg, params = _llama8b(n_layers, 80)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 128),
+                            generator=torch.Generator().manual_seed(81))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    R = spinquant.train_r1_rotation(
+        params, cfg, parse_scheme("W4A16"),
+        spinquant.SpinQuantConfig(steps=steps), seed=0)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    eye = torch.eye(R.shape[0], device=R.device)
+    orth = float((R @ R.t() - eye).abs().max())
+    check(orth < 1e-3, f"spinquant: R R^T - I up to {orth}")
+    from autoround_tpu_torch.utils.pytree import tree_map
+    with torch.no_grad():      # in fp32: the rotation exact to rounding
+        c32 = dataclasses.replace(cfg, dtype=torch.float32)
+        params = tree_map(lambda t: t.float(), params)
+        before = llama.model_fwd(params, prompts.cuda(), c32)
+        rotated = spinquant.apply_trained_rotation(params, c32, R)
+        after = llama.model_fwd(rotated, prompts.cuda(), c32)
+    abs_err, rel = row_err(after, before)
+    check(rel < 1e-3, f"spinquant: fp32 logits moved by {rel:.2e}")
+    log(f"spinquant llama3-8b ({n_layers} layers, hidden 4096): {steps} "
+        f"steps in {secs:.2f} s ({secs / steps:.2f} s a step, the Cayley "
+        f"solve and the {5 * n_layers} rotated read weights' qdq); "
+        f"|R R^T - I| max {orth:.2e}; fp32 logits rotated vs not row_err="
+        f"{rel:.2e}")
+    del params, rotated, R
+    torch.cuda.empty_cache()
+
+
+def gguf_rotation_phase(q4km_layers, tune_layers, small_layers,
+                        moe_layers, rot_layers):
+    """The GGUF data types and the rotations: paths (a)-(f) above; returns
+    their launches."""
+    t0 = time.time()
+    out = {}
+    out["gguf_q4km"] = gguf_q4km_path(q4km_layers)
+    free_device_memory()
+    out["gguf_tune"] = gguf_tune_path(tune_layers)
+    free_device_memory()
+    out["gguf_q3k"] = gguf_small_path("GGUF:Q3_K_S", small_layers, 82)
+    free_device_memory()
+    out["gguf_q2k"] = gguf_small_path("GGUF:Q2_K_S", small_layers, 83)
+    free_device_memory()
+    out["gguf_q2k_mixed_moe"] = gguf_mixed_moe_path(moe_layers)
+    free_device_memory()
+    out["rotation"] = rotation_path(rot_layers)
+    free_device_memory()
+    spinquant_path(rot_layers)
+    free_device_memory()
+    log(f"gguf / rotation phase: phase_s={time.time() - t0:.1f}")
+    return out
+
 
 def _tensors(tree):
     out = []
@@ -8170,8 +8508,10 @@ def main() -> int:
     # -> 8; MiniMax and LongCat hold offload at 45 and 40 GB) and
     # gpt-oss-20b (8 -> 4) paths when the ernie / longcat / step35 phase
     # came, and those of the gpt-oss-120b and glm-4.5-air paths (4 -> 2)
-    # when the qwen3-next tune took its DeltaNet layer back (the rtn path
-    # keeps the main path's full depth)
+    # when the qwen3-next tune took its DeltaNet layer back, and those of
+    # the W4A8, W8A8, FP8_STATIC, MXFP4 (8 -> 4) and qwen2.5-7b (8 -> 4)
+    # paths when the gguf / rotation phase came (the rtn path keeps the
+    # main path's full depth)
     ap.add_argument("--tune-layers", type=int, default=8,
                     help="depth of the SignRound -> serve path (default 8)")
     ap.add_argument("--moe-layers", type=int, default=8,
@@ -8183,10 +8523,10 @@ def main() -> int:
                          "(default 2)")
     ap.add_argument("--asym-layers", type=int, default=4,
                     help="depth of the int4 asym -> serve path (default 4)")
-    ap.add_argument("--a8-layers", type=int, default=8,
-                    help="depth of the W4A8 -> serve path (default 8)")
-    ap.add_argument("--w8a8-layers", type=int, default=8,
-                    help="depth of the W8A8 -> serve path (default 8)")
+    ap.add_argument("--a8-layers", type=int, default=4,
+                    help="depth of the W4A8 -> serve path (default 4)")
+    ap.add_argument("--w8a8-layers", type=int, default=4,
+                    help="depth of the W8A8 -> serve path (default 4)")
     ap.add_argument("--w8a16-layers", type=int, default=4,
                     help="depth of the W8A16 -> serve path (default 4)")
     ap.add_argument("--a8-modes-layers", type=int, default=4,
@@ -8195,10 +8535,10 @@ def main() -> int:
     ap.add_argument("--a8-tune-layers", type=int, default=2,
                     help="depth of the W4A8 SignRound -> serve path "
                          "(default 2)")
-    ap.add_argument("--fp8-layers", type=int, default=8,
-                    help="depth of the FP8_STATIC -> serve path (default 8)")
-    ap.add_argument("--mxfp4-layers", type=int, default=8,
-                    help="depth of the MXFP4 -> serve path (default 8)")
+    ap.add_argument("--fp8-layers", type=int, default=4,
+                    help="depth of the FP8_STATIC -> serve path (default 4)")
+    ap.add_argument("--mxfp4-layers", type=int, default=4,
+                    help="depth of the MXFP4 -> serve path (default 4)")
     ap.add_argument("--nvfp4-layers", type=int, default=4,
                     help="depth of the NVFP4 -> serve path (default 4)")
     ap.add_argument("--w2-layers", type=int, default=4,
@@ -8212,9 +8552,9 @@ def main() -> int:
     ap.add_argument("--sage-layers", type=int, default=8,
                     help="layers of prefill attention on the int8-QK path "
                          "(default 8)")
-    ap.add_argument("--qwen25-layers", type=int, default=8,
+    ap.add_argument("--qwen25-layers", type=int, default=4,
                     help="depth of the qwen2.5-7b RTN -> serve path "
-                         "(default 8 of 28)")
+                         "(default 4 of 28)")
     ap.add_argument("--qwen3-tune-layers", type=int, default=2,
                     help="depth of the qwen3-4b SignRound -> serve path "
                          "(default 2)")
@@ -8282,6 +8622,21 @@ def main() -> int:
                     help="depth of the step-3.5-flash RTN -> export path "
                          "(default 4 of 45: full layer 0, sliding layers "
                          "1-3, the MoE layer 3; at least 4)")
+    ap.add_argument("--gguf-layers", type=int, default=4,
+                    help="depth of the llama3-8b GGUF:Q4_K_M RTN -> serve "
+                         "path (default 4)")
+    ap.add_argument("--gguf-tune-layers", type=int, default=2,
+                    help="depth of the GGUF:Q4_K_S SignRound path "
+                         "(default 2)")
+    ap.add_argument("--gguf-small-layers", type=int, default=1,
+                    help="depth of the GGUF:Q3_K_S and GGUF:Q2_K_S paths "
+                         "(default 1)")
+    ap.add_argument("--gguf-moe-layers", type=int, default=1,
+                    help="depth of the mixtral-8x7b GGUF:Q2_K_MIXED path "
+                         "(default 1)")
+    ap.add_argument("--rotation-layers", type=int, default=2,
+                    help="depth of the r1 + r4 + AWQ and the SpinQuant "
+                         "paths (default 2)")
     ap.add_argument("--qwen35-load-layers", type=int, default=2,
                     help="depth of the qwen3_5_moe HF directory of the "
                          "load path (default 2: the published layers 2-3, "
@@ -8421,6 +8776,11 @@ def main() -> int:
                                           args.longcat_layers,
                                           args.step35_layers))
     mark("ernie / longcat / step35")
+    oss.update(gguf_rotation_phase(args.gguf_layers, args.gguf_tune_layers,
+                                   args.gguf_small_layers,
+                                   args.gguf_moe_layers,
+                                   args.rotation_layers))
+    mark("gguf / rotation")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths

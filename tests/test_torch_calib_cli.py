@@ -133,8 +133,12 @@ def test_autoround_builds_its_batch(texts):
         assert torch.equal(res.layers[name].qdq, ql.qdq), name
     with pytest.raises(ValueError, match="dataset"):
         AutoRound((params, cfg), iters=0, device="cpu").quantize()
-    with pytest.raises(NotImplementedError, match="A12"):
-        AutoRound((params, cfg), enable_rotation="r1", device="cpu")
+    # rotations run at construction (the JAX-held checks:
+    # tests/test_torch_transforms.py); an unknown mode raises as in JAX
+    assert AutoRound((params, cfg), enable_rotation="r1,r4", iters=0,
+                     device="cpu").model_cfg.online_r4
+    with pytest.raises(ValueError, match="unknown rotation modes"):
+        AutoRound((params, cfg), enable_rotation="r3", device="cpu")
 
 
 # ----------------------------------------------------------------- the CLI
@@ -194,7 +198,6 @@ def test_parser_device_choices(capsys):
     (["--mllm"], "A14"), (["--eval-ppl"], "A14"), (["--eval-greedy-acc"],
                                                    "A14"),
     (["--model-free"], "A12"), (["--avg-bits", "3"], "A12"),
-    (["--enable-awq"], "A12"), (["--enable-rotation", "r1"], "A12"),
     (["--resume-dir", "r"], "A12"),
     (["--format", "gptq"], "A13"), (["--format", "fake,gguf:q4_k_m"],
                                     "A13"),
@@ -214,6 +217,8 @@ def test_unported_flags_raise_before_work(extra, label):
     (["--enable-alg-ext"], dict(enable_alg_ext=True)),
     (["--optimizer", "adam"], dict(optimizer="adam")),
     (["--enable-norm-bias-tuning"], dict(enable_norm_bias_tuning=True)),
+    (["--enable-awq"], dict(enable_awq=True)),
+    (["--recipe", "opt-rtn"], dict(use_imatrix=True)),
 ])
 def test_ported_flags_reach_the_quantizer(extra, want):
     """The flags of the SignRound and driver options run: they pass the

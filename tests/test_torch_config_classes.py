@@ -37,8 +37,8 @@ A14 = {"LlavaConfig", "MllamaConfig", "Mistral3Config", "Gemma3VLConfig",
 # subclasses without a field of their own: an export rebuilds their base
 EXPORT_AS = {"GlmMoeLiteConfig": "DeepseekConfig",
              "Qwen35MoeConfig": "Qwen3NextConfig"}
-# JAX fields the port leaves out while they are off
-OFF = ("online_r4", "r4_block", "dtype")
+# JAX fields the port converts (the dtype) rather than compares
+OFF = ("dtype",)
 
 
 def test_every_class_is_ported_or_a14():
@@ -90,6 +90,7 @@ def test_no_field_is_dropped():
         config_from_jax(dict(fields, patch_size=16))
     with pytest.raises(NotImplementedError, match="SomeVLConfig"):
         config_from_jax(fields, "SomeVLConfig")
-    # a field the port leaves out is taken while it is off
+    # online R4's fields are taken, on or off
     assert config_from_jax(dict(fields, r4_block=64)) == \
-        dataclasses.replace(ALL_PRESETS["tiny"], dtype=torch.bfloat16)
+        dataclasses.replace(ALL_PRESETS["tiny"], dtype=torch.bfloat16,
+                            r4_block=64)

@@ -355,27 +355,33 @@ def test_w4a16_mixed_plan_and_rtn_against_jax():
                                       np.asarray(jq.qdq), err_msg=name)
         np.testing.assert_array_equal(tres.layers[name].scale.numpy(),
                                       np.asarray(jq.scale), err_msg=name)
-    with pytest.raises(NotImplementedError, match="A9"):
-        AutoRound((tp, tcfg), scheme="GGUF:Q2_K_MIXED", iters=0,
-                  device="cpu")
+    # GGUF:Q2_K_MIXED expands too: the routed experts Q2_K, the rest
+    # Q4_K_S where the width takes a k-quant (Q8_0 at 64), head Q8_0
+    plan = AutoRound((tp, tcfg), scheme="GGUF:Q2_K_MIXED", iters=0,
+                     device="cpu").layer_schemes
+    assert plan["lm_head"].bits == 8 and plan["lm_head"].group_size == 32
+    assert "embed_tokens" in plan
 
 
 def test_left_out_options_name_their_items(tiny):
     """What this slice leaves out raises by its ROADMAP label: resume
-    (A12), alg_ext on a GGUF double-quant scheme (A9: ``int_dq`` and its
-    frozen searched grid are not ported), straight into ``tune_block``
-    too."""
+    (A12).  alg_ext on a GGUF double-quant scheme runs now, straight into
+    ``tune_block`` too (its clip scales start at 1.0; the JAX-held traces
+    are in ``tests/test_torch_gguf_e2e.py``)."""
     from autoround_tpu_torch.algorithms.signround import TuneConfig, tune_block
     ids = tiny["ids"][:4]
     with pytest.raises(NotImplementedError, match="A12"):
         AutoRound((tiny["tp"], tiny["tcfg"]), device="cpu", iters=2,
                   resume_dir="r").quantize(ids)
-    with pytest.raises(NotImplementedError, match="A9"):
-        AutoRound((tiny["tp"], tiny["tcfg"]), device="cpu", iters=2,
-                  scheme="GGUF:Q4_K_S", enable_alg_ext=True).quantize(ids)
-    w = torch.zeros(8, 256)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tune_block(lambda ws, x: x @ ws["w"].t(), {"w": w},
-                   torch.zeros(4, 2, 256), torch.zeros(4, 2, 8),
-                   {"w": parse_scheme("GGUF:Q4_K_S")},
-                   TuneConfig(iters=1, enable_alg_ext=True))
+    res = AutoRound((tiny["tp"], tiny["tcfg"]), device="cpu", iters=2,
+                    scheme="GGUF:Q4_K_S", enable_alg_ext=True).quantize(ids)
+    assert all(np.isfinite(t).all() for t in res.loss_traces.values())
+    w = torch.randn(8, 256, generator=torch.Generator().manual_seed(0))
+    best, info = tune_block(lambda ws, x: x @ ws["w"].t(), {"w": w},
+                            torch.randn(4, 2, 256, generator=torch.Generator()
+                                        .manual_seed(1)),
+                            torch.zeros(4, 2, 8),
+                            {"w": parse_scheme("GGUF:Q4_K_S")},
+                            TuneConfig(iters=1, enable_alg_ext=True))
+    assert best["w"]["max_scale"].shape == (8, 8)
+    assert np.isfinite(info["loss_trace"]).all()

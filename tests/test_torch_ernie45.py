@@ -113,8 +113,7 @@ def test_registry_presets_and_init_params():
         cfg = ALL_PRESETS[name]
         assert type(cfg) is te.Ernie45Config
         assert [f.name for f in dataclasses.fields(cfg)] == [
-            f.name for f in dataclasses.fields(jcfg)
-            if f.name not in ("online_r4", "r4_block")]
+            f.name for f in dataclasses.fields(jcfg)]
         for f in dataclasses.fields(cfg):
             if f.name != "dtype":
                 assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name

@@ -115,8 +115,7 @@ def test_registry_presets_and_init_params():
         # the JAX order (the export's model_config follows it), less the
         # QuaRot fields the port does not have
         assert [f.name for f in dataclasses.fields(cfg)] == [
-            f.name for f in dataclasses.fields(jcfg)
-            if f.name not in ("online_r4", "r4_block")]
+            f.name for f in dataclasses.fields(jcfg)]
         for f in dataclasses.fields(cfg):
             if f.name != "dtype":
                 assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name

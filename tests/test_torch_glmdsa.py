@@ -110,8 +110,7 @@ def test_registry_presets_and_init_params():
     cfg = ALL_PRESETS["tiny-glmdsa"]
     assert type(cfg) is tdsa.GlmMoeDsaConfig
     assert [f.name for f in dataclasses.fields(cfg)] == [
-        f.name for f in dataclasses.fields(BASE)
-        if f.name not in ("online_r4", "r4_block")]
+        f.name for f in dataclasses.fields(BASE)]
     for f in dataclasses.fields(cfg):
         if f.name != "dtype":
             assert getattr(cfg, f.name) == getattr(BASE, f.name), f.name

@@ -105,8 +105,11 @@ def test_rtn_bf16_weights_exact():
 def test_registry_resolution():
     assert get_quant_func("int", 4, True, mode="rtn") is not \
         get_quant_func("int", 4, True)
-    with pytest.raises(KeyError):      # GGUF double quant: not ported
-        get_quant_func("int_dq", 4, True)
+    # GGUF double quant: the resolver's "{data_type}_{sym}" aliases
+    from autoround_tpu_torch.dtypes.registry import QUANT_FUNCS
+    assert get_quant_func("int_dq", 4, True) is QUANT_FUNCS["int_sym_dq"]
+    assert get_quant_func("int_dq", 4, False, mode="rtn") is \
+        QUANT_FUNCS["rtn_int_asym_dq"]
     # an imatrix routes sym int to the opt_rtn entry, asym (none
     # registered) to plain RTN, as in the JAX package
     assert get_quant_func("int", 4, True, mode="opt_rtn") is not \

@@ -100,13 +100,13 @@ _FAMILY_PRESETS = ["tiny-qwen", "tiny-qwen3", "tiny-gemma2", "tiny-gemma3",
                                   "tiny-gemma3"])
 def test_config_from_jax_rejects_unported_flags(name):
     """The family flags map now (``test_config_from_jax_llama_presets``),
-    Llama4's chunked attention too (``tests/test_torch_llama4.py``); on the
-    same preset, online R4 still raises, naming its ROADMAP item."""
+    Llama4's chunked attention too (``tests/test_torch_llama4.py``), and
+    online R4 with its block (``tests/test_torch_transforms.py`` holds the
+    rotated model); no flag of the preset is refused any more."""
     jcfg = jl.CONFIG_PRESETS[name]
-    with pytest.raises(NotImplementedError,
-                       match="online_r4=True .*ROADMAP A12"):
-        config_from_jax(dataclasses.asdict(
-            dataclasses.replace(jcfg, online_r4=True)))
+    r4 = config_from_jax(dataclasses.asdict(
+        dataclasses.replace(jcfg, online_r4=True, r4_block=64)))
+    assert r4.online_r4 and r4.r4_block == 64
     chunked = config_from_jax(dataclasses.asdict(
         dataclasses.replace(jcfg, chunked_attention=True)))
     assert chunked.chunked_attention

@@ -479,10 +479,28 @@ def test_cli_on_a_llama4_text_directory(pair, tmp_path, capsys, monkeypatch):
 
 # ---------------------------------------------------------------- serving
 
+# one JAX engine per result and cache kind, shared by the tests that read
+# it (each compiles its prefill / decode once); a keyword (a capacity run,
+# which the JAX engine reads from its environment as it traces) builds anew
+_JAX_ENGINES = {}
+
+
+def _jax_engine(jres, jcfg, kv_quant, fresh):
+    if fresh:
+        return JQuantizedLlama.from_quantize_result(
+            jres, jcfg, max_seq=MAX_SEQ, kv_quant=kv_quant)
+    key = (id(jres), kv_quant)
+    hit = _JAX_ENGINES.get(key)
+    if hit is None or hit[0] is not jres:
+        eng = JQuantizedLlama.from_quantize_result(
+            jres, jcfg, max_seq=MAX_SEQ, kv_quant=kv_quant)
+        hit = _JAX_ENGINES[key] = (jres, eng)
+    return hit[1]
+
+
 def _engines(rtn, kv_quant=None, **kw):
     """(JAX engine, port engine) over the RTN results of ``rtn``."""
-    return (JQuantizedLlama.from_quantize_result(
-                rtn[0], JCFG, max_seq=MAX_SEQ, kv_quant=kv_quant),
+    return (_jax_engine(rtn[0], JCFG, kv_quant, bool(kw)),
             QuantizedLlama.from_quantize_result(
                 rtn[1], make_pair()[2], max_seq=MAX_SEQ, kv_quant=kv_quant,
                 device="cpu", **kw))

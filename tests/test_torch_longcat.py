@@ -112,8 +112,7 @@ def test_registry_presets_and_init_params():
     assert type(cfg) is tlc.LongcatConfig
     assert isinstance(cfg, td.DeepseekConfig)
     assert [f.name for f in dataclasses.fields(cfg)] == [
-        f.name for f in dataclasses.fields(jcfg)
-        if f.name not in ("online_r4", "r4_block")]
+        f.name for f in dataclasses.fields(jcfg)]
     assert port_config(jcfg) == cfg and cfg.total_experts == 6
     assert "total_experts" not in dataclasses.asdict(jcfg)
     fns = get_model_fns(cfg)

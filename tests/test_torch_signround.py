@@ -372,9 +372,13 @@ def test_masked_loss_against_jax():
                                rtol=1e-4)
     np.testing.assert_allclose(tinfo["best_loss"], jinfo["best_loss"],
                                rtol=BEST_LOSS_RTOL)
-    # the mask is honoured: the unmasked run reads another loss
-    (_, _, _), (_, tfull, _) = _tune_both(
-        "W4A16", dict(iters=10, batch_size=8, seed=6), seed=6)
+    # the mask is honoured: the unmasked run reads another loss (the
+    # port's alone: the JAX run above holds the numbers)
+    w, x, ref = toy_problem(6)
+    _, tfull = tsr.tune_block(
+        t_linear, {"w": torch.from_numpy(w)}, torch.from_numpy(x),
+        torch.from_numpy(ref), {"w": t_parse("W4A16", group_size=32)},
+        tsr.TuneConfig(iters=10, batch_size=8, seed=6))
     assert abs(tfull["first_loss"] - tinfo["first_loss"]) \
         > 1e-3 * tfull["first_loss"]
     rng = np.random.default_rng(0)
@@ -399,7 +403,11 @@ def test_dynamic_max_gap_freezes():
     assert np.all(tail == tail[0]), "updates after the gap are frozen"
     np.testing.assert_allclose(tinfo["best_loss"], jinfo["best_loss"],
                                rtol=BEST_LOSS_RTOL)
-    free = _tune_both("W4A16", dict(kw, dynamic_max_gap=-1), seed=7)[1][1]
+    w, x, ref = toy_problem(7)      # the port's run alone, as above
+    _, free = tsr.tune_block(
+        t_linear, {"w": torch.from_numpy(w)}, torch.from_numpy(x),
+        torch.from_numpy(ref), {"w": t_parse("W4A16", group_size=32)},
+        tsr.TuneConfig(**dict(kw, dynamic_max_gap=-1)))
     assert len(np.unique(free["loss_trace"][best_at + 3:])) > 1
 
 
@@ -433,8 +441,9 @@ def test_use_best_params_and_remat():
     (dict(cfg=dict(tune_act_scales=True)), None),
     (dict(cfg=dict(enable_norm_bias_tuning=True)), None),
     (dict(lfq_fn=lambda out, idx: out.float().pow(2).mean()), None),
-    (dict(extras={"w": {}}), "A9"),
-    (dict(init_scales={"w": None}), "A12"),
+    # per-layer qdq keywords, and AWQ's clip-scale starts (32 x 2 groups)
+    (dict(extras={"w": {}}), None),
+    (dict(init_scales={"w": torch.full((32, 2), 0.9)}), None),
 ])
 def test_unported_options_raise(kw, item):
     w, x, ref = toy_problem(9)

@@ -121,8 +121,7 @@ def test_registry_presets_and_init_params():
         cfg = ALL_PRESETS[name]
         assert type(cfg) is ts.Step35Config
         assert [f.name for f in dataclasses.fields(cfg)] == [
-            f.name for f in dataclasses.fields(jcfg)
-            if f.name not in ("online_r4", "r4_block")]
+            f.name for f in dataclasses.fields(jcfg)]
         assert port_config(jcfg) == cfg
         fns = get_model_fns(cfg)
         assert fns.block_fwd is ts.block_fwd
