@@ -15,7 +15,10 @@ data types and their activation quantization, the serving engine for every
 packed kind of the JAX engine with an int8 or fp8 KV cache, its decode loop
 as a replayed CUDA graph (``generate_scan``) and continuous batching
 (``serve.ContinuousBatchingEngine``), the ``fake`` / ``autoround``
-export formats, and loading and user entry: local HF checkpoints
+export formats (and ``gptq``, ``awq``, ``llm_compressor``, ``mlx``),
+AutoScheme's mixed-precision plans, crash resume, model-free
+quantization of a checkpoint (FP8 sources included), and loading and user
+entry: local HF checkpoints
 (``utils.hf_loader``), ``QuantizedLlama.from_pretrained`` / ``from_gptq`` /
 ``from_awq``, calibration data (``quantize.calib_data``) and the CLI
 (``python -m autoround_tpu_torch``), on the port's own safetensors reader
@@ -33,11 +36,15 @@ Every entry point takes ``device=None``, meaning the CUDA card; without
 one it raises.  Pass ``device="cpu"`` for the plain PyTorch path.
 """
 
-from .api import AutoRound
+from .api import (AutoRound, AutoRoundAdam, AutoRoundDiffusion, AutoRoundLLM,
+                  AutoRoundMLLM)
+from .quantize.auto_scheme import AutoScheme
 from .schemes import PRESET_SCHEMES, QuantizationScheme, parse_scheme
 from .serve.engine import KVCache, QuantizedLlama
 from .serve.sampling import SamplingParams
 
-__all__ = ["AutoRound", "QuantizedLlama", "KVCache", "SamplingParams",
-           "QuantizationScheme", "PRESET_SCHEMES", "parse_scheme"]
+__all__ = ["AutoRound", "AutoRoundLLM", "AutoRoundMLLM", "AutoRoundDiffusion",
+           "AutoRoundAdam", "AutoScheme", "QuantizedLlama", "KVCache",
+           "SamplingParams", "QuantizationScheme", "PRESET_SCHEMES",
+           "parse_scheme"]
 __version__ = "0.1.0"

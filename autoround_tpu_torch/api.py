@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, Optional, Union
 
 import os
+import re
 
 import torch
 
@@ -17,12 +18,14 @@ from .quantize.layer_config import (apply_gguf_cascade,
                                     handle_special_scheme,
                                     prune_missing_layers,
                                     resolve_layer_schemes)
+from .quantize.auto_scheme import AutoScheme, gen_auto_scheme
 from .quantize.orchestrator import QuantizeConfig, QuantizeResult, quantize_model
 from .schemes import QuantizationScheme, parse_scheme
 from .utils.logger import logger
 from .utils.offload import tree_to_host
 
-__all__ = ["AutoRound"]
+__all__ = ["AutoRound", "AutoRoundLLM", "AutoRoundMLLM",
+           "AutoRoundDiffusion", "AutoRoundAdam"]
 
 
 def _to_device(tree, device):
@@ -109,6 +112,12 @@ class AutoRound:
     ``layer_config`` entry wins over the recipe).  A ``GGUF:`` scheme goes
     through the export's per-layer type cascade and quantizes the token
     embedding (``quantize.layer_config.apply_gguf_cascade``).
+    ``scheme=AutoScheme(avg_bits, options)`` picks one option per block
+    linear within the budget when ``quantize()`` runs
+    (``quantize.auto_scheme``: its gradient pass needs the calibration
+    tokens); as in the JAX package ``ignore_layers`` then drops names from
+    its plan, and ``layer_config`` and ``quant_lm_head`` are kept but not
+    applied.
     """
 
     def __init__(
@@ -156,6 +165,39 @@ class AutoRound:
             params, cfg = _rotate(params, cfg, enable_rotation, scheme, seed)
         self.params = params
         self.model_cfg = cfg
+        if isinstance(scheme, AutoScheme):
+            # the search runs in quantize(), on the calibration tokens
+            self.scheme = scheme
+            self.layer_schemes = None
+            self._auto_layer_kwargs = dict(
+                layer_config=layer_config, ignore_layers=ignore_layers,
+                quant_lm_head=quant_lm_head)
+        else:
+            self._resolve_plan(scheme, layer_config, ignore_layers,
+                               quant_lm_head)
+        cfg_fields = QuantizeConfig.__dataclass_fields__
+        for k in kw:
+            if k not in cfg_fields:
+                logger.warning("AutoRound: ignoring unknown kwarg %r", k)
+        self.cfg = QuantizeConfig(
+            iters=iters, lr=lr, minmax_lr=minmax_lr, batch_size=batch_size,
+            seed=seed, enable_quanted_input=enable_quanted_input,
+            enable_minmax_tuning=enable_minmax_tuning,
+            donate_params=donate_params, dynamic_max_gap=dynamic_max_gap,
+            gradient_accumulate_steps=gradient_accumulate_steps,
+            **{k: v for k, v in kw.items() if k in cfg_fields})
+        self.tokenizer = tokenizer
+        self._dataset_spec = dict(
+            dataset=dataset, nsamples=nsamples, seqlen=seqlen,
+            apply_chat_template=apply_chat_template,
+            system_prompt=system_prompt)
+        self.result: Optional[QuantizeResult] = None
+
+    def _resolve_plan(self, scheme, layer_config, ignore_layers,
+                      quant_lm_head) -> None:
+        """The per-layer plan of a scheme (a recipe expanded first; a GGUF
+        scheme through the export's type cascade)."""
+        params, cfg = self.params, self.model_cfg
         lnames = get_model_fns(cfg).block_linear_names(cfg)
         special = handle_special_scheme(scheme, lnames, quant_lm_head)
         pinned = ()
@@ -181,23 +223,6 @@ class AutoRound:
                 # Q2_K_MIXED pins the embedding at Q8_0
                 self.layer_schemes["embed_tokens"] = parse_scheme(
                     "GGUF:Q8_0")
-        cfg_fields = QuantizeConfig.__dataclass_fields__
-        for k in kw:
-            if k not in cfg_fields:
-                logger.warning("AutoRound: ignoring unknown kwarg %r", k)
-        self.cfg = QuantizeConfig(
-            iters=iters, lr=lr, minmax_lr=minmax_lr, batch_size=batch_size,
-            seed=seed, enable_quanted_input=enable_quanted_input,
-            enable_minmax_tuning=enable_minmax_tuning,
-            donate_params=donate_params, dynamic_max_gap=dynamic_max_gap,
-            gradient_accumulate_steps=gradient_accumulate_steps,
-            **{k: v for k, v in kw.items() if k in cfg_fields})
-        self.tokenizer = tokenizer
-        self._dataset_spec = dict(
-            dataset=dataset, nsamples=nsamples, seqlen=seqlen,
-            apply_chat_template=apply_chat_template,
-            system_prompt=system_prompt)
-        self.result: Optional[QuantizeResult] = None
 
     def quantize(self, input_ids=None, mask=None) -> QuantizeResult:
         """input_ids: (nsamples, seqlen) token ids (tensor or array), or
@@ -215,12 +240,25 @@ class AutoRound:
                 vocab_size=self.model_cfg.vocab_size, seed=self.cfg.seed,
                 apply_chat_template=spec["apply_chat_template"],
                 system_prompt=spec["system_prompt"])
+        if isinstance(input_ids, dict) and self.layer_schemes is None:
+            raise NotImplementedError(
+                "AutoScheme search over multimodal batches is not "
+                "supported yet; pass text-only calibration tokens")
         ids = torch.as_tensor(input_ids, device=self.device).long()
         if mask is not None:
             mask = torch.as_tensor(mask, device=self.device)
+        if self.layer_schemes is None:
+            plan = gen_auto_scheme(self.params, self.model_cfg, self.scheme,
+                                   ids)
+            for pattern in self._auto_layer_kwargs["ignore_layers"] or ():
+                plan = {n: s for n, s in plan.items()
+                        if not (n == pattern or n.split(".")[-1] == pattern
+                                or re.fullmatch(pattern, n))}
+            self.layer_schemes = plan
         logger.info("quantizing %d layers, scheme=%s, iters=%d, nsamples=%d "
-                    "seqlen=%d", len(self.layer_schemes), self.scheme.key(),
-                    self.cfg.iters, ids.shape[0], ids.shape[1])
+                    "seqlen=%d", len(self.layer_schemes),
+                    self.scheme.key() if hasattr(self.scheme, "key")
+                    else "auto", self.cfg.iters, ids.shape[0], ids.shape[1])
         self.result = quantize_model(self.params, self.model_cfg,
                                      self.layer_schemes, ids, self.cfg,
                                      mask=mask)
@@ -258,3 +296,25 @@ class AutoRound:
                           format: str = "fake", mask=None) -> str:
         self.quantize(input_ids, mask=mask)
         return self.save_quantized(output_dir, format=format)
+
+
+# The JAX package's legacy entry names: the one front door routes every
+# model, and these keep call sites written against the old names working.
+class AutoRoundLLM(AutoRound):
+    pass
+
+
+class AutoRoundMLLM(AutoRound):
+    pass
+
+
+class AutoRoundDiffusion(AutoRound):
+    pass
+
+
+class AutoRoundAdam(AutoRound):
+    """``AutoRound`` with ``optimizer="adam"`` unless given."""
+
+    def __init__(self, *args, **kw):
+        kw.setdefault("optimizer", "adam")
+        super().__init__(*args, **kw)

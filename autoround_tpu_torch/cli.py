@@ -14,10 +14,13 @@ HF directory, a tokenizer if ``transformers`` loads one (a local
 directory that holds nothing but the model's own files is not offered to
 it: importing ``AutoTokenizer`` costs tens of seconds on a GPU host, and
 such a directory has no tokenizer to load), a ``.npy`` /
-``synthetic`` / ``local:`` dataset, the scheme overrides, the layer
-selection, the ported quantizer options, ``save_quantized`` and one JSON
-report line.  Options whose feature is not ported raise
-``NotImplementedError`` naming their ROADMAP item before any work.
+``synthetic`` / ``local:`` dataset, the scheme overrides (or, with
+``--avg-bits``, an AutoScheme over ``--options``), the layer selection,
+the quantizer options (``--resume-dir`` included), ``save_quantized`` and
+one JSON report line; ``--model-free`` quantizes the checkpoint directory
+shard by shard instead (``quantize.model_free``).  Options whose feature is
+not ported raise ``NotImplementedError`` naming their ROADMAP item before
+any work.
 ``AR_LOG_LEVEL`` sets the logger's level and
 ``AR_ENABLE_ACT_MINMAX_TUNING`` the quantizer's
 ``enable_act_minmax_tuning`` (``envs.py``).
@@ -86,8 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", "--output-dir", dest="output",
                    default="quantized/")
     p.add_argument("--format", "--formats", dest="format", default="fake",
-                   help="fake | autoround (gptq, awq, llm_compressor, gguf "
-                        "are not ported yet); comma-separated for several")
+                   help="fake | autoround | gptq | awq | llm_compressor | "
+                        "mlx (gguf is not ported yet); comma-separated for "
+                        "several")
     p.add_argument("--seed", type=int, default=42)
 
     sch = p.add_argument_group(
@@ -131,10 +135,11 @@ def build_parser() -> argparse.ArgumentParser:
     rt.add_argument("--cache-batch", type=int, default=None,
                     help="batch size for the cache-advance forwards")
     rt.add_argument("--resume-dir", default=None,
-                    help="crash-resume directory (not ported yet)")
+                    help="crash-resume directory (blocks re-start after "
+                         "the last completed one)")
     rt.add_argument("--immediate-save-dir", default=None,
                     help="stream packed blocks to sharded safetensors as "
-                         "they finish (not ported yet)")
+                         "they finish (peak RAM never holds the model)")
     rt.add_argument("--shard-size-gb", type=float, default=4.0)
     rt.add_argument("--not-use-best-mse", action="store_true",
                     help="keep the LAST iterate instead of the best-loss "
@@ -154,8 +159,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "scheme overrides")
     tune.add_argument("--avg-bits", "--target-bits", dest="avg_bits",
                       type=float, default=None,
-                      help="AutoScheme mixed-precision search (not ported "
-                           "yet)")
+                      help="enable AutoScheme mixed-precision search")
     tune.add_argument("--scheme-options", "--options", dest="scheme_options",
                       nargs="*", default=None,
                       help="candidate schemes for AutoScheme")
@@ -186,7 +190,7 @@ def build_parser() -> argparse.ArgumentParser:
                            "r2 (comma-combinable, e.g. 'spin,r2,r4')")
     tune.add_argument("--model-free", action="store_true",
                       help="streaming shard RTN without model "
-                           "instantiation (not ported yet)")
+                           "instantiation")
 
     mllm = p.add_argument_group("multimodal (not ported yet)")
     mllm.add_argument("--mllm", action="store_true")
@@ -240,9 +244,6 @@ def _unported_flags(args):
          or args.extra_data_dir is not None, "A14"),
         ("--eval-ppl / --eval-greedy-acc",
          args.eval_ppl or args.eval_greedy_acc, "A14"),
-        ("--model-free", args.model_free, "A12"),
-        ("--avg-bits (AutoScheme)", args.avg_bits is not None, "A12"),
-        ("--resume-dir", args.resume_dir is not None, "A12"),
     )
 
 
@@ -262,7 +263,7 @@ def _quantize_kwargs(args) -> dict:
             "offload", "cpu", "auto")
     if args.remat:
         kw["use_remat"] = True
-    for flag in ("cache_batch", "immediate_save_dir",
+    for flag in ("cache_batch", "resume_dir", "immediate_save_dir",
                  "gradient_accumulate_steps", "optimizer",
                  "dynamic_max_gap"):
         v = getattr(args, flag)
@@ -285,22 +286,14 @@ def _quantize_kwargs(args) -> dict:
     return kw
 
 
-def _check_ported(args, kw) -> None:
+def _check_ported(args) -> None:
     """Raise for every option this port leaves out, before any work."""
-    from .export import _UNPORTED_FORMATS
-    from .quantize.orchestrator import _UNPORTED
-
     for flag, on, item in _unported_flags(args):
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
-    for name, off, what, item in _UNPORTED:
-        if kw.get(name, off) != off:
-            raise NotImplementedError(
-                f"{name}={kw[name]!r} ({what}) is not ported yet "
-                f"(ROADMAP {item})")
     for fmt in (f.strip() for f in args.format.split(",")):
-        if fmt in _UNPORTED_FORMATS or fmt.startswith("gguf"):
+        if fmt.startswith("gguf"):
             raise NotImplementedError(
                 f"export format {fmt!r} is not ported yet (ROADMAP A13)")
 
@@ -312,7 +305,7 @@ def main(argv=None) -> int:
             f"the {argv[0]!r} subcommand is not ported yet (ROADMAP A14)")
     args = build_parser().parse_args(argv)
     kw = _quantize_kwargs(args)
-    _check_ported(args, kw)
+    _check_ported(args)
 
     import numpy as np
     import torch
@@ -326,6 +319,12 @@ def main(argv=None) -> int:
 
     setup(envs.AR_LOG_LEVEL)
     device = resolve_device(args.device)
+    if args.model_free:
+        from .quantize.model_free import model_free_quantize
+        out = model_free_quantize(args.model, args.output,
+                                  scheme=args.scheme, device=device)
+        print(json.dumps({"output": out, "mode": "model-free"}))
+        return 0
     nsamples = kw.pop("nsamples")
     seqlen = kw.pop("seqlen")
     if envs.AR_ENABLE_ACT_MINMAX_TUNING:
@@ -380,6 +379,11 @@ def main(argv=None) -> int:
     if overrides:
         from .schemes import parse_scheme
         scheme = parse_scheme(args.scheme, **overrides)
+    if args.avg_bits is not None:
+        from .quantize.auto_scheme import AutoScheme
+        scheme = AutoScheme(avg_bits=args.avg_bits,
+                            options=tuple(args.scheme_options
+                                          or ("W2A16", "W4A16", "W8A16")))
 
     ignore = list(args.ignore_layers or [])
     if args.fp_layers:

@@ -2,8 +2,24 @@
 ``AR_*`` knob of the JAX package is a lazy accessor under the same name, so
 ``envs.AR_LOG_LEVEL`` reads the process environment when it is read.
 
-The port's library takes explicit arguments and reads none of these; only
-the entry point (``cli.py``) maps them onto its arguments:
+The library takes explicit arguments and reads these where the JAX
+package reads them:
+
+* ``AR_RESUME_DIR`` → the quantize driver's crash resume when
+  ``resume_dir`` is not given (``utils/resume.py``);
+* ``AR_TRACE_DIR`` → a ``torch.profiler`` Chrome trace of the block loop
+  (``utils/profiling.py``);
+* ``AR_LOG_MEMORY`` → the memory monitor and live-tensor census after each
+  block (``utils/memory.py``; ``AR_LEAK_PROBE=1`` adds the referrer
+  probe);
+* ``AR_PROFILE_PHASES`` → ``QuantizeResult.profile``, the seconds by phase
+  of the block loop;
+* ``AR_WORK_SPACE`` → AutoScheme's score cache
+  (``quantize/auto_scheme.py``);
+* ``AR_MODEL_FREE_SHARD_PARALLELISM`` → ``model_free_quantize``'s
+  ``num_workers`` when not given.
+
+The entry point (``cli.py``) maps two onto its arguments:
 
 * ``AR_LOG_LEVEL`` → ``utils.logger.setup``;
 * ``AR_ENABLE_ACT_MINMAX_TUNING`` → ``AutoRound(...,
@@ -20,18 +36,10 @@ Read and ignored, because they have no meaning in the port:
   compiles no XLA programs (its CUDA builds are cached under
   ``autoround_tpu_torch/_build/``);
 * ``AR_PREFILL_DEQUANT_TOKENS``: the JAX engine's dequantize-once prefill
-  path; the port always runs the kernel (an accepted deviation, ROADMAP C);
-* ``AR_TRACE_DIR``: a ``jax.profiler`` trace of the tuning run; the port's
-  scripts profile with ``torch.profiler``.
+  path; the port always runs the kernel (an accepted deviation, ROADMAP C).
 
-Kept for features not ported yet; the option that would read each raises
-naming its ROADMAP item:
+Kept for a feature not ported yet:
 
-* ``AR_RESUME_DIR`` → ``utils/resume.py`` (A12);
-* ``AR_MODEL_FREE_SHARD_PARALLELISM`` → ``quantize/model_free.py`` (A12);
-* ``AR_WORK_SPACE`` → ``quantize/auto_scheme.py``'s score cache (A12);
-* ``AR_LOG_MEMORY`` → ``utils/memory.py`` (A12);
-* ``AR_PROFILE_PHASES`` → ``utils/profiling.py`` (A12);
 * ``AR_CALIB_SUBPROCESS`` / ``AR_CALIB_SUBPROCESS_TIMEOUT`` → the hub
   datasets of ``quantize/calib_data.py`` (A8), which the port leaves out:
   it reads local files only.

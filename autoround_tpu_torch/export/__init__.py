@@ -5,12 +5,17 @@ Formats:
     quantization_config.json; loadable for eval without kernels.
   * ``autoround`` — packed int codes: qweight / qzeros int32 words and
     fp16 scales per quantized layer, the other leaves as they are.
+  * ``gptq`` / ``awq`` — the CUDA ecosystem's packed layouts
+    (``formats.py``).
+  * ``llm_compressor`` — compressed-tensors ``pack-quantized`` int layers
+    and ``float-quantized`` FP8 layers, with a ``compressed_tensors``
+    entry in the config.
+  * ``mlx`` — Apple mlx-lm's bit stream under HF names (``mlx.py``).
 
 The files equal the JAX package's byte for byte on the same result.  The
-other formats of the JAX package (``gptq``, ``awq``, ``llm_compressor``,
-``mlx``, ``gguf``) are not ported yet and raise; ``formats.py`` holds the
-GPTQ / AWQ layer packers their loaders read.  Files are written and read by
-``utils/safetensors_io.py``, not the ``safetensors`` package.
+``gguf`` writer is not ported yet and raises (ROADMAP A13).  Files are
+written and read by ``utils/safetensors_io.py``, not the ``safetensors``
+package.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ __all__ = ["save_quantized", "load_fake", "pack_quantized",
            "unpack_quantized", "codes_from_qdq", "quantization_config"]
 
 
-_UNPORTED_FORMATS = ("gptq", "awq", "llm_compressor", "mlx")
+_PACKED_FORMATS = ("autoround", "gptq", "awq", "llm_compressor")
 
 # "model_config" of quantization_config.json: the JAX LlamaConfig's fields
 # in its order, so a reader finds the same keys whichever package wrote the
@@ -137,37 +142,58 @@ def _family_keys(model_cfg):
 def save_quantized(result, model_cfg, output_dir: str,
                    format: str = "fake") -> str:
     """Write a quantized checkpoint.  Returns output_dir."""
-    if format in _UNPORTED_FORMATS or format.startswith("gguf"):
+    if format.startswith("gguf"):
         raise NotImplementedError(
             f"export format {format!r} is not ported yet (ROADMAP A13)")
-    if format not in ("fake", "autoround"):
+    if format not in ("fake", "mlx") + _PACKED_FORMATS:
         raise ValueError(f"unknown export format {format!r}")
     os.makedirs(output_dir, exist_ok=True)
     qcfg = quantization_config(result, model_cfg, format)
 
-    tensors = _flatten_params(result.params)
-    if format == "autoround":
-        for name, ql in result.layers.items():
-            gs = ql.scheme.group_size
-            if ql.scheme.data_type != "int" or isinstance(gs, tuple):
-                raise NotImplementedError(
-                    f"{format} packed export currently covers int schemes; "
-                    f"layer {name} is {ql.scheme.data_type}")
-            tensors.pop(name, None)
-            # codes_from_qdq + pack_quantized, on the weights' device
-            codes = codes_from_qdq_torch(ql.qdq, ql.scale, ql.zp,
-                                         ql.scheme.bits, gs)
-            payload = pack_quantized_torch(codes, ql.scale, ql.zp,
-                                           ql.scheme.bits)
-            del codes
-            for pk, pv in payload.items():
-                tensors[f"{name}.{pk}"] = pv
-    save_file(tensors, os.path.join(output_dir, "model.safetensors"))
+    if format == "mlx":
+        from .mlx import save_quantized_as_mlx
+        save_quantized_as_mlx(result, model_cfg, output_dir)
+    else:
+        tensors = _flatten_params(result.params)
+        if format in _PACKED_FORMATS:
+            for name, ql in result.layers.items():
+                tensors.pop(name, None)
+                for pk, pv in _pack_layer(format, name, ql).items():
+                    tensors[f"{name}.{pk}"] = pv
+        save_file(tensors, os.path.join(output_dir, "model.safetensors"))
+        if format == "llm_compressor":
+            from .formats import llmcompressor_config
+            qcfg["compressed_tensors"] = llmcompressor_config(result)
 
     with open(os.path.join(output_dir, "quantization_config.json"), "w") as f:
         json.dump(qcfg, f, indent=2)
     logger.info("saved %s-format checkpoint to %s", format, output_dir)
     return output_dir
+
+
+def _pack_layer(format: str, name: str, ql) -> Dict[str, Any]:
+    """One layer's payload in a packed format, on the layer's device (an
+    FP8 layer under ``llm_compressor``: float-quantized; any other layer
+    that is not an int layer raises, as in the JAX package)."""
+    from . import formats
+    gs = ql.scheme.group_size
+    if format == "llm_compressor" and ql.scheme.data_type.startswith(
+            "fp8") and not isinstance(gs, tuple):
+        return formats.ct_float_layer(ql)
+    if ql.scheme.data_type != "int" or isinstance(gs, tuple):
+        raise NotImplementedError(
+            f"{format} packed export currently covers int schemes; "
+            f"layer {name} is {ql.scheme.data_type}")
+    if format == "gptq":
+        return formats.gptq_pack_layer(ql)
+    if format == "awq":
+        return formats.awq_pack_layer(ql)
+    if format == "llm_compressor":
+        return formats.ct_pack_layer(ql)
+    # autoround: codes_from_qdq + pack_quantized, on the weights' device
+    codes = codes_from_qdq_torch(ql.qdq, ql.scale, ql.zp, ql.scheme.bits,
+                                 gs)
+    return pack_quantized_torch(codes, ql.scale, ql.zp, ql.scheme.bits)
 
 
 def load_fake(path: str, device="cpu"):

@@ -38,7 +38,22 @@ block's packed layers to sharded safetensors as it finishes;
 (and, on a side stream, the next) to the card for its window and parks its
 qdq replacement back on the host (``utils/offload.py``); under RTN each
 qdq layer goes to the host as it is made, so a block as large as half the
-card (LongCat-Flash's 40 GB) still quantizes.
+card (LongCat-Flash's 40 GB) still quantizes; ``resume_dir`` (or
+``AR_RESUME_DIR``) persists each finished block's payloads and both chains
+(``utils/resume.py``) and a later run with the same signature restarts at
+the first unfinished block (at a group boundary under ``nblocks > 1``),
+the chains restored verbatim.
+
+Observability, read from the environment as the JAX package reads it:
+``AR_TRACE_DIR`` traces the block loop with ``torch.profiler``
+(``utils/profiling.py``, a ``block <i>`` range a block), ``AR_LOG_MEMORY``
+logs the peak host and device memory and the live device tensors after
+each block (``utils/memory.py``), and ``AR_PROFILE_PHASES`` adds up the
+seconds of each phase of the per-block loop in ``QuantizeResult.profile``
+under the JAX package's names (``upload``, ``fp_ref``, ``tune``,
+``finalize``, ``qchain``, ``pull``, ``pull_wait``, ``gc``), each ended by a
+device sync where the JAX package blocks on its result, so a bucket is
+device time and host time together; without it nothing syncs.
 
 Everything but the tuning step runs without autograd; ``tune_block``
 switches gradients on for its own loss.
@@ -55,6 +70,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import envs
 from ..algorithms.actquant import (build_static_act_scales,
                                    collect_act_stats, collect_imatrix,
                                    collect_output_stats,
@@ -70,8 +86,11 @@ from ..models.registry import get_model_fns
 from ..schemes import QuantizationScheme
 from ..transforms.awq import awq_clip_search, awq_smooth_block
 from ..utils.logger import logger
+from ..utils.memory import MemoryMonitor, log_live_arrays
 from ..utils.offload import BlockPrefetcher, tree_to_host
+from ..utils.profiling import block_step, maybe_trace
 from ..utils.pytree import get_by_path, set_by_path
+from ..utils.resume import ResumeState, run_signature
 
 __all__ = ["QuantizeConfig", "QuantizedLayer", "QuantizeResult",
            "quantize_model"]
@@ -79,8 +98,7 @@ __all__ = ["QuantizeConfig", "QuantizedLayer", "QuantizeResult",
 
 @dataclass(frozen=True)
 class QuantizeConfig:
-    """Run-level knobs (the JAX config's fields; the options the port
-    leaves out raise ``NotImplementedError`` in :func:`quantize_model`)."""
+    """Run-level knobs (the JAX config's fields)."""
 
     iters: int = 200
     lr: Optional[float] = None
@@ -134,13 +152,6 @@ class QuantizeConfig:
         )
 
 
-# QuantizeConfig options of the JAX package the port leaves out:
-# (field, its "off" value, what it is, ROADMAP item)
-_UNPORTED = (
-    ("resume_dir", None, "crash resume", "A12"),
-)
-
-
 @dataclass
 class QuantizedLayer:
     """Export payload for one layer: qdq weight + scale/zp + scheme, plus
@@ -168,6 +179,8 @@ class QuantizeResult:
     attention_scales: Dict[int, Dict[str, Any]] = field(default_factory=dict)
     # per-layer input second moments collected under ``use_imatrix``
     imatrices: Dict[str, np.ndarray] = field(default_factory=dict)
+    # seconds by phase of the per-block loop under AR_PROFILE_PHASES=1
+    profile: Dict[str, float] = field(default_factory=dict)
 
 
 def _batched_block_apply(block_fn, block_weights, x, batch: int,
@@ -297,11 +310,6 @@ def quantize_model(
     and the result's blocks and layer payloads do.  Call it under
     ``torch.no_grad()`` or not, alike.
     """
-    for name, off, what, item in _UNPORTED:
-        if getattr(cfg, name) != off:
-            raise NotImplementedError(
-                f"QuantizeConfig.{name}={getattr(cfg, name)!r} ({what}) is "
-                f"not ported yet (ROADMAP {item})")
     per_block: Dict[int, Dict[str, QuantizationScheme]] = {}
     for flat, scheme in layer_schemes.items():
         try:
@@ -405,12 +413,14 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
     traces: Dict[int, np.ndarray] = {}
     attention_scales: Dict[int, Dict[str, Any]] = {}
     imatrices: Dict[str, np.ndarray] = {}
+    run = _Run(dev, cfg, model_cfg, layer_schemes, input_ids)
     grouped = cfg.nblocks > 1 and cfg.iters > 0
     loop = _quantize_grouped if grouped else _quantize_each
-    new_blocks, x_fp, x_q = loop(
-        params, model_cfg, per_block, x_fp, x_q, block_fn_for, cfg, tcfg,
-        mask, input_ids, layers, traces, attention_scales, imatrices,
-        stream, loader)
+    with maybe_trace():
+        new_blocks, x_fp, x_q = loop(
+            params, model_cfg, per_block, x_fp, x_q, block_fn_for, cfg,
+            tcfg, mask, input_ids, layers, traces, attention_scales,
+            imatrices, stream, loader, run)
 
     new_params = dict(params)
     new_params["blocks"] = new_blocks
@@ -448,10 +458,96 @@ def _quantize_blocks(params, model_cfg, layer_schemes, per_block, input_ids,
         layers["lm_head"] = ql
     if stream is not None:
         stream.finish(new_params, layers)
+    if run.prof is not None:
+        logger.info("phase profile (%.1fs attributed): %s",
+                    sum(run.prof.values()),
+                    {k: round(v, 1) for k, v in sorted(
+                        run.prof.items(), key=lambda kv: -kv[1])})
     return QuantizeResult(params=new_params, layers=layers,
                           loss_traces=traces,
                           attention_scales=attention_scales,
-                          imatrices=imatrices)
+                          imatrices=imatrices, profile=dict(run.prof or {}))
+
+
+class _Run:
+    """The per-run state the environment switches on: the crash-resume
+    directory (``resume_dir`` or ``AR_RESUME_DIR``) and the block it starts
+    at, the phase seconds (``AR_PROFILE_PHASES``), the memory monitor
+    (``AR_LOG_MEMORY``) and the trace's per-block range (``AR_TRACE_DIR``)."""
+
+    def __init__(self, dev, cfg, model_cfg, layer_schemes, input_ids):
+        self.dev = dev
+        self.resume = None
+        self.start_block = 0
+        resume_dir = cfg.resume_dir or envs.AR_RESUME_DIR
+        if resume_dir:
+            self.resume = ResumeState(resume_dir, run_signature(
+                model_cfg, layer_schemes, input_ids, cfg))
+            self.start_block = self.resume.next_block()
+        self.prof: Optional[Dict[str, float]] = (
+            {} if envs.AR_PROFILE_PHASES else None)
+        self.monitor = MemoryMonitor(dev) if envs.AR_LOG_MEMORY else None
+        self.tracing = bool(envs.AR_TRACE_DIR)
+        self._step = None
+
+    def phase(self, key: str, t0: float, sync: bool = True) -> None:
+        """Add the seconds since ``t0`` to bucket ``key`` (a device sync
+        first, unless ``sync`` is off)."""
+        if self.prof is None:
+            return
+        if sync and self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.prof[key] = self.prof.get(key, 0.0) + (time.time() - t0)
+
+    def block_start(self, bi: int) -> None:
+        """The trace's range of block ``bi`` (the previous one closed)."""
+        if not self.tracing:
+            return
+        self.block_end()
+        self._step = block_step(bi)
+        self._step.__enter__()
+
+    def block_end(self) -> None:
+        if self._step is not None:
+            self._step.__exit__(None, None, None)
+            self._step = None
+
+    def after_block(self, bi: int) -> None:
+        if self.monitor is not None:
+            self.monitor.log_summary(f"block {bi}")
+            log_live_arrays(f"block {bi}")
+
+    def restore(self, bi: int, block, schemes, layers, device):
+        """Block ``bi`` as an earlier run finished it: its qdq leaves (in
+        each weight's dtype) and its layers' payloads (fp32, as saved)
+        from the resume directory."""
+        payload = self.resume.load_block(bi, device)
+        qdq_block = block
+        for lname, scheme in schemes.items():
+            w = get_by_path(block, lname)
+            qdq = payload[f"{lname}.qdq"]
+            qdq_block = set_by_path(qdq_block, lname, qdq.to(w.dtype))
+            layers[f"blocks.{bi}.{lname}"] = QuantizedLayer(
+                name=f"blocks.{bi}.{lname}", scheme=scheme, qdq=qdq,
+                scale=payload[f"{lname}.scale"],
+                zp=payload.get(f"{lname}.zp"))
+        return qdq_block
+
+    def save(self, bi: int, schemes, layers, x_fp, x_q,
+             empty: bool = False, drop=None) -> None:
+        """Persist block ``bi``: its layers' qdq / scale / zp in fp32 (a
+        block with nothing quantized: ``_empty``) and the chains after it
+        as they are (``drop``: ``ResumeState.mark_block_done``'s)."""
+        payload = {}
+        for lname in schemes:
+            ql = layers[f"blocks.{bi}.{lname}"]
+            payload[f"{lname}.qdq"] = ql.qdq.float()
+            payload[f"{lname}.scale"] = ql.scale.float()
+            if ql.zp is not None:
+                payload[f"{lname}.zp"] = ql.zp.float()
+        if empty:
+            payload = {"_empty": torch.zeros(1, dtype=torch.int8)}
+        self.resume.mark_block_done(bi, payload, x_fp, x_q, drop)
 
 
 def _park(qdq_block, layer_names, layers):
@@ -472,26 +568,40 @@ def _park(qdq_block, layer_names, layers):
 
 def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
                    cfg, tcfg, mask, input_ids, layers, traces,
-                   attention_scales, imatrices, stream, loader):
+                   attention_scales, imatrices, stream, loader, run):
     """``nblocks == 1``: one block at a time.  Returns (new blocks, x_fp,
     x_q) after the last block."""
     blocks = params["blocks"]
     n_blocks = len(blocks)
     new_blocks = []
     for bi in range(n_blocks):
+        run.block_start(bi)
         t_block = time.time()
         schemes = per_block.get(bi, {})
+        if bi < run.start_block:
+            # finished by an earlier run; the chains resume after the last
+            # such block, restored as they were saved
+            new_blocks.append(run.restore(
+                bi, blocks[bi], schemes, layers,
+                "cpu" if loader is not None else x_fp.device))
+            if bi == run.start_block - 1:
+                x_fp, x_q = run.resume.load_chain(bi, x_fp.device)
+            continue
         block_fn = block_fn_for(bi)
         block = blocks[bi]
+        t0 = time.time()
         if loader is not None:
             block = loader.get(bi, block)
+        run.phase("upload", t0)
         if cfg.donate_params:
             # free the FP block: under offload its host copy goes as soon
             # as the card holds the block, so the host holds one copy of a
             # block, not the block and its qdq replacement
             blocks[bi] = None
+        t0 = time.time()
         ref_out = _batched_block_apply(block_fn, block, x_fp,
                                        cfg.cache_batch)
+        run.phase("fp_ref", t0)
         if loader is not None and bi + 1 < n_blocks:
             # the next block's upload overlaps this block's window
             loader.prefetch(bi + 1, blocks[bi + 1])
@@ -551,11 +661,13 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
             tune_extras = (_dq_grids(block_fn, block, x_fp, schemes, cfg,
                                      bi, imatrices)
                            if tcfg.enable_alg_ext else None)
+            t0 = time.time()
             best, info = tune_block(tune_fn, tune_weights, tune_in, ref_out,
                                     schemes, tcfg, mask=mask, lfq_fn=lfq_fn,
                                     init_scales=init_scales,
                                     norm_bias_leaves=nb_leaves,
                                     extras=tune_extras)
+            run.phase("tune", t0)
             traces[bi] = info["loss_trace"]
             logger.info("block %d: loss iter0 %.6f -> best %.6f (%.1fs)", bi,
                         info["first_loss"], info["best_loss"],
@@ -574,6 +686,7 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
                 leaf = get_by_path(block, nname)
                 qdq_block = set_by_path(qdq_block, nname, qdq_asym_wo_round(
                     leaf, p["v"]).to(leaf.dtype))
+            t0 = time.time()
             for lname, scheme in schemes.items():
                 w_orig = get_by_path(block, lname)
                 ql = _finalize_layer(f"blocks.{bi}.{lname}", w_orig, scheme,
@@ -582,6 +695,7 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
                 qdq_block = set_by_path(qdq_block, lname,
                                         ql.qdq.to(w_orig.dtype))
                 layers[ql.name] = ql
+            run.phase("finalize", t0)
             del best, tune_extras
         else:
             im: Dict[str, torch.Tensor] = {}
@@ -615,17 +729,33 @@ def _quantize_each(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
         # interceptor still on
         x_fp = ref_out
         if x_q is not None:
+            t0 = time.time()
             x_q = _batched_block_apply(block_fn, qdq_block, x_q,
                                        cfg.cache_batch, linear_fn=act_lf)
+            run.phase("qchain", t0)
         if stream is not None:
             for name in names:
                 stream.add_layer(layers[name])
         if loader is not None:
+            t0 = time.time()
             qdq_block = _park(qdq_block, names, layers)
+            run.phase("pull", t0, sync=False)
+            # the JAX package waits here for its host unpack of the block
+            # before; the port's park copies synchronously, so this is the
+            # wait for the card's queue to drain
+            t0 = time.time()
+            run.phase("pull_wait", t0)
             # drop the device copies now, not at the cyclic collector's
             # leisure (the JAX package collects once a block too)
+            t0 = time.time()
             gc.collect()
+            run.phase("gc", t0, sync=False)
         new_blocks.append(qdq_block)
+        run.after_block(bi)
+        if run.resume is not None:
+            # durable before the manifest names the block
+            run.save(bi, schemes, layers, x_fp, x_q, empty=not schemes)
+    run.block_end()
     return new_blocks, x_fp, x_q
 
 
@@ -652,20 +782,32 @@ def _dq_grids(block_fn, block, x_fp, schemes, cfg, bi, imatrices):
 
 def _quantize_grouped(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
                       cfg, tcfg, mask, input_ids, layers, traces,
-                      attention_scales, imatrices, stream, loader):
+                      attention_scales, imatrices, stream, loader, run):
     """``nblocks > 1``: tune each group of ``nblocks`` consecutive blocks
     jointly.  The tuning tree is ``{"blocks": [block, ...]}`` with dotted
     scheme paths ``blocks.<j>.<linear>``, and one forward chains the group,
     each member with its own rope tables and sliding mask.  As in the JAX
     package the group's tuning takes no activation quantization, lm loss or
     norm / bias tuning, and no attention scales are collected (the caller
-    warns); the blocks are not donated."""
+    warns); the blocks are not donated.  A resumed run restarts at a group
+    boundary: every member of a tuned group is saved with the group's
+    end chain (a group with nothing to quantize is not saved, as in the
+    JAX package)."""
     blocks = params["blocks"]
     n = len(blocks)
     new_blocks = []
+    start = (run.start_block // cfg.nblocks) * cfg.nblocks
     for gstart in range(0, n, cfg.nblocks):
         t_group = time.time()
         group = list(blocks[gstart:gstart + cfg.nblocks])
+        if gstart + len(group) <= start:
+            new_blocks.extend(run.restore(
+                gstart + j, b, per_block.get(gstart + j, {}), layers,
+                "cpu" if loader is not None else x_fp.device)
+                for j, b in enumerate(group))
+            if gstart + len(group) == start:
+                x_fp, x_q = run.resume.load_chain(start - 1, x_fp.device)
+            continue
         if loader is not None:
             group = [loader.get(gstart + j, b) for j, b in enumerate(group)]
         fns = [block_fn_for(gstart + j) for j in range(len(group))]
@@ -713,4 +855,12 @@ def _quantize_grouped(params, model_cfg, per_block, x_fp, x_q, block_fn_for,
         if loader is not None:
             gc.collect()
         new_blocks.extend(qdq_group)
+        if run.resume is not None and schemes:
+            # the chain before the group stays until its last member is
+            # saved, so a stop inside the group restarts at its start
+            last = gstart + len(qdq_group) - 1
+            for j in range(len(qdq_group)):
+                run.save(gstart + j, per_block.get(gstart + j, {}), layers,
+                         x_fp, x_q, drop=(range(gstart - 1, last)
+                                          if gstart + j == last else ()))
     return new_blocks, x_fp, x_q

@@ -43,9 +43,10 @@ counted).  Its weights are not read: the JAX loader maps none of its
 own leaves (it drops ``g_proj`` and every ``moe.*`` / ``share_expert.*``
 tensor without a word, and stops with an ``IndexError`` at the first MTP
 layer), so :func:`load_hf_checkpoint` raises ``NotImplementedError``
-naming the family (ROADMAP A, item 5).  An FP8-source checkpoint (a
-``weight_scale_inv`` / ``weight_scale`` key, or an F8 weight: DeepSeek-V3's
-published files) raises naming A12 (``quantize/model_free.py``). The JAX
+naming the family (ROADMAP A, item 5).  An FP8-source checkpoint (F8
+weights with ``weight_scale_inv`` / ``weight_scale`` tensors: DeepSeek-V3's
+published files) is dequantized on the device as it loads, as the JAX
+loader does (:func:`_iter_shards`). The JAX
 package has no HF writer for GPT-OSS, Llama 4 or Qwen3-Next (its
 ``save_hf_checkpoint`` writes their trees with Llama / Mixtral / Qwen2-MoE
 keys and drops the sinks, the biases and the DeltaNet leaves), for GLM-5
@@ -561,21 +562,38 @@ def shard_files(path: str) -> List[str]:
 
 def _iter_shards(path: str, device) -> Iterator[Tuple[str, torch.Tensor]]:
     """Yield (key, tensor on ``device``) over every shard, one tensor at a
-    time.  An FP8-source checkpoint raises before any tensor is read."""
+    time.  An FP8-source checkpoint (DeepSeek-V3 / R1: e4m3 / e5m2 weights
+    with a ``weight_scale_inv`` or ``weight_scale``) is dequantized on the
+    device as it streams, so it enters the whole pipeline: every scale
+    tensor is read first (a weight and its scale may sit in different
+    shards) and none is yielded; an FP8 weight comes out in fp32 times its
+    scale (a 2-D weight by its grid or number, any other by a single
+    number, as the JAX loader does), every other tensor as stored."""
+    from ..quantize.model_free import _dequant_fp8_source
     files = [os.path.join(path, s) for s in shard_files(path)]
+    scales: Dict[str, torch.Tensor] = {}
     for sp in files:
         with SafeOpen(sp, device=device) as f:
             for key in f.keys():
-                if key.endswith(_FP8_SCALES) or f.dtype_code(key) in (
-                        "F8_E4M3", "F8_E5M2"):
-                    raise NotImplementedError(
-                        f"{sp}: {key} marks an FP8-source checkpoint; "
-                        f"dequantizing FP8 sources is not ported yet "
-                        f"(ROADMAP A12, quantize/model_free.py)")
+                if key.endswith(_FP8_SCALES):
+                    scales[key] = f.get_tensor(key)
     for sp in files:
         with SafeOpen(sp, device=device) as f:
             for key in f.keys():
-                yield key, f.get_tensor(key)
+                if key in scales:
+                    continue
+                t = f.get_tensor(key)
+                if f.dtype_code(key) in ("F8_E4M3", "F8_E5M2"):
+                    t = t.float()
+                    base = key[:-len(".weight")] if key.endswith(
+                        ".weight") else key
+                    s = scales.get(base + ".weight_scale_inv",
+                                   scales.get(base + ".weight_scale"))
+                    if t.ndim == 2:
+                        t = _dequant_fp8_source(t, s)
+                    elif s is not None and s.ndim <= 1 and s.numel() == 1:
+                        t = t * float(s.float().reshape(()))
+                yield key, t
 
 
 def _map_key(sub: str, block: Dict[str, Any], arr: torch.Tensor,

@@ -44,7 +44,8 @@ if sys.byteorder != "little":       # the format's bytes are little-endian
 # format code → torch dtype, in the order of the format's dtype enum from
 # the widest down: the header lists entries in this order
 DTYPE_CODES: Dict[str, torch.dtype] = {
-    "I64": torch.int64, "F32": torch.float32, "I32": torch.int32,
+    "I64": torch.int64, "F32": torch.float32, "U32": torch.uint32,
+    "I32": torch.int32,
     "BF16": torch.bfloat16, "F16": torch.float16, "I16": torch.int16,
     "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2,
     "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
@@ -53,7 +54,8 @@ _RANK = {code: i for i, code in enumerate(DTYPE_CODES)}
 _CODE_OF = {dt: code for code, dt in DTYPE_CODES.items()}
 # numpy dtype name → format code (the float8 and ``bfloat16`` names are
 # ml_dtypes'; numpy has none of them)
-_NP_CODES = {"int64": "I64", "float32": "F32", "int32": "I32",
+_NP_CODES = {"int64": "I64", "float32": "F32", "uint32": "U32",
+             "int32": "I32",
              "bfloat16": "BF16", "float16": "F16", "int16": "I16",
              "float8_e4m3fn": "F8_E4M3", "float8_e5m2": "F8_E5M2",
              "int8": "I8", "uint8": "U8", "bool": "BOOL"}

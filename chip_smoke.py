@@ -155,8 +155,8 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              2-layer copy against the plain versions.
              The MXFP4 path's peak memory (quantize, pack, generate) must
              not pass the FP8 path's.
-14. llama3.2-1b — full width and depth (16 layers, head dim 64, tied
-             embeddings): RTN W4A16 g128 → engine → ``generate`` with the
+14. llama3.2-1b — full width, ``--llama1b-layers`` of 16 (head dim 64,
+             tied embeddings): RTN W4A16 g128 → engine → ``generate`` with the
              int8 KV cache, every decode step through the decode kernel at
              hd 64 (launches = layers x steps); then the same at g = 16,
              where no layer may serve dense; timings and a 2-layer copy
@@ -206,7 +206,7 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              with the in-memory engine's, beside its bound, and the 2-layer
              copy against the plain versions on the card (the rtn path
              holds the kernels against the CPU's).  (b)
-             phase 14's llama3.2-1b g128 result (16 layers, tied) exported
+             phase 14's llama3.2-1b g128 result (tied) exported
              and served the same way.  (c) the results of (a), W4A16 and
              W4A16 asym, packed by ``gptq_pack_layer`` / ``awq_pack_layer``
              into HF-layout directories: ``from_gptq`` on row 4,
@@ -407,7 +407,29 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
              (f) SpinQuant's trained R1 (3 steps) on the same depth.  Every
              engine runs ``generate``, a copy on the plain versions on the
              card and ``generate_scan``.
-27. report — the card's name and power limit (nvidia-smi), a JSON line of
+27. driver utilities / formats — at ``llama3-8b`` width: (a)
+             ``AutoScheme(avg_bits=4.5, options=W2A16 / W4A16 / W8A16)``
+             on ``--autoscheme-layers`` with 8 x 513 calibration tokens
+             (the gradient pass through rows 1-3, its device peak, its
+             scores against the same pass on the plain attention), the
+             plan RTN'd and served (each kind through its kernel, a copy
+             on the plain versions, ``generate_scan``), and a 3.0-bit plan
+             from the cached scores with W2A16 layers through row 10; (b)
+             SignRound on ``--resume-layers`` with ``AR_PROFILE_PHASES``,
+             ``AR_TRACE_DIR`` and ``AR_LOG_MEMORY`` on, then on a resume
+             directory stopped after block 1 and run again (the restored
+             blocks equal to their payloads, the result to the
+             uninterrupted run; the durable save's seconds and bytes); (c)
+             ``model_free_quantize`` of a two-shard ``--model-free-layers``
+             directory (each layer against the RTN of its tensor on the
+             card) and of DeepSeek-V3's dense layer 0 at full width as an
+             FP8 source with 128 x 128 scale grids, which
+             ``load_hf_checkpoint`` reads too (the dequantized weights
+             against the host product); (d) the ``gptq``, ``awq``,
+             ``llm_compressor`` and ``mlx`` writers on a
+             ``--writers-layers`` RTN result with the head, every layer
+             read back and unpacked on the card.
+28. report — the card's name and power limit (nvidia-smi), a JSON line of
              per-kernel numbers, and last the line
              {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -424,8 +446,9 @@ JAX nor the JAX package.  Phases, each of which fails the run on error:
 ``--glm45-layers``, ``--glm5-layers``, ``--minimax-layers``,
 ``--ernie-layers``, ``--longcat-layers``, ``--step35-layers``,
 ``--gguf-layers``, ``--gguf-tune-layers``, ``--gguf-small-layers``,
-``--gguf-moe-layers`` and ``--rotation-layers`` cut the depth of the paths
-for a quicker run.
+``--gguf-moe-layers``, ``--rotation-layers``, ``--autoscheme-layers``,
+``--resume-layers``, ``--model-free-layers`` and ``--writers-layers`` cut
+the depth of the paths for a quicker run.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository.
@@ -3955,7 +3978,7 @@ def load_path(bw, flops_peak, n_layers, root, seed=41):
 
 
 def load_llama1b_path(kept, root):
-    """Phase 14's llama3.2-1b g128 RTN result (16 layers, tied embeddings)
+    """Phase 14's llama3.2-1b g128 RTN result (tied embeddings)
     exported, loaded with ``from_pretrained`` and served; held against the
     engine phase 14 built from the same result.  Returns the launches."""
     from autoround_tpu_torch import QuantizedLlama
@@ -8361,6 +8384,600 @@ def gguf_rotation_phase(q4km_layers, tune_layers, small_layers,
     return out
 
 
+# --------------------------------------- driver utilities / formats
+
+AS_OPTIONS = ("W2A16", "W4A16", "W8A16")
+AS_AVG_BITS = 4.5
+# calibration rows of 513 tokens: the LM loss reads ids[:, :-1], so the
+# model sees 512 positions, where the flash gate (S >= 512, S % 256 == 0)
+# takes the attention
+AS_SEQ = 513
+# the gradient pass's scores through the flash kernels against the same
+# pass on the plain attention, per (layer, option) entry, relative: about
+# 3x the 5.19e-05 measured on an H100 80GB HBM3 at 700 W (median 1.37e-05)
+AS_SCORE_RTOL = 2e-4
+# a second budget searched from the same cached scores (no gradient pass):
+# at 4.5 bits the plan takes W4 and W8 only, at 3.0 W2 layers too, served
+# through row 10
+AS_LOW_BITS = 3.0
+KIND_OF_BITS = {2: "w2a16_matmul", 4: "w4a16_matmul", 8: "w8a16_matmul"}
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """The environment variables set inside the block, restored after."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _served_plan(label, cfg, result, prompts, new, want):
+    """The int8-KV engine of a mixed-kind result → ``generate`` with every
+    kernel of ``want`` launched → a copy on the plain versions on the card
+    → ``generate_scan``; returns (generate's launches, replayed step ms)."""
+    from autoround_tpu_torch import QuantizedLlama
+
+    eng = QuantizedLlama.from_quantize_result(result, cfg, max_seq=1024,
+                                              kv_quant="int8")
+    kinds = {}
+    for k in eng.packed_kinds.values():
+        kinds[k] = kinds.get(k, 0) + 1
+    toks, counts = generate_counted(eng, prompts, new)
+    _check_tokens(toks, prompts.shape[0], new, cfg.vocab_size)
+    for n in want:
+        check(counts[n] > 0, f"{label}: {n} not launched ({counts})")
+    log(f"{label}: packed entries by kind {json.dumps(kinds)}, dense "
+        f"linears {len(_dense_linears(eng))}; generate kernels "
+        f"{json.dumps(counts)}")
+    check_copy(eng, prompts, "card", layers=cfg.num_layers)
+    graph_ms, _ = scan_path(eng, prompts, toks, counts, label)
+    del eng
+    torch.cuda.empty_cache()
+    return counts, graph_ms
+
+
+def autoscheme_path(n_layers):
+    """(a) ``AutoScheme(avg_bits=4.5, options=W2A16 / W4A16 / W8A16)`` on
+    llama3-8b x ``n_layers`` with 8 x 513 calibration tokens: the gradient
+    pass (rows 1-3 in the LM loss) timed with its device peak, its scores
+    held against the same pass on the plain attention, the plan within the
+    budget, RTN of the plan, then the engine serving each layer through its
+    kind's kernel; then a 3.0-bit plan from the cached scores, with W2A16
+    layers served through row 10.  Returns (the search's launches, the
+    served launches at 4.5 and at 3.0 bits)."""
+    import numpy as np
+
+    from autoround_tpu_torch import AutoRound, AutoScheme
+    from autoround_tpu_torch.quantize import auto_scheme as tas
+
+    cfg, params = _llama8b(n_layers, 84)
+    gen = torch.Generator().manual_seed(85)
+    calib = torch.randint(0, cfg.vocab_size, (8, AS_SEQ), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (8, 512), generator=gen)
+    ws = tempfile.mkdtemp()
+    scheme = AutoScheme(avg_bits=AS_AVG_BITS, options=AS_OPTIONS,
+                        enable_cache=True)
+    try:
+        with _env(AR_WORK_SPACE=ws):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            c0 = launch_counts()
+            t0 = time.time()
+            ar = AutoRound((params, cfg), scheme=scheme, iters=0)
+            plan = tas.gen_auto_scheme(ar.params, cfg, scheme, calib)
+            torch.cuda.synchronize()
+            search_s = time.time() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            c1 = launch_counts()
+            t0 = time.time()
+            result = ar.quantize(calib)      # reads the cached scores
+            torch.cuda.synchronize()
+            quant_s = time.time() - t0
+            (path,) = list(Path(ws).rglob("*.npz"))
+            z = np.load(path)
+            scores, bits_cost, nparams = z["scores"], z["bits_cost"], \
+                z["nparams"]
+        grad = {n: c1[n] - c0[n] for n in c0}
+        for n in ("flash_attention", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            check(grad[n] > 0, f"autoscheme: {n} not launched in the "
+                  f"gradient pass ({grad})")
+        check({k: v.key() for k, v in ar.layer_schemes.items()}
+              == {k: v.key() for k, v in plan.items()},
+              "autoscheme: AutoRound's plan differs from the search's")
+        names = list(plan)
+        opts = [tas.parse_scheme(o) for o in AS_OPTIONS]
+        with counts_kept(), plain_versions():
+            t0 = time.time()
+            ps, pb, _ = tas._score_matrices(
+                params, cfg, scheme, calib.cuda(), names, opts)
+            plain_s = time.time() - t0
+        rel = np.abs(ps - scores) / np.abs(ps)
+        check(bool((pb == bits_cost).all()), "autoscheme: bits differ")
+        check(float(rel.max()) < AS_SCORE_RTOL, f"autoscheme: scores "
+              f"through the kernels off the plain attention's by "
+              f"{float(rel.max()):.3e} relative")
+        used = sum(tas.scheme_storage_bits(s, tuple(
+            tas._leaf(params, n).shape)) * nparams[i]
+            for i, (n, s) in enumerate(plan.items()))
+        achieved = used / nparams.sum()
+        check(achieved <= AS_AVG_BITS, f"autoscheme: {achieved:.4f} bits "
+              f"over the {AS_AVG_BITS} budget")
+        by_bits = {}
+        for s in plan.values():
+            by_bits[s.bits] = by_bits.get(s.bits, 0) + 1
+        log(f"autoscheme llama3-8b ({n_layers} layers, 8 x {AS_SEQ - 1} "
+            f"positions, options {AS_OPTIONS}, avg_bits {AS_AVG_BITS}): "
+            f"search_s={search_s:.2f} (the gradient pass, the scoring of "
+            f"{len(names)} layers x {len(opts)} options and the selector) "
+            f"device peak {peak_gb:.2f} GB over {base_gb:.2f} GB of weights;"
+            f" plain-attention pass {plain_s:.2f} s; scores through the "
+            f"kernels vs the plain attention: max rel {float(rel.max()):.3e}"
+            f" median {float(np.median(rel)):.3e}; plan by bits "
+            f"{json.dumps(by_bits)}, achieved {achieved:.4f} bits; "
+            f"quantize_s={quant_s:.2f} (the cached scores, RTN); gradient "
+            f"pass kernels {json.dumps({n: v for n, v in grad.items() if v})}")
+        want = [KIND_OF_BITS[b] for b in sorted(by_bits)] + [
+            "flash_attention", "decode_attention"]
+        served, graph_ms = _served_plan("autoscheme plan", cfg, result,
+                                        prompts, 32, want)
+        log(f"autoscheme plan: replayed step at batch 8 graph_step_ms="
+            f"{graph_ms:.4f}")
+        with _env(AR_WORK_SPACE=ws):
+            low = AutoRound((params, cfg), scheme=AutoScheme(
+                avg_bits=AS_LOW_BITS, options=AS_OPTIONS, enable_cache=True),
+                iters=0)
+            c0 = launch_counts()
+            res_low = low.quantize(calib)
+            c1 = launch_counts()
+        check(c1["flash_attention_bwd_dq"] == c0["flash_attention_bwd_dq"],
+              "autoscheme: the second budget ran a gradient pass")
+        low_bits = {}
+        for s in low.layer_schemes.values():
+            low_bits[s.bits] = low_bits.get(s.bits, 0) + 1
+        check(2 in low_bits, f"autoscheme: no W2A16 layer at "
+              f"{AS_LOW_BITS} bits ({low_bits})")
+        from autoround_tpu_torch import QuantizedLlama
+        eng = QuantizedLlama.from_quantize_result(res_low, cfg, max_seq=1024,
+                                                  kv_quant="int8")
+        toks, served_low = generate_counted(eng, prompts, 32)
+        _check_tokens(toks, prompts.shape[0], 32, cfg.vocab_size)
+        for b in low_bits:
+            check(served_low[KIND_OF_BITS[b]] > 0, f"autoscheme: "
+                  f"{KIND_OF_BITS[b]} not launched at {AS_LOW_BITS} bits")
+        check_copy(eng, prompts, "card", layers=cfg.num_layers)
+        log(f"autoscheme at {AS_LOW_BITS} bits (the cached scores): plan by "
+            f"bits {json.dumps(low_bits)}; generate kernels "
+            f"{json.dumps({n: v for n, v in served_low.items() if v})}")
+        del eng, low, res_low
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+    del ar, result, params
+    torch.cuda.empty_cache()
+    return grad, served, served_low
+
+
+class _Stop(Exception):
+    """Raised by the resume path's hook after a block is saved."""
+
+
+def resume_path(n_layers, iters=4):
+    """(b) SignRound W4A16 on llama3-8b x ``n_layers`` (``iters`` steps,
+    8 x 512): an uninterrupted run with ``AR_PROFILE_PHASES``,
+    ``AR_TRACE_DIR`` and ``AR_LOG_MEMORY`` set; a run on a resume directory
+    stopped by a hook after block 1 is saved, then run again: its restored
+    blocks equal to the saved payloads bit for bit, and the whole result
+    held against the uninterrupted run (bit-equal, or within the spread of
+    two uninterrupted runs).  Logs the durable save's seconds and bytes a
+    block.  Returns the resumed run's launches."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.utils import resume as rs
+
+    cfg, params = _llama8b(n_layers, 86)
+    calib = torch.randint(0, cfg.vocab_size, (8, 512),
+                          generator=torch.Generator().manual_seed(87))
+    kw = dict(scheme="W4A16", iters=iters, batch_size=8, lr=5e-3, seed=0)
+    root = Path(tempfile.mkdtemp())
+    logger = logging.getLogger("autoround_tpu_torch")
+    level = logger.level
+    lines = _LogLines()
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    try:
+        with _env(AR_PROFILE_PHASES=1, AR_TRACE_DIR=root / "trace",
+                  AR_LOG_MEMORY=1):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            u1 = AutoRound((params, cfg), **kw).quantize(calib)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        logger.removeHandler(lines)
+        logger.setLevel(level)
+        mem = [m for m in lines.lines if m.startswith("memory [block")]
+        traces = list((root / "trace").glob("trace_*.json"))
+        check(len(traces) == 1, f"resume: trace files {traces}")
+        check(len(mem) == n_layers, f"resume: memory lines {mem}")
+        prof = u1.profile
+        check(set(prof) == {"upload", "fp_ref", "tune", "finalize",
+                            "qchain"}, f"resume: profile keys {sorted(prof)}")
+        saves = []
+        orig = rs.ResumeState.mark_block_done
+
+        def timed(self, i, *a, **k):
+            torch.cuda.synchronize()
+            t = time.time()
+            orig(self, i, *a, **k)
+            nbytes = sum(os.path.getsize(os.path.join(self.dir, f))
+                         for f in (f"block_{i}.safetensors",
+                                   f"chain_{i}.safetensors"))
+            saves.append((i, time.time() - t, nbytes))
+            if i == 1 and getattr(self, "stop", False):
+                raise _Stop(f"stopped after block {i}")
+        rs.ResumeState.mark_block_done = timed
+        rdir = str(root / "resume")
+        try:
+            rs.ResumeState.stop = True
+            try:
+                AutoRound((params, cfg), resume_dir=rdir,
+                          **kw).quantize(calib)
+                check(False, "resume: the hook did not stop the run")
+            except _Stop:
+                pass
+            rs.ResumeState.stop = False
+            with open(os.path.join(rdir, "manifest.json")) as f:
+                manifest = json.load(f)
+            done = manifest["done"]
+            check(done == [0, 1], f"resume: manifest done {done}")
+            c0 = launch_counts()
+            t0 = time.time()
+            res = AutoRound((params, cfg), resume_dir=rdir,
+                            **kw).quantize(calib)
+            torch.cuda.synchronize()
+            resumed_s = time.time() - t0
+            c1 = launch_counts()
+        finally:
+            rs.ResumeState.mark_block_done = orig
+            del rs.ResumeState.stop
+        launches = {n: c1[n] - c0[n] for n in c0}
+        for n in ("flash_attention", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            check(launches[n] > 0, f"resume: {n} not launched")
+        check(sorted(res.loss_traces) == list(range(2, n_layers)),
+              f"resume: tuned blocks {sorted(res.loss_traces)}")
+        state = rs.ResumeState(rdir, manifest["signature"])
+        for bi in (0, 1):
+            payload = state.load_block(bi, "cuda")
+            for lname in ("q_proj", "down_proj"):
+                ql = res.layers[f"blocks.{bi}.{lname}"]
+                check(torch.equal(ql.qdq, payload[f"{lname}.qdq"])
+                      and torch.equal(ql.scale, payload[f"{lname}.scale"]),
+                      f"resume: block {bi} {lname} differs from its saved "
+                      f"payload")
+
+        def dist(a, b):
+            return max(float((a.layers[n].qdq.float()
+                              - b.layers[n].qdq.float()).abs().max())
+                       for n in a.layers)
+        d_res = dist(res, u1)
+        spread = None
+        if d_res != 0.0:
+            u2 = AutoRound((params, cfg), **kw).quantize(calib)
+            spread = dist(u2, u1)
+            check(d_res <= spread, f"resume: the resumed result is "
+                  f"{d_res} from the uninterrupted one, two uninterrupted "
+                  f"runs {spread} apart")
+            del u2
+        per_block = [s for s in saves if s[0] < n_layers]
+        log(f"resume llama3-8b ({n_layers} layers, W4A16, {iters} iters, "
+            f"8 x 512): uninterrupted wall_s={wall:.2f} (profiler and "
+            f"memory monitor on) phase profile {json.dumps({k: round(v, 3) for k, v in prof.items()})} "
+            f"sum {sum(prof.values()):.2f} s of it; trace "
+            f"{os.path.getsize(traces[0]) / 1e6:.1f} MB; memory lines "
+            f"{mem}; durable saves (block, s, bytes) "
+            f"{[(i, round(s, 3), b) for i, s, b in per_block]}; resumed run "
+            f"(blocks 0-1 from disk) resumed_s={resumed_s:.2f}; max |qdq| "
+            f"distance resumed vs uninterrupted {d_res}"
+            + ("" if spread is None else
+               f", two uninterrupted runs {spread} apart"))
+    finally:
+        logger.removeHandler(lines)
+        logger.setLevel(level)
+        shutil.rmtree(root, ignore_errors=True)
+    del u1, res, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _shard_llama_dir(params, cfg, root):
+    """A two-shard HF directory of a Llama tree (the embedding and the
+    first half of the layers, then the rest, the norm and the head) with
+    its index and config; returns its source bytes."""
+    from autoround_tpu_torch.utils import hf_loader as th
+    from autoround_tpu_torch.utils.safetensors_io import SafeOpen
+
+    n = cfg.num_layers
+    half = max(1, n // 2)
+    parts = ({"embed_tokens": params["embed_tokens"],
+              "blocks": params["blocks"][:half]},
+             {"blocks": [{}] * half + params["blocks"][half:],
+              "norm": params["norm"], "lm_head": params["lm_head"]})
+    wmap = {}
+    for k, part in enumerate(parts):
+        sub = root / f"part{k}"
+        th.save_hf_checkpoint(part, cfg, str(sub))
+        name = f"model-0000{k + 1}-of-00002.safetensors"
+        os.replace(sub / "model.safetensors", root / name)
+        os.replace(sub / "config.json", root / "config.json")
+        shutil.rmtree(sub)
+        with SafeOpen(str(root / name)) as f:
+            wmap.update({key: name for key in f.keys()})
+    with open(root / "model.safetensors.index.json", "w") as f:
+        json.dump({"weight_map": wmap}, f)
+    return _dir_bytes(root)
+
+
+def _fp8_v3_dir(root):
+    """DeepSeek-V3's dense layer 0 at its published widths as an FP8
+    source: each 2-D weight e4m3 with a 128 x 128 ``weight_scale_inv``
+    grid (block amax / 448), the norms bf16, two shards and an index.
+    Returns ({HF key: (e4m3 weight, grid)} on the host, source bytes)."""
+    from autoround_tpu_torch.models import deepseek
+    from autoround_tpu_torch.utils import hf_loader as th
+    from autoround_tpu_torch.utils.safetensors_io import SafeOpen, save_file
+
+    cfg = dataclasses.replace(deepseek.CONFIG_PRESETS["deepseek-v3"],
+                              num_layers=1)
+    params = deepseek.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(90), "cuda")
+    th.save_hf_checkpoint({"blocks": params["blocks"]}, cfg, str(root))
+    del params
+    src = root / "model.safetensors"
+    shards = ({}, {})
+    host = {}
+    with SafeOpen(str(src), device="cuda") as f:
+        for i, key in enumerate(sorted(f.keys())):
+            t = f.get_tensor(key)
+            shard = shards[i % 2]
+            if t.ndim == 2 and key.endswith(".weight"):
+                O, I = t.shape
+                w = t.float()
+                amax = torch.nn.functional.max_pool2d(
+                    w.abs()[None], 128, ceil_mode=True)[0]
+                grid = (amax / 448.0).clamp_min(1e-12)
+                full = grid.repeat_interleave(128, 0).repeat_interleave(
+                    128, 1)[:O, :I]
+                w8 = (w / full).to(torch.float8_e4m3fn)
+                shard[key] = w8
+                shard[key[:-len(".weight")] + ".weight_scale_inv"] = grid
+                host[key] = (w8.cpu(), grid.cpu())
+            else:
+                shard[key] = t
+    os.remove(src)
+    wmap = {}
+    for k, shard in enumerate(shards):
+        name = f"model-0000{k + 1}-of-00002.safetensors"
+        save_file(shard, str(root / name))
+        wmap.update({key: name for key in shard})
+    with open(root / "model.safetensors.index.json", "w") as f:
+        json.dump({"weight_map": wmap}, f)
+    return host, _dir_bytes(root)
+
+
+def model_free_path(n_layers):
+    """(c) ``model_free_quantize`` on the card: a llama3-8b x ``n_layers``
+    bf16 directory in two shards, each packed layer unpacked on the card
+    against ``rtn_quantize_layer`` of the same tensor there; then
+    DeepSeek-V3's dense layer 0 at full width as an FP8 source (e4m3, 128
+    x 128 scale grids) through model-free and through
+    ``load_hf_checkpoint``, the dequantized weights against the host
+    product of the e4m3 values and the grid.  Logs GB/s."""
+    from autoround_tpu_torch.algorithms.rtn import rtn_quantize_layer
+    from autoround_tpu_torch.export.packing import (codes_from_qdq_torch,
+                                                    unpack_quantized_torch)
+    from autoround_tpu_torch.quantize.model_free import model_free_quantize
+    from autoround_tpu_torch.schemes import parse_scheme
+    from autoround_tpu_torch.utils import hf_loader as th
+    from autoround_tpu_torch.utils.safetensors_io import SafeOpen
+
+    root = Path(tempfile.mkdtemp())
+    scheme = parse_scheme("W4A16")
+    try:
+        cfg, params = _llama8b(n_layers, 88)
+        src = root / "llama"
+        src.mkdir()
+        src_bytes = _shard_llama_dir(params, cfg, src)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model_free_quantize(str(src), str(root / "llama_q"), scheme="W4A16")
+        torch.cuda.synchronize()
+        mf_s = time.time() - t0
+        out_bytes = _dir_bytes(root / "llama_q")
+        q = json.loads((root / "llama_q" / "quantization_config.json")
+                       .read_text())["quantized_layers"]
+        check(len(q) == 7 * n_layers, f"model-free: {len(q)} layers")
+        idx = json.loads((root / "llama_q" / "model.safetensors.index.json")
+                         .read_text())["weight_map"]
+        inv = {v: k for k, v in th._BLOCK_MAP.items()}
+        for li in range(n_layers):
+            for lname in ("q_proj", "k_proj", "gate_proj", "down_proj"):
+                base = f"model.layers.{li}.{inv[lname][:-len('.weight')]}"
+                w = params["blocks"][li][lname]
+                r = rtn_quantize_layer(w.float(), scheme)
+                want = codes_from_qdq_torch(r.qdq.float(), r.scale.float(),
+                                            None, 4, 128)
+                with SafeOpen(str(root / "llama_q" / idx[base + ".qweight"]),
+                              device="cuda") as f:
+                    payload = {k: f.get_tensor(f"{base}.{k}")
+                               for k in ("qweight", "qzeros", "scales")}
+                codes, scales, _ = unpack_quantized_torch(
+                    payload, 4, *w.shape)
+                check(torch.equal(codes, want)
+                      and torch.equal(scales,
+                                      r.scale.float().half().float()),
+                      f"model-free: {base} differs from the RTN of its "
+                      f"tensor on the card")
+        del params
+        torch.cuda.empty_cache()
+        v3 = root / "v3"
+        v3.mkdir()
+        host, v3_bytes = _fp8_v3_dir(v3)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model_free_quantize(str(v3), str(root / "v3_q"), scheme="W4A16")
+        torch.cuda.synchronize()
+        v3_mf_s = time.time() - t0
+        idx = json.loads((root / "v3_q" / "model.safetensors.index.json")
+                         .read_text())["weight_map"]
+        check(not any(k.endswith("_scale_inv") for k in idx),
+              "model-free: an FP8 scale was copied, not consumed")
+        t0 = time.time()
+        lp, lcfg = th.load_hf_checkpoint(str(v3))
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        worst = 0
+        for key, (w8, grid) in host.items():
+            O, I = w8.shape
+            full = grid.repeat_interleave(128, 0).repeat_interleave(
+                128, 1)[:O, :I]
+            want = (w8.float() * full).to(torch.bfloat16)
+            got = lp["blocks"][0][th._DS_MAP[key.split("layers.0.", 1)[1]]]
+            check(torch.equal(got.cpu(), want), f"fp8 source: {key} loaded "
+                  f"differs from the host product")
+            worst = max(worst, O * I)
+        base = "model.layers.0.self_attn.o_proj"
+        w8, grid = host[base + ".weight"]
+        O, I = w8.shape
+        deq = (w8.float() * grid.repeat_interleave(128, 0)
+               .repeat_interleave(128, 1)[:O, :I]).cuda()
+        r = rtn_quantize_layer(deq, scheme)
+        want = codes_from_qdq_torch(r.qdq.float(), r.scale.float(), None, 4,
+                                    128)
+        with SafeOpen(str(root / "v3_q" / idx[base + ".qweight"]),
+                      device="cuda") as f:
+            payload = {k: f.get_tensor(f"{base}.{k}")
+                       for k in ("qweight", "qzeros", "scales")}
+        codes, _, _ = unpack_quantized_torch(payload, 4, O, I)
+        check(torch.equal(codes, want), "model-free: the FP8 o_proj's codes "
+              "differ from the RTN of its dequantized weight")
+        log(f"model-free llama3-8b ({n_layers} layers, 2 shards, "
+            f"{src_bytes / 1e9:.2f} GB bf16): model_free_s={mf_s:.2f} "
+            f"({src_bytes / 1e9 / mf_s:.2f} GB/s of source, "
+            f"{out_bytes / 1e9:.2f} GB written, warm page cache); "
+            f"deepseek-v3 layer 0 FP8 source ({v3_bytes / 1e9:.2f} GB, "
+            f"{len(host)} e4m3 weights with 128 x 128 grids, the largest "
+            f"{worst / 1e6:.1f} M values): model_free_s={v3_mf_s:.2f} "
+            f"({v3_bytes / 1e9 / v3_mf_s:.2f} GB/s), load_hf_checkpoint_s="
+            f"{load_s:.2f} ({v3_bytes / 1e9 / load_s:.2f} GB/s), every "
+            f"dequantized weight equal to the host product")
+        del lp, host
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def writers_path(n_layers):
+    """(d) RTN W4A16 g128 with the lm_head on llama3-8b x ``n_layers``,
+    written as ``gptq``, ``awq``, ``llm_compressor`` and ``mlx``: each
+    file's layers read and unpacked on the card equal the result's codes
+    and (fp16) scales.  Logs seconds and bytes a format."""
+    from autoround_tpu_torch import AutoRound
+    from autoround_tpu_torch.export import formats, mlx, save_quantized
+    from autoround_tpu_torch.export.packing import codes_from_qdq_torch
+    from autoround_tpu_torch.utils.safetensors_io import SafeOpen
+
+    cfg, params = _llama8b(n_layers, 89)
+    calib = torch.randint(0, cfg.vocab_size, (8, 512),
+                          generator=torch.Generator().manual_seed(89))
+    ar = AutoRound((params, cfg), scheme="W4A16", iters=0,
+                   quant_lm_head=True, donate_params=True)
+    del params
+    result = ar.quantize(calib)
+    root = Path(tempfile.mkdtemp())
+    stats = {}
+    try:
+        for fmt in ("gptq", "awq", "llm_compressor", "mlx"):
+            d = root / fmt
+            torch.cuda.synchronize()
+            t0 = time.time()
+            save_quantized(result, cfg, str(d), fmt)
+            secs = time.time() - t0
+            dev = "cpu" if fmt == "mlx" else "cuda"
+            with SafeOpen(str(d / "model.safetensors"), device=dev) as f:
+                for name, ql in result.layers.items():
+                    O, I = ql.qdq.shape
+                    want = codes_from_qdq_torch(ql.qdq, ql.scale, None, 4,
+                                                128)
+                    s16 = ql.scale.float().half().float()
+                    if fmt == "mlx":
+                        hf = mlx._hf_name(name)
+                        words = f.get_tensor(f"{hf}.weight").view(
+                            torch.int32).cuda()
+                        codes = mlx.unpack_mlx_weight(words, 4, I)
+                        scale = f.get_tensor(f"{hf}.scales").cuda().float()
+                        bias = f.get_tensor(f"{hf}.biases").cuda()
+                        zp_ok = torch.equal(
+                            bias, (-ql.scale.float() * 8.0).half())
+                    else:
+                        keys = [k for k in f.keys()
+                                if k.startswith(name + ".")]
+                        t = {k[len(name) + 1:]: f.get_tensor(k)
+                             for k in keys}
+                        if fmt == "gptq":
+                            codes, scale, zp = formats.gptq_unpack_layer(
+                                t, 4, O, I)
+                        elif fmt == "awq":
+                            codes, scale, zp = formats.awq_unpack_layer(
+                                t, O, I)
+                        else:
+                            codes, scale, zp = formats.ct_unpack_layer(t, 4)
+                        zp_ok = zp is None or bool((zp == 8).all())
+                    check(torch.equal(codes.to(want.dtype), want)
+                          and torch.equal(scale, s16) and zp_ok,
+                          f"writers: {fmt} {name} read back differs from "
+                          f"the result")
+            stats[fmt] = (round(secs, 2), _dir_bytes(d))
+        log(f"writers llama3-8b ({n_layers} layers + lm_head, W4A16 g128 "
+            f"RTN): (seconds to write, bytes) by format {json.dumps(stats)};"
+            f" every layer read back and unpacked on the card equal to the "
+            f"result's codes and fp16 scales")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del ar, result
+    torch.cuda.empty_cache()
+
+
+def driver_formats_phase(as_layers, resume_layers, mf_layers,
+                         writers_layers):
+    """Queue A item 6b and the gptq / awq / llm_compressor / mlx writers:
+    paths (a)-(d) above; returns their launches."""
+    t0 = time.time()
+    out = {}
+    (out["autoscheme_grad"], out["autoscheme_serve"],
+     out["autoscheme_low_serve"]) = autoscheme_path(as_layers)
+    free_device_memory()
+    t1 = time.time()
+    out["resume"] = resume_path(resume_layers)
+    free_device_memory()
+    t2 = time.time()
+    model_free_path(mf_layers)
+    free_device_memory()
+    t3 = time.time()
+    writers_path(writers_layers)
+    free_device_memory()
+    log(f"driver utilities / formats phase: autoscheme_s={t1 - t0:.1f} "
+        f"resume_s={t2 - t1:.1f} model_free_s={t3 - t2:.1f} writers_s="
+        f"{time.time() - t3:.1f} phase_s={time.time() - t0:.1f}")
+    return out
+
+
 def _tensors(tree):
     out = []
     from autoround_tpu_torch.utils.pytree import tree_map
@@ -8510,8 +9127,10 @@ def main() -> int:
     # came, and those of the gpt-oss-120b and glm-4.5-air paths (4 -> 2)
     # when the qwen3-next tune took its DeltaNet layer back, and those of
     # the W4A8, W8A8, FP8_STATIC, MXFP4 (8 -> 4) and qwen2.5-7b (8 -> 4)
-    # paths when the gguf / rotation phase came (the rtn path keeps the
-    # main path's full depth)
+    # paths when the gguf / rotation phase came, and those of the
+    # llama3.2-1b (16 -> 8) and offload (8 -> 4) paths when the driver
+    # utilities / formats phase came (the rtn path keeps the main path's
+    # full depth)
     ap.add_argument("--tune-layers", type=int, default=8,
                     help="depth of the SignRound -> serve path (default 8)")
     ap.add_argument("--moe-layers", type=int, default=8,
@@ -8546,9 +9165,9 @@ def main() -> int:
     ap.add_argument("--mx-tune-layers", type=int, default=2,
                     help="depth of the MXFP4 SignRound -> serve path "
                          "(default 2)")
-    ap.add_argument("--llama1b-layers", type=int, default=16,
+    ap.add_argument("--llama1b-layers", type=int, default=8,
                     help="depth of the two llama3.2-1b paths (W4A16 g128 "
-                         "and g16; default 16, all of them)")
+                         "and g16; default 8 of 16)")
     ap.add_argument("--sage-layers", type=int, default=8,
                     help="layers of prefill attention on the int8-QK path "
                          "(default 8)")
@@ -8570,9 +9189,9 @@ def main() -> int:
     ap.add_argument("--nblocks-layers", type=int, default=4,
                     help="depth of the nblocks=2 path (default 4: two "
                          "groups)")
-    ap.add_argument("--offload-layers", type=int, default=8,
+    ap.add_argument("--offload-layers", type=int, default=4,
                     help="depth of the Mixtral-8x7b offload path (default "
-                         "8; a larger depth is cut to what the host holds, "
+                         "4; a larger depth is cut to what the host holds, "
                          "at least 28)")
     ap.add_argument("--load-layers", type=int, default=2,
                     help="depth of the llama3-8b HF checkpoint of the load "
@@ -8637,6 +9256,19 @@ def main() -> int:
     ap.add_argument("--rotation-layers", type=int, default=2,
                     help="depth of the r1 + r4 + AWQ and the SpinQuant "
                          "paths (default 2)")
+    ap.add_argument("--autoscheme-layers", type=int, default=2,
+                    help="depth of the llama3-8b AutoScheme -> serve path "
+                         "(default 2)")
+    ap.add_argument("--resume-layers", type=int, default=3,
+                    help="depth of the llama3-8b SignRound crash-resume "
+                         "path (default 3; at least 3: the stop comes "
+                         "after block 1)")
+    ap.add_argument("--model-free-layers", type=int, default=2,
+                    help="depth of the llama3-8b model-free directory "
+                         "(default 2)")
+    ap.add_argument("--writers-layers", type=int, default=2,
+                    help="depth of the llama3-8b result the gptq / awq / "
+                         "llm_compressor / mlx writers write (default 2)")
     ap.add_argument("--qwen35-load-layers", type=int, default=2,
                     help="depth of the qwen3_5_moe HF directory of the "
                          "load path (default 2: the published layers 2-3, "
@@ -8781,6 +9413,11 @@ def main() -> int:
                                    args.gguf_moe_layers,
                                    args.rotation_layers))
     mark("gguf / rotation")
+    oss.update(driver_formats_phase(args.autoscheme_layers,
+                                    args.resume_layers,
+                                    args.model_free_layers,
+                                    args.writers_layers))
+    mark("driver utilities / formats")
     # each kernel's count on the path that is its own: the Llama tune path
     # runs the first five, the moe path the grouped one, the asym path and
     # the three 8-bit paths their kernels; the counts of the other paths

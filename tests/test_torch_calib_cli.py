@@ -8,6 +8,7 @@ item.  All comparisons are exact.
 """
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -197,12 +198,13 @@ def test_parser_device_choices(capsys):
 @pytest.mark.parametrize("extra,label", [
     (["--mllm"], "A14"), (["--eval-ppl"], "A14"), (["--eval-greedy-acc"],
                                                    "A14"),
-    (["--model-free"], "A12"), (["--avg-bits", "3"], "A12"),
-    (["--resume-dir", "r"], "A12"),
-    (["--format", "gptq"], "A13"), (["--format", "fake,gguf:q4_k_m"],
-                                    "A13"),
+    (["--format", "gguf:q2_k_s"], "A13"), (["--format", "fake,gguf:q4_k_m"],
+                                           "A13"),
 ])
 def test_unported_flags_raise_before_work(extra, label):
+    """The options still left out raise by their label (``--model-free``,
+    ``--avg-bits``, ``--resume-dir`` and the gptq / awq / llm_compressor /
+    mlx formats run now: the tests below)."""
     # "/nonexistent" would fail to load: the raise comes first
     with pytest.raises(NotImplementedError, match=label):
         tcli.main(["--model", "/nonexistent", "--device", "cpu"] + extra)
@@ -219,13 +221,14 @@ def test_unported_flags_raise_before_work(extra, label):
     (["--enable-norm-bias-tuning"], dict(enable_norm_bias_tuning=True)),
     (["--enable-awq"], dict(enable_awq=True)),
     (["--recipe", "opt-rtn"], dict(use_imatrix=True)),
+    (["--resume-dir", "r"], dict(resume_dir="r")),
 ])
 def test_ported_flags_reach_the_quantizer(extra, want):
     """The flags of the SignRound and driver options run: they pass the
     check and map to the quantizer's keywords, as the JAX CLI maps them."""
     args = tcli.build_parser().parse_args(["--model", "m"] + extra)
     kw = tcli._quantize_kwargs(args)
-    tcli._check_ported(args, kw)
+    tcli._check_ported(args)
     for k, v in want.items():
         assert kw[k] == v, (k, kw)
 
@@ -240,7 +243,7 @@ def test_unported_subcommands_raise(sub):
 def hf_dir(tmp_path_factory):
     d = tmp_path_factory.mktemp("hf")
     cfg = jl.LlamaConfig(vocab_size=128, hidden_size=256,
-                         intermediate_size=512, num_layers=2, num_heads=4,
+                         intermediate_size=256, num_layers=2, num_heads=4,
                          num_kv_heads=2, rope_theta=5e5, dtype=jnp.bfloat16)
     p = jax.tree.map(lambda a: a.astype(jnp.bfloat16),
                      jl.init_params(cfg, jax.random.PRNGKey(3)))
@@ -253,26 +256,75 @@ def hf_dir(tmp_path_factory):
     return d
 
 
+def _rtn_argv(hf_dir):
+    return ["--model", str(hf_dir / "m"), "--recipe", "rtn", "--iters", "0",
+            "--dataset", str(hf_dir / "ids.npy"), "--nsamples", "4",
+            "--seqlen", "32", "--device", "cpu"]
+
+
+def _same_tree(a, b):
+    assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+    for f in sorted(os.listdir(a)):
+        if os.path.isdir(a / f):
+            _same_tree(a / f, b / f)
+        else:
+            assert (a / f).read_bytes() == (b / f).read_bytes(), f
+
+
 @pytest.mark.parametrize("extra", [
-    ["--quant-lm-head"],
+    ["--quant-lm-head", "--format", "autoround,gptq,awq,llm_compressor,mlx"],
     ["--bits", "8", "--group-size", "64", "--fp-layers", "down_proj",
-     "--to-quant-block-names", "1"],
+     "--to-quant-block-names", "1", "--format", "autoround"],
 ], ids=["w4-head", "w8-selected"])
 def test_main_export_equals_jax_cli(hf_dir, tmp_path, capsys, monkeypatch,
                                     extra):
+    """The CLI's exports byte-equal to the JAX CLI's; the W4 case writes
+    every ported format (a directory each: ``autoround`` and the gptq /
+    awq / llm_compressor / mlx writers)."""
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
     monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
-    argv = ["--model", str(hf_dir / "m"), "--recipe", "rtn", "--iters", "0",
-            "--dataset", str(hf_dir / "ids.npy"), "--nsamples", "4",
-            "--seqlen", "32", "--format", "autoround", "--device", "cpu"]
+    argv = _rtn_argv(hf_dir)
     assert jcli.main(argv + ["--output", str(tmp_path / "j")] + extra) == 0
     jrep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert tcli.main(argv + ["--output", str(tmp_path / "t")] + extra) == 0
     trep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert trep["layers"] == jrep["layers"] > 0
-    for f in ("model.safetensors", "quantization_config.json"):
-        assert (tmp_path / "j" / f).read_bytes() == \
-            (tmp_path / "t" / f).read_bytes(), f
+    _same_tree(tmp_path / "j", tmp_path / "t")
+    if "mlx" in extra[-1]:
+        assert sorted(os.listdir(tmp_path / "t")) == [
+            "autoround", "awq", "gptq", "llm_compressor", "mlx"]
+    else:
+        assert sorted(os.listdir(tmp_path / "t")) == [
+            "model.safetensors", "quantization_config.json"]
+
+
+def test_cli_model_free_equals_jax_cli(hf_dir, tmp_path, capsys):
+    """``--model-free`` quantizes the checkpoint directory shard by shard:
+    the JAX CLI's report and files byte for byte."""
+    argv = ["--model", str(hf_dir / "m"), "--model-free", "--scheme",
+            "W4A16G32", "--device", "cpu"]
+    assert jcli.main(argv + ["--output", str(tmp_path / "j")]) == 0
+    jrep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tcli.main(argv + ["--output", str(tmp_path / "t")]) == 0
+    trep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert trep["mode"] == jrep["mode"] == "model-free"
+    _same_tree(tmp_path / "j", tmp_path / "t")
+
+
+def test_cli_avg_bits_searches_a_plan(tmp_path, capsys):
+    """``--avg-bits`` (``--target-bits``) with ``--options``: AutoScheme
+    over those options (default W2A16 / W4A16 / W8A16, as the JAX CLI's),
+    one option a layer within the budget."""
+    out = tmp_path / "t"
+    assert tcli.main(["--model", "tiny", "--recipe", "rtn", "--seqlen",
+                      "16", "--nsamples", "2", "--target-bits", "3.3",
+                      "--options", "W2A16G64", "W4A16G32", "--device",
+                      "cpu", "--output", str(out)]) == 0
+    capsys.readouterr()
+    layers = json.loads((out / "quantization_config.json").read_text())[
+        "layers"]
+    assert len(layers) == 14
+    assert {v["bits"] for v in layers.values()} == {2, 4}
 
 
 def test_envs_accessors(monkeypatch):

@@ -1335,3 +1335,63 @@ def test_generate_scan_llama_family(preset, S):
     _scan_against_generate(eng, 2, S, 12, seed=8)       # new prompts
     assert eng.captures == caps
 
+
+
+# -------------------------------------------------- AutoScheme and FP8 reads
+
+AS_SCORE_RTOL = 6e-4
+
+def test_autoscheme_gradient_pass_through_the_kernels(gen, monkeypatch):
+    """AutoScheme's gradient pass on a 1-layer model (hd 128, 2 x 513
+    tokens: 512 positions, where the flash gate takes the attention)
+    launches the flash forward and both backward kernels, and its scores
+    match the same pass on the plain attention per entry within
+    ``AS_SCORE_RTOL`` relative (measured 1.88e-4 on an H100 80GB HBM3 at
+    700 W; ``chip_smoke.py``'s llama3-8b x 2 pass reads 5.19e-5)."""
+    from autoround_tpu_torch import AutoScheme
+    from autoround_tpu_torch.models import llama
+    from autoround_tpu_torch.quantize import auto_scheme as tas
+    from autoround_tpu_torch.schemes import parse_scheme
+
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=512,
+                            intermediate_size=1024, num_layers=1,
+                            num_heads=4, num_kv_heads=2,
+                            dtype=torch.bfloat16)
+    params = llama.init_params(cfg, gen, "cuda")
+    ids = torch.randint(0, 512, (2, 513), generator=gen, device="cuda")
+    names = [f"blocks.0.{n}" for n in llama.block_linear_names(cfg)]
+    options = ("W2A16", "W4A16", "W8A16")
+    opts = [parse_scheme(o) for o in options]
+    scheme = AutoScheme(avg_bits=4.5, options=options)
+    counts = [flash_attention.launches, flash_attention_bwd_dq.launches,
+              flash_attention_bwd_dkv.launches]
+    kernel, _, _ = tas._score_matrices(params, cfg, scheme, ids, names, opts)
+    assert flash_attention.launches > counts[0]
+    assert flash_attention_bwd_dq.launches > counts[1]
+    assert flash_attention_bwd_dkv.launches > counts[2]
+    monkeypatch.setattr(llama, "flash_attention",
+                        lambda q, k, v, causal=True: flash_attention_plain(
+                            q, k, v, causal))
+    plain, _, _ = tas._score_matrices(params, cfg, scheme, ids, names, opts)
+    rel = abs(kernel - plain) / abs(plain)
+    assert rel.max() < AS_SCORE_RTOL, rel.max()
+
+
+@pytest.mark.parametrize("O,I", [(576, 7168), (24576, 1536), (256, 384)])
+def test_fp8_source_dequant_on_the_card(gen, O, I):
+    """The FP8-source dequant on the card (DeepSeek-V3's 576-row
+    kv_a_proj_with_mqa and 24576-row q_b_proj) equals the host product of
+    the e4m3 values and the 128 x 128 grid, and of a per-tensor scale."""
+    from autoround_tpu_torch.quantize.model_free import _dequant_fp8_source
+
+    w8 = (torch.randn(O, I, generator=gen, device="cuda") * 4).to(
+        torch.float8_e4m3fn)
+    grid = torch.rand(-(-O // 128), -(-I // 128), generator=gen,
+                      device="cuda") * 0.01
+    got = _dequant_fp8_source(w8.float(), grid)
+    full = grid.cpu().repeat_interleave(128, 0).repeat_interleave(
+        128, 1)[:O, :I]
+    assert torch.equal(got.cpu(), w8.cpu().float() * full)
+    one = torch.tensor([0.0123], device="cuda")
+    assert torch.equal(_dequant_fp8_source(w8.float(), one).cpu(),
+                       w8.cpu().float() * 0.0123)

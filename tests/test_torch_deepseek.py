@@ -494,11 +494,19 @@ def test_hf_loader_refusals(pairs, tmp_path):
     assert tuple(tp2["blocks"][0]["indexer"]["k_proj"].shape) == \
         jp2["blocks"][0]["indexer"]["k_proj"].shape == (4, 4)
     flat.pop("model.layers.0.self_attn.indexer.k_proj.weight")
+    # a scale tensor beside a weight that is not FP8 (the FP8 read is
+    # ported): both loaders drop the scale and keep the weight as stored
     flat["model.layers.0.self_attn.o_proj.weight_scale_inv"] = \
-        torch.ones(1, 1)
+        torch.ones(1, 1) * 2.0
     save_file(flat, str(tmp_path / "model.safetensors"))
-    with pytest.raises(NotImplementedError, match="A12"):
-        th.load_hf_checkpoint(str(tmp_path), device="cpu")
+    tp3, _ = th.load_hf_checkpoint(str(tmp_path), device="cpu")
+    jp3, _ = jh.load_hf_checkpoint(str(tmp_path))
+    for li, jb in enumerate(jp3["blocks"]):
+        for k in ("o_proj", "kv_a_proj_with_mqa"):
+            np.testing.assert_array_equal(
+                tp3["blocks"][li][k].float().numpy(),
+                np.asarray(jb[k], np.float32), err_msg=(li, k))
+    assert torch.equal(tp3["blocks"][0]["o_proj"], tp2["blocks"][0]["o_proj"])
 
 
 def test_cli_on_a_deepseek_directory(pairs, tmp_path, capsys, monkeypatch):

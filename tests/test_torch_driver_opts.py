@@ -363,16 +363,20 @@ def test_w4a16_mixed_plan_and_rtn_against_jax():
     assert "embed_tokens" in plan
 
 
-def test_left_out_options_name_their_items(tiny):
-    """What this slice leaves out raises by its ROADMAP label: resume
-    (A12).  alg_ext on a GGUF double-quant scheme runs now, straight into
+def test_left_out_options_name_their_items(tiny, tmp_path):
+    """Resume runs through ``AutoRound`` now (its JAX-held checks are in
+    ``tests/test_torch_resume.py``): a finished run's directory restores
+    every block.  alg_ext on a GGUF double-quant scheme runs, straight into
     ``tune_block`` too (its clip scales start at 1.0; the JAX-held traces
     are in ``tests/test_torch_gguf_e2e.py``)."""
     from autoround_tpu_torch.algorithms.signround import TuneConfig, tune_block
     ids = tiny["ids"][:4]
-    with pytest.raises(NotImplementedError, match="A12"):
-        AutoRound((tiny["tp"], tiny["tcfg"]), device="cpu", iters=2,
-                  resume_dir="r").quantize(ids)
+    kw = dict(device="cpu", iters=2, resume_dir=str(tmp_path / "r"))
+    first = AutoRound((tiny["tp"], tiny["tcfg"]), **kw).quantize(ids)
+    again = AutoRound((tiny["tp"], tiny["tcfg"]), **kw).quantize(ids)
+    assert sorted(first.loss_traces) == [0, 1] and again.loss_traces == {}
+    for name, ql in first.layers.items():
+        assert torch.equal(again.layers[name].scale, ql.scale), name
     res = AutoRound((tiny["tp"], tiny["tcfg"]), device="cpu", iters=2,
                     scheme="GGUF:Q4_K_S", enable_alg_ext=True).quantize(ids)
     assert all(np.isfinite(t).all() for t in res.loss_traces.values())

@@ -155,7 +155,7 @@ def test_mask_is_carried_through(model):
         > 1e-3 * free.loss_traces[1][0]
 
 
-def test_quantize_model_entry_and_unported_options(model):
+def test_quantize_model_entry_and_unported_options(model, tmp_path):
     from autoround_tpu_torch.quantize.layer_config import (
         resolve_layer_schemes)
     from autoround_tpu_torch.schemes import parse_scheme
@@ -167,10 +167,21 @@ def test_quantize_model_entry_and_unported_options(model):
     assert sorted(res.loss_traces) == [0, 1]
     assert all(not q.qdq.requires_grad for q in res.layers.values())
     assert model["tp"]["blocks"][0] is not None      # nothing donated
-    for kw, item in ((dict(resume_dir="x"), "A12"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            quantize_model(model["tp"], model["tcfg"], plan, ids,
-                           QuantizeConfig(iters=2, **kw))
+    # crash resume runs (tests/test_torch_resume.py holds it against the
+    # JAX package): every block listed done, and a second run on the same
+    # directory restores them all, equal to the first
+    rdir = str(tmp_path / "resume")
+    first = quantize_model(model["tp"], model["tcfg"], plan, ids,
+                           QuantizeConfig(iters=2, batch_size=2,
+                                          resume_dir=rdir))
+    with open(os.path.join(rdir, "manifest.json")) as f:
+        assert json.load(f)["done"] == [0, 1]
+    again = quantize_model(model["tp"], model["tcfg"], plan, ids,
+                           QuantizeConfig(iters=2, batch_size=2,
+                                          resume_dir=rdir))
+    assert again.loss_traces == {}
+    for name, ql in first.layers.items():
+        assert torch.equal(again.layers[name].qdq.float(), ql.qdq.float())
     # AWQ runs (its JAX-held checks: tests/test_torch_transforms.py); it
     # refuses nblocks > 1 as the JAX package does
     res = quantize_model(model["tp"], model["tcfg"], plan, ids,
@@ -366,10 +377,15 @@ def test_pack_unpack_equal_the_jax_package(bits, shape):
 
 
 def test_unported_formats_raise(rtn_pair, tmp_path):
+    """The GGUF file writer is left out (A13); the gptq / awq /
+    llm_compressor / mlx writers run (their files against the JAX
+    package's: ``tests/test_torch_export_formats.py``)."""
     _, tres, ar = rtn_pair
-    for fmt in ("gptq", "awq", "llm_compressor", "mlx", "gguf:q4_k_m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            ar.save_quantized(str(tmp_path / "x"), fmt)
+    for fmt in ("gptq", "awq", "llm_compressor", "mlx"):
+        out = ar.save_quantized(str(tmp_path / fmt), fmt)
+        assert os.path.exists(os.path.join(out, "model.safetensors")), fmt
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        ar.save_quantized(str(tmp_path / "x"), "gguf:q4_k_m")
     with pytest.raises(ValueError, match="unknown export format"):
         save_quantized(tres, ar.model_cfg, str(tmp_path / "x"), "nope")
     assert not (tmp_path / "x").exists()

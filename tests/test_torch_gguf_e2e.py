@@ -5,9 +5,11 @@ and the quantized chain re-cached from it, RTN and SignRound with
 the fake export) and of W4FP8 / the float zero point, against the JAX
 package; and the packed engine on a GGUF result.
 
-``tiny`` widened to hidden 256 / MLP 512 (the k-quants' 256-wide
-super-blocks need it; at 64 every layer falls back to Q8_0), one KV head,
-fp32, CPU.  Tolerances:
+``tiny`` widened to hidden 256 / MLP 256 (the k-quants' 256-wide
+super-blocks need it; at 64 every layer falls back to Q8_0; MLP 256
+rather than 512 leaves the JAX side two weight shapes to compile its
+searches for instead of four, and every layer still takes a k-quant),
+one KV head, fp32, CPU.  Tolerances:
   * RTN without an imatrix: every qdq, scale, zero point and payload
     tensor bit-equal, fake export byte-equal;
   * RTN with ``use_imatrix``: the imatrix (a mean of squared block inputs,
@@ -42,17 +44,17 @@ from autoround_tpu_torch.models.registry import get_model_fns
 from autoround_tpu_torch.utils.convert import config_from_jax, params_from_jax
 from _port_threads import one_torch_thread  # noqa: F401
 
-WIDE = dict(hidden_size=256, intermediate_size=512, num_kv_heads=1)
+WIDE = dict(hidden_size=256, intermediate_size=256, num_kv_heads=1)
 TRACE_RTOL = 5e-6
 CODES_EQUAL_MIN = 0.998
 IDS = np.random.default_rng(1).integers(0, 256, (8, 32))
-# Q4_K_M with the head: block 0 from step 2 (measured 2.1e-5, then 2.3e-3)
-# and block 1, which reads block 0's result, from step 0 (measured 9.2e-5
-# to 6.0e-3); held to 1e-2.  Block 0's tuned gate_proj / up_proj part from
-# JAX's in 4 / 1 codes after the second update (measured with
-# use_best_params off): rounding offsets whose gradient is rounding noise,
-# which sign-SGD steps the other way (queue C's "seen, not a fault")
-NOISE_FLIP = {("GGUF:Q4_K_M", 0): (2, 1e-2), ("GGUF:Q4_K_M", 1): (0, 1e-2)}
+# Q4_K_M with the head: block 1 from step 1 (measured 1.6e-5, then 1.0e-4
+# and 1.7e-4; block 0 stays within 1.9e-7); held to 1e-2.  Block 1's tuned
+# q_proj parts from JAX's in 0.06% of its codes: rounding offsets whose
+# gradient is rounding noise, which sign-SGD steps the other way (queue
+# C's "seen, not a fault"; at MLP 512 block 0 left the band from step 2
+# and block 1 from step 0, held to the same 1e-2)
+NOISE_FLIP = {("GGUF:Q4_K_M", 1): (1, 1e-2)}
 
 
 def _pair(preset, **over):

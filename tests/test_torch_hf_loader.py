@@ -171,19 +171,36 @@ def test_unported_model_types_raise(model_type):
 
 @pytest.mark.parametrize("marker", ["weight_scale_inv", "f8_weight"])
 def test_fp8_source_raises(tmp_path, marker):
+    """An FP8-source checkpoint loads as the JAX loader loads it (the
+    refusal this test held went with the FP8 read): an F8 weight is
+    dequantized by its ``weight_scale_inv`` grid, a scale beside a weight
+    that is not F8 is dropped and the weight kept as stored; the trees are
+    equal leaf for leaf in fp32."""
+    gen = torch.Generator().manual_seed(0)
     tensors = {"model.embed_tokens.weight": torch.zeros(64, 64)}
-    w = torch.randn(64, 64)
+    w = torch.randn(64, 64, generator=gen)
+    key = "model.layers.0.self_attn.q_proj.weight"
     if marker == "f8_weight":
-        tensors["model.layers.0.self_attn.q_proj.weight"] = w.to(
-            torch.float8_e4m3fn)
+        tensors[key] = w.to(torch.float8_e4m3fn)
+        tensors[key + "_scale_inv"] = torch.tensor([[0.5]])
     else:
-        tensors["model.layers.0.self_attn.q_proj.weight"] = w
-        tensors["model.layers.0.self_attn.q_proj.weight_scale_inv"] = \
-            torch.ones(1, 1)
+        tensors[key] = w
+        tensors[key + "_scale_inv"] = torch.ones(1, 1) * 3.0
+    for n in ("k_proj", "v_proj", "o_proj"):
+        tensors[f"model.layers.0.self_attn.{n}.weight"] = torch.randn(
+            64, 64, generator=gen)
     save_file(tensors, str(tmp_path / "model.safetensors"))
-    (tmp_path / "config.json").write_text(json.dumps(HF_CONFIGS["llama"]))
-    with pytest.raises(NotImplementedError, match="A12"):
-        th.load_hf_checkpoint(str(tmp_path), device="cpu")
+    (tmp_path / "config.json").write_text(json.dumps(
+        dict(HF_CONFIGS["llama"], num_hidden_layers=1)))
+    tp, _ = th.load_hf_checkpoint(str(tmp_path), torch.float32, device="cpu")
+    jp, _ = jh.load_hf_checkpoint(str(tmp_path), jnp.float32)
+    assert sorted(tp["blocks"][0]) == sorted(jp["blocks"][0])
+    for k, v in jp["blocks"][0].items():
+        np.testing.assert_array_equal(tp["blocks"][0][k].numpy(),
+                                      np.asarray(v), err_msg=k)
+    want = (w.to(torch.float8_e4m3fn).float() * 0.5 if marker == "f8_weight"
+            else w)
+    assert torch.equal(tp["blocks"][0]["q_proj"], want)
 
 
 def test_device_none_means_the_card():

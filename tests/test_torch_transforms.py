@@ -277,13 +277,17 @@ def _fwds(tcfg, S=8):
 
 
 def test_awq_alphas_and_clip_search_like_jax(tiny):
+    """The smoothing's chosen α and smoothed block, and the clip search's
+    ratios, at 2 and 4 bits.  Both schemes group by 32 (the 2-bit one was
+    W2A16G64): the JAX side, op by op, then compiles its grouped ops for
+    one group shape, not two; the bit widths still differ."""
     jp, tcfg, tp, _ = tiny
     x = np.array(jax.random.normal(jax.random.PRNGKey(3),
                                    (4, 8, JCFG.hidden_size)))
     x[..., 0] *= 30.0                       # an outlier channel
     jf, tf = _fwds(tcfg)
     names = jl.block_linear_names(JCFG)
-    for scheme in ("W2A16G64", "W4A16G32"):
+    for scheme in ({"bits": 2, "group_size": 32}, "W4A16G32"):
         js = {n: j_parse(scheme) for n in names}
         ts = {n: t_parse(scheme) for n in names}
         jb, jalpha = jawq.awq_smooth_block(jp["blocks"][0], jf,
